@@ -8,27 +8,38 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the build of every CUDA kernel from csrc/ (one nvcc per source,
    all started together).
-2. Kernels: K1 (ragged decode attention), K2 (anti-aliased SnakeBeta) and K3
-   (DiT attention) against their plain PyTorch versions, at the shapes the
+2. Kernels: K1 (ragged decode attention), K2 (anti-aliased SnakeBeta), K3
+   (DiT attention), K4 (int8-cache decode attention), K5 (W8A8 GEMV) and K6
+   (fused W8 MLP) against their plain PyTorch versions, at the shapes the
    main path gives them at full width and at edge cases, each within its
    stated tolerance. Times are device times: CUDA events around replays of
    a CUDA graph of repeated calls, so the host's launch cost is left out.
-   K1's are per call (one layer of one decode step), K2's per vocoder call
-   (its 37 launches), K3's per call (one DiT layer of one CFM step).
-   `bound_ms` is the larger of bytes over 3.35 TB/s and float32 operations
-   over 67 TFLOP/s (H100 SXM data sheet). `library_ms` times torch's
-   scaled_dot_product_attention on the same inputs, as a yardstick only:
-   the port never calls it.
+   K1's and K4's are per call (one layer of one decode step), K2's per
+   vocoder call (its 37 launches), K3's per call (one DiT layer of one CFM
+   step), K5's per decode step (its 49 launches: c_attn and attn c_proj of
+   24 layers, and the logits head), K6's per call (one layer's MLP). Weights
+   and caches cycle over 24 layers' worth, so they come from device memory
+   as in a decode step, not from L2. `bound_ms` is the larger of bytes over
+   3.35 TB/s and operations over 67 TFLOP/s (float32) or 1979 TOP/s (int8)
+   (H100 SXM data sheet). `library_ms` times one PyTorch call on the same
+   inputs as a yardstick the port never calls: scaled_dot_product_attention
+   (K1, K3), and torch._int_mm with the activation padded to the 17 rows it
+   accepts at least, int32 out without the float epilogue (K5, K6; two
+   products for K6); none for K2 and K4.
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
-   card and on the CPU (plain versions) from the same weights and CFM noise;
-   codes must match and mel and waveform agree. Then the full-width default
-   configuration (GPT 24L x 1280, DiT 13L x 512, BigVGAN v2 22 kHz,
-   w2v-BERT 2.0, RepCodec, CAMPPlus) with seeded random weights is served by
-   the port's own server on localhost; every kernel's launch counter is set to
-   0, a few POST /tts requests go out with a seeded synthetic 3-s speaker wav,
-   each answer must be a 200 with a valid, non-silent WAV from finite mels,
-   and every counter must have risen. Only runtime.max_mel_tokens is lowered,
-   since random weights rarely emit the stop token.
+   card and on the CPU (plain versions) from the same weights and CFM noise,
+   float and then quantized (gpt_quantize, head_quant, kv_quant: at D=128 it
+   runs K4, K5 and K6); codes must match and mel and waveform agree. Then the
+   full-width default configuration (GPT 24L x 1280, DiT 13L x 512, BigVGAN
+   v2 22 kHz, w2v-BERT 2.0, RepCodec, CAMPPlus) with seeded random weights is
+   served by the port's own server on localhost, float and then quantized
+   (the float engine freed first): every kernel's launch counter is set to
+   0, a few POST /tts requests go out with a seeded synthetic 3-s speaker
+   wav, each answer must be a 200 with a valid, non-silent WAV from finite
+   mels, and every counter of the route must have risen (K1, K2, K3 float;
+   K2-K6 quantized, where K1 must stay at 0: an int8 cache never reaches
+   it). Only runtime.max_mel_tokens is lowered, since random weights rarely
+   emit the stop token.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -38,6 +49,8 @@ and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import gc
 import http.client
 import io
 import itertools
@@ -55,6 +68,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
+INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 MAX_MEL_TOKENS = 300
 N_REQUESTS = 3
 PROMPT_SECONDS = 3
@@ -131,9 +145,15 @@ def cuda_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return a.elapsed_time(b) / (iters * replays)
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def cycled(fn, args_per_layer):
+    """A call that runs fn on the next layer's arguments each time."""
+    it = itertools.cycle(args_per_layer)
+    return lambda: fn(*next(it))
 
 
 def main_path_shapes(cfg, max_mel: int):
@@ -348,6 +368,195 @@ def check_k3(shapes, heads: int):
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
 
 
+def check_k4(shapes, layers: int, heads: int):
+    import torch
+
+    from indextts_tpu_torch.models.gpt2 import quantize_kv
+    from indextts_tpu_torch.ops import decode_attention as k4
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    tol = 2e-5  # fp32 online softmax (split-K) vs one-shot softmax, |out| ~ 1
+    cap = shapes["decode_cap"]
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def cache(B, c):
+        k8, ksc = quantize_kv(torch.randn((B, heads, c, 64), generator=g, device=dev))
+        v8, vsc = quantize_kv(torch.randn((B, heads, c, 64), generator=g, device=dev))
+        return k8, v8, ksc, vsc
+
+    cases = [
+        # name, B, cap, valid, hole start, hole end
+        ("main", 1, cap, [cap], [0], [0]),
+        ("default-1500", 1, 1657, [1657], [0], [0]),
+        ("ragged", 3, 700, [700, 333, 1], [0, 40, 0], [0, 90, 0]),
+        ("hole-mid", 2, 512, [500, 257], [100, 3], [200, 9]),
+        ("valid-1", 3, cap, [1, 1, 1], [0, 0, 0], [0, 0, 0]),
+    ]
+    errs = {}
+    for name, B, c, vl, hs, he in cases:
+        q = torch.randn((B, heads, 64), generator=g, device=dev)
+        ints = [torch.tensor(a, **i32) for a in (vl, hs, he)]
+        kv = cache(B, c)
+        got = k4.ragged_decode_attention_q8(q, *kv, *ints)
+        want = k4.ragged_decode_attention_q8_plain(q, *kv, *ints)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        errs[name] = err
+        print(f"K4 {name}: B={B} H={heads} cap={c} int8 valid={vl} "
+              f"max_abs_err={err:.3g} (tol {tol})")
+        if not err <= tol:
+            fail(f"K4 {name} disagrees with its plain version: {err}")
+
+    # one layer's int8 cache per launch, 24 layers' worth cycled
+    def timed(c):
+        q = torch.randn((1, heads, 64), generator=g, device=dev)
+        vl, z = torch.tensor([c], **i32), torch.zeros(1, **i32)
+        args = [(q, *cache(1, c), vl, z, z) for _ in range(layers)]
+        ms = cuda_ms(cycled(k4.ragged_decode_attention_q8, args), iters=2 * layers)
+        plain = cuda_ms(cycled(k4.ragged_decode_attention_q8_plain, args), iters=2 * layers)
+        nbytes = 2 * heads * c * 64 + 2 * heads * c * 4 + 2 * heads * 64 * 4 + 3 * 4
+        b_ms, by = bound(nbytes, heads * c * 4 * 64)
+        return ms, plain, b_ms, by
+
+    ms, plain, b_ms, by = timed(cap)
+    print(f"K4 main cap={cap}: kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
+          f"bound_ms={b_ms:.5f} ({by})")
+    f_ms, f_plain, f_b, _ = timed(1657)
+    print(f"K4 default-1500 cap=1657: kernel_ms={f_ms:.4f} plain_ms={f_plain:.4f} "
+          f"library_ms=none bound_ms={f_b:.5f}")
+    return {"name": "K4 ragged_decode_attention_q8", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "indextts_tpu/ops/decode_attention.py:429",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def q8_weight(g, d: int, f: int):
+    """A random (d, f) weight quantized as the engine does, with a bias."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt2 import quantize_weight
+
+    w_q, s = quantize_weight(torch.randn((d, f), generator=g, device="cuda") / d ** 0.5)
+    return w_q, s, torch.randn((f,), generator=g, device="cuda") * 0.1
+
+
+def q8_row(g, b: int, d: int):
+    import torch
+
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    return quant_row(torch.randn((b, d), generator=g, device="cuda"))
+
+
+def int_mm_17(xq, w_q):
+    """torch._int_mm on the activation padded to 17 rows (it takes more than
+    16) and a column-major weight; int32 out, no float epilogue."""
+    import torch
+
+    x17 = torch.zeros((17, xq.shape[1]), dtype=torch.int8, device=xq.device)
+    x17[:xq.shape[0]] = xq
+    return x17, w_q.t().contiguous().t()
+
+
+def check_k5(layers: int, d: int, vocab: int):
+    import torch
+
+    from indextts_tpu_torch.ops import gemv as k5
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rel_tol = 1e-6  # exact int32 sums, same float32 epilogue: equal in practice
+    fpad = -(-vocab // 128) * 128
+    main = {"c_attn": (d, 3 * d, layers), "attn c_proj": (d, d, layers), "head": (d, fpad, 1)}
+    cases = [(f"{name} b={b}", b, di, f) for name, (di, f, _) in main.items() for b in (1, 3)]
+    cases.append((f"F=384, not a multiple of the {k5.GEMV_TILE}-column tile", 1, d, 384))
+    errs = {}
+    for name, b, di, f in cases:
+        if not k5.supports(di, f):
+            fail(f"K5 case {name}: supports({di}, {f}) is false")
+        xq, a = q8_row(g, b, di)
+        w = q8_weight(g, di, f)
+        got = k5.gemv_w8(xq, a, *w)
+        want = k5.gemv_w8_plain(xq, a, *w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[name] = err
+        print(f"K5 {name}: D={di} F={f} max_abs_err={err:.3g} of max|y| {scale:.3g} "
+              f"(tol {rel_tol} relative)")
+        if not err <= rel_tol * scale:
+            fail(f"K5 {name} disagrees with its plain version: {err}")
+
+    # one decode step: 24 x c_attn, 24 x attn c_proj, 1 x head; weights cycle
+    # over 24 layers (the head over 8 copies) so that they come from HBM
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    for name, (di, f, per_step) in main.items():
+        copies = max(per_step, 8)
+        xq, a = q8_row(g, 1, di)
+        args = [(xq, a, *q8_weight(g, di, f)) for _ in range(copies)]
+        ms = cuda_ms(cycled(k5.gemv_w8, args), iters=2 * copies)
+        plain = cuda_ms(cycled(k5.gemv_w8_plain, args), iters=copies, replays=2)
+        lib_args = [int_mm_17(xq, w[2]) for w in args]
+        lib = cuda_ms(cycled(torch._int_mm, lib_args), iters=2 * copies)
+        b_ms, _ = bound(di * f + 8 * f + di + 4 + 4 * f, 2 * di * f, INT8_OPS)
+        print(f"K5 {name} D={di} F={f}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms(_int_mm, 17 rows)={lib:.4f} bound_ms={b_ms:.5f} (bytes) "
+              f"x{per_step} per step")
+        for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b_ms)):
+            tot[key] += per_step * v
+    print(f"K5 one decode step ({2 * layers + 1} launches): kernel_ms={tot['ms']:.4f} "
+          f"plain_ms={tot['plain']:.4f} library_ms(_int_mm, 17 rows)={tot['lib']:.4f} "
+          f"bound_ms={tot['bound']:.4f} (bytes)")
+    return {"name": "K5 gemv_w8", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/gemv.cu",
+            "replaces": "indextts_tpu/ops/gemv.py:116",
+            "max_abs_err": max(errs.values()), "ms": tot["ms"], "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"], "bound_by": "bytes", "library_ms": tot["lib"]}
+
+
+def check_k6(layers: int, d: int):
+    import torch
+
+    from indextts_tpu_torch.ops import gemv as k6
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rel_tol = 1e-6  # as K5; the group partials are added in the same order
+    errs = {}
+    for name, b, di in (("full width", 1, d), ("full width b=3", 3, d), ("D=512", 1, 512)):
+        fh = 4 * di
+        xq, a = q8_row(g, b, di)
+        w = q8_weight(g, di, fh) + q8_weight(g, fh, di)
+        got = k6.mlp_w8(xq, a, *w)
+        want = k6.mlp_w8_plain(xq, a, *w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[name] = err
+        print(f"K6 {name}: D={di} FH={fh} groups={fh // k6.mlp_group(di, fh)} "
+              f"max_abs_err={err:.3g} of max|out| {scale:.3g} (tol {rel_tol} relative)")
+        if not err <= rel_tol * scale:
+            fail(f"K6 {name} disagrees with its plain version: {err}")
+
+    fh = 4 * d
+    xq, a = q8_row(g, 1, d)
+    args = [(xq, a, *q8_weight(g, d, fh), *q8_weight(g, fh, d)) for _ in range(layers)]
+    ms = cuda_ms(cycled(k6.mlp_w8, args), iters=2 * layers)
+    plain = cuda_ms(cycled(k6.mlp_w8_plain, args), iters=layers, replays=2)
+    hq = torch.zeros((1, fh), dtype=torch.int8, device="cuda")
+    lib_args = [int_mm_17(xq, w[2]) + int_mm_17(hq, w[5]) for w in args]
+    lib = cuda_ms(cycled(lambda x, w1, h, w2: (torch._int_mm(x, w1), torch._int_mm(h, w2)),
+                         lib_args), iters=2 * layers)
+    b_ms, by = bound(2 * d * fh + 8 * fh + 8 * d + d + 4 + 4 * d, 4 * d * fh, INT8_OPS)
+    print(f"K6 full width D={d} FH={fh}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms(2 x _int_mm, 17 rows)={lib:.4f} bound_ms={b_ms:.5f} ({by})")
+    return {"name": "K6 mlp_w8", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/gemv.cu",
+            "replaces": "indextts_tpu/ops/gemv.py:232",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice
 # ---------------------------------------------------------------------------
@@ -402,10 +611,18 @@ def small_config():
                                 do_sample=False))
 
 
-def small_reference(wav_path: str):
-    """The small config greedy on the card (kernels) and on the CPU (plain
+def quantized(cfg):
+    """`cfg` with the JAX package's quantized GPT route: W8A8 blocks, the
+    int8 logits head and the int8 KV cache."""
+    rt = dataclasses.replace(cfg.runtime, gpt_quantize=True, head_quant=True, kv_quant=True)
+    return dataclasses.replace(cfg, runtime=rt)
+
+
+def small_reference(wav_path: str, cfg, label: str, mel_tol: float, wav_tol: float):
+    """A small config greedy on the card (kernels) and on the CPU (plain
     versions), same weights (each module's seeded initialization, so the
-    waveform stays off the clip) and CFM noise."""
+    waveform stays off the clip) and CFM noise; codes equal, mel within
+    mel_tol of its largest value, waveform within wav_tol of its peak."""
     from indextts_tpu_torch.runtime.engine import (
         EmotionConditioning,
         IndexTTS2Engine,
@@ -413,7 +630,6 @@ def small_reference(wav_path: str):
     )
     from indextts_tpu_torch.utils import audio as audio_utils
 
-    cfg = small_config()
     params = random_params(cfg, seed=0, device="cpu")
     audio, sr = audio_utils.load_wav(wav_path)
     text = np.random.default_rng(0).integers(2, 50, 11)
@@ -430,21 +646,19 @@ def small_reference(wav_path: str):
         outs[dev] = (codes, eng._mel_taps[-1], res["audio"])
     (c0, m0, w0), (c1, m1, w1) = outs["cpu"], outs["cuda"]
     if not np.array_equal(c0, c1):
-        fail(f"small config: greedy codes differ on the card: {c0} vs {c1}")
-    # float32 on both sides, summed in another order by cuBLAS/cuDNN than by
-    # the CPU kernels: 1e-4 of the largest mel value; the waveform adds
-    # PCM16 rounding (3e-5 a step)
+        fail(f"small config ({label}): greedy codes differ on the card: {c0} vs {c1}")
     scale = float(np.abs(m0).max())
     peak = float(np.abs(w0).max())
     mel_err = float(np.abs(m0 - m1).max())
     wav_err = float(np.abs(w0 - w1).max())
-    print(f"small config, card vs CPU: codes equal ({len(c0)}), mel max_abs_err="
-          f"{mel_err:.3g} of |mel| {scale:.3g} (tol 1e-4 relative), wav max_abs_err="
-          f"{wav_err:.3g} of peak {peak:.3g} (tol 1e-3 relative)")
+    print(f"small config ({label}), card vs CPU: codes equal ({len(c0)}), mel "
+          f"max_abs_err={mel_err:.3g} of |mel| {scale:.3g} (tol {mel_tol:g} relative), wav "
+          f"max_abs_err={wav_err:.3g} of peak {peak:.3g} (tol {wav_tol:g} relative)")
     if not 0 < peak < 1:
-        fail(f"small config: waveform peak {peak} says nothing (silent or clipped)")
-    if not (np.isfinite(m1).all() and mel_err <= 1e-4 * scale and wav_err <= 1e-3 * peak):
-        fail("small config: the card disagrees with the CPU reference")
+        fail(f"small config ({label}): waveform peak {peak} says nothing (silent or clipped)")
+    if not (np.isfinite(m1).all() and mel_err <= mel_tol * scale
+            and wav_err <= wav_tol * peak):
+        fail(f"small config ({label}): the card disagrees with the CPU reference")
 
 
 class ServerThread:
@@ -491,31 +705,43 @@ def post_tts(port: int, payload: dict):
     return r.status, body
 
 
-def serve_full_width(wav_path: str, n_requests: int, max_mel: int, tmp: str):
+def kernel_counters():
+    from indextts_tpu_torch.ops import decode_attention, dit_attention, gemv, snake
+
+    return {"K1 ragged_decode_attention": decode_attention.counter,
+            "K2 anti_alias_snake": snake.counter, "K3 dit_attention": dit_attention.counter,
+            "K4 ragged_decode_attention_q8": decode_attention.q8_counter,
+            "K5 gemv_w8": gemv.gemv_counter, "K6 mlp_w8": gemv.mlp_counter}
+
+
+def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
+    """Serve `cfg` with the port's server, POST N_REQUESTS /tts requests, and
+    check each answer. Every counter is set to 0 just before the requests
+    and read just after: those in `rise` must have risen, those in `stay`
+    must still be 0. Each route has its own response cache, so no request
+    is answered from another route's. Returns the counts."""
     import torch
 
     from indextts_tpu_torch import serve
-    from indextts_tpu_torch.ops import decode_attention as k1
-    from indextts_tpu_torch.ops import dit_attention as k3
-    from indextts_tpu_torch.ops import snake as k2
 
+    os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, f"cache-{label}")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    os.environ["TARS_MAX_MEL_TOKENS"] = str(max_mel)
-    os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, "cache")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server, engine = serve.build(["--host", "127.0.0.1", "--port", str(port),
-                                  "--reference-audio", wav_path])
+                                  "--reference-audio", wav_path], cfg=cfg)
     torch.cuda.synchronize()
-    print(f"full-width engine built and warmed up in {time.perf_counter() - t0:.1f} s "
+    print(f"[{label}] full-width engine built and warmed up in {time.perf_counter() - t0:.1f} s "
           f"(peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     c = engine.cfg
-    print(f"config: GPT {c.gpt.layers}L x {c.gpt.model_dim} ({c.gpt.heads} heads), "
+    print(f"[{label}] config: GPT {c.gpt.layers}L x {c.gpt.model_dim} ({c.gpt.heads} heads), "
           f"DiT {c.s2mel.dit.depth}L x {c.s2mel.dit.hidden_dim}, BigVGAN "
           f"{c.vocoder.upsample_initial_channel} ch x{c.vocoder.total_upsample}, "
           f"w2v-BERT {c.w2vbert.tap_layer}/{c.w2vbert.num_hidden_layers} layers, "
-          f"max_mel_tokens={c.runtime.max_mel_tokens}")
+          f"max_mel_tokens={c.runtime.max_mel_tokens}, gpt_quantize={c.runtime.gpt_quantize}, "
+          f"head_quant={c.runtime.head_quant}, kv_quant={c.runtime.kv_quant}")
     thread = ServerThread(server)
     engine._mel_taps = []
     segments = []
@@ -526,44 +752,49 @@ def serve_full_width(wav_path: str, n_requests: int, max_mel: int, tmp: str):
         return segments[-1]
 
     engine.synthesize_segment = record_segment
-    counters = {"K1 ragged_decode_attention": k1.counter,
-                "K2 anti_alias_snake": k2.counter, "K3 dit_attention": k3.counter}
+    counters = kernel_counters()
     for cnt in counters.values():
         cnt.launches = 0
     try:
-        for i in range(n_requests):
+        for i in range(N_REQUESTS):
             tok0, sec0 = engine.decoder.tokens, engine.decoder.seconds
             t0 = time.perf_counter()
             status, body = post_tts(port, {"text": request_text(i), "seed": i})
             wall = time.perf_counter() - t0
             if status != 200:
-                fail(f"request {i}: HTTP {status}: {body[:300]!r}")
+                fail(f"[{label}] request {i}: HTTP {status}: {body[:300]!r}")
             with wave.open(io.BytesIO(body)) as w:
                 if (w.getnchannels(), w.getsampwidth()) != (1, 2):
-                    fail(f"request {i}: not a mono 16-bit WAV")
+                    fail(f"[{label}] request {i}: not a mono 16-bit WAV")
                 sr, n = w.getframerate(), w.getnframes()
                 pcm = np.frombuffer(w.readframes(n), dtype=np.int16)
             if n == 0 or int(np.abs(pcm.astype(np.int32)).max()) == 0:
-                fail(f"request {i}: silent or empty audio")
+                fail(f"[{label}] request {i}: silent or empty audio")
             toks = engine.decoder.tokens - tok0
             dsec = engine.decoder.seconds - sec0
+            if toks == 0 or len(segments) != i + 1:
+                fail(f"[{label}] request {i} was not synthesized (a cached answer?)")
             seg = segments[-1]
-            print(f"request {i}: wall_s={wall:.3f}")
-            print(f"request {i}: audio_s={n / sr:.3f} (sr {sr})")
-            print(f"request {i}: decode_tokens={toks} decode_tok_per_s={toks / dsec:.1f}")
-            print(f"request {i}: stages_s gpt_decode={seg.gpt_gen_time:.3f} "
+            print(f"[{label}] request {i}: wall_s={wall:.3f}")
+            print(f"[{label}] request {i}: audio_s={n / sr:.3f} (sr {sr})")
+            print(f"[{label}] request {i}: decode_tokens={toks} "
+                  f"decode_tok_per_s={toks / dsec:.1f}")
+            print(f"[{label}] request {i}: stages_s gpt_decode={seg.gpt_gen_time:.3f} "
                   f"gpt_latent={seg.gpt_forward_time:.3f} s2mel={seg.s2mel_time:.3f} "
                   f"bigvgan={seg.bigvgan_time:.3f}")
     finally:
         launches = {name: cnt.launches for name, cnt in counters.items()}
         thread.stop()
+    print(f"[{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     mels = engine._mel_taps
-    if len(mels) != n_requests or not all(np.isfinite(m).all() for m in mels):
-        fail("the requests' mels are missing or not finite")
+    if len(mels) != N_REQUESTS or not all(np.isfinite(m).all() for m in mels):
+        fail(f"[{label}] the requests' mels are missing or not finite")
     for name, n in launches.items():
-        print(f"{name}: launches={n} per_request={n / n_requests:.1f}")
-        if n == 0:
-            fail(f"{name} was never launched on the main path")
+        print(f"[{label}] {name}: launches={n} per_request={n / N_REQUESTS:.1f}")
+        if name in rise and n == 0:
+            fail(f"[{label}] {name} was never launched on the main path")
+        if name in stay and n != 0:
+            fail(f"[{label}] {name} was launched {n} times; it has no place on this path")
     return launches
 
 
@@ -577,18 +808,39 @@ def main():
     from indextts_tpu_torch.config import load_config
 
     cfg = load_config()
+    g = cfg.gpt
     shapes = main_path_shapes(cfg, MAX_MEL_TOKENS)
     print(f"main-path shapes: {json.dumps(shapes)}")
-    kernels = [check_k1(shapes, cfg.gpt.layers, cfg.gpt.heads),
+    kernels = [check_k1(shapes, g.layers, g.heads),
                check_k2(shapes),
-               check_k3(shapes, cfg.s2mel.dit.num_heads)]
+               check_k3(shapes, cfg.s2mel.dit.num_heads),
+               check_k4(shapes, g.layers, g.heads),
+               check_k5(g.layers, g.model_dim, g.number_mel_codes),
+               check_k6(g.layers, g.model_dim)]
+    names = [k["name"] for k in kernels]
     with tempfile.TemporaryDirectory() as tmp:
         wav_path = os.path.join(tmp, "speaker.wav")
         speaker_wav(wav_path)
-        small_reference(wav_path)
-        launches = serve_full_width(wav_path, N_REQUESTS, MAX_MEL_TOKENS, tmp)
+        # float32 on both sides, summed in another order by cuBLAS/cuDNN than
+        # by the CPU kernels: 1e-4 of the largest mel value; the waveform adds
+        # PCM16 rounding (3e-5 a step)
+        small_reference(wav_path, small_config(), "float", 1e-4, 1e-3)
+        # int8 rounding of activations, KV and the MLP hidden turns float32
+        # noise between the devices into occasional one-step flips, each up
+        # to 1/127 of a row's largest value: 1e-2
+        small_reference(wav_path, quantized(small_config()), "quantized", 1e-2, 1e-2)
+        os.environ["TARS_MAX_MEL_TOKENS"] = str(MAX_MEL_TOKENS)
+        full = load_config()
+        launches = serve_full_width(wav_path, full, "float", rise=names[:3], stay=(), tmp=tmp)
+        # one engine on the card at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"float engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              "still allocated")
+        q_launches = serve_full_width(wav_path, quantized(full), "quantized",
+                                      rise=names[1:], stay=names[:1], tmp=tmp)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = (q_launches if k["name"] in names[3:] else launches)[k["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

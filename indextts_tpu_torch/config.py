@@ -318,10 +318,15 @@ class RuntimeConfig:
     remove_long_silence: bool = False
     # The knobs below keep the JAX package's names and defaults so that one
     # config tree (and its TARS_* env) drives both packages. The PyTorch port
-    # runs float32 weights and compute with a float KV cache: it ignores
-    # gpt_dtype, attn_impl, gemv_impl, head_quant, text_prefix_reuse and
-    # seq_tail_overlap, and raises NotImplementedError for kv_quant,
-    # gpt_quantize and a bfloat16 s2mel_dtype or voc_dtype.
+    # computes in float32 and honours the quantized GPT route: gpt_quantize
+    # with gpt_wbits=8 (W8A8 blocks), head_quant (with gpt_quantize) and an
+    # int8 KV cache, which kv_quant or attn_impl="pallas_q8" selects. With
+    # gpt_quantize its decode step computes what the JAX package computes
+    # with gemv_impl="pallas" (single-row calls through the W8 GEMV and fused
+    # MLP kernels where their gating opens); otherwise it ignores attn_impl
+    # and gemv_impl, and also gpt_dtype, text_prefix_reuse and
+    # seq_tail_overlap. It raises NotImplementedError for gpt_wbits=4 and a
+    # bfloat16 s2mel_dtype or voc_dtype.
     # compute dtype for the GPT decode loop ("bfloat16" | "float32")
     gpt_dtype: str = "bfloat16"
     # decode attention implementation in the JAX package: "auto", "xla",

@@ -20,3 +20,8 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
 }
+
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}

@@ -12,6 +12,16 @@
 // [hole_start[b], hole_end[b]), online softmax accumulated in fp32. K/V are
 // float32 or bfloat16; Dh is 64.
 //
+// K4 is the same kernel over an int8 cache with per-(head, token) f32
+// scales (models/gpt2.py `quantize_kv`): it replaces `_kernel_blocked_q8` /
+// `ragged_decode_attention_blocked_q8` and `_kernel_grid_q8` (rows 4-5 of
+// the kernel table), whose block-major layout is a DMA artifact of the TPU;
+// here the int8 cache keeps (B, H, cap, Dh) and its scales (B, H, cap). As
+// the TPU kernel does, the key scale folds into the score,
+// s = (q.k8) * ksc[t] * Dh^-1/2, and the value scale into the probability,
+// acc += (p * vsc[t]) * v8: nothing is dequantized in memory. A key row is
+// 64 bytes, which a half-warp reads with 4-byte loads.
+//
 // Bound on the H100: bytes. A decode step reads each valid K and V row once
 // (B=1, H=20, Dh=64, ~1.7k keys: ~17 MB per layer in fp32) and does 4 FLOPs
 // per byte, far below the card's ridge. At B=1 one block per (b, h) would
@@ -32,10 +42,11 @@ constexpr int kThreads = 128;            // 4 warps, 8 half-warps
 constexpr int kHalfWarps = kThreads / 16;
 constexpr int kPart = kDh + 2;           // m, l, acc[64]
 
-template <typename T>
+template <typename T, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const float* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ valid,
+             const T* __restrict__ v, const float* __restrict__ ksc,
+             const float* __restrict__ vsc, const int* __restrict__ valid,
              const int* __restrict__ hole_s, const int* __restrict__ hole_e,
              float* __restrict__ part, int H, int cap, int chunk, float scale) {
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -51,6 +62,8 @@ split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const float4 qv = load4(q + bh * kDh + hl * 4);
   const T* kb = k + bh * (size_t)cap * kDh;
   const T* vb = v + bh * (size_t)cap * kDh;
+  const float* kscb = kQ8 ? ksc + bh * (size_t)cap : nullptr;
+  const float* vscb = kQ8 ? vsc + bh * (size_t)cap : nullptr;
 
   float m = -INFINITY, l = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -66,12 +79,14 @@ split_kernel(const float* __restrict__ q, const T* __restrict__ k,
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     if (in && (t < hs || t >= he)) {
+      if (kQ8) s *= kscb[t];
       s *= scale;
       const float4 vv = load4(vb + (size_t)t * kDh + hl * 4);
       const float m_new = fmaxf(m, s);
       const float alpha = expf(m - m_new);
-      const float p = expf(s - m_new);
-      l = l * alpha + p;
+      const float e = expf(s - m_new);
+      const float p = kQ8 ? e * vscb[t] : e;
+      l = l * alpha + e;
       acc.x = acc.x * alpha + p * vv.x;
       acc.y = acc.y * alpha + p * vv.y;
       acc.z = acc.z * alpha + p * vv.z;
@@ -138,18 +153,42 @@ EXPORT int ragged_decode_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid(n_splits, H, B);
   if (bf16) {
-    split_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    split_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(valid),
+        static_cast<const __nv_bfloat16*>(v), nullptr, nullptr,
+        static_cast<const int*>(valid),
         static_cast<const int*>(hole_s), static_cast<const int*>(hole_e),
         static_cast<float*>(part), H, cap, chunk, scale);
   } else {
-    split_kernel<float><<<grid, kThreads, 0, s>>>(
+    split_kernel<float, false><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const int*>(valid),
+        static_cast<const float*>(v), nullptr, nullptr,
+        static_cast<const int*>(valid),
         static_cast<const int*>(hole_s), static_cast<const int*>(hole_e),
         static_cast<float*>(part), H, cap, chunk, scale);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  combine_kernel<<<dim3(H, B), kDh, 0, s>>>(static_cast<const float*>(part),
+                                           static_cast<float*>(out), H,
+                                           n_splits);
+  return (int)cudaGetLastError();
+}
+
+EXPORT int ragged_decode_attention_q8(const void* q, const void* k8,
+                                      const void* v8, const void* ksc,
+                                      const void* vsc, const void* valid,
+                                      const void* hole_s, const void* hole_e,
+                                      void* part, void* out, int B, int H,
+                                      int cap, int chunk, int n_splits,
+                                      float scale, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  split_kernel<int8_t, true><<<dim3(n_splits, H, B), kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(k8),
+      static_cast<const int8_t*>(v8), static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<const int*>(valid),
+      static_cast<const int*>(hole_s), static_cast<const int*>(hole_e),
+      static_cast<float*>(part), H, cap, chunk, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   combine_kernel<<<dim3(H, B), kDh, 0, s>>>(static_cast<const float*>(part),

@@ -1,4 +1,4 @@
-"""GPT-2 transformer core in PyTorch, float path.
+"""GPT-2 transformer core in PyTorch, float or W8A8.
 
 Counterpart of indextts_tpu/models/gpt2.py: the reference's vendored HF
 GPT-2 without wte/wpe (it consumes `inputs_embeds`), causal self-attention
@@ -8,22 +8,37 @@ with additive padding masks, gelu_new MLP, LayerNorm eps 1e-5. Two modes:
                   torch ops (einsum + masked softmax), as XLA ran it;
   * `decode_step` one token against a KV cache in its natural layout
                   (L, B, H, cap, Dh). The step writes its K/V into the cache
-                  in place and attends through kernel K1
-                  (ops/decode_attention.py) over keys < valid_len outside
-                  the prompt's left-pad hole.
+                  in place and attends over keys < valid_len outside the
+                  prompt's left-pad hole: through kernel K1 over a float
+                  cache, or, over an int8 cache with per-(head, token)
+                  scales (`quantize_kv`), through kernel K4
+                  (ops/decode_attention.py).
 
-Module names follow the reference state_dict keys (`h.{i}.attn.c_attn`, ...).
+`quantize=True` is the JAX package's W8A8 GPT (`gpt_quantize`, 8 bits): int8
+per-output-channel weights, a dynamic per-row int8 activation scale
+(`quant_row`) and an exact int32 contraction. Single-row decode calls take
+the kernels of ops/gemv.py where the JAX package's gating opens them (K5 for
+c_attn and attn c_proj, K6 for the whole MLP), as the JAX package does with
+`gemv_impl="pallas"`; every other call (prefill, the latent pass) takes the
+plain contraction. `QuantDenseHead` is the int8 logits head (`head_quant`).
+
+Module names follow the reference state_dict keys (`h.{i}.attn.c_attn`, ...);
+a quantized layer carries `weight_q`, `weight_scale` and `bias`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from indextts_tpu_torch.ops.decode_attention import ragged_decode_attention
+from indextts_tpu_torch.ops import gemv as gemv_ops
+from indextts_tpu_torch.ops.decode_attention import (
+    ragged_decode_attention,
+    ragged_decode_attention_q8,
+)
 
 NEG_INF = -1e9
 
@@ -33,6 +48,44 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (
         1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * torch.pow(x, 3.0)))
     )
+
+
+def quant_row(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row int8 activation quantization (W8A8 input side):
+    (x_q int8, a f32 with a kept last axis of 1)."""
+    xf = x.float()
+    a = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    return torch.clamp(torch.round(xf / a), -127, 127).to(torch.int8), a
+
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector int8 absmax quantization over the last (head_dim) axis:
+    (q int8 of t's shape, scale f32 without the last axis)."""
+    tf = t.float()
+    scale = tf.abs().amax(dim=-1) / 127.0 + 1e-8
+    return torch.clamp(torch.round(tf / scale[..., None]), -127, 127).to(torch.int8), scale
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(in, out) float weight -> (int8 weight, f32 per-output-channel scale),
+    as the JAX package's `quantize_conv1d_params`."""
+    w = w.float()
+    scale = w.abs().amax(dim=0) / 127.0 + 1e-12
+    return torch.clamp(torch.round(w / scale[None]), -127, 127).to(torch.int8), scale
+
+
+def _single_rows(x: torch.Tensor) -> int:
+    """The row count of a single-token call (0 for anything else): the
+    decode rows that the gemv kernels may take."""
+    if x.dim() >= 3 and x.shape[-2] != 1:
+        return 0
+    return x.numel() // x.shape[-1]
+
+
+def w8a8(x, w_q, w_scale, bias):
+    """The plain W8A8 contraction: ((x_q . w_q) * a) * s + bias, float32."""
+    x_q, a = quant_row(x)
+    return gemv_ops.int8_matmul(x_q, w_q) * a * w_scale + bias
 
 
 class Conv1D(nn.Module):
@@ -47,12 +100,52 @@ class Conv1D(nn.Module):
         return torch.matmul(x, self.weight) + self.bias
 
 
+class QConv1D(nn.Module):
+    """W8A8 Conv1D: int8 weight (in, out), per-output-channel scale. With
+    `gemv`, single-row decode calls take kernel K5 when
+    `gemv_ops.supports(in, out)`, as the JAX Conv1D does with gemv=True."""
+
+    def __init__(self, nx: int, nf: int, gemv: bool = True):
+        super().__init__()
+        self.gemv = gemv
+        self.register_buffer("weight_q", torch.zeros(nx, nf, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(nf))
+        self.register_buffer("bias", torch.zeros(nf))
+
+    def forward(self, x):
+        d, f = self.weight_q.shape
+        rows = _single_rows(x)
+        if (self.gemv and 0 < rows <= gemv_ops.gemv_max_rows()
+                and gemv_ops.supports(d, f)):
+            x_q, a = quant_row(x.reshape(rows, d))
+            y = gemv_ops.gemv_w8(x_q, a, self.weight_q, self.weight_scale, self.bias)
+            return y.reshape(*x.shape[:-1], f).to(x.dtype)
+        return w8a8(x, self.weight_q, self.weight_scale, self.bias).to(x.dtype)
+
+
+class QuantDenseHead(QConv1D):
+    """int8 (W8A8) logits head: a QConv1D whose output columns are padded to
+    a multiple of 128 (8194 -> 8320), padding columns with zero weights and
+    bias; the logits are sliced back."""
+
+    def __init__(self, nx: int, features: int):
+        super().__init__(nx, -(-features // 128) * 128)
+        self.features = features
+
+    def forward(self, x):
+        return super().forward(x)[..., :self.features]
+
+
+def _linear(nx: int, nf: int, quantize: bool, gemv: bool = True) -> nn.Module:
+    return QConv1D(nx, nf, gemv) if quantize else Conv1D(nx, nf)
+
+
 class GPT2Attention(nn.Module):
-    def __init__(self, dim: int, n_head: int):
+    def __init__(self, dim: int, n_head: int, quantize: bool = False):
         super().__init__()
         self.n_head = n_head
-        self.c_attn = Conv1D(dim, 3 * dim)
-        self.c_proj = Conv1D(dim, dim)
+        self.c_attn = _linear(dim, 3 * dim, quantize)
+        self.c_proj = _linear(dim, dim, quantize)
 
     def _heads(self, t, B):
         return t.reshape(B, -1, self.n_head, t.shape[-1] // self.n_head).transpose(1, 2)
@@ -69,45 +162,65 @@ class GPT2Attention(nn.Module):
         ctx = torch.einsum("bhts,bhsd->bhtd", probs, v)
         return self.c_proj(ctx.transpose(1, 2).reshape(B, T, D)), (k, v)
 
-    def decode_step(self, x, k_cache, v_cache, index: int, valid_len, hole_s, hole_e):
-        """One token. x (B, 1, D); k_cache/v_cache this layer's (B,H,cap,Dh),
+    def decode_step(self, x, cache: Sequence[torch.Tensor], index: int, valid_len,
+                    hole_s, hole_e):
+        """One token. x (B, 1, D); `cache` this layer's (k, v) float
+        (B,H,cap,Dh), or (k8, v8, ksc, vsc) int8 with (B,H,cap) scales;
         written IN PLACE at `index`."""
         B, _, D = x.shape
         q, k, v = self.c_attn(x).split(D, dim=-1)
         q, k, v = self._heads(q, B), self._heads(k, B), self._heads(v, B)
-        k_cache[:, :, index] = k[:, :, 0].to(k_cache.dtype)
-        v_cache[:, :, index] = v[:, :, 0].to(v_cache.dtype)
-        ctx = ragged_decode_attention(q[:, :, 0].float(), k_cache, v_cache,
-                                      valid_len, hole_s, hole_e)
+        q = q[:, :, 0].float()
+        if len(cache) == 4:
+            k8, v8, ksc, vsc = cache
+            k8[:, :, index], ksc[:, :, index] = quantize_kv(k[:, :, 0])
+            v8[:, :, index], vsc[:, :, index] = quantize_kv(v[:, :, 0])
+            ctx = ragged_decode_attention_q8(q, k8, v8, ksc, vsc, valid_len, hole_s, hole_e)
+        else:
+            k_cache, v_cache = cache
+            k_cache[:, :, index] = k[:, :, 0].to(k_cache.dtype)
+            v_cache[:, :, index] = v[:, :, 0].to(v_cache.dtype)
+            ctx = ragged_decode_attention(q, k_cache, v_cache, valid_len, hole_s, hole_e)
         return self.c_proj(ctx.to(x.dtype).reshape(B, 1, D))
 
 
 class GPT2MLP(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, quantize: bool = False):
         super().__init__()
-        self.c_fc = Conv1D(dim, 4 * dim)
-        self.c_proj = Conv1D(4 * dim, dim)
+        self.quantize = quantize
+        # the JAX MLP's c_fc never takes the single-row GEMV on its own
+        self.c_fc = _linear(dim, 4 * dim, quantize, gemv=False)
+        self.c_proj = _linear(4 * dim, dim, quantize)
 
     def forward(self, x):
+        d = x.shape[-1]
+        rows = _single_rows(x)
+        if (self.quantize and 0 < rows <= gemv_ops.gemv_max_rows()
+                and gemv_ops.supports_mlp(d, 4 * d)):
+            fc, pj = self.c_fc, self.c_proj
+            x_q, a = quant_row(x.reshape(rows, d))
+            y = gemv_ops.mlp_w8(x_q, a, fc.weight_q, fc.weight_scale, fc.bias,
+                                pj.weight_q, pj.weight_scale, pj.bias)
+            return y.reshape(x.shape).to(x.dtype)
         return self.c_proj(gelu_new(self.c_fc(x)))
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, dim: int, n_head: int):
+    def __init__(self, dim: int, n_head: int, quantize: bool = False):
         super().__init__()
         self.ln_1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = GPT2Attention(dim, n_head)
+        self.attn = GPT2Attention(dim, n_head, quantize)
         self.ln_2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = GPT2MLP(dim)
+        self.mlp = GPT2MLP(dim, quantize)
 
     def forward(self, x, attn_bias):
         a, kv = self.attn(self.ln_1(x), attn_bias)
         x = x + a
         return x + self.mlp(self.ln_2(x)), kv
 
-    def decode_step(self, x, k_cache, v_cache, index, valid_len, hole_s, hole_e):
-        x = x + self.attn.decode_step(self.ln_1(x), k_cache, v_cache, index,
-                                      valid_len, hole_s, hole_e)
+    def decode_step(self, x, cache, index, valid_len, hole_s, hole_e):
+        x = x + self.attn.decode_step(self.ln_1(x), cache, index, valid_len,
+                                      hole_s, hole_e)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -123,9 +236,9 @@ def prompt_hole(attention_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
 class GPT2Core(nn.Module):
     """Stack of GPT-2 blocks + final LayerNorm over embeddings."""
 
-    def __init__(self, n_layer: int, dim: int, n_head: int):
+    def __init__(self, n_layer: int, dim: int, n_head: int, quantize: bool = False):
         super().__init__()
-        self.h = nn.ModuleList(GPT2Block(dim, n_head) for _ in range(n_layer))
+        self.h = nn.ModuleList(GPT2Block(dim, n_head, quantize) for _ in range(n_layer))
         self.ln_f = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, inputs_embeds, attention_mask: Optional[torch.Tensor] = None):
@@ -147,9 +260,11 @@ class GPT2Core(nn.Module):
             vs.append(v)
         return self.ln_f(x), (torch.stack(ks), torch.stack(vs))
 
-    def decode_step(self, x, ks, vs, index: int, valid_len, hole_s, hole_e):
-        """x (B, 1, D); ks, vs (L, B, H, cap, Dh) updated in place at `index`;
-        keys < valid_len (B,) outside [hole_s, hole_e) attend."""
+    def decode_step(self, x, caches: Sequence[torch.Tensor], index: int, valid_len,
+                    hole_s, hole_e):
+        """x (B, 1, D); caches (ks, vs) float (L, B, H, cap, Dh), or
+        (ks, vs, ksc, vsc) int8 with (L, B, H, cap) scales, updated in place
+        at `index`; keys < valid_len (B,) outside [hole_s, hole_e) attend."""
         for i, blk in enumerate(self.h):
-            x = blk.decode_step(x, ks[i], vs[i], index, valid_len, hole_s, hole_e)
+            x = blk.decode_step(x, [c[i] for c in caches], index, valid_len, hole_s, hole_e)
         return self.ln_f(x)

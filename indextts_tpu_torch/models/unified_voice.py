@@ -4,8 +4,12 @@ Counterpart of indextts_tpu/models/unified_voice.py (reference
 gpt/model_v2.py:338-910): conformer+perceiver speaker conditioning (32
 latents), emotion conditioning (1 latent @1024 -> emovec_layer -> emo_layer),
 two duration tokens, GPT-2 core over [conds][text][mel], learned position
-embeddings, final_norm + mel_head. Float path, inference only: the training
-head `text_head` is not built. Module names follow the reference state_dict.
+embeddings, final_norm + mel_head. Inference only: the training head
+`text_head` is not built. Module names follow the reference state_dict.
+
+`quantize=True` builds the W8A8 GPT-2 blocks and `head_quant=True` the int8
+logits head (models/gpt2.py), as the JAX package's `quantize_gpt` and
+`head_quant`; embeddings, norms and the conditioning stay float.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from torch import nn
 
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.conformer import ConformerEncoder
-from indextts_tpu_torch.models.gpt2 import GPT2Core
+from indextts_tpu_torch.models.gpt2 import GPT2Core, QuantDenseHead
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
 
 
@@ -29,7 +33,7 @@ class LearnedPositionEmbeddings(nn.Module):
 
 
 class UnifiedVoice(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, quantize: bool = False, head_quant: bool = False):
         super().__init__()
         self.cfg = c = cfg
         self.conditioning_encoder = ConformerEncoder(c.condition_module)
@@ -52,8 +56,9 @@ class UnifiedVoice(nn.Module):
         self.emovec_layer = nn.Linear(1024, c.model_dim)
         self.emo_layer = nn.Linear(c.model_dim, c.model_dim)
         self.final_norm = nn.LayerNorm(c.model_dim, eps=1e-5)
-        self.mel_head = nn.Linear(c.model_dim, c.number_mel_codes)
-        self.gpt = GPT2Core(c.layers, c.model_dim, c.heads)
+        self.mel_head = (QuantDenseHead(c.model_dim, c.number_mel_codes) if head_quant
+                         else nn.Linear(c.model_dim, c.number_mel_codes))
+        self.gpt = GPT2Core(c.layers, c.model_dim, c.heads, quantize)
 
     # -- conditioning ------------------------------------------------------
 
@@ -112,8 +117,9 @@ class UnifiedVoice(nn.Module):
     def gpt_prefill(self, inputs_embeds, attention_mask):
         return self.gpt(inputs_embeds, attention_mask)
 
-    def gpt_decode_step(self, token_embeds, ks, vs, index, valid_len, hole_s, hole_e):
-        return self.gpt.decode_step(token_embeds, ks, vs, index, valid_len,
+    def gpt_decode_step(self, token_embeds, caches, index, valid_len, hole_s, hole_e):
+        """caches: (ks, vs) float or (ks, vs, ksc, vsc) int8 + scales."""
+        return self.gpt.decode_step(token_embeds, caches, index, valid_len,
                                     hole_s, hole_e)
 
     # -- teacher-forced latent pass (model_v2.py:673-723) ----------------------

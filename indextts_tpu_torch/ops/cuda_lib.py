@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("decode_attention", "snake", "dit_attention")
+SOURCES = ("decode_attention", "snake", "dit_attention", "gemv")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

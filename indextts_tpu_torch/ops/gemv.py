@@ -1,0 +1,198 @@
+"""W8A8 decode GEMV (kernel K5) and fused W8 MLP (kernel K6).
+
+Counterparts of the JAX package's `gemv_w8` and `mlp_w8`
+(indextts_tpu/ops/gemv.py `_gemv_kernel`, `_mlp_kernel`), which the quantized
+GPT's single-row decode calls take with `gemv_impl="pallas"`:
+
+  gemv_w8  y(b,F) = (xq(b,D) . w(D,F)) * (a * s) + bias
+  mlp_w8   out(b,D) = sum_g q8_g(gelu_new(xq . fc * (a*s1) + b1)) . fc2_g
+                      * (ha_g * s2), + b2 with group 0, groups added in order
+
+xq is the int8 row from `_quant_row` with its per-row scale a; weights are
+int8 (D, F) row-major as the JAX tree stores them, with per-column f32
+scales. The hidden of the MLP is quantized to int8 per group of
+`mlp_group(D, FH)` columns, each group with its own absmax scale: that width
+is part of the function (the JAX kernel's tile), not a tiling choice of the
+CUDA kernels. The gating (`supports`, `supports_mlp`) is the JAX package's.
+
+The plain versions accumulate int8 x int8 exactly: in float64, which is exact
+below 2^53 (127^2 x D is far below) and runs on both devices. The CUDA
+kernels (csrc/gemv.cu) accumulate in int32 and do the float epilogue with the
+same float32 operations in the same order, so on the card they agree with the
+plain versions to the last bit or within one unit of it. The wrappers run the
+kernel for CUDA tensors and the plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from indextts_tpu_torch.ops import cuda_lib
+
+# the JAX kernels' target weight-tile bytes; it fixes mlp_w8's group width
+_TARGET_TILE_BYTES = 512 * 1024
+# decode rows the kernels take at most (their register accumulators)
+MAX_ROWS = 16
+# the CUDA kernels: K5's output columns per cluster of blocks, the columns
+# a thread reads from each weight row, and the blocks of a cluster
+GEMV_TILE = 256
+THREAD_COLS = 8
+CLUSTER = 8
+
+
+class _Counter:
+    launches = 0
+
+
+gemv_counter = _Counter()
+mlp_counter = _Counter()
+
+
+def _pick_block(d: int, f: int, max_blk: int = 1536,
+                target: int = _TARGET_TILE_BYTES) -> int:
+    """Largest multiple-of-128 divisor of f with d*blk closest to the byte
+    target; 0 if f has none (indextts_tpu/ops/gemv.py `_pick_block`)."""
+    best, best_cost = 0, None
+    blk = 128
+    while blk <= min(f, max_blk):
+        if f % blk == 0:
+            cost = abs(d * blk - target)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = blk, cost
+        blk += 128
+    return best
+
+
+def supports(d: int, f: int) -> bool:
+    """Does a single-row W8A8 call on (d, f) take gemv_w8?"""
+    return d % 32 == 0 and d >= 128 and _pick_block(d, f) > 0
+
+
+def supports_mlp(d: int, fh: int) -> bool:
+    """Does a single-row W8 MLP of widths (d, fh) take mlp_w8?"""
+    return d % 128 == 0 and d >= 128 and fh % 32 == 0 and _pick_block(d, fh) > 0
+
+
+def mlp_group(d: int, fh: int) -> int:
+    """Width of mlp_w8's hidden activation-quantization group (512 at
+    D=1280, FH=5120: ten groups)."""
+    return _pick_block(d, fh)
+
+
+def gemv_max_rows() -> int:
+    """Row threshold for the kernels on single-token calls (the JAX
+    package's TARS_GEMV_MAX_ROWS, default 1)."""
+    return int(os.environ.get("TARS_GEMV_MAX_ROWS", "1"))
+
+
+def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 contraction over the last axis of xq and the first
+    of w, as float32 (each int32 sum rounded once, as XLA's astype does)."""
+    return torch.matmul(xq.to(torch.float64), w.to(torch.float64)).float()
+
+
+def gelu_new_kernel_form(h: torch.Tensor) -> torch.Tensor:
+    """gelu_new as the JAX mlp_w8 kernel writes it (h * h * h, not pow)."""
+    return 0.5 * h * (1.0 + torch.tanh(0.7978845608028654 * (h + 0.044715 * h * h * h)))
+
+
+def gemv_w8_plain(xq, a, w_q, w_scale, bias):
+    """xq (b, D) int8; a (b,) or (b, 1) f32; w_q (D, F) int8; w_scale and
+    bias (F,) f32. Returns (b, F) f32."""
+    acc = int8_matmul(xq, w_q)
+    return acc * (a.reshape(-1, 1).float() * w_scale) + bias
+
+
+def mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
+    """xq (b, D) int8; a (b,) or (b, 1); fc_q (D, FH) int8; fc2_q (FH, D)
+    int8; scales and biases f32. Returns (b, D) f32."""
+    b, d = xq.shape
+    fh = fc_q.shape[1]
+    hb = mlp_group(d, fh)
+    if hb == 0:
+        raise ValueError(f"mlp_w8 has no group width for D={d}, FH={fh}")
+    n_groups = fh // hb
+    h = int8_matmul(xq, fc_q) * (a.reshape(-1, 1).float() * fc_scale) + fc_bias
+    h = gelu_new_kernel_form(h).reshape(b, n_groups, hb)
+    ha = h.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12  # (b, G, 1)
+    hq = torch.clamp(torch.round(h / ha), -127, 127)
+    # (G, b, hb) x (G, hb, D): one exact int8 product per group
+    acc = torch.bmm(hq.transpose(0, 1).to(torch.float64),
+                    fc2_q.reshape(n_groups, hb, -1).to(torch.float64)).float()
+    parts = acc * (ha.transpose(0, 1) * fc2_scale)
+    out = parts[0] + fc2_bias
+    for g in range(1, n_groups):
+        out = out + parts[g]
+    return out
+
+
+def _check(name, xq, tensors, d):
+    b = xq.shape[0]
+    if xq.dtype != torch.int8 or xq.dim() != 2 or xq.shape[1] != d:
+        raise ValueError(f"{name}: xq must be int8 (b, {d}), got {xq.dtype} {tuple(xq.shape)}")
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_ROWS} rows, got {b}")
+    for t in tensors:
+        if t.device != xq.device:
+            raise ValueError(f"{name}: all inputs must be on the same device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
+
+
+def gemv_w8(xq, a, w_q, w_scale, bias):
+    """K5 on CUDA tensors, the plain version on CPU tensors."""
+    if xq.device.type == "cpu":
+        return gemv_w8_plain(xq, a, w_q, w_scale, bias)
+    d, f = w_q.shape
+    if w_q.dtype != torch.int8 or f % THREAD_COLS:
+        raise ValueError(f"gemv_w8: weight must be int8 (D, F) with F a multiple of "
+                         f"{THREAD_COLS}, got {w_q.dtype} {tuple(w_q.shape)}")
+    a = a.reshape(-1).float().contiguous()
+    w_scale, bias = w_scale.float().contiguous(), bias.float().contiguous()
+    xq = xq.contiguous()
+    _check("gemv_w8", xq, (a, w_q, w_scale, bias), d)
+    b = xq.shape[0]
+    if a.shape != (b,) or w_scale.shape != (f,) or bias.shape != (f,):
+        raise ValueError("gemv_w8: scale or bias shape does not match")
+    out = torch.empty((b, f), device=xq.device, dtype=torch.float32)
+    fn = cuda_lib.function("gemv", "gemv_w8", [cuda_lib.P] * 6 + [cuda_lib.I] * 3 + [cuda_lib.P])
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = fn(xq.data_ptr(), a.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), b, d, f, stream)
+    cuda_lib.check(err, "gemv_w8")
+    gemv_counter.launches += 1
+    return out
+
+
+def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
+    """K6 on CUDA tensors, the plain version on CPU tensors."""
+    if xq.device.type == "cpu":
+        return mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias)
+    d, fh = fc_q.shape
+    hb = mlp_group(d, fh)
+    if not supports_mlp(d, fh) or hb % (THREAD_COLS * CLUSTER):
+        raise ValueError(f"mlp_w8: widths D={d}, FH={fh} are not supported")
+    if fc_q.dtype != torch.int8 or fc2_q.dtype != torch.int8 or fc2_q.shape != (fh, d):
+        raise ValueError("mlp_w8: weights must be int8 (D, FH) and (FH, D)")
+    a = a.reshape(-1).float().contiguous()
+    vecs = [t.float().contiguous() for t in (fc_scale, fc_bias, fc2_scale, fc2_bias)]
+    xq = xq.contiguous()
+    _check("mlp_w8", xq, (a, fc_q, fc2_q, *vecs), d)
+    b = xq.shape[0]
+    if a.shape != (b,) or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
+        raise ValueError("mlp_w8: scale or bias shape does not match")
+    n_groups = fh // hb
+    # the two launches' scratch: the int8 hidden and its group scales
+    hq = torch.empty((b, fh), device=xq.device, dtype=torch.int8)
+    ha = torch.empty((b, n_groups), device=xq.device, dtype=torch.float32)
+    out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
+    fn = cuda_lib.function("gemv", "mlp_w8", [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = fn(xq.data_ptr(), a.data_ptr(), fc_q.data_ptr(), vecs[0].data_ptr(),
+             vecs[1].data_ptr(), fc2_q.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
+             hq.data_ptr(), ha.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
+    cuda_lib.check(err, "mlp_w8")
+    mlp_counter.launches += 1
+    return out

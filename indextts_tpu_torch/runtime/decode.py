@@ -2,8 +2,12 @@
 
 Counterpart of indextts_tpu/runtime/decode.py `GPTDecoder.generate`: prefill
 [conds][right-aligned text][start_mel] once, then one token per step against
-a KV cache in its natural layout (L, B, H, cap, Dh), attention through kernel
-K1 over keys < valid_len outside the prompt's left-pad hole. Warper order as
+a KV cache in its natural layout (L, B, H, cap, Dh), attention over keys <
+valid_len outside the prompt's left-pad hole. The cache is float (kernel K1)
+or, with `kv_int8` (the JAX package's `kv_quant` or `attn_impl="pallas_q8"`),
+int8 with per-(layer, row, head, token) f32 scales (kernel K4): the prefill
+KV is quantized once with `quantize_kv`, and each step quantizes and writes
+its own token's K/V and scales in place. Warper order as
 HF: repetition penalty (the fake-prompt tokens {1, start_mel} included,
 model_v2.py:785-794) -> temperature -> top-k -> top-p -> draw; greedy takes
 the argmax after the penalty. Codes are stop-padded; lengths count the stop
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.models.gpt2 import prompt_hole
+from indextts_tpu_torch.models.gpt2 import prompt_hole, quantize_kv
 from indextts_tpu_torch.models.unified_voice import UnifiedVoice
 
 NEG_INF = -1e9
@@ -70,10 +74,11 @@ def sample_top_k_top_p(logits, generator: torch.Generator, temperature: float,
 
 class GPTDecoder:
     def __init__(self, model: UnifiedVoice, cfg: GPTConfig,
-                 sampling: SamplingConfig = SamplingConfig()):
+                 sampling: SamplingConfig = SamplingConfig(), kv_int8: bool = False):
         self.model = model
         self.cfg = cfg
         self.sampling = sampling
+        self.kv_int8 = kv_int8
         # cumulative decode counters (tokens emitted, wall seconds in generate)
         self.tokens = 0
         self.seconds = 0.0
@@ -99,7 +104,8 @@ class GPTDecoder:
 
     def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int):
         """Prompt prefill into fresh caches of capacity S + max_new. Returns
-        (last_logits (B, V), ks, vs, S, prompt_mask)."""
+        (last_logits (B, V), caches, S, prompt_mask); caches are (ks, vs), or
+        (ks, vs, ksc, vsc) with `kv_int8`."""
         model = self.model
         B = conds_latent.shape[0]
         dev = conds_latent.device
@@ -110,13 +116,20 @@ class GPTDecoder:
         prompt_mask = torch.cat(
             [ones.expand(B, conds_latent.shape[1]), text_valid, ones], dim=1)
         hidden, (pk, pv) = model.gpt_prefill(prompt, prompt_mask)
-        L, _, H, S, Dh = pk.shape
-        ks = torch.zeros((L, B, H, S + max_new, Dh), dtype=pk.dtype, device=dev)
-        vs = torch.zeros_like(ks)
-        ks[:, :, :, :S] = pk
-        vs[:, :, :, :S] = pv
+        S = pk.shape[3]
+        if self.kv_int8:
+            (pk, pksc), (pv, pvsc) = quantize_kv(pk), quantize_kv(pv)
+            prompt_kv = (pk, pv, pksc, pvsc)
+        else:
+            prompt_kv = (pk, pv)
+        caches = []
+        for t in prompt_kv:
+            c = t.new_zeros(t.shape[:3] + (S + max_new,) + t.shape[4:])
+            c[:, :, :, :S] = t
+            caches.append(c)
+        caches = tuple(caches)
         logits = model.mel_logits_from_hidden(hidden[:, -1])
-        return logits, ks, vs, S, prompt_mask
+        return logits, caches, S, prompt_mask
 
     def initial_penalty_mask(self, B: int, device) -> torch.Tensor:
         """The HF fake-prompt tokens {1, start_mel} start in the penalty set."""
@@ -137,7 +150,7 @@ class GPTDecoder:
         B = conds_latent.shape[0]
         dev = conds_latent.device
         stop = cfg.stop_mel_token
-        logits, ks, vs, S, prompt_mask = self.prefill(
+        logits, caches, S, prompt_mask = self.prefill(
             conds_latent, text_ids, text_pos, text_valid, max_new)
         # the left-pad hole is fixed for the whole request
         hole_s, hole_e = prompt_hole(prompt_mask)
@@ -161,7 +174,7 @@ class GPTDecoder:
                 break
             emb = model.embed_mel_step(tok, step)
             valid = torch.full((B,), S + step + 1, dtype=torch.int32, device=dev)
-            hidden = model.gpt_decode_step(emb, ks, vs, S + step, valid, hole_s, hole_e)
+            hidden = model.gpt_decode_step(emb, caches, S + step, valid, hole_s, hole_e)
             logits = model.mel_logits_from_hidden(hidden[:, 0])
         is_stop = codes == stop
         first = torch.argmax(is_stop.int(), dim=1)

@@ -7,17 +7,25 @@ conformer+perceiver latents) -> per segment: emovec + conds, AR decode,
 teacher-forced latent pass, gpt_layer + vq2emb + length regulator, CFM
 (20 Euler steps, CFG), BigVGAN, on-device PCM16.
 
-Routes the port does not implement raise NotImplementedError: beam search
-(num_beams > 1), batched segments, emo_vector / use_emo_text, kv_quant,
-gpt_quantize, and bfloat16 s2mel or vocoder dtypes.
+The quantized GPT route of the JAX package is honoured: `gpt_quantize`
+(W8A8 blocks, `gpt_wbits=8`), `head_quant` (int8 logits head, with
+gpt_quantize) and an int8 KV cache (`kv_quant`, or `attn_impl="pallas_q8"`).
+The engine quantizes a float GPT state dict at construction (a tree already
+quantized by the JAX package's `quantize_gpt_tree` is taken as is) and keeps
+no float copy of the quantized weights.
 
-Runs on `cuda` unless the caller passes `device="cpu"`. Float32 everywhere;
+Routes the port does not implement raise NotImplementedError: beam search
+(num_beams > 1), batched segments, emo_vector / use_emo_text, W4 GPT
+weights (gpt_wbits=4), and bfloat16 s2mel or vocoder dtypes.
+
+Runs on `cuda` unless the caller passes `device="cpu"`. Float32 compute;
 the constructor turns TF32 off for matmuls and cuDNN convolutions, which
 PyTorch would otherwise use for float32 convolutions on the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass
@@ -39,9 +47,11 @@ from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
 from indextts_tpu_torch.runtime.s2mel_infer import cfm_inference
 from indextts_tpu_torch.utils import audio as audio_utils
 from indextts_tpu_torch.utils.device import resolve_device
+from indextts_tpu_torch.weights import quantize_gpt_state_dict
 
 MODELS: Dict[str, Callable[[IndexTTS2Config], torch.nn.Module]] = {
-    "gpt": lambda c: UnifiedVoice(c.gpt),
+    "gpt": lambda c: UnifiedVoice(c.gpt, quantize=c.runtime.gpt_quantize,
+                                  head_quant=head_quant(c)),
     "s2mel": lambda c: S2Mel(c.s2mel),
     "bigvgan": lambda c: BigVGAN(c.vocoder),
     "repcodec": lambda c: RepCodec(c.semantic_codec),
@@ -96,11 +106,27 @@ class SegmentResult:
     bigvgan_time: float
 
 
+def head_quant(cfg: IndexTTS2Config) -> bool:
+    """The int8 logits head needs the quantized GPT, as in the JAX engine."""
+    return cfg.runtime.head_quant and cfg.runtime.gpt_quantize
+
+
+def kv_int8(cfg: IndexTTS2Config) -> bool:
+    """An int8 KV cache: kv_quant, or the JAX package's pallas_q8 route."""
+    return cfg.runtime.kv_quant or cfg.runtime.attn_impl == "pallas_q8"
+
+
+def _float_gpt(cfg: IndexTTS2Config) -> IndexTTS2Config:
+    rt = dataclasses.replace(cfg.runtime, gpt_quantize=False, head_quant=False)
+    return dataclasses.replace(cfg, runtime=rt)
+
+
 def _check_supported(cfg: IndexTTS2Config) -> None:
     rt = cfg.runtime
-    for flag in ("kv_quant", "gpt_quantize"):
-        if getattr(rt, flag):
-            raise NotImplementedError(f"runtime.{flag} is not ported yet")
+    if rt.gpt_quantize and rt.gpt_wbits != 8:
+        raise NotImplementedError(
+            f"runtime.gpt_wbits={rt.gpt_wbits}: only W8A8 (8) is ported; W4 "
+            "(gemv_w4, mlp_w4) is the next slice of the port")
     for name in ("s2mel_dtype", "voc_dtype"):
         if getattr(rt, name) != "float32":
             raise NotImplementedError(f"runtime.{name}={getattr(rt, name)!r}: "
@@ -108,13 +134,15 @@ def _check_supported(cfg: IndexTTS2Config) -> None:
 
 
 def random_params(cfg: IndexTTS2Config, seed: int = 0, device=None) -> Dict[str, Dict]:
-    """Random state dicts for every model, drawn on `device` from `seed`:
-    each module's own PyTorch initialization (zero-mean, fan-in scaled),
-    which keeps activations bounded at any width. The JAX package's
+    """Random float state dicts for every model, drawn on `device` from
+    `seed`: each module's own PyTorch initialization (zero-mean, fan-in
+    scaled), which keeps activations bounded at any width. The JAX package's
     U[0.01, 0.05) fill does not: its all-positive weights grow through the
     vocoder's convolutions until, at full width, float32 overflows and the
-    waveform is NaN."""
+    waveform is NaN. A quantized GPT starts from the same float weights: the
+    engine quantizes them."""
     dev = resolve_device(device)
+    cfg = _float_gpt(cfg)
     out = {}
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
@@ -134,13 +162,19 @@ class IndexTTS2Engine:
         tokenizer=None,
     ):
         """params: {"gpt", "s2mel", "bigvgan", "repcodec", "campplus",
-        "w2vbert"} state dicts (weights.from_jax_params or random_params)."""
+        "w2vbert"} state dicts (weights.from_jax_params or random_params).
+        With runtime.gpt_quantize, a float GPT state dict is quantized here
+        (the JAX engine's quantize_gpt_tree step)."""
         _check_supported(cfg)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        params = dict(params)
+        gpt_sd = params["gpt"]
+        if cfg.runtime.gpt_quantize and "gpt.h.0.attn.c_attn.weight" in gpt_sd:
+            params["gpt"] = quantize_gpt_state_dict(gpt_sd, head=head_quant(cfg))
         mods = {name: load_model(name, cfg, params[name], self.device) for name in MODELS}
         self.gpt: UnifiedVoice = mods["gpt"]
         self.s2mel: S2Mel = mods["s2mel"]
@@ -157,7 +191,8 @@ class IndexTTS2Engine:
 
         rt = cfg.runtime
         self.decoder = GPTDecoder(self.gpt, cfg.gpt,
-                                  SamplingConfig(do_sample=rt.do_sample, top_k=rt.top_k))
+                                  SamplingConfig(do_sample=rt.do_sample, top_k=rt.top_k),
+                                  kv_int8=kv_int8(cfg))
         self._spk_cache: Dict[str, SpeakerConditioning] = {}
         self._emo_cache: Dict[str, EmotionConditioning] = {}
         # seeds for seedless requests (serving threads share the engine)

@@ -17,6 +17,13 @@ that the port's modules carry:
 
 Weight-normed reference layers (weight_g/weight_v) are carried folded, as
 `.weight`.
+
+A GPT tree that the JAX package's `quantize_gpt_tree` (bits=8) already
+quantized carries across too: each block layer's {kernel_q, kernel_scale,
+bias} becomes {weight_q, weight_scale, bias}, and the lane-padded int8
+`mel_head` the same. `quantize_gpt_state_dict` is the port's own copy of
+that quantization, on a float state dict. int8 weights keep the JAX
+layout, (in, out) row-major, which is what the kernels of ops/gemv.py read.
 """
 
 from __future__ import annotations
@@ -127,6 +134,18 @@ def _perceiver(sd: SD, pre: str, p: dict, depth: int = 2):
     _put(sd, f"{pre}.norm", {"gamma": p["norm"]["gamma"]})
 
 
+def _i8(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.int8))
+
+
+def _quantized(p: dict) -> dict:
+    """A quantized JAX Conv1D / dense-head tree -> the port's buffers."""
+    if "kernel_q4" in p:
+        raise NotImplementedError("W4 GPT weights (gpt_wbits=4) are not ported yet")
+    return {"weight_q": _i8(p["kernel_q"]), "weight_scale": p["kernel_scale"],
+            "bias": p["bias"]}
+
+
 def unified_voice_sd(p: dict, cfg: IndexTTS2Config) -> SD:
     g = cfg.gpt
     sd: SD = {}
@@ -140,8 +159,10 @@ def unified_voice_sd(p: dict, cfg: IndexTTS2Config) -> SD:
         _put(sd, n, {"weight": p[n]["embedding"]})
     for n in ("mel_pos_embedding", "text_pos_embedding"):
         _put(sd, f"{n}.emb", {"weight": p[n]["embedding"]})
-    for n in ("emovec_layer", "emo_layer", "mel_head"):
+    for n in ("emovec_layer", "emo_layer"):
         _put(sd, n, linear(p[n]))
+    head = p["mel_head"]
+    _put(sd, "mel_head", _quantized(head) if "kernel_q" in head else linear(head))
     _put(sd, "final_norm", layernorm(p["final_norm"]))
     gp = p["gpt"]
     for i in range(g.layers):
@@ -150,8 +171,9 @@ def unified_voice_sd(p: dict, cfg: IndexTTS2Config) -> SD:
         _put(sd, f"{b}.ln_2", layernorm(lp["ln_2"]))
         for mod, names in (("attn", ("c_attn", "c_proj")), ("mlp", ("c_fc", "c_proj"))):
             for n in names:
-                _put(sd, f"{b}.{mod}.{n}", {"weight": lp[mod][n]["kernel"],
-                                           "bias": lp[mod][n]["bias"]})
+                q = lp[mod][n]
+                _put(sd, f"{b}.{mod}.{n}", {"weight": q["kernel"], "bias": q["bias"]}
+                     if "kernel" in q else _quantized(q))
     _put(sd, "gpt.ln_f", layernorm(gp["ln_f"]))
     return sd
 
@@ -336,6 +358,38 @@ CONVERTERS = {
     "campplus": campplus_sd,
     "w2vbert": w2vbert_sd,
 }
+
+
+def quantize_gpt_state_dict(sd: SD, head: bool) -> SD:
+    """A float UnifiedVoice state dict -> its W8A8 layout (the JAX package's
+    `quantize_gpt_tree` with bits=8): every GPT-2 block matmul's weight
+    becomes int8 with a per-output-channel f32 scale, and with `head` the
+    mel_head becomes the int8 head with its columns padded to a multiple of
+    128 (padding: zero weight and bias, scale 1). Other entries are kept;
+    the float weights that were quantized are not."""
+    from indextts_tpu_torch.models.gpt2 import quantize_weight
+
+    out = {}
+    for key, v in sd.items():
+        name, _, leaf = key.rpartition(".")
+        block = name.startswith("gpt.h.") and name.endswith(
+            ("attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj"))
+        if block and leaf == "weight":
+            out[f"{name}.weight_q"], out[f"{name}.weight_scale"] = quantize_weight(v)
+        elif not (head and name == "mel_head"):
+            out[key] = v
+    if head:
+        w, b = sd["mel_head.weight"].t(), sd["mel_head.bias"].float()
+        d, f = w.shape
+        fpad = -(-f // 128) * 128
+        w_q, scale = quantize_weight(w)
+        out["mel_head.weight_q"] = torch.zeros((d, fpad), dtype=torch.int8, device=w.device)
+        out["mel_head.weight_q"][:, :f] = w_q
+        out["mel_head.weight_scale"] = torch.ones(fpad, device=w.device)
+        out["mel_head.weight_scale"][:f] = scale
+        out["mel_head.bias"] = torch.zeros(fpad, device=w.device)
+        out["mel_head.bias"][:f] = b
+    return out
 
 
 def from_jax_params(params: Dict[str, Any], cfg: IndexTTS2Config) -> Dict[str, SD]:

@@ -4,7 +4,10 @@ Skips without one. Imports nothing of JAX, so it also runs where only the
 port is installed: `python -m pytest --noconftest tests/test_torch_cuda.py`
 (the repository's conftest imports JAX). Tolerances: fp32 online softmax
 against a one-shot softmax (K1, K3); the same fp32 algebra with sinf/expf
-and FMA contraction (K2).
+and FMA contraction (K2); for K4 as for K1 over an int8 cache, 1e-5; K5
+and K6 exact int32 sums with the plain versions' float32 operations in the
+same order, so their results agree to the last bit or within one unit of it
+(1e-6 of max|out| is allowed).
 """
 
 import pytest
@@ -12,6 +15,7 @@ import torch
 
 from indextts_tpu_torch.ops import decode_attention as k1
 from indextts_tpu_torch.ops import dit_attention as k3
+from indextts_tpu_torch.ops import gemv
 from indextts_tpu_torch.ops import snake as k2
 
 
@@ -59,3 +63,53 @@ def test_k3_cuda_matches_plain(cuda_device, T):
     got = k3.dit_attention(q, k, v, mask)
     torch.testing.assert_close(got, k3.dit_attention_plain(q, k, v, mask),
                                atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [383, 1657])
+def test_k4_cuda_matches_plain(cuda_device, cap):
+    from indextts_tpu_torch.models.gpt2 import quantize_kv
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    B, H, Dh = 3, 20, 64
+    q = torch.randn((B, H, Dh), generator=g, device=cuda_device)
+    k8, ksc = quantize_kv(torch.randn((B, H, cap, Dh), generator=g, device=cuda_device))
+    v8, vsc = quantize_kv(torch.randn((B, H, cap, Dh), generator=g, device=cuda_device))
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    vl, hs, he = (torch.tensor(a, **i32) for a in ([cap, cap // 2, 1], [40, 3, 0], [90, 9, 0]))
+    got = k1.ragged_decode_attention_q8(q, k8, v8, ksc, vsc, vl, hs, he)
+    want = k1.ragged_decode_attention_q8_plain(q, k8, v8, ksc, vsc, vl, hs, he)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def _q8(g, dev, d, f):
+    from indextts_tpu_torch.models.gpt2 import quantize_weight
+
+    w_q, s = quantize_weight(torch.randn((d, f), generator=g, device=dev) / d ** 0.5)
+    return w_q, s, torch.randn((f,), generator=g, device=dev) * 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 8320), (2, 256, 384)])
+def test_k5_cuda_matches_plain(cuda_device, b, d, f):
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xq, a = quant_row(torch.randn((b, d), generator=g, device=cuda_device))
+    w = _q8(g, cuda_device, d, f)
+    got = gemv.gemv_w8(xq, a, *w)
+    want = gemv.gemv_w8_plain(xq, a, *w)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(1, 1280), (3, 512)])
+def test_k6_cuda_matches_plain(cuda_device, b, d):
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xq, a = quant_row(torch.randn((b, d), generator=g, device=cuda_device))
+    ws = _q8(g, cuda_device, d, 4 * d) + _q8(g, cuda_device, 4 * d, d)
+    got = gemv.mlp_w8(xq, a, *ws)
+    want = gemv.mlp_w8_plain(xq, a, *ws)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()

@@ -183,7 +183,7 @@ def test_gpt_prefill_logits_and_latent_match(pair):
     want = jax.jit(lambda p, *a: je.gpt.apply({"params": p}, *a, method=jprefill))(
         je.p_gpt, jnp.asarray(conds), jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(valid))
     with torch.inference_mode():
-        logits, ks, _, S, _ = pe.decoder.prefill(
+        logits, (ks, _), S, _ = pe.decoder.prefill(
             t(conds), t(pids), t(ppos), t(pvalid), max_new=4)
     assert ks.shape == (cfg.gpt.layers, 1, cfg.gpt.heads, S + 4, D // cfg.gpt.heads)
     assert_rel(logits, want, 1e-4, "prefill logits")
