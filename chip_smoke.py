@@ -9,37 +9,43 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    versions, the build of every CUDA kernel from csrc/ (one nvcc per source,
    all started together).
 2. Kernels: K1 (ragged decode attention), K2 (anti-aliased SnakeBeta), K3
-   (DiT attention), K4 (int8-cache decode attention), K5 (W8A8 GEMV) and K6
-   (fused W8 MLP) against their plain PyTorch versions, at the shapes the
-   main path gives them at full width and at edge cases, each within its
-   stated tolerance. Times are device times: CUDA events around replays of
-   a CUDA graph of repeated calls, so the host's launch cost is left out.
-   K1's and K4's are per call (one layer of one decode step), K2's per
-   vocoder call (its 37 launches), K3's per call (one DiT layer of one CFM
-   step), K5's per decode step (its 49 launches: c_attn and attn c_proj of
-   24 layers, and the logits head), K6's per call (one layer's MLP). Weights
-   and caches cycle over 24 layers' worth, so they come from device memory
-   as in a decode step, not from L2. `bound_ms` is the larger of bytes over
-   3.35 TB/s and operations over 67 TFLOP/s (float32) or 1979 TOP/s (int8)
-   (H100 SXM data sheet). `library_ms` times one PyTorch call on the same
-   inputs as a yardstick the port never calls: scaled_dot_product_attention
-   (K1, K3), and torch._int_mm with the activation padded to the 17 rows it
-   accepts at least, int32 out without the float epilogue (K5, K6; two
-   products for K6); none for K2 and K4.
+   (DiT attention), K4 (int8-cache decode attention), K5 (W8A8 GEMV), K6
+   (fused W8 MLP), K7 (W4A8 GEMV) and K8 (fused W4 MLP) against their plain
+   PyTorch versions, at the shapes the main path gives them at full width
+   and at edge cases, each within its stated tolerance. Times are device
+   times: CUDA events around replays of a CUDA graph of repeated calls, so
+   the host's launch cost is left out. K1's and K4's are per call (one layer
+   of one decode step), K2's per vocoder call (its 37 launches), K3's per
+   call (one DiT layer of one CFM step), K5's per decode step (its 49
+   launches: c_attn and attn c_proj of 24 layers, and the logits head), K7's
+   per decode step (its 48 launches: c_attn and attn c_proj of 24 layers),
+   K6's and K8's per call (one layer's MLP). Weights and caches cycle over
+   24 layers' worth, so they come from device memory as in a decode step,
+   not from L2. `bound_ms` is the larger of bytes over 3.35 TB/s and
+   operations over 67 TFLOP/s (float32) or 1979 TOP/s (int8) (H100 SXM data
+   sheet). `library_ms` times one PyTorch call on the same inputs as a
+   yardstick the port never calls: scaled_dot_product_attention (K1, K3),
+   and torch._int_mm with the activation padded to the 17 rows it accepts
+   at least, int32 out without the float epilogue, over the unpacked int8
+   weight for K7 and K8 (K5-K8; two products for K6 and K8); none for K2
+   and K4.
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
-   card and on the CPU (plain versions) from the same weights and CFM noise,
-   float and then quantized (gpt_quantize, head_quant, kv_quant: at D=128 it
-   runs K4, K5 and K6); codes must match and mel and waveform agree. Then the
-   full-width default configuration (GPT 24L x 1280, DiT 13L x 512, BigVGAN
-   v2 22 kHz, w2v-BERT 2.0, RepCodec, CAMPPlus) with seeded random weights is
-   served by the port's own server on localhost, float and then quantized
-   (the float engine freed first): every kernel's launch counter is set to
-   0, a few POST /tts requests go out with a seeded synthetic 3-s speaker
-   wav, each answer must be a 200 with a valid, non-silent WAV from finite
-   mels, and every counter of the route must have risen (K1, K2, K3 float;
-   K2-K6 quantized, where K1 must stay at 0: an int8 cache never reaches
-   it). Only runtime.max_mel_tokens is lowered, since random weights rarely
-   emit the stop token.
+   card and on the CPU (plain versions) from the same weights and CFM noise:
+   float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
+   "pallas": at D=128 it runs K4, K5 and K6); quantized W4 (the same with
+   gpt_wbits=4 at D=256, where K7 and K8 open); codes must match and mel and
+   waveform agree. Then the full-width default configuration (GPT 24L x
+   1280, DiT 13L x 512, BigVGAN v2 22 kHz, w2v-BERT 2.0, RepCodec, CAMPPlus)
+   with seeded random weights is served by the port's own server on
+   localhost on three routes, one engine on the card at a time: float, then
+   quantized W8 with gemv_impl "pallas", then quantized W4 with gemv_impl
+   "auto", which resolves to the kernels on the card. Every kernel's launch
+   counter is set to 0, a few POST /tts requests go out with a seeded
+   synthetic 3-s speaker wav, each answer must be a 200 with a valid,
+   non-silent WAV from finite mels, and every counter of the route must have
+   risen, those of other routes staying at 0 (float: K1-K3; W8: K2-K6; W4:
+   K2-K5, K7, K8, with K5 the logits head). Only runtime.max_mel_tokens is
+   lowered, since random weights rarely emit the stop token.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -557,6 +563,115 @@ def check_k6(layers: int, d: int):
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
 
 
+def q4_weight(g, d: int, f: int, cols: bool = False):
+    """A random (d, f) weight packed to int4 as the engine does, with a bias."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt2 import quantize_weight_w4
+
+    w_p, s = quantize_weight_w4(torch.randn((d, f), generator=g, device="cuda") / d ** 0.5,
+                                cols)
+    return w_p, s, torch.randn((f,), generator=g, device="cuda") * 0.1
+
+
+def check_k7(layers: int, d: int):
+    import torch
+
+    from indextts_tpu_torch.ops import gemv as k7
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    main = {"c_attn": (d, 3 * d), "attn c_proj": (d, d)}
+    cases = [(f"{name} b={b}", b, di, f) for name, (di, f) in main.items() for b in (1, 3)]
+    cases.append((f"F=384, not a multiple of the {k7.GEMV_TILE}-column tile", 1, d, 384))
+    errs = {}
+    for name, b, di, f in cases:
+        if not k7.supports_w4(di, f):
+            fail(f"K7 case {name}: supports_w4({di}, {f}) is false")
+        xq, a = q8_row(g, b, di)
+        w = q4_weight(g, di, f)
+        got = k7.gemv_w4(xq, a, *w)
+        want = k7.gemv_w4_plain(xq, a, *w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        errs[name] = err
+        print(f"K7 {name}: D={di} F={f} max_abs_err={err:.3g} of max|y| "
+              f"{want.abs().max().item():.3g} (tol 0: to the bit)")
+        if not torch.equal(got, want):
+            fail(f"K7 {name} disagrees with its plain version: {err}")
+
+    # one decode step: 24 x c_attn, 24 x attn c_proj; weights cycle over 24
+    # layers so that they come from HBM
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    for name, (di, f) in main.items():
+        xq, a = q8_row(g, 1, di)
+        args = [(xq, a, *q4_weight(g, di, f)) for _ in range(layers)]
+        ms = cuda_ms(cycled(k7.gemv_w4, args), iters=2 * layers)
+        plain = cuda_ms(cycled(k7.gemv_w4_plain, args), iters=layers, replays=2)
+        lib_args = [int_mm_17(xq, k7.unpack_w4(w[2])) for w in args]
+        lib = cuda_ms(cycled(torch._int_mm, lib_args), iters=2 * layers)
+        b_ms, _ = bound(di // 2 * f + 8 * f + di + 4 + 4 * f, 2 * di * f, INT8_OPS)
+        print(f"K7 {name} D={di} F={f}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms(_int_mm over the unpacked weight, 17 rows)={lib:.4f} "
+              f"bound_ms={b_ms:.5f} (bytes) x{layers} per step")
+        for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b_ms)):
+            tot[key] += layers * v
+    print(f"K7 one decode step ({2 * layers} launches): kernel_ms={tot['ms']:.4f} "
+          f"({tot['ms'] / (2 * layers):.5f} per launch) plain_ms={tot['plain']:.4f} "
+          f"library_ms(_int_mm, unpacked, 17 rows)={tot['lib']:.4f} "
+          f"bound_ms={tot['bound']:.4f} (bytes)")
+    return {"name": "K7 gemv_w4", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/gemv.cu",
+            "replaces": "indextts_tpu/ops/gemv.py:171",
+            "max_abs_err": max(errs.values()), "ms": tot["ms"], "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"], "bound_by": "bytes", "library_ms": tot["lib"]}
+
+
+def check_k8(layers: int, d: int):
+    import torch
+
+    from indextts_tpu_torch.ops import gemv as k8
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rel_tol = 1e-6  # as K6; the group partials are added in the same order
+    errs = {}
+    for name, b, di in (("full width", 1, d), ("full width b=3", 3, d), ("D=512", 1, 512),
+                        ("D=512 b=3", 3, 512)):
+        fh = 4 * di
+        xq, a = q8_row(g, b, di)
+        w = q4_weight(g, di, fh) + q4_weight(g, fh, di, cols=True)
+        got = k8.mlp_w4(xq, a, *w)
+        want = k8.mlp_w4_plain(xq, a, *w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[name] = err
+        print(f"K8 {name}: D={di} FH={fh} groups={fh // k8.mlp_group_w4(di, fh)} "
+              f"max_abs_err={err:.3g} of max|out| {scale:.3g} (tol {rel_tol} relative)")
+        if not err <= rel_tol * scale:
+            fail(f"K8 {name} disagrees with its plain version: {err}")
+
+    fh = 4 * d
+    xq, a = q8_row(g, 1, d)
+    args = [(xq, a, *q4_weight(g, d, fh), *q4_weight(g, fh, d, cols=True))
+            for _ in range(layers)]
+    ms = cuda_ms(cycled(k8.mlp_w4, args), iters=2 * layers)
+    plain = cuda_ms(cycled(k8.mlp_w4_plain, args), iters=layers, replays=2)
+    hq = torch.zeros((1, fh), dtype=torch.int8, device="cuda")
+    lib_args = [int_mm_17(xq, k8.unpack_w4(w[2])) + int_mm_17(hq, k8.unpack_w4(w[5], axis=1))
+                for w in args]
+    lib = cuda_ms(cycled(lambda x, w1, h, w2: (torch._int_mm(x, w1), torch._int_mm(h, w2)),
+                         lib_args), iters=2 * layers)
+    b_ms, by = bound(d * fh + 8 * fh + 8 * d + d + 4 + 4 * d, 4 * d * fh, INT8_OPS)
+    print(f"K8 full width D={d} FH={fh}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms(2 x _int_mm over the unpacked weights, 17 rows)={lib:.4f} "
+          f"bound_ms={b_ms:.5f} ({by})")
+    return {"name": "K8 mlp_w4", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/gemv.cu",
+            "replaces": "indextts_tpu/ops/gemv.py:323",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice
 # ---------------------------------------------------------------------------
@@ -577,13 +692,14 @@ def speaker_wav(path: str, seed: int = 0):
     audio_utils.save_wav(path, (0.3 * x / np.abs(x).max()).astype(np.float32), PROMPT_SR)
 
 
-def small_config():
+def small_config(model_dim: int = 128):
     """A few layers, narrow widths, but 64-wide heads so K1 and K3 run."""
     from indextts_tpu_torch import config as C
 
     return C.IndexTTS2Config(
         gpt=C.GPTConfig(
-            model_dim=128, layers=2, heads=2, max_mel_tokens=64, max_text_tokens=32,
+            model_dim=model_dim, layers=2, heads=model_dim // 64, max_mel_tokens=64,
+            max_text_tokens=32,
             number_text_tokens=50, number_mel_codes=36, start_mel_token=34,
             stop_mel_token=35,
             condition_module=C.ConditionModuleConfig(
@@ -598,7 +714,7 @@ def small_config():
             dit=C.DiTConfig(hidden_dim=128, num_heads=2, depth=3, in_channels=80,
                             content_dim=32, style_dim=192),
             wavenet=C.WaveNetConfig(hidden_dim=32, num_layers=2, kernel_size=5),
-            gpt_dims=(128, 16, 8, 1024)),
+            gpt_dims=(model_dim, 16, 8, 1024)),
         vocoder=C.BigVGANConfig(
             num_mels=80, upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
             upsample_initial_channel=16, resblock_kernel_sizes=(3, 5),
@@ -611,10 +727,12 @@ def small_config():
                                 do_sample=False))
 
 
-def quantized(cfg):
-    """`cfg` with the JAX package's quantized GPT route: W8A8 blocks, the
-    int8 logits head and the int8 KV cache."""
-    rt = dataclasses.replace(cfg.runtime, gpt_quantize=True, head_quant=True, kv_quant=True)
+def quantized(cfg, wbits: int = 8, gemv_impl: str = "pallas"):
+    """`cfg` with the JAX package's quantized GPT route: W8A8 or W4A8 blocks,
+    the int8 logits head and the int8 KV cache, and gemv_impl (W8 reaches
+    K5 and K6 only under "pallas")."""
+    rt = dataclasses.replace(cfg.runtime, gpt_quantize=True, head_quant=True, kv_quant=True,
+                             gpt_wbits=wbits, gemv_impl=gemv_impl)
     return dataclasses.replace(cfg, runtime=rt)
 
 
@@ -711,7 +829,8 @@ def kernel_counters():
     return {"K1 ragged_decode_attention": decode_attention.counter,
             "K2 anti_alias_snake": snake.counter, "K3 dit_attention": dit_attention.counter,
             "K4 ragged_decode_attention_q8": decode_attention.q8_counter,
-            "K5 gemv_w8": gemv.gemv_counter, "K6 mlp_w8": gemv.mlp_counter}
+            "K5 gemv_w8": gemv.gemv_counter, "K6 mlp_w8": gemv.mlp_counter,
+            "K7 gemv_w4": gemv.gemv4_counter, "K8 mlp_w4": gemv.mlp4_counter}
 
 
 def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
@@ -723,6 +842,7 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
     import torch
 
     from indextts_tpu_torch import serve
+    from indextts_tpu_torch.runtime.engine import resolve_gemv
 
     os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, f"cache-{label}")
     with socket.socket() as s:
@@ -741,7 +861,9 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
           f"{c.vocoder.upsample_initial_channel} ch x{c.vocoder.total_upsample}, "
           f"w2v-BERT {c.w2vbert.tap_layer}/{c.w2vbert.num_hidden_layers} layers, "
           f"max_mel_tokens={c.runtime.max_mel_tokens}, gpt_quantize={c.runtime.gpt_quantize}, "
-          f"head_quant={c.runtime.head_quant}, kv_quant={c.runtime.kv_quant}")
+          f"head_quant={c.runtime.head_quant}, kv_quant={c.runtime.kv_quant}, "
+          f"gpt_wbits={c.runtime.gpt_wbits}, gemv_impl={c.runtime.gemv_impl!r} "
+          f"(kernels: {resolve_gemv(c, engine.device)})")
     thread = ServerThread(server)
     engine._mel_taps = []
     segments = []
@@ -816,8 +938,17 @@ def main():
                check_k3(shapes, cfg.s2mel.dit.num_heads),
                check_k4(shapes, g.layers, g.heads),
                check_k5(g.layers, g.model_dim, g.number_mel_codes),
-               check_k6(g.layers, g.model_dim)]
+               check_k6(g.layers, g.model_dim),
+               check_k7(g.layers, g.model_dim),
+               check_k8(g.layers, g.model_dim)]
     names = [k["name"] for k in kernels]
+    k1, k6 = names[0], names[5]
+    routes = {  # label: (config change, kernels that must run, kernels that must not)
+        "float": (lambda c: c, names[:3], names[3:]),
+        "quantized": (quantized, names[1:6], [k1] + names[6:]),
+        "w4": (lambda c: quantized(c, wbits=4, gemv_impl="auto"),
+               names[1:5] + names[6:], [k1, k6]),
+    }
     with tempfile.TemporaryDirectory() as tmp:
         wav_path = os.path.join(tmp, "speaker.wav")
         speaker_wav(wav_path)
@@ -829,18 +960,23 @@ def main():
         # noise between the devices into occasional one-step flips, each up
         # to 1/127 of a row's largest value: 1e-2
         small_reference(wav_path, quantized(small_config()), "quantized", 1e-2, 1e-2)
+        # D=256 (4 heads of 64) opens K7's and K8's gates
+        small_reference(wav_path, quantized(small_config(256), wbits=4), "w4", 1e-2, 1e-2)
         os.environ["TARS_MAX_MEL_TOKENS"] = str(MAX_MEL_TOKENS)
         full = load_config()
-        launches = serve_full_width(wav_path, full, "float", rise=names[:3], stay=(), tmp=tmp)
-        # one engine on the card at a time
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"float engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-              "still allocated")
-        q_launches = serve_full_width(wav_path, quantized(full), "quantized",
-                                      rise=names[1:], stay=names[:1], tmp=tmp)
+        launches = {}
+        for label, (change, rise, stay) in routes.items():
+            counts = serve_full_width(wav_path, change(full), label, rise, stay, tmp)
+            # each kernel's launches come from the route that runs it first
+            for name in rise:
+                launches.setdefault(name, counts[name])
+            # one engine on the card at a time
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  "still allocated")
     for k in kernels:
-        k["launches"] = (q_launches if k["name"] in names[3:] else launches)[k["name"]]
+        k["launches"] = launches[k["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -319,14 +319,16 @@ class RuntimeConfig:
     # The knobs below keep the JAX package's names and defaults so that one
     # config tree (and its TARS_* env) drives both packages. The PyTorch port
     # computes in float32 and honours the quantized GPT route: gpt_quantize
-    # with gpt_wbits=8 (W8A8 blocks), head_quant (with gpt_quantize) and an
-    # int8 KV cache, which kv_quant or attn_impl="pallas_q8" selects. With
-    # gpt_quantize its decode step computes what the JAX package computes
-    # with gemv_impl="pallas" (single-row calls through the W8 GEMV and fused
-    # MLP kernels where their gating opens); otherwise it ignores attn_impl
-    # and gemv_impl, and also gpt_dtype, text_prefix_reuse and
-    # seq_tail_overlap. It raises NotImplementedError for gpt_wbits=4 and a
-    # bfloat16 s2mel_dtype or voc_dtype.
+    # with gpt_wbits=8 (W8A8 blocks) or 4 (W4A8, packed nibbles), head_quant
+    # (with gpt_quantize) and an int8 KV cache, which kv_quant or
+    # attn_impl="pallas_q8" selects. gemv_impl resolves as in the JAX engine,
+    # with the card in the TPU's place (runtime/engine.py resolve_gemv):
+    # "pallas" sends the quantized GPT's single-row decode calls through the
+    # GEMV and fused-MLP kernels where their gating opens, "xla" through the
+    # plain contraction, and "auto" takes the kernels for W4 on CUDA only. It
+    # ignores attn_impl otherwise, and also gpt_dtype, text_prefix_reuse and
+    # seq_tail_overlap. It raises NotImplementedError for a bfloat16
+    # s2mel_dtype or voc_dtype.
     # compute dtype for the GPT decode loop ("bfloat16" | "float32")
     gpt_dtype: str = "bfloat16"
     # decode attention implementation in the JAX package: "auto", "xla",
@@ -334,7 +336,7 @@ class RuntimeConfig:
     attn_impl: str = "auto"
     # int8 KV cache in the decode loop (per-vector absmax)
     kv_quant: bool = False
-    # W8A8 int8 GPT weights (params through torch_convert.quantize_gpt_tree)
+    # quantized GPT weights (params through torch_convert.quantize_gpt_tree)
     gpt_quantize: bool = False
     # decode GEMV implementation for quantized weights: "auto", "xla", "pallas"
     gemv_impl: str = "auto"

@@ -1,4 +1,4 @@
-"""GPT-2 transformer core in PyTorch, float or W8A8.
+"""GPT-2 transformer core in PyTorch: float, W8A8 or W4A8.
 
 Counterpart of indextts_tpu/models/gpt2.py: the reference's vendored HF
 GPT-2 without wte/wpe (it consumes `inputs_embeds`), causal self-attention
@@ -14,16 +14,23 @@ with additive padding masks, gelu_new MLP, LayerNorm eps 1e-5. Two modes:
                   scales (`quantize_kv`), through kernel K4
                   (ops/decode_attention.py).
 
-`quantize=True` is the JAX package's W8A8 GPT (`gpt_quantize`, 8 bits): int8
-per-output-channel weights, a dynamic per-row int8 activation scale
-(`quant_row`) and an exact int32 contraction. Single-row decode calls take
-the kernels of ops/gemv.py where the JAX package's gating opens them (K5 for
-c_attn and attn c_proj, K6 for the whole MLP), as the JAX package does with
-`gemv_impl="pallas"`; every other call (prefill, the latent pass) takes the
-plain contraction. `QuantDenseHead` is the int8 logits head (`head_quant`).
+`quantize=True` is the JAX package's quantized GPT (`gpt_quantize`):
+per-output-channel weights of `wbits` bits, a dynamic per-row int8
+activation scale (`quant_row`) and an exact int32 contraction. W8 weights
+are int8 (in, out); W4 weights are int4 pairs packed into bytes
+(ops/gemv.py `pack_w4`), along the rows, except the MLP's c_proj, which is
+packed along its output columns. `gemv=True` is the JAX package's
+`gemv_impl="pallas"`: single-row decode calls take the kernels of
+ops/gemv.py where the JAX package's gating opens them (K5 or K7 for c_attn
+and attn c_proj, K6 or K8 for the whole MLP, K5 for the int8 logits head).
+Every other call (prefill, the latent pass, and every call with
+`gemv=False`, the JAX package's "xla" route) takes the plain contraction,
+W4 weights unpacked once per call. `QuantDenseHead` is the int8 logits head
+(`head_quant`); it stays W8 under W4, as in the JAX package.
 
 Module names follow the reference state_dict keys (`h.{i}.attn.c_attn`, ...);
-a quantized layer carries `weight_q`, `weight_scale` and `bias`.
+a quantized layer carries `weight_q` (W8) or `weight_q4` (W4),
+`weight_scale` and `bias`.
 """
 
 from __future__ import annotations
@@ -74,6 +81,16 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(w / scale[None]), -127, 127).to(torch.int8), scale
 
 
+def quantize_weight_w4(w: torch.Tensor, cols: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(in, out) float weight -> (packed int4 weight, f32 per-output-channel
+    scale), as the JAX package's `quantize_conv1d_params_w4`: values in
+    [-7, 7], packed along the rows, or along the columns with `cols`."""
+    w = w.float()
+    scale = w.abs().amax(dim=0) / 7.0 + 1e-12
+    q = torch.clamp(torch.round(w / scale[None]), -7, 7)
+    return gemv_ops.pack_w4(q, cols=cols), scale
+
+
 def _single_rows(x: torch.Tensor) -> int:
     """The row count of a single-token call (0 for anything else): the
     decode rows that the gemv kernels may take."""
@@ -101,26 +118,43 @@ class Conv1D(nn.Module):
 
 
 class QConv1D(nn.Module):
-    """W8A8 Conv1D: int8 weight (in, out), per-output-channel scale. With
-    `gemv`, single-row decode calls take kernel K5 when
-    `gemv_ops.supports(in, out)`, as the JAX Conv1D does with gemv=True."""
+    """Quantized Conv1D (the JAX Conv1D with quantize=True): per-output-
+    channel scale, and an int8 weight (in, out) with wbits=8, or int4 pairs
+    packed along the rows (in/2, out), or with `cols` along the columns
+    (in, out/2), with wbits=4. With `gemv`, single-row decode calls take
+    kernel K5 (W8) or K7 (W4, rows) where the JAX gating opens it."""
 
-    def __init__(self, nx: int, nf: int, gemv: bool = True):
+    def __init__(self, nx: int, nf: int, gemv: bool = False, wbits: int = 8,
+                 cols: bool = False):
         super().__init__()
-        self.gemv = gemv
-        self.register_buffer("weight_q", torch.zeros(nx, nf, dtype=torch.int8))
+        self.gemv, self.wbits, self.cols = gemv, wbits, cols
+        self.nx, self.nf = nx, nf
+        if wbits == 4:
+            shape = (nx, nf // 2) if cols else (nx // 2, nf)
+            self.register_buffer("weight_q4", torch.zeros(shape, dtype=torch.int8))
+        else:
+            self.register_buffer("weight_q", torch.zeros(nx, nf, dtype=torch.int8))
         self.register_buffer("weight_scale", torch.ones(nf))
         self.register_buffer("bias", torch.zeros(nf))
 
+    @property
+    def stored_weight(self) -> torch.Tensor:
+        """The weight as stored: int8, or packed int4 pairs."""
+        return self.weight_q4 if self.wbits == 4 else self.weight_q
+
     def forward(self, x):
-        d, f = self.weight_q.shape
+        d, f = self.nx, self.nf
         rows = _single_rows(x)
-        if (self.gemv and 0 < rows <= gemv_ops.gemv_max_rows()
-                and gemv_ops.supports(d, f)):
+        w4 = self.wbits == 4
+        opens = (not self.cols and gemv_ops.supports_w4(d, f)) if w4 else gemv_ops.supports(d, f)
+        if self.gemv and 0 < rows <= gemv_ops.gemv_max_rows() and opens:
             x_q, a = quant_row(x.reshape(rows, d))
-            y = gemv_ops.gemv_w8(x_q, a, self.weight_q, self.weight_scale, self.bias)
+            gemv = gemv_ops.gemv_w4 if w4 else gemv_ops.gemv_w8
+            y = gemv(x_q, a, self.stored_weight, self.weight_scale, self.bias)
             return y.reshape(*x.shape[:-1], f).to(x.dtype)
-        return w8a8(x, self.weight_q, self.weight_scale, self.bias).to(x.dtype)
+        # W4 weights are unpacked anew on every call
+        w = gemv_ops.unpack_w4(self.weight_q4, axis=1 if self.cols else 0) if w4 else self.weight_q
+        return w8a8(x, w, self.weight_scale, self.bias).to(x.dtype)
 
 
 class QuantDenseHead(QConv1D):
@@ -128,24 +162,26 @@ class QuantDenseHead(QConv1D):
     a multiple of 128 (8194 -> 8320), padding columns with zero weights and
     bias; the logits are sliced back."""
 
-    def __init__(self, nx: int, features: int):
-        super().__init__(nx, -(-features // 128) * 128)
+    def __init__(self, nx: int, features: int, gemv: bool = False):
+        super().__init__(nx, -(-features // 128) * 128, gemv)
         self.features = features
 
     def forward(self, x):
         return super().forward(x)[..., :self.features]
 
 
-def _linear(nx: int, nf: int, quantize: bool, gemv: bool = True) -> nn.Module:
-    return QConv1D(nx, nf, gemv) if quantize else Conv1D(nx, nf)
+def _linear(nx: int, nf: int, quantize: bool, gemv: bool, wbits: int,
+            cols: bool = False) -> nn.Module:
+    return QConv1D(nx, nf, gemv, wbits, cols) if quantize else Conv1D(nx, nf)
 
 
 class GPT2Attention(nn.Module):
-    def __init__(self, dim: int, n_head: int, quantize: bool = False):
+    def __init__(self, dim: int, n_head: int, quantize: bool = False, gemv: bool = False,
+                 wbits: int = 8):
         super().__init__()
         self.n_head = n_head
-        self.c_attn = _linear(dim, 3 * dim, quantize)
-        self.c_proj = _linear(dim, dim, quantize)
+        self.c_attn = _linear(dim, 3 * dim, quantize, gemv, wbits)
+        self.c_proj = _linear(dim, dim, quantize, gemv, wbits)
 
     def _heads(self, t, B):
         return t.reshape(B, -1, self.n_head, t.shape[-1] // self.n_head).transpose(1, 2)
@@ -185,33 +221,39 @@ class GPT2Attention(nn.Module):
 
 
 class GPT2MLP(nn.Module):
-    def __init__(self, dim: int, quantize: bool = False):
+    def __init__(self, dim: int, quantize: bool = False, gemv: bool = False,
+                 wbits: int = 8):
         super().__init__()
-        self.quantize = quantize
-        # the JAX MLP's c_fc never takes the single-row GEMV on its own
-        self.c_fc = _linear(dim, 4 * dim, quantize, gemv=False)
-        self.c_proj = _linear(4 * dim, dim, quantize)
+        self.quantize, self.gemv = quantize, gemv
+        self.w4 = quantize and wbits == 4
+        # the JAX MLP's c_fc never takes the single-row GEMV on its own; under
+        # W4 its c_proj is packed along the output columns, as mlp_w4 reads it
+        self.c_fc = _linear(dim, 4 * dim, quantize, False, wbits)
+        self.c_proj = _linear(4 * dim, dim, quantize, gemv, wbits, cols=self.w4)
 
     def forward(self, x):
         d = x.shape[-1]
         rows = _single_rows(x)
-        if (self.quantize and 0 < rows <= gemv_ops.gemv_max_rows()
-                and gemv_ops.supports_mlp(d, 4 * d)):
+        supported = gemv_ops.supports_mlp_w4 if self.w4 else gemv_ops.supports_mlp
+        if (self.quantize and self.gemv and 0 < rows <= gemv_ops.gemv_max_rows()
+                and supported(d, 4 * d)):
             fc, pj = self.c_fc, self.c_proj
+            fused = gemv_ops.mlp_w4 if self.w4 else gemv_ops.mlp_w8
             x_q, a = quant_row(x.reshape(rows, d))
-            y = gemv_ops.mlp_w8(x_q, a, fc.weight_q, fc.weight_scale, fc.bias,
-                                pj.weight_q, pj.weight_scale, pj.bias)
+            y = fused(x_q, a, fc.stored_weight, fc.weight_scale, fc.bias,
+                      pj.stored_weight, pj.weight_scale, pj.bias)
             return y.reshape(x.shape).to(x.dtype)
         return self.c_proj(gelu_new(self.c_fc(x)))
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, dim: int, n_head: int, quantize: bool = False):
+    def __init__(self, dim: int, n_head: int, quantize: bool = False, gemv: bool = False,
+                 wbits: int = 8):
         super().__init__()
         self.ln_1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = GPT2Attention(dim, n_head, quantize)
+        self.attn = GPT2Attention(dim, n_head, quantize, gemv, wbits)
         self.ln_2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = GPT2MLP(dim, quantize)
+        self.mlp = GPT2MLP(dim, quantize, gemv, wbits)
 
     def forward(self, x, attn_bias):
         a, kv = self.attn(self.ln_1(x), attn_bias)
@@ -234,11 +276,14 @@ def prompt_hole(attention_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
 
 
 class GPT2Core(nn.Module):
-    """Stack of GPT-2 blocks + final LayerNorm over embeddings."""
+    """Stack of GPT-2 blocks + final LayerNorm over embeddings. `gemv` is
+    the JAX GPT2Core's `gemv_impl == "pallas"`."""
 
-    def __init__(self, n_layer: int, dim: int, n_head: int, quantize: bool = False):
+    def __init__(self, n_layer: int, dim: int, n_head: int, quantize: bool = False,
+                 gemv: bool = False, wbits: int = 8):
         super().__init__()
-        self.h = nn.ModuleList(GPT2Block(dim, n_head, quantize) for _ in range(n_layer))
+        self.h = nn.ModuleList(GPT2Block(dim, n_head, quantize, gemv, wbits)
+                               for _ in range(n_layer))
         self.ln_f = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, inputs_embeds, attention_mask: Optional[torch.Tensor] = None):

@@ -7,9 +7,12 @@ two duration tokens, GPT-2 core over [conds][text][mel], learned position
 embeddings, final_norm + mel_head. Inference only: the training head
 `text_head` is not built. Module names follow the reference state_dict.
 
-`quantize=True` builds the W8A8 GPT-2 blocks and `head_quant=True` the int8
-logits head (models/gpt2.py), as the JAX package's `quantize_gpt` and
-`head_quant`; embeddings, norms and the conditioning stay float.
+`quantize=True` builds the quantized GPT-2 blocks of `wbits` bits (8 or 4)
+and `head_quant=True` the int8 logits head (models/gpt2.py), as the JAX
+package's `quantize_gpt`, `wbits` and `head_quant`; embeddings, norms and
+the conditioning stay float. `gemv=True` sends the blocks' and the head's
+single-row decode calls through the kernels of ops/gemv.py, as the JAX
+package's `gemv_impl="pallas"`; `gemv=False` is its "xla" route.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ class LearnedPositionEmbeddings(nn.Module):
 
 
 class UnifiedVoice(nn.Module):
-    def __init__(self, cfg: GPTConfig, quantize: bool = False, head_quant: bool = False):
+    def __init__(self, cfg: GPTConfig, quantize: bool = False, head_quant: bool = False,
+                 wbits: int = 8, gemv: bool = False):
         super().__init__()
         self.cfg = c = cfg
         self.conditioning_encoder = ConformerEncoder(c.condition_module)
@@ -56,9 +60,9 @@ class UnifiedVoice(nn.Module):
         self.emovec_layer = nn.Linear(1024, c.model_dim)
         self.emo_layer = nn.Linear(c.model_dim, c.model_dim)
         self.final_norm = nn.LayerNorm(c.model_dim, eps=1e-5)
-        self.mel_head = (QuantDenseHead(c.model_dim, c.number_mel_codes) if head_quant
+        self.mel_head = (QuantDenseHead(c.model_dim, c.number_mel_codes, gemv) if head_quant
                          else nn.Linear(c.model_dim, c.number_mel_codes))
-        self.gpt = GPT2Core(c.layers, c.model_dim, c.heads, quantize)
+        self.gpt = GPT2Core(c.layers, c.model_dim, c.heads, quantize, gemv, wbits)
 
     # -- conditioning ------------------------------------------------------
 

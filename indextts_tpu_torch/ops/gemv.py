@@ -1,19 +1,29 @@
-"""W8A8 decode GEMV (kernel K5) and fused W8 MLP (kernel K6).
+"""Decode GEMVs and fused decode MLPs of the quantized GPT: W8A8 (kernels
+K5, K6) and W4A8 (kernels K7, K8).
 
-Counterparts of the JAX package's `gemv_w8` and `mlp_w8`
-(indextts_tpu/ops/gemv.py `_gemv_kernel`, `_mlp_kernel`), which the quantized
-GPT's single-row decode calls take with `gemv_impl="pallas"`:
+Counterparts of the JAX package's `gemv_w8`, `mlp_w8`, `gemv_w4` and
+`mlp_w4` (indextts_tpu/ops/gemv.py `_gemv_kernel`, `_mlp_kernel`,
+`_gemv4_kernel`, `_mlp4_kernel`), which the quantized GPT's single-row
+decode calls take with `gemv_impl="pallas"`:
 
   gemv_w8  y(b,F) = (xq(b,D) . w(D,F)) * (a * s) + bias
   mlp_w8   out(b,D) = sum_g q8_g(gelu_new(xq . fc * (a*s1) + b1)) . fc2_g
                       * (ha_g * s2), + b2 with group 0, groups added in order
+  gemv_w4  gemv_w8 over unpack_w4(wp(D/2,F), axis=0)
+  mlp_w4   mlp_w8 over unpack_w4(fc(D/2,FH), axis=0) and
+           unpack_w4(fc2(FH,D/2), axis=1), hidden groups of mlp_group_w4
 
-xq is the int8 row from `_quant_row` with its per-row scale a; weights are
-int8 (D, F) row-major as the JAX tree stores them, with per-column f32
-scales. The hidden of the MLP is quantized to int8 per group of
-`mlp_group(D, FH)` columns, each group with its own absmax scale: that width
-is part of the function (the JAX kernel's tile), not a tiling choice of the
-CUDA kernels. The gating (`supports`, `supports_mlp`) is the JAX package's.
+xq is the int8 row from `_quant_row` with its per-row scale a; W8 weights
+are int8 (D, F) row-major as the JAX tree stores them, with per-column f32
+scales. W4 weights hold two int4 values per byte (`pack_w4`): the low
+nibble is index i along the packed axis and the high nibble index i + n/2,
+both signed. The MLP's fc is packed along its rows (the contraction) and
+its fc2 along its output columns. The hidden of the MLP is quantized to
+int8 per group of `mlp_group(D, FH)` (W8) or `mlp_group_w4(D, FH)` (W4)
+columns, each group with its own absmax scale: that width is part of the
+function (the JAX kernel's tile), not a tiling choice of the CUDA kernels.
+The gating (`supports`, `supports_mlp`, `supports_w4`, `supports_mlp_w4`)
+is the JAX package's.
 
 The plain versions accumulate int8 x int8 exactly: in float64, which is exact
 below 2^53 (127^2 x D is far below) and runs on both devices. The CUDA
@@ -31,12 +41,13 @@ import torch
 
 from indextts_tpu_torch.ops import cuda_lib
 
-# the JAX kernels' target weight-tile bytes; it fixes mlp_w8's group width
+# the JAX kernels' target weight-tile bytes; they fix the MLP group widths
 _TARGET_TILE_BYTES = 512 * 1024
+_TARGET_TILE_BYTES_W4 = 256 * 1024
 # decode rows the kernels take at most (their register accumulators)
 MAX_ROWS = 16
-# the CUDA kernels: K5's output columns per cluster of blocks, the columns
-# a thread reads from each weight row, and the blocks of a cluster
+# the CUDA kernels: K5's and K7's output columns per cluster of blocks, the
+# columns a thread reads from each weight row, and the blocks of a cluster
 GEMV_TILE = 256
 THREAD_COLS = 8
 CLUSTER = 8
@@ -48,6 +59,8 @@ class _Counter:
 
 gemv_counter = _Counter()
 mlp_counter = _Counter()
+gemv4_counter = _Counter()
+mlp4_counter = _Counter()
 
 
 def _pick_block(d: int, f: int, max_blk: int = 1536,
@@ -81,6 +94,41 @@ def mlp_group(d: int, fh: int) -> int:
     return _pick_block(d, fh)
 
 
+def supports_w4(d: int, f: int) -> bool:
+    """Does a single-row W4A8 call on (d, f) take gemv_w4?"""
+    return d % 64 == 0 and d >= 256 and mlp_group_w4(d, f) > 0
+
+
+def supports_mlp_w4(d: int, fh: int) -> bool:
+    """Does a single-row W4 MLP of widths (d, fh) take mlp_w4?"""
+    return d % 256 == 0 and d >= 256 and fh % 64 == 0 and mlp_group_w4(d, fh) > 0
+
+
+def mlp_group_w4(d: int, fh: int) -> int:
+    """Width of mlp_w4's hidden activation-quantization group: the W4
+    kernel's tile over the d/2 packed rows at its own byte target. It
+    equals mlp_group(d, fh), since both halve together."""
+    return _pick_block(d // 2, fh, target=_TARGET_TILE_BYTES_W4)
+
+
+def pack_w4(q: torch.Tensor, cols: bool = False) -> torch.Tensor:
+    """int4 values in [-8, 7] -> int8 bytes, halving axis 1 (cols) or 0.
+    Byte = (hi << 4) | (lo & 0xF) with lo = index i and hi = index i + n/2
+    along the packed axis (indextts_tpu/models/gpt2.py `pack_w4`)."""
+    q = q.to(torch.int32)
+    lo, hi = q.chunk(2, dim=1 if cols else 0)
+    return (hi * 16 + (lo & 0xF)).to(torch.int8)
+
+
+def unpack_w4(wp: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Packed bytes -> int8 values in [-8, 7], doubling `axis`: the low
+    nibbles, then the high ones, each sign-extended (the inverse of
+    pack_w4; indextts_tpu/ops/gemv.py `unpack_w4`)."""
+    w = wp.to(torch.int32)
+    lo = ((w & 0xF) ^ 8) - 8
+    return torch.cat([lo, w >> 4], dim=axis).to(torch.int8)
+
+
 def gemv_max_rows() -> int:
     """Row threshold for the kernels on single-token calls (the JAX
     package's TARS_GEMV_MAX_ROWS, default 1)."""
@@ -105,14 +153,33 @@ def gemv_w8_plain(xq, a, w_q, w_scale, bias):
     return acc * (a.reshape(-1, 1).float() * w_scale) + bias
 
 
+def gemv_w4_plain(xq, a, w_p, w_scale, bias):
+    """gemv_w8_plain over w_p (D/2, F), packed along its rows."""
+    return gemv_w8_plain(xq, a, unpack_w4(w_p, axis=0), w_scale, bias)
+
+
 def mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
     """xq (b, D) int8; a (b,) or (b, 1); fc_q (D, FH) int8; fc2_q (FH, D)
     int8; scales and biases f32. Returns (b, D) f32."""
+    hb = mlp_group(*fc_q.shape)
+    return _mlp_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, hb)
+
+
+def mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
+    """mlp_w8_plain over fc_p (D/2, FH), packed along its rows, and fc2_p
+    (FH, D/2), packed along its columns: output columns j and j + D/2
+    share a byte. The hidden's groups are mlp_group_w4 wide."""
+    d2, fh = fc_p.shape
+    return _mlp_plain(xq, a, unpack_w4(fc_p, axis=0), fc_scale, fc_bias,
+                      unpack_w4(fc2_p, axis=1), fc2_scale, fc2_bias,
+                      mlp_group_w4(2 * d2, fh))
+
+
+def _mlp_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, hb):
     b, d = xq.shape
     fh = fc_q.shape[1]
-    hb = mlp_group(d, fh)
     if hb == 0:
-        raise ValueError(f"mlp_w8 has no group width for D={d}, FH={fh}")
+        raise ValueError(f"the fused MLP has no group width for D={d}, FH={fh}")
     n_groups = fh // hb
     h = int8_matmul(xq, fc_q) * (a.reshape(-1, 1).float() * fc_scale) + fc_bias
     h = gelu_new_kernel_form(h).reshape(b, n_groups, hb)
@@ -146,23 +213,38 @@ def gemv_w8(xq, a, w_q, w_scale, bias):
     if xq.device.type == "cpu":
         return gemv_w8_plain(xq, a, w_q, w_scale, bias)
     d, f = w_q.shape
-    if w_q.dtype != torch.int8 or f % THREAD_COLS:
-        raise ValueError(f"gemv_w8: weight must be int8 (D, F) with F a multiple of "
-                         f"{THREAD_COLS}, got {w_q.dtype} {tuple(w_q.shape)}")
+    return _launch_gemv("gemv_w8", gemv_counter, xq, a, w_q, w_scale, bias, d, f)
+
+
+def gemv_w4(xq, a, w_p, w_scale, bias):
+    """K7 on CUDA tensors, the plain version on CPU tensors. w_p (D/2, F)
+    is packed along its rows."""
+    if xq.device.type == "cpu":
+        return gemv_w4_plain(xq, a, w_p, w_scale, bias)
+    d2, f = w_p.shape
+    return _launch_gemv("gemv_w4", gemv4_counter, xq, a, w_p, w_scale, bias, 2 * d2, f)
+
+
+def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
+    """One launch of the C entry point `symbol`(xq, a, w, s, bias, y, b, D,
+    F, stream); D is the contraction width, whatever w's packing."""
+    if w.dtype != torch.int8 or f % THREAD_COLS:
+        raise ValueError(f"{symbol}: weight must be int8 with F a multiple of "
+                         f"{THREAD_COLS}, got {w.dtype} {tuple(w.shape)}")
     a = a.reshape(-1).float().contiguous()
     w_scale, bias = w_scale.float().contiguous(), bias.float().contiguous()
     xq = xq.contiguous()
-    _check("gemv_w8", xq, (a, w_q, w_scale, bias), d)
+    _check(symbol, xq, (a, w, w_scale, bias), d)
     b = xq.shape[0]
     if a.shape != (b,) or w_scale.shape != (f,) or bias.shape != (f,):
-        raise ValueError("gemv_w8: scale or bias shape does not match")
+        raise ValueError(f"{symbol}: scale or bias shape does not match")
     out = torch.empty((b, f), device=xq.device, dtype=torch.float32)
-    fn = cuda_lib.function("gemv", "gemv_w8", [cuda_lib.P] * 6 + [cuda_lib.I] * 3 + [cuda_lib.P])
+    fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 6 + [cuda_lib.I] * 3 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    err = fn(xq.data_ptr(), a.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+    err = fn(xq.data_ptr(), a.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
              bias.data_ptr(), out.data_ptr(), b, d, f, stream)
-    cuda_lib.check(err, "gemv_w8")
-    gemv_counter.launches += 1
+    cuda_lib.check(err, symbol)
+    counter.launches += 1
     return out
 
 
@@ -171,28 +253,50 @@ def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
     if xq.device.type == "cpu":
         return mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias)
     d, fh = fc_q.shape
-    hb = mlp_group(d, fh)
-    if not supports_mlp(d, fh) or hb % (THREAD_COLS * CLUSTER):
-        raise ValueError(f"mlp_w8: widths D={d}, FH={fh} are not supported")
-    if fc_q.dtype != torch.int8 or fc2_q.dtype != torch.int8 or fc2_q.shape != (fh, d):
-        raise ValueError("mlp_w8: weights must be int8 (D, FH) and (FH, D)")
+    if not supports_mlp(d, fh) or fc2_q.shape != (fh, d):
+        raise ValueError(f"mlp_w8: weights {tuple(fc_q.shape)} and {tuple(fc2_q.shape)} "
+                         "are not a supported (D, FH) and (FH, D)")
+    return _launch_mlp("mlp_w8", mlp_counter, xq, a, fc_q, fc_scale, fc_bias,
+                       fc2_q, fc2_scale, fc2_bias, d, fh, mlp_group(d, fh))
+
+
+def mlp_w4(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
+    """K8 on CUDA tensors, the plain version on CPU tensors. fc_p (D/2, FH)
+    is packed along its rows, fc2_p (FH, D/2) along its columns."""
+    if xq.device.type == "cpu":
+        return mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias)
+    d2, fh = fc_p.shape
+    d = 2 * d2
+    if not supports_mlp_w4(d, fh) or fc2_p.shape != (fh, d2):
+        raise ValueError(f"mlp_w4: packed weights {tuple(fc_p.shape)} and "
+                         f"{tuple(fc2_p.shape)} are not a supported (D/2, FH) and (FH, D/2)")
+    return _launch_mlp("mlp_w4", mlp4_counter, xq, a, fc_p, fc_scale, fc_bias,
+                       fc2_p, fc2_scale, fc2_bias, d, fh, mlp_group_w4(d, fh))
+
+
+def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, fc2_bias,
+                d, fh, hb):
+    """The two launches of the C entry point `symbol`, over a scratch of the
+    int8 hidden and its group scales."""
+    if hb % (THREAD_COLS * CLUSTER) or fc.dtype != torch.int8 or fc2.dtype != torch.int8:
+        raise ValueError(f"{symbol}: int8 weights with groups of a multiple of "
+                         f"{THREAD_COLS * CLUSTER} columns needed, got {fc.dtype}, "
+                         f"{fc2.dtype}, group {hb}")
     a = a.reshape(-1).float().contiguous()
     vecs = [t.float().contiguous() for t in (fc_scale, fc_bias, fc2_scale, fc2_bias)]
     xq = xq.contiguous()
-    _check("mlp_w8", xq, (a, fc_q, fc2_q, *vecs), d)
+    _check(symbol, xq, (a, fc, fc2, *vecs), d)
     b = xq.shape[0]
     if a.shape != (b,) or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
-        raise ValueError("mlp_w8: scale or bias shape does not match")
-    n_groups = fh // hb
-    # the two launches' scratch: the int8 hidden and its group scales
+        raise ValueError(f"{symbol}: scale or bias shape does not match")
     hq = torch.empty((b, fh), device=xq.device, dtype=torch.int8)
-    ha = torch.empty((b, n_groups), device=xq.device, dtype=torch.float32)
+    ha = torch.empty((b, fh // hb), device=xq.device, dtype=torch.float32)
     out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
-    fn = cuda_lib.function("gemv", "mlp_w8", [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
+    fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    err = fn(xq.data_ptr(), a.data_ptr(), fc_q.data_ptr(), vecs[0].data_ptr(),
-             vecs[1].data_ptr(), fc2_q.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
+    err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
+             vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
              hq.data_ptr(), ha.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
-    cuda_lib.check(err, "mlp_w8")
-    mlp_counter.launches += 1
+    cuda_lib.check(err, symbol)
+    counter.launches += 1
     return out

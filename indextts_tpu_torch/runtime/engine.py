@@ -8,15 +8,18 @@ teacher-forced latent pass, gpt_layer + vq2emb + length regulator, CFM
 (20 Euler steps, CFG), BigVGAN, on-device PCM16.
 
 The quantized GPT route of the JAX package is honoured: `gpt_quantize`
-(W8A8 blocks, `gpt_wbits=8`), `head_quant` (int8 logits head, with
-gpt_quantize) and an int8 KV cache (`kv_quant`, or `attn_impl="pallas_q8"`).
-The engine quantizes a float GPT state dict at construction (a tree already
-quantized by the JAX package's `quantize_gpt_tree` is taken as is) and keeps
-no float copy of the quantized weights.
+(W8A8 blocks with `gpt_wbits=8`, W4A8 with `gpt_wbits=4`), `head_quant`
+(int8 logits head, with gpt_quantize) and an int8 KV cache (`kv_quant`, or
+`attn_impl="pallas_q8"`). The engine quantizes a float GPT state dict at
+construction (a tree already quantized by the JAX package's
+`quantize_gpt_tree` is taken as is) and keeps no float copy of the
+quantized weights. `gemv_impl` resolves as in the JAX engine
+(`resolve_gemv`), with the card in the TPU's place: the decode kernels of
+ops/gemv.py run under "pallas", and under "auto" for W4 on CUDA only.
 
 Routes the port does not implement raise NotImplementedError: beam search
-(num_beams > 1), batched segments, emo_vector / use_emo_text, W4 GPT
-weights (gpt_wbits=4), and bfloat16 s2mel or vocoder dtypes.
+(num_beams > 1), batched segments, emo_vector / use_emo_text, and bfloat16
+s2mel or vocoder dtypes.
 
 Runs on `cuda` unless the caller passes `device="cpu"`. Float32 compute;
 the constructor turns TF32 off for matmuls and cuDNN convolutions, which
@@ -49,23 +52,25 @@ from indextts_tpu_torch.utils import audio as audio_utils
 from indextts_tpu_torch.utils.device import resolve_device
 from indextts_tpu_torch.weights import quantize_gpt_state_dict
 
-MODELS: Dict[str, Callable[[IndexTTS2Config], torch.nn.Module]] = {
-    "gpt": lambda c: UnifiedVoice(c.gpt, quantize=c.runtime.gpt_quantize,
-                                  head_quant=head_quant(c)),
-    "s2mel": lambda c: S2Mel(c.s2mel),
-    "bigvgan": lambda c: BigVGAN(c.vocoder),
-    "repcodec": lambda c: RepCodec(c.semantic_codec),
-    "campplus": lambda c: CAMPPlus(c.campplus),
-    "w2vbert": lambda c: W2VBertEncoder(c.w2vbert),
+# each model of the cascade, built from the config for the device it runs on
+MODELS: Dict[str, Callable[[IndexTTS2Config, torch.device], torch.nn.Module]] = {
+    "gpt": lambda c, dev: UnifiedVoice(c.gpt, quantize=c.runtime.gpt_quantize,
+                                       head_quant=head_quant(c), wbits=c.runtime.gpt_wbits,
+                                       gemv=resolve_gemv(c, dev)),
+    "s2mel": lambda c, dev: S2Mel(c.s2mel),
+    "bigvgan": lambda c, dev: BigVGAN(c.vocoder),
+    "repcodec": lambda c, dev: RepCodec(c.semantic_codec),
+    "campplus": lambda c, dev: CAMPPlus(c.campplus),
+    "w2vbert": lambda c, dev: W2VBertEncoder(c.w2vbert),
 }
 
 
 def load_model(name: str, cfg: IndexTTS2Config, state_dict: Dict[str, torch.Tensor],
-               device) -> torch.nn.Module:
+               device: torch.device) -> torch.nn.Module:
     """Build model `name` without initializing it and adopt `state_dict`
     (moved to `device`) as its parameters; eval mode, no gradients."""
     with torch.device("meta"):
-        m = MODELS[name](cfg)
+        m = MODELS[name](cfg, device)
     sd = {k: v.to(device) for k, v in state_dict.items()}
     m.load_state_dict(sd, strict=True, assign=True)
     return m.eval().requires_grad_(False)
@@ -111,6 +116,20 @@ def head_quant(cfg: IndexTTS2Config) -> bool:
     return cfg.runtime.head_quant and cfg.runtime.gpt_quantize
 
 
+def resolve_gemv(cfg: IndexTTS2Config, device) -> bool:
+    """Do the quantized GPT's single-row decode calls take the kernels of
+    ops/gemv.py? The JAX engine's resolution of `gemv_impl`
+    (indextts_tpu/runtime/engine.py:117-138), with the card in the TPU's
+    place: "pallas" takes them; "auto" takes them for W4 on CUDA, where the
+    packed weights pay only through the kernels, and leaves W8 and every
+    other device on the plain contraction; anything else does not."""
+    rt = cfg.runtime
+    if rt.gemv_impl == "auto":
+        wbits = rt.gpt_wbits if rt.gpt_quantize else 8
+        return wbits == 4 and torch.device(device).type == "cuda"
+    return rt.gemv_impl == "pallas"
+
+
 def kv_int8(cfg: IndexTTS2Config) -> bool:
     """An int8 KV cache: kv_quant, or the JAX package's pallas_q8 route."""
     return cfg.runtime.kv_quant or cfg.runtime.attn_impl == "pallas_q8"
@@ -123,10 +142,9 @@ def _float_gpt(cfg: IndexTTS2Config) -> IndexTTS2Config:
 
 def _check_supported(cfg: IndexTTS2Config) -> None:
     rt = cfg.runtime
-    if rt.gpt_quantize and rt.gpt_wbits != 8:
-        raise NotImplementedError(
-            f"runtime.gpt_wbits={rt.gpt_wbits}: only W8A8 (8) is ported; W4 "
-            "(gemv_w4, mlp_w4) is the next slice of the port")
+    if rt.gpt_quantize and rt.gpt_wbits not in (8, 4):
+        raise ValueError(f"runtime.gpt_wbits={rt.gpt_wbits}: quantized GPT weights "
+                         "have 8 or 4 bits")
     for name in ("s2mel_dtype", "voc_dtype"):
         if getattr(rt, name) != "float32":
             raise NotImplementedError(f"runtime.{name}={getattr(rt, name)!r}: "
@@ -148,7 +166,7 @@ def random_params(cfg: IndexTTS2Config, seed: int = 0, device=None) -> Dict[str,
         torch.manual_seed(seed)
         for name, ctor in MODELS.items():
             with torch.device(dev):
-                out[name] = dict(ctor(cfg).state_dict())
+                out[name] = dict(ctor(cfg, dev).state_dict())
     return out
 
 
@@ -174,7 +192,8 @@ class IndexTTS2Engine:
         params = dict(params)
         gpt_sd = params["gpt"]
         if cfg.runtime.gpt_quantize and "gpt.h.0.attn.c_attn.weight" in gpt_sd:
-            params["gpt"] = quantize_gpt_state_dict(gpt_sd, head=head_quant(cfg))
+            params["gpt"] = quantize_gpt_state_dict(gpt_sd, head=head_quant(cfg),
+                                                    bits=cfg.runtime.gpt_wbits)
         mods = {name: load_model(name, cfg, params[name], self.device) for name in MODELS}
         self.gpt: UnifiedVoice = mods["gpt"]
         self.s2mel: S2Mel = mods["s2mel"]

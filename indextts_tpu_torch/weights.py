@@ -18,12 +18,14 @@ that the port's modules carry:
 Weight-normed reference layers (weight_g/weight_v) are carried folded, as
 `.weight`.
 
-A GPT tree that the JAX package's `quantize_gpt_tree` (bits=8) already
-quantized carries across too: each block layer's {kernel_q, kernel_scale,
-bias} becomes {weight_q, weight_scale, bias}, and the lane-padded int8
-`mel_head` the same. `quantize_gpt_state_dict` is the port's own copy of
-that quantization, on a float state dict. int8 weights keep the JAX
-layout, (in, out) row-major, which is what the kernels of ops/gemv.py read.
+A GPT tree that the JAX package's `quantize_gpt_tree` already quantized
+carries across too: each block layer's {kernel_q (bits=8) or kernel_q4
+(bits=4), kernel_scale, bias} becomes {weight_q or weight_q4, weight_scale,
+bias}, and the lane-padded int8 `mel_head` the same.
+`quantize_gpt_state_dict` is the port's own copy of that quantization, on a
+float state dict. Quantized weights keep the JAX layout byte for byte: int8
+(in, out) row-major, or packed int4 pairs (in/2, out), or (in, out/2) for
+the MLP's c_proj; that is what the kernels of ops/gemv.py read.
 """
 
 from __future__ import annotations
@@ -140,9 +142,8 @@ def _i8(a) -> torch.Tensor:
 
 def _quantized(p: dict) -> dict:
     """A quantized JAX Conv1D / dense-head tree -> the port's buffers."""
-    if "kernel_q4" in p:
-        raise NotImplementedError("W4 GPT weights (gpt_wbits=4) are not ported yet")
-    return {"weight_q": _i8(p["kernel_q"]), "weight_scale": p["kernel_scale"],
+    key = "kernel_q4" if "kernel_q4" in p else "kernel_q"
+    return {key.replace("kernel", "weight"): _i8(p[key]), "weight_scale": p["kernel_scale"],
             "bias": p["bias"]}
 
 
@@ -360,21 +361,27 @@ CONVERTERS = {
 }
 
 
-def quantize_gpt_state_dict(sd: SD, head: bool) -> SD:
-    """A float UnifiedVoice state dict -> its W8A8 layout (the JAX package's
-    `quantize_gpt_tree` with bits=8): every GPT-2 block matmul's weight
-    becomes int8 with a per-output-channel f32 scale, and with `head` the
+def quantize_gpt_state_dict(sd: SD, head: bool, bits: int = 8) -> SD:
+    """A float UnifiedVoice state dict -> its quantized layout (the JAX
+    package's `quantize_gpt_tree`): every GPT-2 block matmul's weight becomes
+    int8 (bits=8) or packed int4 (bits=4; the MLP's c_proj packed along its
+    columns) with a per-output-channel f32 scale, and with `head` the
     mel_head becomes the int8 head with its columns padded to a multiple of
     128 (padding: zero weight and bias, scale 1). Other entries are kept;
     the float weights that were quantized are not."""
-    from indextts_tpu_torch.models.gpt2 import quantize_weight
+    from indextts_tpu_torch.models.gpt2 import quantize_weight, quantize_weight_w4
 
+    if bits not in (8, 4):
+        raise ValueError(f"quantized GPT weights have 8 or 4 bits, not {bits}")
     out = {}
     for key, v in sd.items():
         name, _, leaf = key.rpartition(".")
         block = name.startswith("gpt.h.") and name.endswith(
             ("attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj"))
-        if block and leaf == "weight":
+        if block and leaf == "weight" and bits == 4:
+            out[f"{name}.weight_q4"], out[f"{name}.weight_scale"] = quantize_weight_w4(
+                v, cols=name.endswith("mlp.c_proj"))
+        elif block and leaf == "weight":
             out[f"{name}.weight_q"], out[f"{name}.weight_scale"] = quantize_weight(v)
         elif not (head and name == "mel_head"):
             out[key] = v

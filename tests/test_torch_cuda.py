@@ -5,9 +5,9 @@ port is installed: `python -m pytest --noconftest tests/test_torch_cuda.py`
 (the repository's conftest imports JAX). Tolerances: fp32 online softmax
 against a one-shot softmax (K1, K3); the same fp32 algebra with sinf/expf
 and FMA contraction (K2); for K4 as for K1 over an int8 cache, 1e-5; K5
-and K6 exact int32 sums with the plain versions' float32 operations in the
-same order, so their results agree to the last bit or within one unit of it
-(1e-6 of max|out| is allowed).
+to K8 exact int32 sums with the plain versions' float32 operations in the
+same order, so their results agree to the last bit (K7 is held to that) or
+within one unit of it (1e-6 of max|out| is allowed).
 """
 
 import pytest
@@ -112,4 +112,37 @@ def test_k6_cuda_matches_plain(cuda_device, b, d):
     ws = _q8(g, cuda_device, d, 4 * d) + _q8(g, cuda_device, 4 * d, d)
     got = gemv.mlp_w8(xq, a, *ws)
     want = gemv.mlp_w8_plain(xq, a, *ws)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def _q4(g, dev, d, f, cols=False):
+    from indextts_tpu_torch.models.gpt2 import quantize_weight_w4
+
+    w_p, s = quantize_weight_w4(torch.randn((d, f), generator=g, device=dev) / d ** 0.5, cols)
+    return w_p, s, torch.randn((f,), generator=g, device=dev) * 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 3840), (1, 1280, 1280),
+                                   (3, 1280, 1280), (1, 1280, 384)])
+def test_k7_cuda_matches_plain(cuda_device, b, d, f):
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xq, a = quant_row(torch.randn((b, d), generator=g, device=cuda_device))
+    w = _q4(g, cuda_device, d, f)
+    got = gemv.gemv_w4(xq, a, *w)
+    assert torch.equal(got, gemv.gemv_w4_plain(xq, a, *w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(1, 1280), (3, 1280), (1, 512), (3, 512)])
+def test_k8_cuda_matches_plain(cuda_device, b, d):
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xq, a = quant_row(torch.randn((b, d), generator=g, device=cuda_device))
+    ws = _q4(g, cuda_device, d, 4 * d) + _q4(g, cuda_device, 4 * d, d, cols=True)
+    got = gemv.mlp_w4(xq, a, *ws)
+    want = gemv.mlp_w4_plain(xq, a, *ws)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()

@@ -83,16 +83,6 @@ def test_quantize_gpt_state_dict_matches_quantize_gpt_tree():
         np.testing.assert_array_equal(n(mine[k]), n(want[k]), err_msg=k)
 
 
-def test_w4_tree_raises():
-    """W4 (gpt_wbits=4) is the next slice: its packed trees do not load."""
-    from indextts_tpu.runtime.torch_convert import quantize_gpt_tree
-
-    cfg = parity_config()
-    jp = parity_params(cfg, seed=2)
-    with pytest.raises(NotImplementedError, match="W4"):
-        from_jax_params(dict(jp, gpt=quantize_gpt_tree(jp["gpt"], bits=4)), to_port_config(cfg))
-
-
 # ---------------------------------------------------------------------------
 # K5 gemv_w8, K6 mlp_w8: gating and plain versions
 # ---------------------------------------------------------------------------
@@ -248,37 +238,49 @@ def test_greedy_decode_token_exact_with_jax_kernels(n_text, bucket):
     c_proj and the head through gemv_w8, the MLP through mlp_w8 (2 groups),
     attention over the int8 cache. The JAX decoder runs the Pallas kernels
     in interpret mode (attn_impl="pallas_q8", gemv_impl="pallas", blocks of
-    32 tokens); the port runs their plain versions. Equal codes and
-    lengths; bucket > n_text puts the left-pad hole in the prompt.
+    32 tokens); the port, built with gemv_impl="pallas", runs their plain
+    versions. Equal codes and lengths; bucket > n_text puts the left-pad
+    hole in the prompt.
 
     Random weights give a 36-token vocabulary close logits, and int8
     rounding turns float32 noise (XLA's fused programs against PyTorch's
     ops) into occasional one-step flips, which moved a logit by 3e-3 on
     another seed. The weights' seed is one whose greedy paths have no near
     tie: top-2 margins of at least 0.03 on both prompts."""
+    greedy_decode_matches_jax(24, n_text, bucket, wbits=8, gemv_impl="pallas")
+
+
+def greedy_decode_matches_jax(seed, n_text, bucket, wbits, gemv_impl):
+    """Greedy decode of the D=512 GPT with `seed`'s weights, quantized to
+    `wbits` with the int8 head and an int8 cache, on the JAX decoder (its
+    Pallas kernels in interpret mode) and on the port's, whose model the
+    engine's load_model builds from a config with the same gemv_impl.
+    Equal codes and lengths."""
     from indextts_tpu.models.unified_voice import UnifiedVoice as JUV
     from indextts_tpu.runtime.decode import GPTDecoder as JDecoder
     from indextts_tpu.runtime.decode import SamplingConfig as JSampling
     from indextts_tpu.runtime.torch_convert import quantize_gpt_tree
 
     from indextts_tpu_torch import weights
-    from indextts_tpu_torch.models.unified_voice import UnifiedVoice
     from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
+    from indextts_tpu_torch.runtime.engine import load_model
     from test_engine_e2e import tiny_config
 
     gcfg = _gpt_config(512, 8)
-    tree = _jax_gpt_tree(gcfg, seed=24)
+    tree = _jax_gpt_tree(gcfg, seed=seed)
     jmodel = JUV(gcfg, quantize_gpt=True, head_quant=True, attn_impl="pallas_q8",
-                 gemv_impl="pallas", pallas_interpret=True)
+                 gemv_impl=gemv_impl, wbits=wbits, pallas_interpret=True)
     jdec = JDecoder(jmodel, gcfg, JSampling(do_sample=False))
     jdec.BLKQ = 32
-    jparams = {"params": quantize_gpt_tree(tree, head=True)}
+    jparams = {"params": quantize_gpt_tree(tree, head=True, bits=wbits)}
 
-    pcfg = to_port_config(dataclasses.replace(tiny_config(), gpt=gcfg))
-    sd = quantize_gpt_state_dict(weights.unified_voice_sd(tree, pcfg), head=True)
-    model = UnifiedVoice(pcfg.gpt, quantize=True, head_quant=True)
-    model.load_state_dict(sd, strict=True)
-    pdec = GPTDecoder(model.eval(), pcfg.gpt, SamplingConfig(do_sample=False), kv_int8=True)
+    cfg = tiny_config()
+    rt = dataclasses.replace(cfg.runtime, gpt_quantize=True, head_quant=True, gpt_wbits=wbits,
+                             gemv_impl=gemv_impl)
+    pcfg = to_port_config(dataclasses.replace(cfg, gpt=gcfg, runtime=rt))
+    sd = quantize_gpt_state_dict(weights.unified_voice_sd(tree, pcfg), head=True, bits=wbits)
+    model = load_model("gpt", pcfg, sd, "cpu")
+    pdec = GPTDecoder(model, pcfg.gpt, SamplingConfig(do_sample=False), kv_int8=True)
 
     rng = np.random.default_rng(n_text)
     conds = rng.standard_normal((1, 34, 512)).astype(np.float32)
@@ -292,6 +294,7 @@ def test_greedy_decode_token_exact_with_jax_kernels(n_text, bucket):
     assert len(set(np.asarray(want.codes)[0].tolist())) > 3  # not a degenerate row
     np.testing.assert_array_equal(n(got.codes), np.asarray(want.codes))
     np.testing.assert_array_equal(n(got.lengths), np.asarray(want.lengths))
+    return model
 
 
 def test_quantized_slice_matches_jax_engine(monkeypatch):
@@ -300,18 +303,25 @@ def test_quantized_slice_matches_jax_engine(monkeypatch):
     float parameters, speaker audio, text and CFM noise. Codes equal; mel
     within 1e-4 of its largest value and waveform within 1e-3 of its peak,
     as the float slice test."""
+    monkeypatch.setenv("INDEXTTS_NATIVE_DSP", "0")
+    pe = quantized_slice_matches_jax(parity_config(gpt_quantize=True, head_quant=True,
+                                                   kv_quant=True))
+    assert pe.gpt.gpt.h[0].attn.c_attn.weight_q.dtype == torch.int8
+
+
+def quantized_slice_matches_jax(cfg, seed: int = 1):
+    """One greedy request of `cfg` through the JAX engine and the port's
+    from the same float parameters (`seed`); returns the port's engine."""
     from indextts_tpu.runtime.engine import IndexTTS2Engine as JaxEngine
 
     from indextts_tpu_torch.runtime.engine import IndexTTS2Engine
     from test_torch_slice import _capture_codes
 
-    monkeypatch.setenv("INDEXTTS_NATIVE_DSP", "0")
-    cfg = parity_config(gpt_quantize=True, head_quant=True, kv_quant=True)
-    jp = parity_params(cfg, seed=1)
+    jp = parity_params(cfg, seed=seed)
     pcfg = to_port_config(cfg)
     je = JaxEngine(cfg, jp, precise_shapes=True)
     pe = IndexTTS2Engine(pcfg, from_jax_params(jp, pcfg), device="cpu")
-    assert pe.decoder.kv_int8 and pe.gpt.gpt.h[0].attn.c_attn.weight_q.dtype == torch.int8
+    assert pe.decoder.kv_int8
     rng = np.random.default_rng(0)
     prompt = speech_like(rng, 1.2, 16000)
     text = rng.integers(2, 50, 9)
@@ -337,3 +347,4 @@ def test_quantized_slice_matches_jax_engine(monkeypatch):
     assert np.abs(pm - jm).max() <= 1e-4 * np.abs(jm).max()
     assert 0 < np.abs(jw).max() < 1.0
     assert np.abs(pw - jw).max() <= 1e-3 * np.abs(jw).max()
+    return pe

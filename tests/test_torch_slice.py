@@ -181,8 +181,7 @@ def test_unported_routes_raise():
 
     cfg = to_port_config(parity_config())
     params = random_params(cfg, seed=0, device="cpu")
-    for fields in ({"gpt_quantize": True, "gpt_wbits": 4}, {"s2mel_dtype": "bfloat16"},
-                   {"voc_dtype": "bfloat16"}):
+    for fields in ({"s2mel_dtype": "bfloat16"}, {"voc_dtype": "bfloat16"}):
         bad = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, **fields))
         with pytest.raises(NotImplementedError):
             IndexTTS2Engine(bad, params, device="cpu")
