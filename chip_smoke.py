@@ -151,6 +151,23 @@ def cuda_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return a.elapsed_time(b) / (iters * replays)
 
 
+def device_kernels(fn, calls: int = 48):
+    """The device kernels that one fn() call launches, from torch.profiler
+    over `calls` calls after one warm-up: {kernel name: (launches per call,
+    device ms per call)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / calls, e.device_time_total / 1e3 / calls)
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -521,32 +538,86 @@ def check_k5(layers: int, d: int, vocab: int):
             "bound_ms": tot["bound"], "bound_by": "bytes", "library_ms": tot["lib"]}
 
 
+def replays_equal(label: str, fn, got):
+    """Two more fn() calls, then two replays of a CUDA graph of one call,
+    must give `got` to the bit (the fused MLPs re-arm their counters)."""
+    import torch
+
+    same = [torch.equal(fn(), got) for _ in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(out, got))
+    print(f"{label} repeated: 2 calls and 2 graph replays equal to the first call's bits: "
+          f"{same}")
+    if not all(same):
+        fail(f"{label}: repeated calls or graph replays changed the result")
+
+
+def check_mlp_cases(label: str, mlp, plain, weights, group, d: int, d_one: int, seed: int):
+    """A fused MLP against its plain version at full width (1, 3 and 16
+    rows), at D=512 (two groups) and at d_one, where FH=4*d_one is one group, each
+    within 1e-6 of max|out| (exact int32 sums, the plain versions' float32
+    operations in their order); full width is also called again and replayed
+    from a CUDA graph. Returns the largest error."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rel_tol = 1e-6
+    cases = [("full width", 1, d), ("full width b=3", 3, d), ("full width b=16", 16, d),
+             ("D=512", 1, 512), ("D=512 b=3", 3, 512), ("one group", 1, d_one)]
+    err_max = 0.0
+    for name, b, di in cases:
+        fh = 4 * di
+        xq, a = q8_row(g, b, di)
+        w = weights(g, di, fh)
+        got = mlp(xq, a, *w)
+        want = plain(xq, a, *w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        err_max = max(err_max, err)
+        print(f"{label} {name}: D={di} FH={fh} rows={b} groups={fh // group(di, fh)} "
+              f"max_abs_err={err:.3g} of max|out| {scale:.3g} (tol {rel_tol} relative)")
+        if not err <= rel_tol * scale:
+            fail(f"{label} {name} disagrees with its plain version: {err}")
+        if name == "full width":
+            replays_equal(label, lambda: mlp(xq, a, *w), got)
+    return err_max
+
+
+def one_launch(label: str, call):
+    """torch.profiler's count of the device kernels of one call: must be 1."""
+    kernels = device_kernels(call)
+    for name, (n, ms) in kernels.items():
+        print(f"{label} device kernel {name[:60]}: {n:g} per call, {ms:.5f} ms")
+    n = sum(n for n, _ in kernels.values())
+    print(f"{label} kernels launched per call: {n:g}")
+    if n != 1:
+        fail(f"{label} launches {n} kernels per call, not one")
+
+
 def check_k6(layers: int, d: int):
     import torch
 
     from indextts_tpu_torch.ops import gemv as k6
 
+    err = check_mlp_cases("K6", k6.mlp_w8, k6.mlp_w8_plain,
+                          lambda g, di, fh: q8_weight(g, di, fh) + q8_weight(g, fh, di),
+                          k6.mlp_group, d, 128, 6)
     g = torch.Generator(device="cuda").manual_seed(6)
-    rel_tol = 1e-6  # as K5; the group partials are added in the same order
-    errs = {}
-    for name, b, di in (("full width", 1, d), ("full width b=3", 3, d), ("D=512", 1, 512)):
-        fh = 4 * di
-        xq, a = q8_row(g, b, di)
-        w = q8_weight(g, di, fh) + q8_weight(g, fh, di)
-        got = k6.mlp_w8(xq, a, *w)
-        want = k6.mlp_w8_plain(xq, a, *w)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        errs[name] = err
-        print(f"K6 {name}: D={di} FH={fh} groups={fh // k6.mlp_group(di, fh)} "
-              f"max_abs_err={err:.3g} of max|out| {scale:.3g} (tol {rel_tol} relative)")
-        if not err <= rel_tol * scale:
-            fail(f"K6 {name} disagrees with its plain version: {err}")
-
     fh = 4 * d
     xq, a = q8_row(g, 1, d)
     args = [(xq, a, *q8_weight(g, d, fh), *q8_weight(g, fh, d)) for _ in range(layers)]
+    one_launch("K6", cycled(k6.mlp_w8, args))
     ms = cuda_ms(cycled(k6.mlp_w8, args), iters=2 * layers)
     plain = cuda_ms(cycled(k6.mlp_w8_plain, args), iters=layers, replays=2)
     hq = torch.zeros((1, fh), dtype=torch.int8, device="cuda")
@@ -559,7 +630,7 @@ def check_k6(layers: int, d: int):
     return {"name": "K6 mlp_w8", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/gemv.cu",
             "replaces": "indextts_tpu/ops/gemv.py:232",
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
 
 
@@ -631,29 +702,16 @@ def check_k8(layers: int, d: int):
 
     from indextts_tpu_torch.ops import gemv as k8
 
+    err = check_mlp_cases(
+        "K8", k8.mlp_w4, k8.mlp_w4_plain,
+        lambda g, di, fh: q4_weight(g, di, fh) + q4_weight(g, fh, di, cols=True),
+        k8.mlp_group_w4, d, 256, 8)
     g = torch.Generator(device="cuda").manual_seed(8)
-    rel_tol = 1e-6  # as K6; the group partials are added in the same order
-    errs = {}
-    for name, b, di in (("full width", 1, d), ("full width b=3", 3, d), ("D=512", 1, 512),
-                        ("D=512 b=3", 3, 512)):
-        fh = 4 * di
-        xq, a = q8_row(g, b, di)
-        w = q4_weight(g, di, fh) + q4_weight(g, fh, di, cols=True)
-        got = k8.mlp_w4(xq, a, *w)
-        want = k8.mlp_w4_plain(xq, a, *w)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        errs[name] = err
-        print(f"K8 {name}: D={di} FH={fh} groups={fh // k8.mlp_group_w4(di, fh)} "
-              f"max_abs_err={err:.3g} of max|out| {scale:.3g} (tol {rel_tol} relative)")
-        if not err <= rel_tol * scale:
-            fail(f"K8 {name} disagrees with its plain version: {err}")
-
     fh = 4 * d
     xq, a = q8_row(g, 1, d)
     args = [(xq, a, *q4_weight(g, d, fh), *q4_weight(g, fh, d, cols=True))
             for _ in range(layers)]
+    one_launch("K8", cycled(k8.mlp_w4, args))
     ms = cuda_ms(cycled(k8.mlp_w4, args), iters=2 * layers)
     plain = cuda_ms(cycled(k8.mlp_w4_plain, args), iters=layers, replays=2)
     hq = torch.zeros((1, fh), dtype=torch.int8, device="cuda")
@@ -668,7 +726,7 @@ def check_k8(layers: int, d: int):
     return {"name": "K8 mlp_w4", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/gemv.cu",
             "replaces": "indextts_tpu/ops/gemv.py:323",
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
 
 

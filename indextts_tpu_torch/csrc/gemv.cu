@@ -18,46 +18,50 @@
 // decode row (1..16 rows) from `_quant_row`, a its per-row scale. Products
 // accumulate exactly in int32; the float epilogue uses the same float32
 // operations in the same order as the plain PyTorch versions (ops/gemv.py),
-// with FMA contraction ruled out (__fmul_rn / __fadd_rn). On an H100 K5
-// equals its plain version to the bit and K6 to within one unit in the last
-// place. The group partials of K6 and K8 are added in group order by one
-// thread per output: no float atomics, so repeated runs give the same bits.
+// with FMA contraction ruled out (__fmul_rn / __fadd_rn). On an H100 K5 and
+// K7 equal their plain versions to the bit. The group partials of K6 and K8
+// are added in group order by one thread per output: no float atomics, so
+// repeated runs give the same bits.
 //
 // Bound on the H100: bytes. A decode row reads each weight byte once and
 // does two (W8) or four (W4) integer operations per byte, far below the
 // card's ridge. At batch 1 the work is one weight stream, so the design is
 // about spreading it over the SMs: every kernel runs in clusters of 8 blocks
-// (Hopper thread block clusters) that split one output tile's contraction
-// and combine their int32 partials through distributed shared memory, so no
-// partial sums go through device memory and each stream is one launch.
-//
-// Inside a block a thread owns 8 columns (one 8-byte load per weight row)
-// and walks its rows in batches of 8 whose loads are all issued before any
-// is used, so each thread keeps 64 bytes of the weight stream in flight.
-// The accumulators are int32 registers for at most 4 rows (the decode rows,
-// or a beam of 3) or, in a second instantiation, 16. Under W4 a packed row
-// feeds two activations, xq[i] and xq[i + D/2], and its nibbles are
-// sign-extended with two shifts each.
+// (Hopper thread block clusters) that combine their int32 partials through
+// distributed shared memory, so each call is one launch.
 //
 // - K5 / K7: a cluster owns 256 output columns; each of its blocks
 //   contracts 1/8 of the (packed) rows, one warp per row (256 contiguous
 //   bytes). Block rank 0 sums the 8 partials and applies the epilogue.
 //   c_attn (1280 x 3840) runs 15 clusters, the int8 logits head (1280 x
-//   8320, the last tile half used) 33.
-// - K6 / K8 launch 1: a cluster owns one quantization group (hb columns),
-//   each block hb/8 columns over all (packed) rows. The group's absmax is
-//   the max of the 8 blocks' maxima, read through distributed shared
-//   memory; the int8 hidden and its scales go to a small scratch (b x FH
-//   int8, b x G f32).
-// - K6 launch 2: a cluster owns 32 output columns; its blocks split each
-//   group's rows 8 ways, keep one int32 partial per group in shared memory,
-//   and rank 0 adds the groups in order.
-// - K8 launch 2: a cluster owns 32 packed columns, so the 64 outputs j and
-//   j + D/2 of them; a thread reads 4 packed columns (one 4-byte load) and
-//   keeps the 8 outputs they feed, so the accumulators stay as many as K6's.
-//   Otherwise as K6.
+//   8320, the last tile half used) 33. A thread owns 8 columns (one 8-byte
+//   load per weight row) and walks its rows in batches of 8 whose loads are
+//   all issued before any is used. The accumulators are int32 registers
+//   for at most 4 rows (the decode rows, or a beam of 3) or, in a second
+//   instantiation, 16. Under W4 a packed row feeds two activations, xq[i]
+//   and xq[i + D/2], and its nibbles are sign-extended with two shifts.
+// - K6 / K8 follow the JAX kernel's pass over the hidden's groups, with the
+//   groups in parallel: one cluster per group of hb columns, and block k of
+//   it owns hidden columns [k*hb/8, (k+1)*hb/8) of the group. At its start
+//   one thread asks the copy engine (TMA) for the block's whole weight
+//   slice: the fc columns as 2-D boxes (rows x hb/8 bytes, a barrier per
+//   box, so the fc phase starts on the first box) and its contiguous fc2
+//   rows as 1-D bulk copies; at full width that is 2 x 80 KB (W8) or 2 x 40
+//   KB (W4) in flight per SM. The block contracts its fc slice over all
+//   rows, applies the epilogue and gelu_new, takes the group's absmax over
+//   the cluster (distributed shared memory) and quantizes its own hidden
+//   slice, which never leaves the SM. It then contracts its fc2 rows into
+//   int32 partials over all D outputs; rank k adds the 8 blocks' partials of
+//   outputs [k*D/8, (k+1)*D/8) and writes the group's float partial to a
+//   (G, b, D) scratch. The last group to finish an output span (a counter
+//   per span, left at zero for the next call) adds the G partials in order.
+//   Both contractions use dp4a on 4 x 4 byte tiles transposed in registers
+//   (the weights keep their row-major layout); x and the hidden are
+//   regrouped in shared memory to match, so a warp reads consecutive words.
+//   Under W4 each nibble enters dp4a as a byte 16 times its value.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -73,13 +77,6 @@ constexpr int kBatch = 8;               // weight rows loaded before use
 constexpr int kGemvTile = 256;          // K5/K7 output columns per cluster
 constexpr int kGemvColThreads = kGemvTile / kCols;
 constexpr int kGemvSlots = kThreads / kGemvColThreads;
-constexpr int kMaxGroupCols = 1536 / kCluster;  // K6/K8 launch 1 columns per block
-constexpr int kFc2Tile = 32;            // K6 launch 2 output columns per cluster
-constexpr int kFc2ColThreads = kFc2Tile / kCols;
-constexpr int kFc2Slots = kThreads / kFc2ColThreads;
-constexpr int kFc2Cols4 = 4;            // K8 launch 2 packed columns per thread
-constexpr int kFc2ColThreads4 = kFc2Tile / kFc2Cols4;  // of 32 per cluster
-constexpr int kFc2Slots4 = kThreads / kFc2ColThreads4;
 
 // byte j of w as a signed int
 __device__ __forceinline__ int sbyte(int w, int j) {
@@ -176,21 +173,15 @@ __device__ __forceinline__ void accumulate(int (&acc)[NB][kCols],
   }
 }
 
-// the block's partial sums into red[r * width + c + j] (shared, zeroed);
-// with hi > 0, acc[r][4 + j] goes to red[r * width + hi + c + j] instead
-// (K8 launch 2: the outputs of the high nibbles)
+// the block's partial sums into red[r * width + c + j] (shared, zeroed)
 template <int NB>
 __device__ __forceinline__ void reduce_to_shared(const int (&acc)[NB][kCols],
-                                                 int* red, int nb, int width,
-                                                 int c, int hi = 0) {
+                                                 int* red, int nb, int width, int c) {
 #pragma unroll
   for (int r = 0; r < NB; ++r) {
     if (r < nb) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int k = hi > 0 && j >= 4 ? hi + c + j - 4 : c + j;
-        atomicAdd(&red[r * width + k], acc[r][j]);
-      }
+      for (int j = 0; j < kCols; ++j) atomicAdd(&red[r * width + c + j], acc[r][j]);
     }
   }
 }
@@ -245,180 +236,352 @@ gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// K6 / K8, launch 1: fc -> gelu_new -> per-group int8 quantization
+// K6 / K8: one launch, one cluster per hidden group
 // ---------------------------------------------------------------------------
+
+// shared-memory barriers and the Hopper bulk copies that complete on them
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits for the barrier's first phase (each barrier here is used once); a
+// copy that has not landed after ~2^34 cycles traps, so the launch fails
+// instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// box {x, y} of the 2-D tensor map into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// w[i] holds 4 bytes of row i of a 4 x 4 byte tile; returns its columns:
+// byte i of t[j] is byte j of w[i]
+__device__ __forceinline__ void transpose4(const int (&w)[4], int (&t)[4]) {
+  const int a = __byte_perm(w[0], w[1], 0x5140), b = __byte_perm(w[2], w[3], 0x5140);
+  const int c = __byte_perm(w[0], w[1], 0x7362), d = __byte_perm(w[2], w[3], 0x7362);
+  t[0] = __byte_perm(a, b, 0x5410);
+  t[1] = __byte_perm(a, b, 0x7632);
+  t[2] = __byte_perm(c, d, 0x5410);
+  t[3] = __byte_perm(c, d, 0x7632);
+}
+
+// the signed nibbles of each byte of t, as bytes 16 times their value: a
+// dot product of them is 16 times the nibbles' one, and exact
+__device__ __forceinline__ int lo16(int t) { return (t << 4) & 0xF0F0F0F0; }
+__device__ __forceinline__ int hi16(int t) { return t & 0xF0F0F0F0; }
+
+// The dynamic shared memory of one block (byte offsets). `w` hidden columns
+// of the block's group slice; R (packed) rows of fc; fc2 rows of RB bytes.
+//   fc     R x w bytes, the fc column slice (2-D TMA, in chunks of rc rows);
+//          after the fc phase the block's int32 fc2 partials (nb x D)
+//   fc2    w x RB bytes, the block's fc2 rows (1-D bulk copies)
+//   x      the decode rows, 4 bytes of a row quad per word (W4: the low
+//          nibbles' word, then the high nibbles')
+//   hq     the block's quantized hidden, 4 bytes of a row quad per word
+//   red    nb x w int32 fc sums, then the hidden as float
+__host__ __device__ __forceinline__ int up128(int n) { return (n + 127) / 128 * 128; }
+
+struct MlpSmem {
+  int fc, fc2, x, hq, red, total;
+  __host__ __device__ MlpSmem(int nb, int D, int w, bool w4) {
+    const int R = w4 ? D / 2 : D, RB = w4 ? D / 2 : D;
+    fc = 0;
+    fc2 = up128(R * w > nb * D * 4 ? R * w : nb * D * 4);
+    x = fc2 + up128(w * RB);
+    hq = x + up128(nb * D);
+    red = hq + up128(nb * w);
+    total = red + up128(nb * w * 4) + 128;  // + 128: the base is aligned in the kernel
+  }
+};
+
+constexpr int kMaxChunks = 32;          // fc chunks (TMA boxes) per block
+constexpr int kPiece = 16384;           // bytes per bulk copy of fc2
+constexpr int kMaxSmem = 232448 - 1024; // a block's shared memory on sm_90, less the static
 
 template <int NB, bool W4>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-mlp_fc_kernel(const int8_t* __restrict__ xq, const float* __restrict__ a,
-              const int8_t* __restrict__ w1, const float* __restrict__ s1,
-              const float* __restrict__ b1, int8_t* __restrict__ hq,
-              float* __restrict__ ha, int nb, int D, int FH, int hb) {
+mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict__ xq,
+           const float* __restrict__ a, const float* __restrict__ s1,
+           const float* __restrict__ b1, const int8_t* __restrict__ w2,
+           const float* __restrict__ s2, const float* __restrict__ b2,
+           float* __restrict__ parts, unsigned* __restrict__ arrived,
+           float* __restrict__ out, int nb, int D, int FH, int hb, int rc) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int group = blockIdx.x / kCluster;
-  const int n_groups = FH / hb;
-  const int width = hb / kCluster;        // columns of this block, <= 192
-  const int col0 = group * hb + rank * width;
-  const int tid = threadIdx.x;
-  const int col_threads = width / kCols;
-  const int slots = kThreads / col_threads;
-  const int c = (tid % col_threads) * kCols, slot = tid / col_threads;
-  __shared__ int red[kMaxRows * kMaxGroupCols];
-  __shared__ float hs[kMaxRows * kMaxGroupCols];
+  const int g = blockIdx.x / kCluster, n_groups = FH / hb;
+  const int w = hb / kCluster;               // hidden columns of this block
+  const int col0 = g * hb + rank * w;
+  const int R = W4 ? D / 2 : D, RB = W4 ? D / 2 : D;
+  const int n_chunks = R / rc, quads = R / 4;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  const MlpSmem L(nb, D, w, W4);
+  int8_t* fc_s = reinterpret_cast<int8_t*>(smem + L.fc);
+  int* part = reinterpret_cast<int*>(smem + L.fc);
+  int8_t* fc2_s = reinterpret_cast<int8_t*>(smem + L.fc2);
+  int* x_s = reinterpret_cast<int*>(smem + L.x);
+  int* hq_s = reinterpret_cast<int*>(smem + L.hq);
+  int* red = reinterpret_cast<int*>(smem + L.red);
+  float* hs = reinterpret_cast<float*>(red);
+  __shared__ uint64_t bars[kMaxChunks + 1];  // fc chunks, then all of fc2
   __shared__ int bmax[kMaxRows];
   __shared__ float scale[kMaxRows];
-  for (int i = tid; i < nb * width; i += kThreads) red[i] = 0;
-  if (tid < nb) bmax[tid] = 0;
-  __syncthreads();
+  __shared__ int last;
 
-  if (slot < slots) {
-    const int rows = W4 ? D / 2 : D;
-    int acc[NB][kCols];
-    zero(acc);
-    accumulate<W4>(acc, xq, w1, nb, D, FH, col0 + c, slot, rows, slots, rows);
-    reduce_to_shared(acc, red, nb, width, c);
+  // 1. one thread starts every weight copy of the block: 2 x 80 KB at full
+  //    width (W8), all in flight at once
+  if (tid == 0) {
+    for (int c = 0; c <= n_chunks; ++c) mbar_init(&bars[c], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_expect_tx(&bars[c], rc * w);
+      tma_load_2d(fc_s + c * rc * w, &fc_map, col0, c * rc, &bars[c]);
+    }
+    const int bytes = w * RB;
+    const int8_t* src = w2 + (size_t)(g * hb + rank * w) * RB;
+    mbar_expect_tx(&bars[n_chunks], bytes);
+    for (int off = 0; off < bytes; off += kPiece)
+      bulk_load(fc2_s + off, src + off, min(kPiece, bytes - off), &bars[n_chunks]);
   }
-  __syncthreads();
-
-  for (int i = tid; i < nb * width; i += kThreads) {
-    const int r = i / width, col = col0 + i % width;
-    float h = __fadd_rn(__fmul_rn(__int2float_rn(red[i]), __fmul_rn(a[r], s1[col])), b1[col]);
-    h = gelu_new(h);
-    hs[i] = h;
-    // |h| >= 0, so its bits order as ints do: an exact, order-free max
-    atomicMax(&bmax[r], __float_as_int(fabsf(h)));
-  }
-  cluster.sync();
-
-  if (tid < nb) {
-    int m = 0;
-    for (int q = 0; q < kCluster; ++q) m = max(m, cluster.map_shared_rank(bmax, q)[tid]);
-    const float sc = __fadd_rn(__fdiv_rn(__int_as_float(m), 127.0f), 1e-12f);
-    scale[tid] = sc;
-    if (rank == 0) ha[tid * n_groups + group] = sc;
-  }
-  __syncthreads();
-  for (int i = tid; i < nb * width; i += kThreads) {
-    const int r = i / width, col = col0 + i % width;
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(hs[i], scale[r])), -127.f), 127.f);
-    hq[(size_t)r * FH + col] = (int8_t)q;
-  }
-  // no block leaves while another still reads its maxima
-  cluster.sync();
-}
-
-// ---------------------------------------------------------------------------
-// K6 / K8, launch 2: grouped fc2, groups added in order
-// ---------------------------------------------------------------------------
-
-// acc[r][j] += hq[r, d] * fc2[d, col + j] over the 4 packed columns of w:
-// j < 4 the low nibbles (outputs col + j), j >= 4 the high ones (outputs
-// col + D/2 + j - 4)
-template <int NB>
-__device__ __forceinline__ void madd_cols4(int (&acc)[NB][kCols], int w,
-                                           const int8_t* __restrict__ hq, int nb,
-                                           int ldx, int d) {
+  // the decode rows, regrouped: quad q of chunk c covers the fc rows
+  // c*rc + k + i*rc/4 (i < 4, q = c*rc/4 + k), so that a warp reads
+  // consecutive words of the fc slice; word q of row r holds x at those rows
+  for (int e = tid; e < nb * quads; e += kThreads) {
+    const int r = e / quads, q = e % quads, q4 = rc / 4;
+    const int row = (q / q4) * rc + q % q4;
+    const int8_t* xr = xq + (size_t)r * D;
+    int lo = 0, hi = 0;
 #pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nb) {
-      const int x = __ldg(hq + (size_t)r * ldx + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[r][j] += x * lo4(w, j);
-        acc[r][4 + j] += x * hi4(w, j);
-      }
+    for (int i = 0; i < 4; ++i) {
+      lo |= (__ldg(xr + row + i * q4) & 0xFF) << (8 * i);
+      if constexpr (W4) hi |= (__ldg(xr + row + i * q4 + R) & 0xFF) << (8 * i);
+    }
+    if constexpr (W4) {
+      x_s[2 * e] = lo;
+      x_s[2 * e + 1] = hi;
+    } else {
+      x_s[e] = lo;
     }
   }
-}
-
-// W4: the cluster's 32 packed columns feed 64 outputs; part[] holds, per
-// group and row, the 32 low outputs, then the 32 high ones
-template <int NB, bool W4>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-mlp_fc2_kernel(const int8_t* __restrict__ hq, const float* __restrict__ ha,
-               const int8_t* __restrict__ w2, const float* __restrict__ s2,
-               const float* __restrict__ b2, float* __restrict__ out, int nb,
-               int D, int FH, int hb) {
-  extern __shared__ int part[];  // [group][row][width]
-  constexpr int col_threads = W4 ? kFc2ColThreads4 : kFc2ColThreads;
-  constexpr int slots = W4 ? kFc2Slots4 : kFc2Slots;
-  constexpr int width = W4 ? 2 * kFc2Tile : kFc2Tile;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int tile = blockIdx.x / kCluster;
-  const int n_groups = FH / hb;
-  const int ldw = W4 ? D / 2 : D;  // bytes per row of fc2
-  const int tid = threadIdx.x;
-  const int c = (tid % col_threads) * (W4 ? kFc2Cols4 : kCols), slot = tid / col_threads;
-  const int col = tile * kFc2Tile + c;
-  const int per_group = nb * width;
-  for (int i = tid; i < n_groups * per_group; i += kThreads) part[i] = 0;
+  for (int i = tid; i < nb * w; i += kThreads) red[i] = 0;
   __syncthreads();
 
-  // this block's rows of group g: g * hb + rank * rows + [0, rows); a thread
-  // takes `per` of them in each group, and walks all groups' rows as one
-  // sequence so that its batches of loads span the groups
-  const int rows = hb / kCluster;
-  const int per = (rows + slots - 1) / slots;
-  const int total = n_groups * per;
-  const int hi = W4 ? kFc2Tile : 0;
-  int acc[NB][kCols];
-  zero(acc);
-  int g_cur = 0;
-  for (int base = 0; base < total; base += kBatch) {
-    int2 wv[kBatch];
+  // 2. fc: a thread owns 4 columns (one word of each row) and walks row
+  //    quads; dp4a on the transposed 4 x 4 bytes. Under W4 each byte's low
+  //    nibble meets x at row d, its high nibble x at row d + D/2.
+  {
+    const int units = w / 4, slots = kThreads / units;
+    const int u = tid % units, slot = tid / units;
+    const int q4 = rc / 4;
+    int acc[NB][4];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int k = base + u, row = slot + (k % per) * slots;
-      const int d = (k / per) * hb + rank * rows + row;
-      const int8_t* p = w2 + (size_t)d * ldw + col;
-      if (!(k < total && row < rows)) {
-        wv[u] = make_int2(0, 0);
-      } else if constexpr (W4) {
-        wv[u] = make_int2(__ldg(reinterpret_cast<const int*>(p)), 0);
-      } else {
-        wv[u] = load_w8(p);
+    for (int r = 0; r < NB; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(&bars[c]);
+      if (slot >= slots) continue;
+      const int* wc = reinterpret_cast<const int*>(fc_s + c * rc * w);
+      for (int k = slot; k < q4; k += slots) {
+        int wv[4], t[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wv[i] = wc[(k + i * q4) * units + u];
+        transpose4(wv, t);
+        const int q = c * q4 + k;
+#pragma unroll
+        for (int r = 0; r < NB; ++r) {
+          if (r < nb) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if constexpr (W4) {
+                acc[r][j] = __dp4a(lo16(t[j]), x_s[2 * (r * quads + q)], acc[r][j]);
+                acc[r][j] = __dp4a(hi16(t[j]), x_s[2 * (r * quads + q) + 1], acc[r][j]);
+              } else {
+                acc[r][j] = __dp4a(t[j], x_s[r * quads + q], acc[r][j]);
+              }
+            }
+          }
+        }
       }
     }
+    // lanes that share a unit first add by shuffles (units a power of two
+    // below 32), so an address of red takes at most 8 atomics
+    const bool shuffle = units < 32 && (32 % units) == 0;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int k = base + u, g = k / per, row = slot + (k % per) * slots;
-      if (k >= total) break;
-      if (g != g_cur) {
-        reduce_to_shared(acc, part + g_cur * per_group, nb, width, c, hi);
-        zero(acc);
-        g_cur = g;
-      }
-      if (row < rows) {
-        const int d = g * hb + rank * rows + row;
-        if constexpr (W4) {
-          madd_cols4(acc, wv[u].x, hq, nb, FH, d);
-        } else {
-          madd(acc, wv[u], hq, nb, FH, d);
+    for (int r = 0; r < NB; ++r) {
+      if (r < nb) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int v = W4 ? acc[r][j] >> 4 : acc[r][j];
+          if (shuffle)
+            for (int off = units; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+          if (slot < slots && (!shuffle || lane < units)) atomicAdd(&red[r * w + 4 * u + j], v);
         }
       }
     }
   }
-  reduce_to_shared(acc, part + g_cur * per_group, nb, width, c, hi);
-  cluster.sync();
+  __syncthreads();
 
-  if (rank == 0) {
-    for (int i = tid; i < per_group; i += kThreads) {
-      const int r = i / width, k = i % width;
-      const int j = tile * kFc2Tile + (k < kFc2Tile ? k : D / 2 + k - kFc2Tile);
-      float o = 0.f;
-      for (int g = 0; g < n_groups; ++g) {
-        int sum = 0;
-        for (int q = 0; q < kCluster; ++q)
-          sum += cluster.map_shared_rank(part, q)[g * per_group + i];
-        const float p = __fmul_rn(__int2float_rn(sum), __fmul_rn(ha[r * n_groups + g], s2[j]));
-        o = g == 0 ? __fadd_rn(p, b2[j]) : __fadd_rn(o, p);
+  // 3. the epilogue and gelu_new, each row's max |h| over the block by one
+  //    warp, the group's max over the cluster (|h| >= 0, so its bits order
+  //    as ints do: an exact, order-free max)
+  for (int i = tid; i < nb * w; i += kThreads) {
+    const int r = i / w, col = col0 + i % w;
+    const float h = __fadd_rn(__fmul_rn(__int2float_rn(red[i]), __fmul_rn(a[r], s1[col])), b1[col]);
+    hs[i] = gelu_new(h);
+  }
+  __syncthreads();
+  for (int r = warp; r < nb; r += kThreads / 32) {
+    int m = 0;
+    for (int c = lane; c < w; c += 32) m = max(m, __float_as_int(fabsf(hs[r * w + c])));
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (lane == 0) bmax[r] = m;
+  }
+  cluster.sync();
+  if (tid < nb) {
+    int m = 0;
+    for (int q = 0; q < kCluster; ++q) m = max(m, cluster.map_shared_rank(bmax, q)[tid]);
+    // max / 127 as XLA and PyTorch on CUDA compute a division by a
+    // constant: a product with its float reciprocal
+    scale[tid] = __fadd_rn(__fmul_rn(__int_as_float(m), 1.0f / 127.0f), 1e-12f);
+  }
+  __syncthreads();
+  // the block's hidden slice, quantized, regrouped as x was: word k of row
+  // r holds the hidden at columns k + i*w/4
+  const int hq4 = w / 4;
+  for (int i = tid; i < nb * w; i += kThreads) {
+    const int r = i / w, c = i % w;
+    const float q = fminf(fmaxf(rintf(__fdiv_rn(hs[i], scale[r])), -127.f), 127.f);
+    reinterpret_cast<int8_t*>(hq_s)[(r * hq4 + c % hq4) * 4 + c / hq4] = (int8_t)q;
+  }
+  __syncthreads();
+
+  // 4. fc2 over the block's w rows: a thread owns one word of each row (4
+  //    outputs; W4: 4 packed columns, outputs j and j + D/2) and all rows,
+  //    so its sums are the block's; they go over the fc slice, now read
+  mbar_wait(&bars[n_chunks]);
+  {
+    const int units = RB / 4;
+    const int* wc = reinterpret_cast<const int*>(fc2_s);
+    for (int u = tid; u < units; u += kThreads) {
+      int acc[NB][W4 ? 8 : 4];
+#pragma unroll
+      for (int r = 0; r < NB; ++r)
+#pragma unroll
+        for (int j = 0; j < (W4 ? 8 : 4); ++j) acc[r][j] = 0;
+      for (int k = 0; k < hq4; ++k) {
+        int wv[4], t[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wv[i] = wc[(k + i * hq4) * units + u];
+        transpose4(wv, t);
+#pragma unroll
+        for (int r = 0; r < NB; ++r) {
+          if (r < nb) {
+            const int h = hq_s[r * hq4 + k];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if constexpr (W4) {
+                acc[r][j] = __dp4a(lo16(t[j]), h, acc[r][j]);
+                acc[r][4 + j] = __dp4a(hi16(t[j]), h, acc[r][4 + j]);
+              } else {
+                acc[r][j] = __dp4a(t[j], h, acc[r][j]);
+              }
+            }
+          }
+        }
       }
-      out[(size_t)r * D + j] = o;
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        if (r < nb) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if constexpr (W4) {
+              part[r * D + 4 * u + j] = acc[r][j] >> 4;
+              part[r * D + D / 2 + 4 * u + j] = acc[r][4 + j] >> 4;
+            } else {
+              part[r * D + 4 * u + j] = acc[r][j];
+            }
+          }
+        }
+      }
     }
   }
   cluster.sync();
+
+  // 5. rank q adds the 8 blocks' partials of outputs [q*D/8, (q+1)*D/8)
+  //    through distributed shared memory and writes the group's float
+  //    partial; then no block may leave before the cluster has read it
+  const int span = D / kCluster, j0 = rank * span;
+  for (int i = tid; i < nb * span; i += kThreads) {
+    const int r = i / span, j = j0 + i % span;
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) sum += cluster.map_shared_rank(part, q)[r * D + j];
+    parts[((size_t)g * nb + r) * D + j] =
+        __fmul_rn(__int2float_rn(sum), __fmul_rn(scale[r], s2[j]));
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+
+  // 6. the last group to finish outputs [j0, j0 + span) adds the groups'
+  //    partials in order, b2 with group 0, and re-arms the counter
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(&arrived[rank], 1u) == (unsigned)(n_groups - 1);
+    if (last) arrived[rank] = 0;
+  }
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    for (int i = tid; i < nb * span; i += kThreads) {
+      const int r = i / span, j = j0 + i % span;
+      float o = __fadd_rn(__ldcg(parts + (size_t)r * D + j), b2[j]);
+      for (int gg = 1; gg < n_groups; ++gg)
+        o = __fadd_rn(o, __ldcg(parts + ((size_t)gg * nb + r) * D + j));
+      out[(size_t)r * D + j] = o;
+    }
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 template <int NB, bool W4>
@@ -429,25 +592,62 @@ int launch_gemv(const int8_t* xq, const float* a, const int8_t* w, const float* 
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime, so that
+// nothing beyond the CUDA runtime is linked; null if the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// parts: a (G, nb, D) f32 scratch; arrived: kCluster zeroed counters that
+// each call leaves zeroed, so calls on one stream may share them
 template <int NB, bool W4>
 int launch_mlp(const int8_t* xq, const float* a, const int8_t* w1, const float* s1,
                const float* b1, const int8_t* w2, const float* s2, const float* b2,
-               int8_t* hq, float* ha, float* out, int nb, int D, int FH, int hb,
+               float* parts, unsigned* arrived, float* out, int nb, int D, int FH, int hb,
                cudaStream_t st) {
-  const int n_groups = FH / hb;
-  mlp_fc_kernel<NB, W4><<<n_groups * kCluster, kThreads, 0, st>>>(xq, a, w1, s1, b1, hq,
-                                                                  ha, nb, D, FH, hb);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int R = W4 ? D / 2 : D, w = hb / kCluster;
+  // rows per fc chunk: the largest multiple of 4 that divides R, at most a
+  // TMA box's 256
+  int rc = (R < 256 ? R : 256) / 4 * 4;
+  while (R % rc) rc -= 4;
+  const MlpSmem L(nb, D, w, W4);
+  const EncodeTiled encode = encode_tiled();
+  if (R / rc > kMaxChunks || L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)FH, (cuuint64_t)R};
+  const cuuint64_t strides[1] = {(cuuint64_t)FH};
+  const cuuint32_t box[2] = {(cuuint32_t)w, (cuuint32_t)rc};
+  const cuuint32_t steps[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w1), dims, strides,
+             box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
   // set on every call: the attribute holds per device, and the call is cheap
-  const int width = W4 ? 2 * kFc2Tile : kFc2Tile;
-  const int smem = n_groups * nb * width * (int)sizeof(int);
-  e = cudaFuncSetAttribute(mlp_fc2_kernel<NB, W4>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cudaFuncSetAttribute(mlp_kernel<NB, W4>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (W4 ? D / 2 : D) / kFc2Tile;
-  mlp_fc2_kernel<NB, W4><<<tiles * kCluster, kThreads, smem, st>>>(hq, ha, w2, s2, b2, out,
-                                                                   nb, D, FH, hb);
+  mlp_kernel<NB, W4><<<FH / hb * kCluster, kThreads, L.total, st>>>(
+      map, xq, a, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb, rc);
   return (int)cudaGetLastError();
 }
 
@@ -467,18 +667,20 @@ int gemv_entry(const void* xq, const void* a, const void* w, const void* s,
 template <bool W4>
 int mlp_entry(const void* xq, const void* a, const void* w1, const void* s1,
               const void* b1, const void* w2, const void* s2, const void* b2,
-              void* hq, void* ha, void* out, int nb, int D, int FH, int hb,
+              void* parts, void* arrived, void* out, int nb, int D, int FH, int hb,
               void* stream) {
-  if (nb < 1 || nb > kMaxRows || hb <= 0 || FH % hb || hb % (kCols * kCluster) ||
-      hb / kCluster > kMaxGroupCols || D % (W4 ? 2 * kFc2Tile : kFc2Tile))
+  // a block's hidden slice: a multiple of 16 bytes wide and at most a TMA
+  // box's 256; D/8 outputs per block, D/2 packed columns in whole words
+  if (nb < 1 || nb > kMaxRows || hb <= 0 || FH % hb || FH % 16 || hb % (16 * kCluster) ||
+      hb / kCluster > 256 || D % (W4 ? 16 : kCluster))
     return (int)cudaErrorInvalidValue;
   auto args = [&](auto launch) {
     return launch(static_cast<const int8_t*>(xq), static_cast<const float*>(a),
                   static_cast<const int8_t*>(w1), static_cast<const float*>(s1),
                   static_cast<const float*>(b1), static_cast<const int8_t*>(w2),
                   static_cast<const float*>(s2), static_cast<const float*>(b2),
-                  static_cast<int8_t*>(hq), static_cast<float*>(ha), static_cast<float*>(out),
-                  nb, D, FH, hb, reinterpret_cast<cudaStream_t>(stream));
+                  static_cast<float*>(parts), static_cast<unsigned*>(arrived),
+                  static_cast<float*>(out), nb, D, FH, hb, reinterpret_cast<cudaStream_t>(stream));
   };
   return nb <= 4 ? args(launch_mlp<4, W4>) : args(launch_mlp<kMaxRows, W4>);
 }
@@ -496,17 +698,20 @@ EXPORT int gemv_w4(const void* xq, const void* a, const void* w, const void* s,
   return gemv_entry<true>(xq, a, w, s, bias, y, nb, D, F, stream);
 }
 
+// parts: (FH/hb, nb, D) f32 scratch; arrived: 8 zeroed uint32 counters
 EXPORT int mlp_w8(const void* xq, const void* a, const void* w1, const void* s1,
                   const void* b1, const void* w2, const void* s2, const void* b2,
-                  void* hq, void* ha, void* out, int nb, int D, int FH, int hb,
+                  void* parts, void* arrived, void* out, int nb, int D, int FH, int hb,
                   void* stream) {
-  return mlp_entry<false>(xq, a, w1, s1, b1, w2, s2, b2, hq, ha, out, nb, D, FH, hb, stream);
+  return mlp_entry<false>(xq, a, w1, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb,
+                          stream);
 }
 
 // w1: (D/2, FH) packed by rows; w2: (FH, D/2) packed by columns
 EXPORT int mlp_w4(const void* xq, const void* a, const void* w1, const void* s1,
                   const void* b1, const void* w2, const void* s2, const void* b2,
-                  void* hq, void* ha, void* out, int nb, int D, int FH, int hb,
+                  void* parts, void* arrived, void* out, int nb, int D, int FH, int hb,
                   void* stream) {
-  return mlp_entry<true>(xq, a, w1, s1, b1, w2, s2, b2, hq, ha, out, nb, D, FH, hb, stream);
+  return mlp_entry<true>(xq, a, w1, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb,
+                         stream);
 }

@@ -274,13 +274,28 @@ def mlp_w4(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
                        fc2_p, fc2_scale, fc2_bias, d, fh, mlp_group_w4(d, fh))
 
 
+_arrived = {}
+
+
+def _arrival_counters(device):
+    """The fused MLP kernels' per-device counters of finished groups, one
+    per cluster block's output span. Zeroed once; every call leaves them at
+    zero, so the calls on one stream share them and stay capturable in a
+    CUDA graph (calls on concurrent streams of one device must not)."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    t = _arrived.get(key)
+    if t is None:
+        t = _arrived[key] = torch.zeros(CLUSTER, dtype=torch.int32, device=device)
+    return t
+
+
 def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, fc2_bias,
                 d, fh, hb):
-    """The two launches of the C entry point `symbol`, over a scratch of the
-    int8 hidden and its group scales."""
-    if hb % (THREAD_COLS * CLUSTER) or fc.dtype != torch.int8 or fc2.dtype != torch.int8:
+    """One launch of the C entry point `symbol`, over a (G, b, D) scratch of
+    the groups' float partials."""
+    if hb % (16 * CLUSTER) or fc.dtype != torch.int8 or fc2.dtype != torch.int8:
         raise ValueError(f"{symbol}: int8 weights with groups of a multiple of "
-                         f"{THREAD_COLS * CLUSTER} columns needed, got {fc.dtype}, "
+                         f"{16 * CLUSTER} columns needed, got {fc.dtype}, "
                          f"{fc2.dtype}, group {hb}")
     a = a.reshape(-1).float().contiguous()
     vecs = [t.float().contiguous() for t in (fc_scale, fc_bias, fc2_scale, fc2_bias)]
@@ -289,14 +304,14 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
     b = xq.shape[0]
     if a.shape != (b,) or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
         raise ValueError(f"{symbol}: scale or bias shape does not match")
-    hq = torch.empty((b, fh), device=xq.device, dtype=torch.int8)
-    ha = torch.empty((b, fh // hb), device=xq.device, dtype=torch.float32)
+    parts = torch.empty((fh // hb, b, d), device=xq.device, dtype=torch.float32)
+    arrived = _arrival_counters(xq.device)
     out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
              vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-             hq.data_ptr(), ha.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
+             parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
     cuda_lib.check(err, symbol)
     counter.launches += 1
     return out

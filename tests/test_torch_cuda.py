@@ -102,9 +102,30 @@ def test_k5_cuda_matches_plain(cuda_device, b, d, f):
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
 
 
+def _replays_equal(fn, got):
+    """Two more calls, then two replays of a CUDA graph of one call, give
+    `got` to the bit (the fused MLPs' arrival counters re-arm each call)."""
+    assert torch.equal(fn(), got) and torch.equal(fn(), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
+# (rows, D, replayed): D=128 is one group (FH=512), 16 rows the second
+# instantiation
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d", [(1, 1280), (3, 512)])
-def test_k6_cuda_matches_plain(cuda_device, b, d):
+@pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 512, False), (1, 128, False),
+                                        (16, 1280, False), (1, 1280, True)])
+def test_k6_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -113,6 +134,8 @@ def test_k6_cuda_matches_plain(cuda_device, b, d):
     got = gemv.mlp_w8(xq, a, *ws)
     want = gemv.mlp_w8_plain(xq, a, *ws)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    if replay:
+        _replays_equal(lambda: gemv.mlp_w8(xq, a, *ws), got)
 
 
 def _q4(g, dev, d, f, cols=False):
@@ -135,9 +158,12 @@ def test_k7_cuda_matches_plain(cuda_device, b, d, f):
     assert torch.equal(got, gemv.gemv_w4_plain(xq, a, *w))
 
 
+# (rows, D, replayed): D=256 is one group (FH=1024)
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d", [(1, 1280), (3, 1280), (1, 512), (3, 512)])
-def test_k8_cuda_matches_plain(cuda_device, b, d):
+@pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 1280, False), (1, 512, False),
+                                        (3, 512, False), (1, 256, False), (16, 1280, False),
+                                        (1, 1280, True)])
+def test_k8_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -146,3 +172,5 @@ def test_k8_cuda_matches_plain(cuda_device, b, d):
     got = gemv.mlp_w4(xq, a, *ws)
     want = gemv.mlp_w4_plain(xq, a, *ws)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    if replay:
+        _replays_equal(lambda: gemv.mlp_w4(xq, a, *ws), got)
