@@ -63,6 +63,8 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -273,6 +275,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar) {
   }
 }
 
+// spins until *p == v (a gpu-scope acquire), with the same watchdog
+__device__ __forceinline__ void wait_count(const unsigned* p, unsigned v) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned n;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(n) : "l"(p) : "memory");
+    if (n == v) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
 // box {x, y} of the 2-D tensor map into shared memory
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
                                             uint64_t* bar) {
@@ -316,10 +329,12 @@ __device__ __forceinline__ int hi16(int t) { return t & 0xF0F0F0F0; }
 //          nibbles' word, then the high nibbles')
 //   hq     the block's quantized hidden, 4 bytes of a row quad per word
 //   red    nb x w int32 fc sums, then the hidden as float
+//   vec    copies of xq (nb x D bytes), of s1 and b1 at the block's w hidden
+//          columns, and of s2 and b2 at its D/8 outputs
 __host__ __device__ __forceinline__ int up128(int n) { return (n + 127) / 128 * 128; }
 
 struct MlpSmem {
-  int fc, fc2, x, hq, red, total;
+  int fc, fc2, x, hq, red, vec, vec_bytes, total;
   __host__ __device__ MlpSmem(int nb, int D, int w, bool w4) {
     const int R = w4 ? D / 2 : D, RB = w4 ? D / 2 : D;
     fc = 0;
@@ -327,7 +342,9 @@ struct MlpSmem {
     x = fc2 + up128(w * RB);
     hq = x + up128(nb * D);
     red = hq + up128(nb * w);
-    total = red + up128(nb * w * 4) + 128;  // + 128: the base is aligned in the kernel
+    vec = red + up128(nb * w * 4);
+    vec_bytes = nb * D + 2 * w * 4 + 2 * (D / 8) * 4;
+    total = vec + up128(vec_bytes) + 128;  // + 128: the base is aligned in the kernel
   }
 };
 
@@ -335,8 +352,12 @@ constexpr int kMaxChunks = 32;          // fc chunks (TMA boxes) per block
 constexpr int kPiece = 16384;           // bytes per bulk copy of fc2
 constexpr int kMaxSmem = 232448 - 1024; // a block's shared memory on sm_90, less the static
 
+// threads of a K6/K8 block: more warps hide more shared-memory latency in
+// the contractions, as far as the 16-row accumulators leave registers
+__host__ __device__ constexpr int mlp_threads(int nb) { return nb <= 4 ? 512 : 256; }
+
 template <int NB, bool W4>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(mlp_threads(NB), 1)
 mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict__ xq,
            const float* __restrict__ a, const float* __restrict__ s1,
            const float* __restrict__ b1, const int8_t* __restrict__ w2,
@@ -350,11 +371,13 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   const int col0 = g * hb + rank * w;
   const int R = W4 ? D / 2 : D, RB = W4 ? D / 2 : D;
   const int n_chunks = R / rc, quads = R / 4;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  constexpr int kT = mlp_threads(NB);
+  const int tid = threadIdx.x, lane = tid % 32;
 
+  // aligned by pointer arithmetic on the shared array, so that the compiler
+  // keeps its accesses in the shared space (LDS, not generic loads)
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   const MlpSmem L(nb, D, w, W4);
   int8_t* fc_s = reinterpret_cast<int8_t*>(smem + L.fc);
   int* part = reinterpret_cast<int*>(smem + L.fc);
@@ -363,16 +386,38 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   int* hq_s = reinterpret_cast<int*>(smem + L.hq);
   int* red = reinterpret_cast<int*>(smem + L.red);
   float* hs = reinterpret_cast<float*>(red);
-  __shared__ uint64_t bars[kMaxChunks + 1];  // fc chunks, then all of fc2
+  const int span = D / kCluster, j0 = rank * span;  // the outputs this rank finishes
+  int8_t* xq_s = reinterpret_cast<int8_t*>(smem + L.vec);
+  float* s1_s = reinterpret_cast<float*>(smem + L.vec + nb * D);
+  float* b1_s = s1_s + w;
+  float* s2_s = b1_s + w;
+  float* b2_s = s2_s + span;
+  // barriers: fc chunks, all of fc2, the vectors
+  __shared__ uint64_t bars[kMaxChunks + 2];
+  __shared__ float a_s[kMaxRows];
   __shared__ int bmax[kMaxRows];
   __shared__ float scale[kMaxRows];
   __shared__ int last;
+  uint64_t* vec_bar = &bars[n_chunks + 1];
 
-  // 1. one thread starts every weight copy of the block: 2 x 80 KB at full
-  //    width (W8), all in flight at once
+  // 1. one thread starts every copy of the block, the small vectors first:
+  //    at full width 2 x 80 KB of weights (W8) in flight at once
   if (tid == 0) {
-    for (int c = 0; c <= n_chunks; ++c) mbar_init(&bars[c], 1);
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&fc_map))
+                 : "memory");
+    for (int c = 0; c <= n_chunks + 1; ++c) mbar_init(&bars[c], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (tid < nb) bmax[tid] = 0;
+  for (int i = tid; i < nb * w; i += kT) red[i] = 0;
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(vec_bar, L.vec_bytes);
+    bulk_load(xq_s, xq, nb * D, vec_bar);
+    bulk_load(s1_s, s1 + col0, w * 4, vec_bar);
+    bulk_load(b1_s, b1 + col0, w * 4, vec_bar);
+    bulk_load(s2_s, s2 + j0, span * 4, vec_bar);
+    bulk_load(b2_s, b2 + j0, span * 4, vec_bar);
     for (int c = 0; c < n_chunks; ++c) {
       mbar_expect_tx(&bars[c], rc * w);
       tma_load_2d(fc_s + c * rc * w, &fc_map, col0, c * rc, &bars[c]);
@@ -383,18 +428,20 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     for (int off = 0; off < bytes; off += kPiece)
       bulk_load(fc2_s + off, src + off, min(kPiece, bytes - off), &bars[n_chunks]);
   }
+  if (tid < nb) a_s[tid] = a[tid];  // after the copies start: its latency is off their path
   // the decode rows, regrouped: quad q of chunk c covers the fc rows
   // c*rc + k + i*rc/4 (i < 4, q = c*rc/4 + k), so that a warp reads
   // consecutive words of the fc slice; word q of row r holds x at those rows
-  for (int e = tid; e < nb * quads; e += kThreads) {
+  mbar_wait(vec_bar);
+  for (int e = tid; e < nb * quads; e += kT) {
     const int r = e / quads, q = e % quads, q4 = rc / 4;
     const int row = (q / q4) * rc + q % q4;
-    const int8_t* xr = xq + (size_t)r * D;
+    const int8_t* xr = xq_s + r * D;
     int lo = 0, hi = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      lo |= (__ldg(xr + row + i * q4) & 0xFF) << (8 * i);
-      if constexpr (W4) hi |= (__ldg(xr + row + i * q4 + R) & 0xFF) << (8 * i);
+      lo |= (xr[row + i * q4] & 0xFF) << (8 * i);
+      if constexpr (W4) hi |= (xr[row + i * q4 + R] & 0xFF) << (8 * i);
     }
     if constexpr (W4) {
       x_s[2 * e] = lo;
@@ -403,25 +450,36 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       x_s[e] = lo;
     }
   }
-  for (int i = tid; i < nb * w; i += kThreads) red[i] = 0;
   __syncthreads();
+
+  // The contractions see the row count at compile time: the decode path's
+  // single row gets loops free of per-row branches, so that the compiler
+  // can issue the next row quads' loads early.
+  auto for_rows = [&](auto&& body) {
+    if constexpr (NB <= 4) {
+      if (nb == 1) return body(std::integral_constant<int, 1>());
+    }
+    body(std::integral_constant<int, NB>());
+  };
 
   // 2. fc: a thread owns 4 columns (one word of each row) and walks row
   //    quads; dp4a on the transposed 4 x 4 bytes. Under W4 each byte's low
   //    nibble meets x at row d, its high nibble x at row d + D/2.
-  {
-    const int units = w / 4, slots = kThreads / units;
+  for_rows([&](auto rows) {
+    constexpr int ROWS = decltype(rows)::value;
+    const int units = w / 4, slots = kT / units;
     const int u = tid % units, slot = tid / units;
     const int q4 = rc / 4;
-    int acc[NB][4];
+    int acc[ROWS][4];
 #pragma unroll
-    for (int r = 0; r < NB; ++r)
+    for (int r = 0; r < ROWS; ++r)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[r][j] = 0;
     for (int c = 0; c < n_chunks; ++c) {
       mbar_wait(&bars[c]);
       if (slot >= slots) continue;
       const int* wc = reinterpret_cast<const int*>(fc_s + c * rc * w);
+#pragma unroll 4
       for (int k = slot; k < q4; k += slots) {
         int wv[4], t[4];
 #pragma unroll
@@ -429,8 +487,8 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
         transpose4(wv, t);
         const int q = c * q4 + k;
 #pragma unroll
-        for (int r = 0; r < NB; ++r) {
-          if (r < nb) {
+        for (int r = 0; r < ROWS; ++r) {
+          if (ROWS == 1 || r < nb) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               if constexpr (W4) {
@@ -448,8 +506,8 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     // below 32), so an address of red takes at most 8 atomics
     const bool shuffle = units < 32 && (32 % units) == 0;
 #pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      if (r < nb) {
+    for (int r = 0; r < ROWS; ++r) {
+      if (ROWS == 1 || r < nb) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           int v = W4 ? acc[r][j] >> 4 : acc[r][j];
@@ -459,64 +517,68 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
         }
       }
     }
-  }
+  });
   __syncthreads();
 
-  // 3. the epilogue and gelu_new, each row's max |h| over the block by one
-  //    warp, the group's max over the cluster (|h| >= 0, so its bits order
-  //    as ints do: an exact, order-free max)
-  for (int i = tid; i < nb * w; i += kThreads) {
-    const int r = i / w, col = col0 + i % w;
-    const float h = __fadd_rn(__fmul_rn(__int2float_rn(red[i]), __fmul_rn(a[r], s1[col])), b1[col]);
-    hs[i] = gelu_new(h);
-  }
-  __syncthreads();
-  for (int r = warp; r < nb; r += kThreads / 32) {
-    int m = 0;
-    for (int c = lane; c < w; c += 32) m = max(m, __float_as_int(fabsf(hs[r * w + c])));
-    m = __reduce_max_sync(0xffffffffu, m);
-    if (lane == 0) bmax[r] = m;
+  // 3. the epilogue and gelu_new; each row's max |h| over the block (by
+  //    warps when a warp lies in one row), then the group's over the
+  //    cluster (|h| >= 0, so its bits order as ints do: an exact max)
+  for (int i = tid; i < nb * w; i += kT) {
+    const int r = i / w, c = i % w;
+    const float h = gelu_new(
+        __fadd_rn(__fmul_rn(__int2float_rn(red[i]), __fmul_rn(a_s[r], s1_s[c])), b1_s[c]));
+    hs[i] = h;
+    int m = __float_as_int(fabsf(h));
+    if (w % 32 == 0) m = __reduce_max_sync(0xffffffffu, m);
+    if (w % 32 != 0 || lane == 0) atomicMax(&bmax[r], m);
   }
   cluster.sync();
-  if (tid < nb) {
-    int m = 0;
-    for (int q = 0; q < kCluster; ++q) m = max(m, cluster.map_shared_rank(bmax, q)[tid]);
-    // max / 127 as XLA and PyTorch on CUDA compute a division by a
-    // constant: a product with its float reciprocal
-    scale[tid] = __fadd_rn(__fmul_rn(__int_as_float(m), 1.0f / 127.0f), 1e-12f);
-  }
-  __syncthreads();
-  // the block's hidden slice, quantized, regrouped as x was: word k of row
-  // r holds the hidden at columns k + i*w/4
-  const int hq4 = w / 4;
-  for (int i = tid; i < nb * w; i += kThreads) {
+
+  // the block's hidden slice, quantized with the group's scale (max / 127
+  // as XLA and PyTorch on CUDA divide by a constant: a product with its
+  // float reciprocal), regrouped as x was: word k of row r holds the
+  // hidden at columns k + i*w/4. Phase 4 splits the rows kp ways when it
+  // has threads to spare, and then adds into zeroed partials.
+  const int hq4 = w / 4, units2 = RB / 4;
+  const int kp = max(1, min(hq4, kT / units2));
+  if (kp > 1)
+    for (int i = tid; i < nb * D; i += kT) part[i] = 0;
+  for (int i = tid; i < nb * w; i += kT) {
     const int r = i / w, c = i % w;
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(hs[i], scale[r])), -127.f), 127.f);
+    int m = 0;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) m = max(m, cluster.map_shared_rank(bmax, q)[r]);
+    const float sc = __fadd_rn(__fmul_rn(__int_as_float(m), 1.0f / 127.0f), 1e-12f);
+    if (c == 0) scale[r] = sc;
+    const float q = fminf(fmaxf(rintf(__fdiv_rn(hs[i], sc)), -127.f), 127.f);
     reinterpret_cast<int8_t*>(hq_s)[(r * hq4 + c % hq4) * 4 + c / hq4] = (int8_t)q;
   }
   __syncthreads();
 
   // 4. fc2 over the block's w rows: a thread owns one word of each row (4
-  //    outputs; W4: 4 packed columns, outputs j and j + D/2) and all rows,
-  //    so its sums are the block's; they go over the fc slice, now read
+  //    outputs; W4: 4 packed columns, outputs j and j + D/2) and every
+  //    kp-th row quad; the sums go over the fc slice, now read
   mbar_wait(&bars[n_chunks]);
-  {
-    const int units = RB / 4;
+  for_rows([&](auto rows) {
+    constexpr int ROWS = decltype(rows)::value;
+    const int units = units2;
     const int* wc = reinterpret_cast<const int*>(fc2_s);
-    for (int u = tid; u < units; u += kThreads) {
-      int acc[NB][W4 ? 8 : 4];
+    for (int e = tid; e < units * kp; e += kT) {
+      const int u = e % units;
+      int acc[ROWS][W4 ? 8 : 4];
 #pragma unroll
-      for (int r = 0; r < NB; ++r)
+      for (int r = 0; r < ROWS; ++r)
 #pragma unroll
         for (int j = 0; j < (W4 ? 8 : 4); ++j) acc[r][j] = 0;
-      for (int k = 0; k < hq4; ++k) {
+#pragma unroll 4
+      for (int k = e / units; k < hq4; k += kp) {
         int wv[4], t[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) wv[i] = wc[(k + i * hq4) * units + u];
         transpose4(wv, t);
 #pragma unroll
-        for (int r = 0; r < NB; ++r) {
-          if (r < nb) {
+        for (int r = 0; r < ROWS; ++r) {
+          if (ROWS == 1 || r < nb) {
             const int h = hq_s[r * hq4 + k];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
@@ -531,53 +593,75 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
         }
       }
 #pragma unroll
-      for (int r = 0; r < NB; ++r) {
-        if (r < nb) {
+      for (int r = 0; r < ROWS; ++r) {
+        if (ROWS == 1 || r < nb) {
+          int* p = part + r * D + 4 * u;
+          if constexpr (W4) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if constexpr (W4) {
-              part[r * D + 4 * u + j] = acc[r][j] >> 4;
-              part[r * D + D / 2 + 4 * u + j] = acc[r][4 + j] >> 4;
-            } else {
-              part[r * D + 4 * u + j] = acc[r][j];
+            for (int j = 0; j < 8; ++j) acc[r][j] >>= 4;
+          }
+          if (kp > 1) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              atomicAdd(p + j, acc[r][j]);
+              if constexpr (W4) atomicAdd(p + D / 2 + j, acc[r][4 + j]);
             }
+          } else {
+            *reinterpret_cast<int4*>(p) = make_int4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+            if constexpr (W4)
+              *reinterpret_cast<int4*>(p + D / 2) =
+                  make_int4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
           }
         }
       }
     }
-  }
+  });
   cluster.sync();
 
-  // 5. rank q adds the 8 blocks' partials of outputs [q*D/8, (q+1)*D/8)
-  //    through distributed shared memory and writes the group's float
-  //    partial; then no block may leave before the cluster has read it
-  const int span = D / kCluster, j0 = rank * span;
-  for (int i = tid; i < nb * span; i += kThreads) {
+  // 5. rank q adds the 8 blocks' partials of outputs [j0, j0 + span)
+  //    through distributed shared memory: p_g, the group's float partial.
+  //    Every group but the last writes it to `parts` and counts itself in
+  //    arrived[q]; the last group keeps its own in shared memory (over fc2,
+  //    now read), waits for the count, adds the partials in order, b2 with
+  //    group 0, and re-arms the counter. The writes are ordered before the
+  //    count by the block barrier and one thread's fence, the reads after
+  //    it by the acquire and the block barrier.
+  const bool owner = g == n_groups - 1;
+  float* own = reinterpret_cast<float*>(fc2_s);
+  for (int i = tid; i < nb * span; i += kT) {
     const int r = i / span, j = j0 + i % span;
     int sum = 0;
 #pragma unroll
     for (int q = 0; q < kCluster; ++q) sum += cluster.map_shared_rank(part, q)[r * D + j];
-    parts[((size_t)g * nb + r) * D + j] =
-        __fmul_rn(__int2float_rn(sum), __fmul_rn(scale[r], s2[j]));
+    const float p = __fmul_rn(__int2float_rn(sum), __fmul_rn(scale[r], s2_s[j - j0]));
+    if (owner) {
+      own[i] = p;
+    } else {
+      parts[((size_t)g * nb + r) * D + j] = p;
+    }
   }
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-
-  // 6. the last group to finish outputs [j0, j0 + span) adds the groups'
-  //    partials in order, b2 with group 0, and re-arms the counter
-  __threadfence();
+  // the block has read the cluster's shared memory (relaxed: the arrive
+  // need not wait for the stores above)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   __syncthreads();
   if (tid == 0) {
-    last = atomicAdd(&arrived[rank], 1u) == (unsigned)(n_groups - 1);
-    if (last) arrived[rank] = 0;
+    if (owner) {
+      wait_count(arrived + rank, n_groups - 1);
+      arrived[rank] = 0;
+    } else {
+      __threadfence();
+      atomicAdd(arrived + rank, 1u);
+    }
   }
-  __syncthreads();
-  if (last) {
-    __threadfence();
-    for (int i = tid; i < nb * span; i += kThreads) {
+  if (owner) {
+    __syncthreads();
+    for (int i = tid; i < nb * span; i += kT) {
       const int r = i / span, j = j0 + i % span;
-      float o = __fadd_rn(__ldcg(parts + (size_t)r * D + j), b2[j]);
-      for (int gg = 1; gg < n_groups; ++gg)
+      float o = n_groups == 1 ? own[i] : __ldcg(parts + (size_t)r * D + j);
+      o = __fadd_rn(o, b2_s[j - j0]);
+      for (int gg = 1; gg < n_groups - 1; ++gg)
         o = __fadd_rn(o, __ldcg(parts + ((size_t)gg * nb + r) * D + j));
+      if (n_groups > 1) o = __fadd_rn(o, own[i]);
       out[(size_t)r * D + j] = o;
     }
   }
@@ -617,8 +701,8 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// parts: a (G, nb, D) f32 scratch; arrived: kCluster zeroed counters that
-// each call leaves zeroed, so calls on one stream may share them
+// parts: a (G - 1, nb, D) f32 scratch; arrived: kCluster zeroed counters
+// that each call leaves zeroed, so calls on one stream may share them
 template <int NB, bool W4>
 int launch_mlp(const int8_t* xq, const float* a, const int8_t* w1, const float* s1,
                const float* b1, const int8_t* w2, const float* s2, const float* b2,
@@ -646,7 +730,7 @@ int launch_mlp(const int8_t* xq, const float* a, const int8_t* w1, const float* 
   cudaError_t e = cudaFuncSetAttribute(mlp_kernel<NB, W4>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return (int)e;
-  mlp_kernel<NB, W4><<<FH / hb * kCluster, kThreads, L.total, st>>>(
+  mlp_kernel<NB, W4><<<FH / hb * kCluster, mlp_threads(NB), L.total, st>>>(
       map, xq, a, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb, rc);
   return (int)cudaGetLastError();
 }
@@ -670,9 +754,9 @@ int mlp_entry(const void* xq, const void* a, const void* w1, const void* s1,
               void* parts, void* arrived, void* out, int nb, int D, int FH, int hb,
               void* stream) {
   // a block's hidden slice: a multiple of 16 bytes wide and at most a TMA
-  // box's 256; D/8 outputs per block, D/2 packed columns in whole words
+  // box's 256; D/8 outputs per block, a multiple of 4 (16-byte copies)
   if (nb < 1 || nb > kMaxRows || hb <= 0 || FH % hb || FH % 16 || hb % (16 * kCluster) ||
-      hb / kCluster > 256 || D % (W4 ? 16 : kCluster))
+      hb / kCluster > 256 || D % 32)
     return (int)cudaErrorInvalidValue;
   auto args = [&](auto launch) {
     return launch(static_cast<const int8_t*>(xq), static_cast<const float*>(a),
@@ -698,7 +782,7 @@ EXPORT int gemv_w4(const void* xq, const void* a, const void* w, const void* s,
   return gemv_entry<true>(xq, a, w, s, bias, y, nb, D, F, stream);
 }
 
-// parts: (FH/hb, nb, D) f32 scratch; arrived: 8 zeroed uint32 counters
+// parts: (FH/hb - 1, nb, D) f32 scratch; arrived: 8 zeroed uint32 counters
 EXPORT int mlp_w8(const void* xq, const void* a, const void* w1, const void* s1,
                   const void* b1, const void* w2, const void* s2, const void* b2,
                   void* parts, void* arrived, void* out, int nb, int D, int FH, int hb,

@@ -279,9 +279,10 @@ _arrived = {}
 
 def _arrival_counters(device):
     """The fused MLP kernels' per-device counters of finished groups, one
-    per cluster block's output span. Zeroed once; every call leaves them at
-    zero, so the calls on one stream share them and stay capturable in a
-    CUDA graph (calls on concurrent streams of one device must not)."""
+    per output span of a cluster's block. Zeroed once; every call leaves
+    them at zero, so the calls on one stream share them and stay
+    capturable in a CUDA graph (calls on concurrent streams of one device
+    must not)."""
     key = device.index if device.index is not None else torch.cuda.current_device()
     t = _arrived.get(key)
     if t is None:
@@ -291,8 +292,8 @@ def _arrival_counters(device):
 
 def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, fc2_bias,
                 d, fh, hb):
-    """One launch of the C entry point `symbol`, over a (G, b, D) scratch of
-    the groups' float partials."""
+    """One launch of the C entry point `symbol`, over a scratch of the
+    groups' float partials, (G - 1, b, D)."""
     if hb % (16 * CLUSTER) or fc.dtype != torch.int8 or fc2.dtype != torch.int8:
         raise ValueError(f"{symbol}: int8 weights with groups of a multiple of "
                          f"{16 * CLUSTER} columns needed, got {fc.dtype}, "
@@ -304,7 +305,7 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
     b = xq.shape[0]
     if a.shape != (b,) or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
         raise ValueError(f"{symbol}: scale or bias shape does not match")
-    parts = torch.empty((fh // hb, b, d), device=xq.device, dtype=torch.float32)
+    parts = torch.empty((max(fh // hb - 1, 1), b, d), device=xq.device, dtype=torch.float32)
     arrived = _arrival_counters(xq.device)
     out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
