@@ -28,7 +28,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and torch._int_mm with the activation padded to the 17 rows it accepts
    at least, int32 out without the float epilogue, over the unpacked int8
    weight for K7 and K8 (K5-K8; two products for K6 and K8); none for K2
-   and K4.
+   and K4. K6 and K8 are also checked at 16 rows and at one group, called
+   again and replayed from a CUDA graph (the same bits every time), and
+   torch.profiler counts the device kernels one call of each launches (one).
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl

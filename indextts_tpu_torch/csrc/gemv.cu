@@ -42,23 +42,24 @@
 //   and xq[i + D/2], and its nibbles are sign-extended with two shifts.
 // - K6 / K8 follow the JAX kernel's pass over the hidden's groups, with the
 //   groups in parallel: one cluster per group of hb columns, and block k of
-//   it owns hidden columns [k*hb/8, (k+1)*hb/8) of the group. At its start
-//   one thread asks the copy engine (TMA) for the block's whole weight
-//   slice: the fc columns as 2-D boxes (rows x hb/8 bytes, a barrier per
-//   box, so the fc phase starts on the first box) and its contiguous fc2
-//   rows as 1-D bulk copies; at full width that is 2 x 80 KB (W8) or 2 x 40
-//   KB (W4) in flight per SM. The block contracts its fc slice over all
-//   rows, applies the epilogue and gelu_new, takes the group's absmax over
-//   the cluster (distributed shared memory) and quantizes its own hidden
-//   slice, which never leaves the SM. It then contracts its fc2 rows into
-//   int32 partials over all D outputs; rank k adds the 8 blocks' partials of
-//   outputs [k*D/8, (k+1)*D/8) and writes the group's float partial to a
-//   (G, b, D) scratch. The last group to finish an output span (a counter
-//   per span, left at zero for the next call) adds the G partials in order.
+//   it owns hidden columns [k*hb/8, (k+1)*hb/8) of the group. One thread
+//   asks the copy engine (TMA) for the block's whole weight slice: the fc
+//   columns as 2-D boxes (rows x hb/8 bytes, a barrier per box, so the fc
+//   phase starts on the first box) and, once the first box has landed, its
+//   contiguous fc2 rows as 1-D bulk copies; at full width 2 x 80 KB (W8) or
+//   2 x 40 KB (W4) per SM. The block contracts its fc slice over all rows,
+//   applies the epilogue and gelu_new, takes the group's absmax over the
+//   cluster (distributed shared memory) and quantizes its own hidden slice,
+//   which never leaves the SM. It then contracts its fc2 rows into int32
+//   partials over all D outputs; rank k adds the 8 blocks' partials of
+//   outputs [k*D/8, (k+1)*D/8): the group's float partial. The last group
+//   keeps its own and, once a counter per span says the others have written
+//   theirs to a (G - 1, b, D) scratch, adds the G partials in order.
 //   Both contractions use dp4a on 4 x 4 byte tiles transposed in registers
 //   (the weights keep their row-major layout); x and the hidden are
 //   regrouped in shared memory to match, so a warp reads consecutive words.
-//   Under W4 each nibble enters dp4a as a byte 16 times its value.
+//   Under W4 each nibble enters dp4a as a byte 16 times its value. Blocks
+//   of up to 4 rows run 512 threads, of up to 16 rows 256.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -352,6 +353,26 @@ constexpr int kMaxChunks = 32;          // fc chunks (TMA boxes) per block
 constexpr int kPiece = 16384;           // bytes per bulk copy of fc2
 constexpr int kMaxSmem = 232448 - 1024; // a block's shared memory on sm_90, less the static
 
+// Phase timeline, for tuning: built with -DMLP_TIMELINE (as
+// indextts_tpu_torch/tools/mlp_timeline.py does), thread 0 of each of the
+// first 128 blocks records the global timer (ns) at the phase boundaries
+// 0-9 below, and mlp_timeline() copies the records out. Other builds record
+// nothing.
+#ifdef MLP_TIMELINE
+constexpr int kStamps = 10;
+__device__ long long mlp_stamps[128 * kStamps];
+#define MLP_STAMP(k)                                                      \
+  do {                                                                    \
+    if (threadIdx.x == 0 && blockIdx.x < 128)                             \
+      asm volatile("mov.u64 %0, %%globaltimer;"                           \
+                   : "=l"(mlp_stamps[blockIdx.x * kStamps + (k)])); \
+  } while (0)
+#else
+#define MLP_STAMP(k) \
+  do {               \
+  } while (0)
+#endif
+
 // threads of a K6/K8 block: more warps hide more shared-memory latency in
 // the contractions, as far as the 16-row accumulators leave registers
 __host__ __device__ constexpr int mlp_threads(int nb) { return nb <= 4 ? 512 : 256; }
@@ -373,6 +394,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   const int n_chunks = R / rc, quads = R / 4;
   constexpr int kT = mlp_threads(NB);
   const int tid = threadIdx.x, lane = tid % 32;
+  MLP_STAMP(0);
 
   // aligned by pointer arithmetic on the shared array, so that the compiler
   // keeps its accesses in the shared space (LDS, not generic loads)
@@ -397,11 +419,22 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   __shared__ float a_s[kMaxRows];
   __shared__ int bmax[kMaxRows];
   __shared__ float scale[kMaxRows];
-  __shared__ int last;
   uint64_t* vec_bar = &bars[n_chunks + 1];
 
-  // 1. one thread starts every copy of the block, the small vectors first:
-  //    at full width 2 x 80 KB of weights (W8) in flight at once
+  // fc2 is requested once the first fc box has landed (at once if fc is one
+  // box): fc's boxes then go ahead of it in the memory queues, and the
+  // steps between the two contractions overlap fc2's arrival
+  const int fc2_after = n_chunks > 1 ? 0 : -1;
+  auto issue_fc2 = [&] {
+    const int bytes = w * RB;
+    const int8_t* src = w2 + (size_t)(g * hb + rank * w) * RB;
+    mbar_expect_tx(&bars[n_chunks], bytes);
+    for (int off = 0; off < bytes; off += kPiece)
+      bulk_load(fc2_s + off, src + off, min(kPiece, bytes - off), &bars[n_chunks]);
+  };
+
+  // 1. one thread starts the block's copies, the small vectors first: at
+  //    full width 2 x 80 KB of weights (W8) in flight
   if (tid == 0) {
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&fc_map))
                  : "memory");
@@ -422,11 +455,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       mbar_expect_tx(&bars[c], rc * w);
       tma_load_2d(fc_s + c * rc * w, &fc_map, col0, c * rc, &bars[c]);
     }
-    const int bytes = w * RB;
-    const int8_t* src = w2 + (size_t)(g * hb + rank * w) * RB;
-    mbar_expect_tx(&bars[n_chunks], bytes);
-    for (int off = 0; off < bytes; off += kPiece)
-      bulk_load(fc2_s + off, src + off, min(kPiece, bytes - off), &bars[n_chunks]);
+    if (fc2_after < 0) issue_fc2();
   }
   if (tid < nb) a_s[tid] = a[tid];  // after the copies start: its latency is off their path
   // the decode rows, regrouped: quad q of chunk c covers the fc rows
@@ -451,6 +480,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     }
   }
   __syncthreads();
+  MLP_STAMP(1);  // the decode rows regrouped
 
   // The contractions see the row count at compile time: the decode path's
   // single row gets loops free of per-row branches, so that the compiler
@@ -477,6 +507,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       for (int j = 0; j < 4; ++j) acc[r][j] = 0;
     for (int c = 0; c < n_chunks; ++c) {
       mbar_wait(&bars[c]);
+      if (tid == 0 && c == fc2_after) issue_fc2();
       if (slot >= slots) continue;
       const int* wc = reinterpret_cast<const int*>(fc_s + c * rc * w);
 #pragma unroll 4
@@ -519,6 +550,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     }
   });
   __syncthreads();
+  MLP_STAMP(2);  // fc contracted
 
   // 3. the epilogue and gelu_new; each row's max |h| over the block (by
   //    warps when a warp lies in one row), then the group's over the
@@ -533,6 +565,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     if (w % 32 != 0 || lane == 0) atomicMax(&bmax[r], m);
   }
   cluster.sync();
+  MLP_STAMP(3);  // the cluster's maxima exchanged
 
   // the block's hidden slice, quantized with the group's scale (max / 127
   // as XLA and PyTorch on CUDA divide by a constant: a product with its
@@ -554,6 +587,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     reinterpret_cast<int8_t*>(hq_s)[(r * hq4 + c % hq4) * 4 + c / hq4] = (int8_t)q;
   }
   __syncthreads();
+  MLP_STAMP(4);  // the hidden quantized
 
   // 4. fc2 over the block's w rows: a thread owns one word of each row (4
   //    outputs; W4: 4 packed columns, outputs j and j + D/2) and every
@@ -616,7 +650,9 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       }
     }
   });
+  MLP_STAMP(5);  // fc2 contracted (thread 0's share)
   cluster.sync();
+  MLP_STAMP(6);
 
   // 5. rank q adds the 8 blocks' partials of outputs [j0, j0 + span)
   //    through distributed shared memory: p_g, the group's float partial.
@@ -640,6 +676,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       parts[((size_t)g * nb + r) * D + j] = p;
     }
   }
+  MLP_STAMP(7);  // the group's partial
   // the block has read the cluster's shared memory (relaxed: the arrive
   // need not wait for the stores above)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
@@ -653,18 +690,21 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       atomicAdd(arrived + rank, 1u);
     }
   }
+  MLP_STAMP(8);  // counted, or (the last group) the count seen
   if (owner) {
     __syncthreads();
     for (int i = tid; i < nb * span; i += kT) {
       const int r = i / span, j = j0 + i % span;
       float o = n_groups == 1 ? own[i] : __ldcg(parts + (size_t)r * D + j);
       o = __fadd_rn(o, b2_s[j - j0]);
+#pragma unroll 4
       for (int gg = 1; gg < n_groups - 1; ++gg)
         o = __fadd_rn(o, __ldcg(parts + ((size_t)gg * nb + r) * D + j));
       if (n_groups > 1) o = __fadd_rn(o, own[i]);
       out[(size_t)r * D + j] = o;
     }
   }
+  MLP_STAMP(9);  // done
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
@@ -790,6 +830,13 @@ EXPORT int mlp_w8(const void* xq, const void* a, const void* w1, const void* s1,
   return mlp_entry<false>(xq, a, w1, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb,
                           stream);
 }
+
+#ifdef MLP_TIMELINE
+// the phase timeline of the last call: 128 x kStamps int64 nanoseconds
+EXPORT int mlp_timeline(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, mlp_stamps, sizeof(mlp_stamps));
+}
+#endif
 
 // w1: (D/2, FH) packed by rows; w2: (FH, D/2) packed by columns
 EXPORT int mlp_w4(const void* xq, const void* a, const void* w1, const void* s1,

@@ -28,9 +28,12 @@ is the JAX package's.
 The plain versions accumulate int8 x int8 exactly: in float64, which is exact
 below 2^53 (127^2 x D is far below) and runs on both devices. The CUDA
 kernels (csrc/gemv.cu) accumulate in int32 and do the float epilogue with the
-same float32 operations in the same order, so on the card they agree with the
-plain versions to the last bit or within one unit of it. The wrappers run the
-kernel for CUDA tensors and the plain version for CPU tensors.
+same float32 operations in the same order, so on the card they equal the
+plain versions to the bit. One of those operations is the MLP's group scale,
+max / 127: XLA and PyTorch on CUDA compute a division by a constant as a
+product with its float reciprocal, and so do K6 and K8; PyTorch on the CPU
+divides, which can differ by one unit in the last place. The wrappers run
+the kernel for CUDA tensors and the plain version for CPU tensors.
 """
 
 from __future__ import annotations

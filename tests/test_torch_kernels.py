@@ -247,3 +247,21 @@ def test_k3_plain_fully_masked_rows_stay_finite(rng):
                for _ in range(3))
     out = k3.dit_attention(q, k, v, torch.zeros((1, 8), dtype=torch.bool))
     assert torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------------------
+# K6 / K8: the hidden's group scale
+# ---------------------------------------------------------------------------
+
+
+def test_mlp_group_scale_is_a_reciprocal_product():
+    """The JAX MLP kernels' group scale, max|h| / 127, comes out of XLA as a
+    product with the float reciprocal of 127, not as a division: K6 and K8
+    compute it so, to equal the JAX function (and the plain versions on
+    CUDA, where PyTorch divides by a Python scalar the same way)."""
+    import jax
+
+    m = np.abs(np.random.default_rng(0).standard_normal(4096).astype(np.float32)) * 3
+    got = np.asarray(jax.jit(lambda v: v / 127.0)(m))
+    assert np.array_equal(got, m * (np.float32(1) / np.float32(127)))
+    assert not np.array_equal(got, m / np.float32(127))
