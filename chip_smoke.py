@@ -28,9 +28,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and torch._int_mm with the activation padded to the 17 rows it accepts
    at least, int32 out without the float epilogue, over the unpacked int8
    weight for K7 and K8 (K5-K8; two products for K6 and K8); none for K2
-   and K4. K6 and K8 are also checked at 16 rows and at one group, called
-   again and replayed from a CUDA graph (the same bits every time), and
-   torch.profiler counts the device kernels one call of each launches (one).
+   and K4. K6 and K8 are also checked at 16 rows, at one group and at
+   D=1536 and D=2048 (other column slices a block), called again and
+   replayed from a CUDA graph (the same bits every time), and torch.profiler
+   counts the device kernels one call of each launches (one).
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
@@ -566,16 +567,18 @@ def replays_equal(label: str, fn, got):
 
 def check_mlp_cases(label: str, mlp, plain, weights, group, d: int, d_one: int, seed: int):
     """A fused MLP against its plain version at full width (1, 3 and 16
-    rows), at D=512 (two groups) and at d_one, where FH=4*d_one is one group, each
-    within 1e-6 of max|out| (exact int32 sums, the plain versions' float32
-    operations in their order); full width is also called again and replayed
-    from a CUDA graph. Returns the largest error."""
+    rows), at D=512 (two groups), at d_one (FH=4*d_one is one group), and at
+    D=1536 and D=2048 (48 and 32 hidden columns a block), each within 1e-6
+    of max|out| (exact int32 sums, the plain versions' float32 operations in
+    their order); full width is also called again and replayed from a CUDA
+    graph. Returns the largest error."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rel_tol = 1e-6
     cases = [("full width", 1, d), ("full width b=3", 3, d), ("full width b=16", 16, d),
-             ("D=512", 1, 512), ("D=512 b=3", 3, 512), ("one group", 1, d_one)]
+             ("D=512", 1, 512), ("D=512 b=3", 3, 512), ("one group", 1, d_one),
+             ("D=1536", 1, 1536), ("D=2048", 1, 2048)]
     err_max = 0.0
     for name, b, di in cases:
         fh = 4 * di

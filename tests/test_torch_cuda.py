@@ -121,10 +121,12 @@ def _replays_equal(fn, got):
 
 
 # (rows, D, replayed): D=128 is one group (FH=512), 16 rows the second
-# instantiation
+# instantiation; D=1536 and D=2048 give each block 48 and 32 hidden columns
+# (64 at full width), the kernel's other shuffle paths
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 512, False), (1, 128, False),
-                                        (16, 1280, False), (1, 1280, True)])
+                                        (16, 1280, False), (1, 1280, True), (1, 1536, False),
+                                        (1, 2048, False)])
 def test_k6_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -158,11 +160,12 @@ def test_k7_cuda_matches_plain(cuda_device, b, d, f):
     assert torch.equal(got, gemv.gemv_w4_plain(xq, a, *w))
 
 
-# (rows, D, replayed): D=256 is one group (FH=1024)
+# (rows, D, replayed): D=256 is one group (FH=1024); D=1536 and D=2048 as
+# for K6
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 1280, False), (1, 512, False),
                                         (3, 512, False), (1, 256, False), (16, 1280, False),
-                                        (1, 1280, True)])
+                                        (1, 1280, True), (1, 1536, False), (1, 2048, False)])
 def test_k8_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
