@@ -716,8 +716,8 @@ int launch_gemv(const int8_t* xq, const float* a, const int8_t* w, const float* 
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime, so that
-// nothing beyond the CUDA runtime is linked; null if the driver lacks it
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query, so that only the runtime is linked; null if missing
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
