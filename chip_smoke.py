@@ -29,9 +29,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    at least, int32 out without the float epilogue, over the unpacked int8
    weight for K7 and K8 (K5-K8; two products for K6 and K8); none for K2
    and K4. K6 and K8 are also checked at 16 rows, at one group and at
-   D=1536 and D=2048 (other column slices a block), called again and
-   replayed from a CUDA graph (the same bits every time), and torch.profiler
-   counts the device kernels one call of each launches (one).
+   D=1536 and D=2048 (other column slices a block; D=2048 also at 16
+   rows), called again and replayed from a CUDA graph (the same bits every
+   time), and torch.profiler counts the device kernels one call of each
+   launches (one).
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
@@ -129,7 +130,8 @@ def environment():
 def cuda_ms(fn, iters: int = 20, replays: int = 5) -> float:
     """Device time of one fn() call, host launch cost excluded: after three
     warm-up calls on a side stream, `iters` calls are captured in one CUDA
-    graph, and `replays` replays of it are timed with CUDA events."""
+    graph on that stream, and `replays` replays of it are timed with CUDA
+    events."""
     import torch
 
     side = torch.cuda.Stream()
@@ -139,7 +141,7 @@ def cuda_ms(fn, iters: int = 20, replays: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -169,6 +171,22 @@ def device_kernels(fn, calls: int = 48):
         torch.cuda.synchronize()
     return {e.key: (e.count / calls, e.device_time_total / 1e3 / calls)
             for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one eager fn() call in microseconds: the wrapper and the
+    launch. The loop is not synchronized, so while the card keeps up with
+    the launches it measures the host alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
@@ -528,7 +546,8 @@ def check_k5(layers: int, d: int, vocab: int):
         b_ms, _ = bound(di * f + 8 * f + di + 4 + 4 * f, 2 * di * f, INT8_OPS)
         print(f"K5 {name} D={di} F={f}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
               f"library_ms(_int_mm, 17 rows)={lib:.4f} bound_ms={b_ms:.5f} (bytes) "
-              f"x{per_step} per step")
+              f"x{per_step} per step; host {host_us(cycled(k5.gemv_w8, args)):.2f} us "
+              f"per eager call")
         for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b_ms)):
             tot[key] += per_step * v
     print(f"K5 one decode step ({2 * layers + 1} launches): kernel_ms={tot['ms']:.4f} "
@@ -543,7 +562,9 @@ def check_k5(layers: int, d: int, vocab: int):
 
 def replays_equal(label: str, fn, got):
     """Two more fn() calls, then two replays of a CUDA graph of one call,
-    must give `got` to the bit (the fused MLPs re-arm their counters)."""
+    must give `got` to the bit (the fused MLPs re-arm their counters). The
+    graph is captured on the stream it was warmed up on, whose first call
+    made the stream's counters."""
     import torch
 
     same = [torch.equal(fn(), got) for _ in range(2)]
@@ -553,7 +574,7 @@ def replays_equal(label: str, fn, got):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = fn()
     for _ in range(2):
         graph.replay()
@@ -568,7 +589,8 @@ def replays_equal(label: str, fn, got):
 def check_mlp_cases(label: str, mlp, plain, weights, group, d: int, d_one: int, seed: int):
     """A fused MLP against its plain version at full width (1, 3 and 16
     rows), at D=512 (two groups), at d_one (FH=4*d_one is one group), and at
-    D=1536 and D=2048 (48 and 32 hidden columns a block), each within 1e-6
+    D=1536 and D=2048 (48 and 32 hidden columns a block; D=2048 also at 16
+    rows, the most shared memory of these cases), each within 1e-6
     of max|out| (exact int32 sums, the plain versions' float32 operations in
     their order); full width is also called again and replayed from a CUDA
     graph. Returns the largest error."""
@@ -578,7 +600,7 @@ def check_mlp_cases(label: str, mlp, plain, weights, group, d: int, d_one: int, 
     rel_tol = 1e-6
     cases = [("full width", 1, d), ("full width b=3", 3, d), ("full width b=16", 16, d),
              ("D=512", 1, 512), ("D=512 b=3", 3, 512), ("one group", 1, d_one),
-             ("D=1536", 1, 1536), ("D=2048", 1, 2048)]
+             ("D=1536", 1, 1536), ("D=2048", 1, 2048), ("D=2048 b=16", 16, 2048)]
     err_max = 0.0
     for name, b, di in cases:
         fh = 4 * di
@@ -631,7 +653,8 @@ def check_k6(layers: int, d: int):
                          lib_args), iters=2 * layers)
     b_ms, by = bound(2 * d * fh + 8 * fh + 8 * d + d + 4 + 4 * d, 4 * d * fh, INT8_OPS)
     print(f"K6 full width D={d} FH={fh}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms(2 x _int_mm, 17 rows)={lib:.4f} bound_ms={b_ms:.5f} ({by})")
+          f"library_ms(2 x _int_mm, 17 rows)={lib:.4f} bound_ms={b_ms:.5f} ({by}); "
+          f"host {host_us(cycled(k6.mlp_w8, args)):.2f} us per eager call")
     return {"name": "K6 mlp_w8", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/gemv.cu",
             "replaces": "indextts_tpu/ops/gemv.py:232",
@@ -727,7 +750,8 @@ def check_k8(layers: int, d: int):
     b_ms, by = bound(d * fh + 8 * fh + 8 * d + d + 4 + 4 * d, 4 * d * fh, INT8_OPS)
     print(f"K8 full width D={d} FH={fh}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
           f"library_ms(2 x _int_mm over the unpacked weights, 17 rows)={lib:.4f} "
-          f"bound_ms={b_ms:.5f} ({by})")
+          f"bound_ms={b_ms:.5f} ({by}); host {host_us(cycled(k8.mlp_w4, args)):.2f} us "
+          f"per eager call")
     return {"name": "K8 mlp_w4", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/gemv.cu",
             "replaces": "indextts_tpu/ops/gemv.py:323",

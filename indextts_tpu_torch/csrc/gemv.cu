@@ -64,6 +64,9 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 #include "common.cuh"
@@ -323,28 +326,33 @@ __device__ __forceinline__ int hi16(int t) { return t & 0xF0F0F0F0; }
 
 // The dynamic shared memory of one block (byte offsets). `w` hidden columns
 // of the block's group slice; R (packed) rows of fc; fc2 rows of RB bytes.
-//   fc     R x w bytes, the fc column slice (2-D TMA, in chunks of rc rows);
-//          after the fc phase the block's int32 fc2 partials (nb x D)
-//   fc2    w x RB bytes, the block's fc2 rows (1-D bulk copies)
+//   fc     R x w bytes, the fc column slice (2-D TMA, in chunks of rc rows)
 //   x      the decode rows, 4 bytes of a row quad per word (W4: the low
-//          nibbles' word, then the high nibbles')
+//          nibbles' word, then the high nibbles'): nb x D bytes
+//   xq     a copy of xq (nb x D bytes), which x is regrouped from
+//   part   the block's int32 fc2 partials (nb x D), over fc, x and xq, which
+//          the fc phase leaves dead; so a block needs at most about
+//          max(R*w + 2*nb*D, 4*nb*D) + w*RB bytes: at 16 rows up to 201 KB
+//          (W8) and 169 KB (W4) at D=2048, FH=8192
+//   fc2    w x RB bytes, the block's fc2 rows (1-D bulk copies)
 //   hq     the block's quantized hidden, 4 bytes of a row quad per word
 //   red    nb x w int32 fc sums, then the hidden as float
-//   vec    copies of xq (nb x D bytes), of s1 and b1 at the block's w hidden
-//          columns, and of s2 and b2 at its D/8 outputs
+//   vec    copies of s1 and b1 at the block's w hidden columns, and of s2 and
+//          b2 at its D/8 outputs
 __host__ __device__ __forceinline__ int up128(int n) { return (n + 127) / 128 * 128; }
 
 struct MlpSmem {
-  int fc, fc2, x, hq, red, vec, vec_bytes, total;
+  int x, xq, fc2, hq, red, vec, vec_bytes, total;
   __host__ __device__ MlpSmem(int nb, int D, int w, bool w4) {
     const int R = w4 ? D / 2 : D, RB = w4 ? D / 2 : D;
-    fc = 0;
-    fc2 = up128(R * w > nb * D * 4 ? R * w : nb * D * 4);
-    x = fc2 + up128(w * RB);
-    hq = x + up128(nb * D);
+    x = up128(R * w);
+    xq = x + up128(nb * D);
+    const int dead = xq + up128(nb * D);  // fc, x and xq: then part
+    fc2 = dead > nb * D * 4 ? dead : up128(nb * D * 4);
+    hq = fc2 + up128(w * RB);
     red = hq + up128(nb * w);
     vec = red + up128(nb * w * 4);
-    vec_bytes = nb * D + 2 * w * 4 + 2 * (D / 8) * 4;
+    vec_bytes = 2 * w * 4 + 2 * (D / 8) * 4;
     total = vec + up128(vec_bytes) + 128;  // + 128: the base is aligned in the kernel
   }
 };
@@ -352,26 +360,6 @@ struct MlpSmem {
 constexpr int kMaxChunks = 32;          // fc chunks (TMA boxes) per block
 constexpr int kPiece = 16384;           // bytes per bulk copy of fc2
 constexpr int kMaxSmem = 232448 - 1024; // a block's shared memory on sm_90, less the static
-
-// Phase timeline, for tuning: built with -DMLP_TIMELINE (as
-// indextts_tpu_torch/tools/mlp_timeline.py does), thread 0 of each of the
-// first 128 blocks records the global timer (ns) at the phase boundaries
-// 0-9 below, and mlp_timeline() copies the records out. Other builds record
-// nothing.
-#ifdef MLP_TIMELINE
-constexpr int kStamps = 10;
-__device__ long long mlp_stamps[128 * kStamps];
-#define MLP_STAMP(k)                                                      \
-  do {                                                                    \
-    if (threadIdx.x == 0 && blockIdx.x < 128)                             \
-      asm volatile("mov.u64 %0, %%globaltimer;"                           \
-                   : "=l"(mlp_stamps[blockIdx.x * kStamps + (k)])); \
-  } while (0)
-#else
-#define MLP_STAMP(k) \
-  do {               \
-  } while (0)
-#endif
 
 // threads of a K6/K8 block: more warps hide more shared-memory latency in
 // the contractions, as far as the 16-row accumulators leave registers
@@ -394,23 +382,22 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   const int n_chunks = R / rc, quads = R / 4;
   constexpr int kT = mlp_threads(NB);
   const int tid = threadIdx.x, lane = tid % 32;
-  MLP_STAMP(0);
 
   // aligned by pointer arithmetic on the shared array, so that the compiler
   // keeps its accesses in the shared space (LDS, not generic loads)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   const MlpSmem L(nb, D, w, W4);
-  int8_t* fc_s = reinterpret_cast<int8_t*>(smem + L.fc);
-  int* part = reinterpret_cast<int*>(smem + L.fc);
+  int8_t* fc_s = reinterpret_cast<int8_t*>(smem);
+  int* part = reinterpret_cast<int*>(smem);
   int8_t* fc2_s = reinterpret_cast<int8_t*>(smem + L.fc2);
   int* x_s = reinterpret_cast<int*>(smem + L.x);
   int* hq_s = reinterpret_cast<int*>(smem + L.hq);
   int* red = reinterpret_cast<int*>(smem + L.red);
   float* hs = reinterpret_cast<float*>(red);
   const int span = D / kCluster, j0 = rank * span;  // the outputs this rank finishes
-  int8_t* xq_s = reinterpret_cast<int8_t*>(smem + L.vec);
-  float* s1_s = reinterpret_cast<float*>(smem + L.vec + nb * D);
+  int8_t* xq_s = reinterpret_cast<int8_t*>(smem + L.xq);
+  float* s1_s = reinterpret_cast<float*>(smem + L.vec);
   float* b1_s = s1_s + w;
   float* s2_s = b1_s + w;
   float* b2_s = s2_s + span;
@@ -445,7 +432,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   for (int i = tid; i < nb * w; i += kT) red[i] = 0;
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(vec_bar, L.vec_bytes);
+    mbar_expect_tx(vec_bar, nb * D + L.vec_bytes);
     bulk_load(xq_s, xq, nb * D, vec_bar);
     bulk_load(s1_s, s1 + col0, w * 4, vec_bar);
     bulk_load(b1_s, b1 + col0, w * 4, vec_bar);
@@ -480,7 +467,6 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     }
   }
   __syncthreads();
-  MLP_STAMP(1);  // the decode rows regrouped
 
   // The contractions see the row count at compile time: the decode path's
   // single row gets loops free of per-row branches, so that the compiler
@@ -550,7 +536,6 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     }
   });
   __syncthreads();
-  MLP_STAMP(2);  // fc contracted
 
   // 3. the epilogue and gelu_new; each row's max |h| over the block (by
   //    warps when a warp lies in one row), then the group's over the
@@ -565,13 +550,11 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     if (w % 32 != 0 || lane == 0) atomicMax(&bmax[r], m);
   }
   cluster.sync();
-  MLP_STAMP(3);  // the cluster's maxima exchanged
 
-  // the block's hidden slice, quantized with the group's scale (max / 127
-  // as XLA and PyTorch on CUDA divide by a constant: a product with its
-  // float reciprocal), regrouped as x was: word k of row r holds the
-  // hidden at columns k + i*w/4. Phase 4 splits the rows kp ways when it
-  // has threads to spare, and then adds into zeroed partials.
+  // the block's hidden slice, quantized with the group's scale (max / 127,
+  // divided as the JAX kernels do), regrouped as x was: word k of row r
+  // holds the hidden at columns k + i*w/4. Phase 4 splits the rows kp ways
+  // when it has threads to spare, and then adds into zeroed partials.
   const int hq4 = w / 4, units2 = RB / 4;
   const int kp = max(1, min(hq4, kT / units2));
   if (kp > 1)
@@ -581,17 +564,16 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     int m = 0;
 #pragma unroll
     for (int q = 0; q < kCluster; ++q) m = max(m, cluster.map_shared_rank(bmax, q)[r]);
-    const float sc = __fadd_rn(__fmul_rn(__int_as_float(m), 1.0f / 127.0f), 1e-12f);
+    const float sc = __fadd_rn(__fdiv_rn(__int_as_float(m), 127.0f), 1e-12f);
     if (c == 0) scale[r] = sc;
     const float q = fminf(fmaxf(rintf(__fdiv_rn(hs[i], sc)), -127.f), 127.f);
     reinterpret_cast<int8_t*>(hq_s)[(r * hq4 + c % hq4) * 4 + c / hq4] = (int8_t)q;
   }
   __syncthreads();
-  MLP_STAMP(4);  // the hidden quantized
 
   // 4. fc2 over the block's w rows: a thread owns one word of each row (4
   //    outputs; W4: 4 packed columns, outputs j and j + D/2) and every
-  //    kp-th row quad; the sums go over the fc slice, now read
+  //    kp-th row quad; the sums go over fc, x and xq, now read
   mbar_wait(&bars[n_chunks]);
   for_rows([&](auto rows) {
     constexpr int ROWS = decltype(rows)::value;
@@ -650,9 +632,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       }
     }
   });
-  MLP_STAMP(5);  // fc2 contracted (thread 0's share)
   cluster.sync();
-  MLP_STAMP(6);
 
   // 5. rank q adds the 8 blocks' partials of outputs [j0, j0 + span)
   //    through distributed shared memory: p_g, the group's float partial.
@@ -676,7 +656,6 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       parts[((size_t)g * nb + r) * D + j] = p;
     }
   }
-  MLP_STAMP(7);  // the group's partial
   // the block has read the cluster's shared memory (relaxed: the arrive
   // need not wait for the stores above)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
@@ -690,7 +669,6 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       atomicAdd(arrived + rank, 1u);
     }
   }
-  MLP_STAMP(8);  // counted, or (the last group) the count seen
   if (owner) {
     __syncthreads();
     for (int i = tid; i < nb * span; i += kT) {
@@ -704,7 +682,6 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
       out[(size_t)r * D + j] = o;
     }
   }
-  MLP_STAMP(9);  // done
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
@@ -741,6 +718,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Host-side set-up of the K6/K8 launches, kept across calls and shared by
+// the calling threads under one lock: the tensor map of each fc weight seen
+// (it depends only on the weight's address and shape), and per device and
+// instantiation the dynamic shared memory the kernel has been allowed.
+std::mutex mlp_host_lock;
+std::map<std::tuple<const void*, int, int, int>, CUtensorMap> fc_maps;
+constexpr size_t kMaxMaps = 4096;  // past this many weights the cache starts over
+constexpr int kMaxDevices = 64;
+
 // parts: a (G - 1, nb, D) f32 scratch; arrived: kCluster zeroed counters
 // that each call leaves zeroed, so calls on one stream may share them
 template <int NB, bool W4>
@@ -754,22 +740,41 @@ int launch_mlp(const int8_t* xq, const float* a, const int8_t* w1, const float* 
   int rc = (R < 256 ? R : 256) / 4 * 4;
   while (R % rc) rc -= 4;
   const MlpSmem L(nb, D, w, W4);
-  const EncodeTiled encode = encode_tiled();
   if (R / rc > kMaxChunks || L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)FH, (cuuint64_t)R};
-  const cuuint64_t strides[1] = {(cuuint64_t)FH};
-  const cuuint32_t box[2] = {(cuuint32_t)w, (cuuint32_t)rc};
-  const cuuint32_t steps[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w1), dims, strides,
-             box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-  // set on every call: the attribute holds per device, and the call is cheap
-  cudaError_t e = cudaFuncSetAttribute(mlp_kernel<NB, W4>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  CUtensorMap map;
+  {
+    std::lock_guard<std::mutex> hold(mlp_host_lock);
+    static int allowed[kMaxDevices] = {};  // bytes, per instantiation
+    if (L.total > allowed[device]) {
+      e = cudaFuncSetAttribute(mlp_kernel<NB, W4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L.total);
+      if (e != cudaSuccess) return (int)e;
+      allowed[device] = L.total;
+    }
+    const auto key = std::make_tuple(static_cast<const void*>(w1), FH, R, w);
+    const auto found = fc_maps.find(key);
+    if (found != fc_maps.end()) {
+      map = found->second;
+    } else {
+      const EncodeTiled encode = encode_tiled();
+      if (encode == nullptr) return (int)cudaErrorNotSupported;
+      const cuuint64_t dims[2] = {(cuuint64_t)FH, (cuuint64_t)R};
+      const cuuint64_t strides[1] = {(cuuint64_t)FH};
+      const cuuint32_t box[2] = {(cuuint32_t)w, (cuuint32_t)rc};
+      const cuuint32_t steps[2] = {1, 1};
+      if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w1), dims,
+                 strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
+      if (fc_maps.size() >= kMaxMaps) fc_maps.clear();
+      fc_maps.emplace(key, map);
+    }
+  }
   mlp_kernel<NB, W4><<<FH / hb * kCluster, mlp_threads(NB), L.total, st>>>(
       map, xq, a, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb, rc);
   return (int)cudaGetLastError();
@@ -830,13 +835,6 @@ EXPORT int mlp_w8(const void* xq, const void* a, const void* w1, const void* s1,
   return mlp_entry<false>(xq, a, w1, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb,
                           stream);
 }
-
-#ifdef MLP_TIMELINE
-// the phase timeline of the last call: 128 x kStamps int64 nanoseconds
-EXPORT int mlp_timeline(void* host) {
-  return (int)cudaMemcpyFromSymbol(host, mlp_stamps, sizeof(mlp_stamps));
-}
-#endif
 
 // w1: (D/2, FH) packed by rows; w2: (FH, D/2) packed by columns
 EXPORT int mlp_w4(const void* xq, const void* a, const void* w1, const void* s1,

@@ -30,10 +30,11 @@ below 2^53 (127^2 x D is far below) and runs on both devices. The CUDA
 kernels (csrc/gemv.cu) accumulate in int32 and do the float epilogue with the
 same float32 operations in the same order, so on the card they equal the
 plain versions to the bit. One of those operations is the MLP's group scale,
-max / 127: XLA and PyTorch on CUDA compute a division by a constant as a
-product with its float reciprocal, and so do K6 and K8; PyTorch on the CPU
-divides, which can differ by one unit in the last place. The wrappers run
-the kernel for CUDA tensors and the plain version for CPU tensors.
+max / 127, a true division in the JAX kernels; PyTorch on CUDA would compute
+a tensor over a Python scalar as a product with the scalar's float
+reciprocal, so the plain versions divide by a tensor, on either device. The
+wrappers run the kernel for CUDA tensors and the plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -186,7 +187,9 @@ def _mlp_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, hb):
     n_groups = fh // hb
     h = int8_matmul(xq, fc_q) * (a.reshape(-1, 1).float() * fc_scale) + fc_bias
     h = gelu_new_kernel_form(h).reshape(b, n_groups, hb)
-    ha = h.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12  # (b, G, 1)
+    # max / 127, divided (over a tensor: a Python scalar would make PyTorch
+    # on CUDA multiply by its reciprocal); (b, G, 1)
+    ha = h.abs().amax(dim=-1, keepdim=True) / h.new_tensor(127.0) + 1e-12
     hq = torch.clamp(torch.round(h / ha), -127, 127)
     # (G, b, hb) x (G, hb, D): one exact int8 product per group
     acc = torch.bmm(hq.transpose(0, 1).to(torch.float64),
@@ -252,7 +255,10 @@ def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
 
 
 def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
-    """K6 on CUDA tensors, the plain version on CPU tensors."""
+    """K6 on CUDA tensors, the plain version on CPU tensors. On the card a
+    block's shared memory (csrc/gemv.cu `MlpSmem`) takes 16 rows up to
+    D=2304 at FH=4*D, and fewer rows past that; a call that does not fit
+    raises."""
     if xq.device.type == "cpu":
         return mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias)
     d, fh = fc_q.shape
@@ -265,7 +271,8 @@ def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
 
 def mlp_w4(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
     """K8 on CUDA tensors, the plain version on CPU tensors. fc_p (D/2, FH)
-    is packed along its rows, fc2_p (FH, D/2) along its columns."""
+    is packed along its rows, fc2_p (FH, D/2) along its columns. On the
+    card 16 rows fit up to D=3200 at FH=4*D, as in mlp_w8."""
     if xq.device.type == "cpu":
         return mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias)
     d2, fh = fc_p.shape
@@ -281,14 +288,21 @@ _arrived = {}
 
 
 def _arrival_counters(device):
-    """The fused MLP kernels' per-device counters of finished groups, one
-    per output span of a cluster's block. Zeroed once; every call leaves
-    them at zero, so the calls on one stream share them and stay
-    capturable in a CUDA graph (calls on concurrent streams of one device
-    must not)."""
-    key = device.index if device.index is not None else torch.cuda.current_device()
+    """The fused MLP kernels' counters of finished groups, one per output
+    span of a cluster's block, for the current stream of `device`. Made and
+    zeroed by the stream's first call; every call leaves them at zero, so
+    the calls on one stream share them, and a CUDA graph captured on the
+    stream replays with them. Streams do not share them, so calls on
+    concurrent streams do not meet. The first call on a stream must not be
+    under graph capture, which would record the zeroing without running it:
+    warm up on the stream the graph is then captured on."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
     t = _arrived.get(key)
     if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused MLP: first call on this stream is under CUDA graph "
+                               "capture; call it once on the capture stream before capturing")
         t = _arrived[key] = torch.zeros(CLUSTER, dtype=torch.int32, device=device)
     return t
 
@@ -297,6 +311,7 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
                 d, fh, hb):
     """One launch of the C entry point `symbol`, over a scratch of the
     groups' float partials, (G - 1, b, D)."""
+    arrived = _arrival_counters(xq.device)
     if hb % (16 * CLUSTER) or fc.dtype != torch.int8 or fc2.dtype != torch.int8:
         raise ValueError(f"{symbol}: int8 weights with groups of a multiple of "
                          f"{16 * CLUSTER} columns needed, got {fc.dtype}, "
@@ -309,13 +324,12 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
     if a.shape != (b,) or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
         raise ValueError(f"{symbol}: scale or bias shape does not match")
     parts = torch.empty((max(fh // hb - 1, 1), b, d), device=xq.device, dtype=torch.float32)
-    arrived = _arrival_counters(xq.device)
     out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
              vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
              parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
-    cuda_lib.check(err, symbol)
+    cuda_lib.check(err, f"{symbol} (D={d}, FH={fh}, {b} rows)")
     counter.launches += 1
     return out

@@ -104,7 +104,9 @@ def test_k5_cuda_matches_plain(cuda_device, b, d, f):
 
 def _replays_equal(fn, got):
     """Two more calls, then two replays of a CUDA graph of one call, give
-    `got` to the bit (the fused MLPs' arrival counters re-arm each call)."""
+    `got` to the bit (the fused MLPs' arrival counters re-arm each call).
+    The graph is captured on the stream it was warmed up on, which made its
+    counters."""
     assert torch.equal(fn(), got) and torch.equal(fn(), got)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -112,7 +114,7 @@ def _replays_equal(fn, got):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = fn()
     for _ in range(2):
         graph.replay()
@@ -122,11 +124,12 @@ def _replays_equal(fn, got):
 
 # (rows, D, replayed): D=128 is one group (FH=512), 16 rows the second
 # instantiation; D=1536 and D=2048 give each block 48 and 32 hidden columns
-# (64 at full width), the kernel's other shuffle paths
+# (64 at full width), the kernel's other shuffle paths, and 16 rows at
+# D=2048 the largest shared memory of these cases
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 512, False), (1, 128, False),
                                         (16, 1280, False), (1, 1280, True), (1, 1536, False),
-                                        (1, 2048, False)])
+                                        (1, 2048, False), (16, 2048, False)])
 def test_k6_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -165,7 +168,8 @@ def test_k7_cuda_matches_plain(cuda_device, b, d, f):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 1280, False), (1, 512, False),
                                         (3, 512, False), (1, 256, False), (16, 1280, False),
-                                        (1, 1280, True), (1, 1536, False), (1, 2048, False)])
+                                        (1, 1280, True), (1, 1536, False), (1, 2048, False),
+                                        (16, 2048, False)])
 def test_k8_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -177,3 +181,23 @@ def test_k8_cuda_matches_plain(cuda_device, b, d, replay):
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
     if replay:
         _replays_equal(lambda: gemv.mlp_w4(xq, a, *ws), got)
+
+
+@pytest.mark.cuda
+def test_mlp_first_call_under_capture_raises(cuda_device):
+    """A stream's first fused-MLP call makes and zeroes its arrival
+    counters. Under graph capture the zeroing would only be recorded, so
+    that call raises; after one call on the stream, capture works."""
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xq, a = quant_row(torch.randn((1, 512), generator=g, device=cuda_device))
+    ws = _q8(g, cuda_device, 512, 2048) + _q8(g, cuda_device, 2048, 512)
+    fresh = torch.cuda.Stream()
+    with pytest.raises(RuntimeError, match="graph capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            gemv.mlp_w8(xq, a, *ws)
+    got = gemv.mlp_w8(xq, a, *ws)
+    want = gemv.mlp_w8_plain(xq, a, *ws)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    _replays_equal(lambda: gemv.mlp_w8(xq, a, *ws), got)

@@ -254,14 +254,56 @@ def test_k3_plain_fully_masked_rows_stay_finite(rng):
 # ---------------------------------------------------------------------------
 
 
-def test_mlp_group_scale_is_a_reciprocal_product():
-    """The JAX MLP kernels' group scale, max|h| / 127, comes out of XLA as a
-    product with the float reciprocal of 127, not as a division: K6 and K8
-    compute it so, to equal the JAX function (and the plain versions on
-    CUDA, where PyTorch divides by a Python scalar the same way)."""
-    import jax
+# maxima whose max / 127 and max * (1/127) round apart in float32
+_SCALE_SPLITS = (13, 18, 26, 36, 52, 72, 104)
 
-    m = np.abs(np.random.default_rng(0).standard_normal(4096).astype(np.float32)) * 3
-    got = np.asarray(jax.jit(lambda v: v / 127.0)(m))
-    assert np.array_equal(got, m * (np.float32(1) / np.float32(127)))
-    assert not np.array_equal(got, m / np.float32(127))
+
+@pytest.mark.parametrize("w4", [False, True])
+def test_mlp_group_scale_is_a_true_quotient(w4):
+    """The JAX MLP kernels (Pallas, interpret mode) scale a hidden group by
+    max|h| / 127, correctly rounded, not by max|h| times the float
+    reciprocal of 127, and the port's plain versions (the CPU path of
+    mlp_w8 / mlp_w4) give the same bits. The input makes the scale readable
+    in the output: row r's hidden is m_r at one-hot weights of 1, 0 at 0
+    and gelu_new(-m_r) = 0 at -1, with m_r >= 13 where tanh is exactly 1
+    and gelu_new exact; so hq is 127 or 0, and with unit scales and no
+    biases out = fl(acc2 * ha_r), which tells the two scales apart for each
+    m_r in _SCALE_SPLITS."""
+    from indextts_tpu.ops import gemv as jgemv
+    from indextts_tpu_torch.ops import gemv as gemv_ops
+
+    rng = np.random.default_rng(5)
+    b, d = 16, 256 if w4 else 128
+    fh = 4 * d
+    m = np.array([_SCALE_SPLITS[r % len(_SCALE_SPLITS)] for r in range(b)], np.int32)
+    xq = np.zeros((b, d), np.int8)
+    xq[np.arange(b), np.arange(b)] = m
+    fc = rng.integers(-1, 2, (d, fh)).astype(np.int8)
+    fc[:b, 0] = 1
+    lim = 8 if w4 else 128
+    fc2 = rng.integers(-lim, lim, (fh, d)).astype(np.int8)
+    ones, zeros = np.ones(fh, np.float32), np.zeros(fh, np.float32)
+    vecs = (ones, zeros, np.ones(d, np.float32), np.zeros(d, np.float32))
+    a = np.ones(b, np.float32)
+    if w4:
+        fc_w = gemv_ops.pack_w4(torch.from_numpy(fc)).numpy()
+        fc2_w = gemv_ops.pack_w4(torch.from_numpy(fc2), cols=True).numpy()
+        jax_mlp, port_mlp = jgemv.mlp_w4, gemv_ops.mlp_w4
+        assert gemv_ops.mlp_group_w4(d, fh) == fh
+    else:
+        fc_w, fc2_w = fc, fc2
+        jax_mlp, port_mlp = jgemv.mlp_w8, gemv_ops.mlp_w8
+        assert gemv_ops.mlp_group(d, fh) == fh
+    ws = (fc_w, vecs[0], vecs[1], fc2_w, vecs[2], vecs[3])
+    got = np.asarray(jax_mlp(jnp.asarray(xq), jnp.asarray(a), *map(jnp.asarray, ws),
+                             interpret=True))
+
+    hq = np.where(fc[:b] == 1, 127, 0).astype(np.int64)  # row r, one-hot row r
+    acc2 = (hq @ fc2.astype(np.int64)).astype(np.float32)
+    mf = m.astype(np.float32)[:, None]
+    product = mf * (np.float32(1) / np.float32(127)) + np.float32(1e-12)
+    quotient = mf / np.float32(127) + np.float32(1e-12)
+    assert not np.array_equal(acc2 * quotient, acc2 * product)
+    np.testing.assert_array_equal(got, acc2 * quotient)
+    port = port_mlp(*(torch.from_numpy(v) for v in (xq, a, *ws))).numpy()
+    np.testing.assert_array_equal(port, got)
