@@ -189,7 +189,8 @@ def _mlp_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, hb):
     h = gelu_new_kernel_form(h).reshape(b, n_groups, hb)
     # max / 127, divided (over a tensor: a Python scalar would make PyTorch
     # on CUDA multiply by its reciprocal); (b, G, 1)
-    ha = h.abs().amax(dim=-1, keepdim=True) / h.new_tensor(127.0) + 1e-12
+    m = h.abs().amax(dim=-1, keepdim=True)
+    ha = m / torch.full_like(m, 127.0) + 1e-12
     hq = torch.clamp(torch.round(h / ha), -127, 127)
     # (G, b, hb) x (G, hb, D): one exact int8 product per group
     acc = torch.bmm(hq.transpose(0, 1).to(torch.float64),
