@@ -67,6 +67,7 @@ import itertools
 import json
 import os
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -173,20 +174,23 @@ def device_kernels(fn, calls: int = 48):
             for e in prof.key_averages() if e.device_time_total > 0}
 
 
-def host_us(fn, calls: int = 200) -> float:
-    """Host time of one eager fn() call in microseconds: the wrapper and the
-    launch. The loop is not synchronized, so while the card keeps up with
-    the launches it measures the host alone."""
+def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
+    """Host time of one eager fn() call in microseconds, the median over
+    `rounds` loops of `calls` calls: the wrapper and the launch. A loop is
+    not synchronized, so while the card keeps up with the launches it
+    measures the host alone."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
