@@ -288,17 +288,17 @@ def mlp_w4(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
 _arrived = {}
 
 
-def _arrival_counters(device):
+def _arrival_counters(device, stream):
     """The fused MLP kernels' counters of finished groups, one per output
-    span of a cluster's block, for the current stream of `device`. Made and
-    zeroed by the stream's first call; every call leaves them at zero, so
-    the calls on one stream share them, and a CUDA graph captured on the
-    stream replays with them. Streams do not share them, so calls on
-    concurrent streams do not meet. The first call on a stream must not be
-    under graph capture, which would record the zeroing without running it:
-    warm up on the stream the graph is then captured on."""
-    stream = torch.cuda.current_stream(device)
-    key = (stream.device_index, stream.cuda_stream)
+    span of a cluster's block, for `stream`, the current stream of
+    `device`. Made and zeroed by the stream's first call; every call
+    leaves them at zero, so the calls on one stream share them, and a CUDA
+    graph captured on the stream replays with them. Streams do not share
+    them, so calls on concurrent streams do not meet. The first call on a
+    stream must not be under graph capture, which would record the zeroing
+    without running it: warm up on the stream the graph is then captured
+    on."""
+    key = (device.index, stream.cuda_stream)
     t = _arrived.get(key)
     if t is None:
         if torch.cuda.is_current_stream_capturing():
@@ -312,7 +312,8 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
                 d, fh, hb):
     """One launch of the C entry point `symbol`, over a scratch of the
     groups' float partials, (G - 1, b, D)."""
-    arrived = _arrival_counters(xq.device)
+    stream = torch.cuda.current_stream(xq.device)
+    arrived = _arrival_counters(xq.device, stream)
     if hb % (16 * CLUSTER) or fc.dtype != torch.int8 or fc2.dtype != torch.int8:
         raise ValueError(f"{symbol}: int8 weights with groups of a multiple of "
                          f"{16 * CLUSTER} columns needed, got {fc.dtype}, "
@@ -327,10 +328,10 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
     parts = torch.empty((max(fh // hb - 1, 1), b, d), device=xq.device, dtype=torch.float32)
     out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
              vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-             parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
+             parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), b, d, fh, hb,
+             stream.cuda_stream)
     cuda_lib.check(err, f"{symbol} (D={d}, FH={fh}, {b} rows)")
     counter.launches += 1
     return out
