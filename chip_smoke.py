@@ -28,11 +28,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and torch._int_mm with the activation padded to the 17 rows it accepts
    at least, int32 out without the float epilogue, over the unpacked int8
    weight for K7 and K8 (K5-K8; two products for K6 and K8); none for K2
-   and K4. K6 and K8 are also checked at 16 rows, at one group and at
-   D=1536 and D=2048 (other column slices a block; D=2048 also at 16
-   rows), called again and replayed from a CUDA graph (the same bits every
-   time), and torch.profiler counts the device kernels one call of each
-   launches (one).
+   and K4. K3's `bound_ms` counts 3 x its operations on the TF32 tensor
+   cores (495 TFLOP/s), where it runs in 3xTF32; the float32 bound is
+   printed beside it. K3 is also checked at the longest segment the
+   default config allows (T=2838), below one tile, with a row of one valid
+   key and with a row of none, on the DiT's strided views (against their
+   contiguous copies, to the bit) and called again (the same bits). K5-K8
+   are also checked at 17 and 40 rows, which go in chunks. K6 and K8 are
+   also checked at 16 rows, at one group and at D=1536 and D=2048 (other
+   column slices a block; D=2048 also at 16 rows), called again and
+   replayed from a CUDA graph (the same bits every time), and
+   torch.profiler counts the device kernels one call of each of K3, K6
+   and K8 launches (one).
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
@@ -79,6 +86,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 MAX_MEL_TOKENS = 300
 N_REQUESTS = 3
@@ -370,7 +378,19 @@ def check_k2(shapes):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
-def check_k3(shapes, heads: int):
+def dit_qkv(g, B: int, heads: int, T: int):
+    """q, k, v as the DiT hands them to K3: q and k transposed views of
+    (B, T, H, 64) tensors (the rotary output), v a transposed slice of the
+    fused qkv projection."""
+    import torch
+
+    qkv = torch.randn((B, T, 3 * heads * 64), generator=g, device="cuda")
+    rot = torch.randn((2, B, T, heads, 64), generator=g, device="cuda")
+    v = qkv[..., 2 * heads * 64:].reshape(B, T, heads, 64).transpose(1, 2)
+    return rot[0].transpose(1, 2), rot[1].transpose(1, 2), v
+
+
+def check_k3(shapes, long_T: int, heads: int):
     import torch
     import torch.nn.functional as F
 
@@ -378,14 +398,22 @@ def check_k3(shapes, heads: int):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    tol = 2e-5  # fp32 online softmax vs one-shot softmax, |out| ~ 1
+    tol = 2e-5  # 3xTF32 online softmax vs fp32 one-shot softmax, |out| ~ 1
     T, tv = shapes["dit_T"], shapes["dit_valid"]
-    cases = [("main", T, [tv, tv]), ("T100", 100, [100, 37]), ("T255", 255, [255, 1]),
-             ("T300", 300, [300, 150]), ("T1000", 1000, [999, 600])]
-    errs, main = {}, None
+    # the main path's and the longest segment's (default max_mel_tokens) with
+    # the DiT's strided views; T=37 is below one tile; T255 has a row with
+    # one valid key, no-valid-key a row that averages v over all T keys
+    cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_T, long_T]),
+             ("T37", 37, [37, 20]), ("T100", 100, [100, 37]), ("T255", 255, [255, 1]),
+             ("T300", 300, [300, 150]), ("T1000", 1000, [999, 600]),
+             ("no-valid-key", 300, [300, 0])]
+    errs, inputs = {}, {}
     for name, t, lens in cases:
         B = len(lens)
-        q, k, v = (torch.randn((B, heads, t, 64), generator=g, device=dev) for _ in range(3))
+        if name == "main" or name.startswith("longest"):
+            q, k, v = dit_qkv(g, B, heads, t)
+        else:
+            q, k, v = (torch.randn((B, heads, t, 64), generator=g, device=dev) for _ in range(3))
         mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
         got = k3.dit_attention(q, k, v, mask)
         want = k3.dit_attention_plain(q, k, v, mask)
@@ -396,19 +424,37 @@ def check_k3(shapes, heads: int):
               f"(tol {tol})")
         if not err <= tol:
             fail(f"K3 {name} disagrees with its plain version: {err}")
-        if name == "main":
-            main = (q, k, v, mask, lens)
-    q, k, v, mask, lens = main
-    B = q.shape[0]
-    ms = cuda_ms(lambda: k3.dit_attention(q, k, v, mask))
-    plain = cuda_ms(lambda: k3.dit_attention_plain(q, k, v, mask))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask[:, None, None, :]))
-    nbytes = 4 * B * heads * T * 64 * 4 + B * T
-    flops = sum(4 * heads * T * n * 64 for n in lens)
-    b_ms, by = bound(nbytes, flops)
-    print(f"K3 main B={B} H={heads} T={T}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms(sdpa)={lib:.4f} bound_ms={b_ms:.4f} ({by})")
+        inputs[name] = (q, k, v, mask, lens)
+    q, k, v, mask, lens = inputs["main"]
+    got = k3.dit_attention(q, k, v, mask)
+    same = [torch.equal(k3.dit_attention(q, k, v, mask), got),
+            torch.equal(k3.dit_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         mask), got)]
+    print(f"K3 main: a second call and contiguous copies of the strided views give the "
+          f"same bits: {same}")
+    if not all(same):
+        fail("K3: a repeated call or contiguous inputs changed the result")
+    one_launch("K3", lambda: k3.dit_attention(q, k, v, mask))
+
+    def timed(name):
+        q, k, v, mask, lens = inputs[name]
+        B, _, t, _ = q.shape
+        ms = cuda_ms(lambda: k3.dit_attention(q, k, v, mask))
+        plain = cuda_ms(lambda: k3.dit_attention_plain(q, k, v, mask), iters=5)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None, None, :]))
+        nbytes = 4 * B * heads * t * 64 * 4 + B * t
+        flops = sum(4 * heads * t * n * 64 for n in lens)
+        fp32_ms, _ = bound(nbytes, flops)
+        # 3xTF32: three TF32 products per product, on the tensor cores
+        tc_ms, tc_by = bound(nbytes, 3 * flops, TF32_FLOPS)
+        print(f"K3 {name} B={B} H={heads} T={t}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms(sdpa)={lib:.4f} bound_ms(3xTF32 tensor cores)={tc_ms:.4f} "
+              f"({tc_by}) bound_ms(fp32 CUDA cores)={fp32_ms:.4f}")
+        return ms, plain, lib, tc_ms, tc_by
+
+    ms, plain, lib, b_ms, by = timed("main")
+    timed(f"longest T={long_T}")
     return {"name": "K3 dit_attention", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/dit_attention.cu",
             "replaces": "indextts_tpu/models/s2mel.py:141",
@@ -519,6 +565,8 @@ def check_k5(layers: int, d: int, vocab: int):
     main = {"c_attn": (d, 3 * d, layers), "attn c_proj": (d, d, layers), "head": (d, fpad, 1)}
     cases = [(f"{name} b={b}", b, di, f) for name, (di, f, _) in main.items() for b in (1, 3)]
     cases.append((f"F=384, not a multiple of the {k5.GEMV_TILE}-column tile", 1, d, 384))
+    # past one launch's 16 rows: in chunks
+    cases += [(f"c_attn b={b}", b, d, 3 * d) for b in (17, 40)]
     errs = {}
     for name, b, di, f in cases:
         if not k5.supports(di, f):
@@ -592,7 +640,7 @@ def replays_equal(label: str, fn, got):
 
 def check_mlp_cases(label: str, mlp, plain, weights, group, d: int, d_one: int, seed: int):
     """A fused MLP against its plain version at full width (1, 3 and 16
-    rows), at D=512 (two groups), at d_one (FH=4*d_one is one group), and at
+    rows, and 17 and 40 in chunks of 16), at D=512 (two groups), at d_one (FH=4*d_one is one group), and at
     D=1536 and D=2048 (48 and 32 hidden columns a block; D=2048 also at 16
     rows, the most shared memory of these cases), each within 1e-6
     of max|out| (exact int32 sums, the plain versions' float32 operations in
@@ -603,6 +651,7 @@ def check_mlp_cases(label: str, mlp, plain, weights, group, d: int, d_one: int, 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rel_tol = 1e-6
     cases = [("full width", 1, d), ("full width b=3", 3, d), ("full width b=16", 16, d),
+             ("full width b=17", 17, d), ("full width b=40", 40, d),
              ("D=512", 1, 512), ("D=512 b=3", 3, 512), ("one group", 1, d_one),
              ("D=1536", 1, 1536), ("D=2048", 1, 2048), ("D=2048 b=16", 16, 2048)]
     err_max = 0.0
@@ -686,6 +735,7 @@ def check_k7(layers: int, d: int):
     main = {"c_attn": (d, 3 * d), "attn c_proj": (d, d)}
     cases = [(f"{name} b={b}", b, di, f) for name, (di, f) in main.items() for b in (1, 3)]
     cases.append((f"F=384, not a multiple of the {k7.GEMV_TILE}-column tile", 1, d, 384))
+    cases += [(f"c_attn b={b}", b, d, 3 * d) for b in (17, 40)]
     errs = {}
     for name, b, di, f in cases:
         if not k7.supports_w4(di, f):
@@ -1024,9 +1074,11 @@ def main():
     g = cfg.gpt
     shapes = main_path_shapes(cfg, MAX_MEL_TOKENS)
     print(f"main-path shapes: {json.dumps(shapes)}")
+    # the longest segment the default config allows
+    long_T = main_path_shapes(cfg, cfg.runtime.max_mel_tokens)["dit_T"]
     kernels = [check_k1(shapes, g.layers, g.heads),
                check_k2(shapes),
-               check_k3(shapes, cfg.s2mel.dit.num_heads),
+               check_k3(shapes, long_T, cfg.s2mel.dit.num_heads),
                check_k4(shapes, g.layers, g.heads),
                check_k5(g.layers, g.model_dim, g.number_mel_codes),
                check_k6(g.layers, g.model_dim),

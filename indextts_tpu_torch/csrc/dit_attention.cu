@@ -5,151 +5,304 @@
 // jax.experimental.pallas.ops.tpu.flash_attention). Semantics follow the
 // package's XLA path beside it: non-causal, scores q.k * Dh^-1/2, masked keys
 // get NEG_INF = -1e9, softmax over all T keys in fp32, so every query row
-// (pad queries included) attends to the valid keys and stays finite.
+// (pad queries included) attends to the valid keys and stays finite, and a
+// row with no valid key averages v over all T keys.
 //
-// q, k, v: (B, H, T, 64) float32; key_mask: (B, T) uint8; out (B, H, T, 64).
+// q, k, v: (B, H, T, 64) float32 and out (B, H, T, 64), each read or written
+// through its strides (`Layout`: unit stride on the last axis, the others
+// multiples of 4 floats, 16-byte aligned bases); key_mask: (B, T) bytes
+// through its strides.
 //
-// Bound on the H100: operations. 4*T*T*Dh FLOPs per (b, h) against
-// 16*T*Dh bytes; at T ~ 800 that is ~200 FLOPs per byte, and in float32 the
-// card has 67 TFLOP/s outside the tensor cores, so arithmetic bounds it. The
-// design keeps the (T, T) score matrix out of device memory: one block per
-// (b, h, 64-query tile) streams 64-key K/V tiles through shared memory with
-// an online softmax; four threads share a query row (each owns 16 keys of a
-// tile for the scores and 16 output dims for P.V), rows padded by one float
-// to keep shared-memory reads free of bank conflicts. fp32 FMA throughout,
-// no tensor cores: simple and right first.
+// Bound on the H100: operations. 4*T*T*Dh FLOPs per (b, h) against 16*T*Dh
+// bytes; at T ~ 800 that is ~200 FLOPs per byte. Outside the tensor cores
+// float32 runs at 67 TFLOP/s; the tensor cores run TF32 (11 significant
+// bits) at 495. This kernel keeps float32 accuracy on the tensor cores with
+// 3xTF32: x = hi + lo, both TF32, and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi
+// (the dropped lo.lo term is ~2^-22 of the product), three products per
+// product, so its floor is 3 x FLOPs over 495 TFLOP/s.
+//
+// Design (FlashAttention-2 on mma.sync.m16n8k8 TF32): a block of 4 warps
+// owns 64 query rows of one (b, h); each warp owns 16 rows, whose Q
+// fragments (pre-scaled by 2^-3, exact) it splits once and keeps in
+// registers. 64-key K and V tiles stream through a 3-stage ring of 16-byte
+// cp.async copies, two tiles ahead of the compute, one barrier a tile; shared
+// rows are padded to 68 floats, which makes every fragment read below free
+// of bank conflicts. Per tile a warp computes S = Q.K^T (8 key groups x 8
+// steps of 8 dims), the online softmax on the accumulator fragment (a lane
+// holds rows g and g+8, keys 2t and 2t+1 of each group of 8; the row max is
+// two quad shuffles), and O += P.V with P taken straight from S's registers:
+// the accumulator holds keys (2t, 2t+1) where the A operand wants k-indices
+// (t, t+4), so k-index t reads V's row 2t and k-index t+4 row 2t+1 (the sum
+// over keys does not care about their order). Tile overhang past T scores
+// -inf (not a key), a masked key -1e9.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kD = 64;
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kThreads = 256;  // 4 threads per query row
-constexpr int kSmemFloats = kBN * (kD + 1) + kBN * kD + kBM * (kBN + 1);
+// the tile shape, ring depth and blocks per SM chosen on an H100
+// (indextts_tpu_torch/tools/k3_tune.py builds and times other values)
+#ifndef K3_WARPS
+#define K3_WARPS 4
+#endif
+#ifndef K3_STAGES
+#define K3_STAGES 3
+#endif
+#ifndef K3_MIN_BLOCKS
+#define K3_MIN_BLOCKS 2
+#endif
+
+constexpr int kD = 64;                 // head width
+constexpr int kWarps = K3_WARPS;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = 16 * kWarps;       // query rows per block, 16 a warp
+constexpr int kBN = 64;                // keys per tile
+constexpr int kStages = K3_STAGES;     // tiles in the ring
+constexpr int kPitch = kD + 4;         // floats per shared row
+constexpr int kTile = kBN * kPitch;    // floats per K or V tile
+constexpr int kSmemBytes = kStages * 2 * kTile * (int)sizeof(float);
 constexpr float kNegInf = -1e9f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(kThreads)
+// element strides, in floats (q, k, v, out: b, h, t) and bytes (mask: b, t)
+struct Layout {
+  long long q[3], k[3], v[3], o[3], m[2];
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !full (the source is not read)
+__device__ __forceinline__ void cp_async16(unsigned dst, const float* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away), lo the exact
+// rest, of which the tensor cores read the top 19 bits
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a.b over one m16n8k8 TF32 tile
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a.b in 3xTF32 for 8 accumulators sharing a, the small products first
+__device__ __forceinline__ void mma3(float (&d)[8][4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4], const unsigned (&bh)[8][2],
+                                     const unsigned (&bl)[8][2]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) mma(d[n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) mma(d[n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) mma(d[n], ah, bh[n]);
+}
+
+__global__ void __launch_bounds__(kThreads, K3_MIN_BLOCKS)
 dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v,
-                const uint8_t* __restrict__ key_mask, float* __restrict__ out,
-                int H, int T, float scale) {
-  extern __shared__ float sm[];
-  float* Ks = sm;                   // [kBN][kD + 1]
-  float* Vs = Ks + kBN * (kD + 1);  // [kBN][kD]
-  float* Ps = Vs + kBN * kD;        // [kBM][kBN + 1]
+                const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
+                float* __restrict__ out, const Layout L, int T, float scale) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float* kb = k + b * L.k[0] + h * L.k[1];
+  const float* vb = v + b * L.v[0] + h * L.v[1];
+  const uint8_t* mb = key_mask + b * L.m[0];
+  const int n_tiles = (T + kBN - 1) / kBN;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid >> 2, sub = tid & 3;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * kD;
-  const int qrow = qt * kBM + row;
-  const uint8_t* km = key_mask + (size_t)b * T;
-
-  float qr[kD];
+  // key tile j into its stage: thread tid copies 16-byte column c of rows
+  // tid/16 + 8i of K and V; keys past T are zero-filled. One group a call,
+  // empty past the last tile, so that the waits count alike.
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      float* ks = sm + (j % kStages) * 2 * kTile;
+      float* vs = ks + kTile;
+      const int c = 4 * (tid % 16);
 #pragma unroll
-  for (int d4 = 0; d4 < kD / 4; ++d4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qrow < T) x = load4(q + base + (size_t)qrow * kD + d4 * 4);
-    qr[d4 * 4 + 0] = x.x;
-    qr[d4 * 4 + 1] = x.y;
-    qr[d4 * 4 + 2] = x.z;
-    qr[d4 * 4 + 3] = x.w;
-  }
-  float acc[kD / 4];
-#pragma unroll
-  for (int i = 0; i < kD / 4; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int kt = 0; kt < T; kt += kBN) {
-    for (int i = tid; i < kBN * kD / 4; i += kThreads) {
-      const int r = i / (kD / 4), c4 = i % (kD / 4);
-      const int key = kt + r;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (key < T) {
-        kk = load4(k + base + (size_t)key * kD + c4 * 4);
-        vv = load4(v + base + (size_t)key * kD + c4 * 4);
+      for (int r = tid / 16; r < kBN; r += kThreads / 16) {
+        const int key = j * kBN + r;
+        const long long kr = key < T ? key : 0;
+        cp_async16(smem_u32(ks + r * kPitch + c), kb + kr * L.k[2] + c, key < T);
+        cp_async16(smem_u32(vs + r * kPitch + c), vb + kr * L.v[2] + c, key < T);
       }
-      float* kd = Ks + r * (kD + 1) + c4 * 4;
-      kd[0] = kk.x;
-      kd[1] = kk.y;
-      kd[2] = kk.z;
-      kd[3] = kk.w;
-      *reinterpret_cast<float4*>(Vs + r * kD + c4 * 4) = vv;
     }
-    __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) load_tile(j);
 
-    float s[kBN / 4];
-    float tmax = -INFINITY;
+  // this warp's 16 query rows; a warp past T only helps load
+  const int row0 = blockIdx.x * kBM + warp * 16;
+  const bool active = row0 < T;
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+  // A fragments of Q, step kk: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+  unsigned qh[8][4], ql[8][4];
+  {
+    const float* qb = q + b * L.q[0] + h * L.q[1];
 #pragma unroll
-    for (int j = 0; j < kBN / 4; ++j) {
-      const int n = j * 4 + sub;
-      const int key = kt + n;
-      const float* kr = Ks + n * (kD + 1);
-      float dot = 0.f;
+    for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
-      for (int d = 0; d < kD; ++d) dot += qr[d] * kr[d];
-      float sv;
-      if (key >= T) {
-        sv = -INFINITY;  // tile overhang: not a key at all
-      } else {
-        sv = km[key] ? dot * scale : kNegInf;
+      for (int e = 0; e < 4; ++e) {
+        const int r = e & 1 ? r1 : r0, c = kk * 8 + t + (e & 2 ? 4 : 0);
+        const float x = r < T ? qb[r * L.q[2] + c] * scale : 0.f;
+        split(x, qh[kk][e], ql[kk][e]);
       }
-      s[j] = sv;
-      tmax = fmaxf(tmax, sv);
     }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBN / 4; ++j) {
-      const float p = expf(s[j] - m_new);
-      Ps[row * (kBN + 1) + j * 4 + sub] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-#pragma unroll
-    for (int i = 0; i < kD / 4; ++i) acc[i] *= alpha;
-    m = m_new;
-    __syncthreads();
-
-    const float* pr = Ps + row * (kBN + 1);
-    for (int n = 0; n < kBN; ++n) {
-      const float p = pr[n];
-      const float* vr = Vs + n * kD + sub;
-#pragma unroll
-      for (int i = 0; i < kD / 4; ++i) acc[i] += p * vr[i * 4];
-    }
-    __syncthreads();
   }
 
-  if (qrow < T) {
-    float* o = out + base + (size_t)qrow * kD;
-    const float inv = 1.f / l;
+  float o[8][4];
 #pragma unroll
-    for (int i = 0; i < kD / 4; ++i) o[i * 4 + sub] = acc[i] * inv;
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // tile j has landed for this thread; after the barrier for all, and every
+    // warp is done with tile j - 1, whose stage the next copy refills
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();
+    load_tile(j + kStages - 1);
+    if (!active) continue;
+    const float* ks = sm + (j % kStages) * 2 * kTile;
+    const float* vs = ks + kTile;
+    const int key0 = j * kBN, n_keys = T - key0;  // keys of the tile that exist
+    const bool mk_lo = lane < n_keys && mb[(key0 + lane) * L.m[1]] != 0;
+    const bool mk_hi = lane + 32 < n_keys && mb[(key0 + lane + 32) * L.m[1]] != 0;
+
+    // S = Q.K^T: B fragment of key group n, step kk: b0 K[8n+g][8kk+t], b1 +4
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      unsigned bh[8][2], bl[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float* kr = ks + (8 * n + g) * kPitch + 8 * kk + t;
+        split(kr[0], bh[n][0], bl[n][0]);
+        split(kr[4], bh[n][1], bl[n][1]);
+      }
+      mma3(s, qh[kk], ql[kk], bh, bl);
+    }
+
+    // mask, then the online softmax; element e of group n is row g (e < 2)
+    // or g+8, key 8n + 2t + (e & 1)
+    const unsigned w_lo = __ballot_sync(0xffffffffu, mk_lo);
+    const unsigned w_hi = __ballot_sync(0xffffffffu, mk_hi);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const bool valid = ((n < 4 ? w_lo : w_hi) >> (c & 31)) & 1u;
+        const float x = c >= n_keys ? -INFINITY : valid ? s[n][e] : kNegInf;
+        s[n][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f((m0 - mn0) * kLog2e), al1 = exp2f((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= al0;
+    l1 *= al1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[n][e] - (e < 2 ? m0 : m1)) * kLog2e);
+        s[n][e] = p;
+        if (e < 2) l0 += p;
+        else l1 += p;
+      }
+    }
+
+    // O += P.V over key group kg: A (c0, c2, c1, c3) of S's group kg, at
+    // k-indices t -> key 2t and t+4 -> key 2t+1; B of output group n:
+    // b0 V[8kg+2t][8n+g], b1 V[8kg+2t+1][8n+g]
+#pragma unroll
+    for (int kg = 0; kg < 8; ++kg) {
+      unsigned ah[4], al[4];
+      split(s[kg][0], ah[0], al[0]);
+      split(s[kg][2], ah[1], al[1]);
+      split(s[kg][1], ah[2], al[2]);
+      split(s[kg][3], ah[3], al[3]);
+      unsigned bh[8][2], bl[8][2];
+      const float* vr = vs + (8 * kg + 2 * t) * kPitch + g;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        split(vr[8 * n], bh[n][0], bl[n][0]);
+        split(vr[kPitch + 8 * n], bh[n][1], bl[n][1]);
+      }
+      mma3(o, ah, al, bh, bl);
+    }
+  }
+  if (!active) return;
+
+  // a row's sum is spread over its quad
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  float* ob = out + b * L.o[0] + h * L.o[1];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (r0 < T)
+      *reinterpret_cast<float2*>(ob + r0 * L.o[2] + c) = make_float2(o[n][0] * i0, o[n][1] * i0);
+    if (r1 < T)
+      *reinterpret_cast<float2*>(ob + r1 * L.o[2] + c) = make_float2(o[n][2] * i1, o[n][3] * i1);
   }
 }
 
 }  // namespace
 
+// strides: 14 element strides, those of q, k, v and out over (b, h, t), then
+// key_mask's over (b, t)
 EXPORT int dit_attention(const void* q, const void* k, const void* v,
-                         const void* key_mask, void* out, int B, int H, int T,
-                         float scale, void* stream) {
+                         const void* key_mask, void* out, const long long* strides,
+                         int B, int H, int T, float scale, void* stream) {
+  if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  Layout L;
+  for (int i = 0; i < 3; ++i) {
+    L.q[i] = strides[i];
+    L.k[i] = strides[3 + i];
+    L.v[i] = strides[6 + i];
+    L.o[i] = strides[9 + i];
+  }
+  L.m[0] = strides[12];
+  L.m[1] = strides[13];
   // set on every call: the attribute holds per device, and the call is cheap
-  const int smem = kSmemFloats * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      dit_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dit_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid((T + kBM - 1) / kBM, H, B);
-  dit_attn_kernel<<<grid, kThreads, smem, s>>>(
+  dit_attn_kernel<<<grid, kThreads, kSmemBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(key_mask),
-      static_cast<float*>(out), H, T, scale);
+      static_cast<float*>(out), L, T, scale);
   return (int)cudaGetLastError();
 }

@@ -6,10 +6,15 @@ included) attends to the valid keys. The CUDA kernel (csrc/dit_attention.cu)
 replaces the Pallas flash kernel that indextts_tpu/models/s2mel.py
 `DiTAttention._flash` calls; `dit_attention_plain` is the XLA path beside it
 in plain PyTorch, which the wrapper runs for CPU tensors.
+
+The kernel reads q, k and v through their strides, so the transposed views
+the DiT hands it are not copied, and it writes its output laid out as
+(B, T, H, Dh): `out.transpose(1, 2).reshape(B, T, H * Dh)` is a view.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -34,8 +39,18 @@ def dit_attention_plain(q, k, v, key_mask):
     return torch.einsum("bhts,bhsd->bhtd", probs, v)
 
 
+def kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernel can read it through its strides (16-byte copies of
+    rows): unit stride on the last axis, the other strides multiples of 4
+    elements, a 16-byte aligned base. A copy only where t is not so."""
+    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def dit_attention(q, k, v, key_mask):
-    """K3 on CUDA tensors, the plain version on CPU tensors."""
+    """K3 on CUDA tensors, the plain version on CPU tensors. On the card the
+    result is a (B, H, T, Dh) view of a (B, T, H, Dh) tensor."""
     if q.device.type == "cpu":
         return dit_attention_plain(q, k, v, key_mask)
     B, H, T, Dh = q.shape
@@ -43,20 +58,22 @@ def dit_attention(q, k, v, key_mask):
         raise ValueError(f"DiT attention kernel needs Dh=64, got {Dh}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k, v shapes differ")
-    if key_mask.shape != (B, T):
-        raise ValueError(f"key_mask must be ({B}, {T})")
+    if key_mask.shape != (B, T) or key_mask.dtype != torch.bool:
+        raise ValueError(f"key_mask must be bool ({B}, {T})")
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise TypeError("q, k, v must be float32")
     if any(t.device != q.device for t in (k, v, key_mask)):
         raise ValueError("all inputs must be on the same device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    mask = key_mask.to(torch.uint8).contiguous()
-    out = torch.empty_like(q)
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
+    mask = key_mask.view(torch.uint8)
+    out = torch.empty((B, T, H, Dh), device=q.device, dtype=torch.float32).transpose(1, 2)
+    strides = (ctypes.c_longlong * 14)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *out.stride()[:3], *mask.stride())
     fn = cuda_lib.function("dit_attention", "dit_attention",
-                           [cuda_lib.P] * 5 + [cuda_lib.I] * 3 + [cuda_lib.F, cuda_lib.P])
+                           [cuda_lib.P] * 6 + [cuda_lib.I] * 3 + [cuda_lib.F, cuda_lib.P])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-             out.data_ptr(), B, H, T, 1.0 / math.sqrt(Dh), stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+             ctypes.addressof(strides), B, H, T, 1.0 / math.sqrt(Dh), stream)
     cuda_lib.check(err, "dit_attention")
     counter.launches += 1
     return out

@@ -48,7 +48,8 @@ from indextts_tpu_torch.ops import cuda_lib
 # the JAX kernels' target weight-tile bytes; they fix the MLP group widths
 _TARGET_TILE_BYTES = 512 * 1024
 _TARGET_TILE_BYTES_W4 = 256 * 1024
-# decode rows the kernels take at most (their register accumulators)
+# decode rows one launch takes at most (the kernels' register accumulators);
+# more rows go in chunks (`by_row_chunks`)
 MAX_ROWS = 16
 # the CUDA kernels: K5's and K7's output columns per cluster of blocks, the
 # columns a thread reads from each weight row, and the blocks of a cluster
@@ -202,12 +203,48 @@ def _mlp_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, hb):
     return out
 
 
+def by_row_chunks(fn, rows: int, xq, a, *weights):
+    """fn(xq, a, *weights) over chunks of at most `rows` decode rows,
+    stacked. Each row's scale a, and in the fused MLPs its hidden groups,
+    are its own, so the chunks give one call's rows to the bit."""
+    n = xq.shape[0]
+    if n <= rows:
+        return fn(xq, a, *weights)
+    a = a.reshape(-1)
+    return torch.cat([fn(xq[i:i + rows], a[i:i + rows], *weights)
+                      for i in range(0, n, rows)])
+
+
+def _up128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+# a K6/K8 block's shared memory on sm_90, less the static (csrc/gemv.cu kMaxSmem)
+_MLP_MAX_SMEM = 232448 - 1024
+
+
+def mlp_smem(nb: int, d: int, w: int, w4: bool) -> int:
+    """Dynamic shared memory of a K6/K8 block over nb rows with w hidden
+    columns (csrc/gemv.cu `MlpSmem.total`)."""
+    r = d // 2 if w4 else d
+    dead = _up128(r * w) + 2 * _up128(nb * d)
+    fc2 = dead if dead > 4 * nb * d else _up128(4 * nb * d)
+    vec = fc2 + _up128(w * r) + _up128(nb * w) + _up128(4 * nb * w)
+    return vec + _up128(2 * w * 4 + 2 * (d // 8) * 4) + 128
+
+
+def mlp_rows(d: int, hb: int, w4: bool) -> int:
+    """Decode rows one K6/K8 launch takes at width d with hidden groups of
+    hb columns: MAX_ROWS, or fewer where a block's shared memory holds
+    fewer; 0 where not even one row fits."""
+    w = hb // CLUSTER
+    return max((nb for nb in range(MAX_ROWS + 1)
+                if nb == 0 or mlp_smem(nb, d, w, w4) <= _MLP_MAX_SMEM))
+
+
 def _check(name, xq, tensors, d):
-    b = xq.shape[0]
-    if xq.dtype != torch.int8 or xq.dim() != 2 or xq.shape[1] != d:
+    if xq.dtype != torch.int8 or xq.dim() != 2 or xq.shape[1] != d or xq.shape[0] < 1:
         raise ValueError(f"{name}: xq must be int8 (b, {d}), got {xq.dtype} {tuple(xq.shape)}")
-    if not 1 <= b <= MAX_ROWS:
-        raise ValueError(f"{name}: the kernel takes 1..{MAX_ROWS} rows, got {b}")
     for t in tensors:
         if t.device != xq.device:
             raise ValueError(f"{name}: all inputs must be on the same device")
@@ -245,21 +282,25 @@ def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
     b = xq.shape[0]
     if a.shape != (b,) or w_scale.shape != (f,) or bias.shape != (f,):
         raise ValueError(f"{symbol}: scale or bias shape does not match")
-    out = torch.empty((b, f), device=xq.device, dtype=torch.float32)
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 6 + [cuda_lib.I] * 3 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    err = fn(xq.data_ptr(), a.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
-             bias.data_ptr(), out.data_ptr(), b, d, f, stream)
-    cuda_lib.check(err, symbol)
-    counter.launches += 1
-    return out
+
+    def launch(xq, a):
+        nb = xq.shape[0]
+        out = torch.empty((nb, f), device=xq.device, dtype=torch.float32)
+        err = fn(xq.data_ptr(), a.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), nb, d, f, stream)
+        cuda_lib.check(err, symbol)
+        counter.launches += 1
+        return out
+
+    return by_row_chunks(launch, MAX_ROWS, xq, a)
 
 
 def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
     """K6 on CUDA tensors, the plain version on CPU tensors. On the card a
-    block's shared memory (csrc/gemv.cu `MlpSmem`) takes 16 rows up to
-    D=2304 at FH=4*D, and fewer rows past that; a call that does not fit
-    raises."""
+    launch takes 16 rows up to D=2304 at FH=4*D, fewer past that (a block's
+    shared memory, `mlp_rows`); more rows go in chunks."""
     if xq.device.type == "cpu":
         return mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias)
     d, fh = fc_q.shape
@@ -273,7 +314,8 @@ def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
 def mlp_w4(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
     """K8 on CUDA tensors, the plain version on CPU tensors. fc_p (D/2, FH)
     is packed along its rows, fc2_p (FH, D/2) along its columns. On the
-    card 16 rows fit up to D=3200 at FH=4*D, as in mlp_w8."""
+    card a launch takes 16 rows up to D=3200 at FH=4*D, fewer past that,
+    and more rows go in chunks, as in mlp_w8."""
     if xq.device.type == "cpu":
         return mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias)
     d2, fh = fc_p.shape
@@ -325,13 +367,22 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
     b = xq.shape[0]
     if a.shape != (b,) or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
         raise ValueError(f"{symbol}: scale or bias shape does not match")
-    parts = torch.empty((max(fh // hb - 1, 1), b, d), device=xq.device, dtype=torch.float32)
-    out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
+    rows = mlp_rows(d, hb, symbol == "mlp_w4")
+    if rows == 0:
+        raise ValueError(f"{symbol}: one row at D={d}, FH={fh} exceeds a block's shared memory")
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
-    err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
-             vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-             parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), b, d, fh, hb,
-             stream.cuda_stream)
-    cuda_lib.check(err, f"{symbol} (D={d}, FH={fh}, {b} rows)")
-    counter.launches += 1
-    return out
+
+    def launch(xq, a):
+        nb = xq.shape[0]
+        parts = torch.empty((max(fh // hb - 1, 1), nb, d), device=xq.device,
+                            dtype=torch.float32)
+        out = torch.empty((nb, d), device=xq.device, dtype=torch.float32)
+        err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
+                 vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
+                 parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), nb, d, fh, hb,
+                 stream.cuda_stream)
+        cuda_lib.check(err, f"{symbol} (D={d}, FH={fh}, {nb} rows)")
+        counter.launches += 1
+        return out
+
+    return by_row_chunks(launch, rows, xq, a)

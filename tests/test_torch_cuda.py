@@ -3,7 +3,8 @@
 Skips without one. Imports nothing of JAX, so it also runs where only the
 port is installed: `python -m pytest --noconftest tests/test_torch_cuda.py`
 (the repository's conftest imports JAX). Tolerances: fp32 online softmax
-against a one-shot softmax (K1, K3); the same fp32 algebra with sinf/expf
+against a one-shot softmax (K1; K3 also within 2e-5 absolute, in 3xTF32
+on the tensor cores); the same fp32 algebra with sinf/expf
 and FMA contraction (K2); for K4 as for K1 over an int8 cache, 1e-5; K5
 to K8 exact int32 sums with the plain versions' float32 operations in the
 same order, so their results agree to the last bit (K7 is held to that) or
@@ -53,16 +54,57 @@ def test_k2_cuda_matches_plain(cuda_device, T, C):
                                atol=1e-5, rtol=1e-5)
 
 
+def _k3_inputs(dev, T, lens):
+    g = torch.Generator(device=dev).manual_seed(T)
+    q, k, v = (torch.randn((len(lens), 8, T, 64), generator=g, device=dev) for _ in range(3))
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    return q, k, v, mask
+
+
+# (T, valid keys per batch row): partial masks at T=100 and 300; T=37, below
+# one 64-key tile; T=774, the main path's (chip_smoke.py); T=2838, the
+# longest the default config allows (max_mel_tokens 1500); a row with one
+# valid key; a row with no valid key, which averages v over all T keys
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [100, 300])
-def test_k3_cuda_matches_plain(cuda_device, T):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn((2, 8, T, 64), generator=g, device=cuda_device) for _ in range(3))
-    mask = torch.arange(T, device=cuda_device)[None] < torch.tensor(
-        [[T], [T // 2]], device=cuda_device)
+@pytest.mark.parametrize("T,lens", [(100, [100, 50]), (300, [300, 150]), (37, [37, 20]),
+                                    (774, [774, 774]), (2838, [2838, 2838]),
+                                    (255, [255, 1]), (300, [300, 0])])
+def test_k3_cuda_matches_plain(cuda_device, T, lens):
+    q, k, v, mask = _k3_inputs(cuda_device, T, lens)
     got = k3.dit_attention(q, k, v, mask)
-    torch.testing.assert_close(got, k3.dit_attention_plain(q, k, v, mask),
-                               atol=1e-5, rtol=1e-4)
+    want = k3.dit_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert (got - want).abs().max() <= 2e-5
+    if 0 in lens:
+        row = lens.index(0)
+        mean = v[row].mean(dim=1, keepdim=True).expand(-1, T, -1)
+        torch.testing.assert_close(got[row], mean, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_cuda_repeats_its_bits(cuda_device):
+    q, k, v, mask = _k3_inputs(cuda_device, 774, [774, 500])
+    assert torch.equal(k3.dit_attention(q, k, v, mask), k3.dit_attention(q, k, v, mask))
+
+
+@pytest.mark.cuda
+def test_k3_cuda_reads_strided_views(cuda_device):
+    """The DiT's q, k (transposed (B, T, H, Dh)) and v (a slice of the fused
+    qkv projection) give the bits of their contiguous copies, with no copy
+    made, and the output transposes back to (B, T, H * Dh) as a view."""
+    B, T, H = 2, 300, 8
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    qkv = torch.randn((B, T, 3 * H * 64), generator=g, device=cuda_device)
+    rot = torch.randn((2, B, T, H, 64), generator=g, device=cuda_device)
+    q, k = (x.transpose(1, 2) for x in rot)
+    v = qkv[..., 2 * H * 64:].reshape(B, T, H, 64).transpose(1, 2)
+    assert all(k3.kernel_operand(x) is x for x in (q, k, v))
+    mask = torch.arange(T, device=cuda_device)[None] < torch.tensor([[T], [200]],
+                                                                     device=cuda_device)
+    got = k3.dit_attention(q, k, v, mask)
+    want = k3.dit_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).is_contiguous()
 
 
 @pytest.mark.cuda
@@ -90,7 +132,8 @@ def _q8(g, dev, d, f):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 8320), (2, 256, 384)])
+@pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 8320), (2, 256, 384),
+                                   (17, 1280, 3840), (40, 1280, 3840)])
 def test_k5_cuda_matches_plain(cuda_device, b, d, f):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -125,11 +168,13 @@ def _replays_equal(fn, got):
 # (rows, D, replayed): D=128 is one group (FH=512), 16 rows the second
 # instantiation; D=1536 and D=2048 give each block 48 and 32 hidden columns
 # (64 at full width), the kernel's other shuffle paths, and 16 rows at
-# D=2048 the largest shared memory of these cases
+# D=2048 the largest shared memory of these cases; 17 and 40 rows go in
+# chunks of 16, and 16 rows at D=2560 in chunks of 12 (gemv.mlp_rows)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 512, False), (1, 128, False),
                                         (16, 1280, False), (1, 1280, True), (1, 1536, False),
-                                        (1, 2048, False), (16, 2048, False)])
+                                        (1, 2048, False), (16, 2048, False), (17, 1280, False),
+                                        (40, 1280, False), (16, 2560, False)])
 def test_k6_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -152,7 +197,8 @@ def _q4(g, dev, d, f, cols=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 3840), (1, 1280, 1280),
-                                   (3, 1280, 1280), (1, 1280, 384)])
+                                   (3, 1280, 1280), (1, 1280, 384), (17, 1280, 3840),
+                                   (40, 1280, 3840)])
 def test_k7_cuda_matches_plain(cuda_device, b, d, f):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -164,12 +210,13 @@ def test_k7_cuda_matches_plain(cuda_device, b, d, f):
 
 
 # (rows, D, replayed): D=256 is one group (FH=1024); D=1536 and D=2048 as
-# for K6
+# for K6; 17 and 40 rows in chunks of 16, 16 rows at D=3328 in chunks of 15
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,replay", [(1, 1280, False), (3, 1280, False), (1, 512, False),
                                         (3, 512, False), (1, 256, False), (16, 1280, False),
                                         (1, 1280, True), (1, 1536, False), (1, 2048, False),
-                                        (16, 2048, False)])
+                                        (16, 2048, False), (17, 1280, False), (40, 1280, False),
+                                        (16, 3328, False)])
 def test_k8_cuda_matches_plain(cuda_device, b, d, replay):
     from indextts_tpu_torch.models.gpt2 import quant_row
 

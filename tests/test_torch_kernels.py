@@ -307,3 +307,35 @@ def test_mlp_group_scale_is_a_true_quotient(w4):
     np.testing.assert_array_equal(got, acc2 * quotient)
     port = port_mlp(*(torch.from_numpy(v) for v in (xq, a, *ws))).numpy()
     np.testing.assert_array_equal(port, got)
+
+
+# ---------------------------------------------------------------------------
+# K5-K8: decode rows past one launch's limit, in chunks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn", ["gemv_w8", "gemv_w4", "mlp_w8", "mlp_w4"])
+@pytest.mark.parametrize("rows,chunk", [(17, 16), (40, 16), (40, 7)])
+def test_row_chunks_give_one_calls_bits(fn, rows, chunk):
+    """`by_row_chunks` (how the wrappers split rows past a launch's limit)
+    over the plain versions gives one call's result to the bit: each row's
+    scale and hidden groups are its own."""
+    from indextts_tpu_torch.models.gpt2 import quant_row, quantize_weight, quantize_weight_w4
+    from indextts_tpu_torch.ops import gemv as gemv_ops
+
+    g = torch.Generator().manual_seed(rows + chunk)
+    d = 256
+    xq, a = quant_row(torch.randn((rows, d), generator=g))
+
+    def weight(di, f, cols=False):
+        w = torch.randn((di, f), generator=g) / di ** 0.5
+        w_q, s = quantize_weight_w4(w, cols) if fn.endswith("w4") else quantize_weight(w)
+        return w_q, s, torch.randn((f,), generator=g) * 0.1
+
+    if fn.startswith("gemv"):
+        ws = weight(d, 384)
+    else:
+        ws = weight(d, 4 * d) + weight(4 * d, d, cols=True)
+    plain = getattr(gemv_ops, f"{fn}_plain")
+    got = gemv_ops.by_row_chunks(plain, chunk, xq, a, *ws)
+    assert torch.equal(got, plain(xq, a, *ws))
