@@ -25,10 +25,12 @@
 // owns 64 query rows of one (b, h); each warp owns 16 rows, whose Q
 // fragments (pre-scaled by 2^-3, exact) it splits once and keeps in
 // registers. 64-key K and V tiles stream through a 3-stage ring of 16-byte
-// cp.async copies, two tiles ahead of the compute, one barrier a tile; shared
-// rows are padded to 68 floats, which makes every fragment read below free
-// of bank conflicts. Per tile a warp computes S = Q.K^T (8 key groups x 8
-// steps of 8 dims), the online softmax on the accumulator fragment (a lane
+// cp.async copies, two tiles ahead of the compute, one barrier a tile. The
+// head dims are contracted, and the output columns held, in a permuted order
+// in which a lane's operands are whole 16-byte chunks, and shared rows are
+// padded to 68 floats, which keeps those reads free of bank conflicts. Per
+// tile a warp computes S = Q.K^T (8 key groups x 8 steps of 8 dims), the
+// online softmax on the accumulator fragment (a lane
 // holds rows g and g+8, keys 2t and 2t+1 of each group of 8; the row max is
 // two quad shuffles), and O += P.V with P taken straight from S's registers:
 // the accumulator holds keys (2t, 2t+1) where the A operand wants k-indices
@@ -106,6 +108,10 @@ __device__ __forceinline__ void mma3(float (&d)[8][4], const unsigned (&ah)[4],
   for (int n = 0; n < 8; ++n) mma(d[n], ah, bh[n]);
 }
 
+__device__ __forceinline__ float elem(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
 __global__ void __launch_bounds__(kThreads, K3_MIN_BLOCKS)
 dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
@@ -121,7 +127,7 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (T + kBN - 1) / kBN;
 
   // key tile j into its stage: thread tid copies 16-byte column c of rows
-  // tid/16 + 8i of K and V; keys past T are zero-filled. One group a call,
+  // tid/16 + i*kThreads/16 of K and V; keys past T are zero-filled. One group a call,
   // empty past the last tile, so that the waits count alike.
   auto load_tile = [&](int j) {
     if (j < n_tiles) {
@@ -145,17 +151,27 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = blockIdx.x * kBM + warp * 16;
   const bool active = row0 < T;
   const int r0 = row0 + g, r1 = row0 + g + 8;
-  // A fragments of Q, step kk: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+  // The 64 dims are contracted in 8 steps of 8 in a permuted order, so
+  // that each lane's operands are whole 16-byte chunks: in steps 2jj and
+  // 2jj+1 lane t covers the 4 dims of chunk c = 2t + (jj & 1) + 8(jj >> 1),
+  // k-index t dims 4c and 4c+2, k-index t+4 dims 4c+1 and 4c+3.
+  // A fragments of Q, step s: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
   unsigned qh[8][4], ql[8][4];
   {
     const float* qb = q + b * L.q[0] + h * L.q[1];
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = 4 * (2 * t + (jj & 1) + 8 * (jj >> 1));
+      const float4 x0 = r0 < T ? load4(qb + r0 * L.q[2] + c) : zero;
+      const float4 x1 = r1 < T ? load4(qb + r1 * L.q[2] + c) : zero;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e & 1 ? r1 : r0, c = kk * 8 + t + (e & 2 ? 4 : 0);
-        const float x = r < T ? qb[r * L.q[2] + c] * scale : 0.f;
-        split(x, qh[kk][e], ql[kk][e]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int st = 2 * jj + hh;
+        split(elem(x0, 2 * hh) * scale, qh[st][0], ql[st][0]);
+        split(elem(x1, 2 * hh) * scale, qh[st][1], ql[st][1]);
+        split(elem(x0, 2 * hh + 1) * scale, qh[st][2], ql[st][2]);
+        split(elem(x1, 2 * hh + 1) * scale, qh[st][3], ql[st][3]);
       }
     }
   }
@@ -178,38 +194,50 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool mk_lo = lane < n_keys && mb[(key0 + lane) * L.m[1]] != 0;
     const bool mk_hi = lane + 32 < n_keys && mb[(key0 + lane + 32) * L.m[1]] != 0;
 
-    // S = Q.K^T: B fragment of key group n, step kk: b0 K[8n+g][8kk+t], b1 +4
+    // S = Q.K^T: lane (g, t) reads chunk c of K's row 8n+g for key group n:
+    // b0, b1 of step 2jj from its first two floats, of 2jj+1 from the others
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      unsigned bh[8][2], bl[8][2];
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = 4 * (2 * t + (jj & 1) + 8 * (jj >> 1));
+      float4 kx[8];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float* kr = ks + (8 * n + g) * kPitch + 8 * kk + t;
-        split(kr[0], bh[n][0], bl[n][0]);
-        split(kr[4], bh[n][1], bl[n][1]);
+      for (int n = 0; n < 8; ++n)
+        kx[n] = *reinterpret_cast<const float4*>(ks + (8 * n + g) * kPitch + c);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        unsigned bh[8][2], bl[8][2];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          split(elem(kx[n], 2 * hh), bh[n][0], bl[n][0]);
+          split(elem(kx[n], 2 * hh + 1), bh[n][1], bl[n][1]);
+        }
+        mma3(s, qh[2 * jj + hh], ql[2 * jj + hh], bh, bl);
       }
-      mma3(s, qh[kk], ql[kk], bh, bl);
     }
 
     // mask, then the online softmax; element e of group n is row g (e < 2)
-    // or g+8, key 8n + 2t + (e & 1)
+    // or g+8, key 8n + 2t + (e & 1). A tile of valid keys only skips the mask.
     const unsigned w_lo = __ballot_sync(0xffffffffu, mk_lo);
     const unsigned w_hi = __ballot_sync(0xffffffffu, mk_hi);
+    if (n_keys < kBN || (w_lo & w_hi) != 0xffffffffu) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          const bool valid = ((n < 4 ? w_lo : w_hi) >> (c & 31)) & 1u;
+          s[n][e] = c >= n_keys ? -INFINITY : valid ? s[n][e] : kNegInf;
+        }
+      }
+    }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * t + (e & 1);
-        const bool valid = ((n < 4 ? w_lo : w_hi) >> (c & 31)) & 1u;
-        const float x = c >= n_keys ? -INFINITY : valid ? s[n][e] : kNegInf;
-        s[n][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x);
-        else mx1 = fmaxf(mx1, x);
-      }
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
 #pragma unroll
     for (int off = 1; off <= 2; off *= 2) {
@@ -238,8 +266,10 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // O += P.V over key group kg: A (c0, c2, c1, c3) of S's group kg, at
-    // k-indices t -> key 2t and t+4 -> key 2t+1; B of output group n:
-    // b0 V[8kg+2t][8n+g], b1 V[8kg+2t+1][8n+g]
+    // k-indices t -> key 2t and t+4 -> key 2t+1. The output columns are
+    // permuted too: column col of output group n is dim 4col + n (n < 4) or
+    // 32 + 4col + n - 4, so lane g's B operands for all 8 groups are two
+    // 16-byte chunks of each of V's rows 8kg+2t and 8kg+2t+1.
 #pragma unroll
     for (int kg = 0; kg < 8; ++kg) {
       unsigned ah[4], al[4];
@@ -247,12 +277,14 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split(s[kg][2], ah[1], al[1]);
       split(s[kg][1], ah[2], al[2]);
       split(s[kg][3], ah[3], al[3]);
+      const float* vr = vs + (8 * kg + 2 * t) * kPitch + 4 * g;
+      const float4 v0[2] = {load4(vr), load4(vr + 32)};
+      const float4 v1[2] = {load4(vr + kPitch), load4(vr + kPitch + 32)};
       unsigned bh[8][2], bl[8][2];
-      const float* vr = vs + (8 * kg + 2 * t) * kPitch + g;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        split(vr[8 * n], bh[n][0], bl[n][0]);
-        split(vr[kPitch + 8 * n], bh[n][1], bl[n][1]);
+        split(elem(v0[n / 4], n % 4), bh[n][0], bl[n][0]);
+        split(elem(v1[n / 4], n % 4), bh[n][1], bl[n][1]);
       }
       mma3(o, ah, al, bh, bl);
     }
@@ -266,14 +298,26 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float i0 = 1.f / l0, i1 = 1.f / l1;
+  // row g's columns 2t and 2t+1 of groups 0-3 are dims 8t..8t+7, of groups
+  // 4-7 dims 32+8t..32+8t+7
   float* ob = out + b * L.o[0] + h * L.o[1];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < T)
-      *reinterpret_cast<float2*>(ob + r0 * L.o[2] + c) = make_float2(o[n][0] * i0, o[n][1] * i0);
-    if (r1 < T)
-      *reinterpret_cast<float2*>(ob + r1 * L.o[2] + c) = make_float2(o[n][2] * i1, o[n][3] * i1);
+  for (int half = 0; half < 2; ++half) {
+    const int c = 32 * half + 8 * t, n = 4 * half;
+    if (r0 < T) {
+      float* p = ob + r0 * L.o[2] + c;
+      *reinterpret_cast<float4*>(p) = make_float4(o[n][0] * i0, o[n + 1][0] * i0,
+                                                  o[n + 2][0] * i0, o[n + 3][0] * i0);
+      *reinterpret_cast<float4*>(p + 4) = make_float4(o[n][1] * i0, o[n + 1][1] * i0,
+                                                      o[n + 2][1] * i0, o[n + 3][1] * i0);
+    }
+    if (r1 < T) {
+      float* p = ob + r1 * L.o[2] + c;
+      *reinterpret_cast<float4*>(p) = make_float4(o[n][2] * i1, o[n + 1][2] * i1,
+                                                  o[n + 2][2] * i1, o[n + 3][2] * i1);
+      *reinterpret_cast<float4*>(p + 4) = make_float4(o[n][3] * i1, o[n + 1][3] * i1,
+                                                      o[n + 2][3] * i1, o[n + 3][3] * i1);
+    }
   }
 }
 
