@@ -84,7 +84,7 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const float* src, bool 
 // x = hi + lo: hi is x rounded to TF32 (to nearest, ties away), lo the exact
 // rest, of which the tensor cores read the top 19 bits
 __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
