@@ -23,8 +23,8 @@
 //
 // Design (FlashAttention-2 on mma.sync.m16n8k8 TF32): a block of 4 warps
 // owns 64 query rows of one (b, h); each warp owns 16 rows, whose Q
-// fragments (pre-scaled by 2^-3, exact) it splits once and keeps in
-// registers. 64-key K and V tiles stream through a 3-stage ring of 16-byte
+// fragments it scales by Dh^-1/2 log2(e), splits once and keeps in
+// registers, so that the scores come out in base 2 for ex2. 64-key K and V tiles stream through a 3-stage ring of 16-byte
 // cp.async copies, two tiles ahead of the compute, one barrier a tile. The
 // head dims are contracted, and the output columns held, in a permuted order
 // in which a lane's operands are whole 16-byte chunks, and shared rows are
@@ -36,7 +36,7 @@
 // the accumulator holds keys (2t, 2t+1) where the A operand wants k-indices
 // (t, t+4), so k-index t reads V's row 2t and k-index t+4 row 2t+1 (the sum
 // over keys does not care about their order). Tile overhang past T scores
-// -inf (not a key), a masked key -1e9.
+// -inf (not a key), a masked key -1e9: both mean the same in base 2.
 
 #include "common.cuh"
 
@@ -84,8 +84,15 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const float* src, bool 
 // x = hi + lo: hi is x rounded to TF32 (to nearest, ties away), lo the exact
 // rest, of which the tensor cores read the top 19 bits
 __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;  // cvt.rna.tf32.f32 is slower
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 2^x, approximate (2 ulp), 0 at -inf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // d += a.b over one m16n8k8 TF32 tile
@@ -158,6 +165,7 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // A fragments of Q, step s: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
   unsigned qh[8][4], ql[8][4];
   {
+    scale *= kLog2e;
     const float* qb = q + b * L.q[0] + h * L.q[1];
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -245,7 +253,7 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f((m0 - mn0) * kLog2e), al1 = exp2f((m1 - mn1) * kLog2e);
+    const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     l0 *= al0;
@@ -258,7 +266,7 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       o[n][3] *= al1;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[n][e] - (e < 2 ? m0 : m1)) * kLog2e);
+        const float p = ex2(s[n][e] - (e < 2 ? m0 : m1));
         s[n][e] = p;
         if (e < 2) l0 += p;
         else l1 += p;
