@@ -21,22 +21,25 @@
 // (the dropped lo.lo term is ~2^-22 of the product), three products per
 // product, so its floor is 3 x FLOPs over 495 TFLOP/s.
 //
-// Design (FlashAttention-2 on mma.sync.m16n8k8 TF32): a block of 4 warps
-// owns 64 query rows of one (b, h); each warp owns 16 rows, whose Q
+// Design (FlashAttention-2 on mma.sync.m16n8k8 TF32): a block of 8 warps
+// owns 128 query rows of one (b, h); each warp owns 16 rows, whose Q
 // fragments it scales by Dh^-1/2 log2(e), splits once and keeps in
-// registers, so that the scores come out in base 2 for ex2. 64-key K and V tiles stream through a 3-stage ring of 16-byte
-// cp.async copies, two tiles ahead of the compute, one barrier a tile. The
+// registers, so that the scores come out in base 2 for ex2. 64-key K and V
+// tiles stream through a 2-stage ring of 16-byte cp.async copies, the next
+// tile in flight while one is computed; each thread splits the chunks it copied into TF32
+// high and low parts in shared memory (the high over the copy), so a tile
+// is split once for all 8 warps, and one barrier a tile publishes it. The
 // head dims are contracted, and the output columns held, in a permuted order
 // in which a lane's operands are whole 16-byte chunks, and shared rows are
 // padded to 68 floats, which keeps those reads free of bank conflicts. Per
 // tile a warp computes S = Q.K^T (8 key groups x 8 steps of 8 dims), the
-// online softmax on the accumulator fragment (a lane
-// holds rows g and g+8, keys 2t and 2t+1 of each group of 8; the row max is
-// two quad shuffles), and O += P.V with P taken straight from S's registers:
-// the accumulator holds keys (2t, 2t+1) where the A operand wants k-indices
-// (t, t+4), so k-index t reads V's row 2t and k-index t+4 row 2t+1 (the sum
-// over keys does not care about their order). Tile overhang past T scores
-// -inf (not a key), a masked key -1e9: both mean the same in base 2.
+// online softmax on the accumulator fragment (a lane holds rows g and g+8,
+// keys 2t and 2t+1 of each group of 8; the row max is two quad shuffles),
+// and O += P.V with P taken straight from S's registers: the accumulator
+// holds keys (2t, 2t+1) where the A operand wants k-indices (t, t+4), so
+// k-index t reads V's row 2t and k-index t+4 row 2t+1 (the sum over keys
+// does not care about their order). Tile overhang past T scores -inf (not a
+// key), a masked key -1e9: both mean the same in base 2.
 
 #include "common.cuh"
 
@@ -45,13 +48,13 @@ namespace {
 // the tile shape, ring depth and blocks per SM chosen on an H100
 // (indextts_tpu_torch/tools/k3_tune.py builds and times other values)
 #ifndef K3_WARPS
-#define K3_WARPS 4
+#define K3_WARPS 8
 #endif
 #ifndef K3_STAGES
-#define K3_STAGES 3
+#define K3_STAGES 2
 #endif
 #ifndef K3_MIN_BLOCKS
-#define K3_MIN_BLOCKS 2
+#define K3_MIN_BLOCKS 1
 #endif
 
 constexpr int kD = 64;                 // head width
@@ -62,7 +65,8 @@ constexpr int kBN = 64;                // keys per tile
 constexpr int kStages = K3_STAGES;     // tiles in the ring
 constexpr int kPitch = kD + 4;         // floats per shared row
 constexpr int kTile = kBN * kPitch;    // floats per K or V tile
-constexpr int kSmemBytes = kStages * 2 * kTile * (int)sizeof(float);
+// a stage: K's high parts (first its copy), K's low parts, the same for V
+constexpr int kSmemBytes = kStages * 4 * kTile * (int)sizeof(float);
 constexpr float kNegInf = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -119,6 +123,10 @@ __device__ __forceinline__ float elem(const float4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
 }
 
+__device__ __forceinline__ unsigned elem(const uint4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
 __global__ void __launch_bounds__(kThreads, K3_MIN_BLOCKS)
 dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
@@ -134,13 +142,14 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (T + kBN - 1) / kBN;
 
   // key tile j into its stage: thread tid copies 16-byte column c of rows
-  // tid/16 + i*kThreads/16 of K and V; keys past T are zero-filled. One group a call,
-  // empty past the last tile, so that the waits count alike.
+  // tid/16 + i*kThreads/16 of K and V; keys past T are zero-filled. One
+  // group a call, empty past the last tile, so that the waits count alike.
+  const int c_copy = 4 * (tid % 16);
   auto load_tile = [&](int j) {
     if (j < n_tiles) {
-      float* ks = sm + (j % kStages) * 2 * kTile;
-      float* vs = ks + kTile;
-      const int c = 4 * (tid % 16);
+      float* ks = sm + (j % kStages) * 4 * kTile;
+      float* vs = ks + 2 * kTile;
+      const int c = c_copy;
 #pragma unroll
       for (int r = tid / 16; r < kBN; r += kThreads / 16) {
         const int key = j * kBN + r;
@@ -153,6 +162,26 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) load_tile(j);
+  // the chunks this thread copied into stage st, split in place: the high
+  // parts over the copy, the low parts a tile further on
+  auto split_tile = [&](int st) {
+    float* ks = sm + st * 4 * kTile;
+#pragma unroll
+    for (int r = tid / 16; r < kBN; r += kThreads / 16) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float4* hp = reinterpret_cast<float4*>(ks + 2 * m * kTile + r * kPitch + c_copy);
+        const float4 x = *hp;
+        uint4 hi, lo;
+        split(x.x, hi.x, lo.x);
+        split(x.y, hi.y, lo.y);
+        split(x.z, hi.z, lo.z);
+        split(x.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(hp) = hi;
+        *reinterpret_cast<uint4*>(hp + kTile / 4) = lo;
+      }
+    }
+  };
 
   // this warp's 16 query rows; a warp past T only helps load
   const int row0 = blockIdx.x * kBM + warp * 16;
@@ -190,37 +219,44 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
-    // tile j has landed for this thread; after the barrier for all, and every
-    // warp is done with tile j - 1, whose stage the next copy refills
+    // this thread's copies of tile j have landed: it splits them; after the
+    // barrier the whole tile is split, and every warp is done with tile
+    // j - 1, whose stage the next copy refills
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    split_tile(j % kStages);
     __syncthreads();
     load_tile(j + kStages - 1);
     if (!active) continue;
-    const float* ks = sm + (j % kStages) * 2 * kTile;
-    const float* vs = ks + kTile;
+    const float* ks = sm + (j % kStages) * 4 * kTile;
+    const float* vs = ks + 2 * kTile;
     const int key0 = j * kBN, n_keys = T - key0;  // keys of the tile that exist
     const bool mk_lo = lane < n_keys && mb[(key0 + lane) * L.m[1]] != 0;
     const bool mk_hi = lane + 32 < n_keys && mb[(key0 + lane + 32) * L.m[1]] != 0;
 
-    // S = Q.K^T: lane (g, t) reads chunk c of K's row 8n+g for key group n:
-    // b0, b1 of step 2jj from its first two floats, of 2jj+1 from the others
+    // S = Q.K^T: lane (g, t) reads chunk c of K's row 8n+g for key group n,
+    // high and low parts: b0, b1 of step 2jj from its first two floats, of
+    // 2jj+1 from the others
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = 4 * (2 * t + (jj & 1) + 8 * (jj >> 1));
-      float4 kx[8];
+      uint4 kh[8], kl[8];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-        kx[n] = *reinterpret_cast<const float4*>(ks + (8 * n + g) * kPitch + c);
+      for (int n = 0; n < 8; ++n) {
+        kh[n] = *reinterpret_cast<const uint4*>(ks + (8 * n + g) * kPitch + c);
+        kl[n] = *reinterpret_cast<const uint4*>(ks + kTile + (8 * n + g) * kPitch + c);
+      }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         unsigned bh[8][2], bl[8][2];
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
-          split(elem(kx[n], 2 * hh), bh[n][0], bl[n][0]);
-          split(elem(kx[n], 2 * hh + 1), bh[n][1], bl[n][1]);
+          bh[n][0] = elem(kh[n], 2 * hh);
+          bh[n][1] = elem(kh[n], 2 * hh + 1);
+          bl[n][0] = elem(kl[n], 2 * hh);
+          bl[n][1] = elem(kl[n], 2 * hh + 1);
         }
         mma3(s, qh[2 * jj + hh], ql[2 * jj + hh], bh, bl);
       }
@@ -285,14 +321,17 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split(s[kg][2], ah[1], al[1]);
       split(s[kg][1], ah[2], al[2]);
       split(s[kg][3], ah[3], al[3]);
-      const float* vr = vs + (8 * kg + 2 * t) * kPitch + 4 * g;
-      const float4 v0[2] = {load4(vr), load4(vr + 32)};
-      const float4 v1[2] = {load4(vr + kPitch), load4(vr + kPitch + 32)};
+      const uint4* vr = reinterpret_cast<const uint4*>(vs + (8 * kg + 2 * t) * kPitch + 4 * g);
+      constexpr int kRow = kPitch / 4, kLo = kTile / 4;  // in 16-byte chunks
+      const uint4 vh[4] = {vr[0], vr[8], vr[kRow], vr[kRow + 8]};
+      const uint4 vl[4] = {vr[kLo], vr[kLo + 8], vr[kLo + kRow], vr[kLo + kRow + 8]};
       unsigned bh[8][2], bl[8][2];
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        split(elem(v0[n / 4], n % 4), bh[n][0], bl[n][0]);
-        split(elem(v1[n / 4], n % 4), bh[n][1], bl[n][1]);
+        bh[n][0] = elem(vh[n / 4], n % 4);
+        bh[n][1] = elem(vh[2 + n / 4], n % 4);
+        bl[n][0] = elem(vl[n / 4], n % 4);
+        bl[n][1] = elem(vl[2 + n / 4], n % 4);
       }
       mma3(o, ah, al, bh, bl);
     }

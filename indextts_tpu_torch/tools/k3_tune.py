@@ -27,7 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 
 # (K3_WARPS, K3_STAGES, K3_MIN_BLOCKS); the first is the source's own
-VARIANTS = [(4, 3, 2), (4, 2, 2), (4, 2, 3), (4, 3, 1), (8, 3, 1), (8, 2, 1)]
+VARIANTS = [(8, 2, 1), (8, 3, 1), (4, 3, 1), (4, 2, 2)]
 
 
 def build(variants):
