@@ -92,7 +92,7 @@ __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// 2^x, approximate (2 ulp), 0 at -inf
+// 2^x by the hardware's approximation (ex2.approx), 0 at -inf
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -149,13 +149,12 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (j < n_tiles) {
       float* ks = sm + (j % kStages) * 4 * kTile;
       float* vs = ks + 2 * kTile;
-      const int c = c_copy;
 #pragma unroll
       for (int r = tid / 16; r < kBN; r += kThreads / 16) {
         const int key = j * kBN + r;
         const long long kr = key < T ? key : 0;
-        cp_async16(smem_u32(ks + r * kPitch + c), kb + kr * L.k[2] + c, key < T);
-        cp_async16(smem_u32(vs + r * kPitch + c), vb + kr * L.v[2] + c, key < T);
+        cp_async16(smem_u32(ks + r * kPitch + c_copy), kb + kr * L.k[2] + c_copy, key < T);
+        cp_async16(smem_u32(vs + r * kPitch + c_copy), vb + kr * L.v[2] + c_copy, key < T);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);

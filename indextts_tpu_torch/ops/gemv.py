@@ -237,9 +237,10 @@ def mlp_rows(d: int, hb: int, w4: bool) -> int:
     """Decode rows one K6/K8 launch takes at width d with hidden groups of
     hb columns: MAX_ROWS, or fewer where a block's shared memory holds
     fewer; 0 where not even one row fits."""
-    w = hb // CLUSTER
-    return max((nb for nb in range(MAX_ROWS + 1)
-                if nb == 0 or mlp_smem(nb, d, w, w4) <= _MLP_MAX_SMEM))
+    rows = MAX_ROWS
+    while rows and mlp_smem(rows, d, hb // CLUSTER, w4) > _MLP_MAX_SMEM:
+        rows -= 1
+    return rows
 
 
 def _check(name, xq, tensors, d):
