@@ -45,24 +45,12 @@
 
 namespace {
 
-// the tile shape, ring depth and blocks per SM chosen on an H100
-// (indextts_tpu_torch/tools/k3_tune.py builds and times other values)
-#ifndef K3_WARPS
-#define K3_WARPS 8
-#endif
-#ifndef K3_STAGES
-#define K3_STAGES 2
-#endif
-#ifndef K3_MIN_BLOCKS
-#define K3_MIN_BLOCKS 1
-#endif
-
 constexpr int kD = 64;                 // head width
-constexpr int kWarps = K3_WARPS;
+constexpr int kWarps = 8;              // query warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = 16 * kWarps;       // query rows per block, 16 a warp
 constexpr int kBN = 64;                // keys per tile
-constexpr int kStages = K3_STAGES;     // tiles in the ring
+constexpr int kStages = 2;             // tiles in the ring
 constexpr int kPitch = kD + 4;         // floats per shared row
 constexpr int kTile = kBN * kPitch;    // floats per K or V tile
 // a stage: K's high parts (first its copy), K's low parts, the same for V
@@ -127,7 +115,7 @@ __device__ __forceinline__ unsigned elem(const uint4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
 }
 
-__global__ void __launch_bounds__(kThreads, K3_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, 1)
 dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
                 float* __restrict__ out, const Layout L, int T, float scale) {

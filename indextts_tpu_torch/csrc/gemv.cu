@@ -827,6 +827,15 @@ EXPORT int gemv_w4(const void* xq, const void* a, const void* w, const void* s,
   return gemv_entry<true>(xq, a, w, s, bias, y, nb, D, F, stream);
 }
 
+// decode rows one K6/K8 launch takes at width D with hidden groups of hb
+// columns: kMaxRows, or fewer where a block's shared memory holds fewer; 0
+// where not even one row fits
+EXPORT int mlp_max_rows(int D, int hb, int w4) {
+  int nb = kMaxRows;
+  while (nb > 0 && MlpSmem(nb, D, hb / kCluster, w4 != 0).total > kMaxSmem) --nb;
+  return nb;
+}
+
 // parts: (FH/hb - 1, nb, D) f32 scratch; arrived: 8 zeroed uint32 counters
 EXPORT int mlp_w8(const void* xq, const void* a, const void* w1, const void* s1,
                   const void* b1, const void* w2, const void* s2, const void* b2,

@@ -39,6 +39,7 @@ tensors.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -215,32 +216,13 @@ def by_row_chunks(fn, rows: int, xq, a, *weights):
                       for i in range(0, n, rows)])
 
 
-def _up128(n: int) -> int:
-    return (n + 127) // 128 * 128
-
-
-# a K6/K8 block's shared memory on sm_90, less the static (csrc/gemv.cu kMaxSmem)
-_MLP_MAX_SMEM = 232448 - 1024
-
-
-def mlp_smem(nb: int, d: int, w: int, w4: bool) -> int:
-    """Dynamic shared memory of a K6/K8 block over nb rows with w hidden
-    columns (csrc/gemv.cu `MlpSmem.total`)."""
-    r = d // 2 if w4 else d
-    dead = _up128(r * w) + 2 * _up128(nb * d)
-    fc2 = dead if dead > 4 * nb * d else _up128(4 * nb * d)
-    vec = fc2 + _up128(w * r) + _up128(nb * w) + _up128(4 * nb * w)
-    return vec + _up128(2 * w * 4 + 2 * (d // 8) * 4) + 128
-
-
+@functools.lru_cache(maxsize=None)
 def mlp_rows(d: int, hb: int, w4: bool) -> int:
     """Decode rows one K6/K8 launch takes at width d with hidden groups of
     hb columns: MAX_ROWS, or fewer where a block's shared memory holds
-    fewer; 0 where not even one row fits."""
-    rows = MAX_ROWS
-    while rows and mlp_smem(rows, d, hb // CLUSTER, w4) > _MLP_MAX_SMEM:
-        rows -= 1
-    return rows
+    fewer; 0 where not even one row fits (csrc/gemv.cu `mlp_max_rows`)."""
+    fn = cuda_lib.function("gemv", "mlp_max_rows", [cuda_lib.I] * 3)
+    return fn(d, hb, int(w4))
 
 
 def _check(name, xq, tensors, d):
@@ -271,8 +253,9 @@ def gemv_w4(xq, a, w_p, w_scale, bias):
 
 
 def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
-    """One launch of the C entry point `symbol`(xq, a, w, s, bias, y, b, D,
-    F, stream); D is the contraction width, whatever w's packing."""
+    """The C entry point `symbol`(xq, a, w, s, bias, y, b, D, F, stream),
+    one launch for every MAX_ROWS rows; D is the contraction width, whatever
+    w's packing."""
     if w.dtype != torch.int8 or f % THREAD_COLS:
         raise ValueError(f"{symbol}: weight must be int8 with F a multiple of "
                          f"{THREAD_COLS}, got {w.dtype} {tuple(w.shape)}")
@@ -285,17 +268,19 @@ def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
         raise ValueError(f"{symbol}: scale or bias shape does not match")
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 6 + [cuda_lib.I] * 3 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
+    return by_row_chunks(_gemv_once, MAX_ROWS, xq, a, w, w_scale, bias,
+                         fn, symbol, counter, stream, d, f)
 
-    def launch(xq, a):
-        nb = xq.shape[0]
-        out = torch.empty((nb, f), device=xq.device, dtype=torch.float32)
-        err = fn(xq.data_ptr(), a.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), nb, d, f, stream)
-        cuda_lib.check(err, symbol)
-        counter.launches += 1
-        return out
 
-    return by_row_chunks(launch, MAX_ROWS, xq, a)
+def _gemv_once(xq, a, w, w_scale, bias, fn, symbol, counter, stream, d, f):
+    """One launch of K5 or K7 over at most MAX_ROWS rows."""
+    b = xq.shape[0]
+    out = torch.empty((b, f), device=xq.device, dtype=torch.float32)
+    err = fn(xq.data_ptr(), a.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), b, d, f, stream)
+    cuda_lib.check(err, symbol)
+    counter.launches += 1
+    return out
 
 
 def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
@@ -353,8 +338,8 @@ def _arrival_counters(device, stream):
 
 def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, fc2_bias,
                 d, fh, hb):
-    """One launch of the C entry point `symbol`, over a scratch of the
-    groups' float partials, (G - 1, b, D)."""
+    """The C entry point `symbol`, one launch for every `mlp_rows` rows,
+    each over a scratch of the groups' float partials, (G - 1, b, D)."""
     stream = torch.cuda.current_stream(xq.device)
     arrived = _arrival_counters(xq.device, stream)
     if hb % (16 * CLUSTER) or fc.dtype != torch.int8 or fc2.dtype != torch.int8:
@@ -372,18 +357,18 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
     if rows == 0:
         raise ValueError(f"{symbol}: one row at D={d}, FH={fh} exceeds a block's shared memory")
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 11 + [cuda_lib.I] * 4 + [cuda_lib.P])
+    return by_row_chunks(_mlp_once, rows, xq, a, fc, fc2, vecs, arrived,
+                         fn, symbol, counter, stream.cuda_stream, d, fh, hb)
 
-    def launch(xq, a):
-        nb = xq.shape[0]
-        parts = torch.empty((max(fh // hb - 1, 1), nb, d), device=xq.device,
-                            dtype=torch.float32)
-        out = torch.empty((nb, d), device=xq.device, dtype=torch.float32)
-        err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
-                 vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-                 parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), nb, d, fh, hb,
-                 stream.cuda_stream)
-        cuda_lib.check(err, f"{symbol} (D={d}, FH={fh}, {nb} rows)")
-        counter.launches += 1
-        return out
 
-    return by_row_chunks(launch, rows, xq, a)
+def _mlp_once(xq, a, fc, fc2, vecs, arrived, fn, symbol, counter, stream, d, fh, hb):
+    """One launch of K6 or K8 over at most `mlp_rows` rows."""
+    b = xq.shape[0]
+    parts = torch.empty((max(fh // hb - 1, 1), b, d), device=xq.device, dtype=torch.float32)
+    out = torch.empty((b, d), device=xq.device, dtype=torch.float32)
+    err = fn(xq.data_ptr(), a.data_ptr(), fc.data_ptr(), vecs[0].data_ptr(),
+             vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
+             parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
+    cuda_lib.check(err, f"{symbol} (D={d}, FH={fh}, {b} rows)")
+    counter.launches += 1
+    return out
