@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    launches: c_attn and attn c_proj of 24 layers, and the logits head), K7's
    per decode step (its 48 launches: c_attn and attn c_proj of 24 layers),
    K6's and K8's per call (one layer's MLP). Weights and caches cycle over
-   24 layers' worth, so they come from device memory as in a decode step,
-   not from L2. `bound_ms` is the larger of bytes over 3.35 TB/s and
+   24 layers' worth (K5's and K7's over enough copies of each shape to pass
+   100 MB, twice the L2), so they come from device memory as in a decode
+   step, not from L2. `bound_ms` is the larger of bytes over 3.35 TB/s and
    operations over 67 TFLOP/s (float32) or 1979 TOP/s (int8) (H100 SXM data
    sheet). `library_ms` times one PyTorch call on the same inputs as a
    yardstick the port never calls: scaled_dot_product_attention (K1, K3),
@@ -34,12 +35,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    default config allows (T=2838), below one tile, with a row of one valid
    key and with a row of none, on the DiT's strided views (against their
    contiguous copies, to the bit) and called again (the same bits). K5-K8
-   are also checked at 17 and 40 rows, which go in chunks. K6 and K8 are
-   also checked at 16 rows, at one group and at D=1536 and D=2048 (other
-   column slices a block; D=2048 also at 16 rows), called again and
-   replayed from a CUDA graph (the same bits every time), and
-   torch.profiler counts the device kernels one call of each of K3, K6
-   and K8 launches (one).
+   are also checked at 16 rows and at 17 and 40 rows, which go in chunks.
+   K5 and K7 are also checked at F=384, at D=2048 and at a contraction long
+   enough for two passes of weight boxes a block; K6 and K8 at one group
+   and at D=1536 and D=2048 (other column slices a block; D=2048 also at 16
+   rows). K5-K8 are called again and replayed from a CUDA graph (the same
+   bits every time), and torch.profiler counts the device kernels one call
+   of each of K3 and K5-K8 launches (one). K5-K8 print the host us of an
+   eager call.
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
@@ -89,6 +92,7 @@ FP32_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 MAX_MEL_TOKENS = 300
+L2_CYCLE_BYTES = 100_000_000  # twice the H100's 50 MB L2
 N_REQUESTS = 3
 PROMPT_SECONDS = 3
 PROMPT_SR = 22050
@@ -554,6 +558,64 @@ def int_mm_17(xq, w_q):
     return x17, w_q.t().contiguous().t()
 
 
+def gemv_cases(main: dict, d: int):
+    """K5's and K7's cases: every main-path shape at 1, 3 and 16 rows (one
+    launch's most), F=384, c_attn at D=2048 (2048 x 6144) at 1 and 16 rows,
+    c_attn at 17 and 40 rows (in chunks of 16), and attn c_proj at a D whose
+    blocks take their weight rows in two passes (32768 contraction rows)."""
+    cases = [(f"{name} b={b}", b, di, f) for name, (di, f, _) in main.items()
+             for b in (1, 3, 16)]
+    cases.append(("F=384", 1, d, 384))
+    cases += [(f"D=2048 c_attn b={b}", b, 2048, 6144) for b in (1, 16)]
+    cases += [(f"c_attn b={b}", b, d, 3 * d) for b in (17, 40)]
+    return cases
+
+
+def cycle_copies(nbytes: int, per_step: int) -> int:
+    """Weight copies a timing loop cycles through: at least one step's, and
+    more than L2_CYCLE_BYTES in all, so that the weights come from device
+    memory as in a decode step, not from the 50 MB L2."""
+    return max(per_step, L2_CYCLE_BYTES // nbytes + 1)
+
+
+def time_gemv(label: str, call, plain, main: dict, weight, lib_weight, g, packed: bool):
+    """Per-shape and per-decode-step device times of K5 or K7 (`call`), its
+    plain version and torch._int_mm over the same (unpacked) weights, the
+    bound and the host us of an eager call; one launch (torch.profiler) and
+    the same bits on repeated calls and graph replays at c_attn. Returns
+    the step's totals."""
+    import torch
+
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    for name, (di, f, per_step) in main.items():
+        wbytes = di * f // (2 if packed else 1)
+        copies = cycle_copies(wbytes, per_step)
+        xq, a = q8_row(g, 1, di)
+        args = [(xq, a, *weight(g, di, f)) for _ in range(copies)]
+        if name == "c_attn":
+            one_launch(label, cycled(call, args))
+            replays_equal(label, lambda: call(*args[0]), call(*args[0]))
+        ms = cuda_ms(cycled(call, args), iters=2 * copies)
+        plain_ms = cuda_ms(cycled(plain, args), iters=copies, replays=2)
+        lib_args = [int_mm_17(xq, lib_weight(w[2])) for w in args]
+        lib = cuda_ms(cycled(torch._int_mm, lib_args), iters=2 * copies)
+        del lib_args
+        b_ms, _ = bound(wbytes + 8 * f + di + 4 + 4 * f, 2 * di * f, INT8_OPS)
+        print(f"{label} {name} D={di} F={f}: kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} "
+              f"library_ms(_int_mm{' over the unpacked weight' if packed else ''}, 17 rows)="
+              f"{lib:.5f} bound_ms={b_ms:.5f} (bytes) x{per_step} per step; {copies} copies "
+              f"cycled ({copies * wbytes / 1e6:.1f} MB); host {host_us(cycled(call, args)):.2f} "
+              f"us per eager call")
+        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib), ("bound", b_ms)):
+            tot[key] += per_step * v
+        del args
+    launches = sum(n for _, _, n in main.values())
+    print(f"{label} one decode step ({launches} launches): kernel_ms={tot['ms']:.4f} "
+          f"({tot['ms'] / launches:.5f} per launch) plain_ms={tot['plain']:.4f} "
+          f"library_ms(_int_mm, 17 rows)={tot['lib']:.4f} bound_ms={tot['bound']:.4f} (bytes)")
+    return tot
+
+
 def check_k5(layers: int, d: int, vocab: int):
     import torch
 
@@ -563,10 +625,7 @@ def check_k5(layers: int, d: int, vocab: int):
     rel_tol = 1e-6  # exact int32 sums, same float32 epilogue: equal in practice
     fpad = -(-vocab // 128) * 128
     main = {"c_attn": (d, 3 * d, layers), "attn c_proj": (d, d, layers), "head": (d, fpad, 1)}
-    cases = [(f"{name} b={b}", b, di, f) for name, (di, f, _) in main.items() for b in (1, 3)]
-    cases.append((f"F=384, not a multiple of the {k5.GEMV_TILE}-column tile", 1, d, 384))
-    # past one launch's 16 rows: in chunks
-    cases += [(f"c_attn b={b}", b, d, 3 * d) for b in (17, 40)]
+    cases = gemv_cases(main, d) + [("attn c_proj, two passes", 3, 32768, d)]
     errs = {}
     for name, b, di, f in cases:
         if not k5.supports(di, f):
@@ -579,32 +638,14 @@ def check_k5(layers: int, d: int, vocab: int):
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         errs[name] = err
-        print(f"K5 {name}: D={di} F={f} max_abs_err={err:.3g} of max|y| {scale:.3g} "
+        print(f"K5 {name}: D={di} F={f} rows={b} max_abs_err={err:.3g} of max|y| {scale:.3g} "
               f"(tol {rel_tol} relative)")
         if not err <= rel_tol * scale:
             fail(f"K5 {name} disagrees with its plain version: {err}")
 
-    # one decode step: 24 x c_attn, 24 x attn c_proj, 1 x head; weights cycle
-    # over 24 layers (the head over 8 copies) so that they come from HBM
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
-    for name, (di, f, per_step) in main.items():
-        copies = max(per_step, 8)
-        xq, a = q8_row(g, 1, di)
-        args = [(xq, a, *q8_weight(g, di, f)) for _ in range(copies)]
-        ms = cuda_ms(cycled(k5.gemv_w8, args), iters=2 * copies)
-        plain = cuda_ms(cycled(k5.gemv_w8_plain, args), iters=copies, replays=2)
-        lib_args = [int_mm_17(xq, w[2]) for w in args]
-        lib = cuda_ms(cycled(torch._int_mm, lib_args), iters=2 * copies)
-        b_ms, _ = bound(di * f + 8 * f + di + 4 + 4 * f, 2 * di * f, INT8_OPS)
-        print(f"K5 {name} D={di} F={f}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-              f"library_ms(_int_mm, 17 rows)={lib:.4f} bound_ms={b_ms:.5f} (bytes) "
-              f"x{per_step} per step; host {host_us(cycled(k5.gemv_w8, args)):.2f} us "
-              f"per eager call")
-        for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b_ms)):
-            tot[key] += per_step * v
-    print(f"K5 one decode step ({2 * layers + 1} launches): kernel_ms={tot['ms']:.4f} "
-          f"plain_ms={tot['plain']:.4f} library_ms(_int_mm, 17 rows)={tot['lib']:.4f} "
-          f"bound_ms={tot['bound']:.4f} (bytes)")
+    # one decode step: 24 x c_attn, 24 x attn c_proj, 1 x head
+    tot = time_gemv("K5", k5.gemv_w8, k5.gemv_w8_plain, main, q8_weight, lambda w: w, g,
+                    packed=False)
     return {"name": "K5 gemv_w8", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/gemv.cu",
             "replaces": "indextts_tpu/ops/gemv.py:116",
@@ -732,10 +773,8 @@ def check_k7(layers: int, d: int):
     from indextts_tpu_torch.ops import gemv as k7
 
     g = torch.Generator(device="cuda").manual_seed(7)
-    main = {"c_attn": (d, 3 * d), "attn c_proj": (d, d)}
-    cases = [(f"{name} b={b}", b, di, f) for name, (di, f) in main.items() for b in (1, 3)]
-    cases.append((f"F=384, not a multiple of the {k7.GEMV_TILE}-column tile", 1, d, 384))
-    cases += [(f"c_attn b={b}", b, d, 3 * d) for b in (17, 40)]
+    main = {"c_attn": (d, 3 * d, layers), "attn c_proj": (d, d, layers)}
+    cases = gemv_cases(main, d) + [("attn c_proj, two passes", 3, 65536, d)]
     errs = {}
     for name, b, di, f in cases:
         if not k7.supports_w4(di, f):
@@ -747,31 +786,14 @@ def check_k7(layers: int, d: int):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         errs[name] = err
-        print(f"K7 {name}: D={di} F={f} max_abs_err={err:.3g} of max|y| "
+        print(f"K7 {name}: D={di} F={f} rows={b} max_abs_err={err:.3g} of max|y| "
               f"{want.abs().max().item():.3g} (tol 0: to the bit)")
         if not torch.equal(got, want):
             fail(f"K7 {name} disagrees with its plain version: {err}")
 
-    # one decode step: 24 x c_attn, 24 x attn c_proj; weights cycle over 24
-    # layers so that they come from HBM
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
-    for name, (di, f) in main.items():
-        xq, a = q8_row(g, 1, di)
-        args = [(xq, a, *q4_weight(g, di, f)) for _ in range(layers)]
-        ms = cuda_ms(cycled(k7.gemv_w4, args), iters=2 * layers)
-        plain = cuda_ms(cycled(k7.gemv_w4_plain, args), iters=layers, replays=2)
-        lib_args = [int_mm_17(xq, k7.unpack_w4(w[2])) for w in args]
-        lib = cuda_ms(cycled(torch._int_mm, lib_args), iters=2 * layers)
-        b_ms, _ = bound(di // 2 * f + 8 * f + di + 4 + 4 * f, 2 * di * f, INT8_OPS)
-        print(f"K7 {name} D={di} F={f}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-              f"library_ms(_int_mm over the unpacked weight, 17 rows)={lib:.4f} "
-              f"bound_ms={b_ms:.5f} (bytes) x{layers} per step")
-        for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b_ms)):
-            tot[key] += layers * v
-    print(f"K7 one decode step ({2 * layers} launches): kernel_ms={tot['ms']:.4f} "
-          f"({tot['ms'] / (2 * layers):.5f} per launch) plain_ms={tot['plain']:.4f} "
-          f"library_ms(_int_mm, unpacked, 17 rows)={tot['lib']:.4f} "
-          f"bound_ms={tot['bound']:.4f} (bytes)")
+    # one decode step: 24 x c_attn, 24 x attn c_proj
+    tot = time_gemv("K7", k7.gemv_w4, k7.gemv_w4_plain, main, q4_weight, k7.unpack_w4, g,
+                    packed=True)
     return {"name": "K7 gemv_w4", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/gemv.cu",
             "replaces": "indextts_tpu/ops/gemv.py:171",

@@ -26,20 +26,31 @@
 // Bound on the H100: bytes. A decode row reads each weight byte once and
 // does two (W8) or four (W4) integer operations per byte, far below the
 // card's ridge. At batch 1 the work is one weight stream, so the design is
-// about spreading it over the SMs: every kernel runs in clusters of 8 blocks
-// (Hopper thread block clusters) that combine their int32 partials through
+// about spreading it over the SMs and having it all in flight at once:
+// every kernel runs in clusters of 8 blocks (Hopper thread block clusters)
+// that get their weights by TMA and combine their int32 partials through
 // distributed shared memory, so each call is one launch.
 //
-// - K5 / K7: a cluster owns 256 output columns; each of its blocks
-//   contracts 1/8 of the (packed) rows, one warp per row (256 contiguous
-//   bytes). Block rank 0 sums the 8 partials and applies the epilogue.
-//   c_attn (1280 x 3840) runs 15 clusters, the int8 logits head (1280 x
-//   8320, the last tile half used) 33. A thread owns 8 columns (one 8-byte
-//   load per weight row) and walks its rows in batches of 8 whose loads are
-//   all issued before any is used. The accumulators are int32 registers
-//   for at most 4 rows (the decode rows, or a beam of 3) or, in a second
-//   instantiation, 16. Under W4 a packed row feeds two activations, xq[i]
-//   and xq[i + D/2], and its nibbles are sign-extended with two shifts.
+// - K5 / K7: a cluster owns a tile of 64, 128 or 256 output columns, the
+//   widest whose grid gives every SM a block (ops/gemv.py `gemv_plan`; at
+//   full width c_proj 64 columns in 160 blocks, c_attn 128 in 240, the
+//   int8 logits head 256 in 264, its last tile half used), and block k of
+//   it the k-th eighth of the (packed) weight rows. One thread asks the
+//   copy engine for the block's whole slice as 2-D boxes (rows x tile
+//   bytes, a barrier per box, 10-40 KB a block at full width), so that the
+//   block waits one device-memory round trip and the contraction starts on
+//   the first box. A thread owns 4 columns and walks row quads with dp4a
+//   on 4 x 4 byte tiles transposed in registers; the decode rows are
+//   regrouped in shared memory to match, once a block, so a warp reads
+//   consecutive words. Under W4 a packed row feeds xq[i] (low nibbles) and
+//   xq[i + D/2] (high), each nibble as a byte 16 times its value. The
+//   block adds its threads' sums by warp shuffles and one partial a warp in
+//   shared memory; after one cluster barrier, rank k adds the 8 blocks'
+//   partials of the tile's k-th eighth of columns through distributed
+//   shared memory and applies the epilogue, whose operands it loaded at the
+//   start. A slice larger than a block holds (past 16384 weight rows at 64
+//   columns) goes in passes of boxes. Blocks of 256 threads, for 4 rows or
+//   16.
 // - K6 / K8 follow the JAX kernel's pass over the hidden's groups, with the
 //   groups in parallel: one cluster per group of hb columns, and block k of
 //   it owns hidden columns [k*hb/8, (k+1)*hb/8) of the group. One thread
@@ -75,175 +86,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxRows = 16;
 constexpr int kCluster = 8;
-constexpr int kCols = 8;                // columns per thread: one 8-byte load
-constexpr int kBatch = 8;               // weight rows loaded before use
-constexpr int kGemvTile = 256;          // K5/K7 output columns per cluster
-constexpr int kGemvColThreads = kGemvTile / kCols;
-constexpr int kGemvSlots = kThreads / kGemvColThreads;
-
-// byte j of w as a signed int
-__device__ __forceinline__ int sbyte(int w, int j) {
-  return static_cast<int>(static_cast<int8_t>(w >> (8 * j)));
-}
-
-// the low and the high nibble of byte j of w, each sign-extended to -8..7
-__device__ __forceinline__ int lo4(int w, int j) {
-  return static_cast<int>(static_cast<unsigned>(w) << (28 - 8 * j)) >> 28;
-}
-
-__device__ __forceinline__ int hi4(int w, int j) {
-  return static_cast<int>(static_cast<unsigned>(w) << (24 - 8 * j)) >> 28;
-}
-
-template <int NB>
-__device__ __forceinline__ void zero(int (&acc)[NB][kCols]) {
-#pragma unroll
-  for (int r = 0; r < NB; ++r)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0;
-}
-
-// acc[r][j] += xq[r, d] * w[d, j], j < 8, for the rows r < nb
-template <int NB>
-__device__ __forceinline__ void madd(int (&acc)[NB][kCols], int2 w,
-                                     const int8_t* __restrict__ xq, int nb,
-                                     int ldx, int d) {
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nb) {
-      const int x = __ldg(xq + (size_t)r * ldx + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[r][j] += x * sbyte(w.x, j);
-        acc[r][4 + j] += x * sbyte(w.y, j);
-      }
-    }
-  }
-}
-
-// the same for a packed row d, whose bytes hold weight rows d (low nibbles)
-// and d + half (high nibbles)
-template <int NB>
-__device__ __forceinline__ void madd4(int (&acc)[NB][kCols], int2 w,
-                                      const int8_t* __restrict__ xq, int nb,
-                                      int ldx, int d, int half) {
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nb) {
-      const int xl = __ldg(xq + (size_t)r * ldx + d);
-      const int xh = __ldg(xq + (size_t)r * ldx + d + half);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[r][j] += xl * lo4(w.x, j) + xh * hi4(w.x, j);
-        acc[r][4 + j] += xl * lo4(w.y, j) + xh * hi4(w.y, j);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ int2 load_w8(const int8_t* p) {
-  return __ldg(reinterpret_cast<const int2*>(p));
-}
-
-// acc += sum over the weight rows d = d0, d0 + step, ... < d1 of
-// xq[:, d] * w[d, col:col+8] (W4: of the packed rows, with the high nibbles
-// against xq[:, d + half]); the loads of each batch of 8 rows are issued
-// before any of them is used
-template <bool W4, int NB>
-__device__ __forceinline__ void accumulate(int (&acc)[NB][kCols],
-                                           const int8_t* __restrict__ xq,
-                                           const int8_t* __restrict__ w,
-                                           int nb, int ldx, int F, int col,
-                                           int d0, int d1, int step, int half) {
-  for (int base = d0; base < d1; base += kBatch * step) {
-    int2 wv[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int d = base + u * step;
-      wv[u] = d < d1 ? load_w8(w + (size_t)d * F + col) : make_int2(0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int d = base + u * step;
-      if (d < d1) {
-        if constexpr (W4) {
-          madd4(acc, wv[u], xq, nb, ldx, d, half);
-        } else {
-          madd(acc, wv[u], xq, nb, ldx, d);
-        }
-      }
-    }
-  }
-}
-
-// the block's partial sums into red[r * width + c + j] (shared, zeroed)
-template <int NB>
-__device__ __forceinline__ void reduce_to_shared(const int (&acc)[NB][kCols],
-                                                 int* red, int nb, int width, int c) {
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nb) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) atomicAdd(&red[r * width + c + j], acc[r][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ float gelu_new(float h) {
-  const float h3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, h), h), h);
-  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(h, h3));
-  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, tanhf(inner)));
-}
-
-// ---------------------------------------------------------------------------
-// K5 / K7
-// ---------------------------------------------------------------------------
-
-template <int NB, bool W4>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ a,
-            const int8_t* __restrict__ w, const float* __restrict__ s,
-            const float* __restrict__ bias, float* __restrict__ y, int nb,
-            int D, int F) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int tile = blockIdx.x / kCluster;
-  const int tid = threadIdx.x;
-  const int c = (tid % kGemvColThreads) * kCols, slot = tid / kGemvColThreads;
-  const int col = tile * kGemvTile + c;
-  __shared__ int red[kMaxRows * kGemvTile];
-  for (int i = tid; i < nb * kGemvTile; i += kThreads) red[i] = 0;
-  __syncthreads();
-
-  const int rows = W4 ? D / 2 : D;  // weight rows in memory
-  const int chunk = (rows + kCluster - 1) / kCluster;
-  const int d0 = rank * chunk, d1 = min(rows, d0 + chunk);
-  int acc[NB][kCols];
-  zero(acc);
-  if (col < F) accumulate<W4>(acc, xq, w, nb, D, F, col, d0 + slot, d1, kGemvSlots, rows);
-  reduce_to_shared(acc, red, nb, kGemvTile, c);
-  cluster.sync();
-
-  if (rank == 0) {
-    for (int i = tid; i < nb * kGemvTile; i += kThreads) {
-      const int r = i / kGemvTile, f = tile * kGemvTile + i % kGemvTile;
-      if (f >= F) continue;
-      int sum = 0;
-      for (int q = 0; q < kCluster; ++q) sum += cluster.map_shared_rank(red, q)[i];
-      y[(size_t)r * F + f] =
-          __fadd_rn(__fmul_rn(__int2float_rn(sum), __fmul_rn(a[r], s[f])), bias[f]);
-    }
-  }
-  // no block leaves while rank 0 still reads its shared memory
-  cluster.sync();
-}
-
-// ---------------------------------------------------------------------------
-// K6 / K8: one launch, one cluster per hidden group
-// ---------------------------------------------------------------------------
+constexpr int kMaxSmem = 232448 - 1024;  // a block's shared memory on sm_90, less the static
 
 // shared-memory barriers and the Hopper bulk copies that complete on them
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -261,18 +106,18 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
                : "memory");
 }
 
-// waits for the barrier's first phase (each barrier here is used once); a
+// waits for the barrier's phase of the given parity (0: its first); a
 // copy that has not landed after ~2^34 cycles traps, so the launch fails
 // instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity = 0) {
   const long long t0 = clock64();
   for (;;) {
     uint32_t done;
     asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
         "selp.u32 %0, 1, 0, p; }"
         : "=r"(done)
-        : "r"(smem_addr(bar))
+        : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
     if (done) return;
     if (clock64() - t0 > (1ll << 34)) __trap();
@@ -324,6 +169,229 @@ __device__ __forceinline__ void transpose4(const int (&w)[4], int (&t)[4]) {
 __device__ __forceinline__ int lo16(int t) { return (t << 4) & 0xF0F0F0F0; }
 __device__ __forceinline__ int hi16(int t) { return t & 0xF0F0F0F0; }
 
+__host__ __device__ __forceinline__ int up128(int n) { return (n + 127) / 128 * 128; }
+
+// The contractions see the row count at compile time: the decode path's
+// single row gets loops free of per-row branches, so that the compiler can
+// issue the next row quads' loads early.
+template <int NB, class Body>
+__device__ __forceinline__ void for_rows(int nb, Body&& body) {
+  if constexpr (NB <= 4) {
+    if (nb == 1) return body(std::integral_constant<int, 1>());
+  }
+  body(std::integral_constant<int, NB>());
+}
+
+__device__ __forceinline__ float gelu_new(float h) {
+  const float h3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, h), h), h);
+  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(h, h3));
+  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, tanhf(inner)));
+}
+
+// ---------------------------------------------------------------------------
+// K5 / K7: one launch, one cluster per tile of output columns
+// ---------------------------------------------------------------------------
+
+constexpr int kGemvThreads = 256;
+constexpr int kMaxBoxes = 32;  // weight boxes (and their barriers) a block holds at once
+
+// every output of a tile's rank-th eighth of columns, for every row, is
+// finished by one thread: at most two a thread
+static_assert(kMaxRows * (256 / kCluster) <= 2 * kGemvThreads, "K5/K7 epilogue slots");
+
+// the int32 partials a K5/K7 block keeps per output once the lanes that
+// share columns have added by shuffles: one a warp while a weight row of the
+// tile is narrower than a warp's 32 words, else one a slot of threads
+__host__ __device__ constexpr int gemv_partials(int tile) {
+  return kGemvThreads / (tile / 4 < 32 ? 32 : tile / 4);
+}
+
+// The dynamic shared memory of a K5/K7 block (byte offsets): the weight
+// boxes of one pass, pass_rows x tile bytes, which the block's partials
+// (gemv_partials x nb x tile int32) overlay once read; then the pass's
+// decode rows regrouped, nb x pass_rows bytes (W4: twice, the rows that meet
+// the low nibbles and those that meet the high ones)
+struct GemvSmem {
+  int x, total;
+  __host__ __device__ GemvSmem(int nb, int pass_rows, int tile, bool w4) {
+    const int w = pass_rows * tile, part = gemv_partials(tile) * nb * tile * 4;
+    x = up128(w > part ? w : part);
+    total = x + up128(nb * pass_rows * (w4 ? 2 : 1)) + 128;  // + 128: the base is aligned
+  }
+};
+
+// y[r, f] for the tile of `tile` columns at blockIdx.x / 8; block `rank` of
+// the cluster contracts (packed) weight rows [rank * R/8, (rank + 1) * R/8),
+// as boxes of rb rows, pass_boxes at a time
+template <int NB, bool W4>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kGemvThreads)
+gemv_kernel(const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict__ xq,
+            const float* __restrict__ a, const float* __restrict__ s,
+            const float* __restrict__ bias, float* __restrict__ y, int nb, int D, int F,
+            int tile, int rb, int pass_boxes) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int col0 = blockIdx.x / kCluster * tile;
+  const int R = W4 ? D / 2 : D, n_boxes = R / kCluster / rb;
+  const int d0 = rank * (R / kCluster);  // the block's first weight row
+  const int q4 = rb / 4, units = tile / 4, slots = kGemvThreads / units;
+  const int tid = threadIdx.x, lane = tid % 32, u = tid % units, slot = tid / units;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  const GemvSmem L(nb, pass_boxes * rb, tile, W4);
+  const int* w_s = reinterpret_cast<const int*>(smem);
+  int* part = reinterpret_cast<int*>(smem);
+  int* x_s = reinterpret_cast<int*>(smem + L.x);
+  __shared__ uint64_t bars[kMaxBoxes];
+
+  // 1. one thread readies the barriers. The outputs this rank finishes
+  //    (the tile's rank-th eighth of columns, every row) have their
+  //    epilogue operands loaded now, so that the latency lies under the
+  //    weights'
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&w_map))
+                 : "memory");
+    for (int c = 0; c < pass_boxes; ++c) mbar_init(&bars[c], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const int cpr = tile / kCluster, outs = nb * cpr;
+  float ep_a[2] = {}, ep_s[2] = {}, ep_b[2] = {};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = tid + k * kGemvThreads, f = col0 + rank * cpr + i % cpr;
+    if (i < outs && f < F) {
+      ep_a[k] = a[i / cpr];
+      ep_s[k] = s[f];
+      ep_b[k] = bias[f];
+    }
+  }
+
+  for_rows<NB>(nb, [&](auto rows) {
+    constexpr int ROWS = decltype(rows)::value;
+    int acc[ROWS][4];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0;
+    for (int b0 = 0, pass = 0; b0 < n_boxes; b0 += pass_boxes, ++pass) {
+      const int boxes = min(pass_boxes, n_boxes - b0), quads = boxes * q4;
+      // 2. one thread asks the copy engine for the pass's boxes: at every
+      //    width of this model one pass, the block's whole slice at once
+      if (tid == 0) {
+        for (int c = 0; c < boxes; ++c) {
+          mbar_expect_tx(&bars[c], rb * tile);
+          tma_load_2d(smem + c * rb * tile, &w_map, col0, d0 + (b0 + c) * rb, &bars[c]);
+        }
+      }
+      // 3. the pass's decode rows, regrouped: word Q of row r holds x at
+      //    the weight rows of quad Q, rows k + i*q4 of box Q / q4 (k = Q %
+      //    q4, i < 4), so that a warp reads consecutive words of a box
+      for (int e = tid; e < nb * quads; e += kGemvThreads) {
+        const int r = e / quads, Q = e % quads;
+        const int8_t* xr = xq + (size_t)r * D + d0 + (b0 + Q / q4) * rb + Q % q4;
+        constexpr int kWords = W4 ? 2 : 1;  // W4: x at row d, then at row d + D/2
+#pragma unroll
+        for (int h = 0; h < kWords; ++h) {
+          int word = 0;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) word |= (xr[i * q4 + h * R] & 0xFF) << (8 * i);
+          x_s[kWords * e + h] = word;
+        }
+      }
+      __syncthreads();
+
+      // 4. a thread owns 4 columns (one word of each weight row) and every
+      //    slots-th quad, each box as it lands; dp4a on the transposed 4 x
+      //    4 bytes. Under W4 each byte's low nibble meets x at row d, its
+      //    high nibble x at row d + D/2, as bytes 16 times their value.
+      int seen = -1;
+#pragma unroll 2
+      for (int Q = slot; Q < quads; Q += slots) {
+        const int c = Q / q4;
+        if (c != seen) {
+          mbar_wait(&bars[c], pass & 1);
+          seen = c;
+        }
+        const int* wq = w_s + (c * rb + Q % q4) * units + u;
+        int wv[4], t[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wv[i] = wq[i * q4 * units];
+        transpose4(wv, t);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (ROWS == 1 || r < nb) {
+            if constexpr (W4) {
+              const int xl = x_s[2 * (r * quads + Q)], xh = x_s[2 * (r * quads + Q) + 1];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                acc[r][j] = __dp4a(lo16(t[j]), xl, acc[r][j]);
+                acc[r][j] = __dp4a(hi16(t[j]), xh, acc[r][j]);
+              }
+            } else {
+              const int xw = x_s[r * quads + Q];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[r][j] = __dp4a(t[j], xw, acc[r][j]);
+            }
+          }
+        }
+      }
+      // the pass is read: the next pass's boxes and rows, or the
+      // partials, go over it
+      __syncthreads();
+    }
+
+    // 5. the lanes of a warp that share columns add by shuffles (at 64
+    //    columns a warp holds two slots); then each warp (or slot) stores
+    //    its partial: no shared atomics
+    const int p = tid / (units < 32 ? 32 : units);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (ROWS == 1 || r < nb) {
+        int v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = W4 ? acc[r][j] >> 4 : acc[r][j];
+          for (int off = units; off < 32; off *= 2) v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+        }
+        if (lane < units)
+          *reinterpret_cast<int4*>(part + (p * nb + r) * tile + 4 * u) =
+              make_int4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  });
+  __syncthreads();
+  const int n_parts = gemv_partials(tile);
+  for (int i = tid; i < nb * tile; i += kGemvThreads) {
+    int sum = part[i];
+    for (int q = 1; q < n_parts; ++q) sum += part[q * nb * tile + i];
+    part[i] = sum;
+  }
+  cluster.sync();
+
+  // 6. rank k adds the 8 blocks' sums of its outputs through distributed
+  //    shared memory (int32: exact in any order) and applies the epilogue
+  //    with the plain version's float32 operations in their order
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = tid + k * kGemvThreads, c = rank * cpr + i % cpr, f = col0 + c;
+    if (i < outs && f < F) {
+      const int r = i / cpr;
+      int sum = 0;
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) sum += cluster.map_shared_rank(part, q)[r * tile + c];
+      y[(size_t)r * F + f] =
+          __fadd_rn(__fmul_rn(__int2float_rn(sum), __fmul_rn(ep_a[k], ep_s[k])), ep_b[k]);
+    }
+  }
+  // no block leaves while another still reads its shared memory
+  cluster.sync();
+}
+
+// ---------------------------------------------------------------------------
+// K6 / K8: one launch, one cluster per hidden group
+// ---------------------------------------------------------------------------
+
 // The dynamic shared memory of one block (byte offsets). `w` hidden columns
 // of the block's group slice; R (packed) rows of fc; fc2 rows of RB bytes.
 //   fc     R x w bytes, the fc column slice (2-D TMA, in chunks of rc rows)
@@ -339,7 +407,6 @@ __device__ __forceinline__ int hi16(int t) { return t & 0xF0F0F0F0; }
 //   red    nb x w int32 fc sums, then the hidden as float
 //   vec    copies of s1 and b1 at the block's w hidden columns, and of s2 and
 //          b2 at its D/8 outputs
-__host__ __device__ __forceinline__ int up128(int n) { return (n + 127) / 128 * 128; }
 
 struct MlpSmem {
   int x, xq, fc2, hq, red, vec, vec_bytes, total;
@@ -357,9 +424,8 @@ struct MlpSmem {
   }
 };
 
-constexpr int kMaxChunks = 32;          // fc chunks (TMA boxes) per block
-constexpr int kPiece = 16384;           // bytes per bulk copy of fc2
-constexpr int kMaxSmem = 232448 - 1024; // a block's shared memory on sm_90, less the static
+constexpr int kMaxChunks = 32;  // fc chunks (TMA boxes) per block
+constexpr int kPiece = 16384;   // bytes per bulk copy of fc2
 
 // threads of a K6/K8 block: more warps hide more shared-memory latency in
 // the contractions, as far as the 16-row accumulators leave registers
@@ -468,20 +534,10 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   }
   __syncthreads();
 
-  // The contractions see the row count at compile time: the decode path's
-  // single row gets loops free of per-row branches, so that the compiler
-  // can issue the next row quads' loads early.
-  auto for_rows = [&](auto&& body) {
-    if constexpr (NB <= 4) {
-      if (nb == 1) return body(std::integral_constant<int, 1>());
-    }
-    body(std::integral_constant<int, NB>());
-  };
-
   // 2. fc: a thread owns 4 columns (one word of each row) and walks row
   //    quads; dp4a on the transposed 4 x 4 bytes. Under W4 each byte's low
   //    nibble meets x at row d, its high nibble x at row d + D/2.
-  for_rows([&](auto rows) {
+  for_rows<NB>(nb, [&](auto rows) {
     constexpr int ROWS = decltype(rows)::value;
     const int units = w / 4, slots = kT / units;
     const int u = tid % units, slot = tid / units;
@@ -575,7 +631,7 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   //    outputs; W4: 4 packed columns, outputs j and j + D/2) and every
   //    kp-th row quad; the sums go over fc, x and xq, now read
   mbar_wait(&bars[n_chunks]);
-  for_rows([&](auto rows) {
+  for_rows<NB>(nb, [&](auto rows) {
     constexpr int ROWS = decltype(rows)::value;
     const int units = units2;
     const int* wc = reinterpret_cast<const int*>(fc2_s);
@@ -685,14 +741,6 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-template <int NB, bool W4>
-int launch_gemv(const int8_t* xq, const float* a, const int8_t* w, const float* s,
-                const float* bias, float* y, int nb, int D, int F, cudaStream_t st) {
-  const int tiles = (F + kGemvTile - 1) / kGemvTile;
-  gemv_kernel<NB, W4><<<tiles * kCluster, kThreads, 0, st>>>(xq, a, w, s, bias, y, nb, D, F);
-  return (int)cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
 // entry-point query, so that only the runtime is linked; null if missing
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -718,14 +766,77 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Host-side set-up of the K6/K8 launches, kept across calls and shared by
-// the calling threads under one lock: the tensor map of each fc weight seen
-// (it depends only on the weight's address and shape), and per device and
-// instantiation the dynamic shared memory the kernel has been allowed.
-std::mutex mlp_host_lock;
-std::map<std::tuple<const void*, int, int, int>, CUtensorMap> fc_maps;
+// Host-side set-up of the K5-K8 launches, kept across calls and shared by
+// the calling threads under one lock: the tensor map of each weight seen in
+// each box shape (it depends only on the weight's address, shape and box),
+// and per device and instantiation the dynamic shared memory the kernel has
+// been allowed.
+std::mutex host_lock;
+std::map<std::tuple<const void*, int, int, int, int>, CUtensorMap> weight_maps;
 constexpr size_t kMaxMaps = 4096;  // past this many weights the cache starts over
 constexpr int kMaxDevices = 64;
+
+// allows `kernel` `smem` bytes of dynamic shared memory on the current
+// device (allowed: the bytes each device has been allowed so far), and
+// gives the tensor map of the int8 (rows, cols) row-major weight w in boxes
+// of box_rows x box_cols bytes
+int launch_setup(const void* kernel, int* allowed, int smem, const void* w, int cols, int rows,
+                 int box_cols, int box_rows, CUtensorMap* map) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(host_lock);
+  if (smem > allowed[device]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed[device] = smem;
+  }
+  const auto key = std::make_tuple(w, cols, rows, box_cols, box_rows);
+  const auto found = weight_maps.find(key);
+  if (found != weight_maps.end()) {
+    *map = found->second;
+    return 0;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides, box,
+             steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  if (weight_maps.size() >= kMaxMaps) weight_maps.clear();
+  weight_maps.emplace(key, *map);
+  return 0;
+}
+
+// w: (R, F) int8 (R = D, or D/2 packed rows under W4); the plan (tile,
+// rb, pass_boxes) from ops/gemv.py `gemv_plan`. Columns past F in the last
+// tile come in as zeros (the box's out-of-bounds fill) and are not written.
+template <int NB, bool W4>
+int launch_gemv(const int8_t* xq, const float* a, const int8_t* w, const float* s,
+                const float* bias, float* y, int nb, int D, int F, int tile, int rb,
+                int pass_boxes, cudaStream_t st) {
+  const int R = W4 ? D / 2 : D, block_rows = R / kCluster;
+  if ((tile != 64 && tile != 128 && tile != 256) || R % (4 * kCluster) || rb < 4 || rb % 4 ||
+      rb > 256 || block_rows % rb || pass_boxes < 1 || pass_boxes > kMaxBoxes)
+    return (int)cudaErrorInvalidValue;
+  if (pass_boxes > block_rows / rb) pass_boxes = block_rows / rb;
+  const GemvSmem L(nb, pass_boxes * rb, tile, W4);
+  if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static int allowed[kMaxDevices] = {};  // bytes, per instantiation
+  CUtensorMap map;
+  const int e = launch_setup(reinterpret_cast<const void*>(gemv_kernel<NB, W4>), allowed,
+                             L.total, w, F, R, tile, rb, &map);
+  if (e != 0) return e;
+  gemv_kernel<NB, W4><<<(F + tile - 1) / tile * kCluster, kGemvThreads, L.total, st>>>(
+      map, xq, a, s, bias, y, nb, D, F, tile, rb, pass_boxes);
+  return (int)cudaGetLastError();
+}
 
 // parts: a (G - 1, nb, D) f32 scratch; arrived: kCluster zeroed counters
 // that each call leaves zeroed, so calls on one stream may share them
@@ -741,40 +852,11 @@ int launch_mlp(const int8_t* xq, const float* a, const int8_t* w1, const float* 
   while (R % rc) rc -= 4;
   const MlpSmem L(nb, D, w, W4);
   if (R / rc > kMaxChunks || L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return (int)e;
-  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static int allowed[kMaxDevices] = {};  // bytes, per instantiation
   CUtensorMap map;
-  {
-    std::lock_guard<std::mutex> hold(mlp_host_lock);
-    static int allowed[kMaxDevices] = {};  // bytes, per instantiation
-    if (L.total > allowed[device]) {
-      e = cudaFuncSetAttribute(mlp_kernel<NB, W4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L.total);
-      if (e != cudaSuccess) return (int)e;
-      allowed[device] = L.total;
-    }
-    const auto key = std::make_tuple(static_cast<const void*>(w1), FH, R, w);
-    const auto found = fc_maps.find(key);
-    if (found != fc_maps.end()) {
-      map = found->second;
-    } else {
-      const EncodeTiled encode = encode_tiled();
-      if (encode == nullptr) return (int)cudaErrorNotSupported;
-      const cuuint64_t dims[2] = {(cuuint64_t)FH, (cuuint64_t)R};
-      const cuuint64_t strides[1] = {(cuuint64_t)FH};
-      const cuuint32_t box[2] = {(cuuint32_t)w, (cuuint32_t)rc};
-      const cuuint32_t steps[2] = {1, 1};
-      if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w1), dims,
-                 strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-        return (int)cudaErrorInvalidValue;
-      if (fc_maps.size() >= kMaxMaps) fc_maps.clear();
-      fc_maps.emplace(key, map);
-    }
-  }
+  const int e = launch_setup(reinterpret_cast<const void*>(mlp_kernel<NB, W4>), allowed,
+                             L.total, w1, FH, R, w, rc, &map);
+  if (e != 0) return e;
   mlp_kernel<NB, W4><<<FH / hb * kCluster, mlp_threads(NB), L.total, st>>>(
       map, xq, a, s1, b1, w2, s2, b2, parts, arrived, out, nb, D, FH, hb, rc);
   return (int)cudaGetLastError();
@@ -782,13 +864,16 @@ int launch_mlp(const int8_t* xq, const float* a, const int8_t* w1, const float* 
 
 template <bool W4>
 int gemv_entry(const void* xq, const void* a, const void* w, const void* s,
-               const void* bias, void* y, int nb, int D, int F, void* stream) {
-  if (nb < 1 || nb > kMaxRows || F % kCols || (W4 && D % 2)) return (int)cudaErrorInvalidValue;
+               const void* bias, void* y, int nb, int D, int F, int tile, int rb,
+               int pass_boxes, void* stream) {
+  // F: the weight's row stride, a multiple of 16 bytes for the copy engine
+  if (nb < 1 || nb > kMaxRows || F < 16 || F % 16 || (W4 && D % 2))
+    return (int)cudaErrorInvalidValue;
   auto args = [&](auto launch) {
     return launch(static_cast<const int8_t*>(xq), static_cast<const float*>(a),
                   static_cast<const int8_t*>(w), static_cast<const float*>(s),
-                  static_cast<const float*>(bias), static_cast<float*>(y), nb, D, F,
-                  reinterpret_cast<cudaStream_t>(stream));
+                  static_cast<const float*>(bias), static_cast<float*>(y), nb, D, F, tile, rb,
+                  pass_boxes, reinterpret_cast<cudaStream_t>(stream));
   };
   return nb <= 4 ? args(launch_gemv<4, W4>) : args(launch_gemv<kMaxRows, W4>);
 }
@@ -816,15 +901,19 @@ int mlp_entry(const void* xq, const void* a, const void* w1, const void* s1,
 
 }  // namespace
 
+// w: (D, F) int8; tile, rb, pass_boxes: the launch plan (ops/gemv.py
+// `gemv_plan`)
 EXPORT int gemv_w8(const void* xq, const void* a, const void* w, const void* s,
-                   const void* bias, void* y, int nb, int D, int F, void* stream) {
-  return gemv_entry<false>(xq, a, w, s, bias, y, nb, D, F, stream);
+                   const void* bias, void* y, int nb, int D, int F, int tile, int rb,
+                   int pass_boxes, void* stream) {
+  return gemv_entry<false>(xq, a, w, s, bias, y, nb, D, F, tile, rb, pass_boxes, stream);
 }
 
 // w: (D/2, F) packed bytes
 EXPORT int gemv_w4(const void* xq, const void* a, const void* w, const void* s,
-                   const void* bias, void* y, int nb, int D, int F, void* stream) {
-  return gemv_entry<true>(xq, a, w, s, bias, y, nb, D, F, stream);
+                   const void* bias, void* y, int nb, int D, int F, int tile, int rb,
+                   int pass_boxes, void* stream) {
+  return gemv_entry<true>(xq, a, w, s, bias, y, nb, D, F, tile, rb, pass_boxes, stream);
 }
 
 // decode rows one K6/K8 launch takes at width D with hidden groups of hb

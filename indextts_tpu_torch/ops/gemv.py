@@ -52,11 +52,17 @@ _TARGET_TILE_BYTES_W4 = 256 * 1024
 # decode rows one launch takes at most (the kernels' register accumulators);
 # more rows go in chunks (`by_row_chunks`)
 MAX_ROWS = 16
-# the CUDA kernels: K5's and K7's output columns per cluster of blocks, the
-# columns a thread reads from each weight row, and the blocks of a cluster
-GEMV_TILE = 256
-THREAD_COLS = 8
+# the blocks of a cluster in the CUDA kernels
 CLUSTER = 8
+# K5/K7's launch plan (`gemv_plan`), which csrc/gemv.cu checks: the output
+# columns a cluster may own, widest first; the weight boxes a block splits
+# its rows into where they fit; the weight bytes a block holds at once; the
+# rows of a box (the copy engine's limit) and the boxes a block holds at once
+GEMV_TILES = (256, 128, 64)
+GEMV_BOXES = 8
+GEMV_PASS_BYTES = 128 * 1024
+GEMV_MAX_BOX_ROWS = 256
+GEMV_MAX_PASS_BOXES = 32
 
 
 class _Counter:
@@ -225,6 +231,37 @@ def mlp_rows(d: int, hb: int, w4: bool) -> int:
     return fn(d, hb, int(w4))
 
 
+@functools.lru_cache(maxsize=None)
+def gemv_plan(rows: int, f: int, sms: int) -> tuple:
+    """K5's and K7's launch over an int8 (rows, f) weight (W4: its packed
+    rows) on a card of `sms` SMs: (tile, box_rows, pass_boxes).
+
+    A cluster of CLUSTER blocks owns `tile` output columns, the widest of
+    GEMV_TILES whose ceil(f / tile) clusters give every SM a block (else
+    the narrowest); the last tile may run past f. Block k of a cluster
+    contracts the k-th CLUSTER-th of the rows, which it asks for as boxes of
+    box_rows rows, pass_boxes at a time: all of them at every width of this
+    model, in passes only past GEMV_PASS_BYTES a block. box_rows is the
+    smallest multiple of 4 that divides the block's rows in at most
+    GEMV_BOXES boxes, else the largest that fits a box. The JAX gates keep
+    rows a multiple of 4 * CLUSTER; other rows raise."""
+    if rows <= 0 or rows % (4 * CLUSTER) or f <= 0:
+        raise ValueError(f"gemv_plan: rows {rows} must be a positive multiple of "
+                         f"{4 * CLUSTER}, and f {f} positive")
+    tile = next((t for t in GEMV_TILES if -(-f // t) * CLUSTER >= sms), GEMV_TILES[-1])
+    block_rows = rows // CLUSTER
+    most = min(GEMV_MAX_BOX_ROWS, GEMV_PASS_BYTES // tile, block_rows)
+    fits = [r for r in range(4, most + 1, 4) if block_rows % r == 0]
+    box = next((r for r in fits if block_rows // r <= GEMV_BOXES), fits[-1])
+    pass_boxes = min(block_rows // box, GEMV_PASS_BYTES // (box * tile), GEMV_MAX_PASS_BOXES)
+    return tile, box, pass_boxes
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(name, xq, tensors, d):
     if xq.dtype != torch.int8 or xq.dim() != 2 or xq.shape[1] != d or xq.shape[0] < 1:
         raise ValueError(f"{name}: xq must be int8 (b, {d}), got {xq.dtype} {tuple(xq.shape)}")
@@ -253,12 +290,12 @@ def gemv_w4(xq, a, w_p, w_scale, bias):
 
 
 def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
-    """The C entry point `symbol`(xq, a, w, s, bias, y, b, D, F, stream),
-    one launch for every MAX_ROWS rows; D is the contraction width, whatever
-    w's packing."""
-    if w.dtype != torch.int8 or f % THREAD_COLS:
-        raise ValueError(f"{symbol}: weight must be int8 with F a multiple of "
-                         f"{THREAD_COLS}, got {w.dtype} {tuple(w.shape)}")
+    """The C entry point `symbol`(xq, a, w, s, bias, y, b, D, F, tile,
+    box_rows, pass_boxes, stream), one launch for every MAX_ROWS rows, on
+    `gemv_plan`; D is the contraction width, whatever w's packing."""
+    if w.dtype != torch.int8 or f % 16:
+        raise ValueError(f"{symbol}: weight must be int8 with F a multiple of 16, "
+                         f"got {w.dtype} {tuple(w.shape)}")
     a = a.reshape(-1).float().contiguous()
     w_scale, bias = w_scale.float().contiguous(), bias.float().contiguous()
     xq = xq.contiguous()
@@ -266,19 +303,20 @@ def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
     b = xq.shape[0]
     if a.shape != (b,) or w_scale.shape != (f,) or bias.shape != (f,):
         raise ValueError(f"{symbol}: scale or bias shape does not match")
-    fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 6 + [cuda_lib.I] * 3 + [cuda_lib.P])
+    plan = gemv_plan(w.shape[0], f, _sm_count(xq.device.index))
+    fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 6 + [cuda_lib.I] * 6 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     return by_row_chunks(_gemv_once, MAX_ROWS, xq, a, w, w_scale, bias,
-                         fn, symbol, counter, stream, d, f)
+                         fn, symbol, counter, stream, d, f, plan)
 
 
-def _gemv_once(xq, a, w, w_scale, bias, fn, symbol, counter, stream, d, f):
+def _gemv_once(xq, a, w, w_scale, bias, fn, symbol, counter, stream, d, f, plan):
     """One launch of K5 or K7 over at most MAX_ROWS rows."""
     b = xq.shape[0]
     out = torch.empty((b, f), device=xq.device, dtype=torch.float32)
     err = fn(xq.data_ptr(), a.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
-             bias.data_ptr(), out.data_ptr(), b, d, f, stream)
-    cuda_lib.check(err, symbol)
+             bias.data_ptr(), out.data_ptr(), b, d, f, *plan, stream)
+    cuda_lib.check(err, f"{symbol} (D={d}, F={f}, {b} rows, plan {plan})")
     counter.launches += 1
     return out
 

@@ -131,9 +131,16 @@ def _q8(g, dev, d, f):
     return w_q, s, torch.randn((f,), generator=g, device=dev) * 0.1
 
 
+# (rows, D, F): the full-width shapes (c_attn, attn c_proj, the logits head,
+# whose last 256-column tile is half used) at 1, 3 and 16 rows; D=256 at
+# F=384; D=2048 (c_attn 2048 x 6144); 17 and 40 rows in chunks of 16; D=32768,
+# whose blocks take their rows in two passes (gemv.gemv_plan)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 8320), (2, 256, 384),
-                                   (17, 1280, 3840), (40, 1280, 3840)])
+                                   (17, 1280, 3840), (40, 1280, 3840), (1, 1280, 1280),
+                                   (1, 1280, 8320), (16, 1280, 3840), (16, 1280, 1280),
+                                   (16, 1280, 8320), (1, 2048, 6144), (16, 2048, 6144),
+                                   (3, 32768, 1280)])
 def test_k5_cuda_matches_plain(cuda_device, b, d, f):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -143,6 +150,18 @@ def test_k5_cuda_matches_plain(cuda_device, b, d, f):
     got = gemv.gemv_w8(xq, a, *w)
     want = gemv.gemv_w8_plain(xq, a, *w)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_k5_cuda_replays_its_bits(cuda_device):
+    """Two more calls and two replays of a CUDA graph of one call give the
+    first call's bits (c_attn at full width)."""
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xq, a = quant_row(torch.randn((1, 1280), generator=g, device=cuda_device))
+    w = _q8(g, cuda_device, 1280, 3840)
+    _replays_equal(lambda: gemv.gemv_w8(xq, a, *w), gemv.gemv_w8(xq, a, *w))
 
 
 def _replays_equal(fn, got):
@@ -195,10 +214,13 @@ def _q4(g, dev, d, f, cols=False):
     return w_p, s, torch.randn((f,), generator=g, device=dev) * 0.1
 
 
+# (rows, D, F) as for K5: c_attn and attn c_proj at 1, 3 and 16 rows, F=384,
+# 17 and 40 rows in chunks, D=2048, and D=65536 (32768 packed rows, two passes)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 3840), (1, 1280, 1280),
                                    (3, 1280, 1280), (1, 1280, 384), (17, 1280, 3840),
-                                   (40, 1280, 3840)])
+                                   (40, 1280, 3840), (16, 1280, 3840), (16, 1280, 1280),
+                                   (1, 2048, 6144), (16, 2048, 6144), (3, 65536, 1280)])
 def test_k7_cuda_matches_plain(cuda_device, b, d, f):
     from indextts_tpu_torch.models.gpt2 import quant_row
 
@@ -207,6 +229,17 @@ def test_k7_cuda_matches_plain(cuda_device, b, d, f):
     w = _q4(g, cuda_device, d, f)
     got = gemv.gemv_w4(xq, a, *w)
     assert torch.equal(got, gemv.gemv_w4_plain(xq, a, *w))
+
+
+@pytest.mark.cuda
+def test_k7_cuda_replays_its_bits(cuda_device):
+    """As for K5: c_attn at full width, called again and replayed."""
+    from indextts_tpu_torch.models.gpt2 import quant_row
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xq, a = quant_row(torch.randn((1, 1280), generator=g, device=cuda_device))
+    w = _q4(g, cuda_device, 1280, 3840)
+    _replays_equal(lambda: gemv.gemv_w4(xq, a, *w), gemv.gemv_w4(xq, a, *w))
 
 
 # (rows, D, replayed): D=256 is one group (FH=1024); D=1536 and D=2048 as

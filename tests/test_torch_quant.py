@@ -103,10 +103,11 @@ def test_gating_matches_jax():
 
 
 @pytest.mark.parametrize("b,d,f", [(1, 256, 768), (3, 256, 768), (1, 1280, 8320),
-                                   (3, 128, 384)])
+                                   (3, 128, 384), (16, 256, 768), (1, 256, 8320)])
 def test_gemv_w8_plain_matches_jax(b, d, f):
     """y = (xq . w) * (a * s) + bias, against JAX gemv_w8 in interpret mode,
-    at one and three rows (rtol and atol 1e-6)."""
+    at one, three and sixteen rows (one launch's most) and at the logits
+    head's padded F (rtol and atol 1e-6)."""
     from indextts_tpu.models.gpt2 import _quant_row
     from indextts_tpu.ops.gemv import gemv_w8
 
@@ -118,6 +119,72 @@ def test_gemv_w8_plain_matches_jax(b, d, f):
                               jnp.asarray(bias), interpret=True))
     got = gemv_ops.gemv_w8(t(np.asarray(xq)), t(np.asarray(a)), t(w_q), t(w_s), t(bias))
     np.testing.assert_allclose(n(got), want, rtol=1e-6, atol=1e-6)
+
+
+# csrc/gemv.cu `gemv_kernel`'s blocks and boxes: the grid holds
+# ceil(f / tile) clusters of CLUSTER blocks; block k of a cluster asks for
+# rows [k * rows/8, (k + 1) * rows/8) of the cluster's tile of columns, as
+# boxes of box_rows rows, pass_boxes at a time; columns past f come in as the
+# copy engine's zeros and are not read from the weight
+def _gemv_boxes(rows, f, plan):
+    tile, box, pass_boxes = plan
+    block_rows = rows // gemv_ops.CLUSTER
+    n_boxes = block_rows // box
+    for blk in range(-(-f // tile) * gemv_ops.CLUSTER):
+        col0, d0 = blk // gemv_ops.CLUSTER * tile, blk % gemv_ops.CLUSTER * block_rows
+        for b0 in range(0, n_boxes, pass_boxes):
+            for c in range(min(pass_boxes, n_boxes - b0)):
+                r0 = d0 + (b0 + c) * box
+                yield r0, r0 + box, col0, min(col0 + tile, f)
+
+
+H100_SMS = 132
+MAIN_PATH_F = (384, 1280, 3840, 6144, 8320)
+
+
+@pytest.mark.parametrize("w4", [False, True])
+def test_gemv_plan_covers_each_weight_byte_once(w4):
+    """K5's and K7's launch plan (gemv_plan) puts every (row, column) of the
+    weight in exactly one box of one block, for every (D, F) that the JAX
+    gates open at D in {128, 256, 512, 1280, 2048} and the main path's F;
+    its boxes are ones the copy engine and csrc/gemv.cu take; and on an
+    H100 every full-width GPT shape launches a block for every SM."""
+    from indextts_tpu.ops import gemv as jgemv
+
+    gate = jgemv.supports_w4 if w4 else jgemv.supports
+    shapes = [(d, f) for d in (128, 256, 512, 1280, 2048) for f in MAIN_PATH_F if gate(d, f)]
+    assert (1280, 8320) in shapes and (2048, 6144) in shapes
+    for d, f in shapes:
+        rows = d // 2 if w4 else d
+        plan = gemv_ops.gemv_plan(rows, f, H100_SMS)
+        tile, box, pass_boxes = plan
+        assert tile in gemv_ops.GEMV_TILES and box % 4 == 0, (d, f, plan)
+        assert box <= gemv_ops.GEMV_MAX_BOX_ROWS and (rows // gemv_ops.CLUSTER) % box == 0
+        assert 1 <= pass_boxes <= gemv_ops.GEMV_MAX_PASS_BOXES
+        assert pass_boxes * box * tile <= gemv_ops.GEMV_PASS_BYTES
+        count = np.zeros((rows, f), np.int8)
+        for r0, r1, c0, c1 in _gemv_boxes(rows, f, plan):
+            count[r0:r1, c0:c1] += 1
+        assert count.min() == count.max() == 1, (d, f, plan)
+    main = [(640, 1280), (640, 3840)] if w4 else [(1280, 1280), (1280, 3840), (1280, 8320)]
+    for rows, f in main:
+        tile = gemv_ops.gemv_plan(rows, f, H100_SMS)[0]
+        assert -(-f // tile) * gemv_ops.CLUSTER >= H100_SMS, (rows, f, tile)
+
+
+def test_gemv_plan_passes_past_a_blocks_bytes():
+    """Past GEMV_PASS_BYTES of weight a block (D=65536 at 64 columns), the
+    plan goes in passes whose boxes still cover every row once."""
+    rows, f = 65536, 1280
+    tile, box, pass_boxes = plan = gemv_ops.gemv_plan(rows, f, H100_SMS)
+    assert rows // gemv_ops.CLUSTER // box > pass_boxes
+    covered = np.zeros(rows, np.int32)
+    for r0, r1, c0, c1 in _gemv_boxes(rows, f, plan):
+        if c0 == 0:
+            covered[r0:r1] += 1
+    assert covered.min() == covered.max() == 1
+    with pytest.raises(ValueError):
+        gemv_ops.gemv_plan(1280 + 16, f, H100_SMS)
 
 
 @pytest.mark.parametrize("b,d", [(1, 512), (2, 512), (1, 1280)])

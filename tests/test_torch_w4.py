@@ -118,10 +118,11 @@ def test_quantize_gpt_state_dict_w4_matches_quantize_gpt_tree():
 
 
 @pytest.mark.parametrize("b,d,f", [(1, 256, 768), (3, 256, 768), (1, 1280, 3840),
-                                   (3, 1280, 1280)])
+                                   (3, 1280, 1280), (16, 256, 768), (1, 256, 8320)])
 def test_gemv_w4_plain_matches_jax(b, d, f):
     """y = (xq[:, :D/2] . lo + xq[:, D/2:] . hi) * (a * s) + bias, against
-    JAX gemv_w4 in interpret mode, at one and three rows (rtol and atol
+    JAX gemv_w4 in interpret mode, at one, three and sixteen rows (one
+    launch's most) and at the logits head's padded F (rtol and atol
     1e-6)."""
     from indextts_tpu.ops.gemv import gemv_w4
 
