@@ -35,22 +35,23 @@
 //   widest whose grid gives every SM a block (ops/gemv.py `gemv_plan`; at
 //   full width c_proj 64 columns in 160 blocks, c_attn 128 in 240, the
 //   int8 logits head 256 in 264, its last tile half used), and block k of
-//   it the k-th eighth of the (packed) weight rows. One thread asks the
-//   copy engine for the block's whole slice as 2-D boxes (rows x tile
-//   bytes, a barrier per box, 10-40 KB a block at full width), so that the
-//   block waits one device-memory round trip and the contraction starts on
-//   the first box. A thread owns 4 columns and walks row quads with dp4a
-//   on 4 x 4 byte tiles transposed in registers; the decode rows are
+//   it the k-th eighth of the (packed) weight rows. The block asks the copy
+//   engine for its whole slice at once, so that it waits one device-memory
+//   round trip: one 2-D box of rows x tile bytes up to 256 rows (5-40 KB a
+//   block at full width; 5-8 smaller boxes, contracted as each lands, ran
+//   slower at these sizes), else several, one lane and one barrier each.
+//   A thread owns 4 columns and walks row quads with dp4a on
+//   4 x 4 byte tiles transposed in registers; the decode rows are
 //   regrouped in shared memory to match, once a block, so a warp reads
 //   consecutive words. Under W4 a packed row feeds xq[i] (low nibbles) and
-//   xq[i + D/2] (high), each nibble as a byte 16 times its value. The
-//   block adds its threads' sums by warp shuffles and one partial a warp in
-//   shared memory; after one cluster barrier, rank k adds the 8 blocks'
-//   partials of the tile's k-th eighth of columns through distributed
-//   shared memory and applies the epilogue, whose operands it loaded at the
-//   start. A slice larger than a block holds (past 16384 weight rows at 64
-//   columns) goes in passes of boxes. Blocks of 256 threads, for 4 rows or
-//   16.
+//   xq[i + D/2] (high), each nibble as a byte 16 times its value. Lanes
+//   that share columns add by shuffles; each warp then stores its int32
+//   partials straight into the shared memory of the rank that finishes
+//   those columns (rank k: the tile's k-th eighth), and after one cluster
+//   barrier each rank adds what it received and applies the epilogue,
+//   whose operands it loaded at the start. A slice larger than a block
+//   holds (past 12288 weight rows at 64 columns) goes in passes of boxes.
+//   Blocks of 256 threads, for 4 rows or 16.
 // - K6 / K8 follow the JAX kernel's pass over the hidden's groups, with the
 //   groups in parallel: one cluster per group of hb columns, and block k of
 //   it owns hidden columns [k*hb/8, (k+1)*hb/8) of the group. One thread
@@ -199,7 +200,7 @@ constexpr int kMaxBoxes = 32;  // weight boxes (and their barriers) a block hold
 // finished by one thread: at most two a thread
 static_assert(kMaxRows * (256 / kCluster) <= 2 * kGemvThreads, "K5/K7 epilogue slots");
 
-// the int32 partials a K5/K7 block keeps per output once the lanes that
+// the int32 partials a K5/K7 block sends per output once the lanes that
 // share columns have added by shuffles: one a warp while a weight row of the
 // tile is narrower than a warp's 32 words, else one a slot of threads
 __host__ __device__ constexpr int gemv_partials(int tile) {
@@ -207,22 +208,24 @@ __host__ __device__ constexpr int gemv_partials(int tile) {
 }
 
 // The dynamic shared memory of a K5/K7 block (byte offsets): the weight
-// boxes of one pass, pass_rows x tile bytes, which the block's partials
-// (gemv_partials x nb x tile int32) overlay once read; then the pass's
-// decode rows regrouped, nb x pass_rows bytes (W4: twice, the rows that meet
-// the low nibbles and those that meet the high ones)
+// boxes of one pass, pass_rows x tile bytes; the pass's decode rows
+// regrouped, nb x pass_rows bytes (W4: twice, the rows that meet the low
+// nibbles and those that meet the high ones); and the partials the
+// cluster's blocks send this block for its outputs, kCluster x
+// gemv_partials x nb x tile/kCluster int32
 struct GemvSmem {
-  int x, total;
+  int x, recv, total;
   __host__ __device__ GemvSmem(int nb, int pass_rows, int tile, bool w4) {
-    const int w = pass_rows * tile, part = gemv_partials(tile) * nb * tile * 4;
-    x = up128(w > part ? w : part);
-    total = x + up128(nb * pass_rows * (w4 ? 2 : 1)) + 128;  // + 128: the base is aligned
+    x = up128(pass_rows * tile);
+    recv = x + up128(nb * pass_rows * (w4 ? 2 : 1));
+    total = recv + up128(gemv_partials(tile) * nb * tile * 4) + 128;  // + 128: the base is aligned
   }
 };
 
 // y[r, f] for the tile of `tile` columns at blockIdx.x / 8; block `rank` of
 // the cluster contracts (packed) weight rows [rank * R/8, (rank + 1) * R/8),
-// as boxes of rb rows, pass_boxes at a time
+// as boxes of rb rows, pass_boxes at a time, and finishes the tile's
+// rank-th eighth of columns
 template <int NB, bool W4>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kGemvThreads)
 gemv_kernel(const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict__ xq,
@@ -236,26 +239,26 @@ gemv_kernel(const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict_
   const int d0 = rank * (R / kCluster);  // the block's first weight row
   const int q4 = rb / 4, units = tile / 4, slots = kGemvThreads / units;
   const int tid = threadIdx.x, lane = tid % 32, u = tid % units, slot = tid / units;
+  const int cpr = tile / kCluster, n_parts = gemv_partials(tile);
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   const GemvSmem L(nb, pass_boxes * rb, tile, W4);
   const int* w_s = reinterpret_cast<const int*>(smem);
-  int* part = reinterpret_cast<int*>(smem);
   int* x_s = reinterpret_cast<int*>(smem + L.x);
+  int* recv = reinterpret_cast<int*>(smem + L.recv);
   __shared__ uint64_t bars[kMaxBoxes];
 
-  // 1. one thread readies the barriers. The outputs this rank finishes
-  //    (the tile's rank-th eighth of columns, every row) have their
-  //    epilogue operands loaded now, so that the latency lies under the
-  //    weights'
-  if (tid == 0) {
+  // 1. The block says it has started: the others may store into its shared
+  //    memory once they have seen every block's arrival. The outputs this
+  //    rank finishes (the tile's rank-th eighth of columns, every row) have
+  //    their epilogue operands loaded now, so that the latency lies under
+  //    the weights'.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  if (tid == 0)
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&w_map))
                  : "memory");
-    for (int c = 0; c < pass_boxes; ++c) mbar_init(&bars[c], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  const int cpr = tile / kCluster, outs = nb * cpr;
+  const int outs = nb * cpr;
   float ep_a[2] = {}, ep_s[2] = {}, ep_b[2] = {};
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
@@ -276,17 +279,20 @@ gemv_kernel(const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict_
       for (int j = 0; j < 4; ++j) acc[r][j] = 0;
     for (int b0 = 0, pass = 0; b0 < n_boxes; b0 += pass_boxes, ++pass) {
       const int boxes = min(pass_boxes, n_boxes - b0), quads = boxes * q4;
-      // 2. one thread asks the copy engine for the pass's boxes: at every
-      //    width of this model one pass, the block's whole slice at once
-      if (tid == 0) {
-        for (int c = 0; c < boxes; ++c) {
-          mbar_expect_tx(&bars[c], rb * tile);
-          tma_load_2d(smem + c * rb * tile, &w_map, col0, d0 + (b0 + c) * rb, &bars[c]);
+      // 2. lane c of the first warp asks the copy engine for box c of the
+      //    pass, on barrier c: at every width of this model one pass, the
+      //    block's whole slice at once
+      if (tid < boxes) {
+        if (pass == 0) {
+          mbar_init(&bars[tid], 1);
+          asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
         }
+        mbar_expect_tx(&bars[tid], rb * tile);
+        tma_load_2d(smem + tid * rb * tile, &w_map, col0, d0 + (b0 + tid) * rb, &bars[tid]);
       }
-      // 3. the pass's decode rows, regrouped: word Q of row r holds x at
-      //    the weight rows of quad Q, rows k + i*q4 of box Q / q4 (k = Q %
-      //    q4, i < 4), so that a warp reads consecutive words of a box
+      // 3. the pass's decode rows, regrouped: word c*q4 + k of row r holds x
+      //    at rows k + i*q4 of box c (i < 4), so that a warp reads
+      //    consecutive words of a box
       for (int e = tid; e < nb * quads; e += kGemvThreads) {
         const int r = e / quads, Q = e % quads;
         const int8_t* xr = xq + (size_t)r * D + d0 + (b0 + Q / q4) * rb + Q % q4;
@@ -302,49 +308,54 @@ gemv_kernel(const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict_
       __syncthreads();
 
       // 4. a thread owns 4 columns (one word of each weight row) and every
-      //    slots-th quad, each box as it lands; dp4a on the transposed 4 x
-      //    4 bytes. Under W4 each byte's low nibble meets x at row d, its
-      //    high nibble x at row d + D/2, as bytes 16 times their value.
-      int seen = -1;
+      //    slots-th quad of the pass, each box as it lands; dp4a on the
+      //    transposed 4 x 4 bytes. Under W4 each byte's low nibble meets x
+      //    at row d, its high nibble x at row d + D/2, as bytes 16 times
+      //    their value.
+      for (int c = 0; c < boxes; ++c) {
+        int k = (slot - c * q4 % slots + slots) % slots;  // the first quad of box c
+        if (k >= q4) continue;
+        mbar_wait(&bars[c], pass & 1);
+        const int* wb = w_s + c * rb * units + u;
 #pragma unroll 2
-      for (int Q = slot; Q < quads; Q += slots) {
-        const int c = Q / q4;
-        if (c != seen) {
-          mbar_wait(&bars[c], pass & 1);
-          seen = c;
-        }
-        const int* wq = w_s + (c * rb + Q % q4) * units + u;
-        int wv[4], t[4];
+        for (; k < q4; k += slots) {
+          const int Q = c * q4 + k;
+          int wv[4], t[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) wv[i] = wq[i * q4 * units];
-        transpose4(wv, t);
+          for (int i = 0; i < 4; ++i) wv[i] = wb[(k + i * q4) * units];
+          transpose4(wv, t);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (ROWS == 1 || r < nb) {
-            if constexpr (W4) {
-              const int xl = x_s[2 * (r * quads + Q)], xh = x_s[2 * (r * quads + Q) + 1];
+          for (int r = 0; r < ROWS; ++r) {
+            if (ROWS == 1 || r < nb) {
+              if constexpr (W4) {
+                const int xl = x_s[2 * (r * quads + Q)], xh = x_s[2 * (r * quads + Q) + 1];
 #pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                acc[r][j] = __dp4a(lo16(t[j]), xl, acc[r][j]);
-                acc[r][j] = __dp4a(hi16(t[j]), xh, acc[r][j]);
+                for (int j = 0; j < 4; ++j) {
+                  acc[r][j] = __dp4a(lo16(t[j]), xl, acc[r][j]);
+                  acc[r][j] = __dp4a(hi16(t[j]), xh, acc[r][j]);
+                }
+              } else {
+                const int xw = x_s[r * quads + Q];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[r][j] = __dp4a(t[j], xw, acc[r][j]);
               }
-            } else {
-              const int xw = x_s[r * quads + Q];
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[r][j] = __dp4a(t[j], xw, acc[r][j]);
             }
           }
         }
       }
-      // the pass is read: the next pass's boxes and rows, or the
-      // partials, go over it
-      __syncthreads();
+      // a further pass's boxes and rows go over this one's
+      if (b0 + pass_boxes < n_boxes) __syncthreads();
     }
 
     // 5. the lanes of a warp that share columns add by shuffles (at 64
     //    columns a warp holds two slots); then each warp (or slot) stores
-    //    its partial: no shared atomics
-    const int p = tid / (units < 32 ? 32 : units);
+    //    its partial of 4 columns straight into the shared memory of the
+    //    rank that finishes them, once every block has started: no shared
+    //    atomics, no second pass
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    const int p = tid / (units < 32 ? 32 : units), owner = 4 * u / cpr;
+    int* dst = cluster.map_shared_rank(recv, owner) + (rank * n_parts + p) * nb * cpr +
+               4 * u - owner * cpr;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       if (ROWS == 1 || r < nb) {
@@ -355,37 +366,29 @@ gemv_kernel(const __grid_constant__ CUtensorMap w_map, const int8_t* __restrict_
           for (int off = units; off < 32; off *= 2) v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
         }
         if (lane < units)
-          *reinterpret_cast<int4*>(part + (p * nb + r) * tile + 4 * u) =
-              make_int4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<int4*>(dst + r * cpr) = make_int4(v[0], v[1], v[2], v[3]);
       }
     }
   });
-  __syncthreads();
-  const int n_parts = gemv_partials(tile);
-  for (int i = tid; i < nb * tile; i += kGemvThreads) {
-    int sum = part[i];
-    for (int q = 1; q < n_parts; ++q) sum += part[q * nb * tile + i];
-    part[i] = sum;
-  }
+  // every block's partials have landed (the arrivals release the stores,
+  // the wait acquires them); no block reads another's memory past here
   cluster.sync();
 
-  // 6. rank k adds the 8 blocks' sums of its outputs through distributed
-  //    shared memory (int32: exact in any order) and applies the epilogue
-  //    with the plain version's float32 operations in their order
+  // 6. rank k adds the partials of its outputs (int32: exact in any order)
+  //    and applies the epilogue with the plain version's float32 operations
+  //    in their order
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const int i = tid + k * kGemvThreads, c = rank * cpr + i % cpr, f = col0 + c;
+    const int i = tid + k * kGemvThreads, c = i % cpr, f = col0 + rank * cpr + c;
     if (i < outs && f < F) {
       const int r = i / cpr;
       int sum = 0;
-#pragma unroll
-      for (int q = 0; q < kCluster; ++q) sum += cluster.map_shared_rank(part, q)[r * tile + c];
+#pragma unroll 8
+      for (int q = 0; q < kCluster * n_parts; ++q) sum += recv[(q * nb + r) * cpr + c];
       y[(size_t)r * F + f] =
           __fadd_rn(__fmul_rn(__int2float_rn(sum), __fmul_rn(ep_a[k], ep_s[k])), ep_b[k]);
     }
   }
-  // no block leaves while another still reads its shared memory
-  cluster.sync();
 }
 
 // ---------------------------------------------------------------------------

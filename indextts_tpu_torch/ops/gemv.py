@@ -55,15 +55,13 @@ MAX_ROWS = 16
 # the blocks of a cluster in the CUDA kernels
 CLUSTER = 8
 # K5/K7's launch plan (`gemv_plan`), which csrc/gemv.cu checks: the output
-# columns a cluster may own, widest first; the weight boxes a block splits
-# its rows into where they fit; the weight bytes a block holds at once; the
-# rows of a box (the copy engine's limit) and the boxes a block holds at once
+# columns a cluster may own, widest first; the weight bytes a block holds
+# at once; the rows of a box (the copy engine's limit) and the boxes a
+# block holds at once
 GEMV_TILES = (256, 128, 64)
-GEMV_BOXES = 8
-GEMV_PASS_BYTES = 128 * 1024
+GEMV_PASS_BYTES = 96 * 1024
 GEMV_MAX_BOX_ROWS = 256
 GEMV_MAX_PASS_BOXES = 32
-
 
 class _Counter:
     launches = 0
@@ -239,20 +237,19 @@ def gemv_plan(rows: int, f: int, sms: int) -> tuple:
     A cluster of CLUSTER blocks owns `tile` output columns, the widest of
     GEMV_TILES whose ceil(f / tile) clusters give every SM a block (else
     the narrowest); the last tile may run past f. Block k of a cluster
-    contracts the k-th CLUSTER-th of the rows, which it asks for as boxes of
-    box_rows rows, pass_boxes at a time: all of them at every width of this
-    model, in passes only past GEMV_PASS_BYTES a block. box_rows is the
-    smallest multiple of 4 that divides the block's rows in at most
-    GEMV_BOXES boxes, else the largest that fits a box. The JAX gates keep
-    rows a multiple of 4 * CLUSTER; other rows raise."""
+    contracts the k-th CLUSTER-th of the rows as boxes of box_rows rows,
+    the largest multiple of 4 that divides them and fits a box (one box
+    up to 256 rows a block: D=2048 under W8, D=4096 under W4), pass_boxes
+    at a time: all of them, in passes only past GEMV_PASS_BYTES a block.
+    The JAX gates keep rows a multiple of 4 * CLUSTER; other rows raise."""
     if rows <= 0 or rows % (4 * CLUSTER) or f <= 0:
         raise ValueError(f"gemv_plan: rows {rows} must be a positive multiple of "
                          f"{4 * CLUSTER}, and f {f} positive")
     tile = next((t for t in GEMV_TILES if -(-f // t) * CLUSTER >= sms), GEMV_TILES[-1])
     block_rows = rows // CLUSTER
-    most = min(GEMV_MAX_BOX_ROWS, GEMV_PASS_BYTES // tile, block_rows)
-    fits = [r for r in range(4, most + 1, 4) if block_rows % r == 0]
-    box = next((r for r in fits if block_rows // r <= GEMV_BOXES), fits[-1])
+    box = min(GEMV_MAX_BOX_ROWS, GEMV_PASS_BYTES // tile, block_rows) // 4 * 4
+    while block_rows % box:
+        box -= 4
     pass_boxes = min(block_rows // box, GEMV_PASS_BYTES // (box * tile), GEMV_MAX_PASS_BOXES)
     return tile, box, pass_boxes
 
