@@ -37,7 +37,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    contiguous copies, to the bit) and called again (the same bits). K5-K8
    are also checked at 16 rows and at 17 and 40 rows, which go in chunks.
    K5 and K7 are also checked at F=384, at D=2048 and at a contraction long
-   enough for two passes of weight boxes a block; K6 and K8 at one group
+   enough for three passes of weight boxes a block; K6 and K8 at one group
    and at D=1536 and D=2048 (other column slices a block; D=2048 also at 16
    rows). K5-K8 are called again and replayed from a CUDA graph (the same
    bits every time), and torch.profiler counts the device kernels one call
@@ -561,8 +561,7 @@ def int_mm_17(xq, w_q):
 def gemv_cases(main: dict, d: int):
     """K5's and K7's cases: every main-path shape at 1, 3 and 16 rows (one
     launch's most), F=384, c_attn at D=2048 (2048 x 6144) at 1 and 16 rows,
-    c_attn at 17 and 40 rows (in chunks of 16), and attn c_proj at a D whose
-    blocks take their weight rows in two passes (32768 contraction rows)."""
+    and c_attn at 17 and 40 rows (in chunks of 16)."""
     cases = [(f"{name} b={b}", b, di, f) for name, (di, f, _) in main.items()
              for b in (1, 3, 16)]
     cases.append(("F=384", 1, d, 384))
@@ -625,7 +624,7 @@ def check_k5(layers: int, d: int, vocab: int):
     rel_tol = 1e-6  # exact int32 sums, same float32 epilogue: equal in practice
     fpad = -(-vocab // 128) * 128
     main = {"c_attn": (d, 3 * d, layers), "attn c_proj": (d, d, layers), "head": (d, fpad, 1)}
-    cases = gemv_cases(main, d) + [("attn c_proj, two passes", 3, 32768, d)]
+    cases = gemv_cases(main, d) + [("attn c_proj at D=32768, three passes", 3, 32768, d)]
     errs = {}
     for name, b, di, f in cases:
         if not k5.supports(di, f):
@@ -774,7 +773,7 @@ def check_k7(layers: int, d: int):
 
     g = torch.Generator(device="cuda").manual_seed(7)
     main = {"c_attn": (d, 3 * d, layers), "attn c_proj": (d, d, layers)}
-    cases = gemv_cases(main, d) + [("attn c_proj, two passes", 3, 65536, d)]
+    cases = gemv_cases(main, d) + [("attn c_proj at D=65536, three passes", 3, 65536, d)]
     errs = {}
     for name, b, di, f in cases:
         if not k7.supports_w4(di, f):

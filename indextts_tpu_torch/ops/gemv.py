@@ -63,6 +63,7 @@ GEMV_PASS_BYTES = 96 * 1024
 GEMV_MAX_BOX_ROWS = 256
 GEMV_MAX_PASS_BOXES = 32
 
+
 class _Counter:
     launches = 0
 
@@ -259,6 +260,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _f32(t):
+    """t as a contiguous float32 tensor: t itself where it is one already
+    (a conversion call costs about a microsecond of host time even when it
+    has nothing to do, on every decode call of K5-K8)."""
+    return t if t.dtype is torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
 def _check(name, xq, tensors, d):
     if xq.dtype != torch.int8 or xq.dim() != 2 or xq.shape[1] != d or xq.shape[0] < 1:
         raise ValueError(f"{name}: xq must be int8 (b, {d}), got {xq.dtype} {tuple(xq.shape)}")
@@ -293,12 +301,10 @@ def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
     if w.dtype != torch.int8 or f % 16:
         raise ValueError(f"{symbol}: weight must be int8 with F a multiple of 16, "
                          f"got {w.dtype} {tuple(w.shape)}")
-    a = a.reshape(-1).float().contiguous()
-    w_scale, bias = w_scale.float().contiguous(), bias.float().contiguous()
-    xq = xq.contiguous()
+    a, w_scale, bias, xq = _f32(a), _f32(w_scale), _f32(bias), xq.contiguous()
     _check(symbol, xq, (a, w, w_scale, bias), d)
     b = xq.shape[0]
-    if a.shape != (b,) or w_scale.shape != (f,) or bias.shape != (f,):
+    if a.numel() != b or w_scale.shape != (f,) or bias.shape != (f,):
         raise ValueError(f"{symbol}: scale or bias shape does not match")
     plan = gemv_plan(w.shape[0], f, _sm_count(xq.device.index))
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 6 + [cuda_lib.I] * 6 + [cuda_lib.P])
@@ -381,12 +387,11 @@ def _launch_mlp(symbol, counter, xq, a, fc, fc_scale, fc_bias, fc2, fc2_scale, f
         raise ValueError(f"{symbol}: int8 weights with groups of a multiple of "
                          f"{16 * CLUSTER} columns needed, got {fc.dtype}, "
                          f"{fc2.dtype}, group {hb}")
-    a = a.reshape(-1).float().contiguous()
-    vecs = [t.float().contiguous() for t in (fc_scale, fc_bias, fc2_scale, fc2_bias)]
-    xq = xq.contiguous()
+    a, xq = _f32(a), xq.contiguous()
+    vecs = [_f32(t) for t in (fc_scale, fc_bias, fc2_scale, fc2_bias)]
     _check(symbol, xq, (a, fc, fc2, *vecs), d)
     b = xq.shape[0]
-    if a.shape != (b,) or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
+    if a.numel() != b or [v.shape[0] for v in vecs] != [fh, fh, d, d]:
         raise ValueError(f"{symbol}: scale or bias shape does not match")
     rows = mlp_rows(d, hb, symbol == "mlp_w4")
     if rows == 0:

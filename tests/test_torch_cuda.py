@@ -134,7 +134,7 @@ def _q8(g, dev, d, f):
 # (rows, D, F): the full-width shapes (c_attn, attn c_proj, the logits head,
 # whose last 256-column tile is half used) at 1, 3 and 16 rows; D=256 at
 # F=384; D=2048 (c_attn 2048 x 6144); 17 and 40 rows in chunks of 16; D=32768,
-# whose blocks take their rows in two passes (gemv.gemv_plan)
+# whose blocks take their rows in three passes (gemv.gemv_plan)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 8320), (2, 256, 384),
                                    (17, 1280, 3840), (40, 1280, 3840), (1, 1280, 1280),
@@ -215,7 +215,7 @@ def _q4(g, dev, d, f, cols=False):
 
 
 # (rows, D, F) as for K5: c_attn and attn c_proj at 1, 3 and 16 rows, F=384,
-# 17 and 40 rows in chunks, D=2048, and D=65536 (32768 packed rows, two passes)
+# 17 and 40 rows in chunks, D=2048, and D=65536 (32768 packed rows, three passes)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,d,f", [(1, 1280, 3840), (3, 1280, 3840), (1, 1280, 1280),
                                    (3, 1280, 1280), (1, 1280, 384), (17, 1280, 3840),
