@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define EXPORT extern "C" __attribute__((visibility("default")))
 
 // four consecutive elements of a row as float
@@ -24,4 +26,66 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 __device__ __forceinline__ float4 load4(const int8_t* p) {
   const char4 c = *reinterpret_cast<const char4*>(p);
   return make_float4(c.x, c.y, c.z, c.w);
+}
+
+// shared-memory barriers and the Hopper bulk copies that complete on them
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits for the barrier's phase of the given parity (0: its first); a
+// copy that has not landed after ~2^34 cycles traps, so the launch fails
+// instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity = 0) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+constexpr int kMaxDevices = 64;
+
+// allows `kernel` `bytes` of dynamic shared memory on the current device;
+// allowed[d]: the bytes device d has allowed the kernel so far (one array
+// per kernel, zeroed)
+inline int allow_smem(const void* kernel, int* allowed, int bytes) {
+  static std::mutex lock;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  if (bytes > allowed[device]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    allowed[device] = bytes;
+  }
+  return 0;
 }

@@ -1,198 +1,369 @@
-// K1: ragged single-token decode attention with a masked hole.
+// K1 / K4: ragged single-token decode attention with a masked hole, one
+// launch a call.
 //
 // Replaces the JAX package's Pallas kernels in indextts_tpu/ops/
-// decode_attention.py: `_kernel` / `ragged_decode_attention` (no hole),
+// decode_attention.py (rows 1-5 of the kernel table): K1, over a float32
+// or bfloat16 cache, `_kernel` / `ragged_decode_attention` (no hole),
 // `_kernel_t` / `ragged_decode_attention_t` (transposed cache + hole, the
 // one GPT2Attention calls with attn_impl="pallas_ragged") and
-// `_kernel_blocked` / `ragged_decode_attention_blocked`. Those layouts exist
-// for Mosaic's lane tiles; here the cache keeps its natural (B, H, cap, Dh)
-// layout and one kernel covers all three.
+// `_kernel_blocked` / `ragged_decode_attention_blocked`; K4, over an int8
+// cache with per-(head, token) f32 scales (models/gpt2.py `quantize_kv`),
+// `_kernel_blocked_q8` / `ragged_decode_attention_blocked_q8` and
+// `_kernel_grid_q8`. Those layouts exist for Mosaic's lane tiles and the
+// TPU's DMA; here the cache keeps its natural (B, H, cap, Dh) layout, the
+// scales (B, H, cap), and one template covers all five.
 //
 // out[b,h] = softmax_t(q.k_t * Dh^-1/2) . v_t over keys t < valid[b] outside
-// [hole_start[b], hole_end[b]), online softmax accumulated in fp32. K/V are
-// float32 or bfloat16; Dh is 64.
+// [hole_start[b], hole_end[b]), in fp32; Dh is 64. K4 folds the scales in
+// as the TPU kernel does, s = (q.k8) * ksc[t] * Dh^-1/2 and
+// acc += (p * vsc[t]) * v8: nothing is dequantized in memory. A row with no
+// attending key returns zeros.
 //
-// K4 is the same kernel over an int8 cache with per-(head, token) f32
-// scales (models/gpt2.py `quantize_kv`): it replaces `_kernel_blocked_q8` /
-// `ragged_decode_attention_blocked_q8` and `_kernel_grid_q8` (rows 4-5 of
-// the kernel table), whose block-major layout is a DMA artifact of the TPU;
-// here the int8 cache keeps (B, H, cap, Dh) and its scales (B, H, cap). As
-// the TPU kernel does, the key scale folds into the score,
-// s = (q.k8) * ksc[t] * Dh^-1/2, and the value scale into the probability,
-// acc += (p * vsc[t]) * v8: nothing is dequantized in memory. A key row is
-// 64 bytes, which a half-warp reads with 4-byte loads.
+// Bound on the H100: bytes. A call reads each valid K and V row once and
+// does 4 FLOPs a byte (fp32; 16 on int8), far below the card's ridge: at
+// B=1, H=20 that is 3.9 MB (fp32, 383 keys) to 17 MB (1657 keys), one to
+// five microseconds at 3.35 TB/s. So the call is a chain of latencies
+// unless the whole range is in flight at once and the launch is paid once.
+// The design:
 //
-// Bound on the H100: bytes. A decode step reads each valid K and V row once
-// (B=1, H=20, Dh=64, ~1.7k keys: ~17 MB per layer in fp32) and does 4 FLOPs
-// per byte, far below the card's ridge. At B=1 one block per (b, h) would
-// occupy 20 of 132 SMs, so the design is split-K (flash-decoding): pass 1
-// gives each block a 64-key range of one (b, h); a half-warp reads one key
-// row with 16-byte loads (fully used 32-byte sectors), four warps keep eight
-// rows in flight, and the block reduces its keys to (m, l, acc[64]). Pass 2
-// combines the ranges of each (b, h). The split count follows the cache
-// capacity (a shape), not valid_len (device data), so the host never syncs;
-// ranges past valid_len exit at once.
+// - One launch: a cluster of 8 blocks (ranks) per (b, h), grid (8, H, B).
+//   Rank r takes the r-th eighth of [0, min(valid, cap)), a whole number of
+//   16-key chunks, computed here from valid (device data): the grid
+//   follows the shape, the work follows valid_len, and the host never
+//   syncs (ops/decode_attention.py `rank_span` is the same split).
+// - A rank's K rows, and its V rows, are each one contiguous run of the
+//   cache. Lanes of two warps ask the copy engine for all of it at once,
+//   as 1-D bulk copies of up to 128 keys (`cp.async.bulk`, an mbarrier
+//   each), up to `rk` keys a round (ops/decode_attention.py `round_keys`:
+//   208 fp32 keys, 256 bf16 or int8; a rank's whole share up to cap 1664
+//   or 2048). A longer share goes in rounds, with an online softmax across
+//   them. K4's scales come by plain loads, a key a thread, issued with the
+//   copies.
+// - Thread t takes the score of key t of the round once its copy has
+//   landed: 16 reads of 4 dims from its K row against q in shared memory,
+//   each lane starting at another 4-dim slot so that a warp's reads fall
+//   in distinct banks (rows 64-256 B apart would put one dim of every row
+//   in one bank). Then one max a round, one exp a key (in base 2), and P.V
+//   with 16 lanes a V row (4 dims each), 16 rows at a time, the 16 rows'
+//   partials added in shared memory in a fixed order.
+// - Each rank sends its (m, l, acc[64]) into rank 0's shared memory by
+//   asynchronous stores (`st.async`) that complete their bytes on a
+//   barrier of rank 0, after a cluster arrive made at the start; the other
+//   ranks are then done, and rank 0 adds the 8 in rank order. No global
+//   scratch and no atomics: a call and a CUDA-graph replay give the same
+//   bits.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kDh = 64;
-constexpr int kThreads = 128;            // 4 warps, 8 half-warps
-constexpr int kHalfWarps = kThreads / 16;
-constexpr int kPart = kDh + 2;           // m, l, acc[64]
+constexpr int kCluster = 8;                 // ranks per (b, h)
+constexpr int kThreads = 256;               // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 16;                  // a rank's share is whole chunks of keys
+constexpr int kCopy = 128;                  // keys a bulk copy (and its barrier)
+constexpr int kMaxRound = kThreads;         // keys a round: one score a thread
+constexpr int kMaxCopies = kMaxRound / kCopy;
+constexpr int kRows = kThreads / 16;        // V rows P.V takes at a time, 16 lanes each
+constexpr int kAcc = 4;                     // a rank's partial: m, l, 2 unused, acc[64]
+constexpr int kPart = kAcc + kDh;
+// dynamic shared memory a block may take so that two fit an SM's 228 KB,
+// each with its 1 KB reserved and at most 4 KB static
+constexpr int kMaxSmem = 233472 / 2 - 1024 - 4096;
 
-template <typename T, bool kQ8>
-__global__ void __launch_bounds__(kThreads)
-split_kernel(const float* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const float* __restrict__ ksc,
-             const float* __restrict__ vsc, const int* __restrict__ valid,
-             const int* __restrict__ hole_s, const int* __restrict__ hole_e,
-             float* __restrict__ part, int H, int cap, int chunk, float scale) {
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int half = lane >> 4, hl = lane & 15;
-  const int hw = warp * 2 + half;
-  const int vl = min(valid[b], cap);
-  const int hs = hole_s[b], he = hole_e[b];
-  const int start = split * chunk;
-  const int end = min(start + chunk, vl);
-  const size_t bh = (size_t)b * H + h;
-  const float4 qv = load4(q + bh * kDh + hl * 4);
-  const T* kb = k + bh * (size_t)cap * kDh;
-  const T* vb = v + bh * (size_t)cap * kDh;
-  const float* kscb = kQ8 ? ksc + bh * (size_t)cap : nullptr;
-  const float* vscb = kQ8 ? vsc + bh * (size_t)cap : nullptr;
+static_assert(kCopy % kChunk == 0 && kMaxRound % kCopy == 0, "copies of whole chunks");
 
-  float m = -INFINITY, l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  // the trip count depends on the warp only, so all 32 lanes shuffle together
-  for (int base = start + warp * 2; base < end; base += kHalfWarps) {
-    const int t = base + half;
-    const bool in = t < end;
-    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (in) kv = load4(kb + (size_t)t * kDh + hl * 4);
-    float s = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
-    s += __shfl_xor_sync(0xffffffffu, s, 8);
-    s += __shfl_xor_sync(0xffffffffu, s, 4);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    if (in && (t < hs || t >= he)) {
-      if (kQ8) s *= kscb[t];
-      s *= scale;
-      const float4 vv = load4(vb + (size_t)t * kDh + hl * 4);
-      const float m_new = fmaxf(m, s);
-      const float alpha = expf(m - m_new);
-      const float e = expf(s - m_new);
-      const float p = kQ8 ? e * vscb[t] : e;
-      l = l * alpha + e;
-      acc.x = acc.x * alpha + p * vv.x;
-      acc.y = acc.y * alpha + p * vv.y;
-      acc.z = acc.z * alpha + p * vv.z;
-      acc.w = acc.w * alpha + p * vv.w;
-      m = m_new;
-    }
+// The dynamic shared memory of a block (byte offsets) for rounds of rk
+// keys of row_bytes each: the K rows, the V rows, the probabilities (K4:
+// times vsc) and the P.V partials, kRows x 64 floats
+struct Smem {
+  int v, p, red, total;
+  __host__ __device__ Smem(int rk, int row_bytes) {
+    v = rk * row_bytes;
+    p = 2 * rk * row_bytes;
+    red = p + rk * 4;
+    total = red + kRows * kDh * 4;
   }
+};
 
-  __shared__ float sm_m[kHalfWarps], sm_l[kHalfWarps];
-  __shared__ float sm_acc[kHalfWarps][kDh];
-  if (hl == 0) {
-    sm_m[hw] = m;
-    sm_l[hw] = l;
-  }
-  *reinterpret_cast<float4*>(&sm_acc[hw][hl * 4]) = acc;
-  __syncthreads();
-  if (tid < kDh) {
-    float M = -INFINITY;
-    for (int i = 0; i < kHalfWarps; ++i) M = fmaxf(M, sm_m[i]);
-    float L = 0.f, A = 0.f;
-    if (M != -INFINITY) {
-      for (int i = 0; i < kHalfWarps; ++i) {
-        const float w = expf(sm_m[i] - M);
-        L += sm_l[i] * w;
-        A += sm_acc[i][tid] * w;
-      }
-    }
-    float* dst = part + (bh * n_splits + split) * kPart;
-    dst[2 + tid] = A;
-    if (tid == 0) {
-      dst[0] = M;
-      dst[1] = L;
-    }
+// keys [start, end) of [0, min(valid, cap)) that rank `rank` takes
+__device__ __forceinline__ void rank_span(int valid, int cap, int rank, int& start, int& end) {
+  const int n = max(0, min(valid, cap));
+  const int per = (n + kChunk * kCluster - 1) / (kChunk * kCluster) * kChunk;
+  start = min(rank * per, n);
+  end = min(start + per, n);
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_keys(T* dst, const T* src, int keys, uint64_t* bar) {
+  const int bytes = keys * kDh * (int)sizeof(T);
+  mbar_expect_tx(bar, bytes);
+  bulk_load(dst, src, bytes, bar);
+}
+
+// the address of p's counterpart in the shared memory of cluster rank `rank`
+__device__ __forceinline__ uint32_t rank_addr(const void* p, int rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(addr) : "r"(smem_addr(p)), "r"(rank));
+  return addr;
+}
+
+// stores x at `addr` in another rank's shared memory and completes its 4
+// bytes on that rank's barrier `bar` (both from rank_addr), without waiting
+__device__ __forceinline__ void store_remote(uint32_t addr, float x, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];" ::
+                   "r"(addr), "f"(x), "r"(bar)
+               : "memory");
+}
+
+// waits for the first phase of a barrier that other ranks arrive on, with
+// acquire at cluster scope; traps after ~2^34 cycles as mbar_wait does
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
   }
 }
 
-__global__ void __launch_bounds__(kDh)
-combine_kernel(const float* __restrict__ part, float* __restrict__ out,
-               int H, int n_splits) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+template <typename T, bool kQ8>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 2)
+decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ ksc,
+              const float* __restrict__ vsc, const int* __restrict__ valid,
+              const int* __restrict__ hole_s, const int* __restrict__ hole_e,
+              float* __restrict__ out, int H, int cap, int rk, float scale) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kRowBytes = kDh * (int)sizeof(T);
+  // the 4-dim slot thread t starts at: distinct banks across a warp's
+  // reads of 16 (fp32), 8 (bf16) or 4 (int8) bytes from rows kRowBytes
+  // apart (one dim of every row would otherwise fall in one bank)
+  constexpr int kRot = kRowBytes >= 128 ? 1 : 128 / kRowBytes;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem L(rk, kRowBytes);
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = reinterpret_cast<T*>(smem + L.v);
+  float* ps = reinterpret_cast<float*>(smem + L.p);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  __shared__ float4 qs[kDh / 4];
+  __shared__ float recv[kCluster * kPart];  // rank 0: every rank's partial
+  __shared__ float wmax[kWarps], wsum[kWarps];
+  __shared__ uint64_t kbar[kMaxCopies], vbar[kMaxCopies], landed;
+
+  // 1. The loads that depend on nothing go out first. The block's barrier
+  //    for the ranks' partials is made visible to the cluster, and the
+  //    block says it has started: the others send into rank 0's shared
+  //    memory once they have seen every arrival. Then the block takes its
+  //    share and asks for round 0 (lane j of warp 0 K copy j, of warp 1 V
+  //    copy j) and, under K4, thread t loads the scales of its key.
   const size_t bh = (size_t)b * H + h;
-  const float* src = part + bh * n_splits * kPart;
-  float M = -INFINITY;
-  for (int i = 0; i < n_splits; ++i) M = fmaxf(M, src[i * kPart]);
-  float L = 0.f, A = 0.f;
-  if (M != -INFINITY) {
-    for (int i = 0; i < n_splits; ++i) {
-      const float w = expf(src[i * kPart] - M);
-      L += src[i * kPart + 1] * w;
-      A += src[i * kPart + 2 + d] * w;
+  float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < kDh / 4) qv = load4(q + bh * kDh + tid * 4);
+  const int vl = valid[b], hs = hole_s[b], he = hole_e[b];
+  if (tid == 0) {
+    mbar_init(&landed, 1);
+    if (rank == 0) mbar_expect_tx(&landed, kCluster * (kDh + 2) * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  int start, end;
+  rank_span(vl, cap, rank, start, end);
+  const int rounds = (end - start + rk - 1) / rk;
+  const T* kb = k + bh * cap * kDh;
+  const T* vb = v + bh * cap * kDh;
+  const bool k_lane = tid < kMaxCopies, v_lane = tid >= 32 && tid < 32 + kMaxCopies;
+  const int j = k_lane ? tid : tid - 32;  // the copy a copy lane asks for
+  // the copy lane's copy of the round that starts at key t0
+  auto request = [&](int t0) {
+    const int n = min(rk, end - t0) - j * kCopy;
+    if (n > 0)
+      copy_keys((k_lane ? ks : vs) + j * kCopy * kDh,
+                (k_lane ? kb : vb) + (size_t)(t0 + j * kCopy) * kDh, min(kCopy, n),
+                k_lane ? &kbar[j] : &vbar[j]);
+  };
+  if (k_lane || v_lane) {
+    mbar_init(k_lane ? &kbar[j] : &vbar[j], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    request(start);
+  }
+  float kscale = 1.f, vscale = 1.f;  // K4: the scales of the thread's key
+  if (kQ8 && tid < min(rk, end - start)) {
+    kscale = ksc[bh * cap + start + tid];
+    vscale = vsc[bh * cap + start + tid];
+  }
+  if (tid < kDh / 4) qs[tid] = qv;
+  __syncthreads();
+
+  // the softmax runs in base 2: s = q.k * Dh^-1/2 * log2(e), p = 2^(s - m)
+  const float scale2 = scale * 1.4426950408889634f;
+  float m_run = -INFINITY, l_run = 0.f, acc_run = 0.f;  // acc_run: dim tid (tid < 64)
+  const int row = tid / 16, c4 = (tid & 15) * 4;         // P.V: V row and dims of a thread
+  for (int r = 0; r < rounds; ++r) {
+    const int r0 = start + r * rk, nr = min(rk, end - r0), parity = r & 1;
+    // 2. scores: thread t takes key r0 + t, in four partial sums
+    float s = -INFINITY;
+    if (tid < nr) {
+      const int key = r0 + tid;
+      if (kQ8 && r > 0) {
+        kscale = ksc[bh * cap + key];
+        vscale = vsc[bh * cap + key];
+      }
+      mbar_wait(&kbar[tid / kCopy], parity);
+      const T* kr = ks + tid * kDh;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < kDh / 4; ++c) {
+        const int slot = (c + tid / kRot) & (kDh / 4 - 1);
+        const float4 kv = load4(kr + slot * 4), qc = qs[slot];
+        d[c & 3] = fmaf(qc.x, kv.x, d[c & 3]);
+        d[c & 3] = fmaf(qc.y, kv.y, d[c & 3]);
+        d[c & 3] = fmaf(qc.z, kv.z, d[c & 3]);
+        d[c & 3] = fmaf(qc.w, kv.w, d[c & 3]);
+      }
+      float dot = (d[0] + d[1]) + (d[2] + d[3]);
+      if (kQ8) dot *= kscale;
+      if (key < hs || key >= he) s = dot * scale2;
+    }
+    float mx = s;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) wmax[warp] = mx;
+    __syncthreads();
+    // 3. one max a round, one exp a key
+    float M = m_run;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wmax[w]);
+    const float e = s == -INFINITY ? 0.f : exp2f(s - M);
+    if (tid < nr) ps[tid] = kQ8 ? e * vscale : e;
+    float sum = e;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) wsum[warp] = sum;
+    const float alpha = M == -INFINITY ? 1.f : exp2f(m_run - M);
+    __syncthreads();
+    float lr = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) lr += wsum[w];
+    l_run = l_run * alpha + lr;
+    m_run = M;
+    // 4. P.V once the V rows have landed: 16 lanes a row, rows row, row +
+    //    16, ...; the 16 rows' partials added in row order
+    for (int c = 0; c * kCopy < nr; ++c) mbar_wait(&vbar[c], parity);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = row; t < nr; t += kRows) {
+      const float p = ps[t];
+      const float4 vv = load4(vs + t * kDh + c4);
+      a.x = fmaf(p, vv.x, a.x);
+      a.y = fmaf(p, vv.y, a.y);
+      a.z = fmaf(p, vv.z, a.z);
+      a.w = fmaf(p, vv.w, a.w);
+    }
+    *reinterpret_cast<float4*>(&red[row * kDh + c4]) = a;
+    __syncthreads();
+    if (tid < kDh) {
+      float pv = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) pv += red[i * kDh + tid];
+      acc_run = acc_run * alpha + pv;
+    }
+    // the rows are read: the next round's may come in
+    if (r + 1 < rounds) {
+      __syncthreads();
+      if (k_lane || v_lane) request(r0 + rk);
     }
   }
-  out[bh * kDh + d] = A / fmaxf(L, 1e-30f);
+
+  // 5. Once every block has started, each rank's (m, l, acc) goes into
+  //    rank 0's shared memory by asynchronous stores that complete their
+  //    bytes on rank 0's barrier; the other ranks are then done. Rank 0
+  //    waits for the 8 x 66 values and adds the ranks' partials in rank
+  //    order. A rank with no attending key sends (-inf, 0, 0).
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (tid < kDh) {
+    const uint32_t to = rank_addr(recv + rank * kPart, 0), bar = rank_addr(&landed, 0);
+    store_remote(to + (kAcc + tid) * 4, acc_run, bar);
+    if (tid == 0) {
+      store_remote(to, m_run, bar);
+      store_remote(to + 4, l_run, bar);
+    }
+  }
+  if (rank == 0 && tid < kDh) {
+    mbar_wait_cluster(&landed);
+    float M = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kCluster; ++i) M = fmaxf(M, recv[i * kPart]);
+    float Lsum = 0.f, A = 0.f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int i = 0; i < kCluster; ++i) {
+        const float f = exp2f(recv[i * kPart] - M);
+        Lsum += recv[i * kPart + 1] * f;
+        A += recv[i * kPart + kAcc + tid] * f;
+      }
+    }
+    out[bh * kDh + tid] = A / fmaxf(Lsum, 1e-30f);
+  }
+}
+
+// rk: keys a round, a multiple of 16 up to 256 (ops/decode_attention.py
+// `round_keys`)
+template <typename T, bool kQ8>
+int launch(const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
+           const void* valid, const void* hole_s, const void* hole_e, void* out, int B, int H,
+           int cap, int rk, float scale, void* stream) {
+  const int smem = Smem(rk, kDh * (int)sizeof(T)).total;
+  if (B < 1 || H < 1 || cap < 1 || rk < kChunk || rk % kChunk || rk > kMaxRound ||
+      smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  static int allowed[kMaxDevices] = {};
+  const int e = allow_smem(reinterpret_cast<const void*>(decode_kernel<T, kQ8>), allowed, smem);
+  if (e != 0) return e;
+  decode_kernel<T, kQ8><<<dim3(kCluster, H, B), kThreads, smem,
+                          reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+      static_cast<const int*>(valid), static_cast<const int*>(hole_s),
+      static_cast<const int*>(hole_e), static_cast<float*>(out), H, cap, rk, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// q (B, H, 64) f32; k, v (B, H, cap, 64) f32 or bf16; valid, hole_s,
+// hole_e (B,) int32; out (B, H, 64) f32. q, k, v 16-byte aligned.
 EXPORT int ragged_decode_attention(const void* q, const void* k, const void* v,
                                    const void* valid, const void* hole_s,
-                                   const void* hole_e, void* part, void* out,
-                                   int B, int H, int cap, int chunk,
-                                   int n_splits, int bf16, float scale,
-                                   void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid(n_splits, H, B);
-  if (bf16) {
-    split_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), nullptr, nullptr,
-        static_cast<const int*>(valid),
-        static_cast<const int*>(hole_s), static_cast<const int*>(hole_e),
-        static_cast<float*>(part), H, cap, chunk, scale);
-  } else {
-    split_kernel<float, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), nullptr, nullptr,
-        static_cast<const int*>(valid),
-        static_cast<const int*>(hole_s), static_cast<const int*>(hole_e),
-        static_cast<float*>(part), H, cap, chunk, scale);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  combine_kernel<<<dim3(H, B), kDh, 0, s>>>(static_cast<const float*>(part),
-                                           static_cast<float*>(out), H,
-                                           n_splits);
-  return (int)cudaGetLastError();
+                                   const void* hole_e, void* out, int B, int H, int cap,
+                                   int rk, int bf16, float scale, void* stream) {
+  if (bf16)
+    return launch<__nv_bfloat16, false>(q, k, v, nullptr, nullptr, valid, hole_s, hole_e, out,
+                                         B, H, cap, rk, scale, stream);
+  return launch<float, false>(q, k, v, nullptr, nullptr, valid, hole_s, hole_e, out, B, H, cap,
+                              rk, scale, stream);
 }
 
-EXPORT int ragged_decode_attention_q8(const void* q, const void* k8,
-                                      const void* v8, const void* ksc,
-                                      const void* vsc, const void* valid,
-                                      const void* hole_s, const void* hole_e,
-                                      void* part, void* out, int B, int H,
-                                      int cap, int chunk, int n_splits,
-                                      float scale, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  split_kernel<int8_t, true><<<dim3(n_splits, H, B), kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(k8),
-      static_cast<const int8_t*>(v8), static_cast<const float*>(ksc),
-      static_cast<const float*>(vsc), static_cast<const int*>(valid),
-      static_cast<const int*>(hole_s), static_cast<const int*>(hole_e),
-      static_cast<float*>(part), H, cap, chunk, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  combine_kernel<<<dim3(H, B), kDh, 0, s>>>(static_cast<const float*>(part),
-                                           static_cast<float*>(out), H,
-                                           n_splits);
-  return (int)cudaGetLastError();
+// k8, v8 (B, H, cap, 64) int8; ksc, vsc (B, H, cap) f32
+EXPORT int ragged_decode_attention_q8(const void* q, const void* k8, const void* v8,
+                                      const void* ksc, const void* vsc, const void* valid,
+                                      const void* hole_s, const void* hole_e, void* out,
+                                      int B, int H, int cap, int rk, float scale,
+                                      void* stream) {
+  return launch<int8_t, true>(q, k8, v8, ksc, vsc, valid, hole_s, hole_e, out, B, H, cap, rk,
+                              scale, stream);
 }

@@ -91,40 +91,6 @@ constexpr int kMaxRows = 16;
 constexpr int kCluster = 8;
 constexpr int kMaxSmem = 232448 - 1024;  // a block's shared memory on sm_90, less the static
 
-// shared-memory barriers and the Hopper bulk copies that complete on them
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits for the barrier's phase of the given parity (0: its first); a
-// copy that has not landed after ~2^34 cycles traps, so the launch fails
-// instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity = 0) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
 // spins until *p == v (a gpu-scope acquire), with the same watchdog
 __device__ __forceinline__ void wait_count(const unsigned* p, unsigned v) {
   const long long t0 = clock64();
@@ -143,14 +109,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -771,13 +729,10 @@ EncodeTiled encode_tiled() {
 
 // Host-side set-up of the K5-K8 launches, kept across calls and shared by
 // the calling threads under one lock: the tensor map of each weight seen in
-// each box shape (it depends only on the weight's address, shape and box),
-// and per device and instantiation the dynamic shared memory the kernel has
-// been allowed.
+// each box shape (it depends only on the weight's address, shape and box).
 std::mutex host_lock;
 std::map<std::tuple<const void*, int, int, int, int>, CUtensorMap> weight_maps;
 constexpr size_t kMaxMaps = 4096;  // past this many weights the cache starts over
-constexpr int kMaxDevices = 64;
 
 // allows `kernel` `smem` bytes of dynamic shared memory on the current
 // device (allowed: the bytes each device has been allowed so far), and
@@ -785,16 +740,9 @@ constexpr int kMaxDevices = 64;
 // of box_rows x box_cols bytes
 int launch_setup(const void* kernel, int* allowed, int smem, const void* w, int cols, int rows,
                  int box_cols, int box_rows, CUtensorMap* map) {
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return (int)e;
-  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int e = allow_smem(kernel, allowed, smem);
+  if (e != 0) return e;
   std::lock_guard<std::mutex> hold(host_lock);
-  if (smem > allowed[device]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed[device] = smem;
-  }
   const auto key = std::make_tuple(w, cols, rows, box_cols, box_rows);
   const auto found = weight_maps.find(key);
   if (found != weight_maps.end()) {

@@ -13,8 +13,11 @@ One query token per (row, head) attends to its KV cache, natural layout
   `ragged_decode_attention_blocked_q8`. s = (q . k8) * ksc * Dh^-1/2, and
   ctx = sum_t p_t * vsc_t * v8_t.
 
-Both live in csrc/decode_attention.cu. Each `*_plain` function is the same
-function in plain PyTorch, which the wrappers run for CPU tensors.
+Both live in csrc/decode_attention.cu, one launch a call: a cluster of
+CLUSTER blocks per (row, head), rank r taking `rank_span` of the valid keys
+(computed in the kernel from valid_len, so the host never syncs), in rounds
+of `round_keys`. Each `*_plain` function is the same function in plain
+PyTorch, which the wrappers run for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,8 +28,13 @@ import torch
 
 from indextts_tpu_torch.ops import cuda_lib
 
-# keys per split-K range of the kernel's first pass
-CHUNK = 64
+CLUSTER = 8  # blocks (ranks) per (row, head)
+CHUNK = 16  # a rank's share is a whole number of CHUNK keys
+THREADS = 256  # a block's; a round holds at most one key a thread
+SCALE = 1.0 / math.sqrt(64)  # Dh^-1/2; the kernels take Dh=64
+# K and V rows a round holds at most: at float32 (256-byte rows) 208 keys,
+# so that two blocks fit an SM (csrc/decode_attention.cu kMaxSmem)
+ROUND_KV_BYTES = 208 * 2 * 256
 
 
 class _Counter:
@@ -36,6 +44,60 @@ class _Counter:
 counter = _Counter()
 q8_counter = _Counter()
 NEG_INF = -1e9
+
+
+def _share(n: int) -> int:
+    """Keys a rank takes of n: the CLUSTER-th part of n in whole chunks."""
+    return -(-n // (CHUNK * CLUSTER)) * CHUNK
+
+
+def rank_span(valid: int, cap: int, rank: int):
+    """Keys [start, end) of [0, min(valid, cap)) that cluster rank `rank`
+    takes: the split csrc/decode_attention.cu `rank_span` computes on the
+    device, a whole number of CHUNK keys a rank but the last."""
+    n = max(0, min(valid, cap))
+    start = min(rank * _share(n), n)
+    return start, min(start + _share(n), n)
+
+
+def round_keys(cap: int, row_bytes: int) -> int:
+    """Keys a block holds at once for a cache of `cap` keys of `row_bytes`
+    (256 fp32, 128 bf16, 64 int8): the largest share a rank can get, at
+    most THREADS and ROUND_KV_BYTES of K and V rows, in whole chunks. A
+    larger share goes in rounds of this many keys."""
+    most = min(THREADS, ROUND_KV_BYTES // (2 * row_bytes) // CHUNK * CHUNK)
+    return min(most, _share(cap))
+
+
+def _i32(t):
+    """t as a contiguous int32 tensor: t itself where it is one already."""
+    return t if t.dtype is torch.int32 and t.is_contiguous() else t.to(torch.int32).contiguous()
+
+
+def _check_common(name, q, cache, others):
+    B, H, Dh = q.shape
+    cap = cache.shape[2]
+    if Dh != 64:
+        raise ValueError(f"{name}: needs Dh=64, got {Dh}")
+    if cache.shape != (B, H, cap, Dh):
+        raise ValueError(f"{name}: cache shape {tuple(cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if q.dtype != torch.float32:
+        raise TypeError(f"{name}: q must be float32, got {q.dtype}")
+    for t in (cache, *others):
+        if t.device != q.device:
+            raise ValueError(f"{name}: all inputs must be on the same device")
+    return B, H, cap
+
+
+def _aligned(name, q, tensors):
+    """q made contiguous; q and the caches must start 16-byte aligned (the
+    kernel reads them with 16-byte loads and bulk copies)."""
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError(f"{name}: q and the caches must be 16-byte aligned")
+    return q
 
 
 def ragged_decode_attention_plain(q, k, v, valid_len, hole_start, hole_end):
@@ -61,34 +123,23 @@ def ragged_decode_attention(q, k, v, valid_len, hole_start, hole_end):
     if q.device.type == "cpu":
         return ragged_decode_attention_plain(q, k, v, valid_len, hole_start,
                                              hole_end)
-    B, H, Dh = q.shape
-    cap = k.shape[2]
-    if Dh != 64:
-        raise ValueError(f"decode attention kernel needs Dh=64, got {Dh}")
-    if k.shape != (B, H, cap, Dh) or v.shape != k.shape:
-        raise ValueError(f"cache shape {tuple(k.shape)}/{tuple(v.shape)} "
-                         f"does not match q {tuple(q.shape)}")
-    if q.dtype != torch.float32 or k.dtype not in (torch.float32, torch.bfloat16) \
-            or v.dtype != k.dtype:
-        raise TypeError(f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
+    B, H, cap = _check_common("ragged_decode_attention", q, k,
+                              (v, valid_len, hole_start, hole_end))
+    if v.shape != k.shape:
+        raise ValueError(f"ragged_decode_attention: v {tuple(v.shape)} is not k's "
+                         f"{tuple(k.shape)}")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"ragged_decode_attention: dtypes k={k.dtype} v={v.dtype}")
     if not (k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("K/V caches must be contiguous")
-    for t in (k, v, valid_len, hole_start, hole_end):
-        if t.device != q.device:
-            raise ValueError("all inputs must be on the same device")
-    q = q.contiguous()
-    ints = [t.to(torch.int32).contiguous() for t in (valid_len, hole_start, hole_end)]
-    n_splits = -(-cap // CHUNK)
-    part = torch.empty((B, H, n_splits, Dh + 2), device=q.device,
-                       dtype=torch.float32)
-    out = torch.empty((B, H, Dh), device=q.device, dtype=torch.float32)
+        raise ValueError("ragged_decode_attention: K/V caches must be contiguous")
+    q = _aligned("ragged_decode_attention", q, (k, v))
+    vl, hs, he = _i32(valid_len), _i32(hole_start), _i32(hole_end)
+    out = torch.empty((B, H, 64), device=q.device, dtype=torch.float32)
     fn = cuda_lib.function("decode_attention", "ragged_decode_attention",
-                           [cuda_lib.P] * 8 + [cuda_lib.I] * 6 + [cuda_lib.F, cuda_lib.P])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ints[0].data_ptr(),
-             ints[1].data_ptr(), ints[2].data_ptr(), part.data_ptr(),
-             out.data_ptr(), B, H, cap, CHUNK, n_splits,
-             int(k.dtype == torch.bfloat16), 1.0 / math.sqrt(Dh), stream)
+                           [cuda_lib.P] * 7 + [cuda_lib.I] * 5 + [cuda_lib.F, cuda_lib.P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), hs.data_ptr(),
+             he.data_ptr(), out.data_ptr(), B, H, cap, round_keys(cap, 64 * k.element_size()),
+             int(k.dtype is torch.bfloat16), SCALE, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(err, "ragged_decode_attention")
     counter.launches += 1
     return out
@@ -116,40 +167,31 @@ def ragged_decode_attention_q8_plain(q, k8, v8, ksc, vsc, valid_len, hole_start,
 def ragged_decode_attention_q8(q, k8, v8, ksc, vsc, valid_len, hole_start, hole_end):
     """K4 on CUDA tensors, the plain version on CPU tensors. A row with no
     attending key is not defined (the decode step always attends to its own
-    token)."""
+    token); the kernel returns zeros there."""
     if q.device.type == "cpu":
         return ragged_decode_attention_q8_plain(q, k8, v8, ksc, vsc, valid_len,
                                                 hole_start, hole_end)
-    B, H, Dh = q.shape
-    cap = k8.shape[2]
-    if Dh != 64:
-        raise ValueError(f"decode attention kernel needs Dh=64, got {Dh}")
-    if k8.shape != (B, H, cap, Dh) or v8.shape != k8.shape:
-        raise ValueError(f"cache shape {tuple(k8.shape)}/{tuple(v8.shape)} "
-                         f"does not match q {tuple(q.shape)}")
+    name = "ragged_decode_attention_q8"
+    B, H, cap = _check_common(name, q, k8, (v8, ksc, vsc, valid_len, hole_start, hole_end))
+    if v8.shape != k8.shape:
+        raise ValueError(f"{name}: v8 {tuple(v8.shape)} is not k8's {tuple(k8.shape)}")
     if ksc.shape != (B, H, cap) or vsc.shape != ksc.shape:
-        raise ValueError(f"scale shape {tuple(ksc.shape)}/{tuple(vsc.shape)} "
+        raise ValueError(f"{name}: scale shape {tuple(ksc.shape)}/{tuple(vsc.shape)} "
                          f"does not match the cache {tuple(k8.shape)}")
-    if q.dtype != torch.float32 or k8.dtype != torch.int8 or v8.dtype != torch.int8 \
+    if k8.dtype != torch.int8 or v8.dtype != torch.int8 \
             or ksc.dtype != torch.float32 or vsc.dtype != torch.float32:
-        raise TypeError(f"dtypes q={q.dtype} k8={k8.dtype} v8={v8.dtype} "
+        raise TypeError(f"{name}: dtypes k8={k8.dtype} v8={v8.dtype} "
                         f"ksc={ksc.dtype} vsc={vsc.dtype}")
     if not all(t.is_contiguous() for t in (k8, v8, ksc, vsc)):
-        raise ValueError("K/V caches and scales must be contiguous")
-    for t in (k8, v8, ksc, vsc, valid_len, hole_start, hole_end):
-        if t.device != q.device:
-            raise ValueError("all inputs must be on the same device")
-    q = q.contiguous()
-    ints = [t.to(torch.int32).contiguous() for t in (valid_len, hole_start, hole_end)]
-    n_splits = -(-cap // CHUNK)
-    part = torch.empty((B, H, n_splits, Dh + 2), device=q.device, dtype=torch.float32)
-    out = torch.empty((B, H, Dh), device=q.device, dtype=torch.float32)
-    fn = cuda_lib.function("decode_attention", "ragged_decode_attention_q8",
-                           [cuda_lib.P] * 10 + [cuda_lib.I] * 5 + [cuda_lib.F, cuda_lib.P])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+        raise ValueError(f"{name}: K/V caches and scales must be contiguous")
+    q = _aligned(name, q, (k8, v8))
+    vl, hs, he = _i32(valid_len), _i32(hole_start), _i32(hole_end)
+    out = torch.empty((B, H, 64), device=q.device, dtype=torch.float32)
+    fn = cuda_lib.function("decode_attention", name,
+                           [cuda_lib.P] * 9 + [cuda_lib.I] * 4 + [cuda_lib.F, cuda_lib.P])
     err = fn(q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ksc.data_ptr(), vsc.data_ptr(),
-             ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(), part.data_ptr(),
-             out.data_ptr(), B, H, cap, CHUNK, n_splits, 1.0 / math.sqrt(Dh), stream)
-    cuda_lib.check(err, "ragged_decode_attention_q8")
+             vl.data_ptr(), hs.data_ptr(), he.data_ptr(), out.data_ptr(), B, H, cap,
+             round_keys(cap, 64), SCALE, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(err, name)
     q8_counter.launches += 1
     return out

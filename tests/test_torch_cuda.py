@@ -27,19 +27,96 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (B, cap, valid, hole start, hole end): a ragged pair with a hole; three
+# rows at the main path's cap (383) and the default config's (1657); then
+# the edges of K1/K4's split, where a cluster rank takes a share of
+# 16 * ceil(valid / 128) keys (decode_attention.rank_span): valids at and
+# across the edges of a 16-key chunk and of a share; unequal rows; a hole
+# across the rank boundaries at 128 and 256; a hole over every key but one;
+# shares past one round of the block's copies (cap 3000); mid-decode steps
+# at cap 1657
+DECODE_CASES = [
+    (2, 700, [650, 1], [40, 0], [90, 0]),
+    (3, 383, [383, 191, 1], [40, 3, 0], [90, 9, 0]),
+    (3, 1657, [1657, 828, 1], [40, 3, 0], [90, 9, 0]),
+    (7, 300, [1, 2, 15, 16, 17, 127, 129], [0] * 7, [0] * 7),
+    (3, 700, [700, 333, 1], [0, 40, 0], [0, 90, 0]),
+    (1, 1000, [1000], [100], [300]),
+    (2, 500, [500, 500], [0, 1], [499, 500]),
+    (2, 3000, [3000, 2100], [0, 50], [0, 60]),
+    (2, 1657, [400, 1000], [0, 0], [0, 0]),
+]
+
+
+def _decode_ints(dev, vl, hs, he):
+    return tuple(torch.tensor(a, dtype=torch.int32, device=dev) for a in (vl, hs, he))
+
+
+def _k1_args(dev, B, cap, dtype, ints):
+    g = torch.Generator(device=dev).manual_seed(cap)
+    q = torch.randn((B, 20, 64), generator=g, device=dev)
+    k, v = (torch.randn((B, 20, cap, 64), generator=g, device=dev).to(dtype) for _ in range(2))
+    return (q, k, v, *ints)
+
+
+def _k4_args(dev, B, cap, ints):
+    from indextts_tpu_torch.models.gpt2 import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(cap)
+    q = torch.randn((B, 20, 64), generator=g, device=dev)
+    k8, ksc = quantize_kv(torch.randn((B, 20, cap, 64), generator=g, device=dev))
+    v8, vsc = quantize_kv(torch.randn((B, 20, cap, 64), generator=g, device=dev))
+    return (q, k8, v8, ksc, vsc, *ints)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_cuda_matches_plain(cuda_device, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    B, H, cap, Dh = 2, 20, 700, 64
-    q = torch.randn((B, H, Dh), generator=g, device=cuda_device)
-    k = torch.randn((B, H, cap, Dh), generator=g, device=cuda_device).to(dtype)
-    v = torch.randn((B, H, cap, Dh), generator=g, device=cuda_device).to(dtype)
-    i32 = dict(dtype=torch.int32, device=cuda_device)
-    vl, hs, he = (torch.tensor(a, **i32) for a in ([650, 1], [40, 0], [90, 0]))
-    got = k1.ragged_decode_attention(q, k, v, vl, hs, he)
-    want = k1.ragged_decode_attention_plain(q, k, v, vl, hs, he)
+@pytest.mark.parametrize("B,cap,vl,hs,he", DECODE_CASES)
+def test_k1_cuda_matches_plain(cuda_device, dtype, B, cap, vl, hs, he):
+    """Within 2e-5 of the plain version: fp32 softmax over 8 ranks' shares
+    against a one-shot softmax, |out| ~ 1."""
+    args = _k1_args(cuda_device, B, cap, dtype, _decode_ints(cuda_device, vl, hs, he))
+    got = k1.ragged_decode_attention(*args)
+    want = k1.ragged_decode_attention_plain(*args)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert (got - want).abs().max() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_k1_cuda_row_without_keys_is_zero(cuda_device):
+    ints = _decode_ints(cuda_device, [0, 10, 40], [0, 0, 0], [0, 9, 40])
+    got = k1.ragged_decode_attention(*_k1_args(cuda_device, 3, 64, torch.float32, ints))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    assert got[1].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+def test_decode_attention_graph_replay_repeats_its_bits(cuda_device, cache):
+    """K1 (float32, bfloat16) and K4 (int8) replayed from a CUDA graph give
+    the eager call's bits: one launch, no scratch, a fixed order of sums."""
+    ints = _decode_ints(cuda_device, [383, 200], [0, 20], [0, 50])
+    if cache == "int8":
+        args = _k4_args(cuda_device, 2, 383, ints)
+        fn = lambda: k1.ragged_decode_attention_q8(*args)  # noqa: E731
+    else:
+        args = _k1_args(cuda_device, 2, 383, getattr(torch, cache), ints)
+        fn = lambda: k1.ragged_decode_attention(*args)  # noqa: E731
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert torch.equal(fn(), want)
 
 
 @pytest.mark.cuda
@@ -108,20 +185,13 @@ def test_k3_cuda_reads_strided_views(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap", [383, 1657])
-def test_k4_cuda_matches_plain(cuda_device, cap):
-    from indextts_tpu_torch.models.gpt2 import quantize_kv
-
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    B, H, Dh = 3, 20, 64
-    q = torch.randn((B, H, Dh), generator=g, device=cuda_device)
-    k8, ksc = quantize_kv(torch.randn((B, H, cap, Dh), generator=g, device=cuda_device))
-    v8, vsc = quantize_kv(torch.randn((B, H, cap, Dh), generator=g, device=cuda_device))
-    i32 = dict(dtype=torch.int32, device=cuda_device)
-    vl, hs, he = (torch.tensor(a, **i32) for a in ([cap, cap // 2, 1], [40, 3, 0], [90, 9, 0]))
-    got = k1.ragged_decode_attention_q8(q, k8, v8, ksc, vsc, vl, hs, he)
-    want = k1.ragged_decode_attention_q8_plain(q, k8, v8, ksc, vsc, vl, hs, he)
+@pytest.mark.parametrize("B,cap,vl,hs,he", DECODE_CASES)
+def test_k4_cuda_matches_plain(cuda_device, B, cap, vl, hs, he):
+    args = _k4_args(cuda_device, B, cap, _decode_ints(cuda_device, vl, hs, he))
+    got = k1.ragged_decode_attention_q8(*args)
+    want = k1.ragged_decode_attention_q8_plain(*args)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert (got - want).abs().max() <= 2e-5
 
 
 def _q8(g, dev, d, f):

@@ -136,6 +136,31 @@ def test_k1_plain_bf16_cache(rng):
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=5e-2)
 
 
+@pytest.mark.parametrize("row_bytes", [256, 128, 64])
+def test_k1_k4_split_covers_every_valid_key_once(row_bytes):
+    """The kernels' split of [0, min(valid, cap)) over a cluster's ranks
+    (rank_span, which csrc/decode_attention.cu computes on the device) and
+    their rounds (round_keys, fp32/bf16/int8 rows): every key once, each
+    share starting on a 16-key chunk and ending inside the cache, the
+    rounds within the block's threads and shared memory, and at the default
+    config's cap (1657) a whole share in one round."""
+    for cap in (1, 15, 16, 17, 127, 128, 129, 383, 1000, 1657, 1664, 1665, 3000):
+        rk = k1.round_keys(cap, row_bytes)
+        assert rk % k1.CHUNK == 0 and 0 < rk <= k1.THREADS
+        assert 2 * rk * row_bytes <= k1.ROUND_KV_BYTES
+        for valid in range(cap + 3):
+            seen = np.zeros(cap + 3, np.int64)
+            for rank in range(k1.CLUSTER):
+                start, end = k1.rank_span(valid, cap, rank)
+                assert 0 <= start <= end <= min(valid, cap)
+                assert start == end or start % k1.CHUNK == 0
+                seen[start:end] += 1
+            n = min(valid, cap)
+            assert (seen[:n] == 1).all() and not seen[n:].any()
+    for row_bytes_, cap in ((256, 1657), (128, 1657), (64, 1657), (64, 2048)):
+        assert k1.round_keys(cap, row_bytes_) >= k1.rank_span(cap, cap, 0)[1]
+
+
 # ---------------------------------------------------------------------------
 # K2: fused anti-aliased SnakeBeta
 # ---------------------------------------------------------------------------
