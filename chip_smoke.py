@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    K6's and K8's per call (one layer's MLP). Weights and caches cycle over
    24 layers' worth, K1's, K4's, K5's and K7's over enough copies to pass
    100 MB (twice the L2), so they come from device memory as in a decode
-   step, not from L2. K1 and K4 are timed at the main path's last step and
+   step, not from L2; each of K2's 37 launches reads its own input (1.27
+   GB in all), and K2 is also timed at the longest segment's shapes
+   (`time_k2`, which tools/snake_times.py runs on another tree). K1 and K4
+   are timed at the main path's last step and
    at the default config's cap (1657) with valid 1657, 1000 and 400: their
    work follows valid_len (`time_k1`, `time_k4`, which
    tools/decode_attention_times.py runs on another tree, such as a parent
@@ -40,8 +43,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    printed beside it. K3 is also checked at the longest segment the
    default config allows (T=2838), below one tile, with a row of one valid
    key and with a row of none, on the DiT's strided views (against their
-   contiguous copies, to the bit) and called again (the same bits). K1
-   (float32 and bfloat16 caches) and K4 are also checked at valid 1-2,
+   contiguous copies, to the bit) and called again (the same bits). K2 is
+   checked at every shape of a vocoder call at the main path and at the
+   longest segment, and at edge cases from its plan (`k2_cases`: T = 1, 2,
+   3, 7, at a warp's chunk of 32 x 12 outputs and at a block's four, one
+   either side, a last chunk of one lane, T % 4 != 0, logscale False, a
+   last block of one warp), printing the largest |alpha u| its sines see.
+   K1 (float32 and bfloat16 caches) and K4 are also checked at valid 1-2,
    15-17 and 127-129 (the edges of a 16-key chunk and of a cluster rank's
    share), with unequal rows, a hole across the ranks' boundaries, a hole
    over every key but one, shares that take two rounds (cap 3000) and, for
@@ -50,9 +58,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    K5 and K7 are also checked at F=384, at D=2048 and at a contraction long
    enough for three passes of weight boxes a block; K6 and K8 at one group
    and at D=1536 and D=2048 (other column slices a block; D=2048 also at 16
-   rows). K1 and K4-K8 are called again and replayed from a CUDA graph (the
-   same bits every time), and torch.profiler counts the device kernels one
-   call of each of K1 and K3-K8 launches (one). K5-K8 print the host us of
+   rows). K1, K2 and K4-K8 are called again and replayed from a CUDA graph
+   (the same bits every time), and torch.profiler counts the device kernels
+   one call of each of K1-K8 launches (one). K5-K8 print the host us of
    an eager call.
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
@@ -424,62 +432,123 @@ def check_k1(shapes, layers: int, heads: int):
             "bound_ms": main["bound"], "bound_by": main["by"], "library_ms": lib[1]}
 
 
-def check_k2(shapes):
+def k2_inputs(g, B: int, C: int, T: int, logscale: bool = True):
+    """x ~ N(0, 1) and alpha, beta ~ N(0, 0.09) (logscale); without
+    logscale alpha, beta = |N(0, 0.09)| + 0.5, as the CPU tests take them."""
     import torch
+
+    x = torch.randn((B, C, T), generator=g, device="cuda")
+    a = torch.randn((C,), generator=g, device="cuda") * 0.3
+    b = torch.randn((C,), generator=g, device="cuda") * 0.3
+    if not logscale:
+        a, b = a.abs() + 0.5, b.abs() + 0.5
+    return x, a, b
+
+
+def k2_cases():
+    """K2's edge cases, (name, B, C, T, logscale), from its plan (ops/
+    snake.py `snake_plan`: a warp takes 32 * R outputs of a row, lane l the
+    R from l * R, SNAKE_WARPS warps a block): rows shorter than a lane's R;
+    T at a warp's chunk and at a block's four chunks, and one either side;
+    a last chunk of one lane and of one output; a chunk whose input halo
+    reaches past a short last chunk (the edge path away from chunk 0);
+    T % 4 != 0 (scalar loads); logscale False; a grid whose last block
+    holds one warp; the shapes checked before the plan."""
+    from indextts_tpu_torch.ops import snake as k2
+
+    r = k2.SNAKE_LANE_OUTPUTS
+    chunk, block = 32 * r, 32 * r * k2.SNAKE_WARPS
+    cases = [(f"T={t}", 1, 24, t, True) for t in (1, 2, 3, 7)]
+    cases += [(f"T={t}", 1, 24, t, True) for t in (chunk - 1, chunk, chunk + 1)]
+    cases += [(f"T={t}", 2, 9, t, True) for t in (block - 1, block, block + 1)]
+    cases += [(f"tail of one lane T={2 * chunk + r}", 1, 24, 2 * chunk + r, True),
+              (f"halo past a short tail T={2 * chunk + 3}", 1, 24, 2 * chunk + 3, True),
+              ("T%4=1", 1, 72, 1001, True), ("T%4=3", 1, 144, 2063, True),
+              ("T%4=2", 2, 30, 4098, True), ("logscale False", 1, 72, 1000, False),
+              ("logscale False T%4=1", 2, 24, 517, False),
+              ("last block of one warp", 1, 5, 100, True),
+              ("C72", 2, 72, 1000, True), ("C2304", 1, 2304, 513, True),
+              ("tile-edge", 1, 144, 1025, True)]
+    return cases
+
+
+def snake_arg_max(x, alpha, logscale: bool) -> float:
+    """max |alpha u| over the up signal u of x: the largest argument K2's
+    sines see."""
+    import torch
+    import torch.nn.functional as F
 
     from indextts_tpu_torch.ops import snake as k2
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2)
-    tol = 2e-5  # same fp32 algebra and order; sinf/expf and FMA contraction
-    cases = [("small-T", 1, 24, 3), ("post-C24", 1, 24, 37), ("C72", 2, 72, 1000),
-             ("C2304", 1, 2304, 513), ("tile-edge", 1, 144, 1025)]
-    errs = {}
+    even, odd, _ = k2.polyphase_taps()
+    w = 2 * torch.tensor([even + [0.0], [0.0] + odd], device=x.device)[:, None, :]
+    B, C, T = x.shape
+    up = F.conv1d(F.pad(x.reshape(B * C, 1, T), (3, 3), mode="replicate"), w)
+    a = torch.exp(alpha) if logscale else alpha
+    return (up.reshape(B, C, 2, T) * a[None, :, None, None]).abs().max().item()
 
-    def inputs(B, C, T):
-        x = torch.randn((B, C, T), generator=g, device=dev)
-        a = torch.randn((C,), generator=g, device=dev) * 0.3
-        b = torch.randn((C,), generator=g, device=dev) * 0.3
-        return x, a, b
 
-    for name, B, C, T in cases:
-        x, a, b = inputs(B, C, T)
-        got = k2.anti_alias_snake(x, a, b, True)
-        want = k2.anti_alias_snake_plain(x, a, b, True)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        errs[name] = err
-        print(f"K2 {name}: B={B} C={C} T={T} max_abs_err={err:.3g} (tol {tol})")
-        if not err <= tol:
-            fail(f"K2 {name} disagrees with its plain version: {err}")
+def time_k2(seq, g, plain: bool = True, call=None):
+    """Device ms of one vocoder call of K2 (one launch per (C, T) of seq),
+    each launch on its own input, so no launch finds its x in L2 (the main
+    path's 37 inputs are 1.27 GB); with `plain`, the plain version's too.
+    `call` stands in for the wrapper (tools/snake_times.py). Returns (ms,
+    plain ms or None, bound ms, what bounds it)."""
+    from indextts_tpu_torch.ops import snake as k2
 
-    # one vocoder call's 37 launches at the main path's shapes
-    seq = shapes["snake"]
-    bufs = {}
-    for C, T in seq:
-        if (C, T) not in bufs:
-            bufs[(C, T)] = inputs(1, C, T)
-    err = 0.0
-    for key, (x, a, b) in bufs.items():
-        d = (k2.anti_alias_snake(x, a, b, True)
-             - k2.anti_alias_snake_plain(x, a, b, True)).abs().max().item()
-        print(f"K2 main C={key[0]} T={key[1]}: max_abs_err={d:.3g} (tol {tol})")
-        if not d <= tol:
-            fail(f"K2 main C={key[0]} T={key[1]} disagrees: {d}")
-        err = max(err, d)
-    errs["main"] = err
+    bufs = [k2_inputs(g, 1, C, T) for C, T in seq]
 
     def run(fn):
-        return lambda: [fn(*bufs[s], True) for s in seq]
+        return lambda: [fn(*b, True) for b in bufs]
 
-    ms = cuda_ms(run(k2.anti_alias_snake), iters=2)
-    plain = cuda_ms(run(k2.anti_alias_snake_plain), iters=1, replays=2)
+    ms = cuda_ms(run(call or k2.anti_alias_snake), iters=2)
+    plain_ms = cuda_ms(run(k2.anti_alias_snake_plain), iters=1, replays=2) if plain else None
     nbytes = sum(2 * C * T * 4 + 2 * C * 4 for C, T in seq)
     # per output: 2 x 6-tap up FIRs, 2 snakes, one 12-tap down FIR
     flops = sum(C * T * 58 for C, T in seq)
     b_ms, by = bound(nbytes, flops)
-    print(f"K2 main ({len(seq)} launches, one vocoder call): kernel_ms={ms:.4f} "
-          f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({by})")
+    return ms, plain_ms, b_ms, by
+
+
+def check_k2(shapes, long_seq):
+    import torch
+
+    from indextts_tpu_torch.ops import snake as k2
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tol = 2e-5  # same fp32 algebra and order; the SFU sine, expf and FMA contraction
+    errs = {}
+
+    def check(name, x, a, b, logscale=True):
+        got = k2.anti_alias_snake(x, a, b, logscale)
+        err = (got - k2.anti_alias_snake_plain(x, a, b, logscale)).abs().max().item()
+        errs[name] = err
+        B, C, T = x.shape
+        print(f"K2 {name}: B={B} C={C} T={T} logscale={logscale} max_abs_err={err:.3g} "
+              f"(tol {tol}) max|alpha u|={snake_arg_max(x, a, logscale):.3g}")
+        if not err <= tol:
+            fail(f"K2 {name} disagrees with its plain version: {err}")
+
+    for name, B, C, T, logscale in k2_cases():
+        check(name, *k2_inputs(g, B, C, T, logscale), logscale)
+    # every shape of one vocoder call at the main path's and at the longest
+    # segment's
+    for label, seq in (("main", shapes["snake"]), ("longest", long_seq)):
+        for C, T in dict.fromkeys(seq):
+            check(f"{label} C={C} T={T}", *k2_inputs(g, 1, C, T))
+    x, a, b = k2_inputs(g, 1, *shapes["snake"][0])
+    got = k2.anti_alias_snake(x, a, b, True)
+    one_launch("K2", lambda: k2.anti_alias_snake(x, a, b, True))
+    replays_equal("K2", lambda: k2.anti_alias_snake(x, a, b, True), got)
+    del x, a, b, got
+
+    seq = shapes["snake"]
+    ms, plain, b_ms, by = time_k2(seq, g)
+    print(f"K2 main ({len(seq)} launches, one vocoder call, each on its own input): "
+          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({by})")
+    long_ms, _, long_b, long_by = time_k2(long_seq, g, plain=False)
+    print(f"K2 longest segment ({len(long_seq)} launches, one vocoder call): "
+          f"kernel_ms={long_ms:.4f} bound_ms={long_b:.4f} ({long_by})")
     return {"name": "K2 anti_alias_snake", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/snake.cu",
             "replaces": "indextts_tpu/ops/snake_pallas.py:48",
@@ -1173,9 +1242,10 @@ def main():
     shapes = main_path_shapes(cfg, MAX_MEL_TOKENS)
     print(f"main-path shapes: {json.dumps(shapes)}")
     # the longest segment the default config allows
-    long_T = main_path_shapes(cfg, cfg.runtime.max_mel_tokens)["dit_T"]
+    longest = main_path_shapes(cfg, cfg.runtime.max_mel_tokens)
+    long_T = longest["dit_T"]
     kernels = [check_k1(shapes, g.layers, g.heads),
-               check_k2(shapes),
+               check_k2(shapes, longest["snake"]),
                check_k3(shapes, long_T, cfg.s2mel.dit.num_heads),
                check_k4(shapes, g.layers, g.heads),
                check_k5(g.layers, g.model_dim, g.number_mel_codes),

@@ -11,105 +11,323 @@
 // (alpha, beta exp'd when logscale) -> edge clamp of the up signal at the
 // global ends (up[m<0] := up[0], up[m>2T-1] := up[2T-1]) -> 12-tap stride-2
 // low-pass. Same polyphase algebra as indextts_tpu/ops/snake.py
-// `anti_alias_snake_sliced`.
+// `anti_alias_snake_sliced`. "Pair g" below is the up signal's two samples
+// 2g (even phase, from x[g-3..g+2]) and 2g+1 (odd, from x[g-2..g+3]);
+// output t reads the even phase of pairs t-2..t+3 and the odd of t-3..t+2.
 //
 // Bound on the H100: bytes. The function reads x once and writes the output
-// once (~50 FLOPs per output, 2 sines, against 8 bytes). The design keeps
-// the 2x-rate intermediate out of device memory: one block per (b, channel,
-// 512-output tile) stages its input tile plus halo in shared memory with
-// coalesced loads, computes both up phases with snake into shared memory
-// (each up sample and its sine once), then decimates from there.
+// once: 8 bytes against ~58 FLOPs and two sines an output. The design keeps
+// the 2x-rate signal in registers and the instruction stream short enough
+// to stay under the byte time:
+// - A warp owns a chunk of 32 * R consecutive outputs of one row, lane l
+//   the R from l * R, in registers; one chunk a warp, R = 12 (ops/snake.py
+//   `snake_plan` plans the grid; the launcher checks the plan). x comes in
+//   16-byte loads where T % 4 == 0, else in scalar loads (kVec).
+// - A lane computes the pair of each of its R positions once, with its two
+//   sines. The +-3 inputs and +-3 pairs it needs beyond its own come from
+//   the neighbouring lanes by __shfl_sync. The 6 pairs beyond the warp's
+//   ends are computed in one more step by lanes 0-2 and 29-31, whose x
+//   also hold lane 0's and lane 31's input halo: no shared memory is used.
+// - The taps are a kernel parameter (the constant bank), the up FIR's gain
+//   of 2 folded into them (ops/snake.py `kernel_taps`).
+// - Only a chunk that reaches within 6 inputs of a row's end takes the
+//   path with the edge padding, the edge clamp and the bounded stores,
+//   under a warp-uniform branch; every other chunk runs branch-free.
+//
+// A timing probe (tools/snake_times.py --probe) rebuilds this file with
+// SNAKE_CUT 1 (each sine replaced by its argument) or 2 (loads and stores
+// only), SNAKE_INTERIOR 1 (every chunk on the interior path; it reads and
+// writes past the rows), all of them wrong and only timed or counted; and
+// with SNAKE_SINF 1 (sinf for the sine), SNAKE_FRND 1 (FRND for the
+// rounding), SNAKE_R (outputs a lane) or SNAKE_MIN_BLOCKS (the launch
+// bound's blocks an SM, 0 for none), which stay right.
+
+#include <cstring>
 
 #include "common.cuh"
 
+#ifndef SNAKE_CUT
+#define SNAKE_CUT 0
+#endif
+#ifndef SNAKE_SINF
+#define SNAKE_SINF 0
+#endif
+#ifndef SNAKE_INTERIOR
+#define SNAKE_INTERIOR 0
+#endif
+#ifndef SNAKE_FRND
+#define SNAKE_FRND 0
+#endif
+#ifndef SNAKE_R
+#define SNAKE_R 12
+#endif
+// 8 blocks an SM cap a thread at 64 registers (72 without; the interior
+// path alone needs 48, the edge path the rest) for 32 resident warps
+#ifndef SNAKE_MIN_BLOCKS
+#define SNAKE_MIN_BLOCKS 8
+#endif
+#if SNAKE_MIN_BLOCKS
+#define SNAKE_BOUNDS __launch_bounds__(kThreads, SNAKE_MIN_BLOCKS)
+#else
+#define SNAKE_BOUNDS __launch_bounds__(kThreads)
+#endif
+
 namespace {
 
-constexpr int kTile = 512;
-constexpr int kThreads = 128;
-constexpr int kNx = kTile + 12;   // input tile + halo
-constexpr int kNu = kTile + 6;    // up phases for g in [t0-3, t0+kTile+3)
+constexpr int kWarps = 4;  // warps a block: ops/snake.py SNAKE_WARPS
+constexpr int kR = SNAKE_R;  // outputs a lane: ops/snake.py SNAKE_LANE_OUTPUTS
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-snake_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
-             const float* __restrict__ beta, const float* __restrict__ taps,
-             float* __restrict__ out, int C, int T, int logscale) {
-  const int t0 = blockIdx.x * kTile, c = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const size_t row = ((size_t)b * C + c) * T;
-  const float* xr = x + row;
+// even and odd: the up FIR's polyphase taps times its gain of 2; down: the
+// 12-tap low-pass
+struct Taps {
+  float even[6], odd[6], down[12];
+};
 
-  __shared__ float xs[kNx];
-  __shared__ float ue[kNu], uo[kNu];
-  __shared__ float tp[24];  // even[6], odd[6], down[12]
-  if (tid < 24) tp[tid] = taps[tid];
-  // xs[i] = x[clamp(t0 - 6 + i)] (edge padding at both ends)
-  for (int i = tid; i < kNx; i += kThreads) {
-    const int g = min(max(t0 - 6 + i, 0), T - 1);
-    xs[i] = xr[g];
+// sin(v): a two-constant Cody-Waite reduction to [-pi, pi] (2 pi as its
+// float and the float of the rest), then the SFU's sine, whose error there
+// is below 2^-21.4 (CUDA C Programming Guide, intrinsic functions). The
+// nearest multiple j of 2 pi comes from adding and taking away 1.5 * 2^23,
+// two instructions at the full FMA rate in place of FRND, which the SFU's
+// quarter-rate pipe would run. The reduction's error is below 3e-7 up to
+// |v| = 2^22 (j exact) and grows with |v| past it: sinf's slow path is left
+// out. The main path's |v| stays below 14 (chip_smoke.py prints it).
+__device__ __forceinline__ float sin_of(float v) {
+#if SNAKE_CUT == 1
+  return v;
+#elif SNAKE_SINF
+  return sinf(v);
+#else
+  constexpr float kShift = 12582912.f;  // 1.5 * 2^23
+#if SNAKE_FRND
+  const float j = rintf(v * 0.15915494309189535f);
+#else
+  const float j = fmaf(v, 0.15915494309189535f, kShift) - kShift;
+#endif
+  float r = fmaf(j, -6.28318548202514648f, v);
+  r = fmaf(j, 1.74845553e-7f, r);
+  return __sinf(r);
+#endif
+}
+
+__device__ __forceinline__ float snake(float u, float a, float inv) {
+  const float s = sin_of(u * a);
+  return u + inv * s * s;
+}
+
+// pair g from xw[m] = x[g - 3 + m], m = 0..6; the products and sums in the
+// plain version's order
+__device__ __forceinline__ void pair(const Taps& tp, const float* xw, float a, float inv,
+                                     float& pe, float& po) {
+  float e = tp.even[0] * xw[0];
+  float o = tp.odd[0] * xw[1];
+#pragma unroll
+  for (int m = 1; m < 6; ++m) {
+    e = e + tp.even[m] * xw[m];
+    o = o + tp.odd[m] * xw[1 + m];
   }
+  pe = snake(e, a, inv);
+  po = snake(o, a, inv);
+}
+
+// The pair a lane computes beyond its own: lanes 0, 1, 2 the pairs t0-1,
+// t0-2, t0-3 left of the warp; lanes 31, 30, 29 the pairs t1, t1+1, t1+2
+// right of it (t1 = t0 + 32 R); on the edge path lane 3 the pair 0 and lane
+// 28 the pair T-1, whose samples up[0] and up[2T-1] the edge clamp repeats.
+// Other lanes: none (kNone).
+constexpr int kNone = -(1 << 30);
+
+__device__ __forceinline__ int extra_pair(int lane, int t0, int T, int R, bool edge) {
+  if (lane < 3) return t0 - 1 - lane;
+  if (lane > 28) return t0 + 32 * R + 31 - lane;
+  if (edge && lane == 3) return 0;
+  if (edge && lane == 28) return T - 1;
+  return kNone;
+}
+
+// One warp's chunk [t0, t0 + 32 R) of row xr -> yr. kEdge: the chunk
+// reaches within 6 of a row's end (index clamps, the up signal's edge
+// clamp, stores bounded by T).
+template <int R, bool kVec, bool kEdge>
+__device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __restrict__ yr,
+                                      const Taps& tp, float a, float inv, int T, int t0,
+                                      int lane) {
+  const int tl = t0 + lane * R;
+
+  // xv[k] = x[tl - 3 + k]: the lane's own R, then the halos
+  float xv[R + 6];
+  if constexpr (kEdge) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) xv[3 + i] = xr[min(tl + i, T - 1)];
+  } else if constexpr (kVec) {
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) {
+      const float4 v = load4(xr + tl + 4 * i);
+      xv[3 + 4 * i] = v.x;
+      xv[4 + 4 * i] = v.y;
+      xv[5 + 4 * i] = v.z;
+      xv[6 + 4 * i] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) xv[3 + i] = xr[tl + i];
+  }
+
+  const int ge = extra_pair(lane, t0, T, R, kEdge);
+  const bool extra = ge != kNone;
+  float xe[7] = {}, ee = 0.f, eo = 0.f;
+  if (extra) {
+#pragma unroll
+    for (int m = 0; m < 7; ++m) xe[m] = xr[kEdge ? min(max(ge - 3 + m, 0), T - 1) : ge - 3 + m];
+#if SNAKE_CUT != 2
+    pair(tp, xe, a, inv, ee, eo);
+#endif
+  }
+
+  // input halo: x[tl-3..tl-1] from lane - 1 (lane 0: its pair t0-1 read
+  // x[t0-4..t0+2]), x[tl+R..tl+R+2] from lane + 1 (lane 31: its pair t1
+  // read x[t1-3..t1+3])
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float l = __shfl_up_sync(kAll, xv[R + k], 1);
+    const float r = __shfl_down_sync(kAll, xv[3 + k], 1);
+    xv[k] = lane == 0 ? xe[1 + k] : l;
+    xv[R + 3 + k] = lane == 31 ? xe[3 + k] : r;
+  }
+
+  float y[R];
+#if SNAKE_CUT == 2
+#pragma unroll
+  for (int i = 0; i < R; ++i) y[i] = xv[3 + i];
+#else
+  // pe[k], po[k]: pair tl - 3 + k
+  float pe[R + 6], po[R + 6];
+#pragma unroll
+  for (int i = 0; i < R; ++i) pair(tp, xv + i, a, inv, pe[3 + i], po[3 + i]);
+
+  if constexpr (kEdge) {
+    // up[m < 0] := up[0], up[m > 2T-1] := up[2T-1]
+    const float up0 = __shfl_sync(kAll, ee, 3);
+    const float upT = __shfl_sync(kAll, eo, 28);
+    if (extra && ge < 0) ee = eo = up0;
+    if (ge > T - 1) ee = eo = upT;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (tl + i > T - 1) pe[3 + i] = po[3 + i] = upT;
+  }
+
+  // pair halo: pairs tl-1, tl-2, tl-3 from lane - 1 (lane 0: lanes 0, 1,
+  // 2), pairs tl+R, tl+R+1, tl+R+2 from lane + 1 (lane 31: lanes 31, 30,
+  // 29); only the phases the down FIR reads
+  {
+    const float le1 = __shfl_up_sync(kAll, pe[R + 2], 1);
+    const float lo1 = __shfl_up_sync(kAll, po[R + 2], 1);
+    const float le2 = __shfl_up_sync(kAll, pe[R + 1], 1);
+    const float lo2 = __shfl_up_sync(kAll, po[R + 1], 1);
+    const float lo3 = __shfl_up_sync(kAll, po[R], 1);
+    const float we2 = __shfl_sync(kAll, ee, 1);
+    const float wo2 = __shfl_sync(kAll, eo, 1);
+    const float wo3 = __shfl_sync(kAll, eo, 2);
+    const float re0 = __shfl_down_sync(kAll, pe[3], 1);
+    const float ro0 = __shfl_down_sync(kAll, po[3], 1);
+    const float re1 = __shfl_down_sync(kAll, pe[4], 1);
+    const float ro1 = __shfl_down_sync(kAll, po[4], 1);
+    const float re2 = __shfl_down_sync(kAll, pe[5], 1);
+    const float ve1 = __shfl_sync(kAll, ee, 30);
+    const float vo1 = __shfl_sync(kAll, eo, 30);
+    const float ve2 = __shfl_sync(kAll, ee, 29);
+    const bool first = lane == 0, last = lane == 31;
+    pe[2] = first ? ee : le1;
+    po[2] = first ? eo : lo1;
+    pe[1] = first ? we2 : le2;
+    po[1] = first ? wo2 : lo2;
+    po[0] = first ? wo3 : lo3;
+    pe[R + 3] = last ? ee : re0;
+    po[R + 3] = last ? eo : ro0;
+    pe[R + 4] = last ? ve1 : re1;
+    po[R + 4] = last ? vo1 : ro1;
+    pe[R + 5] = last ? ve2 : re2;
+  }
+
+  // out[t] = sum_j down[j] up[2t + j - 5]: odd phase of pair t - 3 + j/2
+  // for even j, even phase of pair t - 2 + (j-1)/2 for odd j
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float acc = tp.down[0] * po[i];
+#pragma unroll
+    for (int j = 1; j < 12; ++j)
+      acc = acc + tp.down[j] * ((j & 1) ? pe[i + (j + 1) / 2] : po[i + j / 2]);
+    y[i] = acc;
+  }
+#endif
+
+  if constexpr (kEdge) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (tl + i < T) yr[tl + i] = y[i];
+  } else if constexpr (kVec) {
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i)
+      *reinterpret_cast<float4*>(yr + tl + 4 * i) =
+          make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) yr[tl + i] = y[i];
+  }
+}
+
+// Warp w takes chunk w % chunks of row w / chunks (row = b * C + c).
+template <bool kVec>
+__global__ void SNAKE_BOUNDS
+snake_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
+             const float* __restrict__ beta, const Taps tp, float* __restrict__ out, int C,
+             int T, int chunks, int warps, int logscale) {
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= warps) return;
+  const int lane = threadIdx.x & 31;
+  const int row = w / chunks;
+  const int t0 = (w - row * chunks) * (32 * kR);
+  const int c = row % C;
   float a = alpha[c], bt = beta[c];
   if (logscale) {
     a = expf(a);
     bt = expf(bt);
   }
   const float inv = 1.f / (bt + 1e-9f);
-  __syncthreads();
-
-  // up_even[q] = 2 sum_m even[m] x[g - 3 + m], up_odd[q] = 2 sum_m odd[m]
-  // x[g - 2 + m], g = t0 - 3 + q; then SnakeBeta
-  for (int q = tid; q < kNu; q += kThreads) {
-    float e = tp[0] * xs[q];
-    float o = tp[6] * xs[q + 1];
-#pragma unroll
-    for (int m = 1; m < 6; ++m) {
-      e = e + tp[m] * xs[q + m];
-      o = o + tp[6 + m] * xs[q + 1 + m];
-    }
-    e = 2.f * e;
-    o = 2.f * o;
-    const float se = sinf(e * a), so = sinf(o * a);
-    ue[q] = e + inv * se * se;
-    uo[q] = o + inv * so * so;
-  }
-  __syncthreads();
-
-  // out[t] = sum_j down[j] up[2t + j - 5]; up index 2g + phase with
-  // g = t + per. Clamped reads replace the edge padding of the up signal.
-  const int q0 = 3 - t0;      // g = 0 (only reached when t0 == 0)
-  const int qT = T + 2 - t0;  // g = T - 1 (inside the tile whenever reached)
-  const int t_end = min(t0 + kTile, T);
-  for (int t = t0 + tid; t < t_end; t += kThreads) {
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      const int ofs = j - 5;
-      const int phase = ofs & 1;
-      const int per = (ofs - phase) / 2;
-      const int g = t + per;
-      float u;
-      if (g < 0) {
-        u = ue[q0];
-      } else if (g > T - 1) {
-        u = uo[qT];
-      } else {
-        u = phase ? uo[g - t0 + 3] : ue[g - t0 + 3];
-      }
-      acc = (j == 0) ? tp[12] * u : acc + tp[12 + j] * u;
-    }
-    out[row + t] = acc;
-  }
+  const float* xr = x + (size_t)row * T;
+  float* yr = out + (size_t)row * T;
+  if (SNAKE_INTERIOR || (t0 >= 6 && t0 + 32 * kR + 6 <= T))
+    chunk<kR, kVec, false>(xr, yr, tp, a, inv, T, t0, lane);
+  else
+    chunk<kR, false, true>(xr, yr, tp, a, inv, T, t0, lane);
 }
 
 }  // namespace
 
+// taps: 24 host floats, `Taps` in order. The plan (R, chunks, blocks, vec)
+// comes from ops/snake.py `snake_plan`; a plan that does not fit the shape
+// or the pointers returns cudaErrorInvalidValue without a launch.
 EXPORT int anti_alias_snake(const void* x, const void* alpha, const void* beta,
-                            const void* taps, void* out, int B, int C, int T,
-                            int logscale, void* stream) {
+                            const float* taps, void* out, int B, int C, int T, int logscale,
+                            int R, int chunks, int blocks, int vec, void* stream) {
+  const long long warps = (long long)B * C * chunks;
+  const bool aligned = T % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (B < 1 || C < 1 || T < 1 || R != kR || chunks != (T + 32 * kR - 1) / (32 * kR) ||
+      warps > 0x7fffffffll || blocks != (warps + kWarps - 1) / kWarps || (vec && !aligned))
+    return (int)cudaErrorInvalidValue;
+  Taps tp;
+  memcpy(&tp, taps, sizeof(tp));
+  const float* xf = static_cast<const float*>(x);
+  const float* af = static_cast<const float*>(alpha);
+  const float* bf = static_cast<const float*>(beta);
+  float* of = static_cast<float*>(out);
+  const int n = (int)warps;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((T + kTile - 1) / kTile, C, B);
-  snake_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(alpha),
-      static_cast<const float*>(beta), static_cast<const float*>(taps),
-      static_cast<float*>(out), C, T, logscale);
+  if (vec)
+    snake_kernel<true><<<blocks, kThreads, 0, s>>>(xf, af, bf, tp, of, C, T, chunks, n, logscale);
+  else
+    snake_kernel<false><<<blocks, kThreads, 0, s>>>(xf, af, bf, tp, of, C, T, chunks, n, logscale);
   return (int)cudaGetLastError();
 }

@@ -6,14 +6,16 @@ Layout (B, C, T), as torch's Conv1d gives it. The CUDA kernel
 (indextts_tpu/ops/snake_pallas.py `_kernel`, `_kernel_t`);
 `anti_alias_snake_plain` is the polyphase algebra of the JAX package's
 `anti_alias_snake_sliced` in plain PyTorch, which the wrapper runs for CPU
-tensors.
+tensors. `snake_plan` is the kernel's launch, worked out here and checked
+by the C launcher; `kernel_taps` the taps it takes by value.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -106,16 +108,41 @@ def anti_alias_snake_plain(x, alpha, beta, logscale: bool = True):
     return acc
 
 
-_TAPS: Dict[torch.device, torch.Tensor] = {}
+SNAKE_WARPS = 4  # warps a block: csrc/snake.cu kWarps
+SNAKE_LANE_OUTPUTS = 12  # R, the consecutive outputs a lane holds in registers
 
 
-def _taps_on(device: torch.device) -> torch.Tensor:
-    t = _TAPS.get(device)
-    if t is None:
-        even, odd, down = polyphase_taps()
-        t = torch.tensor(even + odd + down, dtype=torch.float32, device=device)
-        _TAPS[device] = t
-    return t
+@functools.lru_cache(maxsize=None)
+def snake_plan(B: int, C: int, T: int) -> Tuple[int, int, int]:
+    """K2's launch over x (B, C, T): (R, chunks, blocks).
+
+    A warp takes a chunk of 32 * R consecutive outputs of one row, lane l
+    the R from l * R; a row takes chunks = ceil(T / (32 R)) warps, of which
+    only the last runs past T (its lanes past T store nothing), so at most
+    one warp's chunk a row is idle. Warp w takes chunk w % chunks of row
+    w // chunks (row = b * C + c), SNAKE_WARPS warps a block: blocks =
+    ceil(B * C * chunks / SNAKE_WARPS), of which only the last may hold
+    warps past the rows (they return)."""
+    if B < 1 or C < 1 or T < 1:
+        raise ValueError(f"anti_alias_snake: x must be non-empty, got ({B}, {C}, {T})")
+    r = SNAKE_LANE_OUTPUTS
+    chunks = -(-T // (32 * r))
+    return r, chunks, -(-B * C * chunks // SNAKE_WARPS)
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_taps() -> Tuple[float, ...]:
+    """The kernel's 24 taps: even and odd times the up FIR's gain of 2,
+    then down. Folding the gain is exact: a product or sum of float32
+    values times 2 is the product or sum of the values with one of them
+    doubled, rounded alike, away from overflow and subnormals."""
+    even, odd, down = polyphase_taps()
+    return tuple([2.0 * t for t in even + odd] + down)
+
+
+@functools.lru_cache(maxsize=1)
+def _taps_arg() -> ctypes.Array:
+    return (ctypes.c_float * 24)(*kernel_taps())
 
 
 def anti_alias_snake(x, alpha, beta, logscale: bool = True):
@@ -136,12 +163,12 @@ def anti_alias_snake(x, alpha, beta, logscale: bool = True):
     alpha = alpha.contiguous()
     beta = beta.contiguous()
     out = torch.empty_like(x)
+    vec = T % 4 == 0 and x.data_ptr() % 16 == 0
     fn = cuda_lib.function("snake", "anti_alias_snake",
-                           [cuda_lib.P] * 5 + [cuda_lib.I] * 4 + [cuda_lib.P])
+                           [cuda_lib.P] * 5 + [cuda_lib.I] * 8 + [cuda_lib.P])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-             _taps_on(x.device).data_ptr(), out.data_ptr(), B, C, T,
-             int(logscale), stream)
+    err = fn(x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ctypes.addressof(_taps_arg()),
+             out.data_ptr(), B, C, T, int(logscale), *snake_plan(B, C, T), int(vec), stream)
     cuda_lib.check(err, "anti_alias_snake")
     counter.launches += 1
     return out

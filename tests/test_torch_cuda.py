@@ -119,16 +119,64 @@ def test_decode_attention_graph_replay_repeats_its_bits(cuda_device, cache):
     assert torch.equal(fn(), want)
 
 
+# K2's cases (B, C, T, logscale), from its plan (snake.snake_plan: a warp
+# takes 32 * R outputs of a row, lane l the R from l * R): the shapes
+# checked before the plan; rows shorter than a lane's R; T at a warp's
+# chunk and at a block's four chunks and one either side; a last chunk of
+# one lane; a chunk whose input halo reaches past a short last chunk;
+# T % 4 != 0 (scalar loads); logscale False; a grid whose last block holds
+# one warp; the main path's first two vocoder stages
+_CHUNK = 32 * k2.SNAKE_LANE_OUTPUTS
+_BLOCK = _CHUNK * k2.SNAKE_WARPS
+K2_CASES = [
+    (1, 24, 37, True), (1, 72, 1000, True), (1, 2304, 513, True),
+    *[(1, 24, t, True) for t in (1, 2, 3, 7, _CHUNK - 1, _CHUNK, _CHUNK + 1)],
+    *[(2, 9, t, True) for t in (_BLOCK - 1, _BLOCK, _BLOCK + 1)],
+    (1, 24, 2 * _CHUNK + k2.SNAKE_LANE_OUTPUTS, True), (1, 24, 2 * _CHUNK + 3, True),
+    (1, 72, 1001, True), (1, 144, 2063, True), (2, 30, 4098, True),
+    (1, 72, 1000, False), (2, 24, 517, False), (1, 5, 100, True),
+    (1, 2304, 2064, True), (1, 1152, 8256, True),
+]
+
+
+def _k2_inputs(dev, B, C, T, logscale):
+    g = torch.Generator(device=dev).manual_seed(T)
+    x = torch.randn((B, C, T), generator=g, device=dev)
+    a = torch.randn((C,), generator=g, device=dev) * 0.3
+    b = torch.randn((C,), generator=g, device=dev) * 0.3
+    if not logscale:
+        a, b = a.abs() + 0.5, b.abs() + 0.5
+    return x, a, b
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,C", [(37, 24), (1000, 72), (513, 2304)])
-def test_k2_cuda_matches_plain(cuda_device, T, C):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn((1, C, T), generator=g, device=cuda_device)
-    a = torch.randn((C,), generator=g, device=cuda_device) * 0.3
-    b = torch.randn((C,), generator=g, device=cuda_device) * 0.3
-    got = k2.anti_alias_snake(x, a, b, True)
-    torch.testing.assert_close(got, k2.anti_alias_snake_plain(x, a, b, True),
+@pytest.mark.parametrize("B,C,T,logscale", K2_CASES)
+def test_k2_cuda_matches_plain(cuda_device, B, C, T, logscale):
+    x, a, b = _k2_inputs(cuda_device, B, C, T, logscale)
+    got = k2.anti_alias_snake(x, a, b, logscale)
+    torch.testing.assert_close(got, k2.anti_alias_snake_plain(x, a, b, logscale),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k2_cuda_replays_its_bits(cuda_device):
+    """Two more calls and two replays of a CUDA graph of one call give the
+    first call's bits: one launch, no scratch, a fixed order of sums."""
+    x, a, b = _k2_inputs(cuda_device, 1, 2304, 2064, True)
+    want = k2.anti_alias_snake(x, a, b, True)
+    assert all(torch.equal(k2.anti_alias_snake(x, a, b, True), want) for _ in range(2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k2.anti_alias_snake(x, a, b, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k2.anti_alias_snake(x, a, b, True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 def _k3_inputs(dev, T, lens):

@@ -232,6 +232,71 @@ def test_k2_filter_matches_jax():
     np.testing.assert_array_equal(k2.kaiser_sinc_filter1d(0.25, 0.3, 12), _aa_filter(2, 12))
 
 
+def _vocoder_snake_shapes():
+    """(B, C, T) of every K2 launch of a vocoder call at the main path's
+    shapes (chip_smoke.py `main_path_shapes`, max_mel_tokens 300)."""
+    import chip_smoke
+
+    from indextts_tpu_torch.config import load_config
+
+    seq = chip_smoke.main_path_shapes(load_config(), chip_smoke.MAX_MEL_TOKENS)["snake"]
+    return [(1, C, T) for C, T in dict.fromkeys(seq)]
+
+
+@pytest.mark.parametrize("shapes", ["main path", "T=1..40", "T%4!=0 and edges"])
+def test_snake_plan_covers_each_output_once(shapes):
+    """K2's plan (snake_plan) with the kernel's own index arithmetic puts
+    every output of every row in exactly one lane, and each row's chunks
+    in one warp each; warps past the rows only in the last block; a block
+    for every one of the H100's 132 SMs at the main path's shapes."""
+    if shapes == "main path":
+        cases = _vocoder_snake_shapes()
+        assert len(cases) == 7
+    elif shapes == "T=1..40":
+        cases = [(2, 3, t) for t in range(1, 41)]
+    else:
+        r, w = k2.SNAKE_LANE_OUTPUTS, k2.SNAKE_WARPS
+        cases = [(1, 5, 1001), (2, 7, 2063), (1, 3, 4098), (1, 5, 100)]
+        cases += [(1, 3, 32 * r * n + d) for n in (1, w) for d in (-1, 0, 1)]
+    for B, C, T in cases:
+        r, chunks, blocks = k2.snake_plan(B, C, T)
+        per = 32 * r
+        assert chunks == -(-T // per) and (chunks - 1) * per < T
+        # warp w = block * SNAKE_WARPS + warp index; those past the rows return
+        w = np.arange(blocks * k2.SNAKE_WARPS)
+        live = w < B * C * chunks
+        assert live[:(blocks - 1) * k2.SNAKE_WARPS].all()
+        row, chunk = w[live] // chunks, w[live] % chunks
+        np.testing.assert_array_equal(np.bincount(row * chunks + chunk), np.ones(B * C * chunks))
+        # warp chunk, lane l, register i -> output chunk * 32R + l * R + i
+        t = (np.arange(chunks)[:, None, None] * per + np.arange(32)[None, :, None] * r
+             + np.arange(r)[None, None, :]).ravel()
+        np.testing.assert_array_equal(np.bincount(t[t < T], minlength=T), np.ones(T))
+        if shapes == "main path":
+            assert blocks >= 132
+
+
+def test_kernel_taps_fold_the_gain_exactly():
+    """The kernel's even and odd taps are 2 x the polyphase taps exactly in
+    float32, and an up FIR summed in the plain version's order with them
+    gives 2 x the FIR with the plain taps, to the bit."""
+    even, odd, down = k2.polyphase_taps()
+    taps = np.array(k2.kernel_taps(), np.float32)
+    plain = np.array(even + odd, np.float32)
+    np.testing.assert_array_equal(taps[:12], 2 * plain)
+    np.testing.assert_array_equal(taps[12:], np.array(down, np.float32))
+    x = np.random.default_rng(0).standard_normal((6, 4096)).astype(np.float32) * 3
+
+    def fir(t):
+        acc = t[0] * x[0]
+        for m in range(1, 6):
+            acc = acc + t[m] * x[m]
+        return acc
+
+    for phase in (slice(0, 6), slice(6, 12)):
+        np.testing.assert_array_equal(fir(taps[phase]), np.float32(2) * fir(plain[phase]))
+
+
 # ---------------------------------------------------------------------------
 # K3: DiT attention with a key-padding mask
 # ---------------------------------------------------------------------------
