@@ -45,10 +45,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    key and with a row of none, on the DiT's strided views (against their
    contiguous copies, to the bit) and called again (the same bits). K2 is
    checked at every shape of a vocoder call at the main path and at the
-   longest segment, and at edge cases from its plan (`k2_cases`: T = 1, 2,
-   3, 7, at a warp's chunk of 32 x 12 outputs and at a block's four, one
-   either side, a last chunk of one lane, T % 4 != 0, logscale False, a
-   last block of one warp), printing the largest |alpha u| its sines see.
+   longest segment, at the five cases checked before the redesign, and at
+   edge cases from its plan (`k2_cases`: T = 1, 2, 3, 7, at a warp's chunk
+   of 32 x 12 outputs and at a block's four, one either side, a last chunk
+   of one lane, T % 4 != 0, logscale False, a last block of one warp, beta
+   exp(-4) on every fourth channel, held to 2e-5 plus 1e-5 of the plain
+   output), printing the largest |alpha u| its sines see.
    K1 (float32 and bfloat16 caches) and K4 are also checked at valid 1-2,
    15-17 and 127-129 (the edges of a 16-key chunk and of a cluster rank's
    share), with unequal rows, a hole across the ranks' boundaries, a hole
@@ -94,6 +96,7 @@ import http.client
 import io
 import itertools
 import json
+import math
 import os
 import socket
 import statistics
@@ -432,9 +435,11 @@ def check_k1(shapes, layers: int, heads: int):
             "bound_ms": main["bound"], "bound_by": main["by"], "library_ms": lib[1]}
 
 
-def k2_inputs(g, B: int, C: int, T: int, logscale: bool = True):
+def k2_inputs(g, B: int, C: int, T: int, logscale: bool = True, small_beta: bool = False):
     """x ~ N(0, 1) and alpha, beta ~ N(0, 0.09) (logscale); without
-    logscale alpha, beta = |N(0, 0.09)| + 0.5, as the CPU tests take them."""
+    logscale alpha, beta = |N(0, 0.09)| + 0.5, as the CPU tests take them.
+    `small_beta`: beta = exp(-4) on every fourth channel, so the snake's
+    1 / beta (55) scales the sine's error there."""
     import torch
 
     x = torch.randn((B, C, T), generator=g, device="cuda")
@@ -442,33 +447,39 @@ def k2_inputs(g, B: int, C: int, T: int, logscale: bool = True):
     b = torch.randn((C,), generator=g, device="cuda") * 0.3
     if not logscale:
         a, b = a.abs() + 0.5, b.abs() + 0.5
+    if small_beta:
+        b[::4] = -4.0 if logscale else math.exp(-4.0)
     return x, a, b
 
 
 def k2_cases():
-    """K2's edge cases, (name, B, C, T, logscale), from its plan (ops/
-    snake.py `snake_plan`: a warp takes 32 * R outputs of a row, lane l the
-    R from l * R, SNAKE_WARPS warps a block): rows shorter than a lane's R;
-    T at a warp's chunk and at a block's four chunks, and one either side;
-    a last chunk of one lane and of one output; a chunk whose input halo
-    reaches past a short last chunk (the edge path away from chunk 0);
-    T % 4 != 0 (scalar loads); logscale False; a grid whose last block
-    holds one warp; the shapes checked before the plan."""
+    """K2's cases, (name, B, C, T, logscale, small_beta): first the five
+    checked before the plan, on the same draws; then edge cases from its
+    plan (ops/snake.py `snake_plan`: a warp takes 32 * R outputs of a row,
+    lane l the R from l * R, SNAKE_WARPS warps a block): rows shorter than
+    a lane's R; T at a warp's chunk and at a block's four chunks, and one
+    either side; a last chunk of one lane and of one output; a chunk whose
+    input halo reaches past a short last chunk (the edge path away from
+    chunk 0); T % 4 != 0 (scalar loads); logscale False; a grid whose last
+    block holds one warp; small betas (`k2_inputs`)."""
     from indextts_tpu_torch.ops import snake as k2
 
     r = k2.SNAKE_LANE_OUTPUTS
     chunk, block = 32 * r, 32 * r * k2.SNAKE_WARPS
-    cases = [(f"T={t}", 1, 24, t, True) for t in (1, 2, 3, 7)]
-    cases += [(f"T={t}", 1, 24, t, True) for t in (chunk - 1, chunk, chunk + 1)]
-    cases += [(f"T={t}", 2, 9, t, True) for t in (block - 1, block, block + 1)]
-    cases += [(f"tail of one lane T={2 * chunk + r}", 1, 24, 2 * chunk + r, True),
-              (f"halo past a short tail T={2 * chunk + 3}", 1, 24, 2 * chunk + 3, True),
-              ("T%4=1", 1, 72, 1001, True), ("T%4=3", 1, 144, 2063, True),
-              ("T%4=2", 2, 30, 4098, True), ("logscale False", 1, 72, 1000, False),
-              ("logscale False T%4=1", 2, 24, 517, False),
-              ("last block of one warp", 1, 5, 100, True),
-              ("C72", 2, 72, 1000, True), ("C2304", 1, 2304, 513, True),
-              ("tile-edge", 1, 144, 1025, True)]
+    cases = [("small-T", 1, 24, 3), ("post-C24", 1, 24, 37), ("C72", 2, 72, 1000),
+             ("C2304", 1, 2304, 513), ("tile-edge", 1, 144, 1025)]
+    cases += [(f"T={t}", 1, 24, t) for t in (1, 2, 7, chunk - 1, chunk, chunk + 1)]
+    cases += [(f"T={t}", 2, 9, t) for t in (block - 1, block, block + 1)]
+    cases += [(f"tail of one lane T={2 * chunk + r}", 1, 24, 2 * chunk + r),
+              (f"halo past a short tail T={2 * chunk + 3}", 1, 24, 2 * chunk + 3),
+              ("T%4=1", 1, 72, 1001), ("T%4=3", 1, 144, 2063), ("T%4=2", 2, 30, 4098),
+              ("last block of one warp", 1, 5, 100)]
+    cases = [(*c, True, False) for c in cases]
+    cases += [("logscale False", 1, 72, 1000, False, False),
+              ("logscale False T%4=1", 2, 24, 517, False, False),
+              ("small beta", 2, 72, 1000, True, True),
+              ("small beta, main first shape", 1, 2304, 2064, True, True),
+              ("small beta, logscale False", 2, 24, 517, False, True)]
     return cases
 
 
@@ -516,21 +527,31 @@ def check_k2(shapes, long_seq):
     from indextts_tpu_torch.ops import snake as k2
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    tol = 2e-5  # same fp32 algebra and order; the SFU sine, expf and FMA contraction
+    tol = 2e-5  # same fp32 algebra and order; the kernel's sine, expf and FMA contraction
     errs = {}
 
-    def check(name, x, a, b, logscale=True):
+    def check(name, x, a, b, logscale=True, small_beta=False):
         got = k2.anti_alias_snake(x, a, b, logscale)
-        err = (got - k2.anti_alias_snake_plain(x, a, b, logscale)).abs().max().item()
+        want = k2.anti_alias_snake_plain(x, a, b, logscale)
+        d = (got - want).abs()
+        err = d.max().item()
         errs[name] = err
         B, C, T = x.shape
-        print(f"K2 {name}: B={B} C={C} T={T} logscale={logscale} max_abs_err={err:.3g} "
-              f"(tol {tol}) max|alpha u|={snake_arg_max(x, a, logscale):.3g}")
-        if not err <= tol:
+        # beta = exp(-4) lifts outputs to ~55, where the kernel's and the
+        # plain version's float32 sums part by units in their last place
+        # whatever the sine (with sinf 3.4e-5 at the main first shape,
+        # tools/snake_times.py --probe): those cases add the card test's
+        # rtol of 1e-5
+        rtol = 1e-5 if small_beta else 0.0
+        excess = (d - tol - rtol * want.abs()).max().item()
+        print(f"K2 {name}: B={B} C={C} T={T} logscale={logscale} small_beta={small_beta} "
+              f"max_abs_err={err:.3g} (tol {tol} + {rtol} |plain|) "
+              f"max|alpha u|={snake_arg_max(x, a, logscale):.3g}")
+        if not excess <= 0:
             fail(f"K2 {name} disagrees with its plain version: {err}")
 
-    for name, B, C, T, logscale in k2_cases():
-        check(name, *k2_inputs(g, B, C, T, logscale), logscale)
+    for name, B, C, T, logscale, small_beta in k2_cases():
+        check(name, *k2_inputs(g, B, C, T, logscale, small_beta), logscale, small_beta)
     # every shape of one vocoder call at the main path's and at the longest
     # segment's
     for label, seq in (("main", shapes["snake"]), ("longest", long_seq)):

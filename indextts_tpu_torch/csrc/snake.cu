@@ -33,50 +33,24 @@
 // - Only a chunk that reaches within 6 inputs of a row's end takes the
 //   path with the edge padding, the edge clamp and the bounded stores,
 //   under a warp-uniform branch; every other chunk runs branch-free.
+// - The sine is reduced by pi and taken by a polynomial on the FMA pipe
+//   (`sin_pm`): its sign does not matter to sin^2.
 //
-// A timing probe (tools/snake_times.py --probe) rebuilds this file with
-// SNAKE_CUT 1 (each sine replaced by its argument) or 2 (loads and stores
-// only), SNAKE_INTERIOR 1 (every chunk on the interior path; it reads and
-// writes past the rows), all of them wrong and only timed or counted; and
-// with SNAKE_SINF 1 (sinf for the sine), SNAKE_FRND 1 (FRND for the
-// rounding), SNAKE_R (outputs a lane) or SNAKE_MIN_BLOCKS (the launch
-// bound's blocks an SM, 0 for none), which stay right.
+// Chosen on the card (PERF.md): R = 12, a launch bound of 8 blocks an SM.
+// tools/snake_times.py --probe rebuilds an edited copy of this file.
 
 #include <cstring>
 
 #include "common.cuh"
 
-#ifndef SNAKE_CUT
-#define SNAKE_CUT 0
-#endif
-#ifndef SNAKE_SINF
-#define SNAKE_SINF 0
-#endif
-#ifndef SNAKE_INTERIOR
-#define SNAKE_INTERIOR 0
-#endif
-#ifndef SNAKE_FRND
-#define SNAKE_FRND 0
-#endif
-#ifndef SNAKE_R
-#define SNAKE_R 12
-#endif
-// 8 blocks an SM cap a thread at 64 registers (72 without; the interior
-// path alone needs 48, the edge path the rest) for 32 resident warps
-#ifndef SNAKE_MIN_BLOCKS
-#define SNAKE_MIN_BLOCKS 8
-#endif
-#if SNAKE_MIN_BLOCKS
-#define SNAKE_BOUNDS __launch_bounds__(kThreads, SNAKE_MIN_BLOCKS)
-#else
-#define SNAKE_BOUNDS __launch_bounds__(kThreads)
-#endif
-
 namespace {
 
 constexpr int kWarps = 4;  // warps a block: ops/snake.py SNAKE_WARPS
-constexpr int kR = SNAKE_R;  // outputs a lane: ops/snake.py SNAKE_LANE_OUTPUTS
+constexpr int kR = 12;  // outputs a lane: ops/snake.py SNAKE_LANE_OUTPUTS
 constexpr int kThreads = 32 * kWarps;
+// 8 blocks an SM cap a thread at 64 registers (72 without; the interior
+// path alone needs 48, the edge path the rest) for 32 resident warps
+constexpr int kMinBlocks = 8;
 constexpr unsigned kAll = 0xffffffffu;
 
 // even and odd: the up FIR's polyphase taps times its gain of 2; down: the
@@ -85,34 +59,30 @@ struct Taps {
   float even[6], odd[6], down[12];
 };
 
-// sin(v): a two-constant Cody-Waite reduction to [-pi, pi] (2 pi as its
-// float and the float of the rest), then the SFU's sine, whose error there
-// is below 2^-21.4 (CUDA C Programming Guide, intrinsic functions). The
-// nearest multiple j of 2 pi comes from adding and taking away 1.5 * 2^23,
-// two instructions at the full FMA rate in place of FRND, which the SFU's
-// quarter-rate pipe would run. The reduction's error is below 3e-7 up to
-// |v| = 2^22 (j exact) and grows with |v| past it: sinf's slow path is left
-// out. The main path's |v| stays below 14 (chip_smoke.py prints it).
-__device__ __forceinline__ float sin_of(float v) {
-#if SNAKE_CUT == 1
-  return v;
-#elif SNAKE_SINF
-  return sinf(v);
-#else
+// +-sin(v), enough for sin^2: v = j pi + r with j the nearest integer to
+// v / pi, so |r| <= pi / 2 and sin(v) = (-1)^j sin(r). r comes from a
+// two-constant Cody-Waite reduction (pi as a float, then the float of the
+// rest), sin(r) from an odd minimax polynomial of degree 9 (approximation
+// error 4.6e-9 on [-pi/2, pi/2]): ten instructions on the FMA pipe, within
+// about 1.3e-7 of sin(v) up to |v| = 30. j is rounded by adding and taking
+// away 1.5 * 2^23, which FRND would run on the quarter-rate pipe. j is
+// exact below |v| = 2^22; past that the reduction loses accuracy (sinf's
+// slow path is left out). The main path's |v| stays below 14
+// (chip_smoke.py prints it).
+__device__ __forceinline__ float sin_pm(float v) {
   constexpr float kShift = 12582912.f;  // 1.5 * 2^23
-#if SNAKE_FRND
-  const float j = rintf(v * 0.15915494309189535f);
-#else
-  const float j = fmaf(v, 0.15915494309189535f, kShift) - kShift;
-#endif
-  float r = fmaf(j, -6.28318548202514648f, v);
-  r = fmaf(j, 1.74845553e-7f, r);
-  return __sinf(r);
-#endif
+  const float j = fmaf(v, 0.318309873f, kShift) - kShift;
+  float r = fmaf(j, -3.14159274f, v);
+  r = fmaf(j, 8.74227766e-8f, r);
+  const float r2 = r * r;
+  float p = fmaf(2.6000548e-6f, r2, -1.9806615e-4f);
+  p = fmaf(p, r2, 8.333017e-3f);
+  p = fmaf(p, r2, -0.16666657f);
+  return fmaf(r2 * r, p, r);
 }
 
 __device__ __forceinline__ float snake(float u, float a, float inv) {
-  const float s = sin_of(u * a);
+  const float s = sin_pm(u * a);  // its sign cancels in inv * s * s
   return u + inv * s * s;
 }
 
@@ -180,9 +150,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
   if (extra) {
 #pragma unroll
     for (int m = 0; m < 7; ++m) xe[m] = xr[kEdge ? min(max(ge - 3 + m, 0), T - 1) : ge - 3 + m];
-#if SNAKE_CUT != 2
     pair(tp, xe, a, inv, ee, eo);
-#endif
   }
 
   // input halo: x[tl-3..tl-1] from lane - 1 (lane 0: its pair t0-1 read
@@ -196,11 +164,6 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
     xv[R + 3 + k] = lane == 31 ? xe[3 + k] : r;
   }
 
-  float y[R];
-#if SNAKE_CUT == 2
-#pragma unroll
-  for (int i = 0; i < R; ++i) y[i] = xv[3 + i];
-#else
   // pe[k], po[k]: pair tl - 3 + k
   float pe[R + 6], po[R + 6];
 #pragma unroll
@@ -252,6 +215,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
 
   // out[t] = sum_j down[j] up[2t + j - 5]: odd phase of pair t - 3 + j/2
   // for even j, even phase of pair t - 2 + (j-1)/2 for odd j
+  float y[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     float acc = tp.down[0] * po[i];
@@ -260,7 +224,6 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
       acc = acc + tp.down[j] * ((j & 1) ? pe[i + (j + 1) / 2] : po[i + j / 2]);
     y[i] = acc;
   }
-#endif
 
   if constexpr (kEdge) {
 #pragma unroll
@@ -279,7 +242,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
 
 // Warp w takes chunk w % chunks of row w / chunks (row = b * C + c).
 template <bool kVec>
-__global__ void SNAKE_BOUNDS
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 snake_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
              const float* __restrict__ beta, const Taps tp, float* __restrict__ out, int C,
              int T, int chunks, int warps, int logscale) {
@@ -297,7 +260,7 @@ snake_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
   const float inv = 1.f / (bt + 1e-9f);
   const float* xr = x + (size_t)row * T;
   float* yr = out + (size_t)row * T;
-  if (SNAKE_INTERIOR || (t0 >= 6 && t0 + 32 * kR + 6 <= T))
+  if (t0 >= 6 && t0 + 32 * kR + 6 <= T)
     chunk<kR, kVec, false>(xr, yr, tp, a, inv, T, t0, lane);
   else
     chunk<kR, false, true>(xr, yr, tp, a, inv, T, t0, lane);

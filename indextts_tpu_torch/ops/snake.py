@@ -112,7 +112,6 @@ SNAKE_WARPS = 4  # warps a block: csrc/snake.cu kWarps
 SNAKE_LANE_OUTPUTS = 12  # R, the consecutive outputs a lane holds in registers
 
 
-@functools.lru_cache(maxsize=None)
 def snake_plan(B: int, C: int, T: int) -> Tuple[int, int, int]:
     """K2's launch over x (B, C, T): (R, chunks, blocks).
 

@@ -4,12 +4,14 @@ Skips without one. Imports nothing of JAX, so it also runs where only the
 port is installed: `python -m pytest --noconftest tests/test_torch_cuda.py`
 (the repository's conftest imports JAX). Tolerances: fp32 online softmax
 against a one-shot softmax (K1; K3 also within 2e-5 absolute, in 3xTF32
-on the tensor cores); the same fp32 algebra with sinf/expf
-and FMA contraction (K2); for K4 as for K1 over an int8 cache, 1e-5; K5
+on the tensor cores); the same fp32 algebra with the kernel's
+sine, expf and FMA contraction (K2); for K4 as for K1 over an int8 cache, 1e-5; K5
 to K8 exact int32 sums with the plain versions' float32 operations in the
 same order, so their results agree to the last bit (K7 is held to that) or
 within one unit of it (1e-6 of max|out| is allowed).
 """
+
+import math
 
 import pytest
 import torch
@@ -119,40 +121,46 @@ def test_decode_attention_graph_replay_repeats_its_bits(cuda_device, cache):
     assert torch.equal(fn(), want)
 
 
-# K2's cases (B, C, T, logscale), from its plan (snake.snake_plan: a warp
-# takes 32 * R outputs of a row, lane l the R from l * R): the shapes
-# checked before the plan; rows shorter than a lane's R; T at a warp's
-# chunk and at a block's four chunks and one either side; a last chunk of
-# one lane; a chunk whose input halo reaches past a short last chunk;
-# T % 4 != 0 (scalar loads); logscale False; a grid whose last block holds
-# one warp; the main path's first two vocoder stages
+# K2's cases (B, C, T, logscale, small_beta): the three checked before
+# the plan (their inputs drawn as then, from seed 0); from the plan
+# (snake.snake_plan: a warp takes 32 * R outputs of a row, lane l the R
+# from l * R): rows shorter than a lane's R; T at a warp's chunk and at a
+# block's four chunks and one either side; a last chunk of one lane; a
+# chunk whose input halo reaches past a short last chunk; T % 4 != 0
+# (scalar loads); logscale False; a grid whose last block holds one warp;
+# the main path's first two vocoder stages; beta = exp(-4) on every fourth
+# channel, where 1 / beta scales the sine's error 55-fold
 _CHUNK = 32 * k2.SNAKE_LANE_OUTPUTS
 _BLOCK = _CHUNK * k2.SNAKE_WARPS
 K2_CASES = [
-    (1, 24, 37, True), (1, 72, 1000, True), (1, 2304, 513, True),
-    *[(1, 24, t, True) for t in (1, 2, 3, 7, _CHUNK - 1, _CHUNK, _CHUNK + 1)],
-    *[(2, 9, t, True) for t in (_BLOCK - 1, _BLOCK, _BLOCK + 1)],
-    (1, 24, 2 * _CHUNK + k2.SNAKE_LANE_OUTPUTS, True), (1, 24, 2 * _CHUNK + 3, True),
-    (1, 72, 1001, True), (1, 144, 2063, True), (2, 30, 4098, True),
-    (1, 72, 1000, False), (2, 24, 517, False), (1, 5, 100, True),
-    (1, 2304, 2064, True), (1, 1152, 8256, True),
+    (1, 24, 37, True, False), (1, 72, 1000, True, False), (1, 2304, 513, True, False),
+    *[(1, 24, t, True, False) for t in (1, 2, 3, 7, _CHUNK - 1, _CHUNK, _CHUNK + 1)],
+    *[(2, 9, t, True, False) for t in (_BLOCK - 1, _BLOCK, _BLOCK + 1)],
+    (1, 24, 2 * _CHUNK + k2.SNAKE_LANE_OUTPUTS, True, False),
+    (1, 24, 2 * _CHUNK + 3, True, False),
+    (1, 72, 1001, True, False), (1, 144, 2063, True, False), (2, 30, 4098, True, False),
+    (1, 72, 1000, False, False), (2, 24, 517, False, False), (1, 5, 100, True, False),
+    (1, 2304, 2064, True, False), (1, 1152, 8256, True, False),
+    (2, 72, 1000, True, True), (1, 2304, 2064, True, True), (2, 24, 517, False, True),
 ]
 
 
-def _k2_inputs(dev, B, C, T, logscale):
-    g = torch.Generator(device=dev).manual_seed(T)
+def _k2_inputs(dev, B, C, T, logscale, small_beta=False):
+    g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((B, C, T), generator=g, device=dev)
     a = torch.randn((C,), generator=g, device=dev) * 0.3
     b = torch.randn((C,), generator=g, device=dev) * 0.3
     if not logscale:
         a, b = a.abs() + 0.5, b.abs() + 0.5
+    if small_beta:
+        b[::4] = -4.0 if logscale else math.exp(-4.0)
     return x, a, b
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,C,T,logscale", K2_CASES)
-def test_k2_cuda_matches_plain(cuda_device, B, C, T, logscale):
-    x, a, b = _k2_inputs(cuda_device, B, C, T, logscale)
+@pytest.mark.parametrize("B,C,T,logscale,small_beta", K2_CASES)
+def test_k2_cuda_matches_plain(cuda_device, B, C, T, logscale, small_beta):
+    x, a, b = _k2_inputs(cuda_device, B, C, T, logscale, small_beta)
     got = k2.anti_alias_snake(x, a, b, logscale)
     torch.testing.assert_close(got, k2.anti_alias_snake_plain(x, a, b, logscale),
                                atol=1e-5, rtol=1e-5)

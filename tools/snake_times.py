@@ -11,21 +11,23 @@ timed, for example a parent commit unpacked with `git archive` into
 build/. The timing code is always this repository's chip_smoke.py
 (`time_k2`: CUDA events over graph replays of one vocoder call's 37
 launches, each on its own input), at the main path's shapes and at the
-longest segment's, so two trees run in turns on one card are timed alike.
-Prints the card's name and power limit first.
+longest segment's, so two trees run in turns on one card are timed alike;
+then its errors at the main path's first shape, against the plain version
+and against it in float64, also with beta = exp(-4) on every fourth
+channel. Prints the card's name and power limit first.
 
---probe times this repository's kernel rebuilt with other choices, each
-still right: sinf for the sine (SNAKE_SINF=1), FRND for its rounding
-(SNAKE_FRND=1), R = 4, 8 and 16 outputs a lane (SNAKE_R), a launch bound
-without a minimum of blocks an SM and with 10 and 12 (SNAKE_MIN_BLOCKS; 8
-in use); with parts cut out, whose results are then wrong: each sine
-replaced by its argument (SNAKE_CUT=1), loads and stores only
-(SNAKE_CUT=2, at R = 12 and 8); and x.clone() of each launch's input,
-the same bytes moved by one PyTorch call. Each build also gives its
+--probe times this repository's kernel rebuilt from an edited copy of
+its source (csrc/snake.cu stays as it is) with another sine, each still
+right: `sinf`, and the SFU's `__sinf` after a reduction by 2 pi; and with
+parts cut out, whose results are then wrong: each sine replaced by its
+argument, and loads and stores only (the output is the input); and
+x.clone() of each launch's input, the same bytes moved by one PyTorch
+call. The right builds also print those errors. Each build gives its
 registers (ptxas) and SASS instruction counts (cuobjdump -sass); with
-every chunk on the interior path (SNAKE_INTERIOR=1, counted, never run:
-it reads and writes past the rows) a kernel is one chunk's straight line,
-so its count over R is what a lane issues per output.
+every chunk on the interior path (counted, never run: it reads and writes
+past the rows) a kernel is one chunk's straight line, so its count over R
+is what a lane issues per output; the source is also built unedited for
+its counts.
 """
 
 from __future__ import annotations
@@ -40,19 +42,28 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 
-# name: (-D defines, timed); the untimed builds are only counted
+SIN_HEAD = "__device__ __forceinline__ float sin_pm(float v) {\n"
+SINES = {
+    "sinf": "  return sinf(v);\n",
+    "SFU sine": ("  constexpr float kShift = 12582912.f;\n"
+                 "  const float j = fmaf(v, 0.15915494309189535f, kShift) - kShift;\n"
+                 "  float r = fmaf(j, -6.28318548202514648f, v);\n"
+                 "  r = fmaf(j, 1.74845553e-7f, r);\n"
+                 "  return __sinf(r);\n"),
+    "sines cut": "  return v;\n",
+}
+COPY_ONLY = ("    y[i] = acc;\n", "    y[i] = xv[3 + i];\n")
+INTERIOR = ("  if (t0 >= 6 && t0 + 32 * kR + 6 <= T)\n", "  if (true)\n")
+# name: (edits, timed); an edit is (old text, new text) or the name of a
+# sine in SINES; the untimed builds are only counted
 VARIANTS = {
-    "FRND for the rounding": (["SNAKE_FRND=1"], True),
-    "sinf": (["SNAKE_SINF=1"], True),
-    **{f"R={r}": ([f"SNAKE_R={r}"], True) for r in (4, 8, 16)},
-    "no minimum of blocks an SM": (["SNAKE_MIN_BLOCKS=0"], True),
-    **{f"at least {n} blocks an SM": ([f"SNAKE_MIN_BLOCKS={n}"], True) for n in (10, 12)},
-    "sines cut": (["SNAKE_CUT=1"], True),
-    "loads and stores only": (["SNAKE_CUT=2"], True),
-    "loads and stores only, R=8": (["SNAKE_CUT=2", "SNAKE_R=8"], True),
-    "interior path only": (["SNAKE_INTERIOR=1"], False),
-    "interior path only, FRND": (["SNAKE_INTERIOR=1", "SNAKE_FRND=1"], False),
-    "interior path only, sines cut": (["SNAKE_INTERIOR=1", "SNAKE_CUT=1"], False),
+    "as in the source": ([], False),
+    "sinf": (["sinf"], True),
+    "SFU sine": (["SFU sine"], True),
+    "sines cut": (["sines cut"], True),
+    "loads and stores only": ([COPY_ONLY], True),
+    "interior path only": ([INTERIOR], False),
+    **{f"interior path only, {k}": ([INTERIOR, k], False) for k in SINES},
 }
 SASS_LINE = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -95,24 +106,32 @@ def print_sass(label: str, so: Path, r: int):
               f"lane per output at R={r}); {top}")
 
 
-def lane_outputs(defines) -> int:
-    from indextts_tpu_torch.ops import snake as k2
-
-    return next((int(d.split("=")[1]) for d in defines if d.startswith("SNAKE_R=")),
-                k2.SNAKE_LANE_OUTPUTS)
+def edited(src: str, edits) -> str:
+    for e in edits:
+        if isinstance(e, str):
+            start = src.index(SIN_HEAD) + len(SIN_HEAD)
+            src = src[:start] + SINES[e] + src[src.index("}\n", start):]
+            continue
+        old, new = e
+        if old not in src:
+            raise SystemExit(f"snake_times: pattern not in the source: {old!r}")
+        src = src.replace(old, new)
+    return src
 
 
 def build_variants():
     """One nvcc per variant, all started together; their libraries."""
     from indextts_tpu_torch.ops import cuda_lib
 
+    src = (cuda_lib.CSRC / "snake.cu").read_text()
     out = cuda_lib.build_dir() / "snake_probe"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, (defines, _)) in enumerate(VARIANTS.items()):
-        so = out / f"libsnake_v{i}.so"
-        cmd = [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-Xptxas=-v",
-               *(f"-D{d}" for d in defines), "-o", str(so), str(cuda_lib.CSRC / "snake.cu")]
+    for i, (name, (edits, _)) in enumerate(VARIANTS.items()):
+        cu, so = out / f"v{i}.cu", out / f"libv{i}.so"
+        cu.write_text(edited(src, edits))
+        cmd = [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-Xptxas=-v", "-I",
+               str(cuda_lib.CSRC), "-o", str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -127,9 +146,8 @@ def build_variants():
     return libs
 
 
-def caller(so: Path, r: int):
-    """A call of the library's K2 entry, built for R = r, planned as
-    snake_plan plans it for that R."""
+def caller(so: Path):
+    """A call of the library's K2 entry as the wrapper makes it."""
     import torch
 
     from indextts_tpu_torch.ops import cuda_lib
@@ -142,40 +160,63 @@ def caller(so: Path, r: int):
 
     def call(x, a, b, logscale=True):
         B, C, T = x.shape
-        chunks = -(-T // (32 * r))
-        blocks = -(-B * C * chunks // k2.SNAKE_WARPS)
         out = torch.empty_like(x)
         err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), taps, out.data_ptr(), B, C, T,
-                 int(logscale), r, chunks, blocks, int(T % 4 == 0),
+                 int(logscale), *k2.snake_plan(B, C, T), int(T % 4 == 0),
                  torch.cuda.current_stream().cuda_stream)
         cuda_lib.check(err, "snake_times")
         return out
     return call
 
 
+def error_cases(cs, shape, g):
+    """Inputs at (C, T) = shape drawn as chip_smoke.py draws them, and with
+    beta = exp(-4) on every fourth channel: per label (inputs, the plain
+    version's output, its output in float64). Prints the plain version's
+    own error against float64."""
+    from indextts_tpu_torch.ops import snake as k2
+
+    cases = {}
+    for label, small in (("", False), (", small beta", True)):
+        label = f"C={shape[0]} T={shape[1]}{label}"
+        x = cs.k2_inputs(g, 1, *shape, small_beta=small)
+        want = k2.anti_alias_snake_plain(*x, True)
+        exact = k2.anti_alias_snake_plain(*(t.double() for t in x), True)
+        print(f"plain version at {label}: max|out| {want.abs().max().item():.3g}, "
+              f"max_abs_err against float64 {(want - exact).abs().max().item():.3g}")
+        cases[label] = (x, want, exact)
+    return cases
+
+
+def errors(call, cases):
+    out = []
+    for label, (x, want, exact) in cases.items():
+        got = call(*x)
+        out.append(f"max_abs_err at {label} {(got - want).abs().max().item():.3g} "
+                   f"(against float64 {(got - exact).abs().max().item():.3g})")
+    return out
+
+
 def probe(cs, seqs, g):
     from indextts_tpu_torch.ops import cuda_lib
     from indextts_tpu_torch.ops import snake as k2
 
+    r = k2.SNAKE_LANE_OUTPUTS
     whole = cuda_lib.build(["snake"])["snake"]
     libs = build_variants()
-    print_sass("whole kernel", whole, k2.SNAKE_LANE_OUTPUTS)
     for name, so in libs.items():
-        print_sass(name, so, lane_outputs(VARIANTS[name][0]))
-    runs = [("whole kernel", whole, k2.SNAKE_LANE_OUTPUTS)]
-    runs += [(name, libs[name], lane_outputs(defines))
-             for name, (defines, timed) in VARIANTS.items() if timed]
-    x, a, b = cs.k2_inputs(g, 1, *seqs["main"][0])
-    want = k2.anti_alias_snake_plain(x, a, b, True)
-    for name, so, r in runs:
-        call = caller(so, r)
-        err = (call(x, a, b) - want).abs().max().item()
+        print_sass(name, so, r)
+    runs = [("whole kernel", whole, True)]
+    runs += [(name, libs[name], name in SINES and name != "sines cut")
+             for name, (_, timed) in VARIANTS.items() if timed]
+    cases = error_cases(cs, seqs["main"][0], g)
+    for name, so, right in runs:
+        call = caller(so)
         times = []
         for label, seq in seqs.items():
             ms, _, b_ms, _ = cs.time_k2(seq, g, plain=False, call=call)
             times.append(f"{label} {ms:.4f} ms (bound {b_ms:.4f})")
-        print(f"probe {name}: " + "; ".join(times)
-              + f"; max_abs_err at C={x.shape[1]} T={x.shape[2]}: {err:.3g}")
+        print(f"probe {name}: " + "; ".join(times + (errors(call, cases) if right else [])))
     # the same bytes moved by one PyTorch call a launch: a read and a write
     times = [f"{label} {cs.time_k2(seq, g, plain=False, call=lambda x, *_: x.clone())[0]:.4f} ms"
              for label, seq in seqs.items()]
@@ -212,6 +253,9 @@ def main():
         ms, _, b_ms, by = cs.time_k2(seq, g, plain=False)
         print(f"K2 {label} ({len(seq)} launches, one vocoder call): kernel_ms={ms:.4f} "
               f"bound_ms={b_ms:.4f} ({by})")
+    from indextts_tpu_torch.ops import snake as k2
+
+    print("K2 " + "; ".join(errors(k2.anti_alias_snake, error_cases(cs, seqs["main"][0], g))))
 
 
 if __name__ == "__main__":
