@@ -80,7 +80,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    non-silent WAV from finite mels, and every counter of the route must have
    risen, those of other routes staying at 0 (float: K1-K3; W8: K2-K6; W4:
    K2-K5, K7, K8, with K5 the logits head). Only runtime.max_mel_tokens is
-   lowered, since random weights rarely emit the stop token.
+   lowered, since random weights rarely emit the stop token. The GPT
+   decode replays a captured step (runtime/decode.py); then, on each
+   route's engine, `decode_turns` runs one request's decode captured and
+   eager (the decoder's `eager` argument) from one seed, 3 rounds in turns:
+   the codes must be the same every time, and each run prints decode
+   tokens/s, wall time and stage seconds; torch.profiler must find the
+   same device kernels by name and count in one replay as in one eager
+   step (less the generator's seed and offset, which PyTorch writes before
+   a replay); 8 replays are timed with CUDA events; and the reserved
+   device memory the decode states free is printed.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -91,6 +100,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import gc
 import http.client
 import io
@@ -116,6 +126,8 @@ INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 MAX_MEL_TOKENS = 300
 L2_CYCLE_BYTES = 100_000_000  # twice the H100's 50 MB L2
 N_REQUESTS = 3
+DECODE_ROUNDS = 3  # captured against eager decode, in turns
+DECODE_SEED = 7
 PROMPT_SECONDS = 3
 PROMPT_SR = 22050
 
@@ -271,9 +283,15 @@ def decode_cases(cap: int):
     cluster rank takes a share of 16 * ceil(valid / 128) keys (ops/
     decode_attention.py `rank_span`), so valid 15-17 and 127-129 cross a
     chunk and a share; at cap 1000 the ranks start at 128, 256, ...; at cap
-    3000 a share (384 keys) takes two rounds of the block's copies."""
+    3000 a share (384 keys) takes two rounds of the block's copies. The
+    decoder rounds its caches up to a multiple of 256 slots (runtime/
+    decode.py `cache_cap`), so the main path attends to `cap` keys of such
+    a cache."""
+    from indextts_tpu_torch.runtime.decode import cache_cap
+
     return [
         ("main", 1, cap, [cap], [0], [0]),
+        ("main, cache rounded", 1, cache_cap(cap, 0), [cap], [0], [0]),
         ("default-1500", 1, 1657, [1657], [0], [0]),
         ("mid-decode", 2, 1657, [400, 1000], [0, 0], [0, 0]),
         ("valid 1-129", 7, 300, [1, 2, 15, 16, 17, 127, 129], [0] * 7, [0] * 7),
@@ -1246,7 +1264,177 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
             fail(f"[{label}] {name} was never launched on the main path")
         if name in stay and n != 0:
             fail(f"[{label}] {name} was launched {n} times; it has no place on this path")
+    decode_turns(engine, wav_path, label)
     return launches
+
+
+def step_kernels(fn, pad: int = 64):
+    """The device kernels of one fn() call, from torch.profiler after one
+    warm-up call: {name: (count, device ms)}. A profiler run loses
+    the records of the first few and of about the last 35 kernels launched
+    eagerly inside it (seen on eager decode steps and on K6), so `pad` spin
+    kernels come before fn() and after it, and are left out of the
+    result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def spin():
+        for _ in range(pad):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin()
+        fn()
+        spin()
+    return {e.key: (e.count, e.device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_time_total > 0 and "spin_kernel" not in e.key}
+
+
+def rng_replay_kernels():
+    """The device kernels PyTorch adds to a replay of a graph that draws
+    from a registered generator (it writes the generator's seed and offset
+    for the graph before each launch): one replay's kernels by name and
+    count less one eager draw's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.empty(30, device="cuda")
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        x.exponential_(generator=gen)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, stream=stream):
+        x.exponential_(generator=gen)
+    with torch.cuda.stream(stream):
+        eager = step_kernels(lambda: x.exponential_(generator=gen))
+        replay = step_kernels(graph.replay)
+    extra = {k: n - eager.get(k, (0, 0))[0] for k, (n, _) in replay.items()}
+    return {k: n for k, n in extra.items() if n}
+
+
+def short_name(kernel: str) -> str:
+    """The first 80 characters of a device kernel's name, less its
+    namespaces and return type."""
+    for cut in ("void ", "at::native::", "(anonymous namespace)::"):
+        kernel = kernel.replace(cut, "")
+    return kernel[:80]
+
+
+def decode_turns(engine, wav_path: str, label: str):
+    """The served engine's captured decode against its eager loop (the
+    decoder's `eager` argument), on one request (the speaker prompt and
+    request 0's text, seed DECODE_SEED), DECODE_ROUNDS rounds in turns
+    (graph, eager; eager, graph; ...): each round's codes must equal the
+    first's both ways, and each prints decode tokens/s, the request's wall
+    time and its stage seconds. Then torch.profiler must find the same
+    device kernels by name and count in one replay of the captured step as
+    in one eager step, less those PyTorch adds to a sampling step's replay
+    for its generator (`rng_replay_kernels`); 8 replays are timed with CUDA
+    events; and the device memory the decode states hold (static caches
+    and buffers, captured steps' pools) is printed as the reserved memory
+    that dropping them frees."""
+    import torch
+
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    c, dec = engine.cfg, engine.decoder
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    ids = fallback_segments(request_text(0), c.gpt.number_text_tokens,
+                            c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
+    first = None
+    for r in range(DECODE_ROUNDS):
+        for mode in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+            if mode == "eager":
+                dec.generate = functools.partial(type(dec).generate, dec, eager=True)
+            try:
+                tok0, sec0 = dec.tokens, dec.seconds
+                t0 = time.perf_counter()
+                emovec, codes, t_gen = engine._decode_segment_codes(spk, emo, ids,
+                                                                    seed=DECODE_SEED)
+                seg = engine._finish_from_codes(spk, emovec, ids, codes, DECODE_SEED, t_gen)
+                wall = time.perf_counter() - t0
+            finally:
+                dec.__dict__.pop("generate", None)
+            toks, dsec = dec.tokens - tok0, dec.seconds - sec0
+            print(f"[{label}] decode round {r} {mode}: decode_tokens={toks} "
+                  f"decode_tok_per_s={toks / dsec:.1f} wall_s={wall:.3f} stages_s "
+                  f"gpt_decode={seg.gpt_gen_time:.3f} gpt_latent={seg.gpt_forward_time:.3f} "
+                  f"s2mel={seg.s2mel_time:.3f} bigvgan={seg.bigvgan_time:.3f}")
+            if first is None:
+                first = codes
+            elif not np.array_equal(codes, first):
+                fail(f"[{label}] decode round {r} {mode}: codes differ from round 0 graph's "
+                     f"from the same seed ({len(codes)} vs {len(first)} codes)")
+    print(f"[{label}] captured and eager decode: the same {len(first)} codes from seed "
+          f"{DECODE_SEED} in all {2 * DECODE_ROUNDS} runs")
+
+    st = next(reversed(dec._states.values()))  # the one these requests used
+    do_sample = c.runtime.do_sample
+    graph = st.graphs[do_sample][0]
+    if int(st.start) + int(st.step) + 20 >= st.cap:
+        fail(f"[{label}] no room in the cache to profile and time steps")
+    # a replay of a sampling step also writes the generator's state
+    rng = rng_replay_kernels() if do_sample else {}
+    # a profiler run can lose kernel records (`one_launch`): a
+    # difference is profiled again, up to three times
+    with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+        for _ in range(3):
+            eager_k = step_kernels(lambda: dec._advance(st, do_sample))
+            graph_k = step_kernels(graph.replay)
+            counts = [{k: n for k, (n, _) in eager_k.items()},
+                      {k: n - rng.get(k, 0) for k, (n, _) in graph_k.items()}]
+            counts[1] = {k: n for k, n in counts[1].items() if n}
+            if counts[0] == counts[1]:
+                break
+    (n_eager, ms_eager), (n_graph, ms_graph) = (
+        [sum(v[i] for v in ks.values()) for i in (0, 1)] for ks in (eager_k, graph_k))
+    print(f"[{label}] one decode step: {n_eager} device kernels ({len(eager_k)} names), "
+          f"{ms_eager:.4f} device ms eager; one replay: {n_graph} ({len(graph_k)} names), "
+          f"{ms_graph:.4f} device ms, of which the generator's state before the launch: "
+          + (", ".join(f"{short_name(k)} x{n}" for k, n in rng.items()) or "none"))
+    top = sorted(graph_k.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"[{label}] one replay's kernels by device ms: " + ", ".join(
+        f"{short_name(k)} x{n} {ms:.4f}" for k, (n, ms) in top))
+    if counts[0] != counts[1] or n_eager == 0:
+        diff = {short_name(k): (counts[0].get(k), counts[1].get(k))
+                for k in set(counts[0]) | set(counts[1]) if counts[0].get(k) != counts[1].get(k)}
+        fail(f"[{label}] a replay's device kernels differ from an eager step's: {diff}")
+    # replays back to back, timed with CUDA events: the device's time a
+    # step, against which its kernels' sum gives the idle share inside it
+    with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(8):
+            graph.replay()
+        b.record()
+        b.synchronize()
+    replay_ms = a.elapsed_time(b) / 8
+    print(f"[{label}] 8 replays back to back: {replay_ms:.4f} ms a step (CUDA events); "
+          f"its kernels' device time {ms_graph:.4f} ms, idle inside the step "
+          f"{100 * (1 - ms_graph / replay_ms):.1f} %")
+
+    del st, graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    shapes = [(key, st.cap, sorted(st.graphs)) for key, st in dec._states.items()]
+    buffers = sum(t.nbytes for st in dec._states.values() for t in vars(st).values()
+                  if isinstance(t, torch.Tensor)) + sum(
+        t.nbytes for st in dec._states.values() for t in st.caches)
+    with dec._lock:
+        dec._states.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{label}] decode states {shapes}: {buffers / 2**20:.1f} MiB of static buffers; "
+          f"dropping them frees {(held - torch.cuda.memory_reserved()) / 2**20:.1f} MiB "
+          "of reserved device memory (buffers and captured steps' pools)")
 
 
 def main():

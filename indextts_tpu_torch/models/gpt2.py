@@ -198,24 +198,29 @@ class GPT2Attention(nn.Module):
         ctx = torch.einsum("bhts,bhsd->bhtd", probs, v)
         return self.c_proj(ctx.transpose(1, 2).reshape(B, T, D)), (k, v)
 
-    def decode_step(self, x, cache: Sequence[torch.Tensor], index: int, valid_len,
+    def decode_step(self, x, cache: Sequence[torch.Tensor], index: torch.Tensor, valid_len,
                     hole_s, hole_e):
         """One token. x (B, 1, D); `cache` this layer's (k, v) float
         (B,H,cap,Dh), or (k8, v8, ksc, vsc) int8 with (B,H,cap) scales;
-        written IN PLACE at `index`."""
+        written IN PLACE at slot `index`, a (1,) int64 tensor on the
+        device. The writes are `index_copy_`: indexing with a tensor
+        (`cache[:, :, t] = ...`) would read t on the host, which a captured
+        step cannot."""
         B, _, D = x.shape
         q, k, v = self.c_attn(x).split(D, dim=-1)
         q, k, v = self._heads(q, B), self._heads(k, B), self._heads(v, B)
         q = q[:, :, 0].float()
         if len(cache) == 4:
             k8, v8, ksc, vsc = cache
-            k8[:, :, index], ksc[:, :, index] = quantize_kv(k[:, :, 0])
-            v8[:, :, index], vsc[:, :, index] = quantize_kv(v[:, :, 0])
+            for c8, sc, t in ((k8, ksc, k), (v8, vsc, v)):
+                t8, t_sc = quantize_kv(t)
+                c8.index_copy_(2, index, t8)
+                sc.index_copy_(2, index, t_sc)
             ctx = ragged_decode_attention_q8(q, k8, v8, ksc, vsc, valid_len, hole_s, hole_e)
         else:
             k_cache, v_cache = cache
-            k_cache[:, :, index] = k[:, :, 0].to(k_cache.dtype)
-            v_cache[:, :, index] = v[:, :, 0].to(v_cache.dtype)
+            k_cache.index_copy_(2, index, k.to(k_cache.dtype))
+            v_cache.index_copy_(2, index, v.to(v_cache.dtype))
             ctx = ragged_decode_attention(q, k_cache, v_cache, valid_len, hole_s, hole_e)
         return self.c_proj(ctx.to(x.dtype).reshape(B, 1, D))
 
@@ -305,11 +310,13 @@ class GPT2Core(nn.Module):
             vs.append(v)
         return self.ln_f(x), (torch.stack(ks), torch.stack(vs))
 
-    def decode_step(self, x, caches: Sequence[torch.Tensor], index: int, valid_len,
+    def decode_step(self, x, caches: Sequence[torch.Tensor], index: torch.Tensor, valid_len,
                     hole_s, hole_e):
         """x (B, 1, D); caches (ks, vs) float (L, B, H, cap, Dh), or
         (ks, vs, ksc, vsc) int8 with (L, B, H, cap) scales, updated in place
-        at `index`; keys < valid_len (B,) outside [hole_s, hole_e) attend."""
+        at slot `index` ((1,) int64); keys < valid_len ((B,) int32)
+        outside [hole_s, hole_e) attend. Every per-token value is a device
+        tensor, so the step can be captured in a CUDA graph."""
         for i, blk in enumerate(self.h):
             x = blk.decode_step(x, [c[i] for c in caches], index, valid_len, hole_s, hole_e)
         return self.ln_f(x)

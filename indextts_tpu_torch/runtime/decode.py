@@ -13,14 +13,29 @@ model_v2.py:785-794) -> temperature -> top-k -> top-p -> draw; greedy takes
 the argmax after the penalty. Codes are stop-padded; lengths count the stop
 token.
 
-Not here: beam search, cond-prefill KV reuse, batched and continuous routes.
+The JAX package runs the loop as one jitted `lax.while_loop`. Here the loop
+state lives in static buffers (`DecodeState`: caches, logits, codes, the
+finished flags, the penalty set, the step counter, the prompt hole and the
+sampling scalars), and the step (`GPTDecoder._advance`: embed the last
+token, the GPT step, the logits, pick the next token) reads and writes only
+those, every per-token value a device tensor. On the card the step is
+captured once per (B, cap) as a CUDA graph, and `generate` replays it once a
+token; only the prefill, the first pick and the finish check, on the host
+every FINISH_CHECK_EVERY tokens, run eagerly. The CPU runs the same step
+eagerly. A capture or replay that fails raises.
+
+Still missing against the JAX package: beam search, cond-KV and text-prefix
+KV reuse, and the batched and continuous routes.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,10 +43,16 @@ import torch
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.gpt2 import prompt_hole, quantize_kv
 from indextts_tpu_torch.models.unified_voice import UnifiedVoice
+from indextts_tpu_torch.ops import decode_attention, gemv
 
 NEG_INF = -1e9
 # decode steps between host checks for "every row finished"
 FINISH_CHECK_EVERY = 16
+# a cache's capacity is S + max_new rounded up to this: K1/K4's launch plan
+# depends on the capacity, so requests of nearby lengths share a capture
+CAP_ROUND = 256
+# decode shapes (B, cap) whose buffers and captured steps are kept
+MAX_STATES = 8
 
 
 @dataclass(frozen=True)
@@ -46,16 +67,17 @@ class GenerateResult:
     lengths: torch.Tensor  # (B,) — generated length INCLUDING the stop token
 
 
-def repetition_penalty(logits, penal_mask, penalty: float):
+def repetition_penalty(logits, penal_mask, penalty):
     """HF RepetitionPenaltyLogitsProcessor: score<0 ? score*p : score/p."""
     penalized = torch.where(logits < 0, logits * penalty, logits / penalty)
     return torch.where(penal_mask, penalized, logits)
 
 
-def warp_top_k_top_p(logits, temperature: float, top_p: float, top_k: int
+def warp_top_k_top_p(logits, temperature, top_p, top_k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """temperature -> top-k -> top-p on the descending top-k subset. Returns
-    (vals, idx) (B, k): kept logits, NEG_INF where top-p drops a token."""
+    (vals, idx) (B, k): kept logits, NEG_INF where top-p drops a token.
+    temperature and top_p are floats or 0-d tensors."""
     logits = logits / temperature
     vals, idx = torch.topk(logits, top_k, dim=-1)
     probs = torch.softmax(vals, dim=-1)
@@ -65,20 +87,80 @@ def warp_top_k_top_p(logits, temperature: float, top_p: float, top_k: int
     return torch.where(keep, vals, torch.full_like(vals, NEG_INF)), idx
 
 
-def sample_top_k_top_p(logits, generator: torch.Generator, temperature: float,
-                       top_p: float, top_k: int):
+def sample_top_k_top_p(logits, generator: torch.Generator, temperature, top_p,
+                       top_k: int):
+    """One draw per row from the warped distribution, as an exponential
+    race: argmax(p / q) with q ~ Exp(1) picks token i with probability p_i.
+    torch.multinomial takes the same path for one sample, but first checks
+    its input on the host, which a captured step cannot."""
     vals, idx = warp_top_k_top_p(logits, temperature, top_p, top_k)
-    choice = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=generator)
+    p = torch.softmax(vals, dim=-1)
+    q = torch.empty_like(p).exponential_(generator=generator)
+    choice = torch.argmax(p / q, dim=-1, keepdim=True)
     return torch.gather(idx, 1, choice)[:, 0]
 
 
+def _step_counters():
+    """The launch counters of the kernels a decode step may run (K1, K4-K8)."""
+    return (decode_attention.counter, decode_attention.q8_counter, gemv.gemv_counter,
+            gemv.mlp_counter, gemv.gemv4_counter, gemv.mlp4_counter)
+
+
+class DecodeState:
+    """The static buffers of one decode shape (B rows, caches of `cap`
+    slots), which every request of that shape reuses, and the step captured
+    over them for each value of do_sample (`graphs`: the CUDA graph and each
+    step counter's rise during its capture)."""
+
+    def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device):
+        L, H, V = cfg.layers, cfg.heads, cfg.number_mel_codes
+        kv = (L, batch, H, cap, cfg.model_dim // H)
+        if kv_int8:
+            self.caches = tuple(torch.zeros(kv, dtype=torch.int8, device=device)
+                                for _ in range(2)) + tuple(
+                torch.zeros(kv[:4], device=device) for _ in range(2))
+        else:
+            self.caches = tuple(torch.zeros(kv, device=device) for _ in range(2))
+        self.cap = cap
+        zeros = functools.partial(torch.zeros, device=device)
+        self.logits = zeros((batch, V))
+        self.codes = zeros((batch, cap), dtype=torch.long)  # a request uses max_new
+        self.tok = zeros(batch, dtype=torch.long)  # the last code picked
+        self.finished = zeros(batch, dtype=torch.bool)
+        self.penal_mask = zeros((batch, V), dtype=torch.bool)
+        self.step = zeros(1, dtype=torch.long)  # index of the last code picked
+        self.start = zeros(1, dtype=torch.long)  # S, the prompt's length
+        self.hole_s = zeros(batch, dtype=torch.int32)
+        self.hole_e = zeros(batch, dtype=torch.int32)
+        self.temperature, self.top_p, self.penalty = zeros(()), zeros(()), zeros(())
+        self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, list]] = {}
+
+
+def cache_cap(prompt_len: int, max_new: int) -> int:
+    """Cache slots for a prompt of `prompt_len` and `max_new` new tokens."""
+    return -(-(prompt_len + max_new) // CAP_ROUND) * CAP_ROUND
+
+
 class GPTDecoder:
+    """Decodes for one UnifiedVoice. Holds the decode states, the stream
+    the card's steps run and are captured on, and the sampling generator,
+    which each request reseeds from its own seed (one seed, one code row).
+    States are keyed on (B, cap): the route (float, W8 or W4 blocks, a
+    float or int8 cache) is the decoder's own, one decoder per model. A
+    lock makes one request at a time own them: prefill, steps and
+    readout."""
+
     def __init__(self, model: UnifiedVoice, cfg: GPTConfig,
                  sampling: SamplingConfig = SamplingConfig(), kv_int8: bool = False):
         self.model = model
         self.cfg = cfg
         self.sampling = sampling
         self.kv_int8 = kv_int8
+        self.device = model.mel_embedding.weight.device
+        self.generator = torch.Generator(device=self.device)
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._states: "OrderedDict[Tuple[int, int], DecodeState]" = OrderedDict()
+        self._lock = threading.Lock()
         # cumulative decode counters (tokens emitted, wall seconds in generate)
         self.tokens = 0
         self.seconds = 0.0
@@ -102,10 +184,26 @@ class GPTDecoder:
             valid[b, off:] = True
         return ids, pos, valid
 
-    def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int):
-        """Prompt prefill into fresh caches of capacity S + max_new. Returns
-        (last_logits (B, V), caches, S, prompt_mask); caches are (ks, vs), or
-        (ks, vs, ksc, vsc) with `kv_int8`."""
+    def _state(self, batch: int, cap: int) -> DecodeState:
+        """The state of shape (batch, cap), made on first use; the least
+        recently used of MAX_STATES goes, with its captured steps."""
+        key = (batch, cap)
+        st = self._states.get(key)
+        if st is None:
+            if len(self._states) >= MAX_STATES:
+                self._states.popitem(last=False)
+            st = self._states[key] = DecodeState(self.cfg, batch, cap, self.kv_int8,
+                                                 self.device)
+        self._states.move_to_end(key)
+        return st
+
+    def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int
+                ) -> DecodeState:
+        """Prompt prefill into the static caches of the state of shape (B,
+        cache_cap(S, max_new)): the prompt's KV at slots [0, S), quantized
+        once with `kv_int8`, its last logits, S and the prompt's hole. The
+        slots past S keep an earlier request's values, which no step reads:
+        every key a step attends to was written by this request."""
         model = self.model
         B = conds_latent.shape[0]
         dev = conds_latent.device
@@ -117,69 +215,142 @@ class GPTDecoder:
             [ones.expand(B, conds_latent.shape[1]), text_valid, ones], dim=1)
         hidden, (pk, pv) = model.gpt_prefill(prompt, prompt_mask)
         S = pk.shape[3]
+        st = self._state(B, cache_cap(S, max_new))
         if self.kv_int8:
-            (pk, pksc), (pv, pvsc) = quantize_kv(pk), quantize_kv(pv)
-            prompt_kv = (pk, pv, pksc, pvsc)
+            (k8, ksc), (v8, vsc) = quantize_kv(pk), quantize_kv(pv)
+            prompt_kv = (k8, v8, ksc, vsc)
         else:
             prompt_kv = (pk, pv)
-        caches = []
-        for t in prompt_kv:
-            c = t.new_zeros(t.shape[:3] + (S + max_new,) + t.shape[4:])
-            c[:, :, :, :S] = t
-            caches.append(c)
-        caches = tuple(caches)
-        logits = model.mel_logits_from_hidden(hidden[:, -1])
-        return logits, caches, S, prompt_mask
+        for c, t in zip(st.caches, prompt_kv):
+            c[:, :, :, :S].copy_(t)
+        st.logits.copy_(model.mel_logits_from_hidden(hidden[:, -1]))
+        st.start.fill_(S)
+        hole_s, hole_e = prompt_hole(prompt_mask)
+        st.hole_s.copy_(hole_s)
+        st.hole_e.copy_(hole_e)
+        return st
 
-    def initial_penalty_mask(self, B: int, device) -> torch.Tensor:
-        """The HF fake-prompt tokens {1, start_mel} start in the penalty set."""
-        mask = torch.zeros((B, self.cfg.number_mel_codes), dtype=torch.bool, device=device)
-        mask[:, 1] = True
-        mask[:, self.cfg.start_mel_token] = True
-        return mask
+    def _reset(self, st: DecodeState, temperature: float, top_p: float, penalty: float):
+        """A request's loop state before its first pick: no codes (all stop),
+        nothing finished, the HF fake-prompt tokens {1, start_mel} in the
+        penalty set, step 0, and its sampling scalars."""
+        st.codes.fill_(self.cfg.stop_mel_token)
+        st.finished.zero_()
+        st.penal_mask.zero_()
+        st.penal_mask[:, 1] = True
+        st.penal_mask[:, self.cfg.start_mel_token] = True
+        st.step.zero_()
+        st.temperature.fill_(temperature)
+        st.top_p.fill_(top_p)
+        st.penalty.fill_(penalty)
+
+    def _pick(self, st: DecodeState, do_sample: bool):
+        """Pick code `step` from the logits: stop for a finished row; write
+        it to codes, the finished flags and the penalty set."""
+        stop = self.cfg.stop_mel_token
+        lg = repetition_penalty(st.logits, st.penal_mask, st.penalty)
+        if do_sample:
+            tok = sample_top_k_top_p(lg, self.generator, st.temperature, st.top_p,
+                                     self.sampling.top_k)
+        else:
+            tok = torch.argmax(lg, dim=-1)
+        tok = torch.where(st.finished, torch.full_like(tok, stop), tok)
+        st.tok.copy_(tok)
+        st.codes.index_copy_(1, st.step, tok[:, None])
+        st.finished.logical_or_(tok == stop)
+        st.penal_mask.scatter_(1, tok[:, None], True)
+
+    def _advance(self, st: DecodeState, do_sample: bool):
+        """One decode step over the state, the unit a CUDA graph captures:
+        the last code's embedding at mel position step + 2 through the GPT,
+        its K/V written at slot S + step, keys < S + step + 1 attending;
+        then step + 1 and the pick of that code."""
+        model = self.model
+        B = st.tok.shape[0]
+        index = st.start + st.step
+        valid = (index + 1).to(torch.int32).repeat(B)
+        emb = model.embed_mel_step(st.tok, st.step)
+        hidden = model.gpt_decode_step(emb, st.caches, index, valid, st.hole_s, st.hole_e)
+        st.logits.copy_(model.mel_logits_from_hidden(hidden[:, 0]))
+        st.step.add_(1)
+        self._pick(st, do_sample)
+
+    def _capture(self, st: DecodeState, do_sample: bool):
+        """Capture one `_advance` over `st` on the decoder's stream, which
+        has run one eagerly just before (K6/K8 set up their per-stream
+        counters, cuBLAS its workspace). The capture launches nothing, so
+        the counters its wrappers raised are put back, and their rise is
+        kept for the replays. thread_local: other serving threads' CUDA
+        calls go on during the capture."""
+        graph = torch.cuda.CUDAGraph()
+        if do_sample:
+            graph.register_generator_state(self.generator)
+        counters = _step_counters()
+        before = [c.launches for c in counters]
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+            self._advance(st, do_sample)
+        rise = [c.launches - b for c, b in zip(counters, before)]
+        for c, b in zip(counters, before):
+            c.launches = b
+        st.graphs[do_sample] = (graph, rise)
+        return st.graphs[do_sample]
+
+    def _loop(self, st: DecodeState, do_sample: bool, max_new: int, eager: bool):
+        """Codes 0 .. max_new - 1: the first picked from the prefill's
+        logits, each next by one step, stopping early once every row has
+        finished (checked on the host every FINISH_CHECK_EVERY codes). On
+        the card, unless `eager`, a step is a replay of the captured one."""
+        capture = not eager and self._stream is not None
+        self._pick(st, do_sample)
+        graph, rise = st.graphs.get(do_sample, (None, None)) if capture else (None, None)
+        replays = 0
+        for r in range(1, max_new):
+            if r % FINISH_CHECK_EVERY == 0 and bool(st.finished.all()):
+                break
+            if graph is not None:
+                graph.replay()
+                replays += 1
+                continue
+            self._advance(st, do_sample)
+            if capture:
+                graph, rise = self._capture(st, do_sample)
+        for c, n in zip(_step_counters(), rise or ()):
+            c.launches += n * replays
 
     @torch.inference_mode()
     def generate(self, conds_latent, text_ids, text_pos, text_valid,
-                 generator: Optional[torch.Generator], max_new: int,
+                 seed: Optional[int], max_new: int,
                  temperature: float = 0.8, top_p: float = 0.8,
                  repetition_penalty_value: float = 10.0,
-                 do_sample: Optional[bool] = None) -> GenerateResult:
-        t0 = time.perf_counter()
-        cfg, s, model = self.cfg, self.sampling, self.model
-        do_sample = s.do_sample if do_sample is None else do_sample
-        B = conds_latent.shape[0]
-        dev = conds_latent.device
-        stop = cfg.stop_mel_token
-        logits, caches, S, prompt_mask = self.prefill(
-            conds_latent, text_ids, text_pos, text_valid, max_new)
-        # the left-pad hole is fixed for the whole request
-        hole_s, hole_e = prompt_hole(prompt_mask)
-        penal_mask = self.initial_penalty_mask(B, dev)
-        codes = torch.full((B, max_new), stop, dtype=torch.long, device=dev)
-        finished = torch.zeros((B,), dtype=torch.bool, device=dev)
-        rows = torch.arange(B, device=dev)
-        for step in range(max_new):
-            lg = repetition_penalty(logits, penal_mask, repetition_penalty_value)
-            if do_sample:
-                tok = sample_top_k_top_p(lg, generator, temperature, top_p, s.top_k)
+                 do_sample: Optional[bool] = None, eager: bool = False) -> GenerateResult:
+        """Decode up to max_new codes a row. Sampling draws from the
+        decoder's generator seeded with `seed` (None: a fresh random seed),
+        so one seed gives one code row, captured or eager. On the card the
+        steps are replays of a captured step; `eager` runs them eagerly
+        instead, on the same stream and state: the yardstick the captured
+        loop is held to (same codes from one seed). The CPU always runs
+        them eagerly."""
+        do_sample = self.sampling.do_sample if do_sample is None else do_sample
+        with self._lock:
+            t0 = time.perf_counter()
+            if seed is None:
+                self.generator.seed()
             else:
-                tok = torch.argmax(lg, dim=-1)
-            tok = torch.where(finished, torch.full_like(tok, stop), tok)
-            codes[:, step] = tok
-            finished = finished | (tok == stop)
-            penal_mask[rows, tok] = True
-            if step == max_new - 1:
-                break
-            if step % FINISH_CHECK_EVERY == FINISH_CHECK_EVERY - 1 and bool(finished.all()):
-                break
-            emb = model.embed_mel_step(tok, step)
-            valid = torch.full((B,), S + step + 1, dtype=torch.int32, device=dev)
-            hidden = model.gpt_decode_step(emb, caches, S + step, valid, hole_s, hole_e)
-            logits = model.mel_logits_from_hidden(hidden[:, 0])
-        is_stop = codes == stop
-        first = torch.argmax(is_stop.int(), dim=1)
-        lengths = torch.where(is_stop.any(dim=1), first + 1,
-                              torch.full_like(first, max_new))
-        self.tokens += int(lengths.sum())
-        self.seconds += time.perf_counter() - t0
+                self.generator.manual_seed(seed)
+            caller = None if self._stream is None else torch.cuda.current_stream(self.device)
+            if caller is not None:
+                self._stream.wait_stream(caller)
+            with torch.cuda.stream(self._stream):  # no-op on the CPU
+                st = self.prefill(conds_latent, text_ids, text_pos, text_valid, max_new)
+                self._reset(st, temperature, top_p, repetition_penalty_value)
+                self._loop(st, do_sample, max_new, eager)
+            if caller is not None:
+                caller.wait_stream(self._stream)
+            codes = st.codes[:, :max_new].clone()
+            is_stop = codes == self.cfg.stop_mel_token
+            first = torch.argmax(is_stop.int(), dim=1)
+            lengths = torch.where(is_stop.any(dim=1), first + 1,
+                                  torch.full_like(first, max_new))
+            self.tokens += int(lengths.sum())
+            self.seconds += time.perf_counter() - t0
         return GenerateResult(codes=codes, lengths=lengths)

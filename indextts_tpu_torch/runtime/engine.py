@@ -21,6 +21,10 @@ Routes the port does not implement raise NotImplementedError: beam search
 (num_beams > 1), batched segments, emo_vector / use_emo_text, and bfloat16
 s2mel or vocoder dtypes.
 
+The AR decode (runtime/decode.py `GPTDecoder`) replays a captured step on
+the card; the engine hands it each request's seed (a random one for a
+seedless request), from which the decoder reseeds its own generator.
+
 Runs on `cuda` unless the caller passes `device="cpu"`. Float32 compute;
 the constructor turns TF32 off for matmuls and cuDNN convolutions, which
 PyTorch would otherwise use for float32 convolutions on the card.
@@ -224,11 +228,15 @@ class IndexTTS2Engine:
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
 
-    def _generator(self, seed: Optional[int]) -> torch.Generator:
+    def _seed(self, seed: Optional[int]) -> int:
+        """`seed`, or a fresh random one for a seedless request."""
         if seed is None:
             with self._seed_lock:
                 seed = int(self._seed_gen.integers(0, 2**62))
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return seed
+
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(self._seed(seed))
 
     # -- conditioning (infer_v2.py:618-666) --------------------------------
 
@@ -316,7 +324,7 @@ class IndexTTS2Engine:
             np.asarray(text_ids)[None], np.asarray([n]), n)
         res = self.decoder.generate(
             conds, self._tensor(ids), self._tensor(pos), self._tensor(valid),
-            self._generator(seed),
+            self._seed(seed),
             max_new=max_mel_tokens or rt.max_mel_tokens,
             temperature=temperature if temperature is not None else rt.temperature,
             top_p=top_p if top_p is not None else rt.top_p,

@@ -13,6 +13,7 @@ within one unit of it (1e-6 of max|out| is allowed).
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -407,3 +408,117 @@ def test_mlp_first_call_under_capture_raises(cuda_device):
     want = gemv.mlp_w8_plain(xq, a, *ws)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
     _replays_equal(lambda: gemv.mlp_w8(xq, a, *ws), got)
+
+
+# ---------------------------------------------------------------------------
+# the decode loop: a captured step against the eager one
+# ---------------------------------------------------------------------------
+
+# route: (gpt_quantize, gpt_wbits); quantized routes take the int8 head, the
+# int8 KV cache and the decode kernels (K4-K8; at D=256 every gate opens)
+GRAPH_ROUTES = {"float": (False, 8), "w8": (True, 8), "w4": (True, 4)}
+
+
+def _graph_decoder(dev, route):
+    """A 2-layer GPT of width 256 (4 heads of 64) on `route` with seeded
+    random weights, and its sampling decoder, on the card."""
+    from indextts_tpu_torch import config as C
+    from indextts_tpu_torch.models.unified_voice import UnifiedVoice
+    from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
+    from indextts_tpu_torch.weights import quantize_gpt_state_dict
+
+    cfg = C.GPTConfig(
+        model_dim=256, layers=2, heads=4, max_mel_tokens=64, max_text_tokens=32,
+        number_text_tokens=50, number_mel_codes=36, start_mel_token=34, stop_mel_token=35,
+        condition_module=C.ConditionModuleConfig(
+            output_size=32, linear_units=48, attention_heads=4, num_blocks=1),
+        emo_condition_module=C.ConditionModuleConfig(
+            output_size=32, linear_units=32, attention_heads=2, num_blocks=1))
+    quantize, wbits = GRAPH_ROUTES[route]
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(0)
+        with torch.device(dev):
+            model = UnifiedVoice(cfg)
+    if quantize:
+        sd = quantize_gpt_state_dict(model.state_dict(), head=True, bits=wbits)
+        with torch.device("meta"):
+            model = UnifiedVoice(cfg, quantize=True, head_quant=True, wbits=wbits, gemv=True)
+        model.load_state_dict(sd, strict=True, assign=True)
+    model = model.eval().requires_grad_(False)
+    dec = GPTDecoder(model, cfg, SamplingConfig(do_sample=True, top_k=20), kv_int8=quantize)
+    g = torch.Generator(device=dev).manual_seed(1)
+    conds = torch.randn((1, 34, 256), generator=g, device=dev)
+    text = torch.randint(2, 50, (1, 9), generator=g, device=dev).cpu().numpy()
+    arrays = dec.build_text_prompt_arrays(text, np.array([9]), 12)
+    return dec, (conds, *(torch.as_tensor(a, device=dev) for a in arrays))
+
+
+def _counts():
+    return {name: c.launches for name, c in (
+        ("K1", k1.counter), ("K4", k1.q8_counter), ("K5", gemv.gemv_counter),
+        ("K6", gemv.mlp_counter), ("K7", gemv.gemv4_counter), ("K8", gemv.mlp4_counter))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_graph_decode_matches_eager(cuda_device, route):
+    """One seed, one code row: the captured loop (its first request
+    captures, the second replays from the start) and the eager loop on the
+    same stream and state give the same codes and lengths. 40 codes cross
+    two finish checks."""
+    dec, args = _graph_decoder(cuda_device, route)
+    runs = [dec.generate(*args, 3, max_new=40, eager=eager) for eager in (True, False, False)]
+    for r in runs[1:]:
+        assert torch.equal(r.codes, runs[0].codes)
+        assert torch.equal(r.lengths, runs[0].lengths)
+    assert [len(st.graphs) for st in dec._states.values()] == [1]
+    assert len(set(runs[0].codes[0].tolist())) > 3  # not a degenerate row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_decode_step_makes_no_host_sync(cuda_device, route):
+    """An eager step and a replay of the captured one, under
+    set_sync_debug_mode("error"), which raises on any host sync."""
+    dec, args = _graph_decoder(cuda_device, route)
+    dec.generate(*args, 3, max_new=20)
+    (st,) = dec._states.values()
+    graph, _ = st.graphs[True]
+    step = int(st.step)
+    with torch.inference_mode(), torch.cuda.stream(dec._stream):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dec._advance(st, True)
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(st.step) == step + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_graph_decode_counts_the_eager_launches(cuda_device, route):
+    """After a request the kernels' launch counters read what the eager
+    loop's launches give: a replay adds its captured step's rise. 2 layers
+    x the steps of K1 or K4; W8 2 x 2 + 1 (the head) K5 a step, W4 one head
+    K5, and one more K5 for the prefill's head; the first request (capture) and a later one (replays only). Steps:
+    one fewer than the codes up to the finish check after the stop, at
+    most 39."""
+    dec, args = _graph_decoder(cuda_device, route)
+    counts = []
+    for eager in (True, False, False):
+        for c in (k1.counter, k1.q8_counter, gemv.gemv_counter, gemv.mlp_counter,
+                  gemv.gemv4_counter, gemv.mlp4_counter):
+            c.launches = 0
+        res = dec.generate(*args, 3, max_new=40, eager=eager)
+        counts.append(_counts())
+    assert counts[1] == counts[0] and counts[2] == counts[0]
+    quantize, wbits = GRAPH_ROUTES[route]
+    steps = min(-(-int(res.lengths[0]) // 16) * 16, 40) - 1
+    want = {"K1": 0 if quantize else 2 * steps, "K4": 2 * steps if quantize else 0,
+            "K5": (5 if wbits == 8 else 1) * steps + 1 if quantize else 0,
+            "K6": 2 * steps if quantize and wbits == 8 else 0,
+            "K7": 4 * steps if quantize and wbits == 4 else 0,
+            "K8": 2 * steps if quantize and wbits == 4 else 0}
+    assert counts[0] == want

@@ -182,11 +182,15 @@ def test_gpt_prefill_logits_and_latent_match(pair):
 
     want = jax.jit(lambda p, *a: je.gpt.apply({"params": p}, *a, method=jprefill))(
         je.p_gpt, jnp.asarray(conds), jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(valid))
+    from indextts_tpu_torch.runtime.decode import cache_cap
+
     with torch.inference_mode():
-        logits, (ks, _), S, _ = pe.decoder.prefill(
-            t(conds), t(pids), t(ppos), t(pvalid), max_new=4)
-    assert ks.shape == (cfg.gpt.layers, 1, cfg.gpt.heads, S + 4, D // cfg.gpt.heads)
-    assert_rel(logits, want, 1e-4, "prefill logits")
+        st = pe.decoder.prefill(t(conds), t(pids), t(ppos), t(pvalid), max_new=4)
+    S = int(st.start)
+    assert S == 34 + 13 + 2 + 1
+    assert st.caches[0].shape == (cfg.gpt.layers, 1, cfg.gpt.heads, cache_cap(S, 4),
+                                  D // cfg.gpt.heads)
+    assert_rel(st.logits, want, 1e-4, "prefill logits")
 
     spk = rng.standard_normal((1, 32, D)).astype(np.float32)
     emovec = rng.standard_normal((1, D)).astype(np.float32)
