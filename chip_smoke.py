@@ -83,13 +83,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    lowered, since random weights rarely emit the stop token. The GPT
    decode replays a captured step (runtime/decode.py); then, on each
    route's engine, `decode_turns` runs one request's decode captured and
-   eager (the decoder's `eager` argument) from one seed, 3 rounds in turns:
+   eager (the decoder's `eager` argument) from one seed, 2 rounds in turns:
    the codes must be the same every time, and each run prints decode
    tokens/s, wall time and stage seconds; torch.profiler must find the
    same device kernels by name and count in one replay as in one eager
    step (less the generator's seed and offset, which PyTorch writes before
    a replay); 8 replays are timed with CUDA events; and the reserved
    device memory the decode states free is printed.
+4. Continuous batching (runtime/batcher.py), after the three routes above,
+   on each route again at full width with max_mel_tokens 300: the port's
+   server is built with TARS_MAX_CONCURRENCY=8, so TARS_CONTINUOUS_SLOTS
+   "auto" gives 8 slots (chunks of 32 steps, 2 tail workers). On its engine,
+   a 4-slot state with rows at unequal positions and holes: one batched
+   greedy step's logits against each row's single-row step (1e-4 of the
+   row's largest logit float, 1e-2 quantized) with the same codes; 16
+   sampling steps eagerly, captured (beside a running tail) and replayed,
+   the same bits every way; a replay's device kernels by name and count
+   against an eager step's; the captured step timed at 1, 4 and 8 slots.
+   Then 8 concurrent POST /tts through the continuous server and the same
+   8 through a sequential server over the same engine, in turns
+   (continuous, then sequential): each answer a WAV as long as its
+   tail's waveform, with finite samples; each turn prints aggregate audio s
+   per wall s and decode tokens/s, request wall p50 and max and the stage
+   seconds; a continuous turn also its chunks and the launches a chunk of
+   K1/K4-K8, whose counters must rise on the route and stay 0 off it; the
+   slot state's memory, peak memory, and that K6/K8's per-stream arrival
+   counters were made on decoder streams only.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -116,6 +135,7 @@ import tempfile
 import threading
 import time
 import wave
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -125,9 +145,11 @@ TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 MAX_MEL_TOKENS = 300
 L2_CYCLE_BYTES = 100_000_000  # twice the H100's 50 MB L2
-N_REQUESTS = 3
-DECODE_ROUNDS = 3  # captured against eager decode, in turns
+N_REQUESTS = 2
+DECODE_ROUNDS = 2  # captured against eager decode, in turns
 DECODE_SEED = 7
+CONT_REQUESTS = 8  # concurrent /tts requests of the continuous phase, and its slots
+CONT_STEPS = 16  # batched steps held captured against eager
 PROMPT_SECONDS = 3
 PROMPT_SR = 22050
 
@@ -1437,6 +1459,349 @@ def decode_turns(engine, wav_path: str, label: str):
           "of reserved device memory (buffers and captured steps' pools)")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: continuous batching (runtime/batcher.py)
+# ---------------------------------------------------------------------------
+
+
+# a graph may run a device-to-device copy node as the driver's kernel
+# memcpy32_post where the eager step's copy is a copy-engine memcpy (seen
+# on the batched step's logits copy)
+GRAPH_COPY = {"memcpy32_post": "Memcpy DtoD (Device -> Device)"}
+
+
+def slot_tensors(st):
+    """Every buffer of a SlotState, cloned."""
+    import torch
+
+    with torch.inference_mode():
+        return [t.clone() for t in st.tensors()]
+
+
+def set_slots(st, snap, seed: int):
+    import torch
+
+    with torch.inference_mode():
+        for t, s in zip(st.tensors(), snap):
+            t.copy_(s)
+    st.generator.manual_seed(seed)
+
+
+def batched_step_check(engine, wav_path: str, label: str):
+    """(a) A 4-slot state at full width, on a decoder of its own over the
+    served engine's GPT: rows admitted 17, 9 and 5 steps apart (unequal
+    positions) with texts of 12, 47, 90 and 120 ids in the serving bucket of
+    120 (unequal holes). One batched greedy step's logits against each
+    row's single-row step on a copy of its caches (`SlotState.row`); the
+    codes picked must be equal. Then, from one state and seed, CONT_STEPS
+    sampling steps eagerly and captured (the capture taken while a tail,
+    latent pass + s2mel + BigVGAN, runs on another thread) must leave every
+    buffer the same bits, and a replay must run the eager step's device
+    kernels by name and count, less the generator's two fills. 8 replays
+    are timed with CUDA events."""
+    import torch
+
+    from indextts_tpu_torch.runtime.batcher import ContinuousBatcher
+    from indextts_tpu_torch.runtime.decode import GPTDecoder
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    c, rt = engine.cfg, engine.cfg.runtime
+    quantized = rt.gpt_quantize
+    dec = GPTDecoder(engine.gpt, c.gpt, engine.decoder.sampling, kv_int8=engine.decoder.kv_int8)
+    bat = ContinuousBatcher(dec, n_slots=4, text_bucket=rt.max_text_tokens_per_segment,
+                            max_new=rt.max_mel_tokens, chunk_steps=CONT_STEPS, seed=1)
+    st = bat.state
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    ids = fallback_segments(request_text(0) * 4, c.gpt.number_text_tokens,
+                            rt.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
+    emovec, conds = engine.segment_conds(spk, emo)
+    torch.cuda.synchronize()  # conds come from the default stream
+    with torch.inference_mode(), dec.on_stream():
+        for n_text, steps in zip((12, 47, 90, 120), (17, 9, 5, 0)):
+            bat.submit(conds, ids[:n_text])
+            bat._admit()
+            dec.step_chunk(st, steps, False, eager=True)
+        rows = [st.row(b) for b in range(4)]
+        dec.slot_step(st, False)
+        errs = []
+        for b, one in enumerate(rows):
+            dec.slot_step(one, False)
+            scale = float(one.logits.abs().max())
+            errs.append(float((one.logits[0] - st.logits[b]).abs().max()) / scale)
+            if not torch.equal(one.codes[0], st.codes[b]):
+                fail(f"[{label}] batched step: row {b} picked another code than its "
+                     "single-row step")
+    torch.cuda.synchronize()
+    pos, holes = st.pos.tolist(), list(zip(st.hole_s.tolist(), st.hole_e.tolist()))
+    # float32: cuBLAS sums a 4-row product in another order than a 1-row
+    # one, through 24 layers: 1e-4 of the row's largest logit. Quantized:
+    # K4-K8 and the int8 head are exact per row (int32 sums, the same
+    # epilogue), but one float difference before a row's int8 rounding
+    # moves it by up to 1/127 of the row's largest value: 1e-2
+    tol = 1e-2 if quantized else 1e-4
+    print(f"[{label}] batched step (4 slots, pos {pos}, holes {holes}) against each row's "
+          f"single-row step: logits max_abs_err {', '.join(f'{e:.3g}' for e in errs)} "
+          f"of each row's largest (tol {tol:g} relative); codes equal")
+    if max(errs) > tol:
+        fail(f"[{label}] a batched step's logits disagree with the single-row steps'")
+    captured_batched_step(engine, dec, st, spk, emovec, ids, label)
+    slot_step_times(engine, dec, conds, ids, label)
+    return dec
+
+
+def captured_batched_step(engine, dec, st, spk, emovec, ids, label: str):
+    """`batched_step_check`'s captured-against-eager half."""
+    import torch
+
+    c = engine.cfg
+    snap = slot_tensors(st)
+    codes = np.random.default_rng(0).integers(0, c.gpt.stop_mel_token, 120)
+    runs = []
+    with ThreadPoolExecutor(1) as pool:
+        for eager in (True, False, False):
+            set_slots(st, snap, 5)
+            tail = pool.submit(engine._finish_from_codes, spk, emovec, ids[:12], codes, 0, 0.0)
+            with torch.inference_mode(), dec.on_stream():
+                dec.step_chunk(st, CONT_STEPS, True, eager=eager)
+            torch.cuda.synchronize()
+            tail.result(timeout=300)
+            runs.append(slot_tensors(st))
+    same = [all(torch.equal(a, b) for a, b in zip(r, runs[0])) for r in runs[1:]]
+    print(f"[{label}] {CONT_STEPS} batched sampling steps from one state and seed: captured "
+          f"(the capture beside a running tail) and replayed equal eager to the bit: {same}")
+    if not all(same):
+        fail(f"[{label}] a captured batched step disagrees with the eager one")
+    graph = st.graphs[True][0]
+    rng = rng_replay_kernels()
+    with torch.inference_mode(), dec.on_stream():
+        for _ in range(3):
+            eager_k = step_kernels(lambda: dec.slot_step(st, True))
+            graph_k = step_kernels(graph.replay)
+            counts = [{k: n for k, (n, _) in eager_k.items()}, {}]
+            for k, (n, _) in graph_k.items():
+                k = GRAPH_COPY.get(k, k)
+                counts[1][k] = counts[1].get(k, 0) + n - rng.get(k, 0)
+            counts[1] = {k: n for k, n in counts[1].items() if n}
+            if counts[0] == counts[1]:
+                break
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(8):
+            graph.replay()
+        b.record()
+        b.synchronize()
+    n_k, ms_k = (sum(v[i] for v in graph_k.values()) for i in (0, 1))
+    replay_ms = a.elapsed_time(b) / 8
+    print(f"[{label}] one batched step (4 slots): {sum(counts[0].values())} device kernels "
+          f"eager, {n_k} a replay ({ms_k:.4f} device ms); 8 replays: {replay_ms:.4f} ms a "
+          f"step (CUDA events), idle inside the step {100 * (1 - ms_k / replay_ms):.1f} %")
+    if counts[0] != counts[1]:
+        diff = {short_name(k): (counts[0].get(k), counts[1].get(k))
+                for k in set(counts[0]) | set(counts[1]) if counts[0].get(k) != counts[1].get(k)}
+        fail(f"[{label}] a batched replay's device kernels differ from an eager step's: {diff}")
+
+
+def slot_step_times(engine, dec, conds, ids, label: str):
+    """The captured batched sampling step at 1, 4 and CONT_REQUESTS slots,
+    each row admitted 3 steps after the one before (unequal positions and,
+    with texts of 12 + 13 b ids, unequal holes): 8 replays timed with CUDA
+    events, and one replay's device kernels (torch.profiler)."""
+    import torch
+
+    from indextts_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    rt = engine.cfg.runtime
+    for n_slots in (1, 4, CONT_REQUESTS):
+        bat = ContinuousBatcher(dec, n_slots=n_slots, text_bucket=rt.max_text_tokens_per_segment,
+                                max_new=rt.max_mel_tokens, chunk_steps=2, seed=2)
+        st = bat.state
+        with torch.inference_mode(), dec.on_stream():
+            for b in range(n_slots):
+                bat.submit(conds, ids[:12 + 13 * b])
+                bat._admit()
+                dec.step_chunk(st, 3, True, eager=True)
+            dec.step_chunk(st, 2, True)  # one eager step, the capture, a replay
+            graph = st.graphs[True][0]
+            kernels = step_kernels(graph.replay)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(8):
+                graph.replay()
+            b.record()
+            b.synchronize()
+        ms = a.elapsed_time(b) / 8
+        n_k, ms_k = (sum(v[i] for v in kernels.values()) for i in (0, 1))
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"[{label}] batched step at {n_slots} slots (pos {st.pos.tolist()}): {ms:.4f} ms "
+              f"a step over 8 replays (CUDA events), {1e3 * n_slots / ms:.1f} tokens/s if every "
+              f"row decodes; a replay: {n_k} device kernels, {ms_k:.4f} device ms; largest: "
+              + ", ".join(f"{short_name(k)} x{n} {t:.4f}" for k, (n, t) in top))
+        del bat, st, graph
+        gc.collect()
+
+
+def post_batch(port: int, payloads, label: str, mode: str, results):
+    """POST `payloads` to /tts at once, one thread each; every answer must
+    be a 200 with a mono 16-bit WAV of finite samples as long as the
+    waveform its segment's tail made (`results`, by seed). Returns (wall
+    s of the batch, each request's wall s, audio s in all)."""
+    walls, answers = [0.0] * len(payloads), [None] * len(payloads)
+
+    def one(i):
+        t0 = time.perf_counter()
+        answers[i] = post_tts(port, payloads[i])
+        walls[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    audio = 0.0
+    for i, (status, body) in enumerate(answers):
+        if status != 200:
+            fail(f"[{label}] {mode} request {i}: HTTP {status}: {body[:300]!r}")
+        with wave.open(io.BytesIO(body)) as w:
+            if (w.getnchannels(), w.getsampwidth()) != (1, 2):
+                fail(f"[{label}] {mode} request {i}: not a mono 16-bit WAV")
+            sr, n = w.getframerate(), w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), dtype=np.int16)
+        seg = results.get(payloads[i]["seed"])
+        if seg is None or n != len(seg.wav) or n == 0 or not np.isfinite(seg.wav).all():
+            fail(f"[{label}] {mode} request {i}: {n} samples, not its tail's waveform")
+        if int(np.abs(pcm.astype(np.int32)).max()) == 0:
+            fail(f"[{label}] {mode} request {i}: silent audio")
+        audio += n / sr
+    return wall, walls, audio
+
+
+def serve_continuous(wav_path: str, cfg, label: str, rise, stay, tmp: str, card: str):
+    """The route served in continuous mode: TARS_MAX_CONCURRENCY=8, so
+    TARS_CONTINUOUS_SLOTS "auto" gives 8 slots, chunks of 32 steps, 2 tail
+    workers; `batched_step_check` on the served engine; then CONT_REQUESTS
+    concurrent /tts requests through the continuous server and the same
+    ones through a sequential server over the same engine, in turns
+    (continuous, then sequential, each turn with fresh seeds, so no answer
+    comes from a response cache). A continuous turn's stage seconds count
+    from a segment's submit to its tail's start (`submit_to_tail`: queue,
+    decode and the wait for a tail worker), as the JAX service passes them. Every counter is set to 0 just
+    before each continuous turn and read just after: those in `rise` must
+    have risen, those in `stay` must be 0. K6/K8's per-stream arrival
+    counters made in this phase must belong to decoder streams only."""
+    import torch
+
+    from indextts_tpu_torch import serve
+    from indextts_tpu_torch.ops import gemv
+    from indextts_tpu_torch.runtime.server import ServerSettings, TTSServer
+
+    os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, f"cache-{label}-continuous")
+    os.environ["TARS_MAX_CONCURRENCY"] = str(CONT_REQUESTS)
+    arrived = set(gemv._arrived)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        server, engine = serve.build(["--host", "127.0.0.1", "--port", str(ports[0]),
+                                      "--reference-audio", wav_path], cfg=cfg)
+    finally:
+        del os.environ["TARS_MAX_CONCURRENCY"]
+    svc = server.service
+    if svc is None or svc.bat.B != CONT_REQUESTS:
+        fail(f"[{label}] TARS_MAX_CONCURRENCY={CONT_REQUESTS} did not give "
+             f"{CONT_REQUESTS} continuous slots")
+    torch.cuda.synchronize()
+    bat = svc.bat
+    st_bytes = sum(t.nbytes for t in bat.state.tensors())
+    print(f"[{label}] continuous server (TARS_MAX_CONCURRENCY={CONT_REQUESTS}, "
+          f"TARS_CONTINUOUS_SLOTS auto -> {bat.B} slots, chunk {bat.chunk}, tail workers 2) "
+          f"built and warmed up in {time.perf_counter() - t0:.1f} s; slot state: cap "
+          f"{bat.cap} (S {bat.prompt_len} + max_new {bat.max_new}), "
+          f"{st_bytes / 2**20:.1f} MiB")
+    check_dec = batched_step_check(engine, wav_path, label)
+    sequential = TTSServer(serve.make_synth(engine, wav_path), ServerSettings(
+        host="127.0.0.1", port=ports[1], max_concurrency=CONT_REQUESTS,
+        cache_dir=os.path.join(tmp, f"cache-{label}-sequential")))
+    results = {}
+    finish = engine._finish_from_codes
+
+    def record(spk, emovec, text_ids, codes, seed, *rest):
+        results[seed] = finish(spk, emovec, text_ids, codes, seed, *rest)
+        return results[seed]
+
+    engine._finish_from_codes = record
+    threads = [ServerThread(server), ServerThread(sequential)]
+    counters = kernel_counters()
+    step_names = [k for k in counters if k[:2] in ("K1", "K4", "K5", "K6", "K7", "K8")]
+    try:
+        post_tts(ports[1], {"text": request_text(99), "seed": 99})  # capture the B=1 step
+        for turn, mode in enumerate(("continuous", "sequential")):
+            payloads = [{"text": request_text(i), "seed": 1000 * turn + i}
+                        for i in range(CONT_REQUESTS)]
+            dec = svc.decoder if mode == "continuous" else engine.decoder
+            tok0, sec0, chunks0 = (bat.tokens, bat.seconds, bat.chunks) if mode == "continuous" \
+                else (dec.tokens, dec.seconds, 0)
+            for cnt in counters.values():
+                cnt.launches = 0
+            wall, walls, audio = post_batch(ports[0] if mode == "continuous" else ports[1],
+                                            payloads, label, mode, results)
+            launches = {name: cnt.launches for name, cnt in counters.items()}
+            if mode == "continuous":
+                toks, dsec, chunks = bat.tokens - tok0, bat.seconds - sec0, bat.chunks - chunks0
+            else:
+                toks, dsec, chunks = dec.tokens - tok0, dec.seconds - sec0, 0
+            print(f"[{label}] {mode} turn {turn} ({card}): {CONT_REQUESTS} concurrent requests, wall "
+                  f"{wall:.3f} s, audio {audio:.3f} s, aggregate audio_s_per_wall_s="
+                  f"{audio / wall:.3f}, decode_tokens={toks} aggregate decode_tok_per_s="
+                  f"{toks / wall:.1f} (per second in the decode loop {toks / dsec:.1f}), "
+                  f"request wall p50 {statistics.median(walls):.3f} s max {max(walls):.3f} s"
+                  + (f", chunks={chunks}" if chunks else ""))
+            segs = [results[p["seed"]] for p in payloads]
+            print(f"[{label}] {mode} turn {turn} stages_s mean / max over the requests: "
+                  + ", ".join(f"{name} {statistics.mean(v):.3f} / {max(v):.3f}" for name, v in (
+                      ("submit_to_tail" if mode == "continuous" else "gpt_decode",
+                       [r.gpt_gen_time for r in segs]),
+                      ("gpt_latent", [r.gpt_forward_time for r in segs]),
+                      ("s2mel", [r.s2mel_time for r in segs]),
+                      ("bigvgan", [r.bigvgan_time for r in segs]))))
+            if mode != "continuous":
+                continue
+            print(f"[{label}] continuous turn {turn} launches per chunk: " + ", ".join(
+                f"{name.split()[0]} {launches[name] / chunks:.1f}" for name in step_names))
+            for name, n in launches.items():
+                if name in rise and n == 0:
+                    fail(f"[{label}] continuous: {name} was never launched")
+                if name in stay and n != 0:
+                    fail(f"[{label}] continuous: {name} was launched {n} times; it has no "
+                         "place on this path")
+    finally:
+        for th in threads:
+            th.stop()
+        svc.shutdown()
+    print(f"[{label}] continuous phase peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    ours = {(torch.cuda.current_device(), d._stream.cuda_stream)
+            for d in (svc.decoder, engine.decoder, check_dec)}
+    # a stream's handle may be one a freed stream of an earlier route had,
+    # whose counters the new stream then takes over
+    made = set(gemv._arrived) - arrived
+    fused = any(name[:2] in ("K6", "K8") for name in rise)
+    svc_key = (torch.cuda.current_device(), svc.decoder._stream.cuda_stream)
+    if not made <= ours or fused != (svc_key in gemv._arrived):
+        fail(f"[{label}] fused-MLP arrival counters on streams other than the decoders' "
+             f"({made - ours}), or none for the service's decoder")
+    print(f"[{label}] K6/K8 arrival counters made in this phase: {len(made)}, all on "
+          f"decoder streams; the service decoder's stream has its own: {svc_key in gemv._arrived}")
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -1495,6 +1860,10 @@ def main():
             torch.cuda.empty_cache()
             print(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
                   "still allocated")
+        for label, (change, rise, stay) in routes.items():
+            serve_continuous(wav_path, change(full), label, rise, stay, tmp, card)
+            gc.collect()
+            torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -202,25 +202,27 @@ class GPT2Attention(nn.Module):
                     hole_s, hole_e):
         """One token. x (B, 1, D); `cache` this layer's (k, v) float
         (B,H,cap,Dh), or (k8, v8, ksc, vsc) int8 with (B,H,cap) scales;
-        written IN PLACE at slot `index`, a (1,) int64 tensor on the
-        device. The writes are `index_copy_`: indexing with a tensor
-        (`cache[:, :, t] = ...`) would read t on the host, which a captured
-        step cannot."""
+        row b written IN PLACE at slot index[b], `index` a (B,) int64
+        tensor on the device (rows of a continuous batch sit at different
+        slots). The writes are `scatter_` over the index expanded along the
+        heads: indexing with a tensor (`cache[b, :, t] = ...`) would read t
+        on the host, which a captured step cannot."""
         B, _, D = x.shape
         q, k, v = self.c_attn(x).split(D, dim=-1)
         q, k, v = self._heads(q, B), self._heads(k, B), self._heads(v, B)
         q = q[:, :, 0].float()
+        at = index[:, None, None]  # (B, 1, 1)
         if len(cache) == 4:
             k8, v8, ksc, vsc = cache
             for c8, sc, t in ((k8, ksc, k), (v8, vsc, v)):
                 t8, t_sc = quantize_kv(t)
-                c8.index_copy_(2, index, t8)
-                sc.index_copy_(2, index, t_sc)
+                c8.scatter_(2, at[..., None].expand(t8.shape), t8)
+                sc.scatter_(2, at.expand(t_sc.shape), t_sc)
             ctx = ragged_decode_attention_q8(q, k8, v8, ksc, vsc, valid_len, hole_s, hole_e)
         else:
             k_cache, v_cache = cache
-            k_cache.index_copy_(2, index, k.to(k_cache.dtype))
-            v_cache.index_copy_(2, index, v.to(v_cache.dtype))
+            for c, t in ((k_cache, k), (v_cache, v)):
+                c.scatter_(2, at[..., None].expand(t.shape), t.to(c.dtype))
             ctx = ragged_decode_attention(q, k_cache, v_cache, valid_len, hole_s, hole_e)
         return self.c_proj(ctx.to(x.dtype).reshape(B, 1, D))
 
@@ -313,8 +315,8 @@ class GPT2Core(nn.Module):
     def decode_step(self, x, caches: Sequence[torch.Tensor], index: torch.Tensor, valid_len,
                     hole_s, hole_e):
         """x (B, 1, D); caches (ks, vs) float (L, B, H, cap, Dh), or
-        (ks, vs, ksc, vsc) int8 with (L, B, H, cap) scales, updated in place
-        at slot `index` ((1,) int64); keys < valid_len ((B,) int32)
+        (ks, vs, ksc, vsc) int8 with (L, B, H, cap) scales, row b updated
+        in place at slot index[b] ((B,) int64); keys < valid_len ((B,) int32)
         outside [hole_s, hole_e) attend. Every per-token value is a device
         tensor, so the step can be captured in a CUDA graph."""
         for i, blk in enumerate(self.h):

@@ -108,14 +108,14 @@ class UnifiedVoice(nn.Module):
         return self.mel_embedding(tok) + self.mel_pos_embedding(torch.zeros_like(tok))
 
     def embed_mel_step(self, tokens, step: torch.Tensor):
-        """Embed one decode-step token at mel position step + 2: the
+        """Embed one decode-step token a row at mel position step + 2: the
         reference's get_fixed_embedding skips position 1
-        (model_v2.py:174-177), a quirk kept here. `step` is a (1,) integer
-        tensor on the tokens' device, as the JAX step's device scalar, so a
-        captured step reads it in place."""
+        (model_v2.py:174-177), a quirk kept here. `step` is a (B,) integer
+        tensor on the tokens' device, each row's code index (the JAX step
+        broadcasts its per-row `gen_count` the same way), so a captured step
+        reads it in place."""
         emb = self.mel_embedding(tokens[:, None])
-        pos = (step + 2).view(1, 1).expand(tokens.shape[0], 1)
-        return emb + self.mel_pos_embedding(pos)
+        return emb + self.mel_pos_embedding((step + 2)[:, None])
 
     def mel_logits_from_hidden(self, hidden):
         return self.mel_head(self.final_norm(hidden.float()))
@@ -125,7 +125,7 @@ class UnifiedVoice(nn.Module):
 
     def gpt_decode_step(self, token_embeds, caches, index, valid_len, hole_s, hole_e):
         """caches: (ks, vs) float or (ks, vs, ksc, vsc) int8 + scales;
-        index (1,) and valid_len (B,) integer tensors (GPT2Core.decode_step)."""
+        index (B,) and valid_len (B,) integer tensors (GPT2Core.decode_step)."""
         return self.gpt.decode_step(token_embeds, caches, index, valid_len,
                                     hole_s, hole_e)
 

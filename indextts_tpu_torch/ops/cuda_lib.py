@@ -7,7 +7,8 @@ and an unchanged one loads as is. `build()` starts one nvcc per source at
 once; a wrapper's first launch builds only its own library.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `check()`
-raises on a non-zero code.
+raises on a non-zero code. Each wrapper counts its launches on a
+`LaunchCounter`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_attention", "snake", "dit_attention", "gemv")
@@ -113,6 +116,37 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _FNS[key] = fn
     return fn
+
+
+class LaunchCounter:
+    """The launches of one kernel; its wrapper calls `add()` where it
+    launches it. A call made while this thread's current stream captures
+    a CUDA graph launches nothing: it goes to the thread's tally, which the
+    capturing code takes (`take_captured`) and adds once a replay
+    (`add_replayed`). So a capture counts nothing, and another thread's
+    launches during it count as they happen. Adds take a lock, so threads
+    lose none."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def add(self) -> None:
+        if torch.cuda.is_current_stream_capturing():
+            self._local.captured = getattr(self._local, "captured", 0) + 1
+        else:
+            self.add_replayed(1)
+
+    def add_replayed(self, n: int) -> None:
+        with self._lock:
+            self.launches += n
+
+    def take_captured(self) -> int:
+        """This thread's calls recorded under capture since its last take."""
+        n = getattr(self._local, "captured", 0)
+        self._local.captured = 0
+        return n
 
 
 def check(err: int, what: str) -> None:

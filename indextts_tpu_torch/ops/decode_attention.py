@@ -37,12 +37,8 @@ SCALE = 1.0 / math.sqrt(64)  # Dh^-1/2; the kernels take Dh=64
 ROUND_KV_BYTES = 208 * 2 * 256
 
 
-class _Counter:
-    launches = 0
-
-
-counter = _Counter()
-q8_counter = _Counter()
+counter = cuda_lib.LaunchCounter()
+q8_counter = cuda_lib.LaunchCounter()
 NEG_INF = -1e9
 
 
@@ -141,7 +137,7 @@ def ragged_decode_attention(q, k, v, valid_len, hole_start, hole_end):
              he.data_ptr(), out.data_ptr(), B, H, cap, round_keys(cap, 64 * k.element_size()),
              int(k.dtype is torch.bfloat16), SCALE, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(err, "ragged_decode_attention")
-    counter.launches += 1
+    counter.add()
     return out
 
 
@@ -193,5 +189,5 @@ def ragged_decode_attention_q8(q, k8, v8, ksc, vsc, valid_len, hole_start, hole_
              vl.data_ptr(), hs.data_ptr(), he.data_ptr(), out.data_ptr(), B, H, cap,
              round_keys(cap, 64), SCALE, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(err, name)
-    q8_counter.launches += 1
+    q8_counter.add()
     return out

@@ -24,11 +24,7 @@ from indextts_tpu_torch.ops import cuda_lib
 NEG_INF = -1e9
 
 
-class _Counter:
-    launches = 0
-
-
-counter = _Counter()
+counter = cuda_lib.LaunchCounter()
 
 
 def dit_attention_plain(q, k, v, key_mask):
@@ -75,5 +71,5 @@ def dit_attention(q, k, v, key_mask):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
              ctypes.addressof(strides), B, H, T, 1.0 / math.sqrt(Dh), stream)
     cuda_lib.check(err, "dit_attention")
-    counter.launches += 1
+    counter.add()
     return out

@@ -64,14 +64,10 @@ GEMV_MAX_BOX_ROWS = 256
 GEMV_MAX_PASS_BOXES = 32
 
 
-class _Counter:
-    launches = 0
-
-
-gemv_counter = _Counter()
-mlp_counter = _Counter()
-gemv4_counter = _Counter()
-mlp4_counter = _Counter()
+gemv_counter = cuda_lib.LaunchCounter()
+mlp_counter = cuda_lib.LaunchCounter()
+gemv4_counter = cuda_lib.LaunchCounter()
+mlp4_counter = cuda_lib.LaunchCounter()
 
 
 def _pick_block(d: int, f: int, max_blk: int = 1536,
@@ -141,9 +137,13 @@ def unpack_w4(wp: torch.Tensor, axis: int = 0) -> torch.Tensor:
 
 
 def gemv_max_rows() -> int:
-    """Row threshold for the kernels on single-token calls (the JAX
-    package's TARS_GEMV_MAX_ROWS, default 1)."""
-    return int(os.environ.get("TARS_GEMV_MAX_ROWS", "1"))
+    """Row threshold for the kernels on single-token calls: the JAX
+    package's TARS_GEMV_MAX_ROWS, whose default there, 1, is a TPU
+    measurement (XLA's batched int8 GEMM beat its Pallas GEMV at 2-8 rows
+    on a v5e). Here the default is MAX_ROWS, one launch's rows: K5-K8 take a
+    continuous batch's rows in one launch, where the plain contraction
+    would widen every weight to float64 on each call."""
+    return int(os.environ.get("TARS_GEMV_MAX_ROWS", str(MAX_ROWS)))
 
 
 def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -320,7 +320,7 @@ def _gemv_once(xq, a, w, w_scale, bias, fn, symbol, counter, stream, d, f, plan)
     err = fn(xq.data_ptr(), a.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
              bias.data_ptr(), out.data_ptr(), b, d, f, *plan, stream)
     cuda_lib.check(err, f"{symbol} (D={d}, F={f}, {b} rows, plan {plan})")
-    counter.launches += 1
+    counter.add()
     return out
 
 
@@ -410,5 +410,5 @@ def _mlp_once(xq, a, fc, fc2, vecs, arrived, fn, symbol, counter, stream, d, fh,
              vecs[1].data_ptr(), fc2.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
              parts.data_ptr(), arrived.data_ptr(), out.data_ptr(), b, d, fh, hb, stream)
     cuda_lib.check(err, f"{symbol} (D={d}, FH={fh}, {b} rows)")
-    counter.launches += 1
+    counter.add()
     return out

@@ -24,11 +24,7 @@ import torch.nn.functional as F
 from indextts_tpu_torch.ops import cuda_lib
 
 
-class _Counter:
-    launches = 0
-
-
-counter = _Counter()
+counter = cuda_lib.LaunchCounter()
 
 
 def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> np.ndarray:
@@ -169,5 +165,5 @@ def anti_alias_snake(x, alpha, beta, logscale: bool = True):
     err = fn(x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ctypes.addressof(_taps_arg()),
              out.data_ptr(), B, C, T, int(logscale), *snake_plan(B, C, T), int(vec), stream)
     cuda_lib.check(err, "anti_alias_snake")
-    counter.launches += 1
+    counter.add()
     return out

@@ -24,12 +24,21 @@ token; only the prefill, the first pick and the finish check, on the host
 every FINISH_CHECK_EVERY tokens, run eagerly. The CPU runs the same step
 eagerly. A capture or replay that fails raises.
 
+Continuous batching (JAX `prefill_request`, `insert_slot`, `step_chunk`)
+runs on a `SlotState`: n_slots rows, each its own request's decode at its
+own cache position, code count and prompt hole. A request is prefilled
+alone into a free row (`prefill_request`); `step_chunk` advances every row
+by `chunk` steps (`slot_step`, captured and replayed on the card as above),
+and the host reads the rows once a chunk (`read_slots`).
+runtime/batcher.py schedules the requests.
+
 Still missing against the JAX package: beam search, cond-KV and text-prefix
-KV reuse, and the batched and continuous routes.
+KV reuse, and the batched-segments route.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import threading
 import time
@@ -106,13 +115,16 @@ def _step_counters():
             gemv.mlp_counter, gemv.gemv4_counter, gemv.mlp4_counter)
 
 
-class DecodeState:
-    """The static buffers of one decode shape (B rows, caches of `cap`
-    slots), which every request of that shape reuses, and the step captured
-    over them for each value of do_sample (`graphs`: the CUDA graph and each
-    step counter's rise during its capture)."""
+class _LoopState:
+    """The static buffers a decode loop reads and writes, shared by every
+    request that decodes in them: the caches of `batch` rows of `cap`
+    slots, the logits, the codes, the finished flags, the penalty set, each
+    row's prompt hole, the sampling scalars and the generator the draws come
+    from; and the step captured over them for each value of do_sample
+    (`graphs`: the CUDA graph and each step counter's launches in it)."""
 
-    def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device):
+    def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device,
+                 generator: torch.Generator):
         L, H, V = cfg.layers, cfg.heads, cfg.number_mel_codes
         kv = (L, batch, H, cap, cfg.model_dim // H)
         if kv_int8:
@@ -122,18 +134,66 @@ class DecodeState:
         else:
             self.caches = tuple(torch.zeros(kv, device=device) for _ in range(2))
         self.cap = cap
+        self.generator = generator
         zeros = functools.partial(torch.zeros, device=device)
         self.logits = zeros((batch, V))
         self.codes = zeros((batch, cap), dtype=torch.long)  # a request uses max_new
-        self.tok = zeros(batch, dtype=torch.long)  # the last code picked
         self.finished = zeros(batch, dtype=torch.bool)
         self.penal_mask = zeros((batch, V), dtype=torch.bool)
-        self.step = zeros(1, dtype=torch.long)  # index of the last code picked
-        self.start = zeros(1, dtype=torch.long)  # S, the prompt's length
         self.hole_s = zeros(batch, dtype=torch.int32)
         self.hole_e = zeros(batch, dtype=torch.int32)
         self.temperature, self.top_p, self.penalty = zeros(()), zeros(()), zeros(())
         self.graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, list]] = {}
+
+    def tensors(self):
+        """Every buffer: the caches, then the other tensors by name."""
+        return list(self.caches) + [t for t in vars(self).values()
+                                    if isinstance(t, torch.Tensor)]
+
+
+class DecodeState(_LoopState):
+    """One request's decode of B rows in step: every row's last code sits
+    at the same index `step` and its next key at slot S + step."""
+
+    def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device,
+                 generator: torch.Generator):
+        super().__init__(cfg, batch, cap, kv_int8, device, generator)
+        zeros = functools.partial(torch.zeros, device=device, dtype=torch.long)
+        self.tok = zeros(batch)  # the last code picked
+        self.step = zeros(1)  # index of the last code picked
+        self.start = zeros(1)  # S, the prompt's length
+
+
+class SlotState(_LoopState):
+    """`n_slots` rows, each one request's decode or idle, as JAX
+    ContinuousBatcher's state (indextts_tpu/runtime/batcher.py:82-105): a
+    row's own cache position `pos` (its next key's slot), code count
+    `gen_count`, `active` flag (a request holds the row) and prompt hole.
+    A row is idle when it is finished or inactive; an idle row starts
+    finished. `max_new` codes a request at most, so `cap` must hold a
+    prompt of S and S + max_new keys; the last slot of an idle row's cache
+    and its last code column take the writes of its idle steps."""
+
+    def __init__(self, cfg: GPTConfig, n_slots: int, cap: int, max_new: int, kv_int8: bool,
+                 device, generator: torch.Generator):
+        super().__init__(cfg, n_slots, cap, kv_int8, device, generator)
+        self.max_new = max_new
+        zeros = functools.partial(torch.zeros, n_slots, device=device)
+        self.pos = zeros(dtype=torch.long)
+        self.gen_count = zeros(dtype=torch.long)
+        self.active = zeros(dtype=torch.bool)
+        self.finished.fill_(True)
+
+    def row(self, b: int) -> "SlotState":
+        """A copy of slot b as a one-slot state, without its captured
+        steps: what a single-row step is held to a batched one with."""
+        one = copy.copy(self)
+        one.graphs = {}
+        one.caches = tuple(c[:, b:b + 1].clone() for c in self.caches)
+        for name, t in vars(self).items():
+            if isinstance(t, torch.Tensor) and t.dim() > 0:
+                setattr(one, name, t[b:b + 1].clone())
+        return one
 
 
 def cache_cap(prompt_len: int, max_new: int) -> int:
@@ -193,17 +253,19 @@ class GPTDecoder:
             if len(self._states) >= MAX_STATES:
                 self._states.popitem(last=False)
             st = self._states[key] = DecodeState(self.cfg, batch, cap, self.kv_int8,
-                                                 self.device)
+                                                 self.device, self.generator)
         self._states.move_to_end(key)
         return st
 
-    def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int
-                ) -> DecodeState:
-        """Prompt prefill into the static caches of the state of shape (B,
-        cache_cap(S, max_new)): the prompt's KV at slots [0, S), quantized
-        once with `kv_int8`, its last logits, S and the prompt's hole. The
-        slots past S keep an earlier request's values, which no step reads:
-        every key a step attends to was written by this request."""
+    def on_stream(self):
+        """The context that makes the decoder's stream current (a no-op on
+        the CPU)."""
+        return torch.cuda.stream(self._stream)
+
+    def _prompt_prefill(self, conds_latent, text_ids, text_pos, text_valid):
+        """The prompt [conds][text][start_mel] through the GPT: its last
+        logits, its KV as the cache holds it (quantized with `kv_int8`) and
+        its (B, S) mask."""
         model = self.model
         B = conds_latent.shape[0]
         dev = conds_latent.device
@@ -214,16 +276,27 @@ class GPTDecoder:
         prompt_mask = torch.cat(
             [ones.expand(B, conds_latent.shape[1]), text_valid, ones], dim=1)
         hidden, (pk, pv) = model.gpt_prefill(prompt, prompt_mask)
-        S = pk.shape[3]
-        st = self._state(B, cache_cap(S, max_new))
         if self.kv_int8:
             (k8, ksc), (v8, vsc) = quantize_kv(pk), quantize_kv(pv)
             prompt_kv = (k8, v8, ksc, vsc)
         else:
             prompt_kv = (pk, pv)
+        return model.mel_logits_from_hidden(hidden[:, -1]), prompt_kv, prompt_mask
+
+    def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int
+                ) -> DecodeState:
+        """Prompt prefill into the static caches of the state of shape (B,
+        cache_cap(S, max_new)): the prompt's KV at slots [0, S), quantized
+        once with `kv_int8`, its last logits, S and the prompt's hole. The
+        slots past S keep an earlier request's values, which no step reads:
+        every key a step attends to was written by this request."""
+        logits, prompt_kv, prompt_mask = self._prompt_prefill(
+            conds_latent, text_ids, text_pos, text_valid)
+        B, S = prompt_mask.shape
+        st = self._state(B, cache_cap(S, max_new))
         for c, t in zip(st.caches, prompt_kv):
             c[:, :, :, :S].copy_(t)
-        st.logits.copy_(model.mel_logits_from_hidden(hidden[:, -1]))
+        st.logits.copy_(logits)
         st.start.fill_(S)
         hole_s, hole_e = prompt_hole(prompt_mask)
         st.hole_s.copy_(hole_s)
@@ -244,17 +317,20 @@ class GPTDecoder:
         st.top_p.fill_(top_p)
         st.penalty.fill_(penalty)
 
+    def _choose(self, st: _LoopState, do_sample: bool) -> torch.Tensor:
+        """Each row's next code from its penalized logits: a draw from the
+        state's generator, or the argmax."""
+        lg = repetition_penalty(st.logits, st.penal_mask, st.penalty)
+        if do_sample:
+            return sample_top_k_top_p(lg, st.generator, st.temperature, st.top_p,
+                                      self.sampling.top_k)
+        return torch.argmax(lg, dim=-1)
+
     def _pick(self, st: DecodeState, do_sample: bool):
         """Pick code `step` from the logits: stop for a finished row; write
         it to codes, the finished flags and the penalty set."""
         stop = self.cfg.stop_mel_token
-        lg = repetition_penalty(st.logits, st.penal_mask, st.penalty)
-        if do_sample:
-            tok = sample_top_k_top_p(lg, self.generator, st.temperature, st.top_p,
-                                     self.sampling.top_k)
-        else:
-            tok = torch.argmax(lg, dim=-1)
-        tok = torch.where(st.finished, torch.full_like(tok, stop), tok)
+        tok = torch.where(st.finished, stop, self._choose(st, do_sample))
         st.tok.copy_(tok)
         st.codes.index_copy_(1, st.step, tok[:, None])
         st.finished.logical_or_(tok == stop)
@@ -269,53 +345,63 @@ class GPTDecoder:
         B = st.tok.shape[0]
         index = st.start + st.step
         valid = (index + 1).to(torch.int32).repeat(B)
-        emb = model.embed_mel_step(st.tok, st.step)
-        hidden = model.gpt_decode_step(emb, st.caches, index, valid, st.hole_s, st.hole_e)
+        emb = model.embed_mel_step(st.tok, st.step.expand(B))
+        hidden = model.gpt_decode_step(emb, st.caches, index.expand(B), valid,
+                                       st.hole_s, st.hole_e)
         st.logits.copy_(model.mel_logits_from_hidden(hidden[:, 0]))
         st.step.add_(1)
         self._pick(st, do_sample)
 
-    def _capture(self, st: DecodeState, do_sample: bool):
-        """Capture one `_advance` over `st` on the decoder's stream, which
-        has run one eagerly just before (K6/K8 set up their per-stream
-        counters, cuBLAS its workspace). The capture launches nothing, so
-        the counters its wrappers raised are put back, and their rise is
-        kept for the replays. thread_local: other serving threads' CUDA
-        calls go on during the capture."""
+    def _capture(self, st: _LoopState, step, do_sample: bool):
+        """Capture one `step` over `st` on the decoder's stream, which has
+        run one eagerly just before (K6/K8 set up their per-stream
+        counters, cuBLAS its workspace), with the state's generator
+        registered. The capture launches nothing: the step counters keep
+        the calls made under it apart (`LaunchCounter.take_captured`), to
+        add once a replay. thread_local: other serving threads' CUDA calls
+        go on during the capture."""
         graph = torch.cuda.CUDAGraph()
         if do_sample:
-            graph.register_generator_state(self.generator)
+            graph.register_generator_state(st.generator)
         counters = _step_counters()
-        before = [c.launches for c in counters]
+        for c in counters:
+            c.take_captured()
         with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
-            self._advance(st, do_sample)
-        rise = [c.launches - b for c, b in zip(counters, before)]
-        for c, b in zip(counters, before):
-            c.launches = b
-        st.graphs[do_sample] = (graph, rise)
+            step(st, do_sample)
+        st.graphs[do_sample] = (graph, [c.take_captured() for c in counters])
         return st.graphs[do_sample]
+
+    def _steps(self, st: _LoopState, step, do_sample: bool, n: int, eager: bool,
+               until_finished: bool = False):
+        """`step` over `st`, n times. On the card, unless `eager`, the first
+        runs eagerly and is captured, the rest replay the capture (a
+        state's later calls replay from the start). With `until_finished`,
+        stop once every row has finished, checked on the host every
+        FINISH_CHECK_EVERY steps."""
+        capture = not eager and self._stream is not None
+        graph, rise = st.graphs.get(do_sample, (None, None)) if capture else (None, None)
+        replays = 0
+        for r in range(n):
+            if (until_finished and (r + 1) % FINISH_CHECK_EVERY == 0
+                    and bool(st.finished.all())):
+                break
+            if graph is not None:
+                graph.replay()
+                replays += 1
+                continue
+            step(st, do_sample)
+            if capture:
+                graph, rise = self._capture(st, step, do_sample)
+        for c, k in zip(_step_counters(), rise or ()):
+            c.add_replayed(k * replays)
 
     def _loop(self, st: DecodeState, do_sample: bool, max_new: int, eager: bool):
         """Codes 0 .. max_new - 1: the first picked from the prefill's
         logits, each next by one step, stopping early once every row has
         finished (checked on the host every FINISH_CHECK_EVERY codes). On
         the card, unless `eager`, a step is a replay of the captured one."""
-        capture = not eager and self._stream is not None
         self._pick(st, do_sample)
-        graph, rise = st.graphs.get(do_sample, (None, None)) if capture else (None, None)
-        replays = 0
-        for r in range(1, max_new):
-            if r % FINISH_CHECK_EVERY == 0 and bool(st.finished.all()):
-                break
-            if graph is not None:
-                graph.replay()
-                replays += 1
-                continue
-            self._advance(st, do_sample)
-            if capture:
-                graph, rise = self._capture(st, do_sample)
-        for c, n in zip(_step_counters(), rise or ()):
-            c.launches += n * replays
+        self._steps(st, self._advance, do_sample, max_new - 1, eager, until_finished=True)
 
     @torch.inference_mode()
     def generate(self, conds_latent, text_ids, text_pos, text_valid,
@@ -340,7 +426,7 @@ class GPTDecoder:
             caller = None if self._stream is None else torch.cuda.current_stream(self.device)
             if caller is not None:
                 self._stream.wait_stream(caller)
-            with torch.cuda.stream(self._stream):  # no-op on the CPU
+            with self.on_stream():
                 st = self.prefill(conds_latent, text_ids, text_pos, text_valid, max_new)
                 self._reset(st, temperature, top_p, repetition_penalty_value)
                 self._loop(st, do_sample, max_new, eager)
@@ -354,3 +440,93 @@ class GPTDecoder:
             self.tokens += int(lengths.sum())
             self.seconds += time.perf_counter() - t0
         return GenerateResult(codes=codes, lengths=lengths)
+
+    # -- continuous batching ------------------------------------------------
+    # The counterpart of the JAX decoder's prefill_request, insert_slot and
+    # step_chunk (indextts_tpu/runtime/decode.py:881-1058): requests join
+    # and leave the rows of one SlotState between chunks of steps
+    # (runtime/batcher.py holds the host side).
+
+    @torch.inference_mode()
+    def slot_state(self, n_slots: int, cap: int, max_new: int, temperature: float,
+                   top_p: float, penalty: float, seed: int) -> SlotState:
+        """A SlotState on the decoder's device, with its sampling scalars
+        and its own generator seeded once with `seed`."""
+        with self.on_stream():
+            st = SlotState(self.cfg, n_slots, cap, max_new, self.kv_int8, self.device,
+                           torch.Generator(device=self.device).manual_seed(seed))
+            st.temperature.fill_(temperature)
+            st.top_p.fill_(top_p)
+            st.penalty.fill_(penalty)
+        return st
+
+    def prefill_request(self, st: SlotState, slot: int, conds_latent, text_ids, text_pos,
+                        text_valid):
+        """Prefill one request (B=1) into row `slot`: its KV into the row's
+        slots [0, S), quantized on insert with `kv_int8`; its last logits;
+        pos S, no codes (all stop), not finished, active; its prompt hole;
+        the HF fake-prompt tokens {1, start_mel} as its penalty set. Runs on
+        the current stream, the host reading nothing."""
+        logits, prompt_kv, prompt_mask = self._prompt_prefill(
+            conds_latent, text_ids, text_pos, text_valid)
+        S = prompt_mask.shape[1]
+        if S + st.max_new > st.cap:
+            raise ValueError(f"prompt of {S} + {st.max_new} codes exceeds the slot "
+                             f"caches' {st.cap} keys")
+        for c, t in zip(st.caches, prompt_kv):
+            c[:, slot, :, :S].copy_(t[:, 0])
+        st.logits[slot].copy_(logits[0])
+        hole_s, hole_e = prompt_hole(prompt_mask)
+        st.hole_s[slot].copy_(hole_s[0])
+        st.hole_e[slot].copy_(hole_e[0])
+        st.pos[slot].fill_(S)
+        st.gen_count[slot].fill_(0)
+        st.finished[slot].fill_(False)
+        st.active[slot].fill_(True)
+        st.penal_mask[slot].zero_()
+        st.penal_mask[slot, 1] = True
+        st.penal_mask[slot, self.cfg.start_mel_token] = True
+        st.codes[slot].fill_(self.cfg.stop_mel_token)
+
+    def slot_step(self, st: SlotState, do_sample: bool):
+        """One step of every row, as the body of JAX `_step_chunk`: pick
+        from the penalized logits; an idle row (finished or inactive) takes
+        stop and writes no code; codes go at gen_count; a row finishes on
+        stop or at max_new codes; the penalty scatter; the code's embedding
+        at mel position gen_count + 2 (the count before this code); the
+        forward at slot pos, keys < pos + 1 attending; pos + 1 for a row
+        that was not idle. An idle row's forward writes its cache's last
+        slot and attends to one key; its outputs are not read. No write of
+        a live row is clamped: pos < S + max_new <= cap.
+
+        JAX bounds its attention reads per chunk by the deepest row
+        (`prefix_limit`, batcher.py:209-222); K1 and K4 need no counterpart,
+        their work already follows each row's valid_len."""
+        model, stop = self.model, self.cfg.stop_mel_token
+        idle = st.finished | ~st.active
+        live = (~idle).long()
+        tok = torch.where(idle, stop, self._choose(st, do_sample))
+        st.codes.scatter_(1, torch.where(idle, st.cap - 1, st.gen_count)[:, None], tok[:, None])
+        emb = model.embed_mel_step(tok, st.gen_count.clamp(max=st.max_new - 1))
+        st.gen_count.add_(live)
+        st.finished.logical_or_((tok == stop) | (st.gen_count >= st.max_new))
+        st.penal_mask.scatter_(1, tok[:, None], True)
+        write = torch.where(idle, st.cap - 1, st.pos)
+        valid = torch.where(idle, 1, st.pos + 1).to(torch.int32)
+        hidden = model.gpt_decode_step(emb, st.caches, write, valid, st.hole_s, st.hole_e)
+        st.logits.copy_(model.mel_logits_from_hidden(hidden[:, 0]))
+        st.pos.add_(live)
+
+    def step_chunk(self, st: SlotState, chunk: int, do_sample: bool, eager: bool = False):
+        """`chunk` steps of every row, on the current stream. On the card,
+        unless `eager`, the step is captured once per state and do_sample
+        and replayed (the JAX loop's early exit once every row is idle has
+        no counterpart: an idle row's steps change nothing it keeps)."""
+        self._steps(st, self.slot_step, do_sample, chunk, eager)
+
+    @staticmethod
+    def read_slots(st: SlotState) -> np.ndarray:
+        """The host's one read of a chunk: (n_slots, 2 + max_new) int64, each
+        row's finished flag, gen_count and codes."""
+        return torch.cat([st.finished[:, None].long(), st.gen_count[:, None],
+                          st.codes[:, :st.max_new]], dim=1).cpu().numpy()

@@ -19,7 +19,8 @@ ops/gemv.py run under "pallas", and under "auto" for W4 on CUDA only.
 
 Routes the port does not implement raise NotImplementedError: beam search
 (num_beams > 1), batched segments, emo_vector / use_emo_text, and bfloat16
-s2mel or vocoder dtypes.
+s2mel or vocoder dtypes. `infer_continuous` decodes the segments in a
+shared runtime/batcher.py ContinuousService.
 
 The AR decode (runtime/decode.py `GPTDecoder`) replays a captured step on
 the card; the engine hands it each request's seed (a random one for a
@@ -295,6 +296,17 @@ class IndexTTS2Engine:
         return self._finish_from_codes(spk, emovec, text_ids, codes, seed, t_gen)
 
     @torch.inference_mode()
+    def segment_conds(self, spk: SpeakerConditioning, emo: EmotionConditioning,
+                      emo_alpha: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A segment's conditioning: (emovec (1, D), the GPT prompt's
+        conditioning latents (1, 34, D)), merge_emovec then
+        build_conds_latent."""
+        emovec = self.gpt.merge_emovec(
+            spk.spk_cond_emb, emo.emo_cond_emb, self._tensor([spk.cond_len]),
+            self._tensor([emo.cond_len]), emo_alpha)
+        return emovec, self.gpt.build_conds_latent(spk.spk_latents, emovec)
+
+    @torch.inference_mode()
     def _decode_segment_codes(
         self,
         spk: SpeakerConditioning,
@@ -315,10 +327,7 @@ class IndexTTS2Engine:
         if nb > 1:
             raise NotImplementedError("beam search (num_beams > 1) is not ported yet")
         t0 = time.perf_counter()
-        emovec = self.gpt.merge_emovec(
-            spk.spk_cond_emb, emo.emo_cond_emb, self._tensor([spk.cond_len]),
-            self._tensor([emo.cond_len]), emo_alpha)
-        conds = self.gpt.build_conds_latent(spk.spk_latents, emovec)
+        emovec, conds = self.segment_conds(spk, emo, emo_alpha)
         n = len(text_ids)
         ids, pos, valid = self.decoder.build_text_prompt_arrays(
             np.asarray(text_ids)[None], np.asarray([n]), n)
@@ -457,6 +466,38 @@ class IndexTTS2Engine:
             stats.append(self.synthesize_segment(
                 spk, emo, np.asarray(seg), emo_alpha=emo_alpha,
                 seed=None if seed is None else seed + i, **gen_kwargs))
+        return self._joined(stats, start, interval_silence, output_path)
+
+    def infer_continuous(
+        self,
+        service,
+        spk_audio: Union[str, Tuple[np.ndarray, int]],
+        text_ids_segments: List[np.ndarray],
+        emo_audio: Optional[Union[str, Tuple[np.ndarray, int]]] = None,
+        emo_alpha: float = 1.0,
+        emo_vector: Optional[Sequence[float]] = None,
+        interval_silence: int = 200,
+        seed: Optional[int] = None,
+        timeout: float = 600.0,
+    ):
+        """infer() through a shared runtime/batcher.py ContinuousService:
+        the segments (and those of other concurrent requests) decode in one
+        shared loop, segment i submitted with priority i and tail seed
+        seed + i. Same return contract as infer()."""
+        if emo_vector is not None:
+            raise NotImplementedError("emo_vector is not ported yet")
+        start = time.perf_counter()
+        spk, emo, emo_alpha = self._conditioning(spk_audio, emo_audio, emo_alpha)
+        futs = [service.submit(spk, emo, np.asarray(seg), emo_alpha=emo_alpha,
+                               seed=None if seed is None else seed + i, priority=i)
+                for i, seg in enumerate(text_ids_segments)]
+        stats = [f.result(timeout=timeout) for f in futs]
+        return self._joined(stats, start, interval_silence, None)
+
+    def _joined(self, stats: List[SegmentResult], start: float, interval_silence: int,
+                output_path: Optional[str]):
+        """The segments' audio joined by interval_silence ms of silence, as
+        infer() returns it."""
         sr_out = self.cfg.runtime.sampling_rate
         sil = np.zeros(int(sr_out * interval_silence / 1000.0), np.float32)
         pieces = []
@@ -477,10 +518,15 @@ class IndexTTS2Engine:
         """Normalize + tokenize + split, then infer (needs a tokenizer)."""
         if use_emo_text:
             raise NotImplementedError("use_emo_text is not ported yet")
+        return self.infer(spk_audio, self.text_segments(text, max_text_tokens_per_segment),
+                          **kwargs)
+
+    def text_segments(self, text: str, max_text_tokens_per_segment: Optional[int] = None
+                      ) -> List[np.ndarray]:
+        """Normalize + tokenize + split into segments of token ids."""
         if self.tokenizer is None:
             raise ValueError("engine has no tokenizer; pass pre-tokenized segments to infer()")
         max_seg = max_text_tokens_per_segment or self.cfg.runtime.max_text_tokens_per_segment
         segments = self.tokenizer.split_segments(self.tokenizer.tokenize(text), max_seg)
-        seg_ids = [np.asarray(self.tokenizer.convert_tokens_to_ids(s), np.int32)
-                   for s in segments]
-        return self.infer(spk_audio, seg_ids, **kwargs)
+        return [np.asarray(self.tokenizer.convert_tokens_to_ids(s), np.int32)
+                for s in segments]

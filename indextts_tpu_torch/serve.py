@@ -1,18 +1,25 @@
 """TTS server entry point for the PyTorch port (reference: serve_tars.py).
 
   python -m indextts_tpu_torch.serve --reference-audio prompt.wav --port 8000
+  TARS_MAX_CONCURRENCY=8 python -m indextts_tpu_torch.serve ...   # continuous
 
 Follows indextts_tpu/serve.py: build the engine, warm it up once on the
 default speaker prompt, then serve the copied `TTSServer` (POST /tts, GET
 /healthz /readyz /metrics). Without a checkpoint loader in the port, the
 engine runs seeded random weights and text goes through `byte_fallback_ids`.
 
+Serving mode: sequential, or continuous batching, where every request's
+segments decode in one shared chunked loop (runtime/batcher.py
+`ContinuousService`), as the JAX server picks it (`pick_continuous_slots`).
+
 Left out against the JAX entry point: the compile cache, multihost
-initialization, precompilation, continuous batching, the Qwen emotion model
-and streaming (/tts/stream answers 400). A warmup that fails raises.
+initialization, precompilation, the Qwen emotion model and streaming
+(/tts/stream answers 400). A warmup that fails raises.
 
 Env knobs keep the TARS_* names: TARS_MAX_CONCURRENCY, TARS_REFERENCE_AUDIO,
-TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS.
+TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS;
+TARS_CONTINUOUS_SLOTS (default "auto"), TARS_CONTINUOUS_CHUNK (decode steps
+a chunk, 32) and TARS_CONTINUOUS_TAIL_WORKERS (2).
 """
 
 from __future__ import annotations
@@ -39,8 +46,23 @@ def fallback_segments(text: str, number_text_tokens: int, per_segment: int,
             for i in range(0, max(len(ids), 1), cap)]
 
 
-def make_synth(engine, default_prompt: Optional[str]) -> Callable:
-    """The server's synth(text, spk_audio, ...) callable over `engine`.
+def pick_continuous_slots(env) -> int:
+    """Serving-mode selection, as indextts_tpu/serve.py picks it.
+
+    TARS_CONTINUOUS_SLOTS=auto (the default) picks from the declared
+    fan-in: sequential (0 slots) while TARS_MAX_CONCURRENCY <= 3, continuous
+    batching with one slot per admitted request (capped at 8) from 4 up. An
+    explicit integer keeps the choice manual."""
+    raw = env.get("TARS_CONTINUOUS_SLOTS", "auto")
+    if raw != "auto":
+        return int(raw)
+    max_conc = int(env.get("TARS_MAX_CONCURRENCY", "1"))
+    return min(max_conc, 8) if max_conc >= 4 else 0
+
+
+def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
+    """The server's synth(text, spk_audio, ...) callable over `engine`,
+    through the ContinuousService `service` when there is one.
     ValueError -> HTTP 400 in the server."""
 
     def synth(text="", spk_audio=None, emo_audio=None, emo_alpha=1.0,
@@ -52,14 +74,17 @@ def make_synth(engine, default_prompt: Optional[str]) -> Callable:
                 "no speaker prompt: pass spk_audio or set TARS_REFERENCE_AUDIO")
         if use_emo_text:
             raise ValueError("use_emo_text is not supported by the PyTorch port")
-        if engine.tokenizer is not None:
-            return engine.infer_text(spk, text, emo_audio=emo_audio,
-                                     emo_alpha=emo_alpha, emo_vector=emo_vector,
-                                     seed=seed)
         c = engine.cfg
-        seg_ids = fallback_segments(text, c.gpt.number_text_tokens,
-                                    c.runtime.max_text_tokens_per_segment,
-                                    c.gpt.max_text_tokens)
+        if engine.tokenizer is not None:
+            seg_ids = engine.text_segments(text)
+        else:
+            seg_ids = fallback_segments(text, c.gpt.number_text_tokens,
+                                        c.runtime.max_text_tokens_per_segment,
+                                        c.gpt.max_text_tokens)
+        if service is not None:
+            return engine.infer_continuous(service, spk, seg_ids, emo_audio=emo_audio,
+                                           emo_alpha=emo_alpha, emo_vector=emo_vector,
+                                           seed=seed)
         return engine.infer(spk, seg_ids, emo_audio=emo_audio,
                             emo_alpha=emo_alpha, emo_vector=emo_vector, seed=seed)
 
@@ -69,7 +94,8 @@ def make_synth(engine, default_prompt: Optional[str]) -> Callable:
 def build(argv=None, cfg=None):
     """Parse arguments, build the engine and the server; warm up once.
     `cfg` replaces the configuration that --cfg / the TARS_* env would give.
-    Returns (server, engine)."""
+    Returns (server, engine); `server.service` is the ContinuousService in
+    continuous mode (None in sequential mode), which its owner shuts down."""
     p = argparse.ArgumentParser(prog="indextts-tpu-torch-serve")
     p.add_argument("--model-dir", default=os.environ.get("TARS_CHECKPOINT_DIR"))
     p.add_argument("--cfg", default=os.environ.get("TARS_CONFIG_FILE"))
@@ -104,12 +130,24 @@ def build(argv=None, cfg=None):
     settings = ServerSettings(host=args.host, port=args.port)
     settings.enable_streaming = False
     default_prompt = args.reference_audio or settings.reference_audio or None
-    synth = make_synth(engine, default_prompt)
+    service = None
+    slots = pick_continuous_slots(os.environ)
+    if slots > 1:
+        from indextts_tpu_torch.runtime.batcher import ContinuousService
+
+        service = ContinuousService(
+            engine, n_slots=slots, text_bucket=cfg.runtime.max_text_tokens_per_segment,
+            chunk_steps=int(os.environ.get("TARS_CONTINUOUS_CHUNK", "32")),
+            tail_workers=int(os.environ.get("TARS_CONTINUOUS_TAIL_WORKERS", "2")))
+        print(f">> continuous batching: {slots} slots", file=sys.stderr)
+    synth = make_synth(engine, default_prompt, service)
+    server = TTSServer(synth, settings)
+    server.service = service
     if settings.warmup and default_prompt:
         t0 = time.perf_counter()
         synth(text="warmup")
         print(f">> warmup done in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    return TTSServer(synth, settings), engine
+    return server, engine
 
 
 def main(argv=None):

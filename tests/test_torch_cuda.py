@@ -12,6 +12,7 @@ within one unit of it (1e-6 of max|out| is allowed).
 """
 
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -522,3 +523,132 @@ def test_graph_decode_counts_the_eager_launches(cuda_device, route):
             "K7": 4 * steps if quantize and wbits == 4 else 0,
             "K8": 2 * steps if quantize and wbits == 4 else 0}
     assert counts[0] == want
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: the captured batched step against the eager one
+# ---------------------------------------------------------------------------
+
+
+def _slot_batcher(dev, route):
+    """The 2-layer width-256 GPT of `route` (`_graph_decoder`), sampling,
+    and a 4-slot batcher whose rows sit at unequal positions (admitted 5,
+    3 and 2 steps apart) and unequal holes (texts of 3-12 ids in a bucket
+    of 12)."""
+    from indextts_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    dec, _ = _graph_decoder(dev, route)
+    bat = ContinuousBatcher(dec, n_slots=4, text_bucket=12, max_new=60, chunk_steps=8, seed=3)
+    g = torch.Generator(device=dev).manual_seed(2)
+    with torch.inference_mode(), dec.on_stream():
+        for n_text, steps in zip((3, 12, 7, 9), (5, 3, 2, 0)):
+            conds = torch.randn((1, 34, 256), generator=g, device=dev)
+            bat.submit(conds, torch.randint(2, 50, (n_text,), generator=g,
+                                            device=dev).cpu().numpy())
+            bat._admit()
+            dec.step_chunk(bat.state, steps, True, eager=True)
+    torch.cuda.synchronize()
+    return dec, bat
+
+
+@torch.inference_mode()
+def _snapshot(st):
+    return [t.clone() for t in st.tensors()]
+
+
+@torch.inference_mode()
+def _restore(st, snap, seed):
+    for t, s in zip(st.tensors(), snap):
+        t.copy_(s)
+    st.generator.manual_seed(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_batched_step_graph_matches_eager(cuda_device, route):
+    """From one state and seed, 8 batched sampling steps eagerly, then
+    captured (the first step eager, the capture taken while another thread
+    runs K3 on its own stream, 7 replays), then replayed 8 times: every
+    buffer of the state (caches, logits, codes, counts, flags) the same
+    bits all three ways."""
+    dec, bat = _slot_batcher(cuda_device, route)
+    st = bat.state
+    snap = _snapshot(st)
+    q, k, v, mask = _k3_inputs(cuda_device, 300, [300, 150])
+    stop = threading.Event()
+
+    def tail():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            while not stop.is_set():
+                k3.dit_attention(q, k, v, mask)
+                torch.cuda.current_stream().synchronize()
+
+    runs = []
+    for eager in (True, False, False):
+        _restore(st, snap, 11)
+        th = threading.Thread(target=tail)
+        th.start()
+        try:
+            with torch.inference_mode(), dec.on_stream():
+                dec.step_chunk(st, 8, True, eager=eager)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            th.join(timeout=60)
+            stop.clear()
+        runs.append(_snapshot(st))
+    assert list(st.graphs) == [True]
+    for got in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(got, runs[0]))
+    assert not all(torch.equal(a, b) for a, b in zip(runs[0], snap))
+    assert bool(st.active.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_batched_step_makes_no_host_sync(cuda_device, route):
+    """An eager batched step and a replay of the captured one, under
+    set_sync_debug_mode("error"), which raises on any host sync."""
+    dec, bat = _slot_batcher(cuda_device, route)
+    st = bat.state
+    pos = st.pos.clone()
+    with torch.inference_mode(), dec.on_stream():
+        dec.step_chunk(st, 2, True)
+        graph, _ = st.graphs[True]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dec.slot_step(st, True)
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int((st.pos - pos).max()) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_batched_step_counts_each_replay_once(cuda_device, route):
+    """A chunk of 8 batched steps raises the kernels' counters by the
+    eager chunk's launches, whether it captures (one eager step, the
+    capture, 7 replays) or only replays: per step, 2 layers of K1 or K4 (one
+    launch for the 4 rows); W8 2 x 2 + 1 (the head) K5 and 2 K6; W4 one
+    head K5, 4 K7 and 2 K8."""
+    dec, bat = _slot_batcher(cuda_device, route)
+    st = bat.state
+    snap = _snapshot(st)
+    counts = []
+    for eager in (True, False, False):
+        _restore(st, snap, 11)
+        for c in (k1.counter, k1.q8_counter, gemv.gemv_counter, gemv.mlp_counter,
+                  gemv.gemv4_counter, gemv.mlp4_counter):
+            c.launches = 0
+        with torch.inference_mode(), dec.on_stream():
+            dec.step_chunk(st, 8, True, eager=eager)
+        counts.append(_counts())
+    quantize, wbits = GRAPH_ROUTES[route]
+    want = {"K1": 0 if quantize else 16, "K4": 16 if quantize else 0,
+            "K5": (5 if wbits == 8 else 1) * 8 if quantize else 0,
+            "K6": 16 if quantize and wbits == 8 else 0,
+            "K7": 32 if quantize and wbits == 4 else 0,
+            "K8": 16 if quantize and wbits == 4 else 0}
+    assert counts == [want] * 3
