@@ -436,6 +436,7 @@ def test_serve_continuous_tts_request(tmp_path, monkeypatch):
         fut.cancel()
         loop.call_soon_threadsafe(loop.stop)
         thread.join(timeout=10)
+        loop.close()
         server.pool.shutdown(wait=True)
         svc.shutdown()
     assert answers[("/tts/stream", "hello")][0] == 400
@@ -446,3 +447,44 @@ def test_serve_continuous_tts_request(tmp_path, monkeypatch):
             assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, 22050)
             assert w.getnframes() > 0
     assert svc.bat.tokens > 0 and not svc._thread.is_alive()
+
+
+def test_launch_counter_threads(monkeypatch):
+    """Kernel wrappers count launches from several threads (the decode
+    thread, tail workers, request threads): 8 threads add 2000 launches
+    each with a short switch interval, half of them while their own
+    current stream captures (faked per thread: the CPU build has no
+    capture). Every launch outside capture counts once; a capturing
+    thread's calls go to its own tally, which it takes back whole; the
+    replays it adds after count as launches."""
+    import sys
+
+    from indextts_tpu_torch.ops.cuda_lib import LaunchCounter
+
+    tls = threading.local()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: getattr(tls, "capturing", False))
+    counter, taken = LaunchCounter(), []
+
+    def work(capturing):
+        tls.capturing = capturing
+        for _ in range(2000):
+            counter.add()
+        if capturing:
+            n = counter.take_captured()
+            taken.append(n)
+            counter.add_replayed(3 * n)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i % 2 == 0,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert taken == [2000] * 4
+    assert counter.launches == 4 * 2000 + 4 * 3 * 2000
