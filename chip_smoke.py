@@ -54,8 +54,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    K1 (float32 and bfloat16 caches) and K4 are also checked at valid 1-2,
    15-17 and 127-129 (the edges of a 16-key chunk and of a cluster rank's
    share), with unequal rows, a hole across the ranks' boundaries, a hole
-   over every key but one, shares that take two rounds (cap 3000) and, for
-   K1, a row with no key (zeros). K5-K8 are also checked at 16 rows and at
+   over every key but one, shares that take two rounds (cap 3000), the
+   continuous phase's slot state (8 rows in one cache of cap 512 at unequal
+   valid lengths 158-457, holes of unequal length from the conditioning's
+   end, 34, one row without a hole and an idle row attending one key) and,
+   for K1, a row with no key (zeros). K5-K8 are also checked at 16 rows and at
    17 and 40 rows, which go in chunks.
    K5 and K7 are also checked at F=384, at D=2048 and at a contraction long
    enough for three passes of weight boxes a block; K6 and K8 at one group
@@ -90,16 +93,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    step (less the generator's seed and offset, which PyTorch writes before
    a replay); 8 replays are timed with CUDA events; and the reserved
    device memory the decode states free is printed.
-4. Continuous batching (runtime/batcher.py), after the three routes above,
-   on each route again at full width with max_mel_tokens 300: the port's
-   server is built with TARS_MAX_CONCURRENCY=8, so TARS_CONTINUOUS_SLOTS
-   "auto" gives 8 slots (chunks of 32 steps, 2 tail workers). On its engine,
-   a 4-slot state with rows at unequal positions and holes: one batched
-   greedy step's logits against each row's single-row step (1e-4 of the
-   row's largest logit float, 1e-2 quantized) with the same codes; 16
-   sampling steps eagerly, captured (beside a running tail) and replayed,
-   the same bits every way; a replay's device kernels by name and count
-   against an eager step's; the captured step timed at 1, 4 and 8 slots.
+4. Continuous batching (runtime/batcher.py), on each route right after its
+   phase 3, over the same engine (full width, max_mel_tokens 300): the
+   port's server is built again over it with TARS_MAX_CONCURRENCY=8, so
+   TARS_CONTINUOUS_SLOTS "auto" gives 8 slots (chunks of 32 steps, 2 tail
+   workers). On its engine, a 4-slot state with rows at unequal positions
+   and holes: one batched greedy step's logits against each row's
+   single-row step (1e-4 of the row's largest logit float, 1e-2 quantized)
+   with the same codes; 16 sampling steps eagerly, captured (beside a
+   running tail) and replayed, the same bits every way; a replay's device
+   kernels by name and count against an eager step's, and 8 replays timed;
+   the captured step also timed at 1 and 8 slots.
    Then 8 concurrent POST /tts through the continuous server and the same
    8 through a sequential server over the same engine, in turns
    (continuous, then sequential): each answer a WAV as long as its
@@ -296,11 +300,13 @@ def main_path_shapes(cfg, max_mel: int):
     snake.append((ch, T))
     # the regulator's valid length is rounded in float32 (runtime/engine.py)
     ylen = int(np.floor(np.float32(max_mel) * np.float32(1.72)))
-    return {"decode_cap": prompt + max_mel, "snake": snake,
+    # a continuous slot's prompt: the text bucketed to the segment cap
+    slot_prompt = g.condition_num_latent + 2 + cfg.runtime.max_text_tokens_per_segment + 2 + 1
+    return {"decode_cap": prompt + max_mel, "slot_prompt": slot_prompt, "snake": snake,
             "dit_T": ref_mel + target, "dit_valid": min(ref_mel + ylen, ref_mel + target)}
 
 
-def decode_cases(cap: int):
+def decode_cases(cap: int, slot_prompt: int):
     """K1's and K4's cases: (name, B, cap, valid, hole start, hole end). A
     cluster rank takes a share of 16 * ceil(valid / 128) keys (ops/
     decode_attention.py `rank_span`), so valid 15-17 and 127-129 cross a
@@ -308,8 +314,15 @@ def decode_cases(cap: int):
     3000 a share (384 keys) takes two rounds of the block's copies. The
     decoder rounds its caches up to a multiple of 256 slots (runtime/
     decode.py `cache_cap`), so the main path attends to `cap` keys of such
-    a cache."""
+    a cache. The continuous phase's slot state holds 8 rows of prompts of
+    `slot_prompt` keys (the text bucket's left-pad hole starts after the 34
+    conditioning positions; a full bucket has none) and MAX_MEL_TOKENS
+    codes: rows at unequal steps, one idle (one key, a finished request's
+    hole past it)."""
     from indextts_tpu_torch.runtime.decode import cache_cap
+
+    S, c0 = slot_prompt, 34
+    holes = [0, 5, 17, 40, 63, 90, 118, 25]
 
     return [
         ("main", 1, cap, [cap], [0], [0]),
@@ -322,6 +335,9 @@ def decode_cases(cap: int):
         ("hole across ranks", 1, 1000, [1000], [100], [300]),
         ("hole all but one", 2, 500, [500, 500], [0, 1], [499, 500]),
         ("two rounds", 2, 3000, [3000, 2100], [0, 50], [0, 60]),
+        ("slot state", 8, cache_cap(S, MAX_MEL_TOKENS),
+         [S + MAX_MEL_TOKENS, S + 254, S + 193, S + 141, S + 76, S + 33, S + 1, 1],
+         [c0 if h else 0 for h in holes], [c0 + h if h else 0 for h in holes]),
     ]
 
 
@@ -454,7 +470,8 @@ def check_k1(shapes, layers: int, heads: int):
     cap = shapes["decode_cap"]
     # besides decode_cases: a row with no attending key (zeros) beside a
     # row with one
-    cases = decode_cases(cap) + [("no key", 2, 64, [0, 10], [0, 0], [0, 9])]
+    cases = decode_cases(cap, shapes["slot_prompt"]) + [
+        ("no key", 2, 64, [0, 10], [0, 0], [0, 9])]
     err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         def make(B, c):
@@ -718,7 +735,8 @@ def check_k4(shapes, layers: int, heads: int):
         v8, vsc = quantize_kv(torch.randn((B, heads, c, 64), generator=g, device=dev))
         return q, k8, v8, ksc, vsc
 
-    cases = decode_cases(cap) + [("valid-1", 3, cap, [1, 1, 1], [0, 0, 0], [0, 0, 0])]
+    cases = decode_cases(cap, shapes["slot_prompt"]) + [
+        ("valid-1", 3, cap, [1, 1, 1], [0, 0, 0], [0, 0, 0])]
     err = check_decode_cases("K4", k4.ragged_decode_attention_q8,
                              k4.ragged_decode_attention_q8_plain, cases, make, tol)
     main = time_k4(cap, layers, heads)[0]
@@ -1207,7 +1225,7 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
     check each answer. Every counter is set to 0 just before the requests
     and read just after: those in `rise` must have risen, those in `stay`
     must still be 0. Each route has its own response cache, so no request
-    is answered from another route's. Returns the counts."""
+    is answered from another route's. Returns the counts and the engine."""
     import torch
 
     from indextts_tpu_torch import serve
@@ -1287,7 +1305,7 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
         if name in stay and n != 0:
             fail(f"[{label}] {name} was launched {n} times; it has no place on this path")
     decode_turns(engine, wav_path, label)
-    return launches
+    return launches, engine
 
 
 def step_kernels(fn, pad: int = 64):
@@ -1605,7 +1623,8 @@ def captured_batched_step(engine, dec, st, spk, emovec, ids, label: str):
 
 
 def slot_step_times(engine, dec, conds, ids, label: str):
-    """The captured batched sampling step at 1, 4 and CONT_REQUESTS slots,
+    """The captured batched sampling step at 1 and CONT_REQUESTS slots (4
+    are timed by `captured_batched_step`),
     each row admitted 3 steps after the one before (unequal positions and,
     with texts of 12 + 13 b ids, unequal holes): 8 replays timed with CUDA
     events, and one replay's device kernels (torch.profiler)."""
@@ -1614,7 +1633,7 @@ def slot_step_times(engine, dec, conds, ids, label: str):
     from indextts_tpu_torch.runtime.batcher import ContinuousBatcher
 
     rt = engine.cfg.runtime
-    for n_slots in (1, 4, CONT_REQUESTS):
+    for n_slots in (1, CONT_REQUESTS):
         bat = ContinuousBatcher(dec, n_slots=n_slots, text_bucket=rt.max_text_tokens_per_segment,
                                 max_new=rt.max_mel_tokens, chunk_steps=2, seed=2)
         st = bat.state
@@ -1680,10 +1699,11 @@ def post_batch(port: int, payloads, label: str, mode: str, results):
     return wall, walls, audio
 
 
-def serve_continuous(wav_path: str, cfg, label: str, rise, stay, tmp: str, card: str):
-    """The route served in continuous mode: TARS_MAX_CONCURRENCY=8, so
-    TARS_CONTINUOUS_SLOTS "auto" gives 8 slots, chunks of 32 steps, 2 tail
-    workers; `batched_step_check` on the served engine; then CONT_REQUESTS
+def serve_continuous(wav_path: str, engine, label: str, rise, stay, tmp: str, card: str):
+    """The route's engine served in continuous mode: the server built over
+    it with TARS_MAX_CONCURRENCY=8, so TARS_CONTINUOUS_SLOTS "auto" gives 8
+    slots, chunks of 32 steps, 2 tail workers; `batched_step_check` on the
+    engine; then CONT_REQUESTS
     concurrent /tts requests through the continuous server and the same
     ones through a sequential server over the same engine, in turns
     (continuous, then sequential, each turn with fresh seeds, so no answer
@@ -1710,8 +1730,8 @@ def serve_continuous(wav_path: str, cfg, label: str, rise, stay, tmp: str, card:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        server, engine = serve.build(["--host", "127.0.0.1", "--port", str(ports[0]),
-                                      "--reference-audio", wav_path], cfg=cfg)
+        server, _ = serve.build(["--host", "127.0.0.1", "--port", str(ports[0]),
+                                 "--reference-audio", wav_path], engine=engine)
     finally:
         del os.environ["TARS_MAX_CONCURRENCY"]
     svc = server.service
@@ -1726,7 +1746,10 @@ def serve_continuous(wav_path: str, cfg, label: str, rise, stay, tmp: str, card:
           f"built and warmed up in {time.perf_counter() - t0:.1f} s; slot state: cap "
           f"{bat.cap} (S {bat.prompt_len} + max_new {bat.max_new}), "
           f"{st_bytes / 2**20:.1f} MiB")
+    t_check = time.perf_counter()
     check_dec = batched_step_check(engine, wav_path, label)
+    t_serve = time.perf_counter()
+    print(f"[{label}] batched step checks and times took {t_serve - t_check:.1f} s")
     sequential = TTSServer(serve.make_synth(engine, wav_path), ServerSettings(
         host="127.0.0.1", port=ports[1], max_concurrency=CONT_REQUESTS,
         cache_dir=os.path.join(tmp, f"cache-{label}-sequential")))
@@ -1786,6 +1809,9 @@ def serve_continuous(wav_path: str, cfg, label: str, rise, stay, tmp: str, card:
         for th in threads:
             th.stop()
         svc.shutdown()
+        engine._finish_from_codes = finish
+    print(f"[{label}] serving turns took {time.perf_counter() - t_serve:.1f} s; the "
+          f"continuous phase {time.perf_counter() - t0:.1f} s")
     print(f"[{label}] continuous phase peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     ours = {(torch.cuda.current_device(), d._stream.cuda_stream)
@@ -1826,6 +1852,7 @@ def main():
                check_k6(g.layers, g.model_dim),
                check_k7(g.layers, g.model_dim),
                check_k8(g.layers, g.model_dim)]
+    print(f"phases 1-2 (environment, kernels) done at {time.perf_counter() - t_start:.1f} s")
     names = [k["name"] for k in kernels]
     k1, k6 = names[0], names[5]
     routes = {  # label: (config change, kernels that must run, kernels that must not)
@@ -1847,23 +1874,22 @@ def main():
         small_reference(wav_path, quantized(small_config()), "quantized", 1e-2, 1e-2)
         # D=256 (4 heads of 64) opens K7's and K8's gates
         small_reference(wav_path, quantized(small_config(256), wbits=4), "w4", 1e-2, 1e-2)
+        print(f"small configurations done at {time.perf_counter() - t_start:.1f} s")
         os.environ["TARS_MAX_MEL_TOKENS"] = str(MAX_MEL_TOKENS)
         full = load_config()
         launches = {}
         for label, (change, rise, stay) in routes.items():
-            counts = serve_full_width(wav_path, change(full), label, rise, stay, tmp)
+            counts, engine = serve_full_width(wav_path, change(full), label, rise, stay, tmp)
             # each kernel's launches come from the route that runs it first
             for name in rise:
                 launches.setdefault(name, counts[name])
+            serve_continuous(wav_path, engine, label, rise, stay, tmp, card)
             # one engine on the card at a time
+            del engine
             gc.collect()
             torch.cuda.empty_cache()
             print(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-                  "still allocated")
-        for label, (change, rise, stay) in routes.items():
-            serve_continuous(wav_path, change(full), label, rise, stay, tmp, card)
-            gc.collect()
-            torch.cuda.empty_cache()
+                  f"still allocated; route done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s")

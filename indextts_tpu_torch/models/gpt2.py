@@ -20,10 +20,13 @@ activation scale (`quant_row`) and an exact int32 contraction. W8 weights
 are int8 (in, out); W4 weights are int4 pairs packed into bytes
 (ops/gemv.py `pack_w4`), along the rows, except the MLP's c_proj, which is
 packed along its output columns. `gemv=True` is the JAX package's
-`gemv_impl="pallas"`: single-row decode calls take the kernels of
-ops/gemv.py where the JAX package's gating opens them (K5 or K7 for c_attn
-and attn c_proj, K6 or K8 for the whole MLP, K5 for the int8 logits head).
-Every other call (prefill, the latent pass, and every call with
+`gemv_impl="pallas"`: single-token decode calls, at any row count, take
+the kernels of ops/gemv.py where the JAX package's shape gating opens them
+(K5 or K7 for c_attn and attn c_proj, K6 or K8 for the whole MLP, K5 for
+the int8 logits head); the wrappers launch them in chunks of rows. The JAX
+package's row threshold (TARS_GEMV_MAX_ROWS, 1 by default, from a TPU
+measurement) has no counterpart: a continuous batch's rows take the
+kernels too. Every other call (prefill, the latent pass, and every call with
 `gemv=False`, the JAX package's "xla" route) takes the plain contraction,
 W4 weights unpacked once per call. `QuantDenseHead` is the int8 logits head
 (`head_quant`); it stays W8 under W4, as in the JAX package.
@@ -121,8 +124,8 @@ class QConv1D(nn.Module):
     """Quantized Conv1D (the JAX Conv1D with quantize=True): per-output-
     channel scale, and an int8 weight (in, out) with wbits=8, or int4 pairs
     packed along the rows (in/2, out), or with `cols` along the columns
-    (in, out/2), with wbits=4. With `gemv`, single-row decode calls take
-    kernel K5 (W8) or K7 (W4, rows) where the JAX gating opens it."""
+    (in, out/2), with wbits=4. With `gemv`, single-token decode calls take
+    kernel K5 (W8) or K7 (W4, rows) where the JAX shape gating opens it."""
 
     def __init__(self, nx: int, nf: int, gemv: bool = False, wbits: int = 8,
                  cols: bool = False):
@@ -147,7 +150,7 @@ class QConv1D(nn.Module):
         rows = _single_rows(x)
         w4 = self.wbits == 4
         opens = (not self.cols and gemv_ops.supports_w4(d, f)) if w4 else gemv_ops.supports(d, f)
-        if self.gemv and 0 < rows <= gemv_ops.gemv_max_rows() and opens:
+        if self.gemv and rows and opens:
             x_q, a = quant_row(x.reshape(rows, d))
             gemv = gemv_ops.gemv_w4 if w4 else gemv_ops.gemv_w8
             y = gemv(x_q, a, self.stored_weight, self.weight_scale, self.bias)
@@ -242,8 +245,7 @@ class GPT2MLP(nn.Module):
         d = x.shape[-1]
         rows = _single_rows(x)
         supported = gemv_ops.supports_mlp_w4 if self.w4 else gemv_ops.supports_mlp
-        if (self.quantize and self.gemv and 0 < rows <= gemv_ops.gemv_max_rows()
-                and supported(d, 4 * d)):
+        if self.quantize and self.gemv and rows and supported(d, 4 * d):
             fc, pj = self.c_fc, self.c_proj
             fused = gemv_ops.mlp_w4 if self.w4 else gemv_ops.mlp_w8
             x_q, a = quant_row(x.reshape(rows, d))

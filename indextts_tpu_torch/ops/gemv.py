@@ -40,7 +40,6 @@ tensors.
 from __future__ import annotations
 
 import functools
-import os
 
 import torch
 
@@ -134,16 +133,6 @@ def unpack_w4(wp: torch.Tensor, axis: int = 0) -> torch.Tensor:
     w = wp.to(torch.int32)
     lo = ((w & 0xF) ^ 8) - 8
     return torch.cat([lo, w >> 4], dim=axis).to(torch.int8)
-
-
-def gemv_max_rows() -> int:
-    """Row threshold for the kernels on single-token calls: the JAX
-    package's TARS_GEMV_MAX_ROWS, whose default there, 1, is a TPU
-    measurement (XLA's batched int8 GEMM beat its Pallas GEMV at 2-8 rows
-    on a v5e). Here the default is MAX_ROWS, one launch's rows: K5-K8 take a
-    continuous batch's rows in one launch, where the plain contraction
-    would widen every weight to float64 on each call."""
-    return int(os.environ.get("TARS_GEMV_MAX_ROWS", str(MAX_ROWS)))
 
 
 def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -226,6 +226,7 @@ class ContinuousService:
         self._futures: Dict[int, Future] = {}
         self._meta: Dict[int, tuple] = {}
         self._running = True
+        self._error: Optional[BaseException] = None  # what ended the worker
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -244,6 +245,15 @@ class ContinuousService:
             ready.record()
         fut: Future = Future()
         with self._cv:
+            if not self._running:
+                # no thread reads the queue any more: fail now, not at the
+                # caller's timeout
+                err = RuntimeError("ContinuousService is not running"
+                                   + (f": its decode loop failed ({self._error!r})"
+                                      if self._error is not None else " (shut down)"))
+                err.__cause__ = self._error
+                fut.set_exception(err)
+                return fut
             self._incoming.append((conds, np.asarray(text_ids, np.int64), spk, emovec, seed,
                                    fut, time.perf_counter(), int(priority), ready))
             self._cv.notify()
@@ -255,6 +265,7 @@ class ContinuousService:
         except BaseException as e:  # worker death must not strand futures
             with self._cv:
                 self._running = False
+                self._error = e
             self._fail_pending(e)
             raise
 

@@ -122,7 +122,7 @@ def head_quant(cfg: IndexTTS2Config) -> bool:
 
 
 def resolve_gemv(cfg: IndexTTS2Config, device) -> bool:
-    """Do the quantized GPT's single-row decode calls take the kernels of
+    """Do the quantized GPT's single-token decode calls take the kernels of
     ops/gemv.py? The JAX engine's resolution of `gemv_impl`
     (indextts_tpu/runtime/engine.py:117-138), with the card in the TPU's
     place: "pallas" takes them; "auto" takes them for W4 on CUDA, where the

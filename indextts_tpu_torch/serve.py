@@ -91,11 +91,13 @@ def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
     return synth
 
 
-def build(argv=None, cfg=None):
+def build(argv=None, cfg=None, engine=None):
     """Parse arguments, build the engine and the server; warm up once.
-    `cfg` replaces the configuration that --cfg / the TARS_* env would give.
-    Returns (server, engine); `server.service` is the ContinuousService in
-    continuous mode (None in sequential mode), which its owner shuts down."""
+    `cfg` replaces the configuration that --cfg / the TARS_* env would give;
+    `engine`, an engine already built, replaces the engine and its
+    configuration (a second server over the same models). Returns (server,
+    engine); `server.service` is the ContinuousService in continuous mode
+    (None in sequential mode), which its owner shuts down."""
     p = argparse.ArgumentParser(prog="indextts-tpu-torch-serve")
     p.add_argument("--model-dir", default=os.environ.get("TARS_CHECKPOINT_DIR"))
     p.add_argument("--cfg", default=os.environ.get("TARS_CONFIG_FILE"))
@@ -116,16 +118,18 @@ def build(argv=None, cfg=None):
     from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
     from indextts_tpu_torch.runtime.server import ServerSettings, TTSServer
 
-    t0 = time.perf_counter()
-    cfg = cfg if cfg is not None else load_config(args.cfg)
-    # serving decodes on the sampling route (num_beams=1), as the JAX server
-    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, num_beams=1))
-    print(">> random weights (no checkpoint loader in the port)", file=sys.stderr)
-    # each module's own seeded initialization: the JAX package's all-positive
-    # fill overflows the vocoder to NaN at full width
-    params = random_params(cfg, seed=args.seed, device=args.device)
-    engine = IndexTTS2Engine(cfg, params, device=args.device)
-    print(f">> models ready in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    if engine is None:
+        t0 = time.perf_counter()
+        cfg = cfg if cfg is not None else load_config(args.cfg)
+        # serving decodes on the sampling route (num_beams=1), as the JAX server
+        cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, num_beams=1))
+        print(">> random weights (no checkpoint loader in the port)", file=sys.stderr)
+        # each module's own seeded initialization: the JAX package's
+        # all-positive fill overflows the vocoder to NaN at full width
+        params = random_params(cfg, seed=args.seed, device=args.device)
+        engine = IndexTTS2Engine(cfg, params, device=args.device)
+        print(f">> models ready in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    cfg = engine.cfg
 
     settings = ServerSettings(host=args.host, port=args.port)
     settings.enable_streaming = False

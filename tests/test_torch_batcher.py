@@ -12,10 +12,12 @@
 * The port's batcher against its own sequential greedy `generate` on the
   float, W8 and W4 routes, with requests that run to max_new.
 * A batched step against each row's single-row step at unequal positions
-  and holes; priority admission and aging; oversize text; the service end
-  to end against the sequential `infer`; cancellation and shutdown;
-  `pick_continuous_slots`; the slot caches' size; one POST /tts in
-  continuous mode.
+  and holes, and at 20 slots on the quantized routes, where every decode
+  call takes the GEMV/MLP wrappers; priority admission and aging; oversize
+  text; the service end to end against the sequential `infer`;
+  cancellation and shutdown; a submit to a stopped service failing at
+  once; `pick_continuous_slots`; the slot caches' size; one POST /tts in
+  continuous mode; a second server built over an engine already built.
 
 The card's captured batched step is held to the eager one in
 tests/test_torch_cuda.py.
@@ -236,6 +238,56 @@ def test_batched_step_matches_single_row_steps(route):
             assert int(one.pos[0]) == int(st.pos[b])
 
 
+@pytest.mark.parametrize("route", ["w8", "w4"])
+def test_batched_step_takes_the_kernels_past_16_rows(route, monkeypatch):
+    """20 slots, more rows than one K5-K8 launch takes (16): every decode
+    call of the quantized blocks and of the int8 head goes to the GEMV and
+    fused-MLP wrappers with all 20 rows (on the card they launch the
+    kernels in chunks of rows; here they run their plain versions), none
+    to the unfused contraction; W8 2 x 2 + 1 (the head) gemv_w8 and 2
+    mlp_w8 calls, W4 4 gemv_w4, 2 mlp_w4 and the head's gemv_w8. The
+    batched step's logits are each row's single-row step's within 1e-5 of
+    the row's largest (as in test_batched_step_matches_single_row_steps),
+    and its codes equal."""
+    from indextts_tpu_torch.models import gpt2
+    from indextts_tpu_torch.ops import gemv
+    from indextts_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    dec = _route_decoder(route)
+    bat = ContinuousBatcher(dec, n_slots=20, text_bucket=BUCKET, max_new=30, chunk_steps=1)
+    st = bat.state
+    with torch.inference_mode():
+        for i, (conds, text) in enumerate(_route_requests(20)):
+            bat.submit(t(conds), text)
+            bat._admit()
+            for _ in range(i % 3):
+                dec.slot_step(st, False)
+        rows = [st.row(b) for b in range(20)]
+        calls = []
+        for name in ("gemv_w8", "gemv_w4", "mlp_w8", "mlp_w4"):
+            def counted(xq, *args, _name=name, _fn=getattr(gemv, name)):
+                calls.append((_name, xq.shape[0]))
+                return _fn(xq, *args)
+            monkeypatch.setattr(gemv, name, counted)
+
+        def unfused(*args):
+            raise AssertionError("a decode call took the unfused contraction")
+
+        monkeypatch.setattr(gpt2, "w8a8", unfused)
+        dec.slot_step(st, False)
+        monkeypatch.undo()
+        want = ({"gemv_w8": 5, "mlp_w8": 2} if route == "w8"
+                else {"gemv_w4": 4, "mlp_w4": 2, "gemv_w8": 1})
+        assert {name: sum(1 for c in calls if c[0] == name) for name in want} == want
+        assert len(calls) == sum(want.values()) and {r for _, r in calls} == {20}
+        for b, one in enumerate(rows):
+            dec.slot_step(one, False)
+            want_logits = n(one.logits[0])
+            err = np.abs(n(st.logits[b]) - want_logits).max()
+            assert err <= 1e-5 * np.abs(want_logits).max(), (b, err)
+            assert torch.equal(one.codes[0], st.codes[b])
+
+
 def test_priority_admission_and_aging():
     """One slot: requests admit by priority (FIFO within a level); a request
     of priority 5 that has waited 6 x AGING_S longer than the others admits
@@ -368,6 +420,44 @@ def test_cancel_and_shutdown(monkeypatch):
     assert svc.bat.chunks >= 2 and not svc.bat.busy()
 
 
+def test_submit_fails_fast_once_the_service_stopped(monkeypatch):
+    """A chunk that raises ends the decode thread and fails the pending
+    future with its error; a later submit fails at once, carrying that
+    error, instead of queueing where no thread reads; after shutdown a
+    submit fails at once too."""
+    from indextts_tpu_torch.runtime.batcher import ContinuousService
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+
+    errors = []
+    monkeypatch.setattr(threading, "excepthook", lambda a: errors.append(a.exc_value))
+    eng = _engine()
+    spk = eng.prepare_speaker(speech_like(np.random.default_rng(0), 1.2, 16000), 16000)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    svc = ContinuousService(eng, n_slots=1, text_bucket=8, max_new=4, chunk_steps=4)
+
+    def broken():
+        raise ValueError("chunk failed")
+
+    svc.bat.step = broken
+    first = svc.submit(spk, emo, np.array([3, 4, 5]), seed=0)
+    with pytest.raises(ValueError, match="chunk failed"):
+        first.result(timeout=60)
+    svc._thread.join(timeout=60)
+    assert not svc._thread.is_alive() and [type(e) for e in errors] == [ValueError]
+    later = svc.submit(spk, emo, np.array([3, 4, 5]), seed=1)
+    assert later.done()
+    with pytest.raises(RuntimeError, match="decode loop failed") as info:
+        later.result(timeout=0)
+    assert info.value.__cause__ is errors[0]
+    svc.shutdown(timeout=1)
+    svc2 = ContinuousService(eng, n_slots=1, text_bucket=8, max_new=4, chunk_steps=4)
+    svc2.shutdown(timeout=60)
+    after = svc2.submit(spk, emo, np.array([3, 4, 5]), seed=2)
+    assert after.done()
+    with pytest.raises(RuntimeError, match="shut down"):
+        after.result(timeout=0)
+
+
 @pytest.mark.parametrize("env,slots", [
     ({}, 0), ({"TARS_MAX_CONCURRENCY": "3"}, 0), ({"TARS_MAX_CONCURRENCY": "4"}, 4),
     ({"TARS_MAX_CONCURRENCY": "8"}, 8), ({"TARS_MAX_CONCURRENCY": "16"}, 8),
@@ -447,6 +537,32 @@ def test_serve_continuous_tts_request(tmp_path, monkeypatch):
             assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, 22050)
             assert w.getnframes() > 0
     assert svc.bat.tokens > 0 and not svc._thread.is_alive()
+
+
+def test_build_serves_an_engine_already_built(tmp_path, monkeypatch):
+    """serve.build(engine=...) builds a second server over an engine that
+    a first build made: the same engine comes back, and in continuous mode
+    its service decodes with the engine's own GPT; the warmup runs through
+    the service."""
+    from indextts_tpu_torch import serve
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    monkeypatch.setenv("TARS_CACHE_DIR", str(tmp_path / "cache"))
+    wav_path = str(tmp_path / "spk.wav")
+    audio_utils.save_wav(wav_path, speech_like(np.random.default_rng(1), 1.0, 16000), 16000)
+    argv = ["--host", "127.0.0.1", "--port", "0", "--device", "cpu",
+            "--reference-audio", wav_path]
+    first, engine = serve.build(argv, cfg=to_port_config(parity_config()))
+    assert first.service is None
+    monkeypatch.setenv("TARS_CONTINUOUS_SLOTS", "2")
+    second, same = serve.build(argv, engine=engine)
+    svc = second.service
+    try:
+        assert same is engine and svc.engine is engine
+        assert svc.decoder.model is engine.decoder.model and svc.decoder is not engine.decoder
+        assert svc.bat.B == 2 and svc.bat.chunks > 0
+    finally:
+        svc.shutdown()
 
 
 def test_launch_counter_threads(monkeypatch):

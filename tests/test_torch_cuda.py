@@ -38,7 +38,9 @@ def cuda_device():
 # across the edges of a 16-key chunk and of a share; unequal rows; a hole
 # across the rank boundaries at 128 and 256; a hole over every key but one;
 # shares past one round of the block's copies (cap 3000); mid-decode steps
-# at cap 1657
+# at cap 1657; a continuous batch's slot state at full width (8 rows of
+# 157-key prompts in a cache of 512: unequal valid lengths, holes from the
+# conditioning's end at 34, one row without a hole, an idle row on one key)
 DECODE_CASES = [
     (2, 700, [650, 1], [40, 0], [90, 0]),
     (3, 383, [383, 191, 1], [40, 3, 0], [90, 9, 0]),
@@ -49,6 +51,8 @@ DECODE_CASES = [
     (2, 500, [500, 500], [0, 1], [499, 500]),
     (2, 3000, [3000, 2100], [0, 50], [0, 60]),
     (2, 1657, [400, 1000], [0, 0], [0, 0]),
+    (8, 512, [457, 411, 350, 298, 233, 190, 158, 1], [0] + [34] * 7,
+     [0, 39, 51, 74, 97, 124, 152, 59]),
 ]
 
 
@@ -530,18 +534,20 @@ def test_graph_decode_counts_the_eager_launches(cuda_device, route):
 # ---------------------------------------------------------------------------
 
 
-def _slot_batcher(dev, route):
+def _slot_batcher(dev, route, n_slots=4):
     """The 2-layer width-256 GPT of `route` (`_graph_decoder`), sampling,
-    and a 4-slot batcher whose rows sit at unequal positions (admitted 5,
-    3 and 2 steps apart) and unequal holes (texts of 3-12 ids in a bucket
-    of 12)."""
+    and a batcher of `n_slots` slots whose rows sit at unequal positions
+    (admitted 5, 3 and 2 steps apart, in turn) and unequal holes (texts of
+    3-12 ids in a bucket of 12)."""
     from indextts_tpu_torch.runtime.batcher import ContinuousBatcher
 
     dec, _ = _graph_decoder(dev, route)
-    bat = ContinuousBatcher(dec, n_slots=4, text_bucket=12, max_new=60, chunk_steps=8, seed=3)
+    bat = ContinuousBatcher(dec, n_slots=n_slots, text_bucket=12, max_new=60, chunk_steps=8,
+                            seed=3)
     g = torch.Generator(device=dev).manual_seed(2)
+    admits = [((3, 12, 7, 9)[i % 4], (5, 3, 2, 0)[i % 4]) for i in range(n_slots)]
     with torch.inference_mode(), dec.on_stream():
-        for n_text, steps in zip((3, 12, 7, 9), (5, 3, 2, 0)):
+        for n_text, steps in admits:
             conds = torch.randn((1, 34, 256), generator=g, device=dev)
             bat.submit(conds, torch.randint(2, 50, (n_text,), generator=g,
                                             device=dev).cpu().numpy())
@@ -652,3 +658,39 @@ def test_batched_step_counts_each_replay_once(cuda_device, route):
             "K7": 32 if quantize and wbits == 4 else 0,
             "K8": 16 if quantize and wbits == 4 else 0}
     assert counts == [want] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["w8", "w4"])
+def test_batched_step_launches_k5_to_k8_past_16_slots(cuda_device, route):
+    """20 slots, more rows than one K5-K8 launch takes: a chunk of 8
+    batched steps (one eager step, the capture, 7 replays) launches the
+    kernels in chunks of rows, none of the calls stepping aside to the
+    plain contraction. Per step and call: ceil(20 / 16) K5 or K7 launches
+    and ceil(20 / mlp_rows) K6 or K8 launches; K4 one launch a layer. The
+    captured chunk leaves the state's bits as the eager chunk does."""
+    dec, bat = _slot_batcher(cuda_device, route, n_slots=20)
+    st = bat.state
+    snap = _snapshot(st)
+    quantize, wbits = GRAPH_ROUTES[route]
+    w4 = wbits == 4
+    hb = gemv.mlp_group_w4(256, 1024) if w4 else gemv.mlp_group(256, 1024)
+    per_gemv = -(-20 // gemv.MAX_ROWS)
+    per_mlp = -(-20 // gemv.mlp_rows(256, hb, w4))
+    want = {"K1": 0, "K4": 2 * 8,
+            "K5": (1 if w4 else 5) * per_gemv * 8, "K6": 0 if w4 else 2 * per_mlp * 8,
+            "K7": 4 * per_gemv * 8 if w4 else 0, "K8": 2 * per_mlp * 8 if w4 else 0}
+    assert per_gemv == 2 and per_mlp >= 2
+    runs = []
+    for eager in (True, False):
+        _restore(st, snap, 11)
+        for c in (k1.counter, k1.q8_counter, gemv.gemv_counter, gemv.mlp_counter,
+                  gemv.gemv4_counter, gemv.mlp4_counter):
+            c.launches = 0
+        with torch.inference_mode(), dec.on_stream():
+            dec.step_chunk(st, 8, True, eager=eager)
+        torch.cuda.synchronize()
+        assert _counts() == want
+        runs.append(_snapshot(st))
+    assert all(torch.equal(a, b) for a, b in zip(runs[1], runs[0]))
+    assert bool(st.active.all())
