@@ -1356,6 +1356,43 @@ def rng_replay_kernels():
     return {k: n for k, n in extra.items() if n}
 
 
+# a graph may run a device-to-device copy node as the driver's kernel
+# memcpy32_post where the eager step's copy is a copy-engine memcpy (seen
+# on the batched step's logits copy)
+GRAPH_COPY = {"memcpy32_post": "Memcpy DtoD (Device -> Device)"}
+
+
+def replay_against_eager(eager_fn, graph, sampling: bool, label: str, tries: int = 3):
+    """One eager step's device kernels and one replay's, by name and count,
+    from torch.profiler (`step_kernels`): ({name: (count, ms)} eager,
+    {name: (count, ms)} replay, the kernels PyTorch adds to the replay of a
+    graph that draws from a registered generator, [eager counts, replay
+    counts less those]). A profiler run can lose kernel records (the
+    generator's two fills among them), so a difference, or a sampling
+    step's generator kernels found missing, measures all three again, up
+    to `tries` times: each try runs 4 steps."""
+    for _ in range(tries):
+        rng = rng_replay_kernels() if sampling else {}
+        eager_k = step_kernels(eager_fn)
+        graph_k = step_kernels(graph.replay)
+        counts = [{k: n for k, (n, _) in eager_k.items()}, {}]
+        for k, (n, _) in graph_k.items():
+            k = GRAPH_COPY.get(k, k)
+            counts[1][k] = counts[1].get(k, 0) + n - rng.get(k, 0)
+        counts[1] = {k: n for k, n in counts[1].items() if n}
+        if counts[0] == counts[1] and (rng or not sampling):
+            break
+        print(f"[{label}] replay against eager step, measured again: {kernel_diff(counts)} "
+              f"(the generator's: {rng})")
+    return eager_k, graph_k, rng, counts
+
+
+def kernel_diff(counts) -> dict:
+    """{short name: (eager count, replay count)} where they differ."""
+    return {short_name(k): (counts[0].get(k), counts[1].get(k))
+            for k in set(counts[0]) | set(counts[1]) if counts[0].get(k) != counts[1].get(k)}
+
+
 def short_name(kernel: str) -> str:
     """The first 80 characters of a device kernel's name, less its
     namespaces and return type."""
@@ -1421,18 +1458,9 @@ def decode_turns(engine, wav_path: str, label: str):
     if int(st.start) + int(st.step) + 20 >= st.cap:
         fail(f"[{label}] no room in the cache to profile and time steps")
     # a replay of a sampling step also writes the generator's state
-    rng = rng_replay_kernels() if do_sample else {}
-    # a profiler run can lose kernel records (`one_launch`): a
-    # difference is profiled again, up to three times
     with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
-        for _ in range(3):
-            eager_k = step_kernels(lambda: dec._advance(st, do_sample))
-            graph_k = step_kernels(graph.replay)
-            counts = [{k: n for k, (n, _) in eager_k.items()},
-                      {k: n - rng.get(k, 0) for k, (n, _) in graph_k.items()}]
-            counts[1] = {k: n for k, n in counts[1].items() if n}
-            if counts[0] == counts[1]:
-                break
+        eager_k, graph_k, rng, counts = replay_against_eager(
+            lambda: dec._advance(st, do_sample), graph, do_sample, label)
     (n_eager, ms_eager), (n_graph, ms_graph) = (
         [sum(v[i] for v in ks.values()) for i in (0, 1)] for ks in (eager_k, graph_k))
     print(f"[{label}] one decode step: {n_eager} device kernels ({len(eager_k)} names), "
@@ -1443,9 +1471,8 @@ def decode_turns(engine, wav_path: str, label: str):
     print(f"[{label}] one replay's kernels by device ms: " + ", ".join(
         f"{short_name(k)} x{n} {ms:.4f}" for k, (n, ms) in top))
     if counts[0] != counts[1] or n_eager == 0:
-        diff = {short_name(k): (counts[0].get(k), counts[1].get(k))
-                for k in set(counts[0]) | set(counts[1]) if counts[0].get(k) != counts[1].get(k)}
-        fail(f"[{label}] a replay's device kernels differ from an eager step's: {diff}")
+        fail(f"[{label}] a replay's device kernels differ from an eager step's: "
+             f"{kernel_diff(counts)} (the generator's, taken off the replay's: {rng})")
     # replays back to back, timed with CUDA events: the device's time a
     # step, against which its kernels' sum gives the idle share inside it
     with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
@@ -1480,12 +1507,6 @@ def decode_turns(engine, wav_path: str, label: str):
 # ---------------------------------------------------------------------------
 # phase 4: continuous batching (runtime/batcher.py)
 # ---------------------------------------------------------------------------
-
-
-# a graph may run a device-to-device copy node as the driver's kernel
-# memcpy32_post where the eager step's copy is a copy-engine memcpy (seen
-# on the batched step's logits copy)
-GRAPH_COPY = {"memcpy32_post": "Memcpy DtoD (Device -> Device)"}
 
 
 def slot_tensors(st):
@@ -1593,18 +1614,9 @@ def captured_batched_step(engine, dec, st, spk, emovec, ids, label: str):
     if not all(same):
         fail(f"[{label}] a captured batched step disagrees with the eager one")
     graph = st.graphs[True][0]
-    rng = rng_replay_kernels()
     with torch.inference_mode(), dec.on_stream():
-        for _ in range(3):
-            eager_k = step_kernels(lambda: dec.slot_step(st, True))
-            graph_k = step_kernels(graph.replay)
-            counts = [{k: n for k, (n, _) in eager_k.items()}, {}]
-            for k, (n, _) in graph_k.items():
-                k = GRAPH_COPY.get(k, k)
-                counts[1][k] = counts[1].get(k, 0) + n - rng.get(k, 0)
-            counts[1] = {k: n for k, n in counts[1].items() if n}
-            if counts[0] == counts[1]:
-                break
+        eager_k, graph_k, rng, counts = replay_against_eager(
+            lambda: dec.slot_step(st, True), graph, True, label, tries=5)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         for _ in range(8):
@@ -1614,12 +1626,13 @@ def captured_batched_step(engine, dec, st, spk, emovec, ids, label: str):
     n_k, ms_k = (sum(v[i] for v in graph_k.values()) for i in (0, 1))
     replay_ms = a.elapsed_time(b) / 8
     print(f"[{label}] one batched step (4 slots): {sum(counts[0].values())} device kernels "
-          f"eager, {n_k} a replay ({ms_k:.4f} device ms); 8 replays: {replay_ms:.4f} ms a "
+          f"eager, {n_k} a replay ({ms_k:.4f} device ms), of which the generator's state "
+          f"before the launch: " + (", ".join(f"{short_name(k)} x{n}" for k, n in rng.items())
+                                    or "none") + f"; 8 replays: {replay_ms:.4f} ms a "
           f"step (CUDA events), idle inside the step {100 * (1 - ms_k / replay_ms):.1f} %")
     if counts[0] != counts[1]:
-        diff = {short_name(k): (counts[0].get(k), counts[1].get(k))
-                for k in set(counts[0]) | set(counts[1]) if counts[0].get(k) != counts[1].get(k)}
-        fail(f"[{label}] a batched replay's device kernels differ from an eager step's: {diff}")
+        fail(f"[{label}] a batched replay's device kernels differ from an eager step's: "
+             f"{kernel_diff(counts)} (the generator's, taken off the replay's: {rng})")
 
 
 def slot_step_times(engine, dec, conds, ids, label: str):
