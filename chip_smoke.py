@@ -40,8 +40,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    weight for K7 and K8 (K5-K8; two products for K6 and K8); none for K2
    and K4. K3's `bound_ms` counts 3 x its operations on the TF32 tensor
    cores (495 TFLOP/s), where it runs in 3xTF32; the float32 bound is
-   printed beside it. K3 is also checked at the longest segment the
-   default config allows (T=2838), below one tile, with a row of one valid
+   printed beside it. K3 runs at the CFM solve's width, the target's
+   128-frame bucket (T=898 with 774 valid frames at the main path), and is
+   also checked at the longest segment the default config allows (T=2946
+   with 2838 valid), below one tile, with a row of one valid
    key and with a row of none, on the DiT's strided views (against their
    contiguous copies, to the bit) and called again (the same bits). K2 is
    checked at every shape of a vocoder call at the main path and at the
@@ -92,7 +94,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    same device kernels by name and count in one replay as in one eager
    step (less the generator's seed and offset, which PyTorch writes before
    a replay); 8 replays are timed with CUDA events; and the reserved
-   device memory the decode states free is printed.
+   device memory the decode states free is printed. Phase 3 runs with
+   TARS_STAGE_SYNC=1, so each stage's seconds hold its time on the card.
+   After the float route's requests, `s2mel_turns` runs one segment's s2mel
+   stage with its CFM solve replayed from the captured graph and eagerly
+   (the runner's `eager` argument), 2 rounds in turns: the same mel to the
+   bit every time, both stage times printed, K3 launched 20 x 13 = 260
+   times a stage either way; torch.profiler must find the same device
+   kernels by name and count in one replay as in one eager solve; 4
+   replays are timed with CUDA events against the solve's float32 floor;
+   the solve shapes cached and their graphs' pool are printed.
 4. Continuous batching (runtime/batcher.py), on each route right after its
    phase 3, over the same engine (full width, max_mel_tokens 300): the
    port's server is built again over it with TARS_MAX_CONCURRENCY=8, so
@@ -152,6 +163,7 @@ L2_CYCLE_BYTES = 100_000_000  # twice the H100's 50 MB L2
 N_REQUESTS = 2
 DECODE_ROUNDS = 2  # captured against eager decode, in turns
 DECODE_SEED = 7
+S2MEL_ROUNDS = 2  # the s2mel stage captured against eager, in turns
 CONT_REQUESTS = 8  # concurrent /tts requests of the continuous phase, and its slots
 CONT_STEPS = 16  # batched steps held captured against eager
 PROMPT_SECONDS = 3
@@ -281,6 +293,7 @@ def main_path_shapes(cfg, max_mel: int):
     request decodes max_mel tokens (random weights rarely stop early)."""
     from indextts_tpu_torch.frontend.tokenizer import byte_fallback_ids
     from indextts_tpu_torch.ops.mel import mel_frame_count
+    from indextts_tpu_torch.runtime.engine import next_bucket
     from indextts_tpu_torch.utils import audio as audio_utils
 
     g, v = cfg.gpt, cfg.vocoder
@@ -303,7 +316,10 @@ def main_path_shapes(cfg, max_mel: int):
     # a continuous slot's prompt: the text bucketed to the segment cap
     slot_prompt = g.condition_num_latent + 2 + cfg.runtime.max_text_tokens_per_segment + 2 + 1
     return {"decode_cap": prompt + max_mel, "slot_prompt": slot_prompt, "snake": snake,
-            "dit_T": ref_mel + target, "dit_valid": min(ref_mel + ylen, ref_mel + target)}
+            # the CFM solve's width: the target bucketed to 128 frames, as the
+            # engine's default (precise_shapes=False) runs it
+            "dit_T": ref_mel + next_bucket(target, 128, 128),
+            "dit_valid": min(ref_mel + ylen, ref_mel + next_bucket(target, 128, 128))}
 
 
 def decode_cases(cap: int, slot_prompt: int):
@@ -646,7 +662,7 @@ def dit_qkv(g, B: int, heads: int, T: int):
     return rot[0].transpose(1, 2), rot[1].transpose(1, 2), v
 
 
-def check_k3(shapes, long_T: int, heads: int):
+def check_k3(shapes, longest, heads: int):
     import torch
     import torch.nn.functional as F
 
@@ -656,10 +672,11 @@ def check_k3(shapes, long_T: int, heads: int):
     g = torch.Generator(device=dev).manual_seed(3)
     tol = 2e-5  # 3xTF32 online softmax vs fp32 one-shot softmax, |out| ~ 1
     T, tv = shapes["dit_T"], shapes["dit_valid"]
+    long_T, long_v = longest["dit_T"], longest["dit_valid"]
     # the main path's and the longest segment's (default max_mel_tokens) with
     # the DiT's strided views; T=37 is below one tile; T255 has a row with
     # one valid key, no-valid-key a row that averages v over all T keys
-    cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_T, long_T]),
+    cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
              ("T37", 37, [37, 20]), ("T100", 100, [100, 37]), ("T255", 255, [255, 1]),
              ("T300", 300, [300, 150]), ("T1000", 1000, [999, 600]),
              ("no-valid-key", 300, [300, 0])]
@@ -1504,6 +1521,123 @@ def decode_turns(engine, wav_path: str, label: str):
           "of reserved device memory (buffers and captured steps' pools)")
 
 
+def s2mel_flops(cfg, T: int, valid: int) -> float:
+    """Float32 operations of one CFM solve at width T (runtime.diffusion_steps
+    velocity calls on the CFG batch of 2): the DiT's and WaveNet's matrix
+    products and convolutions, two a multiply-add, attention over `valid`
+    keys; elementwise work and the few rows of the time and style
+    projections left out."""
+    d, w = cfg.s2mel.dit, cfg.s2mel.wavenet
+    H, C, Cw = d.hidden_dim, d.in_channels, w.hidden_dim
+    merge_in = 2 * C + H + (d.style_dim if d.style_condition and not d.style_as_token else 0)
+    recv = sum(1 for i in range(d.depth) if d.uvit_skip_connection and i > d.depth // 2)
+    layer = 3 * H * H + H * H + 3 * H * d.intermediate_size  # wqkv, wo, SwiGLU
+    wavenet = sum(Cw * 2 * Cw * w.kernel_size + Cw * (2 * Cw if i < w.num_layers - 1 else Cw)
+                  for i in range(w.num_layers))
+    per_frame = (d.content_dim * H + merge_in * H + d.depth * layer + recv * 2 * H * H
+                 + (H + C) * H + 2 * H * Cw + Cw * Cw + Cw * C + wavenet
+                 + d.depth * 2 * valid * H)  # attention: QK^T and PV, every head
+    return 2.0 * 2 * T * per_frame * cfg.runtime.diffusion_steps
+
+
+def s2mel_turns(engine, wav_path: str, label: str):
+    """The served engine's s2mel stage on one segment (the speaker prompt
+    and request 0's text, decoded once from DECODE_SEED), its CFM solve a
+    replay of the captured graph and the same solve eagerly on the same
+    stream and buffers (the runner's `eager` argument), S2MEL_ROUNDS rounds
+    in turns: every mel must equal the first replayed one to the bit, each
+    run prints the stage's seconds (under TARS_STAGE_SYNC=1, so the card's
+    time is in them), and K3 must count diffusion_steps x depth launches a
+    stage either way. Then torch.profiler must find the same device kernels
+    by name and count in one replay as in one eager solve
+    (`replay_against_eager`); 4 replays are timed with CUDA events against
+    the solve's float32 floor (`s2mel_flops` over 67 TFLOP/s); and the
+    solve shapes cached and their graphs' pool are printed."""
+    import torch
+
+    from indextts_tpu_torch.ops import cuda_lib, dit_attention
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t0 = time.perf_counter()
+    c, runner = engine.cfg, engine.s2mel_runner
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    ids = fallback_segments(request_text(0), c.gpt.number_text_tokens,
+                            c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
+    emovec, codes, t_gen = engine._decode_segment_codes(spk, emo, ids, seed=DECODE_SEED)
+    per_stage = c.runtime.diffusion_steps * c.s2mel.dit.depth
+    engine._finish_from_codes(spk, emovec, ids, codes, DECODE_SEED, t_gen)  # its graph
+    first, times = None, {"graph": [], "eager": []}
+    for r in range(S2MEL_ROUNDS):
+        for mode in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+            if mode == "eager":
+                runner.solve = functools.partial(type(runner).solve, runner, eager=True)
+            engine._mel_taps = []
+            dit_attention.counter.launches = 0
+            try:
+                seg = engine._finish_from_codes(spk, emovec, ids, codes, DECODE_SEED, t_gen)
+            finally:
+                runner.__dict__.pop("solve", None)
+            mel, launches = engine._mel_taps[0], dit_attention.counter.launches
+            times[mode].append(seg.s2mel_time)
+            print(f"[{label}] s2mel round {r} {mode}: s2mel_s={seg.s2mel_time:.4f} "
+                  f"(gpt_latent {seg.gpt_forward_time:.4f}, bigvgan {seg.bigvgan_time:.4f}); "
+                  f"K3 launches {launches}")
+            if launches != per_stage:
+                fail(f"[{label}] s2mel {mode}: K3 launched {launches} times, not "
+                     f"{per_stage} ({c.runtime.diffusion_steps} steps x {c.s2mel.dit.depth} "
+                     "layers)")
+            if first is None:
+                first = mel
+            elif not np.array_equal(mel, first):
+                err = float(np.abs(mel - first).max())
+                fail(f"[{label}] s2mel round {r} {mode}: the mel differs from round 0's "
+                     f"replay by up to {err:.3g} (largest value {np.abs(first).max():.3g})")
+    engine._mel_taps = None
+    print(f"[{label}] s2mel stage, the CFM solve replayed / eager: the same mel "
+          f"{first.shape} in all {2 * S2MEL_ROUNDS} runs; s2mel_s "
+          + " / ".join(", ".join(f"{t:.4f}" for t in times[m]) for m in ("graph", "eager")))
+
+    st = next(reversed(runner._solves.values()))  # the shape these stages used
+    B, _, T = st.noise.shape
+    valid = int(st.x_lens[0])
+    with runner._lock, torch.inference_mode(), torch.cuda.stream(runner._stream):
+        eager_k, graph_k, _, counts = replay_against_eager(
+            lambda: runner._run(st, runner.n_steps), st.graph, False, label)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(4):
+            st.graph.replay()
+        b.record()
+        b.synchronize()
+    (n_eager, ms_eager), (n_graph, ms_graph) = (
+        [sum(v[i] for v in ks.values()) for i in (0, 1)] for ks in (eager_k, graph_k))
+    print(f"[{label}] one CFM solve (B={B}, {2 * B} rows with CFG, T={T}, {valid} valid "
+          f"frames): {n_eager} device kernels ({len(eager_k)} names), {ms_eager:.3f} device "
+          f"ms eager; one replay: {n_graph} ({len(graph_k)} names), {ms_graph:.3f} device ms")
+    print(f"[{label}] the replay's kernels by device ms, count eager / replay, replay ms: "
+          + ", ".join(f"{short_name(k)} {counts[0].get(k)} / {counts[1].get(k)} "
+                      f"{graph_k.get(k, (0, 0))[1]:.3f}"
+                      for k in sorted(counts[1], key=lambda k: -graph_k.get(k, (0, 0))[1])))
+    if counts[0] != counts[1] or n_eager == 0:
+        fail(f"[{label}] a replay's device kernels differ from an eager solve's: "
+             f"{kernel_diff(counts)}")
+    replay_ms = a.elapsed_time(b) / 4
+    floor_ms = s2mel_flops(c, valid, valid) / FP32_FLOPS * 1e3
+    print(f"[{label}] 4 replays back to back: {replay_ms:.3f} ms a solve (CUDA events); its "
+          f"kernels' device time {ms_graph:.3f} ms, idle inside the solve "
+          f"{100 * (1 - ms_graph / replay_ms):.1f} %; float32 floor {floor_ms:.3f} ms at the "
+          f"{valid} valid frames, {s2mel_flops(c, T, valid) / FP32_FLOPS * 1e3:.3f} ms at the "
+          f"bucket's {T} (67 TFLOP/s)")
+    torch.cuda.synchronize()
+    print(f"[{label}] s2mel solves cached (B, T), least recently used first, with their "
+          f"graph: {runner.shapes()}; the graphs' shared pool holds "
+          f"{cuda_lib.pool_bytes(runner.pool) / 2**20:.1f} MiB; the s2mel phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: continuous batching (runtime/batcher.py)
 # ---------------------------------------------------------------------------
@@ -1605,7 +1739,9 @@ def captured_batched_step(engine, dec, st, spk, emovec, ids, label: str):
             tail = pool.submit(engine._finish_from_codes, spk, emovec, ids[:12], codes, 0, 0.0)
             with torch.inference_mode(), dec.on_stream():
                 dec.step_chunk(st, CONT_STEPS, True, eager=eager)
-            torch.cuda.synchronize()
+            # not torch.cuda.synchronize(): the tail may be capturing its
+            # s2mel graph, and a device-wide wait would end that capture
+            dec._stream.synchronize()
             tail.result(timeout=300)
             runs.append(slot_tensors(st))
     same = [all(torch.equal(a, b) for a, b in zip(r, runs[0])) for r in runs[1:]]
@@ -1856,10 +1992,9 @@ def main():
     print(f"main-path shapes: {json.dumps(shapes)}")
     # the longest segment the default config allows
     longest = main_path_shapes(cfg, cfg.runtime.max_mel_tokens)
-    long_T = longest["dit_T"]
     kernels = [check_k1(shapes, g.layers, g.heads),
                check_k2(shapes, longest["snake"]),
-               check_k3(shapes, long_T, cfg.s2mel.dit.num_heads),
+               check_k3(shapes, longest, cfg.s2mel.dit.num_heads),
                check_k4(shapes, g.layers, g.heads),
                check_k5(g.layers, g.model_dim, g.number_mel_codes),
                check_k6(g.layers, g.model_dim),
@@ -1889,10 +2024,14 @@ def main():
         small_reference(wav_path, quantized(small_config(256), wbits=4), "w4", 1e-2, 1e-2)
         print(f"small configurations done at {time.perf_counter() - t_start:.1f} s")
         os.environ["TARS_MAX_MEL_TOKENS"] = str(MAX_MEL_TOKENS)
+        # each stage's seconds hold its time on the card (runtime/engine.py)
+        os.environ["TARS_STAGE_SYNC"] = "1"
         full = load_config()
         launches = {}
         for label, (change, rise, stay) in routes.items():
             counts, engine = serve_full_width(wav_path, change(full), label, rise, stay, tmp)
+            if label == "float":  # the s2mel stage does not depend on the GPT's route
+                s2mel_turns(engine, wav_path, label)
             # each kernel's launches come from the route that runs it first
             for name in rise:
                 launches.setdefault(name, counts[name])

@@ -78,7 +78,8 @@ class AdaptiveRMSNorm(nn.Module):
 
 
 def precompute_rope(n: int, head_dim: int, base: float) -> np.ndarray:
-    """gpt_fast precompute_freqs_cis rows [0, n): (n, hd/2, 2) cos/sin."""
+    """gpt_fast precompute_freqs_cis rows [0, n): (n, hd/2, 2) cos/sin. Row
+    i depends on i alone, so a longer table's first n rows are these."""
     freqs = 1.0 / (
         base ** (np.arange(0, head_dim, 2)[: head_dim // 2].astype(np.float64) / head_dim)
     )
@@ -159,11 +160,22 @@ class DiTTransformer(nn.Module):
         self.recv = [i for i in range(n) if i > n // 2] if cfg.uvit_skip_connection else []
         self.layers = nn.ModuleList(DiTBlock(cfg, i in self.recv) for i in range(n))
         self.norm = AdaptiveRMSNorm(cfg.hidden_dim, cfg.norm_eps)
+        # {device: the rope_table_size-row RoPE table}, made on first use
+        self._rope: dict = {}
+
+    def rope(self, T: int, device):
+        """The RoPE rows [0, T) on `device`: a view of the table the JAX
+        model slices (rope_table_size rows), copied to the device once and
+        never replaced, so a CUDA graph may read it."""
+        table = self._rope.get(device)
+        if table is None:
+            c = self.cfg
+            table = self._rope.setdefault(device, torch.from_numpy(
+                precompute_rope(c.rope_table_size, c.head_dim, c.rope_base)).to(device))
+        return table[:T]
 
     def forward(self, x, c_emb, key_mask):
-        c = self.cfg
-        rope = torch.from_numpy(
-            precompute_rope(x.shape[1], c.head_dim, c.rope_base)).to(x.device)
+        rope = self.rope(x.shape[1], x.device)
         skips = []
         for i, layer in enumerate(self.layers):
             skip_in = skips.pop() if i in self.recv and skips else None

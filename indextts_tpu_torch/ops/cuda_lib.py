@@ -13,6 +13,7 @@ raises on a non-zero code. Each wrapper counts its launches on a
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +33,10 @@ NVCC_FLAGS = [
 ]
 
 _LOCK = threading.Lock()
+# one CUDA graph capture at a time in the process: torch.cuda.graph begins
+# with a device-wide synchronize, which ends a capture another thread has
+# under way
+_CAPTURE_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 
@@ -147,6 +152,23 @@ class LaunchCounter:
         n = getattr(self._local, "captured", 0)
         self._local.captured = 0
         return n
+
+
+@contextlib.contextmanager
+def capture(graph: "torch.cuda.CUDAGraph", stream: "torch.cuda.Stream", pool=None):
+    """Capture `graph` on `stream` (into the memory pool `pool`, else its
+    own) as the process's only capture while it lasts. thread_local: other
+    threads' CUDA calls, replays included, go on meanwhile."""
+    with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=pool, stream=stream,
+                                        capture_error_mode="thread_local"):
+        yield
+
+
+def pool_bytes(pool) -> int:
+    """Device memory that the graph memory pool `pool` holds (its
+    segments)."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
 
 
 def check(err: int, what: str) -> None:

@@ -52,7 +52,7 @@ import torch
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.gpt2 import prompt_hole, quantize_kv
 from indextts_tpu_torch.models.unified_voice import UnifiedVoice
-from indextts_tpu_torch.ops import decode_attention, gemv
+from indextts_tpu_torch.ops import cuda_lib, decode_attention, gemv
 
 NEG_INF = -1e9
 # decode steps between host checks for "every row finished"
@@ -358,15 +358,15 @@ class GPTDecoder:
         counters, cuBLAS its workspace), with the state's generator
         registered. The capture launches nothing: the step counters keep
         the calls made under it apart (`LaunchCounter.take_captured`), to
-        add once a replay. thread_local: other serving threads' CUDA calls
-        go on during the capture."""
+        add once a replay. `cuda_lib.capture`: other serving threads' CUDA
+        calls go on during the capture, other captures wait for it."""
         graph = torch.cuda.CUDAGraph()
         if do_sample:
             graph.register_generator_state(st.generator)
         counters = _step_counters()
         for c in counters:
             c.take_captured()
-        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+        with cuda_lib.capture(graph, self._stream):
             step(st, do_sample)
         st.graphs[do_sample] = (graph, [c.take_captured() for c in counters])
         return st.graphs[do_sample]

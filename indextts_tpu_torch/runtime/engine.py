@@ -1,11 +1,22 @@
 """IndexTTS2 inference engine: the five-model cascade on one device.
 
 Counterpart of indextts_tpu/runtime/engine.py `IndexTTS2Engine` on its
-sequential route with exact shapes (the JAX engine's `precise_shapes=True`):
-prepare_speaker (w2v-BERT -> RepCodec, 22 kHz mel, CAMPPlus, regulator,
-conformer+perceiver latents) -> per segment: emovec + conds, AR decode,
-teacher-forced latent pass, gpt_layer + vq2emb + length regulator, CFM
-(20 Euler steps, CFG), BigVGAN, on-device PCM16.
+sequential route: prepare_speaker (w2v-BERT -> RepCodec, 22 kHz mel,
+CAMPPlus, regulator, conformer+perceiver latents) -> per segment: emovec +
+conds, AR decode, teacher-forced latent pass, gpt_layer + vq2emb + length
+regulator, CFM (20 Euler steps, CFG), BigVGAN, on-device PCM16.
+
+As in the JAX engine, `precise_shapes=False` (the default) rounds the
+s2mel stage's target mel length up to a multiple of 128 frames (the
+padding is masked: each row's valid lengths drive the regulator, the DiT's
+attention and WaveNet's reflection) and slices the mel back to the exact
+length; the CFM noise is drawn at that canonical width in both modes, so
+each frame gets the same noise either way. The latent pass and the
+vocoder run at exact lengths in both modes. On the card the CFM solve is
+a replay of a CUDA graph captured per solve shape
+(runtime/s2mel_infer.py `S2MelRunner`). TARS_STAGE_SYNC=1 ends the latent
+and s2mel stages with a wait for the card, so each stage's seconds hold its
+device time, as in the JAX engine; by default nothing waits.
 
 The quantized GPT route of the JAX package is honoured: `gpt_quantize`
 (W8A8 blocks with `gpt_wbits=8`, W4A8 with `gpt_wbits=4`), `head_quant`
@@ -34,6 +45,7 @@ PyTorch would otherwise use for float32 convolutions on the card.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -52,7 +64,7 @@ from indextts_tpu_torch.models.unified_voice import UnifiedVoice
 from indextts_tpu_torch.models.w2vbert import W2VBertEncoder
 from indextts_tpu_torch.ops import mel as mel_ops
 from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
-from indextts_tpu_torch.runtime.s2mel_infer import cfm_inference
+from indextts_tpu_torch.runtime.s2mel_infer import S2MelRunner
 from indextts_tpu_torch.utils import audio as audio_utils
 from indextts_tpu_torch.utils.device import resolve_device
 from indextts_tpu_torch.weights import quantize_gpt_state_dict
@@ -68,6 +80,12 @@ MODELS: Dict[str, Callable[[IndexTTS2Config, torch.device], torch.nn.Module]] = 
     "campplus": lambda c, dev: CAMPPlus(c.campplus),
     "w2vbert": lambda c, dev: W2VBertEncoder(c.w2vbert),
 }
+
+
+def next_bucket(n: int, step: int, minimum: int = 0) -> int:
+    """n rounded up to a multiple of step, at least minimum (the JAX
+    engine's next_bucket)."""
+    return max(minimum, step * (-(-n // step)))
 
 
 def load_model(name: str, cfg: IndexTTS2Config, state_dict: Dict[str, torch.Tensor],
@@ -183,14 +201,18 @@ class IndexTTS2Engine:
         device=None,
         semantic_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         tokenizer=None,
+        precise_shapes: bool = False,
     ):
         """params: {"gpt", "s2mel", "bigvgan", "repcodec", "campplus",
         "w2vbert"} state dicts (weights.from_jax_params or random_params).
         With runtime.gpt_quantize, a float GPT state dict is quantized here
-        (the JAX engine's quantize_gpt_tree step)."""
+        (the JAX engine's quantize_gpt_tree step). precise_shapes: solve
+        the CFM at the exact target length, not its 128-frame bucket (the
+        JAX engine's parity mode)."""
         _check_supported(cfg)
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.precise = precise_shapes
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -217,6 +239,7 @@ class IndexTTS2Engine:
         self.decoder = GPTDecoder(self.gpt, cfg.gpt,
                                   SamplingConfig(do_sample=rt.do_sample, top_k=rt.top_k),
                                   kv_int8=kv_int8(cfg))
+        self.s2mel_runner = S2MelRunner(self.s2mel, rt.diffusion_steps, rt.cfg_rate)
         self._spk_cache: Dict[str, SpeakerConditioning] = {}
         self._emo_cache: Dict[str, EmotionConditioning] = {}
         # seeds for seedless requests (serving threads share the engine)
@@ -225,6 +248,12 @@ class IndexTTS2Engine:
         # test hooks: CFM noise injection and mel capture
         self._noise_hook: Optional[Callable[[tuple], np.ndarray]] = None
         self._mel_taps: Optional[List[np.ndarray]] = None
+
+    def _stage_barrier(self) -> None:
+        """Under TARS_STAGE_SYNC=1, wait for the card to finish this
+        thread's stream's work, so that the stage's clock holds it."""
+        if self.device.type == "cuda" and os.environ.get("TARS_STAGE_SYNC", "0") == "1":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
@@ -384,10 +413,13 @@ class IndexTTS2Engine:
         latent = self.gpt.forward_latent(
             spk.spk_latents, self._tensor(np.asarray(text_ids, np.int64)[None]),
             self._tensor([n]), codes_t, code_len_t, emovec)
+        self._stage_barrier()
         t_gpt_fwd = time.perf_counter() - t1
 
         t2 = time.perf_counter()
-        target_len = int(code_len * 1.72)
+        exact_len = int(code_len * 1.72)
+        bucket_len = next_bucket(exact_len, 128, 128)
+        target_len = exact_len if self.precise else bucket_len
         # the regulator's valid length is rounded in float32, as in the JAX engine
         ylen = int(np.floor(np.float32(code_len) * np.float32(1.72)))
         total_len = spk.ref_mel_len + target_len
@@ -395,8 +427,12 @@ class IndexTTS2Engine:
         if self._noise_hook is not None:
             noise = self._tensor(self._noise_hook(shape), torch.float32)
         else:
-            noise = torch.randn(shape, generator=self._generator(
-                None if seed is None else seed + 1), device=dev)
+            # drawn at the bucket's width in both modes, then cut: each frame
+            # gets the same noise, bucketed or exact
+            noise = torch.randn(
+                (1, shape[1], spk.ref_mel_len + bucket_len), device=dev,
+                generator=self._generator(None if seed is None else seed + 1)
+            )[:, :, :total_len]
         lat = self.s2mel.project_gpt_latent(latent)
         s_infer = self.repcodec.vq2emb(codes_t) + lat
         ylens = self._tensor([ylen])
@@ -404,12 +440,12 @@ class IndexTTS2Engine:
         cat_cond = torch.cat([spk.prompt_condition, cond], dim=1)
         prompt_x = torch.zeros(shape, device=dev)
         prompt_x[:, :, :spk.ref_mel_len] = spk.ref_mel
-        vc = cfm_inference(self.s2mel, cat_cond, spk.ref_mel_len + ylens, prompt_x,
-                           spk.ref_mel_len, spk.style, noise,
-                           n_steps=rt.diffusion_steps, cfg_rate=rt.cfg_rate)
-        mel_out = vc[:, :, spk.ref_mel_len:spk.ref_mel_len + target_len]
+        vc = self.s2mel_runner.solve(cat_cond, spk.ref_mel_len + ylens, prompt_x,
+                                     spk.ref_mel_len, spk.style, noise)
+        mel_out = vc[:, :, spk.ref_mel_len:spk.ref_mel_len + exact_len]
         if self._mel_taps is not None:
             self._mel_taps.append(mel_out.cpu().numpy())
+        self._stage_barrier()
         t_s2mel = time.perf_counter() - t2
 
         t3 = time.perf_counter()
@@ -418,7 +454,7 @@ class IndexTTS2Engine:
             wav = to_pcm16(wav)[0].cpu().numpy().astype(np.float32) / 32767.0
         else:
             wav = wav[0].cpu().numpy()
-        wav = wav[: target_len * cfg.vocoder.total_upsample]
+        wav = wav[: exact_len * cfg.vocoder.total_upsample]
         t_voc = time.perf_counter() - t3
         return SegmentResult(wav.astype(np.float32), code_len, t_gpt_gen, t_gpt_fwd,
                              t_s2mel, t_voc)

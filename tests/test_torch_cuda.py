@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from indextts_tpu_torch.ops import cuda_lib
 from indextts_tpu_torch.ops import decode_attention as k1
 from indextts_tpu_torch.ops import dit_attention as k3
 from indextts_tpu_torch.ops import gemv
@@ -694,3 +695,180 @@ def test_batched_step_launches_k5_to_k8_past_16_slots(cuda_device, route):
         runs.append(_snapshot(st))
     assert all(torch.equal(a, b) for a, b in zip(runs[1], runs[0]))
     assert bool(st.active.all())
+
+
+# ---------------------------------------------------------------------------
+# the s2mel stage's CFM solve: a captured graph replayed against the eager solve
+# ---------------------------------------------------------------------------
+
+
+def _s2mel_runner(dev, depth=3, n_steps=4):
+    """An S2Mel whose DiT has `depth` layers of width 128 (2 heads of 64,
+    K3's head width) and a 2-layer WaveNet, seeded random weights, and its
+    runner of `n_steps` Euler steps, on the card."""
+    from indextts_tpu_torch import config as C
+    from indextts_tpu_torch.models.s2mel import S2Mel
+    from indextts_tpu_torch.runtime.s2mel_infer import S2MelRunner
+
+    cfg = C.S2MelConfig(
+        length_regulator=C.LengthRegulatorConfig(channels=64, in_channels=64),
+        dit=C.DiTConfig(hidden_dim=128, num_heads=2, depth=depth, content_dim=64),
+        wavenet=C.WaveNetConfig(hidden_dim=64, num_layers=2, kernel_size=5),
+        gpt_dims=(64, 64))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(0)
+        with torch.device(dev):
+            model = S2Mel(cfg).eval().requires_grad_(False)
+    return S2MelRunner(model, n_steps=n_steps, cfg_rate=0.7)
+
+
+def _solve_inputs(dev, T, ref, valid, seed):
+    """A solve's inputs at width T: the prompt's `ref` frames, `valid`
+    frames in all, the rest padding."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mu = torch.randn((1, T, 64), generator=g, device=dev)
+    mu[:, valid:] = 0
+    prompt_x = torch.zeros((1, 80, T), device=dev)
+    prompt_x[:, :, :ref] = torch.randn((1, 80, ref), generator=g, device=dev)
+    style = torch.randn((1, 192), generator=g, device=dev)
+    noise = torch.randn((1, 80, T), generator=g, device=dev)
+    return mu, torch.tensor([valid], device=dev), prompt_x, ref, style, noise
+
+
+@pytest.mark.cuda
+def test_s2mel_graph_matches_eager(cuda_device):
+    """The captured solve (the first call captures and replays, later ones
+    replay) gives the eager solve's bits, for two requests of one width with
+    other prompt lengths and valid lengths: one graph serves both."""
+    runner = _s2mel_runner(cuda_device)
+    reqs = [_solve_inputs(cuda_device, 300, 90, 271, 1),
+            _solve_inputs(cuda_device, 300, 40, 300, 2)]
+    want = [runner.solve(*a, eager=True) for a in reqs]
+    for _ in range(2):
+        for a, w in zip(reqs, want):
+            got = runner.solve(*a)
+            assert torch.equal(got, w)
+    assert runner.shapes() == [((1, 300), True)]
+    assert cuda_lib.pool_bytes(runner.pool) > 0
+    assert not torch.equal(want[0], want[1])
+
+
+@pytest.mark.cuda
+def test_s2mel_replay_makes_no_host_sync(cuda_device):
+    """A solve whose graph is captured, under set_sync_debug_mode("error"),
+    which raises on any host sync: copy in, replay, copy out."""
+    runner = _s2mel_runner(cuda_device)
+    a = _solve_inputs(cuda_device, 200, 50, 180, 3)
+    want = runner.solve(*a)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = runner.solve(*a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_s2mel_graph_threads_get_their_own_mels(cuda_device):
+    """Two threads solving at one width at once, 4 times each with their
+    own requests: each gets its request's eager mel, to the bit."""
+    import sys
+
+    runner = _s2mel_runner(cuda_device)
+    reqs = [_solve_inputs(cuda_device, 256, 60 + 30 * i, 200 + 20 * i, 10 + i) for i in range(2)]
+    want = [runner.solve(*a, eager=True) for a in reqs]
+    got = [[None] * 4 for _ in reqs]
+
+    def run(i):
+        for r in range(4):
+            got[i][r] = runner.solve(*reqs[i])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
+    assert runner.shapes() == [((1, 256), True)]
+
+
+@pytest.mark.cuda
+def test_s2mel_graph_lru_recaptures(cuda_device, monkeypatch):
+    """With room for 2 solve shapes, a third evicts the least recently
+    used; that width's next solve captures again and gives the eager
+    bits."""
+    from indextts_tpu_torch.runtime import s2mel_infer
+
+    monkeypatch.setattr(s2mel_infer, "MAX_SOLVES", 2)
+    runner = _s2mel_runner(cuda_device)
+    reqs = {T: _solve_inputs(cuda_device, T, 50, T - 20, T) for T in (128, 256, 384)}
+    want = {T: runner.solve(*a, eager=True) for T, a in reqs.items()}
+    for T in (128, 256, 384, 128):
+        assert torch.equal(runner.solve(*reqs[T]), want[T])
+    assert runner.shapes() == [((1, 384), True), ((1, 128), True)]
+
+
+@pytest.mark.cuda
+def test_s2mel_graph_counts_k3(cuda_device):
+    """K3's counter through replays: 20 steps x 13 DiT layers, 260 a
+    solve, as many as the eager solve launches; a shape's first call adds
+    its one-step warm-up (13) before the capture, which launches nothing."""
+    runner = _s2mel_runner(cuda_device, depth=13, n_steps=20)
+    a = _solve_inputs(cuda_device, 200, 50, 180, 4)
+    counts = []
+    for eager in (True, False, False):
+        k3.counter.launches = 0
+        runner.solve(*a, eager=eager)
+        counts.append(k3.counter.launches)
+    assert counts == [260, 13 + 260, 260]
+
+
+@pytest.mark.cuda
+def test_s2mel_and_decode_capture_side_by_side(cuda_device):
+    """A thread capturing s2mel solves at new widths beside one capturing
+    decode steps at new batch sizes (a tail beside the sequential route's
+    next request): captures take turns (`cuda_lib.capture`; the device-wide
+    synchronize that begins one would end the other's), and every result
+    is the eager one's bits."""
+    runner = _s2mel_runner(cuda_device)
+    dec, args = _graph_decoder(cuda_device, "float")
+    pair = tuple(torch.cat([a, a]) for a in args)
+    solves = [_solve_inputs(cuda_device, T, 40, T - 10, T) for T in (128, 256, 384, 512)]
+    want_mel = [runner.solve(*a, eager=True) for a in solves]
+    jobs = [(args, 20), (pair, 20), (args, 40), (pair, 40)]  # decode states (1|2, 256)
+    want_codes = [dec.generate(*a, 3, max_new=m, eager=True).codes for a, m in jobs]
+    got_mel, got_codes, errors = [], [], []
+
+    def mels():
+        try:
+            got_mel.extend(runner.solve(*a) for a in solves)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    def codes():
+        try:
+            got_codes.extend(dec.generate(*a, 3, max_new=m).codes for a, m in jobs)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=mels), threading.Thread(target=codes)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads) and errors == []
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got_mel, want_mel)) and len(got_mel) == 4
+    assert all(torch.equal(g, w) for g, w in zip(got_codes, want_codes)) and len(got_codes) == 4
+    assert [key for key, _ in runner.shapes()] == [(1, T) for T in (128, 256, 384, 512)]
+    assert [len(st.graphs) for st in dec._states.values()] == [1, 1]

@@ -387,7 +387,7 @@ def quantized_slice_matches_jax(cfg, seed: int = 1):
     jp = parity_params(cfg, seed=seed)
     pcfg = to_port_config(cfg)
     je = JaxEngine(cfg, jp, precise_shapes=True)
-    pe = IndexTTS2Engine(pcfg, from_jax_params(jp, pcfg), device="cpu")
+    pe = IndexTTS2Engine(pcfg, from_jax_params(jp, pcfg), device="cpu", precise_shapes=True)
     assert pe.decoder.kv_int8
     rng = np.random.default_rng(0)
     prompt = speech_like(rng, 1.2, 16000)

@@ -1,6 +1,6 @@
 """The port's /tts path as a whole, on the CPU.
 
-* The JAX engine (`precise_shapes=True`) and the port's engine run one
+* The JAX engine and the port's engine, both `precise_shapes=True`, run one
   request from the same parameters, speaker audio, text ids and CFM noise,
   greedy with one beam: equal codes, then mel and waveform within a stated
   tolerance.
@@ -56,7 +56,7 @@ def test_slice_matches_jax_engine(monkeypatch):
     jp = parity_params(cfg, seed=1)
     pcfg = to_port_config(cfg)
     je = JaxEngine(cfg, jp, precise_shapes=True)
-    pe = IndexTTS2Engine(pcfg, from_jax_params(jp, pcfg), device="cpu")
+    pe = IndexTTS2Engine(pcfg, from_jax_params(jp, pcfg), device="cpu", precise_shapes=True)
     rng = np.random.default_rng(0)
     prompt = speech_like(rng, 1.2, 16000)
     text = rng.integers(2, 50, 9)

@@ -10,12 +10,14 @@ continuous server over it at TARS_CONTINUOUS_TAIL_WORKERS 2, 1 and 0, in
 turns over 2 rounds, and after each round one request alone through a
 sequential server over the same engine. Each turn prints the batch's wall
 seconds and audio s per wall s, and the mean and max over its requests of
-each stage's seconds (s2mel, BigVGAN, latent pass). A tail runs on a tail
-worker's thread (0: inline on the decode thread, which then waits), beside
-the decode loop, the other tail worker and the request threads; if those
-slow its eager s2mel, its seconds fall toward the lone request's as the
-workers go from 2 to 1 and 0. Prints the card's name and power limit
-first.
+each stage's seconds (s2mel, BigVGAN, latent pass), under
+TARS_STAGE_SYNC=1, so that each stage's seconds hold its time on the card.
+A tail runs on a tail worker's thread (0: inline on the decode thread,
+which then waits), beside the decode loop, the other tail worker and the
+request threads. Its s2mel is a replay of the engine's captured CFM solve
+(runtime/s2mel_infer.py), one at a time under the runner's lock, so a
+tail's s2mel seconds include its wait for the other worker's replay.
+Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ def main():
         wav_path = os.path.join(tmp, "speaker.wav")
         cs.speaker_wav(wav_path)
         os.environ["TARS_MAX_MEL_TOKENS"] = str(cs.MAX_MEL_TOKENS)
+        os.environ["TARS_STAGE_SYNC"] = "1"
         os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, "cache")
         port = free_port()
         sequential, engine = serve.build(["--host", "127.0.0.1", "--port", str(port),
