@@ -22,8 +22,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    K6's and K8's per call (one layer's MLP). Weights and caches cycle over
    24 layers' worth, K1's, K4's, K5's and K7's over enough copies to pass
    100 MB (twice the L2), so they come from device memory as in a decode
-   step, not from L2; each of K2's 37 launches reads its own input (1.27
-   GB in all), and K2 is also timed at the longest segment's shapes
+   step, not from L2; each of K2's 37 launches reads its own input (1.57
+   GB in all, the mel at the s2mel bucket's 640 frames, as the engine
+   vocodes it), and K2 is also timed at the longest segment's shapes
    (`time_k2`, which tools/snake_times.py runs on another tree). K1 and K4
    are timed at the main path's last step and
    at the default config's cap (1657) with valid 1657, 1000 and 400: their
@@ -79,7 +80,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    with seeded random weights is served by the port's own server on
    localhost on three routes, one engine on the card at a time: float, then
    quantized W8 with gemv_impl "pallas", then quantized W4 with gemv_impl
-   "auto", which resolves to the kernels on the card. Every kernel's launch
+   "auto", which resolves to the kernels on the card. On the float route
+   the server's background precompile (TARS_PRECOMPILE=1, over the main
+   path's envelope, TARS_PRECOMPILE_CODES=300) is waited for, its job count,
+   seconds and the peak device memory after it printed; the requests must
+   then capture nothing new (the decoder's and the three tail runners'
+   graph counts do not rise). The other routes capture on demand
+   (TARS_PRECOMPILE=0). Every kernel's launch
    counter is set to 0, a few POST /tts requests go out with a seeded
    synthetic 3-s speaker wav, each answer must be a 200 with a valid,
    non-silent WAV from finite mels, and every counter of the route must have
@@ -103,7 +110,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    times a stage either way; torch.profiler must find the same device
    kernels by name and count in one replay as in one eager solve; 4
    replays are timed with CUDA events against the solve's float32 floor;
-   the solve shapes cached and their graphs' pool are printed.
+   the solve shapes cached and their graphs' pool are printed. Then
+   `tail_turns` does the same for the segment's latent pass and vocoder
+   call (runtime/graphs.py `LatentRunner`, `VocoderRunner`): replayed and
+   eager in turns, 2 rounds, every output equal to the first eager one to
+   the bit, both stages' seconds printed, K2 launched 37 times a vocoder
+   call either way; a replay's device kernels by name and count against an
+   eager call's; 4 replays of each timed with CUDA events; the keys cached
+   and the pools' bytes.
 4. Continuous batching (runtime/batcher.py), on each route right after its
    phase 3, over the same engine (full width, max_mel_tokens 300): the
    port's server is built again over it with TARS_MAX_CONCURRENCY=8, so
@@ -164,6 +178,7 @@ N_REQUESTS = 2
 DECODE_ROUNDS = 2  # captured against eager decode, in turns
 DECODE_SEED = 7
 S2MEL_ROUNDS = 2  # the s2mel stage captured against eager, in turns
+TAIL_ROUNDS = 2  # the latent pass and the vocoder captured against eager, in turns
 CONT_REQUESTS = 8  # concurrent /tts requests of the continuous phase, and its slots
 CONT_STEPS = 16  # batched steps held captured against eager
 PROMPT_SECONDS = 3
@@ -304,7 +319,9 @@ def main_path_shapes(cfg, max_mel: int):
     ref_mel = mel_frame_count(n22, cfg.s2mel.mel)
     target = int(max_mel * 1.72)
     snake = []
-    ch, T = v.upsample_initial_channel, target
+    # the vocoder runs at the s2mel bucket, as the engine's default
+    # (precise_shapes=False) pads the mel to it
+    ch, T = v.upsample_initial_channel, next_bucket(target, 128, 128)
     G = len(v.resblock_kernel_sizes)
     for u in v.upsample_rates:
         ch //= 2
@@ -575,7 +592,7 @@ def snake_arg_max(x, alpha, logscale: bool) -> float:
 def time_k2(seq, g, plain: bool = True, call=None):
     """Device ms of one vocoder call of K2 (one launch per (C, T) of seq),
     each launch on its own input, so no launch finds its x in L2 (the main
-    path's 37 inputs are 1.27 GB); with `plain`, the plain version's too.
+    path's 37 inputs are 1.57 GB); with `plain`, the plain version's too.
     `call` stands in for the wrapper (tools/snake_times.py). Returns (ms,
     plain ms or None, bound ms, what bounds it)."""
     from indextts_tpu_torch.ops import snake as k2
@@ -1237,12 +1254,16 @@ def kernel_counters():
             "K7 gemv_w4": gemv.gemv4_counter, "K8 mlp_w4": gemv.mlp4_counter}
 
 
-def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
+def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str,
+                     precompile: bool = False):
     """Serve `cfg` with the port's server, POST N_REQUESTS /tts requests, and
     check each answer. Every counter is set to 0 just before the requests
     and read just after: those in `rise` must have risen, those in `stay`
     must still be 0. Each route has its own response cache, so no request
-    is answered from another route's. Returns the counts and the engine."""
+    is answered from another route's. With `precompile` the server's
+    background precompile over the main path's envelope is waited for
+    before the requests, which must then capture nothing new. Returns the
+    counts and the engine."""
     import torch
 
     from indextts_tpu_torch import serve
@@ -1254,11 +1275,29 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
         port = s.getsockname()[1]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    server, engine = serve.build(["--host", "127.0.0.1", "--port", str(port),
-                                  "--reference-audio", wav_path], cfg=cfg)
+    os.environ["TARS_PRECOMPILE"] = "1" if precompile else "0"
+    os.environ["TARS_PRECOMPILE_CODES"] = str(MAX_MEL_TOKENS)
+    try:
+        server, engine = serve.build(["--host", "127.0.0.1", "--port", str(port),
+                                      "--reference-audio", wav_path], cfg=cfg)
+    finally:
+        os.environ["TARS_PRECOMPILE"] = "0"
     torch.cuda.synchronize()
     print(f"[{label}] full-width engine built and warmed up in {time.perf_counter() - t0:.1f} s "
           f"(peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    if precompile:
+        if server.precompiled is None:
+            fail(f"[{label}] serve.build started no precompile under TARS_PRECOMPILE=1")
+        jobs, seconds = server.precompiled.result(timeout=900)
+        torch.cuda.synchronize()
+        print(f"[{label}] precompile over {MAX_MEL_TOKENS} codes: {jobs} jobs in "
+              f"{seconds:.1f} s (beside the warmup; {time.perf_counter() - t0:.1f} s from "
+              f"the build's start); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; graphs (decode, latent, "
+              f"s2mel, vocoder) {graph_counts(engine)}; keys latent "
+              f"{list(engine.latent_runner.keys())}, s2mel {engine.s2mel_runner.shapes()}, "
+              f"vocoder {list(engine.vocoder_runner.keys())}")
+    graphs = graph_counts(engine)
     c = engine.cfg
     print(f"[{label}] config: GPT {c.gpt.layers}L x {c.gpt.model_dim} ({c.gpt.heads} heads), "
           f"DiT {c.s2mel.dit.depth}L x {c.s2mel.dit.hidden_dim}, BigVGAN "
@@ -1312,6 +1351,12 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str):
         launches = {name: cnt.launches for name, cnt in counters.items()}
         thread.stop()
     print(f"[{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if precompile and graph_counts(engine) != graphs:
+        fail(f"[{label}] the requests captured graphs the precompile had not: (decode, "
+             f"latent, s2mel, vocoder) {graphs} before, {graph_counts(engine)} after")
+    if precompile:
+        print(f"[{label}] the requests captured nothing new: graphs (decode, latent, s2mel, "
+              f"vocoder) {graphs}")
     mels = engine._mel_taps
     if len(mels) != N_REQUESTS or not all(np.isfinite(m).all() for m in mels):
         fail(f"[{label}] the requests' mels are missing or not finite")
@@ -1418,6 +1463,28 @@ def short_name(kernel: str) -> str:
     return kernel[:80]
 
 
+def graph_counts(engine):
+    """The engine's captured graphs: (decode steps, latent passes, CFM
+    solves, vocoder calls)."""
+    return (sum(len(st.graphs) for st in engine.decoder._states.values()),
+            *(sum(r.keys().values()) for r in (
+                engine.latent_runner, engine.s2mel_runner, engine.vocoder_runner)))
+
+
+def replays_ms(graph, n: int) -> float:
+    """Device ms of one replay of `graph`: n back to back on the current
+    stream, timed with CUDA events."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def decode_turns(engine, wav_path: str, label: str):
     """The served engine's captured decode against its eager loop (the
     decoder's `eager` argument), on one request (the speaker prompt and
@@ -1493,13 +1560,7 @@ def decode_turns(engine, wav_path: str, label: str):
     # replays back to back, timed with CUDA events: the device's time a
     # step, against which its kernels' sum gives the idle share inside it
     with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(8):
-            graph.replay()
-        b.record()
-        b.synchronize()
-    replay_ms = a.elapsed_time(b) / 8
+        replay_ms = replays_ms(graph, 8)
     print(f"[{label}] 8 replays back to back: {replay_ms:.4f} ms a step (CUDA events); "
           f"its kernels' device time {ms_graph:.4f} ms, idle inside the step "
           f"{100 * (1 - ms_graph / replay_ms):.1f} %")
@@ -1600,18 +1661,14 @@ def s2mel_turns(engine, wav_path: str, label: str):
           f"{first.shape} in all {2 * S2MEL_ROUNDS} runs; s2mel_s "
           + " / ".join(", ".join(f"{t:.4f}" for t in times[m]) for m in ("graph", "eager")))
 
-    st = next(reversed(runner._solves.values()))  # the shape these stages used
-    B, _, T = st.noise.shape
-    valid = int(st.x_lens[0])
-    with runner._lock, torch.inference_mode(), torch.cuda.stream(runner._stream):
+    prog = next(reversed(runner.programs.values()))  # the shape these stages used
+    mu, x_lens, prompt_x, prompt_len, style, noise = prog.args
+    B, _, T = noise.shape
+    valid = int(x_lens[0])
+    with runner.lock, torch.inference_mode(), torch.cuda.stream(runner.stream):
         eager_k, graph_k, _, counts = replay_against_eager(
-            lambda: runner._run(st, runner.n_steps), st.graph, False, label)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(4):
-            st.graph.replay()
-        b.record()
-        b.synchronize()
+            lambda: runner.fn(*prog.args), prog.graph, False, label)
+        replay_ms = replays_ms(prog.graph, 4)
     (n_eager, ms_eager), (n_graph, ms_graph) = (
         [sum(v[i] for v in ks.values()) for i in (0, 1)] for ks in (eager_k, graph_k))
     print(f"[{label}] one CFM solve (B={B}, {2 * B} rows with CFG, T={T}, {valid} valid "
@@ -1624,7 +1681,6 @@ def s2mel_turns(engine, wav_path: str, label: str):
     if counts[0] != counts[1] or n_eager == 0:
         fail(f"[{label}] a replay's device kernels differ from an eager solve's: "
              f"{kernel_diff(counts)}")
-    replay_ms = a.elapsed_time(b) / 4
     floor_ms = s2mel_flops(c, valid, valid) / FP32_FLOPS * 1e3
     print(f"[{label}] 4 replays back to back: {replay_ms:.3f} ms a solve (CUDA events); its "
           f"kernels' device time {ms_graph:.3f} ms, idle inside the solve "
@@ -1636,6 +1692,102 @@ def s2mel_turns(engine, wav_path: str, label: str):
           f"graph: {runner.shapes()}; the graphs' shared pool holds "
           f"{cuda_lib.pool_bytes(runner.pool) / 2**20:.1f} MiB; the s2mel phase took "
           f"{time.perf_counter() - t0:.1f} s")
+
+
+def tail_turns(engine, wav_path: str, label: str):
+    """The served engine's latent pass and vocoder call on one segment (the
+    speaker prompt and request 0's text, decoded once from DECODE_SEED),
+    each a replay of its runner's captured graph and the same call eagerly
+    on the same stream and buffers (the runners' `eager` argument),
+    TAIL_ROUNDS rounds in turns, eager first: every output must equal the
+    first eager one to the bit, each run prints the stages' seconds (under
+    TARS_STAGE_SYNC=1, so the card's time is in them), and K2 must count
+    its launches of one vocoder call (37 at the default config) either
+    way. Then, for each runner, torch.profiler must find the same device
+    kernels by name and count in one replay as in one eager call
+    (`replay_against_eager`); 4 replays are timed with CUDA events; and the
+    keys cached and the graphs' pool are printed."""
+    import torch
+
+    from indextts_tpu_torch.ops import cuda_lib, snake
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t0 = time.perf_counter()
+    c, v = engine.cfg, engine.cfg.vocoder
+    per_call = len(v.upsample_rates) * 2 * len(v.resblock_dilation_sizes[0]) + 1
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    ids = fallback_segments(request_text(0), c.gpt.number_text_tokens,
+                            c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
+    emovec, codes, t_gen = engine._decode_segment_codes(spk, emo, ids, seed=DECODE_SEED)
+    engine._finish_from_codes(spk, emovec, ids, codes, DECODE_SEED, t_gen)  # their graphs
+    runners = {"latent": (engine.latent_runner, "latent"),
+               "vocoder": (engine.vocoder_runner, "vocode")}
+    outs, first, times = {}, {}, {"graph": [], "eager": []}
+
+    def tap(name, runner, method, eager):
+        call = functools.partial(getattr(type(runner), method), runner, eager=eager)
+
+        def run(*args):
+            outs[name] = call(*args)
+            return outs[name]
+
+        return run
+
+    for r in range(TAIL_ROUNDS):
+        for mode in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            for name, (runner, method) in runners.items():
+                setattr(runner, method, tap(name, runner, method, mode == "eager"))
+            snake.counter.launches = 0
+            try:
+                seg = engine._finish_from_codes(spk, emovec, ids, codes, DECODE_SEED, t_gen)
+            finally:
+                for runner, method in runners.values():
+                    runner.__dict__.pop(method, None)
+            launches = snake.counter.launches
+            times[mode].append((seg.gpt_forward_time, seg.bigvgan_time))
+            print(f"[{label}] tail round {r} {mode}: gpt_latent_s={seg.gpt_forward_time:.4f} "
+                  f"bigvgan_s={seg.bigvgan_time:.4f} (s2mel {seg.s2mel_time:.4f}); K2 "
+                  f"launches {launches}")
+            if launches != per_call:
+                fail(f"[{label}] vocoder {mode}: K2 launched {launches} times, not {per_call}")
+            for name, out in outs.items():
+                if name not in first:
+                    first[name] = out
+                elif not torch.equal(out, first[name]):
+                    err = float((out.double() - first[name].double()).abs().max())
+                    fail(f"[{label}] tail round {r} {mode}: the {name} output differs from "
+                         f"round 0's eager one by up to {err:.3g}")
+    print(f"[{label}] latent pass and vocoder replayed / eager: the same latent "
+          f"{tuple(first['latent'].shape)} and waveform {tuple(first['vocoder'].shape)} "
+          f"{first['vocoder'].dtype} in all {2 * TAIL_ROUNDS} runs; gpt_latent_s "
+          + " / ".join(", ".join(f"{t[0]:.4f}" for t in times[m]) for m in ("graph", "eager"))
+          + "; bigvgan_s "
+          + " / ".join(", ".join(f"{t[1]:.4f}" for t in times[m]) for m in ("graph", "eager")))
+
+    for name, (runner, _) in runners.items():
+        prog = next(reversed(runner.programs.values()))  # the key this segment used
+        with runner.lock, torch.inference_mode(), torch.cuda.stream(runner.stream):
+            eager_k, graph_k, _, counts = replay_against_eager(
+                lambda: runner.fn(*prog.args), prog.graph, False, f"{label} {name}")
+            replay_ms = replays_ms(prog.graph, 4)
+        (n_eager, ms_eager), (n_graph, ms_graph) = (
+            [sum(x[i] for x in ks.values()) for i in (0, 1)] for ks in (eager_k, graph_k))
+        print(f"[{label}] one {name} call (key {list(runner.keys())[-1]}): {n_eager} device "
+              f"kernels ({len(eager_k)} names), {ms_eager:.3f} device ms eager; one replay: "
+              f"{n_graph} ({len(graph_k)} names), {ms_graph:.3f} device ms; the largest: "
+              + ", ".join(f"{short_name(k)} x{n} {ms:.3f}" for k, (n, ms) in
+                          sorted(graph_k.items(), key=lambda kv: -kv[1][1])[:6]))
+        if counts[0] != counts[1] or n_eager == 0:
+            fail(f"[{label}] a {name} replay's device kernels differ from an eager call's: "
+                 f"{kernel_diff(counts)}")
+        print(f"[{label}] {name}: 4 replays back to back: {replay_ms:.3f} ms a call (CUDA "
+              f"events); its kernels' device time {ms_graph:.3f} ms, idle inside "
+              f"{100 * (1 - ms_graph / replay_ms):.1f} %; keys cached {list(runner.keys())}; "
+              f"the graphs' pool holds {cuda_lib.pool_bytes(runner.pool) / 2**20:.1f} MiB")
+    print(f"[{label}] the tail phase took {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1753,14 +1905,8 @@ def captured_batched_step(engine, dec, st, spk, emovec, ids, label: str):
     with torch.inference_mode(), dec.on_stream():
         eager_k, graph_k, rng, counts = replay_against_eager(
             lambda: dec.slot_step(st, True), graph, True, label, tries=5)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(8):
-            graph.replay()
-        b.record()
-        b.synchronize()
+        replay_ms = replays_ms(graph, 8)
     n_k, ms_k = (sum(v[i] for v in graph_k.values()) for i in (0, 1))
-    replay_ms = a.elapsed_time(b) / 8
     print(f"[{label}] one batched step (4 slots): {sum(counts[0].values())} device kernels "
           f"eager, {n_k} a replay ({ms_k:.4f} device ms), of which the generator's state "
           f"before the launch: " + (", ".join(f"{short_name(k)} x{n}" for k, n in rng.items())
@@ -1794,13 +1940,7 @@ def slot_step_times(engine, dec, conds, ids, label: str):
             dec.step_chunk(st, 2, True)  # one eager step, the capture, a replay
             graph = st.graphs[True][0]
             kernels = step_kernels(graph.replay)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(8):
-                graph.replay()
-            b.record()
-            b.synchronize()
-        ms = a.elapsed_time(b) / 8
+            ms = replays_ms(graph, 8)
         n_k, ms_k = (sum(v[i] for v in kernels.values()) for i in (0, 1))
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
         print(f"[{label}] batched step at {n_slots} slots (pos {st.pos.tolist()}): {ms:.4f} ms "
@@ -1965,14 +2105,17 @@ def serve_continuous(wav_path: str, engine, label: str, rise, stay, tmp: str, ca
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     ours = {(torch.cuda.current_device(), d._stream.cuda_stream)
             for d in (svc.decoder, engine.decoder, check_dec)}
-    # a stream's handle may be one a freed stream of an earlier route had,
-    # whose counters the new stream then takes over
+    # torch.cuda.Stream() hands out PyTorch's pooled streams in turn, so a
+    # decoder's stream may be one that an earlier engine's decoder held,
+    # counters and all: on a route without K6/K8 no counter may be made in
+    # this phase, on one with them the service decoder's stream must have one
     made = set(gemv._arrived) - arrived
     fused = any(name[:2] in ("K6", "K8") for name in rise)
     svc_key = (torch.cuda.current_device(), svc.decoder._stream.cuda_stream)
-    if not made <= ours or fused != (svc_key in gemv._arrived):
+    if not made <= ours or (made and not fused) or (fused and svc_key not in gemv._arrived):
         fail(f"[{label}] fused-MLP arrival counters on streams other than the decoders' "
-             f"({made - ours}), or none for the service's decoder")
+             f"({made - ours}), made on a route without K6/K8 ({made}), or none for the "
+             "service's decoder")
     print(f"[{label}] K6/K8 arrival counters made in this phase: {len(made)}, all on "
           f"decoder streams; the service decoder's stream has its own: {svc_key in gemv._arrived}")
 
@@ -2029,9 +2172,11 @@ def main():
         full = load_config()
         launches = {}
         for label, (change, rise, stay) in routes.items():
-            counts, engine = serve_full_width(wav_path, change(full), label, rise, stay, tmp)
+            counts, engine = serve_full_width(wav_path, change(full), label, rise, stay, tmp,
+                                              precompile=label == "float")
             if label == "float":  # the s2mel stage does not depend on the GPT's route
                 s2mel_turns(engine, wav_path, label)
+                tail_turns(engine, wav_path, label)
             # each kernel's launches come from the route that runs it first
             for name in rise:
                 launches.setdefault(name, counts[name])

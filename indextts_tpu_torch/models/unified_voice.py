@@ -92,8 +92,10 @@ class UnifiedVoice(nn.Module):
     def build_conds_latent(self, spk_latents, emovec):
         """[spk_latents + emovec, speed_emb(1), speed_emb(0)] -> (B, 34, D)."""
         B = spk_latents.shape[0]
-        idx = torch.tensor([1, 0], device=spk_latents.device)
-        dur = self.speed_emb(idx)[None].expand(B, -1, -1)
+        # speed_emb rows 1 then 0, read on the device: an index tensor made
+        # here would be a host-to-device copy, which a CUDA graph capture
+        # refuses
+        dur = self.speed_emb.weight.flip(0)[None].expand(B, -1, -1)
         return torch.cat([spk_latents + emovec[:, None, :], dur], dim=1)
 
     # -- prompt / step embeddings for the decode loop -------------------------

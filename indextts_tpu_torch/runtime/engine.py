@@ -6,17 +6,23 @@ CAMPPlus, regulator, conformer+perceiver latents) -> per segment: emovec +
 conds, AR decode, teacher-forced latent pass, gpt_layer + vq2emb + length
 regulator, CFM (20 Euler steps, CFG), BigVGAN, on-device PCM16.
 
-As in the JAX engine, `precise_shapes=False` (the default) rounds the
-s2mel stage's target mel length up to a multiple of 128 frames (the
-padding is masked: each row's valid lengths drive the regulator, the DiT's
-attention and WaveNet's reflection) and slices the mel back to the exact
-length; the CFM noise is drawn at that canonical width in both modes, so
-each frame gets the same noise either way. The latent pass and the
-vocoder run at exact lengths in both modes. On the card the CFM solve is
-a replay of a CUDA graph captured per solve shape
-(runtime/s2mel_infer.py `S2MelRunner`). TARS_STAGE_SYNC=1 ends the latent
-and s2mel stages with a wait for the card, so each stage's seconds hold its
-device time, as in the JAX engine; by default nothing waits.
+As in the JAX engine, `precise_shapes=False` (the default) runs the tail
+of a segment at buckets (indextts_tpu/runtime/engine.py:724-827): the
+latent pass over the codes padded with the stop token to a multiple of 64
+and the text padded to a multiple of 64 (capped at max_text_tokens); s2mel
+over that latent and those codes, its target mel length rounded up to a
+multiple of 128 frames (the padding is masked: the valid lengths drive the
+regulator, the DiT's attention and WaveNet's reflection), the mel sliced
+back to the exact length; the vocoder over that mel padded to the bucket
+with log(1e-5), the waveform cut to the exact length. The CFM noise is
+drawn at the bucket's width in both modes, so each frame gets the same
+noise either way. `precise_shapes=True` runs every stage at exact shapes.
+On the card each stage is a replay of a CUDA graph captured per bucket
+(runtime/graphs.py `LatentRunner`, `VocoderRunner`; runtime/s2mel_infer.py
+`S2MelRunner`); `precompile` captures the serving envelope's graphs up
+front, as the JAX engine compiles its programs. TARS_STAGE_SYNC=1 ends the
+latent and s2mel stages with a wait for the card, so each stage's seconds
+hold its device time, as in the JAX engine; by default nothing waits.
 
 The quantized GPT route of the JAX package is honoured: `gpt_quantize`
 (W8A8 blocks with `gpt_wbits=8`, W4A8 with `gpt_wbits=4`), `head_quant`
@@ -45,18 +51,20 @@ PyTorch would otherwise use for float32 convolutions on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from indextts_tpu_torch.config import IndexTTS2Config
 from indextts_tpu_torch.frontend import features as feat
-from indextts_tpu_torch.models.bigvgan import BigVGAN, to_pcm16
+from indextts_tpu_torch.models.bigvgan import BigVGAN
 from indextts_tpu_torch.models.campplus import CAMPPlus
 from indextts_tpu_torch.models.repcodec import RepCodec
 from indextts_tpu_torch.models.s2mel import S2Mel
@@ -64,6 +72,7 @@ from indextts_tpu_torch.models.unified_voice import UnifiedVoice
 from indextts_tpu_torch.models.w2vbert import W2VBertEncoder
 from indextts_tpu_torch.ops import mel as mel_ops
 from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
+from indextts_tpu_torch.runtime.graphs import LatentRunner, VocoderRunner
 from indextts_tpu_torch.runtime.s2mel_infer import S2MelRunner
 from indextts_tpu_torch.utils import audio as audio_utils
 from indextts_tpu_torch.utils.device import resolve_device
@@ -86,6 +95,40 @@ def next_bucket(n: int, step: int, minimum: int = 0) -> int:
     """n rounded up to a multiple of step, at least minimum (the JAX
     engine's next_bucket)."""
     return max(minimum, step * (-(-n // step)))
+
+
+class PrecompileGrid(NamedTuple):
+    """The programs of the serving envelope, one job each."""
+
+    text_buckets: List[int]  # decode prompts
+    latent: List[Tuple[int, int]]  # (text width, code width)
+    s2mel: List[Tuple[int, int, int]]  # (code bucket, target bucket, a code length reaching both)
+    vocoder: List[int]  # mel widths: the target buckets
+
+
+def precompile_grid(max_text_tokens: int, max_text_tokens_per_segment: int,
+                    text_buckets: Optional[Sequence[int]] = None, max_code_len: int = 512,
+                    code_lens: Optional[Sequence[int]] = None) -> PrecompileGrid:
+    """The JAX engine's precompile grid (indextts_tpu/runtime/engine.py:
+    1051-1101): decode text buckets every 16 tokens up to the segment cap;
+    the latent pass's text buckets (64-step, capped at max_text_tokens) x
+    its code buckets; the (code bucket, target bucket) pairs that some code
+    length in [1, max_code_len] (or in `code_lens`) reaches; their target
+    buckets for the vocoder."""
+    mt = max_text_tokens
+    if text_buckets is None:
+        cap_t = min(next_bucket(max_text_tokens_per_segment, 16, 16), mt)
+        text_buckets = range(16, cap_t + 1, 16)
+    text_buckets = sorted({min(int(b), mt) for b in text_buckets})
+    combos: Dict[Tuple[int, int], int] = {}
+    for cl in (range(1, max_code_len + 1) if code_lens is None else [int(c) for c in code_lens]):
+        combos.setdefault((next_bucket(cl, 64, 64), next_bucket(int(cl * 1.72), 128, 128)), cl)
+    lat_buckets = sorted({min(next_bucket(b, 64, 64), mt) for b in text_buckets})
+    code_buckets = sorted({cb for cb, _ in combos})
+    return PrecompileGrid(
+        text_buckets, [(tb, cb) for tb in lat_buckets for cb in code_buckets],
+        [(cb, tb, cl) for (cb, tb), cl in sorted(combos.items())],
+        sorted({tb for _, tb in combos}))
 
 
 def load_model(name: str, cfg: IndexTTS2Config, state_dict: Dict[str, torch.Tensor],
@@ -239,7 +282,9 @@ class IndexTTS2Engine:
         self.decoder = GPTDecoder(self.gpt, cfg.gpt,
                                   SamplingConfig(do_sample=rt.do_sample, top_k=rt.top_k),
                                   kv_int8=kv_int8(cfg))
+        self.latent_runner = LatentRunner(self.gpt)
         self.s2mel_runner = S2MelRunner(self.s2mel, rt.diffusion_steps, rt.cfg_rate)
+        self.vocoder_runner = VocoderRunner(self.bigvgan, rt.device_pcm16)
         self._spk_cache: Dict[str, SpeakerConditioning] = {}
         self._emo_cache: Dict[str, EmotionConditioning] = {}
         # seeds for seedless requests (serving threads share the engine)
@@ -398,21 +443,16 @@ class IndexTTS2Engine:
     def _finish_from_codes(self, spk: SpeakerConditioning, emovec, text_ids: np.ndarray,
                            codes_trimmed: np.ndarray, seed: Optional[int],
                            t_gpt_gen: float) -> SegmentResult:
-        """Latent pass + s2mel + vocoder for one decoded segment."""
+        """Latent pass + s2mel + vocoder for one decoded segment, each at its
+        bucket (indextts_tpu/runtime/engine.py:724-827) unless precise."""
         cfg, rt, dev = self.cfg, self.cfg.runtime, self.device
-        n = len(text_ids)
         codes_row, code_len = self.remove_long_silence(
             codes_trimmed, cfg.gpt.stop_mel_token, compress=rt.remove_long_silence)
         code_len = max(code_len, 1)
-        codes_arr = np.full((1, code_len), cfg.gpt.stop_mel_token, np.int64)
-        codes_arr[0, :len(codes_row)] = codes_row[:code_len]
-        codes_t = self._tensor(codes_arr)
-        code_len_t = self._tensor([code_len])
 
         t1 = time.perf_counter()
-        latent = self.gpt.forward_latent(
-            spk.spk_latents, self._tensor(np.asarray(text_ids, np.int64)[None]),
-            self._tensor([n]), codes_t, code_len_t, emovec)
+        latent, codes_t = self._latent_pass(spk, emovec, np.asarray(text_ids), codes_row,
+                                            code_len)
         self._stage_barrier()
         t_gpt_fwd = time.perf_counter() - t1
 
@@ -420,10 +460,7 @@ class IndexTTS2Engine:
         exact_len = int(code_len * 1.72)
         bucket_len = next_bucket(exact_len, 128, 128)
         target_len = exact_len if self.precise else bucket_len
-        # the regulator's valid length is rounded in float32, as in the JAX engine
-        ylen = int(np.floor(np.float32(code_len) * np.float32(1.72)))
-        total_len = spk.ref_mel_len + target_len
-        shape = (1, cfg.s2mel.dit.in_channels, total_len)
+        shape = (1, cfg.s2mel.dit.in_channels, spk.ref_mel_len + target_len)
         if self._noise_hook is not None:
             noise = self._tensor(self._noise_hook(shape), torch.float32)
         else:
@@ -432,16 +469,8 @@ class IndexTTS2Engine:
             noise = torch.randn(
                 (1, shape[1], spk.ref_mel_len + bucket_len), device=dev,
                 generator=self._generator(None if seed is None else seed + 1)
-            )[:, :, :total_len]
-        lat = self.s2mel.project_gpt_latent(latent)
-        s_infer = self.repcodec.vq2emb(codes_t) + lat
-        ylens = self._tensor([ylen])
-        cond = self.s2mel.regulate(s_infer, ylens, target_len, code_len_t)
-        cat_cond = torch.cat([spk.prompt_condition, cond], dim=1)
-        prompt_x = torch.zeros(shape, device=dev)
-        prompt_x[:, :, :spk.ref_mel_len] = spk.ref_mel
-        vc = self.s2mel_runner.solve(cat_cond, spk.ref_mel_len + ylens, prompt_x,
-                                     spk.ref_mel_len, spk.style, noise)
+            )[:, :, :shape[2]]
+        vc = self._s2mel_mel(spk, latent, codes_t, code_len, target_len, noise)
         mel_out = vc[:, :, spk.ref_mel_len:spk.ref_mel_len + exact_len]
         if self._mel_taps is not None:
             self._mel_taps.append(mel_out.cpu().numpy())
@@ -449,15 +478,145 @@ class IndexTTS2Engine:
         t_s2mel = time.perf_counter() - t2
 
         t3 = time.perf_counter()
-        wav = self.bigvgan(mel_out)
-        if rt.device_pcm16:
-            wav = to_pcm16(wav)[0].cpu().numpy().astype(np.float32) / 32767.0
-        else:
-            wav = wav[0].cpu().numpy()
-        wav = wav[: exact_len * cfg.vocoder.total_upsample]
+        wav = self._vocode(mel_out, target_len)
         t_voc = time.perf_counter() - t3
-        return SegmentResult(wav.astype(np.float32), code_len, t_gpt_gen, t_gpt_fwd,
-                             t_s2mel, t_voc)
+        return SegmentResult(wav, code_len, t_gpt_gen, t_gpt_fwd, t_s2mel, t_voc)
+
+    @torch.inference_mode()
+    def _latent_pass(self, spk: SpeakerConditioning, emovec, text_ids: np.ndarray,
+                     codes_row: np.ndarray, code_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The teacher-forced latent pass of `code_len` codes (the first of
+        `codes_row`, stop tokens past them) after `text_ids`: the codes
+        padded with the stop token to a multiple of 64, the text with zeros
+        to a multiple of 64 capped at max_text_tokens (the padding masked
+        inside forward_latent), exact with precise_shapes. Returns the latent
+        (1, code width, D) and the padded codes (1, code width) on the
+        device."""
+        cfg = self.cfg
+        n = len(text_ids)
+        code_bucket = code_len if self.precise else next_bucket(code_len, 64, 64)
+        text_bucket = n if self.precise else min(next_bucket(n, 64, 64),
+                                                 cfg.gpt.max_text_tokens)
+        codes_arr = np.full((1, code_bucket), cfg.gpt.stop_mel_token, np.int64)
+        n_copy = min(code_len, len(codes_row))
+        codes_arr[0, :n_copy] = codes_row[:n_copy]
+        text_arr = np.zeros((1, text_bucket), np.int64)
+        text_arr[0, :n] = text_ids[:n]
+        codes_t = self._tensor(codes_arr)
+        latent = self.latent_runner.latent(
+            spk.spk_latents, self._tensor(text_arr), self._tensor([n]), codes_t,
+            self._tensor([code_len]), emovec)
+        return latent, codes_t
+
+    @torch.inference_mode()
+    def _s2mel_mel(self, spk: SpeakerConditioning, latent, codes_t, code_len: int,
+                   target_len: int, noise) -> torch.Tensor:
+        """gpt_layer + vq2emb over the latent's and codes' width, the length
+        regulator over the `code_len` valid codes to `target_len` frames
+        (int(code_len * 1.72) of them valid), then the CFM solve: the mel
+        (1, 80, prompt frames + target_len)."""
+        cfg = self.cfg
+        # the regulator's valid length is rounded in float32, as in the JAX engine
+        ylen = int(np.floor(np.float32(code_len) * np.float32(1.72)))
+        code_len_t, ylens = self._tensor([code_len]), self._tensor([ylen])
+        # the stop token that pads the codes to their bucket lies past the
+        # codebook; the regulator reads no row at or past code_len, so those
+        # rows are looked up clamped (the JAX engine's take fills them with NaN)
+        codes_t = codes_t.clamp(max=cfg.semantic_codec.codebook_size - 1)
+        s_infer = self.repcodec.vq2emb(codes_t) + self.s2mel.project_gpt_latent(latent)
+        cond = self.s2mel.regulate(s_infer, ylens, target_len, code_len_t)
+        cat_cond = torch.cat([spk.prompt_condition, cond], dim=1)
+        total_len = spk.ref_mel_len + target_len
+        prompt_x = torch.zeros((1, cfg.s2mel.dit.in_channels, total_len), device=self.device)
+        prompt_x[:, :, :spk.ref_mel_len] = spk.ref_mel
+        return self.s2mel_runner.solve(cat_cond, spk.ref_mel_len + ylens, prompt_x,
+                                       spk.ref_mel_len, spk.style, noise)
+
+    @torch.inference_mode()
+    def _vocode(self, mel, target_len: int) -> np.ndarray:
+        """BigVGAN over `mel` (1, 80, T) padded to `target_len` frames with
+        log(1e-5) (silence), the PCM16 clip on the card under device_pcm16;
+        the waveform cut to T frames' samples, float32 on the host."""
+        pad = target_len - mel.shape[2]
+        exact = mel.shape[2] * self.cfg.vocoder.total_upsample
+        if pad:
+            mel = torch.nn.functional.pad(mel, (0, pad), value=float(np.log(1e-5)))
+        wav = self.vocoder_runner.vocode(mel)[0, :exact].cpu().numpy()
+        if self.cfg.runtime.device_pcm16:
+            return wav.astype(np.float32) / 32767.0
+        return wav.astype(np.float32)
+
+    def precompile(
+        self,
+        spk: SpeakerConditioning,
+        emo: Optional[EmotionConditioning] = None,
+        *,
+        text_buckets: Optional[Sequence[int]] = None,
+        max_code_len: int = 512,
+        max_new: Optional[int] = None,
+        num_beams: Optional[int] = None,
+        do_sample: Optional[bool] = None,
+        workers: int = 4,
+        block: bool = True,
+        code_lens: Optional[Sequence[int]] = None,
+        decode_variants: str = "both",
+    ) -> int:
+        """Capture the serving envelope's programs before traffic comes: the
+        JAX engine's `precompile` (indextts_tpu/runtime/engine.py:1006-1192)
+        over the same grid (`precompile_grid`), in `workers` threads, each
+        job one call of the stage through the engine's own code. Decode: one
+        `generate` a text bucket, which captures the step of its (1, cap)
+        state; the port has no cond-KV reuse, so "both" and "keyed" run the
+        raw route, as the JAX engine's "keyed" falls back; "none" skips
+        decode (continuous serving decodes in its own batcher). Latent: one
+        pass a (text bucket, code bucket); s2mel: one stage a reachable
+        (code bucket, target bucket), its solve keyed on the prompt's frames
+        + the target bucket; vocoder: one call a target bucket. Captures
+        take turns (`cuda_lib.capture`); the eager warm-ups before them may
+        overlap. On the CPU nothing is captured, and no job runs. With
+        `block=False` the jobs go on in the background. Returns the number
+        of jobs."""
+        rt, g = self.cfg.runtime, self.cfg.gpt
+        if decode_variants not in ("both", "keyed", "raw", "none"):
+            raise ValueError(f"decode_variants={decode_variants!r}: one of both, keyed, "
+                             "raw, none")
+        nb = rt.num_beams if num_beams is None else num_beams
+        if nb > 1 and decode_variants != "none":
+            raise NotImplementedError("beam search (num_beams > 1) is not ported yet")
+        grid = precompile_grid(g.max_text_tokens, rt.max_text_tokens_per_segment,
+                               text_buckets, max_code_len, code_lens)
+        decode = [] if decode_variants == "none" else grid.text_buckets
+        n_jobs = len(decode) + len(grid.latent) + len(grid.s2mel) + len(grid.vocoder)
+        if self.device.type != "cuda":
+            return n_jobs
+        emo = emo if emo is not None else EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+        emovec, _ = self.segment_conds(spk, emo)
+        # the request path's own calls, at each bucket's width
+        jobs: List[Callable[[], Any]] = [
+            functools.partial(self._decode_segment_codes, spk, emo, np.ones(b, np.int64),
+                              max_mel_tokens=max_new, seed=0, do_sample=do_sample)
+            for b in decode]
+        stop, dev = g.stop_mel_token, self.device
+        jobs += [functools.partial(self._latent_pass, spk, emovec, np.zeros(tb, np.int64),
+                                   np.full(cb, stop, np.int64), cb)
+                 for tb, cb in grid.latent]
+        jobs += [functools.partial(
+            self._s2mel_mel, spk, torch.zeros((1, cb, g.model_dim), device=dev),
+            torch.full((1, cb), stop, device=dev), cl, tb,
+            torch.zeros((1, self.cfg.s2mel.dit.in_channels, spk.ref_mel_len + tb), device=dev))
+            for cb, tb, cl in grid.s2mel]
+        jobs += [functools.partial(
+            self._vocode, torch.full((1, self.cfg.s2mel.dit.in_channels, tb),
+                                     float(np.log(1e-5)), device=dev), tb)
+            for tb in grid.vocoder]
+        pool = ThreadPoolExecutor(max_workers=max(1, workers),
+                                  thread_name_prefix="tars-precompile")
+        futs = [pool.submit(j) for j in jobs]
+        if block:
+            for f in futs:
+                f.result()
+        pool.shutdown(wait=block)
+        return n_jobs
 
     # -- request-level APIs ---------------------------------------------------
 

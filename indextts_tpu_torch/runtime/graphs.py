@@ -1,0 +1,183 @@
+"""Captured programs: a function replayed from a CUDA graph, one per key.
+
+The port's counterpart of the JAX engine's jitted programs, each compiled
+once per bucket of its input shapes. A `GraphRunner` holds, for each key
+(the caller's name for a set of input shapes), static input buffers and, on
+the card, a CUDA graph of the function captured over them; a call copies
+its inputs in, replays the graph and copies the output out. The CPU runs
+the function eagerly on the caller's tensors.
+
+Three runners stand on it: runtime/s2mel_infer.py `S2MelRunner` (the CFM
+solve, JAX `_s2mel_program`), `LatentRunner` (the teacher-forced latent
+pass, JAX `_latent_program`) and `VocoderRunner` (BigVGAN with the PCM16
+clip or without, JAX `_vocoder_pcm16_f32_program` / `_vocoder_f32_program`).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, Optional, Sequence
+
+import torch
+
+from indextts_tpu_torch.models.bigvgan import BigVGAN, to_pcm16
+from indextts_tpu_torch.models.unified_voice import UnifiedVoice
+from indextts_tpu_torch.ops import cuda_lib, snake
+
+# latent-pass keys (text width, code width) whose graphs are kept: the
+# serving envelope of 512 codes holds 2 text buckets x 8 code buckets
+MAX_LATENTS = 16
+# vocoder mel widths whose graphs are kept: 512 codes reach 7 target buckets
+MAX_VOCODES = 8
+
+
+class Program:
+    """One key's static inputs, the graph captured over them, its output and
+    each counter's launches in one replay. A Python number among the inputs
+    is held as a 0-d tensor filled in place (no host-to-device copy)."""
+
+    def __init__(self, args: Sequence, device: torch.device):
+        self.args = tuple(
+            torch.zeros(a.shape, dtype=a.dtype, device=a.device) if isinstance(a, torch.Tensor)
+            else torch.zeros((), dtype=torch.int64 if isinstance(a, int) else torch.float32,
+                             device=device)
+            for a in args)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Sequence[int] = ()
+
+    def load(self, args: Sequence) -> None:
+        for buf, a in zip(self.args, args):
+            if not isinstance(a, torch.Tensor):
+                buf.fill_(a)
+            elif a.shape != buf.shape:
+                raise ValueError(f"input of shape {tuple(a.shape)} for a program "
+                                 f"captured at {tuple(buf.shape)}")
+            else:
+                buf.copy_(a)
+
+
+class GraphRunner:
+    """`fn(*args) -> tensor`, captured once per key and replayed.
+
+    On the card a key's first call runs `warmup` (by default `fn` itself)
+    eagerly on the runner's stream over the key's static inputs (cuBLAS's
+    workspace, cuDNN's set-up, per-device tables), then captures `fn` as a
+    CUDA graph (`cuda_lib.capture`: other threads' CUDA calls go on
+    meanwhile, other captures wait) into the runner's own memory pool, which
+    its keys' graphs share; each call, the first included, replays it. A
+    lock serializes a runner's calls (copy in, replay, copy out) on its one
+    stream, so the shared pool is safe: no two of its graphs ever run at
+    once. Runners do not share pools, so the replays of different runners
+    may overlap on the card. The least recently used of `max_keys` keys goes
+    with its graph. The launches that the kernels of `counters` make in a
+    capture are counted once a replay (`LaunchCounter.take_captured`). A
+    capture that fails raises; nothing falls back to an eager call.
+
+    `eager=True` runs `fn` eagerly on the same stream and buffers: the
+    yardstick a replay is held to. The CPU always runs `fn` eagerly, on the
+    caller's tensors. The output is allocated on the caller's stream and
+    filled on the runner's, which the caller's stream then waits for."""
+
+    def __init__(self, fn: Callable, device, max_keys: int,
+                 counters: Sequence[cuda_lib.LaunchCounter] = (),
+                 warmup: Optional[Callable] = None):
+        self.fn = fn
+        self.warmup = warmup or fn
+        self.device = torch.device(device)
+        self.max_keys = max_keys
+        self.counters = tuple(counters)
+        cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.programs: "OrderedDict[Hashable, Program]" = OrderedDict()
+        self.lock = threading.Lock()
+
+    def _program(self, key: Hashable, args: Sequence) -> Program:
+        prog = self.programs.get(key)
+        if prog is None:
+            if len(self.programs) >= self.max_keys:
+                # its last replay may still run on the card: the graph and
+                # buffers go once the stream is idle
+                self.stream.synchronize()
+                self.programs.popitem(last=False)
+            prog = self.programs[key] = Program(args, self.device)
+        self.programs.move_to_end(key)
+        return prog
+
+    def _capture(self, prog: Program) -> None:
+        self.warmup(*prog.args)
+        graph = torch.cuda.CUDAGraph()
+        for c in self.counters:
+            c.take_captured()
+        with cuda_lib.capture(graph, self.stream, self.pool):
+            prog.out = self.fn(*prog.args)
+        prog.graph = graph
+        prog.launches = [c.take_captured() for c in self.counters]
+
+    @torch.inference_mode()
+    def __call__(self, key: Hashable, *args, eager: bool = False) -> torch.Tensor:
+        if self.stream is None:
+            return self.fn(*args)
+        caller = torch.cuda.current_stream(self.device)
+        with self.lock:
+            prog = self._program(key, args)
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                prog.load(args)
+                if eager:
+                    res = self.fn(*prog.args)
+                else:
+                    if prog.graph is None:
+                        self._capture(prog)
+                    prog.graph.replay()
+                    for c, n in zip(self.counters, prog.launches):
+                        c.add_replayed(n)
+                    res = prog.out
+            out = torch.empty(res.shape, dtype=res.dtype, device=res.device)  # caller's stream
+            with torch.cuda.stream(self.stream):
+                out.copy_(res)
+            caller.wait_stream(self.stream)
+        return out
+
+    def keys(self) -> Dict[Hashable, bool]:
+        """The keys held, least recently used first, and whether each has
+        its graph."""
+        return {key: prog.graph is not None for key, prog in self.programs.items()}
+
+
+def _device(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+class LatentRunner(GraphRunner):
+    """The teacher-forced latent pass of one UnifiedVoice
+    (`forward_latent`), a graph per (text width, code width). On W8/W4 its
+    contractions take the plain int8 path (a call of many rows opens no
+    decode kernel), W4 weights unpacked within the graph."""
+
+    def __init__(self, gpt: UnifiedVoice):
+        super().__init__(gpt.forward_latent, _device(gpt), MAX_LATENTS)
+
+    def latent(self, spk_latents, text_ids, text_lens, codes, code_lens, emovec,
+               eager: bool = False) -> torch.Tensor:
+        """(1, codes width, D) from spk_latents (1, 32, D), text ids (1, Lt)
+        and their valid length (1,), codes (1, Lm) and theirs (1,), emovec
+        (1, D)."""
+        return self((text_ids.shape[1], codes.shape[1]), spk_latents, text_ids, text_lens,
+                    codes, code_lens, emovec, eager=eager)
+
+
+class VocoderRunner(GraphRunner):
+    """BigVGAN over a mel (1, 80, T), a graph per width T; with `pcm16` the
+    waveform leaves it clipped to int16 (`to_pcm16`), else as float32.
+    K2's launches (37 a call at the default config) are counted through
+    replays."""
+
+    def __init__(self, bigvgan: BigVGAN, pcm16: bool):
+        fn = (lambda mel: to_pcm16(bigvgan(mel))) if pcm16 else bigvgan
+        super().__init__(fn, _device(bigvgan), MAX_VOCODES, counters=(snake.counter,))
+
+    def vocode(self, mel, eager: bool = False) -> torch.Tensor:
+        return self(mel.shape[2], mel, eager=eager)

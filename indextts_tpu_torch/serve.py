@@ -12,14 +12,23 @@ Serving mode: sequential, or continuous batching, where every request's
 segments decode in one shared chunked loop (runtime/batcher.py
 `ContinuousService`), as the JAX server picks it (`pick_continuous_slots`).
 
+With a default prompt, a background thread captures the serving
+envelope's programs (`IndexTTS2Engine.precompile`: decode steps, latent
+passes, s2mel solves and vocoder calls, each a CUDA graph per bucket on the
+card) while the warmup synthesis runs, as the JAX server compiles its
+programs; requests that come meanwhile capture their own shapes as they
+would have anyway. A precompile that fails is printed and serving goes on.
+
 Left out against the JAX entry point: the compile cache, multihost
-initialization, precompilation, the Qwen emotion model and streaming
-(/tts/stream answers 400). A warmup that fails raises.
+initialization, the Qwen emotion model and streaming (/tts/stream answers
+400). A warmup that fails raises.
 
 Env knobs keep the TARS_* names: TARS_MAX_CONCURRENCY, TARS_REFERENCE_AUDIO,
 TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS;
 TARS_CONTINUOUS_SLOTS (default "auto"), TARS_CONTINUOUS_CHUNK (decode steps
-a chunk, 32) and TARS_CONTINUOUS_TAIL_WORKERS (2).
+a chunk, 32) and TARS_CONTINUOUS_TAIL_WORKERS (2); TARS_PRECOMPILE (1: on),
+TARS_PRECOMPILE_CODES (the envelope's longest segment in codes, 512) and
+TARS_PRECOMPILE_WORKERS (4).
 """
 
 from __future__ import annotations
@@ -28,7 +37,10 @@ import argparse
 import dataclasses
 import os
 import sys
+import threading
 import time
+import traceback
+from concurrent.futures import Future
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -91,13 +103,48 @@ def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
     return synth
 
 
+def precompile_in_background(engine, prompt: str, continuous: bool) -> Future:
+    """Start the JAX server's background precompile (indextts_tpu/serve.py
+    :281-321) on the speaker prompt `prompt`: the envelope of
+    TARS_PRECOMPILE_CODES codes in TARS_PRECOMPILE_WORKERS threads; decode
+    too unless `continuous` (continuous serving decodes in its batcher's
+    own state). Returns a future of (jobs, seconds); a failure is printed
+    and set on it, and never raised into the server."""
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    done: Future = Future()
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            spk = engine.prepare_speaker(*audio_utils.load_wav(prompt), cache_key=prompt)
+            n = engine.precompile(
+                spk, max_code_len=int(os.environ.get("TARS_PRECOMPILE_CODES", "512")),
+                workers=int(os.environ.get("TARS_PRECOMPILE_WORKERS", "4")),
+                decode_variants="none" if continuous else "both")
+        except Exception as e:  # the server goes on; its shapes capture on demand
+            traceback.print_exc()
+            print(f">> precompile failed: {e!r}", file=sys.stderr)
+            done.set_exception(e)
+            return
+        seconds = time.perf_counter() - t0
+        print(f">> precompiled {n} programs in {seconds:.1f} s", file=sys.stderr)
+        done.set_result((n, seconds))
+
+    threading.Thread(target=run, daemon=True, name="tars-precompile").start()
+    return done
+
+
 def build(argv=None, cfg=None, engine=None):
     """Parse arguments, build the engine and the server; warm up once.
     `cfg` replaces the configuration that --cfg / the TARS_* env would give;
     `engine`, an engine already built, replaces the engine and its
     configuration (a second server over the same models). Returns (server,
     engine); `server.service` is the ContinuousService in continuous mode
-    (None in sequential mode), which its owner shuts down."""
+    (None in sequential mode), which its owner shuts down;
+    `server.precompiled` the background precompile's future
+    (`precompile_in_background`), None when TARS_PRECOMPILE=0 or without a
+    default prompt."""
     p = argparse.ArgumentParser(prog="indextts-tpu-torch-serve")
     p.add_argument("--model-dir", default=os.environ.get("TARS_CHECKPOINT_DIR"))
     p.add_argument("--cfg", default=os.environ.get("TARS_CONFIG_FILE"))
@@ -147,6 +194,11 @@ def build(argv=None, cfg=None, engine=None):
     synth = make_synth(engine, default_prompt, service)
     server = TTSServer(synth, settings)
     server.service = service
+    server.precompiled = None
+    if os.environ.get("TARS_PRECOMPILE", "1") == "1" and default_prompt:
+        # before the warmup: the grid captures while the warmup runs
+        server.precompiled = precompile_in_background(engine, default_prompt,
+                                                      service is not None)
     if settings.warmup and default_prompt:
         t0 = time.perf_counter()
         synth(text="warmup")

@@ -872,3 +872,151 @@ def test_s2mel_and_decode_capture_side_by_side(cuda_device):
     assert all(torch.equal(g, w) for g, w in zip(got_codes, want_codes)) and len(got_codes) == 4
     assert [key for key, _ in runner.shapes()] == [(1, T) for T in (128, 256, 384, 512)]
     assert [len(st.graphs) for st in dec._states.values()] == [1, 1]
+
+
+# ---------------------------------------------------------------------------
+# the cascade tail's other stages: the latent pass and the vocoder, each a
+# captured graph per bucket (runtime/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _latent_request(dev, n, code_len, seed, Lt=32, Lm=64):
+    """The latent runner's inputs for `_graph_decoder`'s GPT (width 256):
+    n valid text ids of Lt, code_len valid codes of Lm."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    spk = torch.randn((1, 32, 256), generator=g, device=dev)
+    emovec = torch.randn((1, 256), generator=g, device=dev)
+    text = torch.randint(2, 50, (1, Lt), generator=g, device=dev)
+    codes = torch.randint(0, 34, (1, Lm), generator=g, device=dev)
+    return (spk, text, torch.tensor([n], device=dev), codes,
+            torch.tensor([code_len], device=dev), emovec)
+
+
+def _vocoder(dev, pcm16=False):
+    """The default config's BigVGAN (37 K2 launches a call), seeded random
+    weights, and its runner, on the card."""
+    from indextts_tpu_torch import config as C
+    from indextts_tpu_torch.models.bigvgan import BigVGAN
+    from indextts_tpu_torch.runtime.graphs import VocoderRunner
+
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(0)
+        with torch.device(dev):
+            model = BigVGAN(C.BigVGANConfig()).eval().requires_grad_(False)
+    return VocoderRunner(model, pcm16)
+
+
+def _mel(dev, T, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((1, 80, T), generator=g, device=dev) - 5.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_latent_graph_matches_eager(cuda_device, route):
+    """The captured latent pass gives the eager pass's bits, for two
+    requests of one (text width, code width) with other valid lengths, on
+    the float, W8 and W4 GPTs: one graph serves both."""
+    from indextts_tpu_torch.runtime.graphs import LatentRunner
+
+    dec, _ = _graph_decoder(cuda_device, route)
+    runner = LatentRunner(dec.model)
+    reqs = [_latent_request(cuda_device, 9, 23, 1), _latent_request(cuda_device, 32, 64, 2)]
+    want = [runner.latent(*a, eager=True) for a in reqs]
+    for _ in range(2):
+        for a, w in zip(reqs, want):
+            assert torch.equal(runner.latent(*a), w)
+    assert runner.keys() == {(32, 64): True}
+    assert cuda_lib.pool_bytes(runner.pool) > 0
+    assert want[0].shape == (1, 64, 256) and not torch.equal(want[0], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pcm16", [False, True])
+def test_vocoder_graph_matches_eager_and_counts_k2(cuda_device, pcm16):
+    """The captured vocoder gives the eager call's bits (float32, or int16
+    under the PCM16 clip), and K2's counter through replays: 37 a call, as
+    the eager call launches; a width's first call adds its eager warm-up
+    (37) before the capture, which launches nothing."""
+    runner = _vocoder(cuda_device, pcm16)
+    mels = [_mel(cuda_device, 32, 1), _mel(cuda_device, 32, 2)]
+    counts, want = [], []
+    for m in mels:
+        k2.counter.launches = 0
+        want.append(runner.vocode(m, eager=True))
+        counts.append(k2.counter.launches)
+    for _ in range(2):
+        for m, w in zip(mels, want):
+            k2.counter.launches = 0
+            assert torch.equal(runner.vocode(m), w)
+            counts.append(k2.counter.launches)
+    assert counts == [37, 37, 74, 37, 37, 37]
+    assert want[0].shape == (1, 32 * 256)
+    assert want[0].dtype == (torch.int16 if pcm16 else torch.float32)
+    assert runner.keys() == {32: True}
+
+
+@pytest.mark.cuda
+def test_tail_graphs_threads_get_their_own_bits(cuda_device):
+    """Two threads, each running its own request's latent pass and vocoder
+    call 4 times at once on shared runners: each gets its request's eager
+    bits."""
+    import sys
+
+    from indextts_tpu_torch.runtime.graphs import LatentRunner
+
+    dec, _ = _graph_decoder(cuda_device, "float")
+    latent, vocoder = LatentRunner(dec.model), _vocoder(cuda_device)
+    reqs = [(_latent_request(cuda_device, 9 + 10 * i, 20 + 30 * i, 20 + i),
+             _mel(cuda_device, 64, 30 + i)) for i in range(2)]
+    want = [(latent.latent(*a, eager=True), vocoder.vocode(m, eager=True)) for a, m in reqs]
+    got = [[] for _ in reqs]
+
+    def run(i):
+        for _ in range(4):
+            a, m = reqs[i]
+            got[i].append((latent.latent(*a), vocoder.vocode(m)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert len(got[i]) == 4
+        assert all(torch.equal(lat, want[i][0]) and torch.equal(wav, want[i][1])
+                   for lat, wav in got[i])
+
+
+@pytest.mark.cuda
+def test_precompile_leaves_no_capture_to_a_request(cuda_device):
+    """A small engine on the card: precompile over an envelope of 24 codes
+    and one text bucket captures every program a request inside it runs; the
+    request then captures nothing new, and its audio is finite."""
+    import chip_smoke
+
+    from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
+
+    cfg = chip_smoke.small_config()
+    eng = IndexTTS2Engine(cfg, random_params(cfg, seed=0, device=cuda_device),
+                          device=cuda_device)
+    t = np.arange(16000) / 16000
+    wav = (0.3 * np.sin(2 * np.pi * 150 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 4 * t))
+           ).astype(np.float32)
+    spk = eng.prepare_speaker(wav, 16000)
+    jobs = eng.precompile(spk, text_buckets=[16], max_code_len=cfg.runtime.max_mel_tokens)
+    # decode 1 + latent 1 x 1 + s2mel 1 + vocoder 1
+    assert jobs == 4
+    before = chip_smoke.graph_counts(eng)  # (decode, latent, s2mel, vocoder)
+    assert before == (1, 1, 1, 1)
+    out = eng.infer((wav, 16000), [np.arange(2, 14)], seed=0)
+    assert chip_smoke.graph_counts(eng) == before
+    assert out["audio"].size and np.isfinite(out["audio"]).all()

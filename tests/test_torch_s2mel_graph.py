@@ -10,7 +10,8 @@ captured graph: tests/test_torch_cuda.py).
   request's seed: the noise is drawn at the bucket's width in both modes, so
   each frame gets the same noise, and the padding is masked, so the mels
   agree to float32 tolerance (1e-5 of the largest value: a wider buffer
-  changes the shapes CPU BLAS blocks its sums by).
+  changes the shapes CPU BLAS blocks its sums by); the waveforms up to the
+  tail that the vocoder's receptive field reaches into the padding.
 * `next_bucket` and the DiT's RoPE rows are the JAX package's.
 """
 
@@ -89,7 +90,12 @@ def test_bucketed_matches_jax_bucketed(setup):
 def test_bucketed_matches_precise(setup):
     """The port bucketed and precise, noise drawn from the same seed (no
     hook): the same codes and mel length; mels within 1e-5 of the largest
-    value; waveforms within 1e-4 of the peak."""
+    value; waveforms within 1e-4 of the peak up to the last 10 frames'
+    samples, where the bucketed vocoder's receptive field reaches the
+    bucket's log(1e-5) padding and the precise one's the buffer's edge
+    (tests/test_engine_precise.py measures the gap from ~2.5 frames before
+    the end; tests/test_torch_tail_buckets.py holds the tail to the JAX
+    engine's)."""
     cfg, jp = setup
     bc, bm, bw, _ = _request(_port(cfg, jp), 3)
     pc, pm, pw, _ = _request(_port(cfg, jp, precise_shapes=True), 3)
@@ -97,7 +103,9 @@ def test_bucketed_matches_precise(setup):
     assert bm.shape == pm.shape and bw.shape == pw.shape
     assert np.abs(bm - pm).max() <= 1e-5 * np.abs(pm).max()
     assert 0 < np.abs(pw).max() < 1.0
-    assert np.abs(bw - pw).max() <= 1e-4 * np.abs(pw).max()
+    body = len(pw) - 10 * cfg.vocoder.total_upsample
+    assert body > 2000  # a non-trivial body is compared
+    assert np.abs(bw[:body] - pw[:body]).max() <= 1e-4 * np.abs(pw).max()
 
 
 def test_next_bucket_matches_jax():

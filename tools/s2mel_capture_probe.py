@@ -120,9 +120,9 @@ def main():
             return x
 
         def solve_solve():
-            st = next(iter(runner._solves.values()))
-            st.graph.replay()
-            return st.out
+            prog = next(iter(runner.programs.values()))
+            prog.graph.replay()
+            return prog.out
 
         ways = {"solve": solve_solve, "step": step_solve}
         times = {k: [] for k in ways}
