@@ -103,6 +103,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    a replay); 8 replays are timed with CUDA events; and the reserved
    device memory the decode states free is printed. Phase 3 runs with
    TARS_STAGE_SYNC=1, so each stage's seconds hold its time on the card.
+   The requests take the keyed route (the server's default prompt is a
+   file path); on each route `keyed_prefill_gate` holds the keyed
+   prefill's first-step logits and the float KV of the prompt's slots to
+   the monolithic prefill's (1e-3 float, 1e-2 W8/W4, relative) and prints
+   how many of 300 greedy codes the two routes share.
    After the float route's requests, `s2mel_turns` runs one segment's s2mel
    stage with its CFM solve replayed from the captured graph and eagerly
    (the runner's `eager` argument), 2 rounds in turns: the same mel to the
@@ -117,7 +122,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the bit, both stages' seconds printed, K2 launched 37 times a vocoder
    call either way; a replay's device kernels by name and count against an
    eager call's; 4 replays of each timed with CUDA events; the keys cached
-   and the pools' bytes.
+   and the pools' bytes. Then `stream_phase`, over the same engine with
+   TARS_STAGE_SYNC unset (it turns the tail overlap off) and restored: a
+   sequential server streams a 200-byte text (2 segments) through POST
+   /tts/stream and POST /tts with the overlap on and off in turns (the
+   same PCM all four times, the stream's trailing silence aside), then the
+   text in 3 segments (quick_streaming_tokens 40) through /tts/stream, on
+   and off in turns, 2 rounds (the same PCM), each printing its first
+   chunk's seconds, wall, audio seconds and each segment's decode
+   seconds; then one segment keyed and unkeyed in turns (the gpt_decode
+   stage) and the host-timed parts of a segment's prompt work.
 4. Continuous batching (runtime/batcher.py), on each route right after its
    phase 3, over the same engine (full width, max_mel_tokens 300): the
    port's server is built again over it with TARS_MAX_CONCURRENCY=8, so
@@ -137,7 +151,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    seconds; a continuous turn also its chunks and the launches a chunk of
    K1/K4-K8, whose counters must rise on the route and stay 0 off it; the
    slot state's memory, peak memory, and that K6/K8's per-stream arrival
-   counters were made on decoder streams only.
+   counters were made on decoder streams only. On the float route one
+   /tts/stream goes through the continuous server, then a client leaves
+   a stream after its first chunk, and a /tts after it must answer 200.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -147,6 +163,7 @@ and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
 from __future__ import annotations
 
 import asyncio
+import copy
 import dataclasses
 import functools
 import gc
@@ -181,6 +198,17 @@ S2MEL_ROUNDS = 2  # the s2mel stage captured against eager, in turns
 TAIL_ROUNDS = 2  # the latent pass and the vocoder captured against eager, in turns
 CONT_REQUESTS = 8  # concurrent /tts requests of the continuous phase, and its slots
 CONT_STEPS = 16  # batched steps held captured against eager
+# the stream phase's text: 200 bytes, 2 segments of 120/80 ids, or 40/120/40
+# with quick_streaming_tokens 40
+STREAM_TEXT = ("The port streams this answer in pieces, so that the first words play "
+               "while the rest is still being made on the card; each piece is one "
+               "segment, decoded, then its tail: latent pass, CFM solve and vocoder.")
+STREAM_QUICK = 40
+STREAM_ROUNDS = 2  # overlap on / off (and keyed / unkeyed), in turns
+# the keyed prefill against the monolithic one (logits and KV of [0, S),
+# relative to the largest |value|): float32 summed in another order, and
+# on W8/W4 one int8 step of an activation row that the noise may flip
+KEYED_TOL = {False: 1e-3, True: 1e-2}
 PROMPT_SECONDS = 3
 PROMPT_SR = 22050
 
@@ -1366,8 +1394,69 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str,
             fail(f"[{label}] {name} was never launched on the main path")
         if name in stay and n != 0:
             fail(f"[{label}] {name} was launched {n} times; it has no place on this path")
+    keyed_prefill_gate(engine, wav_path, label)
     decode_turns(engine, wav_path, label)
     return launches, engine
+
+
+def keyed_prefill_errors(dec, conds, ids, pos, valid):
+    """The keyed prefill (the conditioning prefix's KV from `cond_prefill`,
+    the prompt's tail prefilled on top of it) against the monolithic one on
+    the same prompt: the largest difference of the last logits and of the
+    float KV of the prompt's S slots, each relative to the monolithic
+    one's largest |value|. The KV is compared before any int8 quantization
+    (a copy of the decoder with a float cache), as the prefill makes it."""
+    import torch
+
+    flat = copy.copy(dec)
+    flat.kv_int8 = False
+    with torch.inference_mode():
+        lw, kv_w, _ = flat._prompt_prefill(conds, ids, pos, valid)
+        lk, kv_k, _ = flat._prompt_prefill(conds, ids, pos, valid, flat.cond_prefill(conds))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return rel(lk, lw), max(rel(a, b) for a, b in zip(kv_k, kv_w))
+
+
+def keyed_prefill_gate(engine, wav_path: str, label: str):
+    """The keyed route's gate on the card: on request 0's first segment, its
+    prefill's first-step logits and KV against the monolithic prefill's,
+    within KEYED_TOL (float 1e-3, W8/W4 1e-2, relative). How many greedy
+    codes of the two routes agree (MAX_MEL_TOKENS at most) is printed, not
+    gated: the chunked tail sums in another order, which may flip a code at
+    a near-tie of the random weights' logits."""
+    import torch
+
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    c, dec = engine.cfg, engine.decoder
+    if not dec.supports_cond_kv:
+        fail(f"[{label}] the served decoder takes no keyed route (attn_impl "
+             f"{c.runtime.attn_impl!r})")
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    text = fallback_segments(request_text(0), c.gpt.number_text_tokens,
+                             c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
+    _, conds = engine.segment_conds(spk, emo)
+    arrays = [engine._tensor(a) for a in dec.build_text_prompt_arrays(
+        text[None], np.asarray([len(text)]), len(text))]
+    logit_err, kv_err = keyed_prefill_errors(dec, conds, *arrays)
+    tol = KEYED_TOL[c.runtime.gpt_quantize]
+    print(f"[{label}] keyed prefill against the monolithic one (S={arrays[0].shape[1] + 34}): "
+          f"logits max rel err {logit_err:.3g}, KV max rel err {kv_err:.3g} (tol {tol:g})")
+    if not (logit_err <= tol and kv_err <= tol):
+        fail(f"[{label}] the keyed prefill disagrees with the monolithic one")
+    prefix = dec.cond_prefill(conds)
+    torch.cuda.synchronize()
+    rows = [engine._generate_codes(conds, text, kv, seed=DECODE_SEED, do_sample=False)
+            for kv in (prefix, None)]
+    same = next((i for i, (a, b) in enumerate(zip(*rows)) if a != b), min(map(len, rows)))
+    print(f"[{label}] greedy codes, keyed and monolithic prefill: the first {same} of "
+          f"{len(rows[0])} / {len(rows[1])} agree")
 
 
 def step_kernels(fn, pad: int = 64):
@@ -1790,6 +1879,213 @@ def tail_turns(engine, wav_path: str, label: str):
     print(f"[{label}] the tail phase took {time.perf_counter() - t0:.1f} s")
 
 
+def post_stream(port: int, payload: dict):
+    """POST /tts/stream: (status, seconds to the first chunk of PCM, wall
+    seconds, the PCM as int16)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    t0 = time.perf_counter()
+    conn.request("POST", "/tts/stream", body=json.dumps(payload),
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    first, data = None, []
+    while True:
+        chunk = r.read1(1 << 16)
+        if not chunk:
+            break
+        if first is None:
+            first = time.perf_counter() - t0
+        data.append(chunk)
+    wall = time.perf_counter() - t0
+    conn.close()
+    return r.status, first, wall, np.frombuffer(b"".join(data), np.int16)
+
+
+def wav_pcm(body: bytes) -> np.ndarray:
+    with wave.open(io.BytesIO(body)) as w:
+        if (w.getnchannels(), w.getsampwidth()) != (1, 2):
+            fail("not a mono 16-bit WAV")
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def disconnect_after_first_chunk(port: int, payload: dict, label: str):
+    """Open a /tts/stream, read its headers and the start of its first
+    chunk, and close the connection."""
+    body = json.dumps(payload).encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=900) as s:
+        s.sendall(b"POST /tts/stream HTTP/1.1\r\nHost: localhost\r\nContent-Type: "
+                  b"application/json\r\nContent-Length: " + str(len(body)).encode()
+                  + b"\r\n\r\n" + body)
+        got = b""
+        while b"\r\n\r\n" not in got or len(got.split(b"\r\n\r\n", 1)[1]) < 64:
+            chunk = s.recv(1 << 16)
+            if not chunk:
+                fail(f"[{label}] the stream closed before its first chunk: {got[:200]!r}")
+            got += chunk
+    if not got.startswith(b"HTTP/1.1 200"):
+        fail(f"[{label}] the stream to leave answered {got[:200]!r}")
+
+
+def tts_after_disconnect(port: int, payload: dict, label: str):
+    """POST /tts until it is not refused as busy (429; the server notices a
+    client gone at its next write), for up to 120 s: it must answer 200."""
+    t0, busy = time.perf_counter(), 0
+    while True:
+        status, body = post_tts(port, payload)
+        if status != 429 or time.perf_counter() - t0 > 120:
+            break
+        busy += 1
+        time.sleep(0.1)
+    if status != 200:
+        fail(f"[{label}] after a client left mid-stream, /tts answered {status}: {body[:200]!r}")
+    print(f"[{label}] a client left a stream after its first chunk; the next /tts answered "
+          f"200 in {time.perf_counter() - t0:.3f} s ({busy} busy answers before it)")
+
+
+def stream_phase(engine, wav_path: str, label: str, tmp: str, card: str):
+    """Streaming and the sequential tail overlap on the float route, over
+    the same engine (a sequential server from serve.build(engine=...)),
+    with TARS_STAGE_SYNC unset (it turns the overlap off) and restored
+    after. STREAM_TEXT (2 segments) through POST /tts/stream and POST /tts
+    with runtime.seq_tail_overlap on and off in turns, one seed: all four
+    PCMs bit-equal (the stream's last 200 ms the silence after its last
+    segment). Then with quick_streaming_tokens 40 (3 segments of 40/120/40
+    ids) through /tts/stream, overlap on and off in turns, STREAM_ROUNDS
+    rounds: bit-equal. Each request prints its first chunk's seconds, wall
+    and audio seconds. Then one segment keyed (the prompt's path) and
+    unkeyed (its (audio, sr)) in turns, printing the gpt_decode stage;
+    and, once, the host-timed parts of a segment's conditioning and
+    prefill that the keyed route skips or shortens."""
+    import torch
+
+    from indextts_tpu_torch import serve
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t_phase = time.perf_counter()
+    stage_sync = os.environ.pop("TARS_STAGE_SYNC", None)
+    os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, f"cache-{label}-stream")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg0 = engine.cfg
+    server = thread = None
+    try:
+        server, _ = serve.build(["--host", "127.0.0.1", "--port", str(port),
+                                 "--reference-audio", wav_path], engine=engine)
+        if server.service is not None:
+            fail(f"[{label}] the stream phase's server is not sequential")
+        thread = ServerThread(server)
+        c = cfg0
+        segs = {q: [len(x) for x in serve.fallback_segments(
+            STREAM_TEXT, c.gpt.number_text_tokens, c.runtime.max_text_tokens_per_segment,
+            c.gpt.max_text_tokens, quick=q)] for q in (0, STREAM_QUICK)}
+        print(f"[{label}] stream phase ({card}): segments of {segs[0]} ids, {segs[STREAM_QUICK]} "
+              f"with quick_streaming_tokens {STREAM_QUICK}")
+        n_sil = int(c.runtime.sampling_rate * c.runtime.interval_silence_ms / 1000)
+        sr = c.runtime.sampling_rate
+
+        def overlap(on: bool):
+            engine.cfg = dataclasses.replace(cfg0, runtime=dataclasses.replace(
+                cfg0.runtime, seq_tail_overlap=on))
+
+        pcms = []
+        for turn, (path, on) in enumerate((("/tts/stream", True), ("/tts", True),
+                                           ("/tts", False), ("/tts/stream", False))):
+            overlap(on)
+            payload = {"text": STREAM_TEXT, "seed": 21, "turn": turn}  # no cached answer
+            if path == "/tts":
+                t0 = time.perf_counter()
+                status, body = post_tts(port, payload)
+                wall, first = time.perf_counter() - t0, None
+                pcm = wav_pcm(body) if status == 200 else None
+            else:
+                status, first, wall, pcm = post_stream(port, payload)
+                pcm = pcm[:-n_sil] if status == 200 and not pcm[-n_sil:].any() else None
+            if status != 200 or pcm is None or not pcm.size:
+                fail(f"[{label}] {path} (overlap {on}): HTTP {status}, or no PCM with a "
+                     "trailing silence")
+            pcms.append(pcm)
+            print(f"[{label}] {path} overlap={on}: "
+                  + (f"first_chunk_s={first:.3f} " if first is not None else "")
+                  + f"wall_s={wall:.3f} audio_s={len(pcm) / sr:.3f}")
+        if not all(np.array_equal(p, pcms[0]) for p in pcms):
+            fail(f"[{label}] /tts and /tts/stream, overlap on and off: the PCMs differ")
+        print(f"[{label}] /tts and /tts/stream, overlap on and off: the same "
+              f"{len(pcms[0])} samples (the stream's trailing silence aside)")
+
+        quick, decode_s = [], []
+        finish = engine._finish_from_codes
+
+        def record(spk, emovec, text_ids, codes, seed, t_gen):
+            decode_s.append(t_gen)  # the tails run in segment order
+            return finish(spk, emovec, text_ids, codes, seed, t_gen)
+
+        engine._finish_from_codes = record
+        for r in range(STREAM_ROUNDS):
+            for on in ((True, False) if r % 2 == 0 else (False, True)):
+                overlap(on)
+                decode_s.clear()
+                status, first, wall, pcm = post_stream(
+                    port, {"text": STREAM_TEXT, "seed": 22,
+                           "quick_streaming_tokens": STREAM_QUICK})
+                if status != 200 or not pcm.size:
+                    fail(f"[{label}] quick stream (overlap {on}): HTTP {status}")
+                quick.append(pcm)
+                print(f"[{label}] quick stream round {r} overlap={on}: first_chunk_s="
+                      f"{first:.3f} wall_s={wall:.3f} audio_s={len(pcm) / sr:.3f}; "
+                      "gpt_decode s by segment " + ", ".join(f"{x:.3f}" for x in decode_s))
+        if not all(np.array_equal(p, quick[0]) for p in quick):
+            fail(f"[{label}] the quick streams differ between overlap on and off")
+        print(f"[{label}] quick streams, overlap on and off: the same {len(quick[0])} samples")
+    finally:
+        engine.cfg = cfg0
+        engine.__dict__.pop("_finish_from_codes", None)
+        if thread is not None:
+            thread.stop()
+        if stage_sync is not None:
+            os.environ["TARS_STAGE_SYNC"] = stage_sync
+
+    # keyed against unkeyed, one segment (inline), in turns
+    audio = audio_utils.load_wav(wav_path)
+    text = serve.fallback_segments(request_text(0), c.gpt.number_text_tokens,
+                                   c.runtime.max_text_tokens_per_segment,
+                                   c.gpt.max_text_tokens)[0]
+    decode_s = {True: [], False: []}
+    for r in range(STREAM_ROUNDS):
+        for keyed in ((True, False) if r % 2 == 0 else (False, True)):
+            out = engine.infer(wav_path if keyed else audio, [text], seed=DECODE_SEED)
+            decode_s[keyed].append(out["stats"][0].gpt_gen_time)
+    print(f"[{label}] gpt_decode stage s, keyed: "
+          + ", ".join(f"{x:.3f}" for x in decode_s[True]) + "; unkeyed: "
+          + ", ".join(f"{x:.3f}" for x in decode_s[False]) + f" ({card})")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    dec = engine.decoder
+    spk = engine.prepare_speaker(*audio, cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    arrays = [engine._tensor(a) for a in dec.build_text_prompt_arrays(
+        text[None], np.asarray([len(text)]), len(text))]
+    parts = {}
+    with torch.inference_mode():
+        for _ in range(2):  # the second of each
+            (_, conds), parts["merge_emovec + build_conds_latent"] = timed(
+                lambda: engine.segment_conds(spk, emo))
+            prefix, parts["cond_prefill"] = timed(lambda: dec.cond_prefill(conds))
+            _, parts["monolithic prefill"] = timed(
+                lambda: dec._prompt_prefill(conds, *arrays))
+            _, parts["keyed prefill (tail)"] = timed(
+                lambda: dec._prompt_prefill(conds, *arrays, prefix))
+    print(f"[{label}] a segment's prompt work, host-timed with a synchronize each: "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in parts.items()))
+    print(f"[{label}] the stream phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: continuous batching (runtime/batcher.py)
 # ---------------------------------------------------------------------------
@@ -2094,6 +2390,16 @@ def serve_continuous(wav_path: str, engine, label: str, rise, stay, tmp: str, ca
                 if name in stay and n != 0:
                     fail(f"[{label}] continuous: {name} was launched {n} times; it has no "
                          "place on this path")
+        if label == "float":
+            status, first, wall, pcm = post_stream(
+                ports[0], {"text": STREAM_TEXT, "seed": 31,
+                           "quick_streaming_tokens": STREAM_QUICK})
+            if status != 200 or not pcm.size or not np.abs(pcm.astype(np.int32)).max():
+                fail(f"[{label}] continuous /tts/stream: HTTP {status}, or silent")
+            print(f"[{label}] continuous /tts/stream ({card}): first_chunk_s={first:.3f} "
+                  f"wall_s={wall:.3f} audio_s={len(pcm) / 22050:.3f}")
+            disconnect_after_first_chunk(ports[0], {"text": STREAM_TEXT, "seed": 32}, label)
+            tts_after_disconnect(ports[0], {"text": request_text(33), "seed": 33}, label)
     finally:
         for th in threads:
             th.stop()
@@ -2177,6 +2483,7 @@ def main():
             if label == "float":  # the s2mel stage does not depend on the GPT's route
                 s2mel_turns(engine, wav_path, label)
                 tail_turns(engine, wav_path, label)
+                stream_phase(engine, wav_path, label, tmp, card)
             # each kernel's launches come from the route that runs it first
             for name in rise:
                 launches.setdefault(name, counts[name])

@@ -325,10 +325,13 @@ class RuntimeConfig:
     # with the card in the TPU's place (runtime/engine.py resolve_gemv):
     # "pallas" sends the quantized GPT's single-row decode calls through the
     # GEMV and fused-MLP kernels where their gating opens, "xla" through the
-    # plain contraction, and "auto" takes the kernels for W4 on CUDA only. It
-    # ignores attn_impl otherwise, and also gpt_dtype, text_prefix_reuse and
-    # seq_tail_overlap. It raises NotImplementedError for a bfloat16
-    # s2mel_dtype or voc_dtype.
+    # plain contraction, and "auto" takes the kernels for W4 on CUDA only.
+    # attn_impl decides, by the JAX rule, whether a keyed request reuses the
+    # conditioning prefix's KV (runtime/decode.py supports_cond_kv); the
+    # port's attention runs its own kernels either way. seq_tail_overlap
+    # overlaps segment k's tail with segment k+1's decode, as in the JAX
+    # engine. It ignores gpt_dtype and text_prefix_reuse, and raises
+    # NotImplementedError for a bfloat16 s2mel_dtype or voc_dtype.
     # compute dtype for the GPT decode loop ("bfloat16" | "float32")
     gpt_dtype: str = "bfloat16"
     # decode attention implementation in the JAX package: "auto", "xla",

@@ -5,7 +5,10 @@ GPT-2 without wte/wpe (it consumes `inputs_embeds`), causal self-attention
 with additive padding masks, gelu_new MLP, LayerNorm eps 1e-5. Two modes:
 
   * `forward`     full sequence (prefill / teacher-forced latent pass), plain
-                  torch ops (einsum + masked softmax), as XLA ran it;
+                  torch ops (einsum + masked softmax), as XLA ran it; with
+                  `past`, the sequence continues a cached prefix's KV (the
+                  keyed prefill: the prompt's text tail on top of the
+                  conditioning prefix);
   * `decode_step` one token against a KV cache in its natural layout
                   (L, B, H, cap, Dh). The step writes its K/V into the cache
                   in place and attends over keys < valid_len outside the
@@ -189,12 +192,16 @@ class GPT2Attention(nn.Module):
     def _heads(self, t, B):
         return t.reshape(B, -1, self.n_head, t.shape[-1] // self.n_head).transpose(1, 2)
 
-    def forward(self, x, attn_bias):
-        """Full sequence. x (B, T, D); attn_bias broadcastable to (B,1,T,T).
-        Returns (out, (k, v)) with k, v (B, H, T, Dh)."""
+    def forward(self, x, attn_bias, past: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """Full sequence. x (B, T, D); `past` this layer's cached (k, v) of
+        the P positions before x, (B, H, P, Dh), or None (P = 0); attn_bias
+        broadcastable to (B,1,T,P+T). Returns (out, (k, v)) with k, v
+        (B, H, P+T, Dh)."""
         B, T, D = x.shape
         q, k, v = self.c_attn(x).split(D, dim=-1)
         q, k, v = self._heads(q, B), self._heads(k, B), self._heads(v, B)
+        if past is not None:
+            k, v = torch.cat([past[0], k], dim=2), torch.cat([past[1], v], dim=2)
         scale = 1.0 / math.sqrt(D // self.n_head)
         scores = torch.einsum("bhtd,bhsd->bhts", q, k).float() * scale
         probs = torch.softmax(scores + attn_bias, dim=-1).to(v.dtype)
@@ -264,8 +271,8 @@ class GPT2Block(nn.Module):
         self.ln_2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = GPT2MLP(dim, quantize, gemv, wbits)
 
-    def forward(self, x, attn_bias):
-        a, kv = self.attn(self.ln_1(x), attn_bias)
+    def forward(self, x, attn_bias, past=None):
+        a, kv = self.attn(self.ln_1(x), attn_bias, past)
         x = x + a
         return x + self.mlp(self.ln_2(x)), kv
 
@@ -295,21 +302,33 @@ class GPT2Core(nn.Module):
                                for _ in range(n_layer))
         self.ln_f = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, inputs_embeds, attention_mask: Optional[torch.Tensor] = None):
+    def forward(self, inputs_embeds, attention_mask: Optional[torch.Tensor] = None,
+                past: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """Prefill. inputs_embeds (B, T, D), attention_mask (B, T) 1/0.
-        Returns (hidden, (ks, vs)) with ks, vs (L, B, H, T, Dh)."""
-        T = inputs_embeds.shape[1]
+        With `past`, the float (ks, vs) of P cached positions before the
+        sequence, each (L, B or 1, H, P, Dh): the T positions attend to all
+        P of them and causally to each other (the JAX decode step's chunked
+        continuation, indextts_tpu/models/gpt2.py:805-813), the mask
+        applying to their own keys. Returns (hidden, (ks, vs)) with ks, vs
+        (L, B, H, P+T, Dh)."""
+        B, T = inputs_embeds.shape[:2]
         dev = inputs_embeds.device
-        causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev))
+        P = 0 if past is None else past[0].shape[3]
+        causal = torch.tril(torch.ones(T, P + T, dtype=torch.bool, device=dev), diagonal=P)
         zero = torch.zeros((), device=dev)
         neg = torch.full((), NEG_INF, device=dev)
         bias = torch.where(causal[None, None], zero, neg)
         if attention_mask is not None:
-            bias = bias + torch.where(attention_mask.bool()[:, None, None, :], zero, neg)
+            keys = attention_mask.bool()
+            if P:
+                keys = torch.cat([keys.new_ones((B, P)), keys], dim=1)
+            bias = bias + torch.where(keys[:, None, None, :], zero, neg)
         x = inputs_embeds
         ks, vs = [], []
-        for blk in self.h:
-            x, (k, v) = blk(x, bias)
+        for i, blk in enumerate(self.h):
+            layer_past = None if past is None else tuple(
+                c[i].expand(B, -1, -1, -1) for c in past)
+            x, (k, v) = blk(x, bias, layer_past)
             ks.append(k)
             vs.append(v)
         return self.ln_f(x), (torch.stack(ks), torch.stack(vs))

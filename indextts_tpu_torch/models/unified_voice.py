@@ -125,6 +125,12 @@ class UnifiedVoice(nn.Module):
     def gpt_prefill(self, inputs_embeds, attention_mask):
         return self.gpt(inputs_embeds, attention_mask)
 
+    def gpt_prefill_with_past(self, inputs_embeds, attention_mask, past_kv):
+        """The prefill of `inputs_embeds` (B, T, D) after the cached float KV
+        `past_kv` (ks, vs), each (L, B or 1, H, P, Dh): hidden (B, T, D) and
+        the KV of all P + T positions (GPT2Core.forward with `past`)."""
+        return self.gpt(inputs_embeds, attention_mask, past=past_kv)
+
     def gpt_decode_step(self, token_embeds, caches, index, valid_len, hole_s, hole_e):
         """caches: (ks, vs) float or (ks, vs, ksc, vsc) int8 + scales;
         index (B,) and valid_len (B,) integer tensors (GPT2Core.decode_step)."""

@@ -32,8 +32,18 @@ by `chunk` steps (`slot_step`, captured and replayed on the card as above),
 and the host reads the rows once a chunk (`read_slots`).
 runtime/batcher.py schedules the requests.
 
-Still missing against the JAX package: beam search, cond-KV and text-prefix
-KV reuse, and the batched-segments route.
+Conditioning-prefix KV reuse (JAX `cond_prefill`, `_prefill_with_cond`):
+`cond_prefill` returns the float KV of the 34 conditioning positions, which
+depend on nothing else; `generate(cond_kv=...)` then prefills only the
+prompt's tail [text][start_mel] on top of it, as one chunk through the GPT
+(`UnifiedVoice.gpt_prefill_with_past`, plain torch ops as XLA ran it). The
+prefix stays float under `kv_int8`: the whole prompt's KV is quantized after
+the tail, the values the monolithic prefill quantizes. The captured step
+and its state are the same on both routes. `supports_cond_kv` follows the
+JAX rule on the resolved attention layout.
+
+Still missing against the JAX package: beam search, text-prefix KV reuse,
+and the batched-segments route.
 """
 
 from __future__ import annotations
@@ -211,11 +221,13 @@ class GPTDecoder:
     readout."""
 
     def __init__(self, model: UnifiedVoice, cfg: GPTConfig,
-                 sampling: SamplingConfig = SamplingConfig(), kv_int8: bool = False):
+                 sampling: SamplingConfig = SamplingConfig(), kv_int8: bool = False,
+                 attn_impl: str = "auto"):
         self.model = model
         self.cfg = cfg
         self.sampling = sampling
         self.kv_int8 = kv_int8
+        self.attn_impl = attn_impl
         self.device = model.mel_embedding.weight.device
         self.generator = torch.Generator(device=self.device)
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -224,6 +236,31 @@ class GPTDecoder:
         # cumulative decode counters (tokens emitted, wall seconds in generate)
         self.tokens = 0
         self.seconds = 0.0
+
+    @property
+    def supports_cond_kv(self) -> bool:
+        """Does `generate(cond_kv=...)` serve this decoder's route? The JAX
+        rule (indextts_tpu/runtime/decode.py:166-176) on the configured
+        attn_impl, "auto" resolving to "xla": the int8 cache reuses under
+        "xla" only, the float cache under "xla" and "xla_bucketed"; the
+        Pallas layouts ("pallas_ragged", "pallas_q8") prefill whole, so one
+        config takes the same route in both packages."""
+        impl = "xla" if self.attn_impl == "auto" else self.attn_impl
+        if self.kv_int8:
+            return impl == "xla"
+        return impl in ("xla", "xla_bucketed")
+
+    @torch.inference_mode()
+    def cond_prefill(self, conds_latent) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The float KV (pk, pv) of the conditioning prefix alone, each (L,
+        B, H, P, Dh), on the current stream: the causal prefix of every
+        prompt, a function of `conds_latent` (B, P, D) only (JAX
+        `cond_prefill`, indextts_tpu/runtime/decode.py:1060-1089). Float
+        under `kv_int8` too."""
+        mask = torch.ones(conds_latent.shape[:2], dtype=torch.bool,
+                          device=conds_latent.device)
+        _, kv = self.model.gpt_prefill(conds_latent, mask)
+        return kv
 
     def build_text_prompt_arrays(self, text_ids: np.ndarray, text_lens: np.ndarray,
                                  bucket: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -262,20 +299,25 @@ class GPTDecoder:
         the CPU)."""
         return torch.cuda.stream(self._stream)
 
-    def _prompt_prefill(self, conds_latent, text_ids, text_pos, text_valid):
+    def _prompt_prefill(self, conds_latent, text_ids, text_pos, text_valid, cond_kv=None):
         """The prompt [conds][text][start_mel] through the GPT: its last
         logits, its KV as the cache holds it (quantized with `kv_int8`) and
-        its (B, S) mask."""
+        its (B, S) mask. With `cond_kv` (`cond_prefill` of these conds) only
+        the tail [text][start_mel] runs, on top of the prefix."""
         model = self.model
         B = conds_latent.shape[0]
         dev = conds_latent.device
         text_emb = model.embed_text_prompt(text_ids, text_pos, text_valid)
         start_emb = model.embed_mel_start(B, dev)
-        prompt = torch.cat([conds_latent, text_emb, start_emb], dim=1)
+        tail = torch.cat([text_emb, start_emb], dim=1)
         ones = torch.ones((B, 1), dtype=torch.bool, device=dev)
-        prompt_mask = torch.cat(
-            [ones.expand(B, conds_latent.shape[1]), text_valid, ones], dim=1)
-        hidden, (pk, pv) = model.gpt_prefill(prompt, prompt_mask)
+        tail_mask = torch.cat([text_valid, ones], dim=1)
+        prompt_mask = torch.cat([ones.expand(B, conds_latent.shape[1]), tail_mask], dim=1)
+        if cond_kv is None:
+            hidden, (pk, pv) = model.gpt_prefill(torch.cat([conds_latent, tail], dim=1),
+                                                 prompt_mask)
+        else:
+            hidden, (pk, pv) = model.gpt_prefill_with_past(tail, tail_mask, cond_kv)
         if self.kv_int8:
             (k8, ksc), (v8, vsc) = quantize_kv(pk), quantize_kv(pv)
             prompt_kv = (k8, v8, ksc, vsc)
@@ -283,15 +325,17 @@ class GPTDecoder:
             prompt_kv = (pk, pv)
         return model.mel_logits_from_hidden(hidden[:, -1]), prompt_kv, prompt_mask
 
-    def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int
-                ) -> DecodeState:
+    def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int,
+                cond_kv=None) -> DecodeState:
         """Prompt prefill into the static caches of the state of shape (B,
         cache_cap(S, max_new)): the prompt's KV at slots [0, S), quantized
         once with `kv_int8`, its last logits, S and the prompt's hole. The
         slots past S keep an earlier request's values, which no step reads:
-        every key a step attends to was written by this request."""
+        every key a step attends to was written by this request. With
+        `cond_kv` the conditioning prefix's KV is taken from it and only the
+        tail is prefilled (`_prompt_prefill`); S and the hole are the same."""
         logits, prompt_kv, prompt_mask = self._prompt_prefill(
-            conds_latent, text_ids, text_pos, text_valid)
+            conds_latent, text_ids, text_pos, text_valid, cond_kv)
         B, S = prompt_mask.shape
         st = self._state(B, cache_cap(S, max_new))
         for c, t in zip(st.caches, prompt_kv):
@@ -408,14 +452,20 @@ class GPTDecoder:
                  seed: Optional[int], max_new: int,
                  temperature: float = 0.8, top_p: float = 0.8,
                  repetition_penalty_value: float = 10.0,
-                 do_sample: Optional[bool] = None, eager: bool = False) -> GenerateResult:
+                 do_sample: Optional[bool] = None, eager: bool = False,
+                 cond_kv=None) -> GenerateResult:
         """Decode up to max_new codes a row. Sampling draws from the
         decoder's generator seeded with `seed` (None: a fresh random seed),
         so one seed gives one code row, captured or eager. On the card the
         steps are replays of a captured step; `eager` runs them eagerly
         instead, on the same stream and state: the yardstick the captured
         loop is held to (same codes from one seed). The CPU always runs
-        them eagerly."""
+        them eagerly. `cond_kv`: `cond_prefill(conds_latent)` (B or 1
+        rows), whose prefix the prefill then reuses; the caller's current
+        stream must be ordered after the work that made it."""
+        if cond_kv is not None and not self.supports_cond_kv:
+            raise ValueError(f"cond_kv on a decoder whose layout prefills whole "
+                             f"(attn_impl={self.attn_impl!r}, kv_int8={self.kv_int8})")
         do_sample = self.sampling.do_sample if do_sample is None else do_sample
         with self._lock:
             t0 = time.perf_counter()
@@ -427,7 +477,8 @@ class GPTDecoder:
             if caller is not None:
                 self._stream.wait_stream(caller)
             with self.on_stream():
-                st = self.prefill(conds_latent, text_ids, text_pos, text_valid, max_new)
+                st = self.prefill(conds_latent, text_ids, text_pos, text_valid, max_new,
+                                  cond_kv)
                 self._reset(st, temperature, top_p, repetition_penalty_value)
                 self._loop(st, do_sample, max_new, eager)
             if caller is not None:

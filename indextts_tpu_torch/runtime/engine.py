@@ -34,6 +34,21 @@ quantized weights. `gemv_impl` resolves as in the JAX engine
 (`resolve_gemv`), with the card in the TPU's place: the decode kernels of
 ops/gemv.py run under "pallas", and under "auto" for W4 on CUDA only.
 
+Fixed-speaker serving follows the JAX engine (indextts_tpu/runtime/
+engine.py:580-661, 1300-1588). When both conditionings are file paths,
+`infer` and `infer_generator` build a key (speaker path, emotion path or
+"", alpha, None); under it a segment takes (emovec, conds) from
+`_emoconds_cache` and, where the decoder's layout allows it
+(`GPTDecoder.supports_cond_kv`), the conditioning prefix's KV from
+`_cond_kv_cache`, and prefills only the text tail on top of it. Each cache
+holds 8 keys. A request of several segments runs through
+`_pipelined_segments` (`runtime.seq_tail_overlap`, off under
+TARS_STAGE_SYNC=1): a producer thread decodes segment k+1 while one tail
+worker finishes segment k; results come out in segment order, and a
+segment's seed gives the same waveform on either route. `infer_generator`
+streams each segment's waveform and the silence after it;
+`infer_generator_continuous` streams through a ContinuousService.
+
 Routes the port does not implement raise NotImplementedError: beam search
 (num_beams > 1), batched segments, emo_vector / use_emo_text, and bfloat16
 s2mel or vocoder dtypes. `infer_continuous` decodes the segments in a
@@ -53,11 +68,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import queue
 import threading
 import time
 from dataclasses import dataclass
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -281,12 +298,18 @@ class IndexTTS2Engine:
         rt = cfg.runtime
         self.decoder = GPTDecoder(self.gpt, cfg.gpt,
                                   SamplingConfig(do_sample=rt.do_sample, top_k=rt.top_k),
-                                  kv_int8=kv_int8(cfg))
+                                  kv_int8=kv_int8(cfg), attn_impl=rt.attn_impl)
         self.latent_runner = LatentRunner(self.gpt)
         self.s2mel_runner = S2MelRunner(self.s2mel, rt.diffusion_steps, rt.cfg_rate)
         self.vocoder_runner = VocoderRunner(self.bigvgan, rt.device_pcm16)
         self._spk_cache: Dict[str, SpeakerConditioning] = {}
         self._emo_cache: Dict[str, EmotionConditioning] = {}
+        # per conditioning key: ((emovec, conds), ready) and (prefix KV,
+        # ready), `ready` the event after the work that made the value
+        # (None on the CPU); one lock covers a lookup, its miss and insert
+        self._emoconds_cache: Dict[tuple, tuple] = {}
+        self._cond_kv_cache: Dict[tuple, tuple] = {}
+        self._keyed_lock = threading.Lock()
         # seeds for seedless requests (serving threads share the engine)
         self._seed_gen = np.random.default_rng()
         self._seed_lock = threading.Lock()
@@ -299,6 +322,20 @@ class IndexTTS2Engine:
         thread's stream's work, so that the stage's clock holds it."""
         if self.device.type == "cuda" and os.environ.get("TARS_STAGE_SYNC", "0") == "1":
             torch.cuda.current_stream(self.device).synchronize()
+
+    def _mark(self) -> Optional[torch.cuda.Event]:
+        """An event after the work queued so far on this thread's stream
+        (None on the CPU): what a reader on another stream waits for."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _after(self, ev: Optional[torch.cuda.Event]) -> None:
+        """Order this thread's stream after `ev` (`_mark`)."""
+        if ev is not None:
+            torch.cuda.current_stream(self.device).wait_event(ev)
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
@@ -364,9 +401,10 @@ class IndexTTS2Engine:
 
     def synthesize_segment(self, spk: SpeakerConditioning, emo: EmotionConditioning,
                            text_ids: np.ndarray, seed: Optional[int] = None,
+                           cond_kv_key: Optional[tuple] = None,
                            **gen_kwargs) -> SegmentResult:
         emovec, codes, t_gen = self._decode_segment_codes(
-            spk, emo, text_ids, seed=seed, **gen_kwargs)
+            spk, emo, text_ids, seed=seed, cond_kv_key=cond_kv_key, **gen_kwargs)
         return self._finish_from_codes(spk, emovec, text_ids, codes, seed, t_gen)
 
     @torch.inference_mode()
@@ -381,27 +419,74 @@ class IndexTTS2Engine:
         return emovec, self.gpt.build_conds_latent(spk.spk_latents, emovec)
 
     @torch.inference_mode()
+    def _segment_inputs(self, spk: SpeakerConditioning, emo: EmotionConditioning,
+                        emo_alpha: float, cond_kv_key: Optional[tuple]):
+        """(emovec, conds, prefix KV or None) for a segment. Without a key,
+        `segment_conds` anew and no prefix KV. With one, the cached values
+        of the key (indextts_tpu/runtime/engine.py:580-661), each made on a
+        miss: (emovec, conds) always, and the conditioning prefix's KV
+        (`GPTDecoder.cond_prefill`) where the decoder reuses it. The
+        current stream waits for the work that made them, which may have
+        run on another thread's stream."""
+        if cond_kv_key is None:
+            return (*self.segment_conds(spk, emo, emo_alpha), None)
+        with self._keyed_lock:
+            hit = self._emoconds_cache.get(cond_kv_key)
+            if hit is None:
+                hit = (self.segment_conds(spk, emo, emo_alpha), self._mark())
+                if len(self._emoconds_cache) >= 8:
+                    evict_one(self._emoconds_cache)
+                self._emoconds_cache[cond_kv_key] = hit
+            (emovec, conds), ready = hit
+            self._after(ready)
+            prefix = None
+            if self.decoder.supports_cond_kv:
+                kv_hit = self._cond_kv_cache.get(cond_kv_key)
+                if kv_hit is None:
+                    kv_hit = (self.decoder.cond_prefill(conds), self._mark())
+                    if len(self._cond_kv_cache) >= 8:
+                        evict_one(self._cond_kv_cache)
+                    self._cond_kv_cache[cond_kv_key] = kv_hit
+                prefix, kv_ready = kv_hit
+                self._after(kv_ready)
+        return emovec, conds, prefix
+
     def _decode_segment_codes(
         self,
         spk: SpeakerConditioning,
         emo: EmotionConditioning,
         text_ids: np.ndarray,
         emo_alpha: float = 1.0,
+        cond_kv_key: Optional[tuple] = None,
+        **gen_kwargs,
+    ) -> Tuple[torch.Tensor, np.ndarray, float]:
+        """Conditioning (cached under `cond_kv_key`) + AR decode, ending at
+        the host-side trimmed code row. Returns (emovec, codes, decode
+        seconds)."""
+        t0 = time.perf_counter()
+        emovec, conds, prefix = self._segment_inputs(spk, emo, emo_alpha, cond_kv_key)
+        codes = self._generate_codes(conds, text_ids, prefix, **gen_kwargs)
+        return emovec, codes, time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def _generate_codes(
+        self,
+        conds: torch.Tensor,
+        text_ids: np.ndarray,
+        cond_kv=None,
         max_mel_tokens: Optional[int] = None,
         temperature: Optional[float] = None,
         top_p: Optional[float] = None,
         seed: Optional[int] = None,
         num_beams: Optional[int] = None,
         do_sample: Optional[bool] = None,
-    ) -> Tuple[torch.Tensor, np.ndarray, float]:
-        """Conditioning merge + AR decode, ending at the host-side trimmed
-        code row. Returns (emovec, codes, decode seconds)."""
+    ) -> np.ndarray:
+        """The AR decode of one segment from its conds (1, 34, D), on top of
+        the prefix KV `cond_kv` when given: the code row, stop token
+        included, on the host."""
         rt = self.cfg.runtime
-        nb = num_beams if num_beams is not None else rt.num_beams
-        if nb > 1:
+        if (num_beams if num_beams is not None else rt.num_beams) > 1:
             raise NotImplementedError("beam search (num_beams > 1) is not ported yet")
-        t0 = time.perf_counter()
-        emovec, conds = self.segment_conds(spk, emo, emo_alpha)
         n = len(text_ids)
         ids, pos, valid = self.decoder.build_text_prompt_arrays(
             np.asarray(text_ids)[None], np.asarray([n]), n)
@@ -413,10 +498,10 @@ class IndexTTS2Engine:
             top_p=top_p if top_p is not None else rt.top_p,
             repetition_penalty_value=rt.repetition_penalty,
             do_sample=do_sample,
+            cond_kv=cond_kv,
         )
         n_codes = int(res.lengths[0])
-        codes = res.codes[0, :n_codes].cpu().numpy()
-        return emovec, codes, time.perf_counter() - t0
+        return res.codes[0, :n_codes].cpu().numpy()
 
     @staticmethod
     def remove_long_silence(codes: np.ndarray, stop_token: int, silent_token: int = 52,
@@ -566,9 +651,14 @@ class IndexTTS2Engine:
         over the same grid (`precompile_grid`), in `workers` threads, each
         job one call of the stage through the engine's own code. Decode: one
         `generate` a text bucket, which captures the step of its (1, cap)
-        state; the port has no cond-KV reuse, so "both" and "keyed" run the
-        raw route, as the JAX engine's "keyed" falls back; "none" skips
-        decode (continuous serving decodes in its own batcher). Latent: one
+        state. "both" and "keyed" first run `cond_prefill` on the prompt's
+        conds, as the JAX engine does (indextts_tpu/runtime/engine.py:
+        1074-1077), and decode on the keyed route where the decoder reuses
+        the prefix (else on the raw route, as the JAX engine's "keyed" falls
+        back); the keyed route's tail prefill runs eagerly and its step is
+        the raw route's capture, so one job a bucket serves both. "raw"
+        decodes on the raw route; "none" skips decode (continuous serving
+        decodes in its own batcher). Latent: one
         pass a (text bucket, code bucket); s2mel: one stage a reachable
         (code bucket, target bucket), its solve keyed on the prompt's frames
         + the target bucket; vocoder: one call a target bucket. Captures
@@ -590,10 +680,13 @@ class IndexTTS2Engine:
         if self.device.type != "cuda":
             return n_jobs
         emo = emo if emo is not None else EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
-        emovec, _ = self.segment_conds(spk, emo)
+        emovec, conds = self.segment_conds(spk, emo)
+        prefix = None
+        if decode and decode_variants != "raw" and self.decoder.supports_cond_kv:
+            prefix = self.decoder.cond_prefill(conds)
         # the request path's own calls, at each bucket's width
         jobs: List[Callable[[], Any]] = [
-            functools.partial(self._decode_segment_codes, spk, emo, np.ones(b, np.int64),
+            functools.partial(self._generate_codes, conds, np.ones(b, np.int64), prefix,
                               max_mel_tokens=max_new, seed=0, do_sample=do_sample)
             for b in decode]
         stop, dev = g.stop_mel_token, self.device
@@ -621,19 +714,113 @@ class IndexTTS2Engine:
     # -- request-level APIs ---------------------------------------------------
 
     def _conditioning(self, spk_audio, emo_audio, emo_alpha):
-        """File paths are cache keys; (audio, sr) pairs are not cached. With
-        no emotion prompt the speaker's features drive the emotion, alpha 1."""
+        """(speaker, emotion, alpha, conditioning key). File paths are cache
+        keys; (audio, sr) pairs are not cached. With no emotion prompt the
+        speaker's features drive the emotion, alpha 1. The key (speaker
+        path, emotion path or "", alpha, None), as the JAX engine builds
+        `cond_kv_key` (indextts_tpu/runtime/engine.py:1558-1566), exists
+        only when both conditionings are file paths."""
         if isinstance(spk_audio, str):
             spk = self.prepare_speaker(*audio_utils.load_wav(spk_audio), cache_key=spk_audio)
         else:
             spk = self.prepare_speaker(*spk_audio)
         if emo_audio is None:
-            return spk, EmotionConditioning(spk.spk_cond_emb, spk.cond_len), 1.0
-        if isinstance(emo_audio, str):
+            emo, emo_alpha, emo_key = EmotionConditioning(spk.spk_cond_emb, spk.cond_len), 1.0, ""
+        elif isinstance(emo_audio, str):
             emo = self.prepare_emotion(*audio_utils.load_wav(emo_audio), cache_key=emo_audio)
+            emo_key = emo_audio
         else:
-            emo = self.prepare_emotion(*emo_audio)
-        return spk, emo, emo_alpha
+            emo, emo_key = self.prepare_emotion(*emo_audio), None
+        key = None
+        if isinstance(spk_audio, str) and emo_key is not None:
+            key = (spk_audio, emo_key, float(emo_alpha), None)
+        return spk, emo, emo_alpha, key
+
+    def _seq_tail_overlap_enabled(self, n_segments: int) -> bool:
+        """The tail overlap serves requests of several segments; it is off
+        under TARS_STAGE_SYNC=1, whose stage barriers it would overlap."""
+        return (self.cfg.runtime.seq_tail_overlap and n_segments > 1
+                and os.environ.get("TARS_STAGE_SYNC", "0") != "1")
+
+    def _segment_results(self, spk, emo, segments: List[np.ndarray], emo_alpha: float,
+                         seed: Optional[int], cond_kv_key: Optional[tuple],
+                         **gen_kwargs) -> Iterator[SegmentResult]:
+        """Each segment's SegmentResult in order, segment i with seed
+        seed + i: pipelined when the tail overlap is on, else inline."""
+        if self._seq_tail_overlap_enabled(len(segments)):
+            yield from self._pipelined_segments(spk, emo, segments, emo_alpha, seed,
+                                                cond_kv_key, **gen_kwargs)
+            return
+        for i, seg in enumerate(segments):
+            yield self.synthesize_segment(
+                spk, emo, np.asarray(seg), emo_alpha=emo_alpha,
+                seed=None if seed is None else seed + i, cond_kv_key=cond_kv_key,
+                **gen_kwargs)
+
+    def _pipelined_segments(self, spk, emo, segments: List[np.ndarray], emo_alpha: float,
+                            seed: Optional[int], cond_kv_key: Optional[tuple],
+                            **gen_kwargs) -> Iterator[SegmentResult]:
+        """The JAX engine's decode/tail pipeline (indextts_tpu/runtime/
+        engine.py:1384-1467): a producer thread decodes segment k+1 while
+        one tail worker (FIFO, so tails end in submission order) finishes
+        segment k; yields the SegmentResults strictly in segment order. The
+        handoff queue holds 2, so a slow consumer holds the producer back.
+        The tail's stream waits for the producer's decode (an event). A
+        decode or tail error raises in the caller. Closing the generator
+        stops the producer and drops the tails not started without waiting
+        for the one running (its result is dropped)."""
+        tail_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="tars-seq-tail")
+        out_q: "queue.Queue[tuple]" = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """A put that gives up once the consumer is gone (a plain put
+            could block for good on the bounded queue)."""
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.25)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def tail(ready, *args):
+            self._after(ready)
+            return self._finish_from_codes(*args)
+
+        def producer():
+            try:
+                for i, seg in enumerate(segments):
+                    if stop.is_set():
+                        return
+                    seg = np.asarray(seg)
+                    s_i = None if seed is None else seed + i
+                    emovec, codes, t_gen = self._decode_segment_codes(
+                        spk, emo, seg, emo_alpha=emo_alpha, seed=s_i,
+                        cond_kv_key=cond_kv_key, **gen_kwargs)
+                    fut = tail_pool.submit(tail, self._mark(), spk, emovec, seg, codes, s_i,
+                                           t_gen)
+                    if not put(("fut", fut)):
+                        return
+                put(("done", None))
+            except BaseException as e:  # the caller raises it
+                put(("err", e))
+
+        th = threading.Thread(target=producer, daemon=True, name="tars-seq-decode")
+        th.start()
+        try:
+            while True:
+                kind, v = out_q.get()
+                if kind == "done":
+                    return
+                if kind == "err":
+                    raise v
+                yield v.result()
+        finally:
+            stop.set()
+            # wait=False: a closed stream does not wait for a tail in flight
+            tail_pool.shutdown(wait=False, cancel_futures=True)
+            th.join(timeout=60)
 
     def infer(
         self,
@@ -648,20 +835,43 @@ class IndexTTS2Engine:
         batched: bool = False,
         **gen_kwargs: Any,
     ):
-        """Sequential synthesis over pre-tokenized segments, in order.
-        Returns {"sampling_rate", "audio", "duration_sec", "rtf", "stats"}."""
+        """Synthesis over pre-tokenized segments, in order: pipelined
+        (`_pipelined_segments`) when the tail overlap is on and there are
+        several, else one after another. Returns {"sampling_rate", "audio",
+        "duration_sec", "rtf", "stats"}."""
         if emo_vector is not None:
             raise NotImplementedError("emo_vector is not ported yet")
         if batched:
             raise NotImplementedError("batched segments are not ported yet")
         start = time.perf_counter()
-        spk, emo, emo_alpha = self._conditioning(spk_audio, emo_audio, emo_alpha)
-        stats = []
-        for i, seg in enumerate(text_ids_segments):
-            stats.append(self.synthesize_segment(
-                spk, emo, np.asarray(seg), emo_alpha=emo_alpha,
-                seed=None if seed is None else seed + i, **gen_kwargs))
+        spk, emo, emo_alpha, key = self._conditioning(spk_audio, emo_audio, emo_alpha)
+        stats = list(self._segment_results(spk, emo, text_ids_segments, emo_alpha, seed, key,
+                                           **gen_kwargs))
         return self._joined(stats, start, interval_silence, output_path)
+
+    def infer_generator(
+        self,
+        spk_audio: Union[str, Tuple[np.ndarray, int]],
+        text_ids_segments: List[np.ndarray],
+        emo_audio: Optional[Union[str, Tuple[np.ndarray, int]]] = None,
+        emo_alpha: float = 1.0,
+        emo_vector: Optional[Sequence[float]] = None,
+        interval_silence: int = 200,
+        seed: Optional[int] = None,
+        **gen_kwargs: Any,
+    ) -> Iterator[np.ndarray]:
+        """Streaming synthesis (indextts_tpu/runtime/engine.py:1300-1372):
+        each segment's waveform, then interval_silence ms of silence, the
+        last segment's included; the same route, keys and seeds as infer()."""
+        if emo_vector is not None:
+            raise NotImplementedError("emo_vector is not ported yet")
+        spk, emo, emo_alpha, key = self._conditioning(spk_audio, emo_audio, emo_alpha)
+        sil = self._silence(interval_silence)
+        for r in self._segment_results(spk, emo, text_ids_segments, emo_alpha, seed, key,
+                                       **gen_kwargs):
+            yield r.wav
+            if len(sil):
+                yield sil
 
     def infer_continuous(
         self,
@@ -679,22 +889,57 @@ class IndexTTS2Engine:
         the segments (and those of other concurrent requests) decode in one
         shared loop, segment i submitted with priority i and tail seed
         seed + i. Same return contract as infer()."""
-        if emo_vector is not None:
-            raise NotImplementedError("emo_vector is not ported yet")
         start = time.perf_counter()
-        spk, emo, emo_alpha = self._conditioning(spk_audio, emo_audio, emo_alpha)
-        futs = [service.submit(spk, emo, np.asarray(seg), emo_alpha=emo_alpha,
-                               seed=None if seed is None else seed + i, priority=i)
-                for i, seg in enumerate(text_ids_segments)]
+        futs = self._submit_all(service, spk_audio, text_ids_segments, emo_audio, emo_alpha,
+                                emo_vector, seed)
         stats = [f.result(timeout=timeout) for f in futs]
         return self._joined(stats, start, interval_silence, None)
+
+    def infer_generator_continuous(
+        self,
+        service,
+        spk_audio: Union[str, Tuple[np.ndarray, int]],
+        text_ids_segments: List[np.ndarray],
+        emo_audio: Optional[Union[str, Tuple[np.ndarray, int]]] = None,
+        emo_alpha: float = 1.0,
+        emo_vector: Optional[Sequence[float]] = None,
+        interval_silence: int = 200,
+        seed: Optional[int] = None,
+        timeout: float = 600.0,
+    ) -> Iterator[np.ndarray]:
+        """Streaming through a shared ContinuousService (indextts_tpu/
+        runtime/engine.py:1469-1516): every segment submitted up front, as
+        infer_continuous(); each waveform and the silence after it yielded
+        in order as its segment completes."""
+        futs = self._submit_all(service, spk_audio, text_ids_segments, emo_audio, emo_alpha,
+                                emo_vector, seed)
+        sil = self._silence(interval_silence)
+        for f in futs:
+            yield f.result(timeout=timeout).wav
+            if len(sil):
+                yield sil
+
+    def _submit_all(self, service, spk_audio, text_ids_segments, emo_audio, emo_alpha,
+                    emo_vector, seed) -> list:
+        """Submit a request's segments to `service`, segment i with priority
+        i (breadth-first admission across requests) and tail seed seed + i."""
+        if emo_vector is not None:
+            raise NotImplementedError("emo_vector is not ported yet")
+        spk, emo, emo_alpha, _ = self._conditioning(spk_audio, emo_audio, emo_alpha)
+        return [service.submit(spk, emo, np.asarray(seg), emo_alpha=emo_alpha,
+                               seed=None if seed is None else seed + i, priority=i)
+                for i, seg in enumerate(text_ids_segments)]
+
+    def _silence(self, interval_silence: int) -> np.ndarray:
+        sr_out = self.cfg.runtime.sampling_rate
+        return np.zeros(int(sr_out * interval_silence / 1000.0), np.float32)
 
     def _joined(self, stats: List[SegmentResult], start: float, interval_silence: int,
                 output_path: Optional[str]):
         """The segments' audio joined by interval_silence ms of silence, as
         infer() returns it."""
         sr_out = self.cfg.runtime.sampling_rate
-        sil = np.zeros(int(sr_out * interval_silence / 1000.0), np.float32)
+        sil = self._silence(interval_silence)
         pieces = []
         for i, r in enumerate(stats):
             pieces.append(r.wav)
@@ -709,19 +954,24 @@ class IndexTTS2Engine:
                 "rtf": total / dur if dur > 0 else float("inf"), "stats": stats}
 
     def infer_text(self, spk_audio, text: str, use_emo_text: bool = False,
-                   max_text_tokens_per_segment: Optional[int] = None, **kwargs):
+                   max_text_tokens_per_segment: Optional[int] = None,
+                   quick_streaming_tokens: int = 0, **kwargs):
         """Normalize + tokenize + split, then infer (needs a tokenizer)."""
         if use_emo_text:
             raise NotImplementedError("use_emo_text is not ported yet")
-        return self.infer(spk_audio, self.text_segments(text, max_text_tokens_per_segment),
-                          **kwargs)
+        return self.infer(spk_audio, self.text_segments(text, max_text_tokens_per_segment,
+                                                        quick_streaming_tokens), **kwargs)
 
-    def text_segments(self, text: str, max_text_tokens_per_segment: Optional[int] = None
-                      ) -> List[np.ndarray]:
-        """Normalize + tokenize + split into segments of token ids."""
+    def text_segments(self, text: str, max_text_tokens_per_segment: Optional[int] = None,
+                      quick_streaming_tokens: int = 0) -> List[np.ndarray]:
+        """Normalize + tokenize + split into segments of token ids; with
+        quick_streaming_tokens > 0, small first segments until that many
+        tokens are out (the streaming first-chunk lever)."""
         if self.tokenizer is None:
             raise ValueError("engine has no tokenizer; pass pre-tokenized segments to infer()")
         max_seg = max_text_tokens_per_segment or self.cfg.runtime.max_text_tokens_per_segment
-        segments = self.tokenizer.split_segments(self.tokenizer.tokenize(text), max_seg)
+        segments = self.tokenizer.split_segments(
+            self.tokenizer.tokenize(text), max_seg,
+            quick_streaming_tokens=quick_streaming_tokens)
         return [np.asarray(self.tokenizer.convert_tokens_to_ids(s), np.int32)
                 for s in segments]

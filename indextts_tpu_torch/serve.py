@@ -4,9 +4,18 @@
   TARS_MAX_CONCURRENCY=8 python -m indextts_tpu_torch.serve ...   # continuous
 
 Follows indextts_tpu/serve.py: build the engine, warm it up once on the
-default speaker prompt, then serve the copied `TTSServer` (POST /tts, GET
-/healthz /readyz /metrics). Without a checkpoint loader in the port, the
-engine runs seeded random weights and text goes through `byte_fallback_ids`.
+default speaker prompt, then serve the copied `TTSServer` (POST /tts, POST
+/tts/stream, GET /healthz /readyz /metrics). Without a checkpoint loader in
+the port, the engine runs seeded random weights and text goes through
+`byte_fallback_ids`.
+
+/tts/stream answers chunked s16le PCM: each segment's waveform, then the
+silence after it (`IndexTTS2Engine.infer_generator`, or
+`infer_generator_continuous` in continuous mode). TARS_QUICK_STREAMING (0:
+off), or the payload's `quick_streaming_tokens`, makes the first segments
+small until that many tokens are out, so the first chunk comes sooner.
+A request on the default prompt (a file path) takes the keyed route: its
+conditioning and the conditioning prefix's KV are computed once and reused.
 
 Serving mode: sequential, or continuous batching, where every request's
 segments decode in one shared chunked loop (runtime/batcher.py
@@ -20,11 +29,11 @@ programs; requests that come meanwhile capture their own shapes as they
 would have anyway. A precompile that fails is printed and serving goes on.
 
 Left out against the JAX entry point: the compile cache, multihost
-initialization, the Qwen emotion model and streaming (/tts/stream answers
-400). A warmup that fails raises.
+initialization and the Qwen emotion model. A warmup that fails raises.
 
 Env knobs keep the TARS_* names: TARS_MAX_CONCURRENCY, TARS_REFERENCE_AUDIO,
-TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS;
+TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS,
+TARS_QUICK_STREAMING, TARS_SEQ_TAIL_OVERLAP (1: on);
 TARS_CONTINUOUS_SLOTS (default "auto"), TARS_CONTINUOUS_CHUNK (decode steps
 a chunk, 32) and TARS_CONTINUOUS_TAIL_WORKERS (2); TARS_PRECOMPILE (1: on),
 TARS_PRECOMPILE_CODES (the envelope's longest segment in codes, 512) and
@@ -47,15 +56,23 @@ import numpy as np
 
 
 def fallback_segments(text: str, number_text_tokens: int, per_segment: int,
-                      max_text_tokens: int) -> List[np.ndarray]:
+                      max_text_tokens: int, quick: int = 0) -> List[np.ndarray]:
     """No tokenizer (random-weights mode): bytes -> ids, split to the
-    per-segment cap the real tokenizer honors."""
+    per-segment cap the real tokenizer honors; with quick > 0, segments of
+    `quick` ids (never more than the cap) until `quick` ids are out, as
+    quick_streaming_tokens (the JAX server's `_fallback_segments`,
+    indextts_tpu/serve.py:190-209)."""
     from indextts_tpu_torch.frontend.tokenizer import byte_fallback_ids
 
     ids = byte_fallback_ids(text, number_text_tokens, max_bytes=200)
     cap = max(1, min(per_segment, max_text_tokens))
-    return [np.asarray(ids[i:i + cap], np.int32)
-            for i in range(0, max(len(ids), 1), cap)]
+    out, i = [], 0
+    while True:
+        step = min(quick, cap) if 0 < quick and i < quick else cap
+        out.append(np.asarray(ids[i:i + step], np.int32))
+        i += step
+        if i >= len(ids):
+            return out
 
 
 def pick_continuous_slots(env) -> int:
@@ -72,6 +89,23 @@ def pick_continuous_slots(env) -> int:
     return min(max_conc, 8) if max_conc >= 4 else 0
 
 
+def _request(engine, default_prompt: Optional[str], text: str, spk_audio, use_emo_text,
+             quick: int = 0):
+    """A request's speaker prompt and segments; ValueError (HTTP 400) for
+    what the port cannot serve."""
+    spk = spk_audio or default_prompt
+    if spk is None:
+        raise ValueError("no speaker prompt: pass spk_audio or set TARS_REFERENCE_AUDIO")
+    if use_emo_text:
+        raise ValueError("use_emo_text is not supported by the PyTorch port")
+    c = engine.cfg
+    if engine.tokenizer is not None:
+        return spk, engine.text_segments(text, quick_streaming_tokens=quick)
+    return spk, fallback_segments(text, c.gpt.number_text_tokens,
+                                  c.runtime.max_text_tokens_per_segment,
+                                  c.gpt.max_text_tokens, quick=quick)
+
+
 def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
     """The server's synth(text, spk_audio, ...) callable over `engine`,
     through the ContinuousService `service` when there is one.
@@ -80,19 +114,7 @@ def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
     def synth(text="", spk_audio=None, emo_audio=None, emo_alpha=1.0,
               emo_vector=None, seed=None, use_emo_text=False, emo_text=None,
               **kw):
-        spk = spk_audio or default_prompt
-        if spk is None:
-            raise ValueError(
-                "no speaker prompt: pass spk_audio or set TARS_REFERENCE_AUDIO")
-        if use_emo_text:
-            raise ValueError("use_emo_text is not supported by the PyTorch port")
-        c = engine.cfg
-        if engine.tokenizer is not None:
-            seg_ids = engine.text_segments(text)
-        else:
-            seg_ids = fallback_segments(text, c.gpt.number_text_tokens,
-                                        c.runtime.max_text_tokens_per_segment,
-                                        c.gpt.max_text_tokens)
+        spk, seg_ids = _request(engine, default_prompt, text, spk_audio, use_emo_text)
         if service is not None:
             return engine.infer_continuous(service, spk, seg_ids, emo_audio=emo_audio,
                                            emo_alpha=emo_alpha, emo_vector=emo_vector,
@@ -101,6 +123,30 @@ def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
                             emo_alpha=emo_alpha, emo_vector=emo_vector, seed=seed)
 
     return synth
+
+
+def make_synth_stream(engine, default_prompt: Optional[str], service=None) -> Callable:
+    """The server's synth_stream(text, ...) generator over `engine`, the
+    counterpart of indextts_tpu/serve.py:240-279: each chunk a segment's
+    waveform or the silence after it, through `infer_generator`, or
+    `infer_generator_continuous` when there is a ContinuousService. The
+    payload's `quick_streaming_tokens`, else TARS_QUICK_STREAMING, sizes
+    the first segments."""
+    quick_default = int(os.environ.get("TARS_QUICK_STREAMING", "0"))
+
+    def synth_stream(text="", spk_audio=None, emo_audio=None, emo_alpha=1.0,
+                     emo_vector=None, seed=None, use_emo_text=False, emo_text=None,
+                     quick_streaming_tokens=None, **kw):
+        quick = quick_default if quick_streaming_tokens is None else int(quick_streaming_tokens)
+        spk, seg_ids = _request(engine, default_prompt, text, spk_audio, use_emo_text, quick)
+        kwargs = dict(emo_audio=emo_audio, emo_alpha=emo_alpha, emo_vector=emo_vector,
+                      seed=seed)
+        if service is not None:
+            yield from engine.infer_generator_continuous(service, spk, seg_ids, **kwargs)
+        else:
+            yield from engine.infer_generator(spk, seg_ids, **kwargs)
+
+    return synth_stream
 
 
 def precompile_in_background(engine, prompt: str, continuous: bool) -> Future:
@@ -179,7 +225,6 @@ def build(argv=None, cfg=None, engine=None):
     cfg = engine.cfg
 
     settings = ServerSettings(host=args.host, port=args.port)
-    settings.enable_streaming = False
     default_prompt = args.reference_audio or settings.reference_audio or None
     service = None
     slots = pick_continuous_slots(os.environ)
@@ -192,7 +237,8 @@ def build(argv=None, cfg=None, engine=None):
             tail_workers=int(os.environ.get("TARS_CONTINUOUS_TAIL_WORKERS", "2")))
         print(f">> continuous batching: {slots} slots", file=sys.stderr)
     synth = make_synth(engine, default_prompt, service)
-    server = TTSServer(synth, settings)
+    server = TTSServer(synth, settings,
+                       stream_fn=make_synth_stream(engine, default_prompt, service))
     server.service = service
     server.precompiled = None
     if os.environ.get("TARS_PRECOMPILE", "1") == "1" and default_prompt:

@@ -476,8 +476,9 @@ def test_pick_continuous_slots(env, slots):
 def test_serve_continuous_tts_request(tmp_path, monkeypatch):
     """serve.build with TARS_CONTINUOUS_SLOTS=2 (device "cpu", the tiny
     config) serves through a ContinuousService: the warmup and two
-    concurrent POST /tts answer mono 16-bit WAVs, /tts/stream answers 400,
-    and the service shuts down."""
+    concurrent POST /tts answer mono 16-bit WAVs, /tts/stream answers 200
+    with chunked PCM, the /tts answer's samples then 200 ms of silence
+    (`infer_generator_continuous`), and the service shuts down."""
     from indextts_tpu_torch import serve
     from indextts_tpu_torch.runtime.batcher import ContinuousService
     from indextts_tpu_torch.utils import audio as audio_utils
@@ -529,13 +530,20 @@ def test_serve_continuous_tts_request(tmp_path, monkeypatch):
         loop.close()
         server.pool.shutdown(wait=True)
         svc.shutdown()
-    assert answers[("/tts/stream", "hello")][0] == 400
+    pcm = {}
     for text in ("hello", "there"):
         status, body = answers[("/tts", text)]
         assert status == 200, body[:200]
         with wave.open(io.BytesIO(body)) as w:
             assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, 22050)
             assert w.getnframes() > 0
+            pcm[text] = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    status, body = answers[("/tts/stream", "hello")]
+    assert status == 200, body[:200]
+    n_sil = int(22050 * 200 / 1000)
+    stream = np.frombuffer(body, np.int16)
+    np.testing.assert_array_equal(stream[:-n_sil], pcm["hello"])
+    assert not stream[-n_sil:].any()
     assert svc.bat.tokens > 0 and not svc._thread.is_alive()
 
 

@@ -11,6 +11,7 @@ same order, so their results agree to the last bit (K7 is held to that) or
 within one unit of it (1e-6 of max|out| is allowed).
 """
 
+import dataclasses
 import math
 import threading
 
@@ -1020,3 +1021,81 @@ def test_precompile_leaves_no_capture_to_a_request(cuda_device):
     out = eng.infer((wav, 16000), [np.arange(2, 14)], seed=0)
     assert chip_smoke.graph_counts(eng) == before
     assert out["audio"].size and np.isfinite(out["audio"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the keyed route (the conditioning prefix's KV reused) and the sequential
+# tail overlap
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_keyed_prefill_matches_monolithic(cuda_device, route):
+    """On the float, W8 and W4 GPTs (the quantized ones with the int8 KV
+    cache), the keyed prefill's first-step logits and the float KV of the
+    prompt's S slots against the monolithic prefill's
+    (chip_smoke.keyed_prefill_errors): within 1e-4 of the largest |value|
+    on float32, 1e-2 on W8/W4, where the noise may flip one int8 step of an
+    activation row. Then the keyed route's captured decode gives its eager
+    loop's codes."""
+    import chip_smoke
+
+    dec, (conds, *arrays) = _graph_decoder(cuda_device, route)
+    assert dec.supports_cond_kv
+    logit_err, kv_err = chip_smoke.keyed_prefill_errors(dec, conds, *arrays)
+    tol = 1e-4 if route == "float" else 1e-2
+    assert logit_err <= tol and kv_err <= tol, (logit_err, kv_err)
+    prefix = dec.cond_prefill(conds)
+    runs = [dec.generate(conds, *arrays, 3, max_new=40, eager=eager, cond_kv=prefix)
+            for eager in (True, False, False)]
+    assert all(torch.equal(r.codes, runs[0].codes) for r in runs[1:])
+
+
+@pytest.mark.cuda
+def test_overlap_captures_tails_beside_decode_replays(cuda_device, tmp_path, monkeypatch):
+    """A small engine on the card with no graph captured, a path prompt
+    (the keyed route, its caches read from the producer and tail threads):
+    a 3-segment request on the pipelined route, where the first segment's
+    tail captures the latent, s2mel and vocoder graphs while the next
+    segment's decode replays the step its decode captured, gives the bits
+    of the same request on the inline route, which captures nothing more.
+    Then every graph captured replays under set_sync_debug_mode("error"),
+    which raises on a host sync."""
+    import chip_smoke
+
+    from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
+
+    monkeypatch.delenv("TARS_STAGE_SYNC", raising=False)
+    cfg = chip_smoke.small_config()
+    eng = IndexTTS2Engine(cfg, random_params(cfg, seed=0, device=cuda_device),
+                          device=cuda_device)
+    path = str(tmp_path / "spk.wav")
+    chip_smoke.speaker_wav(path)
+    segs = [np.random.default_rng(n).integers(2, 50, n) for n in (9, 20, 31)]
+    assert chip_smoke.graph_counts(eng) == (0, 0, 0, 0)
+    piped = eng.infer(path, segs, seed=4)
+    captured = chip_smoke.graph_counts(eng)
+    assert captured == (1, 1, 1, 1)
+    eng.cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, seq_tail_overlap=False))
+    inline = eng.infer(path, segs, seed=4)
+    assert chip_smoke.graph_counts(eng) == captured
+    assert piped["audio"].size and np.isfinite(piped["audio"]).all()
+    np.testing.assert_array_equal(piped["audio"], inline["audio"])
+    assert len(eng._cond_kv_cache) == 1
+    graphs = [(eng.decoder._stream, g) for st in eng.decoder._states.values()
+              for g, _ in st.graphs.values()]
+    graphs += [(r.stream, p.graph) for r in (eng.latent_runner, eng.s2mel_runner,
+                                             eng.vocoder_runner)
+               for p in r.programs.values()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for stream, graph in graphs:
+            with torch.cuda.stream(stream):
+                graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert len(graphs) == 4
