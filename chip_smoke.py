@@ -132,6 +132,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    chunk's seconds, wall, audio seconds and each segment's decode
    seconds; then one segment keyed and unkeyed in turns (the gpt_decode
    stage) and the host-timed parts of a segment's prompt work.
+   Then `emotion_phase` (float): a small Qwen3 on the card against the CPU
+   (prefill logits within 1e-4 of the largest, the same greedy tokens
+   captured, eager and on the CPU); Qwen3-0.6B at full width with seeded
+   random weights made on the card, behind the stand-in tokenizer
+   `qwen_prompt` / `qwen_text` (no Qwen tokenizer is in the repo): the
+   prefill's ms, the captured and the eager decode in turns (the same
+   tokens; ms a token), a replay's kernels against 16 replays timed (idle
+   inside the step) beside the step's bound (2.384 GB of weights at 3.35
+   TB/s, 0.712 ms), one inference() call's seconds; random emotion banks
+   of the real shapes (73 x 1280, 73 x 192) on the engine; through a
+   sequential server, counters set to 0 before and read after (K1-K3
+   rise): /tts with an emo_vector twice (the second must hit its key),
+   without one, and unkeyed, each printing gpt_decode; a /tts/stream with
+   the vector; /tts with use_emo_text, 400 without a Qwen and 200 with the
+   full-width one attached (the vector it read, the Qwen's seconds).
 4. Continuous batching (runtime/batcher.py), on each route right after its
    phase 3, over the same engine (full width, max_mel_tokens 300): the
    port's server is built again over it with TARS_MAX_CONCURRENCY=8, so
@@ -153,7 +168,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    slot state's memory, peak memory, and that K6/K8's per-stream arrival
    counters were made on decoder streams only. On the float route one
    /tts/stream goes through the continuous server, then a client leaves
-   a stream after its first chunk, and a /tts after it must answer 200.
+   a stream after its first chunk, and a /tts after it must answer 200;
+   then one /tts with an emo_vector (`emotion_continuous`).
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -211,6 +227,23 @@ STREAM_ROUNDS = 2  # overlap on / off (and keyed / unkeyed), in turns
 KEYED_TOL = {False: 1e-3, True: 1e-2}
 PROMPT_SECONDS = 3
 PROMPT_SR = 22050
+# the emotion phase: a request's 8 weights (happy, angry, sad, afraid,
+# disgusted, melancholic, surprised, calm), the seeds of the banks and of
+# the Qwen3 weights, the text the Qwen reads
+EMO_VECTOR = [0.0, 0.3, 0.0, 0.0, 0.0, 0.0, 0.25, 0.0]
+EMO_SEED = 13
+EMO_TEXT = "I cannot believe you did that, it makes me so angry and surprised!"
+QWEN_SEED = 15
+QWEN_SMALL = dict(vocab_size=4096, hidden_size=256, num_hidden_layers=4, num_attention_heads=4,
+                  num_key_value_heads=2, head_dim=64, intermediate_size=512)
+QWEN_SMALL_TOKENS = 24
+# card against CPU, float32 without TF32 summed in another order: relative
+# to the largest |logit|
+QWEN_LOGIT_TOL = 1e-4
+QWEN_MAX_NEW = 256  # QwenEmoConfig.max_new_tokens
+QWEN_ROUNDS = 2  # captured against eager decode, in turns
+QWEN_EAGER_NEW = 64  # tokens of an eager decode (a captured one runs QWEN_MAX_NEW)
+QWEN_EOS = 151645  # Qwen3's <|im_end|>
 
 
 def fail(msg: str):
@@ -2087,6 +2120,364 @@ def stream_phase(engine, wav_path: str, label: str, tmp: str, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, float route: the emotion controls and the Qwen3 text-to-emotion model
+# ---------------------------------------------------------------------------
+
+
+def qwen_prompt(system: str, user: str) -> list:
+    """The stand-in tokenizer's encode (no Qwen tokenizer is in the repo):
+    Qwen3's chat template with thinking off, as UTF-8 bytes, one id each."""
+    text = (f"<|im_start|>system\n{system}<|im_end|>\n<|im_start|>user\n{user}<|im_end|>\n"
+            "<|im_start|>assistant\n<think>\n\n</think>\n\n")
+    return list(text.encode())
+
+
+def qwen_text(ids) -> str:
+    """The stand-in tokenizer's decode: each id as a printable character."""
+    return "".join(chr(32 + int(i) % 95) for i in ids)
+
+
+def qwen_margins(dec, ids, n: int) -> float:
+    """The smallest top-2 logit margin of a greedy decode of n tokens."""
+    import torch
+
+    from indextts_tpu_torch.runtime.decode import cache_cap
+
+    st = dec._state(cache_cap(len(ids), n))
+    out = []
+    with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+        dec.prefill(st, ids)
+        for _ in range(n):
+            top = torch.topk(st.logits, 2).values
+            out.append(float(top[0] - top[1]))
+            dec.step(st)
+    return min(out)
+
+
+def qwen_small_check(card: str):
+    """A small Qwen3 (QWEN_SMALL) from one seed on the card and on the CPU:
+    the prefill's logits within QWEN_LOGIT_TOL of the largest |logit|
+    (float32, no TF32, summed in another order), and QWEN_SMALL_TOKENS
+    greedy tokens equal: the CPU's, the card's captured steps' and its
+    eager steps'. The token embedding is scaled by 0.01: at PyTorch's
+    default N(0, 1) the tied head echoes the prompt's last token at every
+    step, whatever the blocks compute."""
+    import torch
+
+    from indextts_tpu_torch.config import QwenEmoConfig
+    from indextts_tpu_torch.models.qwen3 import Qwen3LM, QwenDecoder
+
+    torch.manual_seed(QWEN_SEED)
+    cpu = Qwen3LM(QwenEmoConfig(**QWEN_SMALL)).eval().requires_grad_(False)
+    cpu.model.embed_tokens.weight.mul_(0.01)
+    gpu = copy.deepcopy(cpu).cuda()
+    ids = qwen_prompt("文本情感分类", EMO_TEXT)
+    with torch.inference_mode():
+        want, _ = cpu(torch.tensor([ids]), torch.arange(len(ids)))
+        got, _ = gpu(torch.tensor([ids], device="cuda"), torch.arange(len(ids), device="cuda"))
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    dec = QwenDecoder(gpu)
+    toks = {"cpu": QwenDecoder(cpu).generate(ids, QWEN_SMALL_TOKENS, -1),
+            "captured": dec.generate(ids, QWEN_SMALL_TOKENS, -1),
+            "eager": dec.generate(ids, QWEN_SMALL_TOKENS, -1, eager=True)}
+    margin = qwen_margins(QwenDecoder(cpu), ids, QWEN_SMALL_TOKENS)
+    print(f"[qwen] small config {QWEN_SMALL} card against CPU: prefill logits max |diff| "
+          f"{err:.2e} of the largest (tolerance {QWEN_LOGIT_TOL}); {QWEN_SMALL_TOKENS} greedy "
+          f"tokens ({len(set(toks['cpu'].tolist()))} distinct), smallest top-2 margin "
+          f"{margin:.4f} ({card})")
+    if err > QWEN_LOGIT_TOL:
+        fail(f"[qwen] the card's logits differ from the CPU's by {err:.2e} of the largest")
+    if not all(np.array_equal(t, toks["cpu"]) for t in toks.values()):
+        fail(f"[qwen] greedy tokens differ between the CPU, the captured and the eager steps: "
+             f"{ {k: v.tolist() for k, v in toks.items()} }")
+
+
+def qwen_full_width(card: str):
+    """QwenEmoConfig (Qwen3-0.6B: 28 layers, 1024 wide, 16/8 heads of 128,
+    vocab 151936) with seeded random weights made on the card, behind a
+    QwenEmotion over the stand-in tokenizer (`qwen_prompt`, `qwen_text`).
+    Prints the prefill's ms; the captured and the eager decode in turns,
+    QWEN_ROUNDS rounds of QWEN_MAX_NEW and QWEN_EAGER_NEW tokens (random
+    weights rarely emit eos), ms a token each (the generate call's wall less
+    the prefill's, over its steps), the tokens of each the first captured
+    decode's; a replay's device kernels (torch.profiler)
+    against 16 replays timed with CUDA events, the idle share inside the
+    step, and the step's bound (the weights once, and the KV cache's valid
+    slots); the seconds of one inference() call and the vector it read.
+    Returns the QwenEmotion."""
+    import torch
+
+    from indextts_tpu_torch.config import QwenEmoConfig
+    from indextts_tpu_torch.models.qwen3 import Qwen3LM
+    from indextts_tpu_torch.runtime.decode import cache_cap
+    from indextts_tpu_torch.runtime.qwen_emo import QwenEmotion, make_generate_fn
+
+    t_phase = time.perf_counter()
+    qc = QwenEmoConfig()
+    torch.manual_seed(QWEN_SEED)
+    with torch.device("cuda"):
+        model = Qwen3LM(qc).eval().requires_grad_(False)
+    params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    qe = QwenEmotion(make_generate_fn(model, qwen_prompt, qwen_text, QWEN_EOS, QWEN_MAX_NEW))
+    dec = qe.generate_fn.decoder
+    ids = qwen_prompt(qe.prompt, EMO_TEXT)
+    cap = cache_cap(len(ids), QWEN_MAX_NEW)
+    print(f"[qwen] full width: {qc.num_hidden_layers} layers x {qc.hidden_size}, "
+          f"{qc.num_attention_heads}/{qc.num_key_value_heads} heads of {qc.head_dim}, vocab "
+          f"{qc.vocab_size}: {params / 1e6:.1f} M parameters, {weight_bytes / 1e9:.3f} GB "
+          f"float32; prompt {len(ids)} ids, cache capacity {cap}")
+    first = dec.generate(ids, QWEN_MAX_NEW, QWEN_EOS)  # the capture
+    st = dec._states[cap]
+    if st.graph is None:
+        fail("[qwen] the decode step was not captured")
+
+    def prefill_ms() -> float:
+        with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dec.prefill(st, ids)
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b)
+
+    pre = statistics.median(prefill_ms() for _ in range(3))
+    print(f"[qwen] prefill of {len(ids)} ids: {pre:.3f} ms (CUDA events, median of 3; {card})")
+    per_token = {False: [], True: []}
+    for r in range(QWEN_ROUNDS):
+        for eager in ((False, True) if r % 2 == 0 else (True, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = dec.generate(ids, QWEN_EAGER_NEW if eager else QWEN_MAX_NEW, QWEN_EOS,
+                                eager=eager)
+            wall = time.perf_counter() - t0
+            ms = (wall * 1e3 - pre) / max(1, len(toks) - 1)
+            per_token[eager].append(ms)
+            print(f"[qwen] decode round {r} {'eager' if eager else 'captured'}: {len(toks)} "
+                  f"tokens in {wall:.3f} s, {ms:.3f} ms a token after the prefill ({card})")
+            if not np.array_equal(toks, first[:len(toks)]):
+                fail(f"[qwen] round {r} ({'eager' if eager else 'captured'}): tokens differ "
+                     "from the first captured decode's")
+    print(f"[qwen] captured and eager decode: the same tokens in all {2 * QWEN_ROUNDS + 1} "
+          f"runs ({len(first)} captured, the first {min(len(first), QWEN_EAGER_NEW)} eager)")
+    with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+        dec.prefill(st, ids)  # room for the replays below: S + 18 < cap
+        kernels = step_kernels(st.graph.replay)
+        valid = int(st.valid)
+        replay_ms = replays_ms(st.graph, 16)
+    n_k, ms_k = sum(v[0] for v in kernels.values()), sum(v[1] for v in kernels.values())
+    kv_bytes = 2 * qc.num_hidden_layers * qc.num_key_value_heads * valid * qc.head_dim * 4
+    bound_w = weight_bytes / HBM_BYTES_PER_S * 1e3
+    bound_kv = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"[qwen] step: 16 replays back to back {replay_ms:.4f} ms a step (CUDA events); one "
+          f"replay's {n_k} device kernels {ms_k:.4f} ms, idle inside the step "
+          f"{100 * (1 - ms_k / replay_ms):.1f} %; bound {bound_w:.3f} ms for the weights "
+          f"({weight_bytes / 1e9:.3f} GB at 3.35 TB/s), {bound_kv:.3f} ms with the KV cache's "
+          f"{valid} valid slots; in the decode loop captured "
+          + ", ".join(f"{x:.3f}" for x in per_token[False]) + " ms a token, eager "
+          + ", ".join(f"{x:.3f}" for x in per_token[True]) + f" ({card})")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    print("[qwen] one replay's kernels by device ms: " + ", ".join(
+        f"{short_name(k)} x{n} {ms:.4f}" for k, (n, ms) in top))
+    t0 = time.perf_counter()
+    vec = qe.inference(EMO_TEXT)
+    print(f"[qwen] one inference() call: {time.perf_counter() - t0:.3f} s ({card}); the vector "
+          f"it read: {vec}; the Qwen phase took {time.perf_counter() - t_phase:.1f} s")
+    return qe
+
+
+def emotion_banks(engine, wav_path: str):
+    """Seeded random emotion banks of the real shapes on the engine: rows of
+    the GPT's width (73 x 1280 at the default config), scaled to the
+    spread of the speaker prompt's own emovec, and speaker rows (73 x 192)."""
+    import torch
+
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    c = engine.cfg
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emovec, _ = engine.segment_conds(spk, EmotionConditioning(spk.spk_cond_emb, spk.cond_len))
+    g = torch.Generator(device="cuda").manual_seed(EMO_SEED)
+    n, split = sum(c.emo_num), list(c.emo_num)
+    emo = float(emovec.std()) * torch.randn((n, c.gpt.model_dim), generator=g, device="cuda")
+    engine.emo_matrix = list(torch.split(emo, split))
+    engine.spk_matrix = list(torch.split(torch.randn((n, 192), generator=g, device="cuda"),
+                                         split))
+    return n, c.gpt.model_dim
+
+
+def emotion_phase(engine, wav_path: str, label: str, tmp: str, card: str, rise, stay):
+    """The emotion controls on the float route's engine, after the stream
+    phase. `qwen_small_check` and `qwen_full_width`; random banks of the
+    real shapes (`emotion_banks`). Then, through a sequential server over
+    the engine (every counter set to 0 just before the requests and read
+    just after: `rise` must have risen, `stay` stayed 0): POST /tts with
+    EMO_VECTOR twice (the first makes the key (prompt path, "", 1.0,
+    vector), the second must hit it: no segment_conds call), a /tts
+    without a vector (keyed), each printing its gpt_decode stage, and
+    one unkeyed infer() with the vector ((audio, sr)); one /tts/stream
+    with EMO_VECTOR; /tts with use_emo_text and no Qwen attached (400),
+    then with the full-width Qwen attached (200), printing the vector it
+    chose and the Qwen's seconds. Every answer a valid non-silent WAV or
+    PCM, every mel finite. The Qwen is freed after: the device memory it
+    releases must hold its weights."""
+    import torch
+
+    from indextts_tpu_torch import serve
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    qwen_small_check(card)
+    qe = qwen_full_width(card)
+    rows, width = emotion_banks(engine, wav_path)
+    os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, f"cache-{label}-emotion")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server, _ = serve.build(["--host", "127.0.0.1", "--port", str(port),
+                             "--reference-audio", wav_path], engine=engine)
+    if server.service is not None:
+        fail(f"[{label}] the emotion phase's server is not sequential")
+    thread = ServerThread(server)
+    conds_calls, decode_s = [], []
+    segment_conds, finish = engine.segment_conds, engine._finish_from_codes
+
+    def conds_spy(*a, **kw):
+        conds_calls.append(a[3] if len(a) > 3 else kw.get("emo_vector"))
+        return segment_conds(*a, **kw)
+
+    def record(spk, emovec, text_ids, codes, seed, t_gen):
+        decode_s.append(t_gen)
+        return finish(spk, emovec, text_ids, codes, seed, t_gen)
+
+    engine.segment_conds, engine._finish_from_codes = conds_spy, record
+    engine._mel_taps = []
+    counters = kernel_counters()
+    for cnt in counters.values():
+        cnt.launches = 0
+    key = (wav_path, "", 1.0, tuple(EMO_VECTOR))
+    try:
+        engine._emoconds_cache.pop(key, None)
+        gpt_decode = {}
+        for name, payload in (("vector, first", {"emo_vector": EMO_VECTOR}),
+                              ("vector, keyed hit", {"emo_vector": EMO_VECTOR, "turn": 1}),
+                              ("no vector, keyed", {})):
+            conds_calls.clear()
+            decode_s.clear()
+            status, body = post_tts(port, {"text": request_text(0), "seed": DECODE_SEED,
+                                           **payload})
+            pcm = wav_pcm(body) if status == 200 else None
+            if pcm is None or not pcm.size or not np.abs(pcm.astype(np.int32)).max():
+                fail(f"[{label}] emotion /tts ({name}): HTTP {status}, or silent: {body[:200]!r}")
+            gpt_decode[name] = decode_s[0]
+            if name == "vector, first" and (conds_calls != [EMO_VECTOR]
+                                            or key not in engine._emoconds_cache):
+                fail(f"[{label}] the first emo_vector request made no key {key}")
+            if name == "vector, keyed hit" and conds_calls:
+                fail(f"[{label}] the second emo_vector request missed its key")
+        audio = audio_utils.load_wav(wav_path)
+        text = fallback_segments(request_text(0), engine.cfg.gpt.number_text_tokens,
+                                 engine.cfg.runtime.max_text_tokens_per_segment,
+                                 engine.cfg.gpt.max_text_tokens)[0]
+        decode_s.clear()
+        engine.infer(audio, [text], emo_vector=EMO_VECTOR, seed=DECODE_SEED)
+        gpt_decode["vector, unkeyed"] = decode_s[0]
+        print(f"[{label}] emotion banks {rows} x {width} and {rows} x 192; /tts with emo_vector "
+              f"{EMO_VECTOR}: gpt_decode s " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in gpt_decode.items()) + f" ({card})")
+        status, first, wall, pcm = post_stream(port, {"text": STREAM_TEXT, "seed": 41,
+                                                      "emo_vector": EMO_VECTOR})
+        if status != 200 or not pcm.size or not np.abs(pcm.astype(np.int32)).max():
+            fail(f"[{label}] emotion /tts/stream: HTTP {status}, or silent")
+        print(f"[{label}] /tts/stream with emo_vector: first_chunk_s={first:.3f} "
+              f"wall_s={wall:.3f} audio_s={len(pcm) / 22050:.3f} ({card})")
+        payload = {"text": request_text(1), "seed": DECODE_SEED, "use_emo_text": True}
+        status, body = post_tts(port, payload)
+        if status != 400 or b"no Qwen emotion model" not in body:
+            fail(f"[{label}] use_emo_text without a Qwen answered {status}: {body[:200]!r}")
+        print(f"[{label}] /tts with use_emo_text and no Qwen attached: 400 {body.decode()}")
+        read, inference = [], qe.inference
+
+        def timed_inference(text_input):
+            t0 = time.perf_counter()
+            read.append(inference(text_input))
+            read.append(time.perf_counter() - t0)
+            return read[0]
+
+        qe.inference = timed_inference
+        engine.qwen_emo = qe
+        t0 = time.perf_counter()
+        status, body = post_tts(port, {**payload, "turn": 1})
+        wall = time.perf_counter() - t0
+        pcm = wav_pcm(body) if status == 200 else None
+        if pcm is None or not pcm.size or len(read) != 2:
+            fail(f"[{label}] use_emo_text with the Qwen attached: HTTP {status}: {body[:200]!r}")
+        print(f"[{label}] /tts with use_emo_text and the full-width Qwen attached: the vector "
+              f"{list(read[0].values())}, the Qwen {read[1]:.3f} s of the request's "
+              f"{wall:.3f} s ({card})")
+    finally:
+        launches = {name: cnt.launches for name, cnt in counters.items()}
+        thread.stop()
+        engine.qwen_emo = None
+        engine.__dict__.pop("segment_conds", None)
+        engine.__dict__.pop("_finish_from_codes", None)
+    mels = engine._mel_taps
+    engine._mel_taps = None
+    if not mels or not all(np.isfinite(m).all() for m in mels):
+        fail(f"[{label}] the emotion requests' mels are missing or not finite")
+    for name, n in launches.items():
+        if name in rise and n == 0:
+            fail(f"[{label}] emotion requests: {name} was never launched")
+        if name in stay and n != 0:
+            fail(f"[{label}] emotion requests: {name} was launched {n} times; it has no "
+                 "place on this path")
+    print(f"[{label}] emotion requests' launches: " + ", ".join(
+        f"{name.split()[0]} {n}" for name, n in launches.items()))
+    weights = sum(p.nbytes for p in qe.generate_fn.decoder.model.parameters())
+    allocated = torch.cuda.memory_allocated()
+    del qe, inference, timed_inference
+    gc.collect()
+    torch.cuda.empty_cache()
+    released = allocated - torch.cuda.memory_allocated()
+    print(f"[{label}] the emotion phase took {time.perf_counter() - t_phase:.1f} s; freeing "
+          f"the Qwen released {released / 2**30:.2f} GiB (its weights {weights / 2**30:.2f}); "
+          f"device memory allocated {held / 2**30:.2f} GiB before the phase, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} after it")
+    if released < weights:
+        fail(f"[{label}] freeing the Qwen released {released} bytes, less than its weights")
+
+
+def emotion_continuous(port: int, engine, label: str, card: str):
+    """One /tts with EMO_VECTOR through the continuous server: a valid
+    non-silent WAV, the vector handed to segment_conds for each segment
+    (the service's submit)."""
+    seen, segment_conds = [], engine.segment_conds
+
+    def spy(*a, **kw):
+        seen.append(a[3] if len(a) > 3 else kw.get("emo_vector"))
+        return segment_conds(*a, **kw)
+
+    engine.segment_conds = spy
+    try:
+        t0 = time.perf_counter()
+        status, body = post_tts(port, {"text": request_text(34), "seed": 34,
+                                       "emo_vector": EMO_VECTOR})
+        wall = time.perf_counter() - t0
+    finally:
+        engine.__dict__.pop("segment_conds", None)
+    pcm = wav_pcm(body) if status == 200 else None
+    if pcm is None or not pcm.size or not np.abs(pcm.astype(np.int32)).max():
+        fail(f"[{label}] continuous /tts with emo_vector: HTTP {status}, or silent")
+    if not seen or any(v != EMO_VECTOR for v in seen):
+        fail(f"[{label}] continuous /tts with emo_vector: segment_conds saw {seen}")
+    print(f"[{label}] continuous /tts with emo_vector {EMO_VECTOR}: wall_s={wall:.3f} "
+          f"audio_s={len(pcm) / 22050:.3f} ({card})")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: continuous batching (runtime/batcher.py)
 # ---------------------------------------------------------------------------
 
@@ -2400,6 +2791,7 @@ def serve_continuous(wav_path: str, engine, label: str, rise, stay, tmp: str, ca
                   f"wall_s={wall:.3f} audio_s={len(pcm) / 22050:.3f}")
             disconnect_after_first_chunk(ports[0], {"text": STREAM_TEXT, "seed": 32}, label)
             tts_after_disconnect(ports[0], {"text": request_text(33), "seed": 33}, label)
+            emotion_continuous(ports[0], engine, label, card)
     finally:
         for th in threads:
             th.stop()
@@ -2484,6 +2876,7 @@ def main():
                 s2mel_turns(engine, wav_path, label)
                 tail_turns(engine, wav_path, label)
                 stream_phase(engine, wav_path, label, tmp, card)
+                emotion_phase(engine, wav_path, label, tmp, card, rise, stay)
             # each kernel's launches come from the route that runs it first
             for name in rise:
                 launches.setdefault(name, counts[name])

@@ -235,10 +235,10 @@ class ContinuousService:
         """Queue one segment; returns a Future[SegmentResult]. priority is
         the caller's segment index (breadth-first admission across
         requests — see ContinuousBatcher.submit)."""
-        if emo_vector is not None:
-            raise NotImplementedError("emo_vector is not ported yet")
         eng = self.engine
-        emovec, conds = eng.segment_conds(spk, emo, emo_alpha)
+        # the JAX batcher's blend, use_random off (indextts_tpu/runtime/
+        # batcher.py:326-345); `ready` follows the blended conds
+        emovec, conds = eng.segment_conds(spk, emo, emo_alpha, emo_vector)
         ready = None
         if conds.is_cuda:
             ready = torch.cuda.Event()

@@ -37,8 +37,8 @@ ops/gemv.py run under "pallas", and under "auto" for W4 on CUDA only.
 Fixed-speaker serving follows the JAX engine (indextts_tpu/runtime/
 engine.py:580-661, 1300-1588). When both conditionings are file paths,
 `infer` and `infer_generator` build a key (speaker path, emotion path or
-"", alpha, None); under it a segment takes (emovec, conds) from
-`_emoconds_cache` and, where the decoder's layout allows it
+"", alpha, the emotion vector as a tuple or None); under it a segment
+takes (emovec, conds) from `_emoconds_cache` and, where the decoder's layout allows it
 (`GPTDecoder.supports_cond_kv`), the conditioning prefix's KV from
 `_cond_kv_cache`, and prefills only the text tail on top of it. Each cache
 holds 8 keys. A request of several segments runs through
@@ -49,10 +49,22 @@ segment's seed gives the same waveform on either route. `infer_generator`
 streams each segment's waveform and the silence after it;
 `infer_generator_continuous` streams through a ContinuousService.
 
+The emotion controls follow the JAX engine (indextts_tpu/runtime/engine.py:
+490-520, 598-612, 1227-1273). An `emo_vector` (8 weights) picks a row of
+each emotion bank (`emo_matrix`, rows of the GPT's width, split by
+`cfg.emo_num`): the row whose speaker-bank row is closest in cosine to the
+prompt's CAMPPlus style, or a random one under `use_random`; their
+weighted sum is blended with merge_emovec's output as `rows + (1 -
+sum(emo_vector)) * emovec` before build_conds_latent, and the tail's
+latent pass gets the blended emovec too. A vector overrides `emo_audio`
+and sets alpha to 1; a `use_random` request has no key. `infer_text`
+with `use_emo_text` asks the attached `qwen_emo` (runtime/qwen_emo.py)
+for the vector.
+
 Routes the port does not implement raise NotImplementedError: beam search
-(num_beams > 1), batched segments, emo_vector / use_emo_text, and bfloat16
-s2mel or vocoder dtypes. `infer_continuous` decodes the segments in a
-shared runtime/batcher.py ContinuousService.
+(num_beams > 1), batched segments, and bfloat16 s2mel or vocoder dtypes.
+`infer_continuous` decodes the segments in a shared runtime/batcher.py
+ContinuousService.
 
 The AR decode (runtime/decode.py `GPTDecoder`) replays a captured step on
 the card; the engine hands it each request's seed (a random one for a
@@ -262,13 +274,17 @@ class IndexTTS2Engine:
         semantic_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         tokenizer=None,
         precise_shapes: bool = False,
+        emo_matrix: Optional[np.ndarray] = None,
+        spk_matrix: Optional[np.ndarray] = None,
     ):
         """params: {"gpt", "s2mel", "bigvgan", "repcodec", "campplus",
         "w2vbert"} state dicts (weights.from_jax_params or random_params).
         With runtime.gpt_quantize, a float GPT state dict is quantized here
         (the JAX engine's quantize_gpt_tree step). precise_shapes: solve
         the CFM at the exact target length, not its 128-frame bucket (the
-        JAX engine's parity mode)."""
+        JAX engine's parity mode). emo_matrix / spk_matrix: the emotion
+        banks (sum(emo_num), gpt.model_dim) and their speaker rows (...,
+        192) (the reference's feat2.pt / feat1.pt), zeros by default."""
         _check_supported(cfg)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -313,6 +329,20 @@ class IndexTTS2Engine:
         # seeds for seedless requests (serving threads share the engine)
         self._seed_gen = np.random.default_rng()
         self._seed_lock = threading.Lock()
+        # the emotion banks, one tensor a bank; use_random's row draws
+
+        def bank(m, width: int) -> List[torch.Tensor]:
+            m = np.zeros((sum(cfg.emo_num), width)) if m is None else m
+            return list(torch.split(self._tensor(np.asarray(m, np.float32)),
+                                    list(cfg.emo_num)))
+
+        self.emo_matrix = bank(emo_matrix, cfg.gpt.model_dim)
+        self.spk_matrix = bank(spk_matrix, 192)
+        self._bank_draws = torch.Generator()
+        self._bank_lock = threading.Lock()
+        # the text-to-emotion model (runtime/qwen_emo.py QwenEmotion) that
+        # infer_text's use_emo_text asks; none until a caller attaches one
+        self.qwen_emo = None
         # test hooks: CFM noise injection and mel capture
         self._noise_hook: Optional[Callable[[tuple], np.ndarray]] = None
         self._mel_taps: Optional[List[np.ndarray]] = None
@@ -408,19 +438,65 @@ class IndexTTS2Engine:
         return self._finish_from_codes(spk, emovec, text_ids, codes, seed, t_gen)
 
     @torch.inference_mode()
+    def _emovec_from_matrix(self, emo_vector: Sequence[float], style: torch.Tensor,
+                            use_random: bool, seed: Optional[int] = None) -> torch.Tensor:
+        """The emotion banks' rows weighted by emo_vector and summed, (1, D):
+        from each bank the row whose speaker row has the highest cosine
+        similarity with `style` (1, 192), the first of equal ones as
+        numpy's argmax, on the device (indextts_tpu/runtime/engine.py:
+        490-507); under use_random a row drawn from the engine's generator,
+        reseeded with `seed` when one is given."""
+        if use_random:
+            with self._bank_lock:
+                if seed is not None:
+                    self._bank_draws.manual_seed(seed)
+                idx = [torch.randint(len(m), (1,), generator=self._bank_draws)
+                       for m in self.emo_matrix]
+        else:
+            s = style[0]
+            idx = [torch.argmax((spk_m @ s) / (spk_m.norm(dim=1) * s.norm() + 1e-8)).view(1)
+                   for spk_m in self.spk_matrix]
+        rows = torch.cat([m.index_select(0, i.to(m.device))
+                          for m, i in zip(self.emo_matrix, idx)])
+        weights = self._tensor(np.asarray(emo_vector, np.float32))
+        return (weights[:, None] * rows).sum(0)[None]
+
+    @staticmethod
+    def normalize_emo_vec(emo_vector: Sequence[float], apply_bias: bool = True) -> List[float]:
+        """Each weight times its emotion's bias, then the whole scaled down
+        to a sum of 0.8 when it is larger (infer_v2.py:524-538; the CLI's
+        --emo-vector)."""
+        v = list(emo_vector)
+        if apply_bias:
+            bias = [0.9375, 0.875, 1.0, 1.0, 0.9375, 0.9375, 0.6875, 0.5625]
+            v = [x * b for x, b in zip(v, bias)]
+        s = sum(v)
+        if s > 0.8:
+            v = [x * 0.8 / s for x in v]
+        return v
+
+    @torch.inference_mode()
     def segment_conds(self, spk: SpeakerConditioning, emo: EmotionConditioning,
-                      emo_alpha: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                      emo_alpha: float = 1.0, emo_vector: Optional[Sequence[float]] = None,
+                      use_random: bool = False, seed: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """A segment's conditioning: (emovec (1, D), the GPT prompt's
-        conditioning latents (1, 34, D)), merge_emovec then
-        build_conds_latent."""
+        conditioning latents (1, 34, D)), merge_emovec, blended with the
+        banks' rows when there is an emo_vector (indextts_tpu/runtime/
+        engine.py:598-612), then build_conds_latent."""
         emovec = self.gpt.merge_emovec(
             spk.spk_cond_emb, emo.emo_cond_emb, self._tensor([spk.cond_len]),
             self._tensor([emo.cond_len]), emo_alpha)
+        if emo_vector is not None:
+            rows = self._emovec_from_matrix(emo_vector, spk.style, use_random, seed)
+            emovec = rows + (1.0 - float(np.sum(emo_vector))) * emovec
         return emovec, self.gpt.build_conds_latent(spk.spk_latents, emovec)
 
     @torch.inference_mode()
     def _segment_inputs(self, spk: SpeakerConditioning, emo: EmotionConditioning,
-                        emo_alpha: float, cond_kv_key: Optional[tuple]):
+                        emo_alpha: float, cond_kv_key: Optional[tuple],
+                        emo_vector: Optional[Sequence[float]] = None,
+                        use_random: bool = False, seed: Optional[int] = None):
         """(emovec, conds, prefix KV or None) for a segment. Without a key,
         `segment_conds` anew and no prefix KV. With one, the cached values
         of the key (indextts_tpu/runtime/engine.py:580-661), each made on a
@@ -428,12 +504,13 @@ class IndexTTS2Engine:
         (`GPTDecoder.cond_prefill`) where the decoder reuses it. The
         current stream waits for the work that made them, which may have
         run on another thread's stream."""
+        conds_args = (emo_alpha, emo_vector, use_random, seed)
         if cond_kv_key is None:
-            return (*self.segment_conds(spk, emo, emo_alpha), None)
+            return (*self.segment_conds(spk, emo, *conds_args), None)
         with self._keyed_lock:
             hit = self._emoconds_cache.get(cond_kv_key)
             if hit is None:
-                hit = (self.segment_conds(spk, emo, emo_alpha), self._mark())
+                hit = (self.segment_conds(spk, emo, *conds_args), self._mark())
                 if len(self._emoconds_cache) >= 8:
                     evict_one(self._emoconds_cache)
                 self._emoconds_cache[cond_kv_key] = hit
@@ -458,14 +535,18 @@ class IndexTTS2Engine:
         text_ids: np.ndarray,
         emo_alpha: float = 1.0,
         cond_kv_key: Optional[tuple] = None,
+        emo_vector: Optional[Sequence[float]] = None,
+        use_random: bool = False,
+        seed: Optional[int] = None,
         **gen_kwargs,
     ) -> Tuple[torch.Tensor, np.ndarray, float]:
         """Conditioning (cached under `cond_kv_key`) + AR decode, ending at
         the host-side trimmed code row. Returns (emovec, codes, decode
         seconds)."""
         t0 = time.perf_counter()
-        emovec, conds, prefix = self._segment_inputs(spk, emo, emo_alpha, cond_kv_key)
-        codes = self._generate_codes(conds, text_ids, prefix, **gen_kwargs)
+        emovec, conds, prefix = self._segment_inputs(spk, emo, emo_alpha, cond_kv_key,
+                                                     emo_vector, use_random, seed)
+        codes = self._generate_codes(conds, text_ids, prefix, seed=seed, **gen_kwargs)
         return emovec, codes, time.perf_counter() - t0
 
     @torch.inference_mode()
@@ -713,13 +794,18 @@ class IndexTTS2Engine:
 
     # -- request-level APIs ---------------------------------------------------
 
-    def _conditioning(self, spk_audio, emo_audio, emo_alpha):
+    def _conditioning(self, spk_audio, emo_audio, emo_alpha,
+                      emo_vector: Optional[Sequence[float]] = None, use_random: bool = False):
         """(speaker, emotion, alpha, conditioning key). File paths are cache
         keys; (audio, sr) pairs are not cached. With no emotion prompt the
-        speaker's features drive the emotion, alpha 1. The key (speaker
-        path, emotion path or "", alpha, None), as the JAX engine builds
-        `cond_kv_key` (indextts_tpu/runtime/engine.py:1558-1566), exists
-        only when both conditionings are file paths."""
+        speaker's features drive the emotion, alpha 1; an emo_vector
+        overrides the emotion prompt. The key (speaker path, emotion path
+        or "", alpha, tuple(emo_vector) or None), as the JAX engine builds
+        `cond_kv_key` (indextts_tpu/runtime/engine.py:1544-1566), exists
+        only when both conditionings are file paths and not under
+        use_random, whose rows are drawn anew."""
+        if emo_vector is not None:
+            emo_audio = None
         if isinstance(spk_audio, str):
             spk = self.prepare_speaker(*audio_utils.load_wav(spk_audio), cache_key=spk_audio)
         else:
@@ -732,8 +818,9 @@ class IndexTTS2Engine:
         else:
             emo, emo_key = self.prepare_emotion(*emo_audio), None
         key = None
-        if isinstance(spk_audio, str) and emo_key is not None:
-            key = (spk_audio, emo_key, float(emo_alpha), None)
+        if isinstance(spk_audio, str) and emo_key is not None and not use_random:
+            key = (spk_audio, emo_key, float(emo_alpha),
+                   None if emo_vector is None else tuple(emo_vector))
         return spk, emo, emo_alpha, key
 
     def _seq_tail_overlap_enabled(self, n_segments: int) -> bool:
@@ -829,6 +916,7 @@ class IndexTTS2Engine:
         emo_audio: Optional[Union[str, Tuple[np.ndarray, int]]] = None,
         emo_alpha: float = 1.0,
         emo_vector: Optional[Sequence[float]] = None,
+        use_random: bool = False,
         interval_silence: int = 200,
         output_path: Optional[str] = None,
         seed: Optional[int] = None,
@@ -839,13 +927,13 @@ class IndexTTS2Engine:
         (`_pipelined_segments`) when the tail overlap is on and there are
         several, else one after another. Returns {"sampling_rate", "audio",
         "duration_sec", "rtf", "stats"}."""
-        if emo_vector is not None:
-            raise NotImplementedError("emo_vector is not ported yet")
         if batched:
             raise NotImplementedError("batched segments are not ported yet")
         start = time.perf_counter()
-        spk, emo, emo_alpha, key = self._conditioning(spk_audio, emo_audio, emo_alpha)
+        spk, emo, emo_alpha, key = self._conditioning(spk_audio, emo_audio, emo_alpha,
+                                                      emo_vector, use_random)
         stats = list(self._segment_results(spk, emo, text_ids_segments, emo_alpha, seed, key,
+                                           emo_vector=emo_vector, use_random=use_random,
                                            **gen_kwargs))
         return self._joined(stats, start, interval_silence, output_path)
 
@@ -856,6 +944,7 @@ class IndexTTS2Engine:
         emo_audio: Optional[Union[str, Tuple[np.ndarray, int]]] = None,
         emo_alpha: float = 1.0,
         emo_vector: Optional[Sequence[float]] = None,
+        use_random: bool = False,
         interval_silence: int = 200,
         seed: Optional[int] = None,
         **gen_kwargs: Any,
@@ -863,11 +952,11 @@ class IndexTTS2Engine:
         """Streaming synthesis (indextts_tpu/runtime/engine.py:1300-1372):
         each segment's waveform, then interval_silence ms of silence, the
         last segment's included; the same route, keys and seeds as infer()."""
-        if emo_vector is not None:
-            raise NotImplementedError("emo_vector is not ported yet")
-        spk, emo, emo_alpha, key = self._conditioning(spk_audio, emo_audio, emo_alpha)
+        spk, emo, emo_alpha, key = self._conditioning(spk_audio, emo_audio, emo_alpha,
+                                                      emo_vector, use_random)
         sil = self._silence(interval_silence)
         for r in self._segment_results(spk, emo, text_ids_segments, emo_alpha, seed, key,
+                                       emo_vector=emo_vector, use_random=use_random,
                                        **gen_kwargs):
             yield r.wav
             if len(sil):
@@ -922,11 +1011,12 @@ class IndexTTS2Engine:
     def _submit_all(self, service, spk_audio, text_ids_segments, emo_audio, emo_alpha,
                     emo_vector, seed) -> list:
         """Submit a request's segments to `service`, segment i with priority
-        i (breadth-first admission across requests) and tail seed seed + i."""
-        if emo_vector is not None:
-            raise NotImplementedError("emo_vector is not ported yet")
-        spk, emo, emo_alpha, _ = self._conditioning(spk_audio, emo_audio, emo_alpha)
+        i (breadth-first admission across requests) and tail seed seed + i.
+        The continuous routes take no use_random, as in the JAX engine."""
+        spk, emo, emo_alpha, _ = self._conditioning(spk_audio, emo_audio, emo_alpha,
+                                                    emo_vector)
         return [service.submit(spk, emo, np.asarray(seg), emo_alpha=emo_alpha,
+                               emo_vector=emo_vector,
                                seed=None if seed is None else seed + i, priority=i)
                 for i, seg in enumerate(text_ids_segments)]
 
@@ -954,13 +1044,29 @@ class IndexTTS2Engine:
                 "rtf": total / dur if dur > 0 else float("inf"), "stats": stats}
 
     def infer_text(self, spk_audio, text: str, use_emo_text: bool = False,
+                   emo_text: Optional[str] = None, emo_alpha: float = 1.0,
+                   emo_vector: Optional[Sequence[float]] = None,
                    max_text_tokens_per_segment: Optional[int] = None,
                    quick_streaming_tokens: int = 0, **kwargs):
-        """Normalize + tokenize + split, then infer (needs a tokenizer)."""
+        """Normalize + tokenize + split, then infer (needs a tokenizer)
+        (indextts_tpu/runtime/engine.py:1227-1273). use_emo_text: the
+        emotion vector is what the attached `qwen_emo` reads in `emo_text`
+        (or the text itself). A vector is scaled by alpha clamped to [0, 1],
+        each weight cut to 4 decimals, and alpha then set to 1."""
+        segments = self.text_segments(text, max_text_tokens_per_segment,
+                                      quick_streaming_tokens)
         if use_emo_text:
-            raise NotImplementedError("use_emo_text is not ported yet")
-        return self.infer(spk_audio, self.text_segments(text, max_text_tokens_per_segment,
-                                                        quick_streaming_tokens), **kwargs)
+            if self.qwen_emo is None:
+                raise ValueError("use_emo_text requires engine.qwen_emo")
+            emo_vector = list(self.qwen_emo.inference(
+                emo_text if emo_text is not None else text).values())
+        if emo_vector is not None:
+            scale = max(0.0, min(1.0, emo_alpha))
+            if scale != 1.0:
+                emo_vector = [int(x * scale * 10000) / 10000 for x in emo_vector]
+            emo_alpha = 1.0
+        return self.infer(spk_audio, segments, emo_alpha=emo_alpha, emo_vector=emo_vector,
+                          **kwargs)
 
     def text_segments(self, text: str, max_text_tokens_per_segment: Optional[int] = None,
                       quick_streaming_tokens: int = 0) -> List[np.ndarray]:

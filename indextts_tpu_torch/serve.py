@@ -28,8 +28,18 @@ card) while the warmup synthesis runs, as the JAX server compiles its
 programs; requests that come meanwhile capture their own shapes as they
 would have anyway. A precompile that fails is printed and serving goes on.
 
-Left out against the JAX entry point: the compile cache, multihost
-initialization and the Qwen emotion model. A warmup that fails raises.
+Emotion controls go route by route as in the JAX server (indextts_tpu/
+serve.py:109-141, 211-279): `emo_vector` on every route; `use_emo_text`
+asks the engine's attached text-to-emotion model (`engine.qwen_emo`, a
+runtime/qwen_emo.py QwenEmotion) for the vector, and without one the
+request is refused (ValueError, HTTP 400). On the sequential route with a
+tokenizer, /tts goes through `infer_text`, which scales the vector by
+emo_alpha; the other routes pass alpha on, and the engine drops it (a
+vector sets it to 1). No checkpoint loader attaches a Qwen from
+--model-dir yet: a caller sets `engine.qwen_emo` (`build_qwen_emotion`).
+
+Left out against the JAX entry point: the compile cache and multihost
+initialization. A warmup that fails raises.
 
 Env knobs keep the TARS_* names: TARS_MAX_CONCURRENCY, TARS_REFERENCE_AUDIO,
 TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS,
@@ -89,32 +99,54 @@ def pick_continuous_slots(env) -> int:
     return min(max_conc, 8) if max_conc >= 4 else 0
 
 
-def _request(engine, default_prompt: Optional[str], text: str, spk_audio, use_emo_text,
-             quick: int = 0):
-    """A request's speaker prompt and segments; ValueError (HTTP 400) for
-    what the port cannot serve."""
+def _speaker(default_prompt: Optional[str], spk_audio):
+    """A request's speaker prompt; ValueError (HTTP 400) without one."""
     spk = spk_audio or default_prompt
     if spk is None:
         raise ValueError("no speaker prompt: pass spk_audio or set TARS_REFERENCE_AUDIO")
-    if use_emo_text:
-        raise ValueError("use_emo_text is not supported by the PyTorch port")
+    return spk
+
+
+def emo_vector_of(engine, text: str, use_emo_text: bool, emo_text: Optional[str], emo_vector):
+    """The request's emotion vector (the JAX server's `_emo_kwargs`): with
+    use_emo_text, what the engine's text-to-emotion model reads in
+    `emo_text` or else the text; ValueError (HTTP 400) when no model is
+    attached."""
+    if not use_emo_text:
+        return emo_vector
+    if engine.qwen_emo is None:
+        raise ValueError("use_emo_text requested but no Qwen emotion model is loaded "
+                         "(checkpoint dir lacks qwen0.6bemo4-merge)")
+    return list(engine.qwen_emo.inference(emo_text if emo_text else text).values())
+
+
+def _segments(engine, text: str, quick: int = 0) -> List[np.ndarray]:
+    """A request's segments of token ids: the engine's tokenizer, or
+    `fallback_segments` without one."""
     c = engine.cfg
     if engine.tokenizer is not None:
-        return spk, engine.text_segments(text, quick_streaming_tokens=quick)
-    return spk, fallback_segments(text, c.gpt.number_text_tokens,
-                                  c.runtime.max_text_tokens_per_segment,
-                                  c.gpt.max_text_tokens, quick=quick)
+        return engine.text_segments(text, quick_streaming_tokens=quick)
+    return fallback_segments(text, c.gpt.number_text_tokens,
+                             c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens,
+                             quick=quick)
 
 
 def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
     """The server's synth(text, spk_audio, ...) callable over `engine`,
-    through the ContinuousService `service` when there is one.
-    ValueError -> HTTP 400 in the server."""
+    through the ContinuousService `service` when there is one; on the
+    sequential route with a tokenizer through `infer_text`, as the JAX
+    server's synth. ValueError -> HTTP 400 in the server."""
 
     def synth(text="", spk_audio=None, emo_audio=None, emo_alpha=1.0,
               emo_vector=None, seed=None, use_emo_text=False, emo_text=None,
               **kw):
-        spk, seg_ids = _request(engine, default_prompt, text, spk_audio, use_emo_text)
+        spk = _speaker(default_prompt, spk_audio)
+        if service is None and engine.tokenizer is not None:
+            return engine.infer_text(spk, text, use_emo_text=use_emo_text, emo_text=emo_text,
+                                     emo_audio=emo_audio, emo_alpha=emo_alpha,
+                                     emo_vector=emo_vector, seed=seed)
+        emo_vector = emo_vector_of(engine, text, use_emo_text, emo_text, emo_vector)
+        seg_ids = _segments(engine, text)
         if service is not None:
             return engine.infer_continuous(service, spk, seg_ids, emo_audio=emo_audio,
                                            emo_alpha=emo_alpha, emo_vector=emo_vector,
@@ -138,7 +170,9 @@ def make_synth_stream(engine, default_prompt: Optional[str], service=None) -> Ca
                      emo_vector=None, seed=None, use_emo_text=False, emo_text=None,
                      quick_streaming_tokens=None, **kw):
         quick = quick_default if quick_streaming_tokens is None else int(quick_streaming_tokens)
-        spk, seg_ids = _request(engine, default_prompt, text, spk_audio, use_emo_text, quick)
+        spk = _speaker(default_prompt, spk_audio)
+        emo_vector = emo_vector_of(engine, text, use_emo_text, emo_text, emo_vector)
+        seg_ids = _segments(engine, text, quick)
         kwargs = dict(emo_audio=emo_audio, emo_alpha=emo_alpha, emo_vector=emo_vector,
                       seed=seed)
         if service is not None:

@@ -26,6 +26,9 @@ bias}, and the lane-padded int8 `mel_head` the same.
 float state dict. Quantized weights keep the JAX layout byte for byte: int8
 (in, out) row-major, or packed int4 pairs (in/2, out), or (in, out/2) for
 the MLP's c_proj; that is what the kernels of ops/gemv.py read.
+
+`qwen3_sd` carries the JAX Qwen3 tree of the text-to-emotion model across
+the same way, into the Hugging Face checkpoint's keys.
 """
 
 from __future__ import annotations
@@ -403,3 +406,24 @@ def from_jax_params(params: Dict[str, Any], cfg: IndexTTS2Config) -> Dict[str, S
     """{"gpt", "s2mel", "bigvgan", "repcodec", "campplus", "w2vbert"} flax
     trees (numpy leaves) -> the port's state dicts, same keys."""
     return {name: CONVERTERS[name](params[name], cfg) for name in CONVERTERS}
+
+
+def qwen3_sd(params: Dict[str, Any], cfg) -> SD:
+    """The JAX package's Qwen3LM tree (numpy leaves, with its "params" level
+    or without) -> a Qwen3ForCausalLM state dict in the checkpoint's keys,
+    `model.` prefix included (the inverse of torch_convert.convert_qwen3).
+    cfg: QwenEmoConfig."""
+    p = params.get("params", params)
+    sd: SD = {"model.embed_tokens.weight": _t(p["embed_tokens"]["embedding"]),
+              "model.norm.weight": _t(p["norm"]["weight"])}
+    for i in range(cfg.num_hidden_layers):
+        lp, pre = p[f"layer_{i}"], f"model.layers.{i}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{pre}.{norm}.weight"] = _t(lp[norm]["weight"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _put(sd, f"{pre}.self_attn.{name}", linear(lp["self_attn"][name]))
+        for name in ("q_norm", "k_norm"):
+            sd[f"{pre}.self_attn.{name}.weight"] = _t(lp["self_attn"][name]["weight"])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _put(sd, f"{pre}.mlp.{name}", linear(lp["mlp"][name]))
+    return sd

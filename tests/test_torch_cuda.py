@@ -1099,3 +1099,51 @@ def test_overlap_captures_tails_beside_decode_replays(cuda_device, tmp_path, mon
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert len(graphs) == 4
+
+
+@pytest.mark.cuda
+def test_qwen_captured_step_matches_eager(cuda_device):
+    """The Qwen3 decoder's captured step against its eager step on the card:
+    the same greedy tokens (the same kernels on the same buffers), a graph
+    for the capacity, replays that make no host sync; and the card's
+    prefill logits within 1e-4 of the largest of the CPU's (float32, no
+    TF32, summed in another order), its tokens the CPU's."""
+    import copy
+
+    from indextts_tpu_torch.config import QwenEmoConfig
+    from indextts_tpu_torch.models.qwen3 import Qwen3LM, QwenDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = QwenEmoConfig(vocab_size=4096, hidden_size=256, num_hidden_layers=4,
+                        num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+                        intermediate_size=512)
+    torch.manual_seed(15)
+    cpu = Qwen3LM(cfg).eval().requires_grad_(False)
+    cpu.model.embed_tokens.weight.mul_(0.01)  # the blocks pick the tokens, not the echo
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, 37)
+    dec = QwenDecoder(gpu)
+    eager = dec.generate(ids, 48, -1, eager=True)
+    assert dec._states[256].graph is None
+    captured = dec.generate(ids, 48, -1)
+    st = dec._states[256]
+    assert st.graph is not None
+    np.testing.assert_array_equal(captured, eager)
+    np.testing.assert_array_equal(dec.generate(ids, 48, -1), eager)
+    np.testing.assert_array_equal(QwenDecoder(cpu).generate(ids, 48, -1), eager)
+    with torch.inference_mode():
+        want, _ = cpu(torch.from_numpy(ids)[None], torch.arange(len(ids)))
+        got, _ = gpu(torch.from_numpy(ids)[None].to(cuda_device),
+                     torch.arange(len(ids), device=cuda_device))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    with torch.inference_mode(), torch.cuda.stream(dec._stream):
+        dec.prefill(st, ids)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(4):
+                st.graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert int(st.pos) == len(ids) + 4

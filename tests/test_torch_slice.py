@@ -187,11 +187,9 @@ def test_unported_routes_raise():
             IndexTTS2Engine(bad, params, device="cpu")
     eng = IndexTTS2Engine(cfg, params, device="cpu")
     spk = (np.zeros(8000, np.float32), 16000)
-    for kw in ({"num_beams": 3}, {"batched": True}, {"emo_vector": [0.0] * 8}):
+    for kw in ({"num_beams": 3}, {"batched": True}):
         with pytest.raises(NotImplementedError):
             eng.infer(spk, [np.array([3, 4])], **kw)
-    with pytest.raises(NotImplementedError):
-        eng.infer_text(spk, "hi", use_emo_text=True)
 
 
 def test_uniform_fill_matches_jax_fill_range():
