@@ -75,16 +75,35 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
    "pallas": at D=128 it runs K4, K5 and K6); quantized W4 (the same with
    gpt_wbits=4 at D=256, where K7 and K8 open); codes must match and mel and
-   waveform agree. Then the full-width default configuration (GPT 24L x
-   1280, DiT 13L x 512, BigVGAN v2 22 kHz, w2v-BERT 2.0, RepCodec, CAMPPlus)
-   with seeded random weights is served by the port's own server on
-   localhost on three routes, one engine on the card at a time: float, then
-   quantized W8 with gemv_impl "pallas", then quantized W4 with gemv_impl
-   "auto", which resolves to the kernels on the card. On the float route
-   the server's background precompile (TARS_PRECOMPILE=1, over the main
-   path's envelope, TARS_PRECOMPILE_CODES=300) is waited for, its job count,
-   seconds and the peak device memory after it printed; the requests must
-   then capture nothing new (the decoder's and the three tail runners'
+   waveform agree. Then phase `reference_dir`: the full-width default
+   configuration's (GPT 24L x 1280, DiT 13L x 512, BigVGAN v2 22 kHz,
+   w2v-BERT 2.0, RepCodec, CAMPPlus) seeded random weights
+   (random_params(cfg, seed=0) on the card), copied to the host, are
+   written into a checkpoint directory in the reference's layout
+   (`write_reference_dir`: gpt.pth with a seeded text_head; s2mel.pth as
+   {"net"} with `module.` prefixes; the DiT's final linear, WaveNet,
+   RepCodec's projections and every BigVGAN convolution as weight-norm
+   pairs;
+   hf/w2v-bert-2.0/model.safetensors with all 24 layers and a
+   masked_spec_embed, written by this script's own safetensors writer;
+   hf/semantic_codec.safetensors, hf/campplus_cn_common.bin,
+   hf/bigvgan_generator.pt; the stats; feat1.pt and feat2.pt, the emotion
+   phase's seeded banks; no config.yaml, bpe.model or Qwen directory),
+   printing each file's bytes and the seconds taken. Each route's server is
+   built with `--model-dir` on that directory (runtime/loader.py), printing
+   the load's seconds (reading the files, building the engine on the card),
+   the host's peak resident memory, the peak device memory and the models
+   filled with random weights, which must be none; on the float route every
+   tensor of every module (and the banks and stats) is held to what was
+   written: equal to the bit, or within 1e-6 of its largest |value| where
+   a weight-norm pair was folded. The engine is served by the port's own
+   server on localhost on three routes, one engine on the card at a time:
+   float, then quantized W8 with gemv_impl "pallas", then quantized W4
+   with gemv_impl "auto", which resolves to the kernels on the card. On
+   the float route the server's background precompile (TARS_PRECOMPILE=1,
+   over the main path's envelope, TARS_PRECOMPILE_CODES=300) is waited
+   for, its job count, seconds and the peak device memory after it
+   printed; the requests must then capture nothing new (the decoder's and the three tail runners'
    graph counts do not rise). The other routes capture on demand
    (TARS_PRECOMPILE=0). Every kernel's launch
    counter is set to 0, a few POST /tts requests go out with a seeded
@@ -140,8 +159,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    prefill's ms, the captured and the eager decode in turns (the same
    tokens; ms a token), a replay's kernels against 16 replays timed (idle
    inside the step) beside the step's bound (2.384 GB of weights at 3.35
-   TB/s, 0.712 ms), one inference() call's seconds; random emotion banks
-   of the real shapes (73 x 1280, 73 x 192) on the engine; through a
+   TB/s, 0.712 ms), one inference() call's seconds; the emotion banks of
+   the real shapes (73 x 1280, 73 x 192) loaded from the directory, the
+   emotion rows scaled to the prompt's emovec spread; through a
    sequential server, counters set to 0 before and read after (K1-K3
    rise): /tts with an emo_vector twice (the second must hit its key),
    without one, and unkeyed, each printing gpt_decode; a /tts/stream with
@@ -189,8 +209,11 @@ import itertools
 import json
 import math
 import os
+import resource
+import shutil
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -244,6 +267,7 @@ QWEN_MAX_NEW = 256  # QwenEmoConfig.max_new_tokens
 QWEN_ROUNDS = 2  # captured against eager decode, in turns
 QWEN_EAGER_NEW = 64  # tokens of an eager decode (a captured one runs QWEN_MAX_NEW)
 QWEN_EOS = 151645  # Qwen3's <|im_end|>
+TEXT_HEAD_SEED = 17  # the checkpoint's text_head, which the loader reads and drops
 
 
 def fail(msg: str):
@@ -1315,12 +1339,219 @@ def kernel_counters():
             "K7 gemv_w4": gemv.gemv4_counter, "K8 mlp_w4": gemv.mlp4_counter}
 
 
-def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str,
-                     precompile: bool = False):
-    """Serve `cfg` with the port's server, POST N_REQUESTS /tts requests, and
-    check each answer. Every counter is set to 0 just before the requests
-    and read just after: those in `rise` must have risen, those in `stay`
-    must still be 0. Each route has its own response cache, so no request
+# ---------------------------------------------------------------------------
+# the checkpoint directory: the full-width weights in the reference's layout
+# ---------------------------------------------------------------------------
+
+ST_DTYPES = {"float64": "F64", "float32": "F32", "float16": "F16", "bfloat16": "BF16",
+             "int64": "I64", "int32": "I32", "int16": "I16", "int8": "I8", "uint8": "U8",
+             "bool": "BOOL"}
+
+
+def save_safetensors(path, tensors, metadata=None) -> None:
+    """Write `tensors` (CPU torch tensors) in the safetensors format: an
+    8-byte little-endian header length, the JSON header (padded with spaces
+    to 8 bytes), the raw bytes in the header's order."""
+    import torch
+
+    header = {"__metadata__": dict(metadata)} if metadata else {}
+    views, offset = [], 0
+    for name, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype).removeprefix("torch.")],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        views.append(t.reshape(-1).view(torch.uint8).numpy())
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for v in views:
+            f.write(memoryview(v))
+
+
+def weight_normed(name: str, key: str) -> bool:
+    """Does the reference's checkpoint store the port's `key` of model
+    `name` as a weight-norm pair (weight_g, weight_v)? The DiT's final
+    linear, WaveNet's layers, RepCodec's projections and every BigVGAN
+    convolution do."""
+    if not key.endswith(".weight"):
+        return False
+    if name == "bigvgan":
+        return True  # its only .weight tensors are the convolutions
+    if name == "s2mel":
+        return ".wavenet." in key or ".final_layer.linear." in key
+    return name == "repcodec" and "_project." in key
+
+
+def weight_norm_pairs(name: str, sd):
+    """`sd` with each weight-normed layer's weight w as the pair g = ||w||
+    over every axis but 0, v = w."""
+    out = {}
+    for key, w in sd.items():
+        if weight_normed(name, key):
+            layer = key[:-len(".weight")]
+            out[f"{layer}.weight_g"] = w.norm(dim=tuple(range(1, w.ndim)), keepdim=True)
+            out[f"{layer}.weight_v"] = w
+        else:
+            out[key] = w
+    return out
+
+
+def write_reference_dir(d: str, sds, text_head, semantic_stats, emo_matrix, spk_matrix,
+                        w2v_layers: int, seed: int = 0):
+    """Write the port's state dicts `sds` (CPU tensors, the six models of
+    runtime/engine.py MODELS) into `d` in the reference's layout, as a real
+    checkpoint directory holds them: gpt.pth with `text_head` (weight, bias),
+    which no port module holds; s2mel.pth as {"net": {"cfm", "length_regulator",
+    "gpt_layer"}} with DDP `module.` prefixes; the weight-normed layers as
+    pairs; hf/w2v-bert-2.0/model.safetensors with `w2v_layers` layers (those
+    past the port's copies of layer 0's tensors) and a `masked_spec_embed`
+    drawn from `seed`; hf/semantic_codec.safetensors;
+    hf/campplus_cn_common.bin; hf/bigvgan_generator.pt as {"generator": ...};
+    wav2vec2bert_stats.pt {"mean", "std"}; feat1.pt (speaker bank) and
+    feat2.pt (emotion bank). No config.yaml, bpe.model or Qwen directory.
+    Returns {file: bytes written}."""
+    import torch
+
+    os.makedirs(os.path.join(d, "hf", "w2v-bert-2.0"), exist_ok=True)
+    gpt = dict(sds["gpt"])
+    gpt["text_head.weight"], gpt["text_head.bias"] = text_head
+    s2mel = weight_norm_pairs("s2mel", sds["s2mel"])
+    net = {m: {f"module.{k[len(m) + 1:]}": v for k, v in s2mel.items() if k.startswith(f"{m}.")}
+           for m in ("cfm", "length_regulator", "gpt_layer")}
+    w2v = dict(sds["w2vbert"])
+    first = "encoder.layers.0."
+    n = 1 + max(int(k.split(".")[2]) for k in w2v if k.startswith("encoder.layers."))
+    for i in range(n, w2v_layers):
+        w2v.update({f"encoder.layers.{i}.{k[len(first):]}": v
+                    for k, v in sds["w2vbert"].items() if k.startswith(first)})
+    hidden = sds["w2vbert"]["feature_projection.projection.weight"].shape[0]
+    w2v["masked_spec_embed"] = torch.rand(hidden, generator=torch.Generator().manual_seed(seed))
+    mean, std = semantic_stats
+    files = {
+        "gpt.pth": lambda p: torch.save(gpt, p),
+        "s2mel.pth": lambda p: torch.save({"net": net}, p),
+        "wav2vec2bert_stats.pt": lambda p: torch.save({"mean": mean, "std": std}, p),
+        "feat1.pt": lambda p: torch.save(spk_matrix, p),
+        "feat2.pt": lambda p: torch.save(emo_matrix, p),
+        "hf/w2v-bert-2.0/model.safetensors": lambda p: save_safetensors(p, w2v),
+        "hf/semantic_codec.safetensors": lambda p: save_safetensors(
+            p, weight_norm_pairs("repcodec", sds["repcodec"])),
+        "hf/campplus_cn_common.bin": lambda p: torch.save(sds["campplus"], p),
+        "hf/bigvgan_generator.pt": lambda p: torch.save(
+            {"generator": weight_norm_pairs("bigvgan", sds["bigvgan"])}, p),
+    }
+    written = {}
+    for rel, write in files.items():
+        path = os.path.join(d, rel)
+        write(path)
+        written[rel] = os.path.getsize(path)
+    return written
+
+
+def reference_dir(cfg, tmp: str):
+    """Phase `reference_dir`: the full-width weights that serve.build drew
+    before (random_params(cfg, seed=0) on the card), copied to the host and
+    written into a checkpoint directory in the reference's layout
+    (`write_reference_dir`), with a seeded text_head, the emotion phase's
+    banks (EMO_SEED, unscaled: `emotion_banks` scales them) and the stats
+    the engine took without a directory (mean 0, std 1), so every number
+    after it stays comparable. Returns (directory, host copy of the
+    state dicts, the aux tensors)."""
+    import torch
+
+    from indextts_tpu_torch.runtime.engine import random_params
+
+    t0 = time.perf_counter()
+    params = random_params(cfg, seed=0, device="cuda")
+    host = {name: {k: v.cpu() for k, v in sd.items()} for name, sd in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(EMO_SEED)
+    n = sum(cfg.emo_num)
+    aux = {"emo_matrix": torch.randn((n, cfg.gpt.model_dim), generator=g, device="cuda").cpu(),
+           "spk_matrix": torch.randn((n, 192), generator=g, device="cuda").cpu(),
+           "mean": torch.zeros(cfg.w2vbert.hidden_size),
+           "std": torch.ones(cfg.w2vbert.hidden_size)}
+    head = torch.Generator().manual_seed(TEXT_HEAD_SEED)
+    text_head = (0.02 * torch.randn((cfg.gpt.number_text_tokens + 1, cfg.gpt.model_dim),
+                                    generator=head),
+                 torch.zeros(cfg.gpt.number_text_tokens + 1))
+    t1 = time.perf_counter()
+    d = os.path.join(tmp, "checkpoints")
+    free = shutil.disk_usage(tmp).free
+    written = write_reference_dir(d, host, text_head, (aux["mean"], aux["std"]),
+                                  aux["emo_matrix"], aux["spk_matrix"],
+                                  cfg.w2vbert.num_hidden_layers)
+    t2 = time.perf_counter()
+    for rel, nbytes in written.items():
+        print(f"reference_dir: {rel}: {nbytes / 1e9:.4f} GB")
+    total = sum(written.values())
+    print(f"reference_dir: {total / 1e9:.3f} GB in {len(written)} files written in "
+          f"{t2 - t1:.1f} s ({total / 1e9 / (t2 - t1):.2f} GB/s; {free / 1e9:.0f} GB were "
+          f"free) after {t1 - t0:.1f} s drawing the weights on the card and copying them "
+          f"to the host; host peak resident {peak_rss_gib():.2f} GiB")
+    return d, host, aux
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident memory (Linux: ru_maxrss in KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def check_loaded(engine, host, aux, label: str) -> None:
+    """Every tensor of every module of the loaded engine against the host
+    copy that was written: equal to the bit, or, where the checkpoint held
+    a weight-norm pair, within 1e-6 of the tensor's largest |value| (the
+    fold in float32); the banks and the stats to the bit."""
+    import torch
+
+    modules = {"gpt": engine.gpt, "s2mel": engine.s2mel, "bigvgan": engine.bigvgan,
+               "repcodec": engine.repcodec, "campplus": engine.campplus,
+               "w2vbert": engine.w2vbert}
+    exact = folded = 0
+    worst = 0.0
+    for name, module in modules.items():
+        got = module.state_dict()
+        if set(got) != set(host[name]):
+            fail(f"[{label}] {name}: the loaded keys differ from the written ones: "
+                 f"{sorted(set(got) ^ set(host[name]))[:5]}")
+        for key, want in host[name].items():
+            want = want.to(got[key].device)
+            if weight_normed(name, key):
+                err = float((got[key] - want).abs().max()) / float(want.abs().max())
+                worst = max(worst, err)
+                folded += 1
+                if not err <= 1e-6:
+                    fail(f"[{label}] {name} {key}: folded weight {err:.3g} of its largest "
+                         "|value| from the written one (tol 1e-6)")
+            elif not torch.equal(got[key], want):
+                fail(f"[{label}] {name} {key}: the loaded tensor is not the written one")
+            else:
+                exact += 1
+    banks = {"emo_matrix": torch.cat(engine.emo_matrix), "spk_matrix": torch.cat(
+        engine.spk_matrix), "mean": engine.semantic_mean, "std": engine.semantic_std}
+    for key, got in banks.items():
+        if not torch.equal(got.cpu(), aux[key]):
+            fail(f"[{label}] the loaded {key} is not the written one")
+    print(f"[{label}] loaded tensors against the written ones: {exact} equal to the bit, "
+          f"{folded} folded from weight-norm pairs within {worst:.3g} of their largest "
+          f"|value| (tol 1e-6); banks and stats equal")
+
+
+def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model_dir: str,
+                     precompile: bool = False, written=None):
+    """Serve `cfg` with the port's server, its engine loaded from the
+    checkpoint directory `model_dir` (no model may be filled with random
+    weights; with `written`, the (host state dicts, aux) that
+    `reference_dir` wrote, every loaded tensor is held to them:
+    `check_loaded`), POST N_REQUESTS /tts requests, and check each answer.
+    Every counter is set to 0 just before the requests and read just
+    after: those in `rise` must have risen, those in `stay` must still be
+    0. Each route has its own response cache, so no request
     is answered from another route's. With `precompile` the server's
     background precompile over the main path's envelope is waited for
     before the requests, which must then capture nothing new. Returns the
@@ -1340,12 +1571,22 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str,
     os.environ["TARS_PRECOMPILE_CODES"] = str(MAX_MEL_TOKENS)
     try:
         server, engine = serve.build(["--host", "127.0.0.1", "--port", str(port),
-                                      "--reference-audio", wav_path], cfg=cfg)
+                                      "--reference-audio", wav_path, "--model-dir", model_dir],
+                                     cfg=cfg)
     finally:
         os.environ["TARS_PRECOMPILE"] = "0"
     torch.cuda.synchronize()
+    report = engine.load_report
     print(f"[{label}] full-width engine built and warmed up in {time.perf_counter() - t0:.1f} s "
           f"(peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    print(f"[{label}] loaded from {model_dir}: files read in {report.read_seconds:.2f} s, "
+          f"engine built on the card in {report.build_seconds:.2f} s; host peak resident "
+          f"{peak_rss_gib():.2f} GiB; models filled with random weights: "
+          f"{report.filled or 'none'}")
+    if report.filled:
+        fail(f"[{label}] the checkpoint directory left {report.filled} to random weights")
+    if written is not None:
+        check_loaded(engine, *written, label)
     if precompile:
         if server.precompiled is None:
             fail(f"[{label}] serve.build started no precompile under TARS_PRECOMPILE=1")
@@ -2287,24 +2528,19 @@ def qwen_full_width(card: str):
 
 
 def emotion_banks(engine, wav_path: str):
-    """Seeded random emotion banks of the real shapes on the engine: rows of
-    the GPT's width (73 x 1280 at the default config), scaled to the
-    spread of the speaker prompt's own emovec, and speaker rows (73 x 192)."""
-    import torch
-
+    """The engine's emotion banks, loaded from the checkpoint directory
+    (seeded random rows of the real shapes: `reference_dir`), with the
+    emotion rows (73 x 1280 at the default config) scaled to the spread of
+    the speaker prompt's own emovec; the speaker rows (73 x 192) as loaded."""
     from indextts_tpu_torch.runtime.engine import EmotionConditioning
     from indextts_tpu_torch.utils import audio as audio_utils
 
     c = engine.cfg
     spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
     emovec, _ = engine.segment_conds(spk, EmotionConditioning(spk.spk_cond_emb, spk.cond_len))
-    g = torch.Generator(device="cuda").manual_seed(EMO_SEED)
-    n, split = sum(c.emo_num), list(c.emo_num)
-    emo = float(emovec.std()) * torch.randn((n, c.gpt.model_dim), generator=g, device="cuda")
-    engine.emo_matrix = list(torch.split(emo, split))
-    engine.spk_matrix = list(torch.split(torch.randn((n, 192), generator=g, device="cuda"),
-                                         split))
-    return n, c.gpt.model_dim
+    scale = float(emovec.std())
+    engine.emo_matrix = [scale * m for m in engine.emo_matrix]
+    return sum(c.emo_num), c.gpt.model_dim
 
 
 def emotion_phase(engine, wav_path: str, label: str, tmp: str, card: str, rise, stay):
@@ -2868,10 +3104,15 @@ def main():
         # each stage's seconds hold its time on the card (runtime/engine.py)
         os.environ["TARS_STAGE_SYNC"] = "1"
         full = load_config()
+        model_dir, host, aux = reference_dir(full, tmp)
+        print(f"phase reference_dir done at {time.perf_counter() - t_start:.1f} s")
         launches = {}
         for label, (change, rise, stay) in routes.items():
-            counts, engine = serve_full_width(wav_path, change(full), label, rise, stay, tmp,
-                                              precompile=label == "float")
+            counts, engine = serve_full_width(
+                wav_path, change(full), label, rise, stay, tmp, model_dir,
+                precompile=label == "float",
+                written=(host, aux) if label == "float" else None)
+            host = aux = None  # the float route held its engine to them
             if label == "float":  # the s2mel stage does not depend on the GPT's route
                 s2mel_turns(engine, wav_path, label)
                 tail_turns(engine, wav_path, label)

@@ -1,16 +1,18 @@
 """Command-line synthesis with the PyTorch port (after indextts_tpu/cli.py).
 
   python -m indextts_tpu_torch.cli "text to speak" -v voice.wav -o out.wav \\
-      [--emo-audio emo.wav] [--emo-alpha 0.8] \\
+      [--model-dir checkpoints] [--emo-audio emo.wav] [--emo-alpha 0.8] \\
       [--emo-vector 0,0,1,0,0,0,0,0] [--seed 0] [--device cpu]
 
-Without a checkpoint loader in the port the engine runs seeded random
-weights (the audio is noise: a smoke test of the pipeline); --model-dir
-raises. --emo-vector's 8 weights (happy, angry, sad, afraid, disgusted,
-melancholic, surprised, calm) go through `normalize_emo_vec` (each
-emotion's bias, the sum capped at 0.8). With a tokenizer the text goes
-through `infer_text`; without one its UTF-8 bytes are the ids. Runs on the
-card unless --device says otherwise.
+--model-dir loads a reference-layout checkpoint directory
+(runtime/loader.py `load_engine`, with --cfg or its config.yaml); without
+one the engine runs seeded random weights (the audio is noise: a smoke
+test of the pipeline). --emo-vector's 8 weights (happy, angry, sad,
+afraid, disgusted, melancholic, surprised, calm) go through
+`normalize_emo_vec` (each emotion's bias, the sum capped at 0.8). With a
+tokenizer (the directory's bpe.model) the text goes through `infer_text`;
+without one its UTF-8 bytes are the ids. Runs on the card unless --device
+says otherwise.
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ import numpy as np
 
 def main(argv=None, cfg=None):
     """Parse `argv`, synthesize, write the WAV. `cfg` replaces the
-    configuration that --cfg would give. Returns infer()'s result."""
+    configuration that --cfg (or the checkpoint directory's config.yaml)
+    would give. Returns infer()'s result."""
     p = argparse.ArgumentParser(prog="indextts-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("text", help="text to synthesize")
     p.add_argument("-v", "--voice", required=True, help="speaker prompt wav")
     p.add_argument("-o", "--output", default="gen.wav", help="output wav path")
-    p.add_argument("--model-dir", default=None, help="checkpoint directory (not ported yet)")
+    p.add_argument("--model-dir", default=None, help="reference-layout checkpoint directory")
     p.add_argument("--cfg", default=None, help="config.yaml path")
     p.add_argument("--emo-audio", default=None)
     p.add_argument("--emo-alpha", type=float, default=1.0)
@@ -40,18 +43,18 @@ def main(argv=None, cfg=None):
                    help="torch device (default: cuda; 'cpu' runs the plain versions of "
                         "the kernels)")
     args = p.parse_args(argv)
-    if args.model_dir:
-        raise NotImplementedError("loading checkpoints is not ported yet; run without "
-                                  "--model-dir for seeded random weights")
 
     from indextts_tpu_torch.config import load_config
     from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
+    from indextts_tpu_torch.runtime.loader import load_engine
 
-    print(">> no checkpoint loader in the port: random weights (smoke-test mode)",
-          file=sys.stderr)
-    cfg = cfg if cfg is not None else load_config(args.cfg)
-    engine = IndexTTS2Engine(cfg, random_params(cfg, seed=0, device=args.device),
-                             device=args.device)
+    if args.model_dir:
+        engine = load_engine(args.model_dir, cfg_path=args.cfg, cfg=cfg, device=args.device)
+    else:
+        print(">> no --model-dir: random weights (smoke-test mode)", file=sys.stderr)
+        cfg = cfg if cfg is not None else load_config(args.cfg)
+        engine = IndexTTS2Engine(cfg, random_params(cfg, seed=0, device=args.device),
+                                 device=args.device)
 
     emo_vector = None
     if args.emo_vector:

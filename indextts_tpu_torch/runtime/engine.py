@@ -343,6 +343,8 @@ class IndexTTS2Engine:
         # the text-to-emotion model (runtime/qwen_emo.py QwenEmotion) that
         # infer_text's use_emo_text asks; none until a caller attaches one
         self.qwen_emo = None
+        # runtime/loader.py load_engine's LoadReport, for an engine it built
+        self.load_report = None
         # test hooks: CFM noise injection and mel capture
         self._noise_hook: Optional[Callable[[tuple], np.ndarray]] = None
         self._mel_taps: Optional[List[np.ndarray]] = None

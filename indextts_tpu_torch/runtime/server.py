@@ -7,8 +7,11 @@ settings (:52-93). FastAPI/uvicorn are replaced by a minimal HTTP/1.1
 implementation — the inference engine itself is the product, not the web
 framework.
 
-Engine-agnostic copy for the PyTorch port. The browser demo (GET /ui) and
-the device-memory gauge of the JAX package are not carried over.
+Engine-agnostic copy for the PyTorch port, with the JAX server's browser
+demo (GET / and GET /ui, runtime/webui.py) and its /metrics gauge
+`indextts_hbm_in_use_gb`: the bytes PyTorch's allocator holds on the
+engine's card (`device`), left out where there is no card, as the JAX
+server leaves it out without allocator stats.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
+import torch
 
 from indextts_tpu_torch.utils import audio as audio_utils
 
@@ -102,12 +106,15 @@ class TTSServer:
 
     def __init__(self, engine_fn: Callable,
                  settings: Optional[ServerSettings] = None,
-                 stream_fn: Optional[Callable] = None):
+                 stream_fn: Optional[Callable] = None,
+                 device=None):
         # settings default built HERE, not in the signature: a def-time
         # ServerSettings() would freeze the TARS_* env at import
         settings = settings if settings is not None else ServerSettings()
         self.engine_fn = engine_fn
         self.stream_fn = stream_fn
+        # the engine's torch device, read by the /metrics memory gauge
+        self.device = device
         self.settings = settings
         self.cache = ResponseCache(settings.cache_dir)
         self.sem = asyncio.Semaphore(settings.max_concurrency)
@@ -144,7 +151,22 @@ class TTSServer:
             if req is None:
                 return
             method, path, headers, body = req
-            if method == "GET" and path == "/healthz":
+            if method == "GET" and (
+                path in ("/", "/ui") or path.startswith("/ui?")
+            ):
+                from indextts_tpu_torch.runtime.webui import render_ui
+
+                lang = None
+                if "?" in path:
+                    from urllib.parse import parse_qs
+
+                    lang = parse_qs(path.partition("?")[2]).get("lang", [None])[0]
+                writer.write(
+                    _http_response(
+                        200, render_ui(lang).encode(), "text/html; charset=utf-8"
+                    )
+                )
+            elif method == "GET" and path == "/healthz":
                 writer.write(_http_response(200, b'{"status":"ok"}'))
             elif method == "GET" and path == "/readyz":
                 code = 200 if self.ready else 503
@@ -297,6 +319,11 @@ class TTSServer:
             "# TYPE indextts_generation_seconds_total counter",
             f"indextts_generation_seconds_total {getattr(self, 'gen_seconds', 0.0):.3f}",
         ]
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            lines += [
+                "# TYPE indextts_hbm_in_use_gb gauge",
+                f"indextts_hbm_in_use_gb {torch.cuda.memory_allocated(self.device) / 1e9:.3f}",
+            ]
         return "\n".join(lines) + "\n"
 
     async def serve(self):

@@ -1,13 +1,15 @@
 """TTS server entry point for the PyTorch port (reference: serve_tars.py).
 
-  python -m indextts_tpu_torch.serve --reference-audio prompt.wav --port 8000
+  python -m indextts_tpu_torch.serve --model-dir checkpoints --port 8000
   TARS_MAX_CONCURRENCY=8 python -m indextts_tpu_torch.serve ...   # continuous
 
 Follows indextts_tpu/serve.py: build the engine, warm it up once on the
 default speaker prompt, then serve the copied `TTSServer` (POST /tts, POST
-/tts/stream, GET /healthz /readyz /metrics). Without a checkpoint loader in
-the port, the engine runs seeded random weights and text goes through
-`byte_fallback_ids`.
+/tts/stream, GET / /ui /healthz /readyz /metrics). With --model-dir (or
+TARS_CHECKPOINT_DIR) the engine comes from a reference-layout checkpoint
+directory (runtime/loader.py `load_engine`; its bpe.model tokenizes the
+text); without one it runs seeded random weights (--seed) and text goes
+through `byte_fallback_ids`.
 
 /tts/stream answers chunked s16le PCM: each segment's waveform, then the
 silence after it (`IndexTTS2Engine.infer_generator`, or
@@ -35,8 +37,10 @@ runtime/qwen_emo.py QwenEmotion) for the vector, and without one the
 request is refused (ValueError, HTTP 400). On the sequential route with a
 tokenizer, /tts goes through `infer_text`, which scales the vector by
 emo_alpha; the other routes pass alpha on, and the engine drops it (a
-vector sets it to 1). No checkpoint loader attaches a Qwen from
---model-dir yet: a caller sets `engine.qwen_emo` (`build_qwen_emotion`).
+vector sets it to 1). With --model-dir, the Qwen of its
+qwen0.6bemo4-merge/ is attached when that directory is there
+(`build_qwen_emotion`, which needs `transformers`); a Qwen that fails to
+load is reported and the server serves without it, as the JAX server does.
 
 Left out against the JAX entry point: the compile cache and multihost
 initialization. A warmup that fails raises.
@@ -215,18 +219,64 @@ def precompile_in_background(engine, prompt: str, continuous: bool) -> Future:
     return done
 
 
+def load_models(args, cfg=None):
+    """The engine of `serve.build`'s arguments: from the checkpoint directory
+    --model-dir (runtime/loader.py `load_engine`), else seeded random
+    weights (--seed), on --device; `cfg` replaces the configuration that
+    --cfg, the directory's config.yaml or the TARS_* env would give.
+    Serving decodes on the sampling route (num_beams=1), as the JAX server."""
+    from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
+    from indextts_tpu_torch.runtime.loader import load_engine, model_config
+
+    if cfg is None:
+        cfg = model_config(args.model_dir, args.cfg) if args.model_dir else load_config(args.cfg)
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, num_beams=1))
+    if args.model_dir:
+        return load_engine(args.model_dir, cfg=cfg, device=args.device)
+    print(">> no --model-dir: random weights (smoke-test mode)", file=sys.stderr)
+    # each module's own seeded initialization: the JAX package's
+    # all-positive fill overflows the vocoder to NaN at full width
+    return IndexTTS2Engine(cfg, random_params(cfg, seed=args.seed, device=args.device),
+                           device=args.device)
+
+
+def attach_qwen(engine, model_dir: str) -> None:
+    """Attach the text-to-emotion model of `model_dir`/qwen0.6bemo4-merge
+    when the directory ships one (the reference loads it lazily,
+    infer_v2.py:321-328); a failure is reported and the engine serves
+    without it, as the JAX server does."""
+    from pathlib import Path
+
+    from indextts_tpu_torch.utils.obs import print_stage
+
+    qdir = Path(model_dir) / "qwen0.6bemo4-merge"
+    if not qdir.is_dir():
+        return
+    try:
+        from indextts_tpu_torch.runtime.qwen_emo import build_qwen_emotion
+
+        engine.qwen_emo = build_qwen_emotion(str(qdir), device=engine.device)
+        print_stage("Qwen emotion model attached", "complete")
+    except Exception as e:  # degraded mode: use_emo_text answers 400
+        traceback.print_exc()
+        print_stage("Qwen emotion load failed", "failed", message_extra=repr(e))
+
+
 def build(argv=None, cfg=None, engine=None):
     """Parse arguments, build the engine and the server; warm up once.
-    `cfg` replaces the configuration that --cfg / the TARS_* env would give;
-    `engine`, an engine already built, replaces the engine and its
-    configuration (a second server over the same models). Returns (server,
+    `cfg` replaces the configuration that --cfg, the checkpoint directory's
+    config.yaml or the TARS_* env would give (`load_models`); `engine`, an
+    engine already built, replaces the engine and its configuration (a
+    second server over the same models). Returns (server,
     engine); `server.service` is the ContinuousService in continuous mode
     (None in sequential mode), which its owner shuts down;
     `server.precompiled` the background precompile's future
     (`precompile_in_background`), None when TARS_PRECOMPILE=0 or without a
     default prompt."""
     p = argparse.ArgumentParser(prog="indextts-tpu-torch-serve")
-    p.add_argument("--model-dir", default=os.environ.get("TARS_CHECKPOINT_DIR"))
+    p.add_argument("--model-dir", default=os.environ.get("TARS_CHECKPOINT_DIR"),
+                   help="reference-layout checkpoint directory (default: random weights)")
     p.add_argument("--cfg", default=os.environ.get("TARS_CONFIG_FILE"))
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
@@ -235,27 +285,20 @@ def build(argv=None, cfg=None, engine=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
-    p.add_argument("--seed", type=int, default=0, help="random-weights seed")
+    p.add_argument("--seed", type=int, default=0,
+                   help="random-weights seed (without --model-dir)")
     args = p.parse_args(argv)
-    if args.model_dir:
-        raise NotImplementedError(
-            "loading checkpoints is not ported yet; run without --model-dir "
-            "for seeded random weights")
-    from indextts_tpu_torch.config import load_config
-    from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
     from indextts_tpu_torch.runtime.server import ServerSettings, TTSServer
+    from indextts_tpu_torch.utils.obs import print_stage, setup_logging
 
+    setup_logging()
     if engine is None:
         t0 = time.perf_counter()
-        cfg = cfg if cfg is not None else load_config(args.cfg)
-        # serving decodes on the sampling route (num_beams=1), as the JAX server
-        cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, num_beams=1))
-        print(">> random weights (no checkpoint loader in the port)", file=sys.stderr)
-        # each module's own seeded initialization: the JAX package's
-        # all-positive fill overflows the vocoder to NaN at full width
-        params = random_params(cfg, seed=args.seed, device=args.device)
-        engine = IndexTTS2Engine(cfg, params, device=args.device)
-        print(f">> models ready in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+        print_stage("Loading models", "progress")
+        engine = load_models(args, cfg)
+        print_stage("Models loaded", "complete", time.perf_counter() - t0)
+        if args.model_dir:
+            attach_qwen(engine, args.model_dir)
     cfg = engine.cfg
 
     settings = ServerSettings(host=args.host, port=args.port)
@@ -272,7 +315,8 @@ def build(argv=None, cfg=None, engine=None):
         print(f">> continuous batching: {slots} slots", file=sys.stderr)
     synth = make_synth(engine, default_prompt, service)
     server = TTSServer(synth, settings,
-                       stream_fn=make_synth_stream(engine, default_prompt, service))
+                       stream_fn=make_synth_stream(engine, default_prompt, service),
+                       device=engine.device)
     server.service = service
     server.precompiled = None
     if os.environ.get("TARS_PRECOMPILE", "1") == "1" and default_prompt:
@@ -287,9 +331,11 @@ def build(argv=None, cfg=None, engine=None):
 
 
 def main(argv=None):
+    from indextts_tpu_torch.utils.obs import GracefulShutdown, print_stage
+
     server, _ = build(argv)
-    print(f">> serving on {server.settings.host}:{server.settings.port}",
-          file=sys.stderr)
+    GracefulShutdown().install()
+    print_stage(f"Serving on {server.settings.host}:{server.settings.port}", "complete")
     server.run()
 
 

@@ -1147,3 +1147,33 @@ def test_qwen_captured_step_matches_eager(cuda_device):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
     assert int(st.pos) == len(ids) + 4
+
+
+@pytest.mark.cuda
+def test_load_engine_builds_on_the_card(cuda_device, tmp_path):
+    """runtime/loader.py load_engine(dir) with no device: every tensor of
+    every model on the card, the written weights (the weight-norm pairs
+    folded within 1e-6 of the largest |value|), no model filled."""
+    import chip_smoke
+    from indextts_tpu_torch.runtime.engine import MODELS, random_params
+    from indextts_tpu_torch.runtime.loader import load_engine
+
+    cfg = chip_smoke.small_config()
+    sds = random_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    vocab, rows, hs = cfg.gpt.number_text_tokens + 1, sum(cfg.emo_num), cfg.w2vbert.hidden_size
+    chip_smoke.write_reference_dir(
+        str(tmp_path), sds, (torch.randn((vocab, cfg.gpt.model_dim), generator=g),
+                             torch.zeros(vocab)),
+        (torch.zeros(hs), torch.ones(hs)), torch.randn((rows, cfg.gpt.model_dim), generator=g),
+        torch.randn((rows, 192), generator=g), cfg.w2vbert.num_hidden_layers + 1)
+    eng = load_engine(str(tmp_path), cfg=cfg)
+    assert eng.device.type == "cuda" and eng.load_report.filled == []
+    for name in MODELS:
+        got = getattr(eng, name).state_dict()
+        assert set(got) == set(sds[name])
+        for key, want in sds[name].items():
+            assert got[key].device.type == "cuda", (name, key)
+            err = (got[key].cpu() - want).abs().max()
+            assert err <= (1e-6 * want.abs().max() if chip_smoke.weight_normed(name, key)
+                           else 0), (name, key)

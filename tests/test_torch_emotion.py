@@ -32,7 +32,8 @@ import torch
 from indextts_tpu_torch.weights import from_jax_params
 from test_torch_qwen import TINY, jax_tiny
 from test_torch_stream import _Served
-from torch_parity import parity_config, parity_params, speech_like, to_port_config
+from torch_parity import (parity_config, parity_params, speech_like, to_port_config,
+                          write_checkpoint_dir)
 
 VECTORS = [[0.0, 0.0, 0.6, 0.0, 0.0, 0.0, 0.0, 0.0],
            [0.3, 0.0, 0.0, 0.0, 0.0, 0.4, 0.0, 0.2]]
@@ -328,7 +329,9 @@ def test_tts_with_emo_text_needs_a_qwen(tmp_path, monkeypatch):
 
 def test_cli_writes_a_wav_with_an_emo_vector(tmp_path, prompt, monkeypatch):
     """--emo-vector goes through normalize_emo_vec into infer; the WAV holds
-    the audio; --model-dir raises."""
+    the audio. With --model-dir the CLI loads a reference-layout directory
+    (its banks, its bpe.model: the text goes through infer_text) and writes
+    the WAV."""
     from indextts_tpu_torch import cli
     from indextts_tpu_torch.runtime.engine import IndexTTS2Engine
     from indextts_tpu_torch.utils import audio as audio_utils
@@ -350,6 +353,22 @@ def test_cli_writes_a_wav_with_an_emo_vector(tmp_path, prompt, monkeypatch):
     with wave.open(out_path) as w:
         assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, 22050)
         assert w.getnframes() == len(out["audio"]) > 0
-    with pytest.raises(NotImplementedError):
-        cli.main(["hello", "-v", voice, "--model-dir", str(tmp_path), "--device", "cpu"],
-                 cfg=to_port_config(parity_config()))
+    cfg = parity_config()
+    _, aux = write_checkpoint_dir(tmp_path / "checkpoints", cfg, parity_params(cfg, seed=1))
+    texts = []
+    infer_text = IndexTTS2Engine.infer_text
+
+    def spy_text(self, spk, text, *a, **kw):
+        texts.append(text)
+        assert np.array_equal(torch.cat(self.emo_matrix).numpy(), aux["emo_matrix"])
+        return infer_text(self, spk, text, *a, **kw)
+
+    monkeypatch.setattr(IndexTTS2Engine, "infer_text", spy_text)
+    dir_out = str(tmp_path / "dir.wav")
+    out = cli.main(["hello. hello", "-v", voice, "-o", dir_out, "--model-dir",
+                    str(tmp_path / "checkpoints"), "--seed", "1", "--device", "cpu"],
+                   cfg=to_port_config(cfg))
+    assert texts == ["hello. hello"]
+    with wave.open(dir_out) as w:
+        assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, 22050)
+        assert w.getnframes() == len(out["audio"]) > 0

@@ -13,6 +13,8 @@ token, which would make those comparisons vacuous.
 from __future__ import annotations
 
 import dataclasses
+import struct
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -85,3 +87,63 @@ def speech_like(rng, seconds: float, sr: int) -> np.ndarray:
     x = x * (0.5 + 0.5 * np.sin(2 * np.pi * 4 * tt) ** 2)
     x = x + 0.01 * rng.standard_normal(tt.shape)
     return (0.3 * x / np.abs(x).max()).astype(np.float32)
+
+
+# a minimal SentencePiece model protobuf (the bytes that
+# tests/test_checkpoint_dir_rehearsal.py writes): enough vocabulary to
+# tokenize "hello. hello" with ids < 50
+def _varint(n):
+    out = b""
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out += bytes([b | 0x80])
+        else:
+            return out + bytes([b])
+
+
+def _piece_msg(piece, score, ptype=1):
+    pb = piece.encode("utf-8")
+    body = b"\x0a" + _varint(len(pb)) + pb
+    body += b"\x15" + struct.pack("<f", score)
+    body += b"\x18" + _varint(ptype)
+    return b"\x0a" + _varint(len(body)) + body
+
+
+PIECES = [
+    ("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3),
+    ("▁", -2.0, 1), ("h", -3.0, 1), ("e", -3.1, 1), ("l", -3.2, 1),
+    ("o", -3.3, 1), ("he", -1.0, 1), ("ll", -1.2, 1), ("hello", -0.5, 1),
+    ("▁hello", -0.4, 1), ("▁.", -1.5, 1), (".", -4.0, 1), (",", -4.1, 1),
+]
+BPE_MODEL = b"".join(_piece_msg(p, sc, t) for p, sc, t in PIECES)
+
+
+def write_checkpoint_dir(d, cfg, jp, seed: int = 3, extra_w2v_layers: int = 2):
+    """A reference-layout checkpoint directory at `d` from the JAX tree `jp`
+    (config `cfg`), through weights.from_jax_params and chip_smoke.py's
+    writer: a seeded text_head in gpt.pth (the JAX tree has none: its
+    inference path never calls it), seeded banks and stats,
+    w2v-BERT with `extra_w2v_layers` layers past tap_layer, and bpe.model.
+    Returns (the port's state dicts, {"semantic_stats", "emo_matrix",
+    "spk_matrix"} as numpy)."""
+    import chip_smoke
+    from indextts_tpu_torch.weights import from_jax_params
+
+    sds = from_jax_params(jp, to_port_config(cfg))
+    rng = np.random.default_rng(seed)
+    vocab = cfg.gpt.number_text_tokens + 1
+    text_head = (t(rng.standard_normal((vocab, cfg.gpt.model_dim)).astype(np.float32)),
+                 t(rng.standard_normal(vocab).astype(np.float32)))
+    rows, hs = sum(cfg.emo_num), cfg.w2vbert.hidden_size
+    aux = {"semantic_stats": (rng.standard_normal(hs).astype(np.float32),
+                              rng.uniform(0.5, 2.0, hs).astype(np.float32)),
+           "emo_matrix": rng.standard_normal((rows, cfg.gpt.model_dim)).astype(np.float32),
+           "spk_matrix": rng.standard_normal((rows, 192)).astype(np.float32)}
+    chip_smoke.write_reference_dir(
+        str(d), sds, text_head, tuple(t(a) for a in aux["semantic_stats"]),
+        t(aux["emo_matrix"]), t(aux["spk_matrix"]),
+        cfg.w2vbert.tap_layer + extra_w2v_layers, seed=seed)
+    (Path(d) / "bpe.model").write_bytes(BPE_MODEL)
+    return sds, aux
