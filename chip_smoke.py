@@ -190,6 +190,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    /tts/stream goes through the continuous server, then a client leaves
    a stream after its first chunk, and a /tts after it must answer 200;
    then one /tts with an emo_vector (`emotion_continuous`).
+5. The beam route (runtime/decode.py `generate_beam`), on each route's
+   engine after its phase 3 (float: after `emotion_phase`): the small
+   configurations of phase 3 also run deterministic 3-beam search on the
+   card and on the CPU (the same codes), and K1 and K4 are checked at a
+   beam's 3 rows (one prompt's hole, equal valid lengths). Float:
+   `precompile(num_beams=3)` over the request text's 16-bucket captures
+   one beam step; a /tts request to a server built with `--num-beams 3`
+   (beam-multinomial, the config's default do_sample) must answer a WAV,
+   capture nothing new and launch the route's kernels only (counters set
+   to 0 just before it, read just after); a sampling request to a
+   `--num-beams 1` server on the same text prints its gpt_decode beside
+   it; `beam_turns` runs deterministic 3-beam search captured and eager
+   in turns (2 rounds, the same codes, tokens/s), a replay's kernels
+   against an eager step's by name and count, 8 replays timed, the
+   reorder of the caches by a beam index timed alone, and the state's
+   buffers. W8 and W4: one such beam request each, with the route's
+   counters rising (W8: K2-K6; W4: K2-K5, K7, K8). The launches a beam
+   request takes are printed per route before the kernels line.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -268,6 +286,9 @@ QWEN_ROUNDS = 2  # captured against eager decode, in turns
 QWEN_EAGER_NEW = 64  # tokens of an eager decode (a captured one runs QWEN_MAX_NEW)
 QWEN_EOS = 151645  # Qwen3's <|im_end|>
 TEXT_HEAD_SEED = 17  # the checkpoint's text_head, which the loader reads and drops
+BEAMS = 3  # the beam phase's beams: the config's default num_beams
+BEAM_ROUNDS = 2  # captured against eager beam search, in turns
+BEAM_SEED = 19
 
 
 def fail(msg: str):
@@ -417,14 +438,19 @@ def main_path_shapes(cfg, max_mel: int):
     ylen = int(np.floor(np.float32(max_mel) * np.float32(1.72)))
     # a continuous slot's prompt: the text bucketed to the segment cap
     slot_prompt = g.condition_num_latent + 2 + cfg.runtime.max_text_tokens_per_segment + 2 + 1
+    # a beam search's prompt: the text padded to a 16-bucket, its left-pad
+    # hole after the conditioning (runtime/engine.py `_generate_codes`)
+    bucket = min(next_bucket(n_text, 16, 16), g.max_text_tokens)
+    c0 = g.condition_num_latent + 2
     return {"decode_cap": prompt + max_mel, "slot_prompt": slot_prompt, "snake": snake,
+            "beam_prompt": c0 + bucket + 2 + 1, "beam_hole": [c0, c0 + bucket - n_text],
             # the CFM solve's width: the target bucketed to 128 frames, as the
             # engine's default (precise_shapes=False) runs it
             "dit_T": ref_mel + next_bucket(target, 128, 128),
             "dit_valid": min(ref_mel + ylen, ref_mel + next_bucket(target, 128, 128))}
 
 
-def decode_cases(cap: int, slot_prompt: int):
+def decode_cases(cap: int, slot_prompt: int, beam_prompt: int, beam_hole):
     """K1's and K4's cases: (name, B, cap, valid, hole start, hole end). A
     cluster rank takes a share of 16 * ceil(valid / 128) keys (ops/
     decode_attention.py `rank_span`), so valid 15-17 and 127-129 cross a
@@ -436,7 +462,9 @@ def decode_cases(cap: int, slot_prompt: int):
     `slot_prompt` keys (the text bucket's left-pad hole starts after the 34
     conditioning positions; a full bucket has none) and MAX_MEL_TOKENS
     codes: rows at unequal steps, one idle (one key, a finished request's
-    hole past it)."""
+    hole past it). A beam search's 3 rows share one prompt of `beam_prompt`
+    keys with the hole `beam_hole` and attend to as many keys (the last
+    step of MAX_MEL_TOKENS)."""
     from indextts_tpu_torch.runtime.decode import cache_cap
 
     S, c0 = slot_prompt, 34
@@ -456,6 +484,8 @@ def decode_cases(cap: int, slot_prompt: int):
         ("slot state", 8, cache_cap(S, MAX_MEL_TOKENS),
          [S + MAX_MEL_TOKENS, S + 254, S + 193, S + 141, S + 76, S + 33, S + 1, 1],
          [c0 if h else 0 for h in holes], [c0 + h if h else 0 for h in holes]),
+        ("beam rows", 3, cache_cap(beam_prompt, MAX_MEL_TOKENS),
+         [beam_prompt + MAX_MEL_TOKENS] * 3, [beam_hole[0]] * 3, [beam_hole[1]] * 3),
     ]
 
 
@@ -588,8 +618,8 @@ def check_k1(shapes, layers: int, heads: int):
     cap = shapes["decode_cap"]
     # besides decode_cases: a row with no attending key (zeros) beside a
     # row with one
-    cases = decode_cases(cap, shapes["slot_prompt"]) + [
-        ("no key", 2, 64, [0, 10], [0, 0], [0, 9])]
+    cases = decode_cases(cap, shapes["slot_prompt"], shapes["beam_prompt"],
+                         shapes["beam_hole"]) + [("no key", 2, 64, [0, 10], [0, 0], [0, 9])]
     err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         def make(B, c):
@@ -854,8 +884,8 @@ def check_k4(shapes, layers: int, heads: int):
         v8, vsc = quantize_kv(torch.randn((B, heads, c, 64), generator=g, device=dev))
         return q, k8, v8, ksc, vsc
 
-    cases = decode_cases(cap, shapes["slot_prompt"]) + [
-        ("valid-1", 3, cap, [1, 1, 1], [0, 0, 0], [0, 0, 0])]
+    cases = decode_cases(cap, shapes["slot_prompt"], shapes["beam_prompt"], shapes["beam_hole"]
+                         ) + [("valid-1", 3, cap, [1, 1, 1], [0, 0, 0], [0, 0, 0])]
     err = check_decode_cases("K4", k4.ragged_decode_attention_q8,
                              k4.ragged_decode_attention_q8_plain, cases, make, tol)
     main = time_k4(cap, layers, heads)[0]
@@ -1246,7 +1276,9 @@ def small_reference(wav_path: str, cfg, label: str, mel_tol: float, wav_tol: flo
     """A small config greedy on the card (kernels) and on the CPU (plain
     versions), same weights (each module's seeded initialization, so the
     waveform stays off the clip) and CFM noise; codes equal, mel within
-    mel_tol of its largest value, waveform within wav_tol of its peak."""
+    mel_tol of its largest value, waveform within wav_tol of its peak. The
+    same segment's deterministic beam search over BEAMS beams (captured on
+    the card) gives the same codes on both."""
     from indextts_tpu_torch.runtime.engine import (
         EmotionConditioning,
         IndexTTS2Engine,
@@ -1266,11 +1298,17 @@ def small_reference(wav_path: str, cfg, label: str, mel_tol: float, wav_tol: flo
         spk = eng.prepare_speaker(audio, sr)
         emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
         _, codes, _ = eng._decode_segment_codes(spk, emo, text, seed=0)
+        _, beam, _ = eng._decode_segment_codes(spk, emo, text, seed=0, num_beams=BEAMS,
+                                               do_sample=False)
         res = eng.infer((audio, sr), [text], seed=0)
-        outs[dev] = (codes, eng._mel_taps[-1], res["audio"])
-    (c0, m0, w0), (c1, m1, w1) = outs["cpu"], outs["cuda"]
+        outs[dev] = (codes, eng._mel_taps[-1], res["audio"], beam)
+    (c0, m0, w0, b0), (c1, m1, w1, b1) = outs["cpu"], outs["cuda"]
     if not np.array_equal(c0, c1):
         fail(f"small config ({label}): greedy codes differ on the card: {c0} vs {c1}")
+    if not np.array_equal(b0, b1):
+        fail(f"small config ({label}): {BEAMS}-beam codes differ on the card: {b0} vs {b1}")
+    print(f"small config ({label}), card vs CPU: deterministic {BEAMS}-beam codes equal "
+          f"({len(b0)}: {b0.tolist()})")
     scale = float(np.abs(m0).max())
     peak = float(np.abs(w0).max())
     mel_err = float(np.abs(m0 - m1).max())
@@ -1942,6 +1980,253 @@ def decode_turns(engine, wav_path: str, label: str):
     torch.cuda.empty_cache()
     print(f"[{label}] decode states {shapes}: {buffers / 2**20:.1f} MiB of static buffers; "
           f"dropping them frees {(held - torch.cuda.memory_reserved()) / 2**20:.1f} MiB "
+          "of reserved device memory (buffers and captured steps' pools)")
+
+
+# ---------------------------------------------------------------------------
+# the beam route: runtime/decode.py `generate_beam` through the engine and
+# `serve.py --num-beams`
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def beam_server(engine, wav_path: str, label: str, tmp: str, beams: int):
+    """A sequential server over `engine` built by `serve.build` with
+    `--num-beams beams`, with its own response cache and no warm-up, on its
+    own thread. Returns (the ServerThread, its port)."""
+    from indextts_tpu_torch import serve
+
+    port = free_port()
+    os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, f"cache-{label}-beams{beams}")
+    warmup = os.environ.get("TARS_WARMUP")
+    os.environ["TARS_WARMUP"] = "0"
+    try:
+        server, _ = serve.build(["--host", "127.0.0.1", "--port", str(port), "--reference-audio",
+                                 wav_path, "--num-beams", str(beams)], engine=engine)
+    finally:
+        if warmup is None:
+            del os.environ["TARS_WARMUP"]
+        else:
+            os.environ["TARS_WARMUP"] = warmup
+    if server.service is not None:
+        fail(f"[{label}] the --num-beams {beams} server is not sequential")
+    return ServerThread(server), port
+
+
+def served_segment(engine, port: int, label: str, what: str, seed: int):
+    """One POST /tts of request 0's text with `seed`: it must answer 200 with
+    a non-silent mono 16-bit WAV from a synthesized segment. Returns (its
+    SegmentResult, wall seconds, audio seconds, decode tokens)."""
+    segments = []
+    synthesize = engine.synthesize_segment
+
+    def record(*args, **kwargs):
+        segments.append(synthesize(*args, **kwargs))
+        return segments[-1]
+
+    engine.synthesize_segment = record
+    tok0 = engine.decoder.tokens
+    t0 = time.perf_counter()
+    try:
+        status, body = post_tts(port, {"text": request_text(0), "seed": seed})
+    finally:
+        del engine.synthesize_segment
+    wall = time.perf_counter() - t0
+    if status != 200:
+        fail(f"[{label}] {what} request: HTTP {status}: {body[:300]!r}")
+    with wave.open(io.BytesIO(body)) as w:
+        if (w.getnchannels(), w.getsampwidth()) != (1, 2):
+            fail(f"[{label}] {what} request: not a mono 16-bit WAV")
+        sr, n = w.getframerate(), w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), dtype=np.int16)
+    if n == 0 or int(np.abs(pcm.astype(np.int32)).max()) == 0 or len(segments) != 1:
+        fail(f"[{label}] {what} request: silent, empty or not synthesized")
+    return segments[0], wall, n / sr, engine.decoder.tokens - tok0
+
+
+def beam_request(engine, wav_path: str, label: str, tmp: str, rise, stay) -> dict:
+    """One /tts request to a `--num-beams BEAMS` server over the route's
+    engine (beam-multinomial, the config's do_sample), every kernel counter
+    set to 0 just before it and read just after: those in `rise` must have
+    risen, those in `stay` must be 0. Prints its stages and returns the
+    launches."""
+    counters = kernel_counters()
+    thread, port = beam_server(engine, wav_path, label, tmp, BEAMS)
+    try:
+        for cnt in counters.values():
+            cnt.launches = 0
+        seg, wall, audio, toks = served_segment(engine, port, label, f"{BEAMS}-beam", 31)
+        launches = {name: cnt.launches for name, cnt in counters.items()}
+    finally:
+        thread.stop()
+    print(f"[{label}] {BEAMS}-beam /tts (--num-beams {BEAMS}, do_sample="
+          f"{engine.cfg.runtime.do_sample}): wall_s={wall:.3f} audio_s={audio:.3f} "
+          f"decode_tokens={toks} stages_s gpt_decode={seg.gpt_gen_time:.3f} "
+          f"gpt_latent={seg.gpt_forward_time:.3f} s2mel={seg.s2mel_time:.3f} "
+          f"bigvgan={seg.bigvgan_time:.3f}")
+    for name, n in launches.items():
+        print(f"[{label}] {BEAMS}-beam request {name}: launches={n}")
+        if name in rise and n == 0:
+            fail(f"[{label}] {name} was never launched on the beam route")
+        if name in stay and n != 0:
+            fail(f"[{label}] {name} was launched {n} times on the beam route; it has no "
+                 "place there")
+    return launches
+
+
+def beam_phase(engine, wav_path: str, label: str, tmp: str, rise, stay) -> dict:
+    """The beam route on the float route's full-width engine. Warm-up:
+    `precompile(num_beams=BEAMS)` over the request text's 16-bucket (its
+    beam-multinomial step captured, one decode graph more); then
+    `beam_request` through a `--num-beams BEAMS` server, which must
+    capture nothing (the graph counts do not move), beside a sampling
+    request to a `--num-beams 1` server on the same text (their gpt_decode
+    side by side); then `beam_turns`. Returns the beam request's launches."""
+    import torch
+
+    from indextts_tpu_torch.frontend.tokenizer import byte_fallback_ids
+    from indextts_tpu_torch.runtime.engine import next_bucket
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    g = engine.cfg.gpt
+    bucket = min(next_bucket(len(byte_fallback_ids(request_text(0), g.number_text_tokens,
+                                                   200)), 16, 16), g.max_text_tokens)
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    before = graph_counts(engine)
+    t0 = time.perf_counter()
+    jobs = engine.precompile(spk, text_buckets=[bucket], code_lens=[MAX_MEL_TOKENS],
+                             num_beams=BEAMS)
+    torch.cuda.synchronize()
+    warmed = graph_counts(engine)
+    print(f"[{label}] precompile(num_beams={BEAMS}) over text bucket {bucket}: {jobs} jobs in "
+          f"{time.perf_counter() - t0:.2f} s; graphs (decode, latent, s2mel, vocoder) "
+          f"{before} -> {warmed}; decode states {list(engine.decoder._states)}")
+    if warmed[0] != before[0] + 1:
+        fail(f"[{label}] precompile(num_beams={BEAMS}) did not capture one beam step")
+    launches = beam_request(engine, wav_path, label, tmp, rise, stay)
+    if graph_counts(engine) != warmed:
+        fail(f"[{label}] the beam request captured graphs the precompile had not: "
+             f"{warmed} before, {graph_counts(engine)} after")
+    print(f"[{label}] the {BEAMS}-beam request captured nothing new: graphs {warmed}")
+    thread, port = beam_server(engine, wav_path, label, tmp, 1)
+    try:
+        seg, wall, audio, toks = served_segment(engine, port, label, "sampling", 32)
+    finally:
+        thread.stop()
+    print(f"[{label}] sampling /tts (--num-beams 1) on the same text: wall_s={wall:.3f} "
+          f"audio_s={audio:.3f} decode_tokens={toks} stages_s gpt_decode="
+          f"{seg.gpt_gen_time:.3f} gpt_latent={seg.gpt_forward_time:.3f} "
+          f"s2mel={seg.s2mel_time:.3f} bigvgan={seg.bigvgan_time:.3f}")
+    beam_turns(engine, wav_path, label)
+    return launches
+
+
+def beam_turns(engine, wav_path: str, label: str):
+    """Deterministic beam search over BEAMS beams on the served engine
+    (request 0's text on the speaker prompt, keyed), captured and eager
+    (the decoder's `eager` argument) in turns, BEAM_ROUNDS rounds: the
+    same codes every time; each run prints decode tokens/s (codes of the
+    best hypothesis a decode second) and its stages. Then one replay of
+    the captured beam step against one eager step by device kernels' name
+    and count (torch.profiler), its largest kernels, 8 replays timed
+    (CUDA events) against its kernels' device time (the idle share
+    inside the step), the reorder of every cache component by a beam
+    index timed alone (CUDA events) against its bytes' bound, and the
+    beam state's buffers and the memory that dropping the decode states
+    frees."""
+    import torch
+
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    c, dec = engine.cfg, engine.decoder
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    key = (wav_path, "", 1.0, None)
+    ids = fallback_segments(request_text(0), c.gpt.number_text_tokens,
+                            c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
+    first = None
+    for r in range(BEAM_ROUNDS):
+        for mode in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+            if mode == "eager":
+                dec.generate_beam = functools.partial(type(dec).generate_beam, dec, eager=True)
+            try:
+                tok0, sec0 = dec.tokens, dec.seconds
+                t0 = time.perf_counter()
+                emovec, codes, t_gen = engine._decode_segment_codes(
+                    spk, emo, ids, seed=BEAM_SEED, cond_kv_key=key, num_beams=BEAMS,
+                    do_sample=False)
+                seg = engine._finish_from_codes(spk, emovec, ids, codes, BEAM_SEED, t_gen)
+                wall = time.perf_counter() - t0
+            finally:
+                dec.__dict__.pop("generate_beam", None)
+            toks, dsec = dec.tokens - tok0, dec.seconds - sec0
+            print(f"[{label}] beam round {r} {mode}: decode_tokens={toks} "
+                  f"decode_tok_per_s={toks / dsec:.1f} wall_s={wall:.3f} stages_s "
+                  f"gpt_decode={seg.gpt_gen_time:.3f} gpt_latent={seg.gpt_forward_time:.3f} "
+                  f"s2mel={seg.s2mel_time:.3f} bigvgan={seg.bigvgan_time:.3f}")
+            if first is None:
+                first = codes
+            elif not np.array_equal(codes, first):
+                fail(f"[{label}] beam round {r} {mode}: codes differ from round 0 graph's "
+                     f"({len(codes)} vs {len(first)} codes)")
+    print(f"[{label}] captured and eager {BEAMS}-beam search: the same {len(first)} codes "
+          f"from seed {BEAM_SEED} in all {2 * BEAM_ROUNDS} runs")
+
+    (key_st, st), = [(k, s) for k, s in dec._states.items() if k[0] == "beam"
+                     and False in s.graphs]
+    graph = st.graphs[False][0]
+    if int(st.start) + int(st.step) + 40 >= st.cap:
+        fail(f"[{label}] no room in the beam cache to profile and time steps")
+    with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+        eager_k, graph_k, _, counts = replay_against_eager(
+            lambda: dec._beam_step(st, False), graph, False, label)
+    (n_eager, ms_eager), (n_graph, ms_graph) = (
+        [sum(v[i] for v in ks.values()) for i in (0, 1)] for ks in (eager_k, graph_k))
+    print(f"[{label}] one beam step {key_st}: {n_eager} device kernels ({len(eager_k)} names), "
+          f"{ms_eager:.4f} device ms eager; one replay: {n_graph} ({len(graph_k)} names), "
+          f"{ms_graph:.4f} device ms")
+    top = sorted(graph_k.items(), key=lambda kv: -kv[1][1])[:10]
+    print(f"[{label}] one beam replay's kernels by device ms: " + ", ".join(
+        f"{short_name(k)} x{n} {ms:.4f}" for k, (n, ms) in top))
+    if counts[0] != counts[1] or n_eager == 0:
+        fail(f"[{label}] a beam replay's device kernels differ from an eager step's: "
+             f"{kernel_diff(counts)}")
+    with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+        replay_ms = replays_ms(graph, 8)
+        beam_idx = torch.tensor([2, 0, 1], device="cuda")
+
+        def reorder():
+            for cache in st.caches:
+                cache.copy_(cache.index_select(1, beam_idx))
+
+        reorder_ms = cuda_ms(reorder, iters=8, replays=3)
+    cache_bytes = sum(t.nbytes for t in st.caches)
+    print(f"[{label}] 8 beam replays back to back: {replay_ms:.4f} ms a step (CUDA events); "
+          f"its kernels' device time {ms_graph:.4f} ms, idle inside the step "
+          f"{100 * (1 - ms_graph / replay_ms):.1f} %")
+    print(f"[{label}] the cache reorder alone (index_select + copy_ of {len(st.caches)} "
+          f"tensors, {cache_bytes / 2**20:.1f} MiB, 4 x its bytes moved): {reorder_ms:.4f} ms "
+          f"(CUDA events), {100 * reorder_ms / replay_ms:.1f} % of a replayed step; bound "
+          f"{4 * cache_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    del st, graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    buffers = {k: sum(t.nbytes for t in s.tensors()) for k, s in dec._states.items()}
+    with dec._lock:
+        dec._states.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{label}] decode states' static buffers (MiB): "
+          + ", ".join(f"{k} {b / 2**20:.1f}" for k, b in buffers.items())
+          + f"; dropping them frees {(held - torch.cuda.memory_reserved()) / 2**20:.1f} MiB "
           "of reserved device memory (buffers and captured steps' pools)")
 
 
@@ -3106,7 +3391,7 @@ def main():
         full = load_config()
         model_dir, host, aux = reference_dir(full, tmp)
         print(f"phase reference_dir done at {time.perf_counter() - t_start:.1f} s")
-        launches = {}
+        launches, beam_launches = {}, {}
         for label, (change, rise, stay) in routes.items():
             counts, engine = serve_full_width(
                 wav_path, change(full), label, rise, stay, tmp, model_dir,
@@ -3118,6 +3403,9 @@ def main():
                 tail_turns(engine, wav_path, label)
                 stream_phase(engine, wav_path, label, tmp, card)
                 emotion_phase(engine, wav_path, label, tmp, card, rise, stay)
+                beam_launches[label] = beam_phase(engine, wav_path, label, tmp, rise, stay)
+            else:
+                beam_launches[label] = beam_request(engine, wav_path, label, tmp, rise, stay)
             # each kernel's launches come from the route that runs it first
             for name in rise:
                 launches.setdefault(name, counts[name])
@@ -3130,6 +3418,9 @@ def main():
                   f"still allocated; route done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    print(f"launches a {BEAMS}-beam request (beam-multinomial, {MAX_MEL_TOKENS} steps at "
+          "most): " + json.dumps({label: {k: n for k, n in counts.items() if n}
+                                  for label, counts in beam_launches.items()}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,6 +13,11 @@ afraid, disgusted, melancholic, surprised, calm) go through
 tokenizer (the directory's bpe.model) the text goes through `infer_text`;
 without one its UTF-8 bytes are the ids. Runs on the card unless --device
 says otherwise.
+
+The decode route is the configuration's, as in the JAX CLI, which has no
+flag for it either: at the default config (runtime.num_beams 3,
+do_sample true; TARS_NUM_BEAMS) the reference's beam-multinomial search
+(`GPTDecoder.generate_beam`), with num_beams 1 the sampling loop.
 """
 
 from __future__ import annotations

@@ -42,12 +42,21 @@ the tail, the values the monolithic prefill quantizes. The captured step
 and its state are the same on both routes. `supports_cond_kv` follows the
 JAX rule on the resolved attention layout.
 
-Still missing against the JAX package: beam search, text-prefix KV reuse,
-and the batched-segments route.
+Beam search (JAX `generate_beam`, HF _beam_search in both variants) runs
+on a `BeamState`: the one prompt prefilled once and copied into nb rows,
+one a beam; `_beam_step` (candidates, the pool of finished hypotheses, the
+reorder of every cache component by the surviving beams, one GPT step over
+the nb rows) is captured once per (nb, cap) and replayed as the sampling
+step is; HF's is_done is computed on the card and freezes the state, so
+the host's finish check ends the loop at the JAX loop's step.
+
+Still missing against the JAX package: text-prefix KV reuse and the
+batched-segments route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import threading
@@ -92,17 +101,18 @@ def repetition_penalty(logits, penal_mask, penalty):
     return torch.where(penal_mask, penalized, logits)
 
 
-def warp_top_k_top_p(logits, temperature, top_p, top_k: int
+def warp_top_k_top_p(logits, temperature, top_p, top_k: int, min_tokens_to_keep: int = 1
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """temperature -> top-k -> top-p on the descending top-k subset. Returns
-    (vals, idx) (B, k): kept logits, NEG_INF where top-p drops a token.
-    temperature and top_p are floats or 0-d tensors."""
+    """temperature -> top-k -> top-p on the descending top-k subset, the
+    first `min_tokens_to_keep` always kept (HF's warpers take 2 under beam
+    search). Returns (vals, idx) (B, k): kept logits, NEG_INF where top-p
+    drops a token. temperature and top_p are floats or 0-d tensors."""
     logits = logits / temperature
     vals, idx = torch.topk(logits, top_k, dim=-1)
     probs = torch.softmax(vals, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = (cum - probs) < top_p
-    keep[:, 0] = True
+    keep[:, :min_tokens_to_keep] = True
     return torch.where(keep, vals, torch.full_like(vals, NEG_INF)), idx
 
 
@@ -117,6 +127,24 @@ def sample_top_k_top_p(logits, generator: torch.Generator, temperature, top_p,
     q = torch.empty_like(p).exponential_(generator=generator)
     choice = torch.argmax(p / q, dim=-1, keepdim=True)
     return torch.gather(idx, 1, choice)[:, 0]
+
+
+def top_first(x, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of x's last dimension, descending, the lower index
+    first among equal values, as jax.lax.top_k orders them (torch.topk
+    promises no order among ties): (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def draw_candidates(scores, generator: torch.Generator, k: int) -> torch.Tensor:
+    """k draws without replacement from softmax(scores) over the last
+    dimension, in draw order: the top k of scores - log(q), q ~ Exp(1)
+    from `generator`. -log(q) is Gumbel(0, 1), so this is the Gumbel-top-k
+    the JAX beam search draws with (indextts_tpu/runtime/decode.py:
+    687-695), without a host check of its input (torch.multinomial's)."""
+    q = torch.empty_like(scores).exponential_(generator=generator)
+    return top_first(scores - torch.log(q), k)[1]
 
 
 def _step_counters():
@@ -174,6 +202,26 @@ class DecodeState(_LoopState):
         self.start = zeros(1)  # S, the prompt's length
 
 
+class BeamState(DecodeState):
+    """One request's beam search over `nb` rows, one a beam, as the JAX
+    loop's state (indextts_tpu/runtime/decode.py:645-662): the rows'
+    caches, logits, codes, penalty sets, last codes, `step` and S as in
+    DecodeState (every beam of one prompt, so one hole); each beam's
+    score; the pool of finalized hypotheses (HF BeamHypotheses, nb
+    entries: normalized scores, codes, lengths); `finished`, HF's is_done
+    on every row; and the length penalty."""
+
+    def __init__(self, cfg: GPTConfig, nb: int, cap: int, kv_int8: bool, device,
+                 generator: torch.Generator):
+        super().__init__(cfg, nb, cap, kv_int8, device, generator)
+        zeros = functools.partial(torch.zeros, device=device)
+        self.beam_scores = zeros(nb)
+        self.fin_scores = zeros(nb)
+        self.fin_codes = zeros((nb, cap), dtype=torch.long)
+        self.fin_lens = zeros(nb, dtype=torch.long)
+        self.length_penalty = zeros(())
+
+
 class SlotState(_LoopState):
     """`n_slots` rows, each one request's decode or idle, as JAX
     ContinuousBatcher's state (indextts_tpu/runtime/batcher.py:82-105): a
@@ -227,11 +275,15 @@ class GPTDecoder:
         self.cfg = cfg
         self.sampling = sampling
         self.kv_int8 = kv_int8
+        # the JAX beam search keeps an int8 cache under kv_quant only: a
+        # pallas_q8 model serves it a float cache (indextts_tpu/models/
+        # gpt2.py:831-833)
+        self.beam_kv_int8 = kv_int8 and attn_impl != "pallas_q8"
         self.attn_impl = attn_impl
         self.device = model.mel_embedding.weight.device
         self.generator = torch.Generator(device=self.device)
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        self._states: "OrderedDict[Tuple[int, int], DecodeState]" = OrderedDict()
+        self._states: "OrderedDict[tuple, DecodeState]" = OrderedDict()
         self._lock = threading.Lock()
         # cumulative decode counters (tokens emitted, wall seconds in generate)
         self.tokens = 0
@@ -281,16 +333,20 @@ class GPTDecoder:
             valid[b, off:] = True
         return ids, pos, valid
 
-    def _state(self, batch: int, cap: int) -> DecodeState:
-        """The state of shape (batch, cap), made on first use; the least
-        recently used of MAX_STATES goes, with its captured steps."""
-        key = (batch, cap)
+    def _state(self, batch: int, cap: int, beam: bool = False) -> DecodeState:
+        """The state of `batch` rows and `cap` slots, made on first use: a
+        DecodeState keyed (batch, cap), or with `beam` a BeamState keyed
+        ("beam", batch, cap), so that a beam search never takes a sampling
+        state of as many rows. The least recently used of MAX_STATES goes,
+        with its captured steps."""
+        key = ("beam", batch, cap) if beam else (batch, cap)
         st = self._states.get(key)
         if st is None:
             if len(self._states) >= MAX_STATES:
                 self._states.popitem(last=False)
-            st = self._states[key] = DecodeState(self.cfg, batch, cap, self.kv_int8,
-                                                 self.device, self.generator)
+            st = self._states[key] = (BeamState if beam else DecodeState)(
+                self.cfg, batch, cap, self.beam_kv_int8 if beam else self.kv_int8,
+                self.device, self.generator)
         self._states.move_to_end(key)
         return st
 
@@ -299,11 +355,31 @@ class GPTDecoder:
         the CPU)."""
         return torch.cuda.stream(self._stream)
 
-    def _prompt_prefill(self, conds_latent, text_ids, text_pos, text_valid, cond_kv=None):
+    @contextlib.contextmanager
+    def _on_request(self, seed: Optional[int]):
+        """A request's decode, under the decoder's lock: its generator
+        seeded with `seed` (None: a fresh random seed), its stream made
+        current after the caller's work; on exit the caller's stream waits
+        for it."""
+        if seed is None:
+            self.generator.seed()
+        else:
+            self.generator.manual_seed(seed)
+        caller = None if self._stream is None else torch.cuda.current_stream(self.device)
+        if caller is not None:
+            self._stream.wait_stream(caller)
+        with self.on_stream():
+            yield
+        if caller is not None:
+            caller.wait_stream(self._stream)
+
+    def _prompt_prefill(self, conds_latent, text_ids, text_pos, text_valid, cond_kv=None,
+                        kv_int8: Optional[bool] = None):
         """The prompt [conds][text][start_mel] through the GPT: its last
-        logits, its KV as the cache holds it (quantized with `kv_int8`) and
-        its (B, S) mask. With `cond_kv` (`cond_prefill` of these conds) only
-        the tail [text][start_mel] runs, on top of the prefix."""
+        logits, its KV as the cache holds it (quantized with `kv_int8`, by
+        default the decoder's) and its (B, S) mask. With `cond_kv`
+        (`cond_prefill` of these conds) only the tail [text][start_mel]
+        runs, on top of the prefix."""
         model = self.model
         B = conds_latent.shape[0]
         dev = conds_latent.device
@@ -318,7 +394,7 @@ class GPTDecoder:
                                                  prompt_mask)
         else:
             hidden, (pk, pv) = model.gpt_prefill_with_past(tail, tail_mask, cond_kv)
-        if self.kv_int8:
+        if self.kv_int8 if kv_int8 is None else kv_int8:
             (k8, ksc), (v8, vsc) = quantize_kv(pk), quantize_kv(pv)
             prompt_kv = (k8, v8, ksc, vsc)
         else:
@@ -326,18 +402,23 @@ class GPTDecoder:
         return model.mel_logits_from_hidden(hidden[:, -1]), prompt_kv, prompt_mask
 
     def prefill(self, conds_latent, text_ids, text_pos, text_valid, max_new: int,
-                cond_kv=None) -> DecodeState:
+                cond_kv=None, num_beams: int = 0) -> DecodeState:
         """Prompt prefill into the static caches of the state of shape (B,
         cache_cap(S, max_new)): the prompt's KV at slots [0, S), quantized
         once with `kv_int8`, its last logits, S and the prompt's hole. The
         slots past S keep an earlier request's values, which no step reads:
         every key a step attends to was written by this request. With
         `cond_kv` the conditioning prefix's KV is taken from it and only the
-        tail is prefilled (`_prompt_prefill`); S and the hole are the same."""
+        tail is prefilled (`_prompt_prefill`); S and the hole are the same.
+        With `num_beams` the one prompt (B=1) is prefilled once, and its KV
+        and logits copied into every row of a BeamState of num_beams rows."""
         logits, prompt_kv, prompt_mask = self._prompt_prefill(
-            conds_latent, text_ids, text_pos, text_valid, cond_kv)
+            conds_latent, text_ids, text_pos, text_valid, cond_kv,
+            self.beam_kv_int8 if num_beams else self.kv_int8)
         B, S = prompt_mask.shape
-        st = self._state(B, cache_cap(S, max_new))
+        if num_beams:
+            B = num_beams
+        st = self._state(B, cache_cap(S, max_new), beam=bool(num_beams))
         for c, t in zip(st.caches, prompt_kv):
             c[:, :, :, :S].copy_(t)
         st.logits.copy_(logits)
@@ -469,20 +550,11 @@ class GPTDecoder:
         do_sample = self.sampling.do_sample if do_sample is None else do_sample
         with self._lock:
             t0 = time.perf_counter()
-            if seed is None:
-                self.generator.seed()
-            else:
-                self.generator.manual_seed(seed)
-            caller = None if self._stream is None else torch.cuda.current_stream(self.device)
-            if caller is not None:
-                self._stream.wait_stream(caller)
-            with self.on_stream():
+            with self._on_request(seed):
                 st = self.prefill(conds_latent, text_ids, text_pos, text_valid, max_new,
                                   cond_kv)
                 self._reset(st, temperature, top_p, repetition_penalty_value)
                 self._loop(st, do_sample, max_new, eager)
-            if caller is not None:
-                caller.wait_stream(self._stream)
             codes = st.codes[:, :max_new].clone()
             is_stop = codes == self.cfg.stop_mel_token
             first = torch.argmax(is_stop.int(), dim=1)
@@ -491,6 +563,147 @@ class GPTDecoder:
             self.tokens += int(lengths.sum())
             self.seconds += time.perf_counter() - t0
         return GenerateResult(codes=codes, lengths=lengths)
+
+    # -- beam search ----------------------------------------------------------
+    # The counterpart of the JAX decoder's generate_beam (indextts_tpu/
+    # runtime/decode.py:545-866): HF _beam_search over the rows of one
+    # BeamState, a step captured and replayed as the sampling loop's.
+
+    def _reset_beam(self, st: BeamState, temperature: float, top_p: float, penalty: float,
+                    length_penalty: float):
+        """A beam search's state before its first step: `_reset`'s, the
+        first beam's score 0 and the others' NEG_INF (so that the first
+        step's candidates come from one beam), an empty pool."""
+        self._reset(st, temperature, top_p, penalty)
+        st.beam_scores.fill_(NEG_INF)
+        st.beam_scores[0] = 0.0
+        st.fin_scores.fill_(NEG_INF)
+        st.fin_codes.fill_(self.cfg.stop_mel_token)
+        st.fin_lens.zero_()
+        st.length_penalty.fill_(length_penalty)
+
+    def _beam_step(self, st: BeamState, do_sample: bool):
+        """One step of beam search, the unit a CUDA graph captures: the body
+        of the JAX loop (indextts_tpu/runtime/decode.py:663-757) after its
+        condition, HF's is_done (`:761-773`), computed here on the card.
+        log_softmax; the repetition penalty; with do_sample the warpers a
+        beam (temperature, top-k, top-p, two tokens kept); each beam's
+        score added; 2 nb candidates, the top ones or, with do_sample, 2 nb
+        draws without replacement sorted by their score; the eos candidates
+        ranked below nb into the pool at score / (S + step) ^
+        length_penalty; the first nb others the next beams; codes, penalty
+        sets and every cache component reordered by their beams; their
+        tokens written at `step`; one GPT step over the nb rows at slot S +
+        step; the next logits. Once is_done holds, a step leaves `step`,
+        the beams' scores, the codes and the pool as they are, so the host's
+        check every FINISH_CHECK_EVERY steps stops the loop at the JAX
+        loop's step. Ties go to the lower index, as jax.lax.top_k's do."""
+        model, cfg = self.model, self.cfg
+        nb, V = st.tok.shape[0], cfg.number_mel_codes
+        step = st.step
+        norm = (st.start + step).float() ** st.length_penalty
+        worst = st.fin_scores[nb - 1]
+        done = st.finished[0] | ((worst > NEG_INF) & (worst >= st.beam_scores.max() / norm[0]))
+
+        logp = repetition_penalty(torch.log_softmax(st.logits.float(), dim=-1),
+                                  st.penal_mask, st.penalty)
+        if do_sample:
+            vals, idx = warp_top_k_top_p(logp, st.temperature, st.top_p, self.sampling.top_k,
+                                         min_tokens_to_keep=2)
+            logp = torch.full_like(logp, NEG_INF).scatter_(1, idx, vals)
+        flat = (st.beam_scores[:, None] + logp).reshape(-1)
+        if do_sample:
+            drawn = draw_candidates(flat, st.generator, 2 * nb)
+            cand_scores, order = top_first(flat[drawn], 2 * nb)
+            cand = drawn[order]
+        else:
+            cand_scores, cand = top_first(flat, 2 * nb)
+        cand_beam, cand_tok = cand // V, cand % V
+        is_eos = cand_tok == cfg.stop_mel_token
+
+        # the pool: eos candidates ranked below nb, each its beam's codes
+        # with the eos at `step`, of length step + 1
+        rank = torch.arange(2 * nb, device=flat.device)
+        fin = torch.where(is_eos & (rank < nb), cand_scores / norm, NEG_INF)
+        cand_codes = st.codes.index_select(0, cand_beam)
+        cand_codes.scatter_(1, step.expand(2 * nb, 1), cand_tok[:, None])
+        fin_scores, keep = top_first(torch.cat([st.fin_scores, fin]), nb)
+        fin_codes = torch.cat([st.fin_codes, cand_codes]).index_select(0, keep)
+        fin_lens = torch.cat([st.fin_lens, (step + 1).expand(2 * nb)]).index_select(0, keep)
+
+        # the next beams: the first nb candidates that are not eos
+        beam_scores, pos = top_first(torch.where(is_eos, NEG_INF, cand_scores), nb)
+        beam_idx, tok = cand_beam[pos], cand_tok[pos]
+        codes = st.codes.index_select(0, beam_idx)
+        codes.scatter_(1, step.expand(nb, 1), tok[:, None])
+        penal = st.penal_mask.index_select(0, beam_idx)
+        penal.scatter_(1, tok[:, None], True)
+        for mine, new in ((st.beam_scores, beam_scores), (st.fin_scores, fin_scores),
+                          (st.fin_codes, fin_codes), (st.fin_lens, fin_lens),
+                          (st.codes, codes), (st.penal_mask, penal)):
+            mine.copy_(torch.where(done, mine, new))
+        # HF _reorder_cache: every cache component gathered by beam_idx over
+        # the whole capacity, as the JAX loop does
+        for c in st.caches:
+            c.copy_(c.index_select(1, beam_idx))
+        st.tok.copy_(tok)
+
+        index = st.start + step
+        valid = (index + 1).to(torch.int32).repeat(nb)
+        emb = model.embed_mel_step(tok, step.expand(nb))
+        hidden = model.gpt_decode_step(emb, st.caches, index.expand(nb), valid,
+                                       st.hole_s, st.hole_e)
+        st.logits.copy_(model.mel_logits_from_hidden(hidden[:, 0]))
+        st.step.add_((~done).long())
+        st.finished.copy_(done.expand(nb))
+
+    @staticmethod
+    def _beam_result(st: BeamState, max_new: int) -> GenerateResult:
+        """The best hypothesis (JAX `:811-822`): the pool and the beams
+        still active, these normalized at S + step with length `step`, the
+        first of the highest score. One row."""
+        nb, step = st.tok.shape[0], st.step
+        norm = (st.start + step).float() ** st.length_penalty
+        scores = torch.cat([st.fin_scores, st.beam_scores / norm])
+        codes = torch.cat([st.fin_codes, st.codes])[:, :max_new]
+        lengths = torch.cat([st.fin_lens, step.expand(nb)])
+        best = torch.argmax(scores)
+        return GenerateResult(codes=codes[best][None], lengths=lengths[best][None])
+
+    @torch.inference_mode()
+    def generate_beam(self, conds_latent, text_ids, text_pos, text_valid,
+                      seed: Optional[int], max_new: int, num_beams: int = 3,
+                      repetition_penalty_value: float = 10.0, length_penalty: float = 0.0,
+                      do_sample: bool = False, temperature: float = 1.0, top_p: float = 1.0,
+                      eager: bool = False, cond_kv=None) -> GenerateResult:
+        """Beam search for one request (B=1; the rows carry its num_beams
+        beams), as JAX `generate_beam` (indextts_tpu/runtime/decode.py:
+        835-866): deterministic, or with `do_sample` beam-multinomial (the
+        reference's default), its draws from the decoder's generator
+        seeded with `seed`. The prompt is prefilled once, on top of
+        `cond_kv` when given, and copied into every beam. Up to max_new
+        steps, the last finishing early on HF's is_done; on the card each
+        is a replay of the captured step (`eager` runs them eagerly, the
+        yardstick). Returns the best hypothesis: its codes, stop-padded,
+        and its length, the eos included when it has one."""
+        if cond_kv is not None and not self.supports_cond_kv:
+            raise ValueError(f"cond_kv on a decoder whose layout prefills whole "
+                             f"(attn_impl={self.attn_impl!r}, kv_int8={self.kv_int8})")
+        if num_beams < 2:
+            raise ValueError(f"num_beams={num_beams}: beam search takes 2 or more")
+        with self._lock:
+            t0 = time.perf_counter()
+            with self._on_request(seed):
+                st = self.prefill(conds_latent, text_ids, text_pos, text_valid, max_new,
+                                  cond_kv, num_beams=num_beams)
+                self._reset_beam(st, temperature, top_p, repetition_penalty_value,
+                                 length_penalty)
+                self._steps(st, self._beam_step, do_sample, max_new, eager,
+                            until_finished=True)
+            res = self._beam_result(st, max_new)
+            self.tokens += int(res.lengths.sum())
+            self.seconds += time.perf_counter() - t0
+        return res
 
     # -- continuous batching ------------------------------------------------
     # The counterpart of the JAX decoder's prefill_request, insert_slot and

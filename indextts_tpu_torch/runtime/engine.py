@@ -61,10 +61,16 @@ and sets alpha to 1; a `use_random` request has no key. `infer_text`
 with `use_emo_text` asks the attached `qwen_emo` (runtime/qwen_emo.py)
 for the vector.
 
-Routes the port does not implement raise NotImplementedError: beam search
-(num_beams > 1), batched segments, and bfloat16 s2mel or vocoder dtypes.
-`infer_continuous` decodes the segments in a shared runtime/batcher.py
-ContinuousService.
+The AR decode is routed by num_beams as in the JAX engine (indextts_tpu/
+runtime/engine.py:639-690): past one beam, `GPTDecoder.generate_beam`
+(beam-multinomial with do_sample, the config's default of 3 beams, else
+deterministic), its prompt's text padded to the JAX engine's 16-bucket;
+one beam, the sampling loop. `length_penalty` (runtime.length_penalty by
+default) reaches it through every entry point's keyword arguments.
+Routes the port does not implement raise NotImplementedError: batched
+segments, and bfloat16 s2mel or vocoder dtypes. `infer_continuous`
+decodes the segments in a shared runtime/batcher.py ContinuousService,
+with sampling only, as the JAX batcher does.
 
 The AR decode (runtime/decode.py `GPTDecoder`) replays a captured step on
 the card; the engine hands it each request's seed (a random one for a
@@ -563,26 +569,38 @@ class IndexTTS2Engine:
         seed: Optional[int] = None,
         num_beams: Optional[int] = None,
         do_sample: Optional[bool] = None,
+        length_penalty: Optional[float] = None,
     ) -> np.ndarray:
         """The AR decode of one segment from its conds (1, 34, D), on top of
         the prefix KV `cond_kv` when given: the code row, stop token
-        included, on the host."""
+        included, on the host. Routed by num_beams as the JAX engine
+        (indextts_tpu/runtime/engine.py:615-690): beam search (multinomial
+        with do_sample, else deterministic) past one beam, over the text
+        padded to a 16-bucket (capped at max_text_tokens; exact when
+        precise), so that S in its length normalization is the JAX
+        engine's; else the sampling loop over the text at its exact
+        width (the pads are masked, so its codes are the same)."""
         rt = self.cfg.runtime
-        if (num_beams if num_beams is not None else rt.num_beams) > 1:
-            raise NotImplementedError("beam search (num_beams > 1) is not ported yet")
+        nb = num_beams if num_beams is not None else rt.num_beams
         n = len(text_ids)
+        bucket = n
+        if nb > 1 and not self.precise:
+            bucket = min(next_bucket(n, 16, 16), self.cfg.gpt.max_text_tokens)
         ids, pos, valid = self.decoder.build_text_prompt_arrays(
-            np.asarray(text_ids)[None], np.asarray([n]), n)
-        res = self.decoder.generate(
-            conds, self._tensor(ids), self._tensor(pos), self._tensor(valid),
-            self._seed(seed),
-            max_new=max_mel_tokens or rt.max_mel_tokens,
-            temperature=temperature if temperature is not None else rt.temperature,
-            top_p=top_p if top_p is not None else rt.top_p,
-            repetition_penalty_value=rt.repetition_penalty,
-            do_sample=do_sample,
-            cond_kv=cond_kv,
-        )
+            np.asarray(text_ids)[None], np.asarray([n]), bucket)
+        args = (conds, self._tensor(ids), self._tensor(pos), self._tensor(valid),
+                self._seed(seed))
+        kwargs = dict(max_new=max_mel_tokens or rt.max_mel_tokens,
+                      temperature=temperature if temperature is not None else rt.temperature,
+                      top_p=top_p if top_p is not None else rt.top_p,
+                      repetition_penalty_value=rt.repetition_penalty, cond_kv=cond_kv)
+        if nb > 1:
+            res = self.decoder.generate_beam(
+                *args, num_beams=nb, do_sample=do_sample if do_sample is not None else
+                rt.do_sample, length_penalty=(length_penalty if length_penalty is not None
+                                              else rt.length_penalty), **kwargs)
+        else:
+            res = self.decoder.generate(*args, do_sample=do_sample, **kwargs)
         n_codes = int(res.lengths[0])
         return res.codes[0, :n_codes].cpu().numpy()
 
@@ -733,8 +751,11 @@ class IndexTTS2Engine:
         JAX engine's `precompile` (indextts_tpu/runtime/engine.py:1006-1192)
         over the same grid (`precompile_grid`), in `workers` threads, each
         job one call of the stage through the engine's own code. Decode: one
-        `generate` a text bucket, which captures the step of its (1, cap)
-        state. "both" and "keyed" first run `cond_prefill` on the prompt's
+        decode a text bucket on the route `num_beams` (default
+        runtime.num_beams) gives: `generate`, which captures the step of
+        its (1, cap) state, or past one beam `generate_beam`, which
+        captures the beam step of its ("beam", nb, cap) state, the one a
+        request of that bucket takes. "both" and "keyed" first run `cond_prefill` on the prompt's
         conds, as the JAX engine does (indextts_tpu/runtime/engine.py:
         1074-1077), and decode on the keyed route where the decoder reuses
         the prefix (else on the raw route, as the JAX engine's "keyed" falls
@@ -754,8 +775,6 @@ class IndexTTS2Engine:
             raise ValueError(f"decode_variants={decode_variants!r}: one of both, keyed, "
                              "raw, none")
         nb = rt.num_beams if num_beams is None else num_beams
-        if nb > 1 and decode_variants != "none":
-            raise NotImplementedError("beam search (num_beams > 1) is not ported yet")
         grid = precompile_grid(g.max_text_tokens, rt.max_text_tokens_per_segment,
                                text_buckets, max_code_len, code_lens)
         decode = [] if decode_variants == "none" else grid.text_buckets
@@ -770,7 +789,8 @@ class IndexTTS2Engine:
         # the request path's own calls, at each bucket's width
         jobs: List[Callable[[], Any]] = [
             functools.partial(self._generate_codes, conds, np.ones(b, np.int64), prefix,
-                              max_mel_tokens=max_new, seed=0, do_sample=do_sample)
+                              max_mel_tokens=max_new, seed=0, num_beams=nb,
+                              do_sample=do_sample)
             for b in decode]
         stop, dev = g.stop_mel_token, self.device
         jobs += [functools.partial(self._latent_pass, spk, emovec, np.zeros(tb, np.int64),

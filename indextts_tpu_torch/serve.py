@@ -22,6 +22,10 @@ conditioning and the conditioning prefix's KV are computed once and reused.
 Serving mode: sequential, or continuous batching, where every request's
 segments decode in one shared chunked loop (runtime/batcher.py
 `ContinuousService`), as the JAX server picks it (`pick_continuous_slots`).
+--num-beams (TARS_NUM_BEAMS, default 1) picks the sequential route's
+decode, as in the JAX server: 1 samples, 3 runs the reference's
+beam-multinomial search (`GPTDecoder.generate_beam`); the background
+precompile warms that route's step. Continuous batching always samples.
 
 With a default prompt, a background thread captures the serving
 envelope's programs (`IndexTTS2Engine.precompile`: decode steps, latent
@@ -46,7 +50,7 @@ Left out against the JAX entry point: the compile cache and multihost
 initialization. A warmup that fails raises.
 
 Env knobs keep the TARS_* names: TARS_MAX_CONCURRENCY, TARS_REFERENCE_AUDIO,
-TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS,
+TARS_WARMUP, TARS_DIFFUSION_STEPS, TARS_CFG_RATE, TARS_MAX_MEL_TOKENS, TARS_NUM_BEAMS,
 TARS_QUICK_STREAMING, TARS_SEQ_TAIL_OVERLAP (1: on);
 TARS_CONTINUOUS_SLOTS (default "auto"), TARS_CONTINUOUS_CHUNK (decode steps
 a chunk, 32) and TARS_CONTINUOUS_TAIL_WORKERS (2); TARS_PRECOMPILE (1: on),
@@ -135,11 +139,15 @@ def _segments(engine, text: str, quick: int = 0) -> List[np.ndarray]:
                              quick=quick)
 
 
-def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
+def make_synth(engine, default_prompt: Optional[str], service=None,
+               num_beams: Optional[int] = None) -> Callable:
     """The server's synth(text, spk_audio, ...) callable over `engine`,
     through the ContinuousService `service` when there is one; on the
     sequential route with a tokenizer through `infer_text`, as the JAX
-    server's synth. ValueError -> HTTP 400 in the server."""
+    server's synth. The sequential route decodes with `num_beams` (default
+    the engine's runtime.num_beams); the continuous one samples.
+    ValueError -> HTTP 400 in the server."""
+    beams = {} if num_beams is None else {"num_beams": num_beams}
 
     def synth(text="", spk_audio=None, emo_audio=None, emo_alpha=1.0,
               emo_vector=None, seed=None, use_emo_text=False, emo_text=None,
@@ -148,7 +156,7 @@ def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
         if service is None and engine.tokenizer is not None:
             return engine.infer_text(spk, text, use_emo_text=use_emo_text, emo_text=emo_text,
                                      emo_audio=emo_audio, emo_alpha=emo_alpha,
-                                     emo_vector=emo_vector, seed=seed)
+                                     emo_vector=emo_vector, seed=seed, **beams)
         emo_vector = emo_vector_of(engine, text, use_emo_text, emo_text, emo_vector)
         seg_ids = _segments(engine, text)
         if service is not None:
@@ -156,19 +164,21 @@ def make_synth(engine, default_prompt: Optional[str], service=None) -> Callable:
                                            emo_alpha=emo_alpha, emo_vector=emo_vector,
                                            seed=seed)
         return engine.infer(spk, seg_ids, emo_audio=emo_audio,
-                            emo_alpha=emo_alpha, emo_vector=emo_vector, seed=seed)
+                            emo_alpha=emo_alpha, emo_vector=emo_vector, seed=seed, **beams)
 
     return synth
 
 
-def make_synth_stream(engine, default_prompt: Optional[str], service=None) -> Callable:
+def make_synth_stream(engine, default_prompt: Optional[str], service=None,
+                      num_beams: Optional[int] = None) -> Callable:
     """The server's synth_stream(text, ...) generator over `engine`, the
     counterpart of indextts_tpu/serve.py:240-279: each chunk a segment's
-    waveform or the silence after it, through `infer_generator`, or
-    `infer_generator_continuous` when there is a ContinuousService. The
-    payload's `quick_streaming_tokens`, else TARS_QUICK_STREAMING, sizes
-    the first segments."""
+    waveform or the silence after it, through `infer_generator` (with
+    `num_beams`, as `make_synth`), or `infer_generator_continuous` when
+    there is a ContinuousService. The payload's `quick_streaming_tokens`,
+    else TARS_QUICK_STREAMING, sizes the first segments."""
     quick_default = int(os.environ.get("TARS_QUICK_STREAMING", "0"))
+    beams = {} if num_beams is None else {"num_beams": num_beams}
 
     def synth_stream(text="", spk_audio=None, emo_audio=None, emo_alpha=1.0,
                      emo_vector=None, seed=None, use_emo_text=False, emo_text=None,
@@ -182,18 +192,20 @@ def make_synth_stream(engine, default_prompt: Optional[str], service=None) -> Ca
         if service is not None:
             yield from engine.infer_generator_continuous(service, spk, seg_ids, **kwargs)
         else:
-            yield from engine.infer_generator(spk, seg_ids, **kwargs)
+            yield from engine.infer_generator(spk, seg_ids, **kwargs, **beams)
 
     return synth_stream
 
 
-def precompile_in_background(engine, prompt: str, continuous: bool) -> Future:
+def precompile_in_background(engine, prompt: str, continuous: bool,
+                             num_beams: Optional[int] = None) -> Future:
     """Start the JAX server's background precompile (indextts_tpu/serve.py
     :281-321) on the speaker prompt `prompt`: the envelope of
     TARS_PRECOMPILE_CODES codes in TARS_PRECOMPILE_WORKERS threads; decode
-    too unless `continuous` (continuous serving decodes in its batcher's
-    own state). Returns a future of (jobs, seconds); a failure is printed
-    and set on it, and never raised into the server."""
+    too, on the route of `num_beams` (default the engine's), unless
+    `continuous` (continuous serving decodes in its batcher's own state).
+    Returns a future of (jobs, seconds); a failure is printed and set on
+    it, and never raised into the server."""
     from indextts_tpu_torch.utils import audio as audio_utils
 
     done: Future = Future()
@@ -205,7 +217,7 @@ def precompile_in_background(engine, prompt: str, continuous: bool) -> Future:
             n = engine.precompile(
                 spk, max_code_len=int(os.environ.get("TARS_PRECOMPILE_CODES", "512")),
                 workers=int(os.environ.get("TARS_PRECOMPILE_WORKERS", "4")),
-                decode_variants="none" if continuous else "both")
+                num_beams=num_beams, decode_variants="none" if continuous else "both")
         except Exception as e:  # the server goes on; its shapes capture on demand
             traceback.print_exc()
             print(f">> precompile failed: {e!r}", file=sys.stderr)
@@ -224,14 +236,16 @@ def load_models(args, cfg=None):
     --model-dir (runtime/loader.py `load_engine`), else seeded random
     weights (--seed), on --device; `cfg` replaces the configuration that
     --cfg, the directory's config.yaml or the TARS_* env would give.
-    Serving decodes on the sampling route (num_beams=1), as the JAX server."""
+    runtime.num_beams is --num-beams (1, the sampling route, unless
+    TARS_NUM_BEAMS or the flag says otherwise), as the JAX server sets it."""
     from indextts_tpu_torch.config import load_config
     from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
     from indextts_tpu_torch.runtime.loader import load_engine, model_config
 
     if cfg is None:
         cfg = model_config(args.model_dir, args.cfg) if args.model_dir else load_config(args.cfg)
-    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, num_beams=1))
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
+                                                               num_beams=args.num_beams))
     if args.model_dir:
         return load_engine(args.model_dir, cfg=cfg, device=args.device)
     print(">> no --model-dir: random weights (smoke-test mode)", file=sys.stderr)
@@ -287,6 +301,14 @@ def build(argv=None, cfg=None, engine=None):
                         "versions of the kernels)")
     p.add_argument("--seed", type=int, default=0,
                    help="random-weights seed (without --model-dir)")
+    p.add_argument("--num-beams", type=int,
+                   default=int(os.environ.get("TARS_NUM_BEAMS", "1")),
+                   help="decode route for serving. Default 1 (the captured "
+                        "sampling loop); the reference's own accelerated "
+                        "serving path ignores num_beams too (model_v2.py:"
+                        "871-883). Set 3 for the reference HF-default "
+                        "beam-multinomial route. Continuous batching samples "
+                        "whatever this says.")
     args = p.parse_args(argv)
     from indextts_tpu_torch.runtime.server import ServerSettings, TTSServer
     from indextts_tpu_torch.utils.obs import print_stage, setup_logging
@@ -313,16 +335,17 @@ def build(argv=None, cfg=None, engine=None):
             chunk_steps=int(os.environ.get("TARS_CONTINUOUS_CHUNK", "32")),
             tail_workers=int(os.environ.get("TARS_CONTINUOUS_TAIL_WORKERS", "2")))
         print(f">> continuous batching: {slots} slots", file=sys.stderr)
-    synth = make_synth(engine, default_prompt, service)
+    synth = make_synth(engine, default_prompt, service, args.num_beams)
     server = TTSServer(synth, settings,
-                       stream_fn=make_synth_stream(engine, default_prompt, service),
+                       stream_fn=make_synth_stream(engine, default_prompt, service,
+                                                   args.num_beams),
                        device=engine.device)
     server.service = service
     server.precompiled = None
     if os.environ.get("TARS_PRECOMPILE", "1") == "1" and default_prompt:
         # before the warmup: the grid captures while the warmup runs
         server.precompiled = precompile_in_background(engine, default_prompt,
-                                                      service is not None)
+                                                      service is not None, args.num_beams)
     if settings.warmup and default_prompt:
         t0 = time.perf_counter()
         synth(text="warmup")

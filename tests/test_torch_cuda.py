@@ -532,6 +532,72 @@ def test_graph_decode_counts_the_eager_launches(cuda_device, route):
 
 
 # ---------------------------------------------------------------------------
+# beam search: the captured beam step against the eager one
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("do_sample", [False, True])
+@pytest.mark.parametrize("route", ["float", "w8"])
+def test_graph_beam_matches_eager(cuda_device, route, do_sample):
+    """Beam search over 3 beams, deterministic and beam-multinomial: the
+    captured step (the first request captures, the second replays from the
+    start) and the eager one on the same stream and state give the same
+    codes and lengths from one seed; the W8 route's beams keep an int8
+    cache. 40 steps cross two finish checks."""
+    dec, args = _graph_decoder(cuda_device, route)
+    kw = dict(max_new=40, num_beams=3, do_sample=do_sample, temperature=0.8, top_p=0.8)
+    runs = [dec.generate_beam(*args, 3, eager=eager, **kw) for eager in (True, False, False)]
+    for r in runs[1:]:
+        assert torch.equal(r.codes, runs[0].codes)
+        assert torch.equal(r.lengths, runs[0].lengths)
+    (st,) = dec._states.values()
+    assert list(st.graphs) == [do_sample]
+    assert (st.caches[0].dtype == torch.int8) == (route == "w8")
+    assert 1 <= int(runs[0].lengths[0]) <= 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("do_sample", [False, True])
+def test_beam_step_makes_no_host_sync(cuda_device, do_sample):
+    """An eager beam step and a replay of the captured one, under
+    set_sync_debug_mode("error"), which raises on any host sync."""
+    dec, args = _graph_decoder(cuda_device, "w8")
+    dec.generate_beam(*args, 3, max_new=20, num_beams=3, do_sample=do_sample)
+    (st,) = dec._states.values()
+    graph, _ = st.graphs[do_sample]
+    with torch.inference_mode(), torch.cuda.stream(dec._stream):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dec._beam_step(st, do_sample)
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_beam_graph_captured_once_per_shape(cuda_device):
+    """A beam state's graph is captured once per (num_beams, cap): a second
+    request of the same shape replays it; another cap or beam count gets
+    its own state, and a sampling request of as many rows would too (keys
+    ("beam", nb, cap) against (B, cap))."""
+    dec, args = _graph_decoder(cuda_device, "float")
+
+    def graphs():
+        return {key: len(st.graphs) for key, st in dec._states.items()}
+
+    dec.generate_beam(*args, 3, max_new=40, num_beams=3)
+    dec.generate_beam(*args, 4, max_new=40, num_beams=3)
+    assert graphs() == {("beam", 3, 256): 1}
+    dec.generate_beam(*args, 3, max_new=300, num_beams=3)
+    dec.generate_beam(*args, 3, max_new=40, num_beams=2)
+    dec.generate(*args, 3, max_new=40)
+    assert graphs() == {("beam", 3, 256): 1, ("beam", 3, 512): 1, ("beam", 2, 256): 1,
+                        (1, 256): 1}
+
+
+# ---------------------------------------------------------------------------
 # continuous batching: the captured batched step against the eager one
 # ---------------------------------------------------------------------------
 
