@@ -45,11 +45,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    128-frame bucket (T=898 with 774 valid frames at the main path), and is
    also checked at the longest segment the default config allows (T=2946
    with 2838 valid), below one tile, with a row of one valid
-   key and with a row of none, on the DiT's strided views (against their
+   key and with a row of none, at a batched solve's 16 rows (8 unequal
+   valid counts, each in the cond and the null half), on the DiT's strided views (against their
    contiguous copies, to the bit) and called again (the same bits). K2 is
    checked at every shape of a vocoder call at the main path and at the
    longest segment, at the five cases checked before the redesign, and at
-   edge cases from its plan (`k2_cases`: T = 1, 2, 3, 7, at a warp's chunk
+   edge cases from its plan, at a batched vocoder call's 8 rows of its
+   first shape (C=2304, T=2560), and at further cases (`k2_cases`: T = 1, 2, 3, 7, at a warp's chunk
    of 32 x 12 outputs and at a block's four, one either side, a last chunk
    of one lane, T % 4 != 0, logscale False, a last block of one warp, beta
    exp(-4) on every fourth channel, held to 2e-5 plus 1e-5 of the plain
@@ -60,8 +62,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    over every key but one, shares that take two rounds (cap 3000), the
    continuous phase's slot state (8 rows in one cache of cap 512 at unequal
    valid lengths 158-457, holes of unequal length from the conditioning's
-   end, 34, one row without a hole and an idle row attending one key) and,
-   for K1, a row with no key (zeros). K5-K8 are also checked at 16 rows and at
+   end, 34, one row without a hole and an idle row attending one key), a
+   batched request's 8 rows (one prompt, each row its own hole, at one
+   step) and, for K1, a row with no key (zeros). K5-K8 are also checked at 16 rows and at
    17 and 40 rows, which go in chunks.
    K5 and K7 are also checked at F=384, at D=2048 and at a contraction long
    enough for three passes of weight boxes a block; K6 and K8 at one group
@@ -208,6 +211,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    buffers. W8 and W4: one such beam request each, with the route's
    counters rising (W8: K2-K6; W4: K2-K5, K7, K8). The launches a beam
    request takes are printed per route before the kernels line.
+6. Batched segments (runtime/engine.py `synthesize_segments_batched`,
+   `infer(..., batched=True)`), on each route's engine after its phase 5.
+   The small configurations of phase 3 also run a batched request of 3
+   segments on the card and on the CPU (the same codes, the waveform
+   within the route's tolerance). Float (`batched_phase`): the warm-up at
+   512 codes from nothing captured (jobs, seconds, peak memory); a
+   batched request of 8 segments of unequal length (46-53 ids, so every
+   row has its own pad hole) captures its B=8 keys and must leave every
+   warmed key in place, and a sequential request after it must capture
+   nothing; 2 rounds of the batched request against the same 8 segments
+   one after another, in turns (wall, audio s per wall s, stage seconds,
+   decode tokens/s; launches counted with the counters set to 0 just
+   before a batched request and read just after); the batched decode
+   captured against eager (the same codes); the 8-row CFM solve's replay
+   against the eager solve (the same bits, the same kernels by name and
+   count), 2 replays timed against its float32 floor, its largest
+   kernels; one replay of the 8-row latent pass and vocoder; the batched
+   decode state's bytes, the runners' pools and the peak memory. W8 and W4
+   (`batched_request`): one batched request each, wall, stages and
+   launches (W8 also captured against eager). The launches a batched
+   request takes are printed per route before the kernels line.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -289,6 +313,9 @@ TEXT_HEAD_SEED = 17  # the checkpoint's text_head, which the loader reads and dr
 BEAMS = 3  # the beam phase's beams: the config's default num_beams
 BEAM_ROUNDS = 2  # captured against eager beam search, in turns
 BEAM_SEED = 19
+BATCH_ROUNDS = 2  # the batched request against its segments one after another, in turns
+BATCH_SEED = 23
+BATCH_CODES = 512  # the envelope the float route's precompile is measured at
 
 
 def fail(msg: str):
@@ -297,6 +324,12 @@ def fail(msg: str):
 
 def request_text(i: int) -> str:
     return f"The port answers request number {i} on the card."
+
+
+def batch_texts() -> list:
+    """The batched phase's 8 segments: texts of 46 to 53 byte ids, so that
+    each row of the prompt's 64-bucket has its own left-pad hole."""
+    return [request_text(10 ** i) for i in range(CONT_REQUESTS)]
 
 
 # ---------------------------------------------------------------------------
@@ -442,15 +475,29 @@ def main_path_shapes(cfg, max_mel: int):
     # hole after the conditioning (runtime/engine.py `_generate_codes`)
     bucket = min(next_bucket(n_text, 16, 16), g.max_text_tokens)
     c0 = g.condition_num_latent + 2
+    # the batched phase's prompt: its texts right-aligned in the 16-bucket of
+    # the longest, each row its own hole (runtime/engine.py
+    # `synthesize_segments_batched`)
+    n_batch = [len(byte_fallback_ids(t, g.number_text_tokens, 200)) for t in batch_texts()]
+    batch_bucket = min(next_bucket(max(n_batch), 16, 16), g.max_text_tokens)
+    # a batched CFM solve of rows with unequal codes inside one 128-frame
+    # bucket: each row's valid frames its own
+    T_solve = ref_mel + next_bucket(target, 128, 128)
+    batch_codes = [max_mel - 37 * b for b in range(len(n_batch))]
     return {"decode_cap": prompt + max_mel, "slot_prompt": slot_prompt, "snake": snake,
             "beam_prompt": c0 + bucket + 2 + 1, "beam_hole": [c0, c0 + bucket - n_text],
+            "batch_prompt": c0 + batch_bucket + 2 + 1,
+            "batch_holes": [[c0] * len(n_batch), [c0 + batch_bucket - n for n in n_batch]],
+            "batch_dit_valid": [min(ref_mel + int(np.floor(np.float32(c) * np.float32(1.72))),
+                                    T_solve) for c in batch_codes],
             # the CFM solve's width: the target bucketed to 128 frames, as the
             # engine's default (precise_shapes=False) runs it
             "dit_T": ref_mel + next_bucket(target, 128, 128),
             "dit_valid": min(ref_mel + ylen, ref_mel + next_bucket(target, 128, 128))}
 
 
-def decode_cases(cap: int, slot_prompt: int, beam_prompt: int, beam_hole):
+def decode_cases(cap: int, slot_prompt: int, beam_prompt: int, beam_hole, batch_prompt: int,
+                 batch_holes):
     """K1's and K4's cases: (name, B, cap, valid, hole start, hole end). A
     cluster rank takes a share of 16 * ceil(valid / 128) keys (ops/
     decode_attention.py `rank_span`), so valid 15-17 and 127-129 cross a
@@ -464,7 +511,9 @@ def decode_cases(cap: int, slot_prompt: int, beam_prompt: int, beam_hole):
     codes: rows at unequal steps, one idle (one key, a finished request's
     hole past it). A beam search's 3 rows share one prompt of `beam_prompt`
     keys with the hole `beam_hole` and attend to as many keys (the last
-    step of MAX_MEL_TOKENS)."""
+    step of MAX_MEL_TOKENS). A batched request's 8 rows share one prompt of
+    `batch_prompt` keys, each with its own hole (`batch_holes`: starts,
+    ends), at one step (the last of MAX_MEL_TOKENS)."""
     from indextts_tpu_torch.runtime.decode import cache_cap
 
     S, c0 = slot_prompt, 34
@@ -486,7 +535,13 @@ def decode_cases(cap: int, slot_prompt: int, beam_prompt: int, beam_hole):
          [c0 if h else 0 for h in holes], [c0 + h if h else 0 for h in holes]),
         ("beam rows", 3, cache_cap(beam_prompt, MAX_MEL_TOKENS),
          [beam_prompt + MAX_MEL_TOKENS] * 3, [beam_hole[0]] * 3, [beam_hole[1]] * 3),
+        ("batched rows", len(batch_holes[0]), cache_cap(batch_prompt, MAX_MEL_TOKENS),
+         [batch_prompt + MAX_MEL_TOKENS] * len(batch_holes[0]), *batch_holes),
     ]
+
+
+# the main_path_shapes entries that decode_cases takes after the cap
+CASE_SHAPES = ("slot_prompt", "beam_prompt", "beam_hole", "batch_prompt", "batch_holes")
 
 
 # (cap, valid) at which K1 and K4 are timed: the main path's last step, the
@@ -618,8 +673,8 @@ def check_k1(shapes, layers: int, heads: int):
     cap = shapes["decode_cap"]
     # besides decode_cases: a row with no attending key (zeros) beside a
     # row with one
-    cases = decode_cases(cap, shapes["slot_prompt"], shapes["beam_prompt"],
-                         shapes["beam_hole"]) + [("no key", 2, 64, [0, 10], [0, 0], [0, 9])]
+    cases = decode_cases(cap, *(shapes[k] for k in CASE_SHAPES)) + [
+        ("no key", 2, 64, [0, 10], [0, 0], [0, 9])]
     err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         def make(B, c):
@@ -762,6 +817,17 @@ def check_k2(shapes, long_seq):
     for label, seq in (("main", shapes["snake"]), ("longest", long_seq)):
         for C, T in dict.fromkeys(seq):
             check(f"{label} C={C} T={T}", *k2_inputs(g, 1, C, T))
+    # a batched request's vocoder call: 8 rows at its first snake shape,
+    # timed against one row of it
+    C, T = shapes["snake"][0]
+    x, a, b = k2_inputs(g, CONT_REQUESTS, C, T)
+    check(f"batched {CONT_REQUESTS} rows C={C} T={T}", x, a, b)
+    ms_rows = cuda_ms(lambda: k2.anti_alias_snake(x, a, b, True))
+    ms_one = cuda_ms(lambda: k2.anti_alias_snake(x[:1], a, b, True))
+    b_ms, by = bound(2 * x.numel() * 4 + 2 * C * 4, 58 * x.numel())
+    print(f"K2 batched {CONT_REQUESTS} rows C={C} T={T}: kernel_ms={ms_rows:.4f} (one row "
+          f"{ms_one:.4f}) bound_ms={b_ms:.4f} ({by})")
+    del x, a, b
     x, a, b = k2_inputs(g, 1, *shapes["snake"][0])
     got = k2.anti_alias_snake(x, a, b, True)
     one_launch("K2", lambda: k2.anti_alias_snake(x, a, b, True))
@@ -811,11 +877,14 @@ def check_k3(shapes, longest, heads: int):
     cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
              ("T37", 37, [37, 20]), ("T100", 100, [100, 37]), ("T255", 255, [255, 1]),
              ("T300", 300, [300, 150]), ("T1000", 1000, [999, 600]),
-             ("no-valid-key", 300, [300, 0])]
+             ("no-valid-key", 300, [300, 0]),
+             # a batched solve: 8 rows of unequal valid frames, cond and null
+             # halves alike
+             ("batched 16 rows", T, shapes["batch_dit_valid"] * 2)]
     errs, inputs = {}, {}
     for name, t, lens in cases:
         B = len(lens)
-        if name == "main" or name.startswith("longest"):
+        if name in ("main", "batched 16 rows") or name.startswith("longest"):
             q, k, v = dit_qkv(g, B, heads, t)
         else:
             q, k, v = (torch.randn((B, heads, t, 64), generator=g, device=dev) for _ in range(3))
@@ -860,6 +929,7 @@ def check_k3(shapes, longest, heads: int):
 
     ms, plain, lib, b_ms, by = timed("main")
     timed(f"longest T={long_T}")
+    timed("batched 16 rows")
     return {"name": "K3 dit_attention", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/dit_attention.cu",
             "replaces": "indextts_tpu/models/s2mel.py:141",
@@ -884,8 +954,8 @@ def check_k4(shapes, layers: int, heads: int):
         v8, vsc = quantize_kv(torch.randn((B, heads, c, 64), generator=g, device=dev))
         return q, k8, v8, ksc, vsc
 
-    cases = decode_cases(cap, shapes["slot_prompt"], shapes["beam_prompt"], shapes["beam_hole"]
-                         ) + [("valid-1", 3, cap, [1, 1, 1], [0, 0, 0], [0, 0, 0])]
+    cases = decode_cases(cap, *(shapes[k] for k in CASE_SHAPES)) + [
+        ("valid-1", 3, cap, [1, 1, 1], [0, 0, 0], [0, 0, 0])]
     err = check_decode_cases("K4", k4.ragged_decode_attention_q8,
                              k4.ragged_decode_attention_q8_plain, cases, make, tol)
     main = time_k4(cap, layers, heads)[0]
@@ -1301,8 +1371,21 @@ def small_reference(wav_path: str, cfg, label: str, mel_tol: float, wav_tol: flo
         _, beam, _ = eng._decode_segment_codes(spk, emo, text, seed=0, num_beams=BEAMS,
                                                do_sample=False)
         res = eng.infer((audio, sr), [text], seed=0)
-        outs[dev] = (codes, eng._mel_taps[-1], res["audio"], beam)
-    (c0, m0, w0, b0), (c1, m1, w1, b1) = outs["cpu"], outs["cuda"]
+        seen = spy_codes(eng)
+        try:
+            batched = eng.infer((audio, sr), [text, text[:6], text[4:]], seed=0, batched=True)
+        finally:
+            eng.decoder.__dict__.pop("generate", None)
+        outs[dev] = (codes, eng._mel_taps[0], res["audio"], beam, seen[0], batched["audio"])
+    (c0, m0, w0, b0, s0, bw0), (c1, m1, w1, b1, s1, bw1) = outs["cpu"], outs["cuda"]
+    if not all(np.array_equal(a, b) for a, b in zip(s0, s1)):
+        fail(f"small config ({label}): batched codes differ on the card: {s0} vs {s1}")
+    bpeak, berr = float(np.abs(bw0).max()), float(np.abs(bw0 - bw1).max())
+    print(f"small config ({label}), card vs CPU: batched 3-segment codes equal (lengths "
+          f"{s0[1].tolist()}), waveform max_abs_err={berr:.3g} of peak {bpeak:.3g} (tol "
+          f"{wav_tol:g} relative)")
+    if not (0 < bpeak < 1 and bw0.shape == bw1.shape and berr <= wav_tol * bpeak):
+        fail(f"small config ({label}): the card's batched waveform disagrees with the CPU's")
     if not np.array_equal(c0, c1):
         fail(f"small config ({label}): greedy codes differ on the card: {c0} vs {c1}")
     if not np.array_equal(b0, b1):
@@ -2438,6 +2521,254 @@ def tail_turns(engine, wav_path: str, label: str):
     print(f"[{label}] the tail phase took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# batched segments: runtime/engine.py `synthesize_segments_batched`
+# ---------------------------------------------------------------------------
+
+
+def spy_codes(engine, eager: bool = False) -> list:
+    """Wrap the engine's decoder's `generate` (run eagerly with `eager`) to
+    record each decode's codes and lengths on the host; returns the list.
+    `engine.decoder.__dict__.pop("generate")` undoes it."""
+    dec, seen = engine.decoder, []
+    gen = functools.partial(type(dec).generate, dec, eager=eager)
+
+    def generate(*args, **kw):
+        res = gen(*args, **kw)
+        seen.append((res.codes.cpu().numpy(), res.lengths.cpu().numpy()))
+        return res
+
+    dec.generate = generate
+    return seen
+
+
+def batched_ids(engine) -> list:
+    """The token ids of `batch_texts`, one segment each."""
+    from indextts_tpu_torch.serve import fallback_segments
+
+    c = engine.cfg
+    return [fallback_segments(t, c.gpt.number_text_tokens, c.runtime.max_text_tokens_per_segment,
+                              c.gpt.max_text_tokens)[0] for t in batch_texts()]
+
+
+def batched_run(engine, wav_path: str, segs, eager: bool = False):
+    """One batched request of `segs` from BATCH_SEED (`infer(...,
+    batched=True)`, the decode eagerly with `eager`): (result, the decode's
+    (codes, lengths), decode tokens, decode seconds, wall seconds)."""
+    dec = engine.decoder
+    seen = spy_codes(engine, eager)
+    tok0, sec0 = dec.tokens, dec.seconds
+    t0 = time.perf_counter()
+    try:
+        res = engine.infer(wav_path, segs, seed=BATCH_SEED, batched=True)
+    finally:
+        dec.__dict__.pop("generate", None)
+    wall = time.perf_counter() - t0
+    if len(seen) != 1 or seen[0][0].shape[0] != len(segs):
+        fail(f"the batched request of {len(segs)} segments did not decode them in one loop")
+    return res, seen[0], dec.tokens - tok0, dec.seconds - sec0, wall
+
+
+def print_run(label: str, what: str, res, stages: dict, toks: int, dsec: float, wall: float):
+    audio = res["duration_sec"]
+    print(f"[{label}] {what}: wall_s={wall:.3f} audio_s={audio:.3f} "
+          f"audio_s_per_wall_s={audio / wall:.3f} decode_tokens={toks} "
+          f"decode_tok_per_s={toks / dsec:.1f} stages_s "
+          + " ".join(f"{k}={v:.4f}" for k, v in stages.items()))
+    if not (np.isfinite(res["audio"]).all() and np.abs(res["audio"]).max() > 0):
+        fail(f"[{label}] {what}: silent or non-finite audio")
+
+
+def check_launches(label: str, what: str, launches: dict, rise, stay) -> None:
+    for name, n in launches.items():
+        print(f"[{label}] {what} {name}: launches={n}")
+        if name in rise and n == 0:
+            fail(f"[{label}] {name} was never launched on the {what}")
+        if name in stay and n != 0:
+            fail(f"[{label}] {name} was launched {n} times on the {what}; it has no place there")
+
+
+def counted_batched_run(engine, wav_path: str, segs, label: str, rise, stay):
+    """`batched_run` with every kernel counter set to 0 just before it and
+    read just after: those in `rise` must have risen, those in `stay` must
+    be 0. Returns batched_run's tuple and the launches."""
+    counters = kernel_counters()
+    for cnt in counters.values():
+        cnt.launches = 0
+    out = batched_run(engine, wav_path, segs)
+    launches = {name: cnt.launches for name, cnt in counters.items()}
+    check_launches(label, f"batched {len(segs)}-segment request", launches, rise, stay)
+    return out, launches
+
+
+def batched_codes_check(engine, wav_path: str, segs, captured, label: str) -> None:
+    """The batched decode eagerly from the same seed: the captured loop's
+    codes and lengths."""
+    _, (codes, lengths), toks, dsec, _ = batched_run(engine, wav_path, segs, eager=True)
+    if not (np.array_equal(codes, captured[0]) and np.array_equal(lengths, captured[1])):
+        fail(f"[{label}] the batched decode eager and captured differ from one seed")
+    print(f"[{label}] batched decode captured and eager: the same codes on all {len(segs)} "
+          f"rows from seed {BATCH_SEED} (lengths {lengths.tolist()}; eager "
+          f"{toks / dsec:.1f} tokens/s)")
+
+
+def batched_request(engine, wav_path: str, label: str, rise, stay,
+                    eager_check: bool = False) -> dict:
+    """A route's batched request of `batch_texts` after its other phases:
+    one that captures its keys, then one counted (`counted_batched_run`),
+    its wall, stages and launches printed; with `eager_check`,
+    `batched_codes_check`. Returns the launches."""
+    segs = batched_ids(engine)
+    batched_run(engine, wav_path, segs)
+    (res, codes, toks, dsec, wall), launches = counted_batched_run(
+        engine, wav_path, segs, label, rise, stay)
+    print_run(label, f"batched {len(segs)}-segment request", res, engine._last_batched_stats,
+              toks, dsec, wall)
+    if eager_check:
+        batched_codes_check(engine, wav_path, segs, codes, label)
+    return launches
+
+
+def batched_phase(engine, wav_path: str, label: str, rise, stay) -> dict:
+    """The float route's batched phase, after its other phases. First the
+    warm-up at BATCH_CODES codes from nothing captured (the decode states
+    and the tail runners' keys dropped): its jobs, seconds and peak memory.
+    Then a batched request of `batch_texts` (8 segments of unequal length,
+    MAX_MEL_TOKENS codes at most) captures its own keys: every key the
+    warm-up captured must still be held with its graph, and a sequential
+    request inside the envelope after it must capture nothing. Then
+    BATCH_ROUNDS rounds of the batched request against the same segments
+    on the sequential route (TARS_STAGE_SYNC=1), in turns: wall, audio
+    seconds per wall second, stage seconds, decode tokens/s; the batched
+    codes the same every round, the launches of a batched request counted
+    (`counted_batched_run`), and its decode eagerly (`batched_codes_check`).
+    Then the B-row CFM solve replayed against the eager solve on its
+    buffers (the same bits), its kernels by name, count and ms against an
+    eager solve's (`replay_against_eager`), 2 replays timed with CUDA
+    events against its float32 floor; one replay of the latent pass and
+    of the vocoder timed; the batched decode state's bytes, each runner's
+    pool and the peak memory. Returns the launches of a batched request."""
+    import torch
+
+    from indextts_tpu_torch.ops import cuda_lib
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t_phase = time.perf_counter()
+    c, dec = engine.cfg, engine.decoder
+    runners = {"latent": engine.latent_runner, "s2mel": engine.s2mel_runner,
+               "vocoder": engine.vocoder_runner}
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    torch.cuda.synchronize()
+    with dec._lock:
+        dec._states.clear()
+    for r in runners.values():
+        with r.lock:
+            r.programs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    jobs = engine.precompile(spk, max_code_len=BATCH_CODES)
+    torch.cuda.synchronize()
+    print(f"[{label}] precompile over {BATCH_CODES} codes from nothing captured: {jobs} jobs "
+          f"in {time.perf_counter() - t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; graphs (decode, latent, "
+          f"s2mel, vocoder) {graph_counts(engine)}")
+    warmed = {name: r.keys() for name, r in runners.items()}
+
+    segs = batched_ids(engine)
+    B = len(segs)
+    batched_run(engine, wav_path, segs)  # captures the B-row keys
+    for name, r in runners.items():
+        held = r.keys()
+        lost = [k for k in warmed[name] if not held.get(k)]
+        if lost:
+            fail(f"[{label}] the batched request evicted the warmed {name} keys {lost}")
+    graphs = graph_counts(engine)
+    engine.infer(wav_path, [segs[0]], seed=BATCH_SEED)
+    if graph_counts(engine) != graphs:
+        fail(f"[{label}] a sequential request after the batched one captured graphs: (decode, "
+             f"latent, s2mel, vocoder) {graphs} before, {graph_counts(engine)} after")
+    print(f"[{label}] the batched request kept every warmed key ("
+          + ", ".join(f"{n} {len(k)}" for n, k in warmed.items()) + ") and added "
+          + ", ".join(f"{n} {[k for k in r.keys() if k not in warmed[n]]}"
+                      for n, r in runners.items())
+          + f"; a sequential request after it captured nothing: graphs {graphs}")
+
+    first, launches = None, None
+    for rnd in range(BATCH_ROUNDS):
+        for mode in (("batched", "sequential") if rnd % 2 == 0 else ("sequential", "batched")):
+            if mode == "batched":
+                if launches is None:
+                    (res, codes, toks, dsec, wall), launches = counted_batched_run(
+                        engine, wav_path, segs, label, rise, stay)
+                else:
+                    res, codes, toks, dsec, wall = batched_run(engine, wav_path, segs)
+                stages = dict(engine._last_batched_stats)
+                if first is None:
+                    first = codes
+                elif not all(np.array_equal(a, b) for a, b in zip(codes, first)):
+                    fail(f"[{label}] batched round {rnd}: codes differ from the first round's")
+            else:
+                tok0, sec0 = dec.tokens, dec.seconds
+                t0 = time.perf_counter()
+                res = engine.infer(wav_path, segs, seed=BATCH_SEED)
+                wall = time.perf_counter() - t0
+                toks, dsec = dec.tokens - tok0, dec.seconds - sec0
+                stages = {k: sum(getattr(s, f) for s in res["stats"]) for k, f in (
+                    ("gpt_decode", "gpt_gen_time"), ("gpt_latent", "gpt_forward_time"),
+                    ("s2mel", "s2mel_time"), ("bigvgan", "bigvgan_time"))}
+            print_run(label, f"batched round {rnd} {mode} ({B} segments)", res, stages, toks,
+                      dsec, wall)
+    batched_codes_check(engine, wav_path, segs, first, label)
+
+    runner = engine.s2mel_runner
+    prog = next(p for k, p in runner.programs.items() if k[0] == B)
+    mu, x_lens, prompt_x, prompt_len, style, noise = prog.args
+    T, valid = noise.shape[2], x_lens.tolist()
+    with runner.lock, torch.inference_mode(), torch.cuda.stream(runner.stream):
+        eager = runner.fn(*prog.args)
+        prog.graph.replay()
+        same = torch.equal(prog.out, eager)
+        del eager
+        eager_k, graph_k, _, counts = replay_against_eager(
+            lambda: runner.fn(*prog.args), prog.graph, False, label)
+        solve_ms = replays_ms(prog.graph, 2)
+    if not same:
+        fail(f"[{label}] the {B}-row CFM solve's replay differs from the eager solve")
+    if counts[0] != counts[1]:
+        fail(f"[{label}] a {B}-row solve replay's device kernels differ from an eager "
+             f"solve's: {kernel_diff(counts)}")
+    n_graph, ms_graph = (sum(v[i] for v in graph_k.values()) for i in (0, 1))
+    floor_ms = sum(s2mel_flops(c, v, v) for v in valid) / FP32_FLOPS * 1e3
+    bucket_ms = sum(s2mel_flops(c, T, v) for v in valid) / FP32_FLOPS * 1e3
+    print(f"[{label}] one {B}-row CFM solve ({2 * B} rows with CFG, T={T}, valid {valid}): "
+          f"replay equal to the eager solve to the bit; 2 replays back to back "
+          f"{solve_ms:.3f} ms a solve (CUDA events), {solve_ms / B:.3f} ms a row; {n_graph} "
+          f"device kernels, {ms_graph:.3f} device ms, idle inside "
+          f"{100 * (1 - ms_graph / solve_ms):.1f} %; float32 floor {floor_ms:.3f} ms at the "
+          f"valid frames, {bucket_ms:.3f} ms at the bucket's {T} (67 TFLOP/s)")
+    print(f"[{label}] the {B}-row solve replay's largest kernels by device ms: " + ", ".join(
+        f"{short_name(k)} x{n:g} {ms:.3f}"
+        for k, (n, ms) in sorted(graph_k.items(), key=lambda kv: -kv[1][1])[:8]))
+    for name in ("latent", "vocoder"):
+        r = runners[name]
+        p = next(p for k, p in r.programs.items() if k[0] == B)
+        with r.lock, torch.inference_mode(), torch.cuda.stream(r.stream):
+            ms = replays_ms(p.graph, 2)
+        print(f"[{label}] one {B}-row {name} replay (key "
+              f"{next(k for k in r.keys() if k[0] == B)}): {ms:.3f} ms (CUDA events)")
+    st = next(s for k, s in dec._states.items() if k[0] == B)
+    state_bytes = sum(t.nbytes for t in st.tensors())
+    print(f"[{label}] the batched decode state ({B}, {st.cap}): {state_bytes / 2**20:.1f} MiB "
+          "of static buffers; runner pools "
+          + ", ".join(f"{n} {cuda_lib.pool_bytes(r.pool) / 2**20:.1f} MiB"
+                      for n, r in runners.items())
+          + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the "
+          f"batched phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def post_stream(port: int, payload: dict):
     """POST /tts/stream: (status, seconds to the first chunk of PCM, wall
     seconds, the PCM as int16)."""
@@ -3391,7 +3722,7 @@ def main():
         full = load_config()
         model_dir, host, aux = reference_dir(full, tmp)
         print(f"phase reference_dir done at {time.perf_counter() - t_start:.1f} s")
-        launches, beam_launches = {}, {}
+        launches, beam_launches, batch_launches = {}, {}, {}
         for label, (change, rise, stay) in routes.items():
             counts, engine = serve_full_width(
                 wav_path, change(full), label, rise, stay, tmp, model_dir,
@@ -3404,8 +3735,11 @@ def main():
                 stream_phase(engine, wav_path, label, tmp, card)
                 emotion_phase(engine, wav_path, label, tmp, card, rise, stay)
                 beam_launches[label] = beam_phase(engine, wav_path, label, tmp, rise, stay)
+                batch_launches[label] = batched_phase(engine, wav_path, label, rise, stay)
             else:
                 beam_launches[label] = beam_request(engine, wav_path, label, tmp, rise, stay)
+                batch_launches[label] = batched_request(engine, wav_path, label, rise, stay,
+                                                        eager_check=label == "quantized")
             # each kernel's launches come from the route that runs it first
             for name in rise:
                 launches.setdefault(name, counts[name])
@@ -3421,6 +3755,9 @@ def main():
     print(f"launches a {BEAMS}-beam request (beam-multinomial, {MAX_MEL_TOKENS} steps at "
           "most): " + json.dumps({label: {k: n for k, n in counts.items() if n}
                                   for label, counts in beam_launches.items()}))
+    print(f"launches a batched {CONT_REQUESTS}-segment request ({MAX_MEL_TOKENS} codes a "
+          "segment at most): " + json.dumps({label: {k: n for k, n in counts.items() if n}
+                                             for label, counts in batch_launches.items()}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -50,8 +50,12 @@ the nb rows) is captured once per (nb, cap) and replayed as the sampling
 step is; HF's is_done is computed on the card and freezes the state, so
 the host's finish check ends the loop at the JAX loop's step.
 
-Still missing against the JAX package: text-prefix KV reuse and the
-batched-segments route.
+A request's segments decoded at once (the engine's batched route) are one
+`generate` over B rows: the texts right-aligned in one prompt, each row its
+own pad hole, every row's next key at the same slot, the loop ending once
+every row has finished.
+
+Still missing against the JAX package: text-prefix KV reuse.
 """
 
 from __future__ import annotations

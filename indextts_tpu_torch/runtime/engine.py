@@ -67,8 +67,13 @@ runtime/engine.py:639-690): past one beam, `GPTDecoder.generate_beam`
 deterministic), its prompt's text padded to the JAX engine's 16-bucket;
 one beam, the sampling loop. `length_penalty` (runtime.length_penalty by
 default) reaches it through every entry point's keyword arguments.
-Routes the port does not implement raise NotImplementedError: batched
-segments, and bfloat16 s2mel or vocoder dtypes. `infer_continuous`
+`infer(..., batched=True)` with several segments runs them all at once,
+as the JAX engine's `synthesize_segments_batched` (indextts_tpu/runtime/
+engine.py:847-1004, 1570-1579): one decode of B rows with the decoder's
+sampling, then one latent pass, one CFM solve and one vocoder call over
+the B rows, each stage's graph keyed on B; one segment takes the
+sequential route. Routes the port does not implement raise
+NotImplementedError: bfloat16 s2mel or vocoder dtypes. `infer_continuous`
 decodes the segments in a shared runtime/batcher.py ContinuousService,
 with sampling only, as the JAX batcher does.
 
@@ -668,69 +673,193 @@ class IndexTTS2Engine:
         t_voc = time.perf_counter() - t3
         return SegmentResult(wav, code_len, t_gpt_gen, t_gpt_fwd, t_s2mel, t_voc)
 
-    @torch.inference_mode()
     def _latent_pass(self, spk: SpeakerConditioning, emovec, text_ids: np.ndarray,
                      codes_row: np.ndarray, code_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The teacher-forced latent pass of `code_len` codes (the first of
-        `codes_row`, stop tokens past them) after `text_ids`: the codes
-        padded with the stop token to a multiple of 64, the text with zeros
-        to a multiple of 64 capped at max_text_tokens (the padding masked
-        inside forward_latent), exact with precise_shapes. Returns the latent
-        (1, code width, D) and the padded codes (1, code width) on the
-        device."""
-        cfg = self.cfg
-        n = len(text_ids)
+        `codes_row`, stop tokens past them) after `text_ids`: `_latent_rows`
+        of one row."""
+        return self._latent_rows(spk, emovec, [np.asarray(text_ids)], [codes_row], [code_len])
+
+    @torch.inference_mode()
+    def _latent_rows(self, spk: SpeakerConditioning, emovec, texts: Sequence[np.ndarray],
+                     code_rows: Sequence[np.ndarray], code_lens: Sequence[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The teacher-forced latent pass of B rows, row b `code_lens[b]`
+        codes (the first of `code_rows[b]`, stop tokens past them) after
+        `texts[b]`, over one speaker's latents and one emovec (1, D): the
+        codes padded with the stop token to a multiple of 64 of the longest,
+        the texts with zeros to a multiple of 64 of the longest capped at
+        max_text_tokens (the padding masked inside forward_latent), exact
+        with precise_shapes. Returns the latent (B, code width, D) and the
+        padded codes (B, code width) on the device."""
+        cfg, B = self.cfg, len(texts)
+        lens = [len(t) for t in texts]
+        n, code_len = max(lens), max(code_lens)
         code_bucket = code_len if self.precise else next_bucket(code_len, 64, 64)
         text_bucket = n if self.precise else min(next_bucket(n, 64, 64),
                                                  cfg.gpt.max_text_tokens)
-        codes_arr = np.full((1, code_bucket), cfg.gpt.stop_mel_token, np.int64)
-        n_copy = min(code_len, len(codes_row))
-        codes_arr[0, :n_copy] = codes_row[:n_copy]
-        text_arr = np.zeros((1, text_bucket), np.int64)
-        text_arr[0, :n] = text_ids[:n]
+        codes_arr = np.full((B, code_bucket), cfg.gpt.stop_mel_token, np.int64)
+        text_arr = np.zeros((B, text_bucket), np.int64)
+        for b in range(B):
+            n_copy = min(code_lens[b], len(code_rows[b]))  # 0: a stop-only row
+            codes_arr[b, :n_copy] = code_rows[b][:n_copy]
+            text_arr[b, :lens[b]] = texts[b]
         codes_t = self._tensor(codes_arr)
         latent = self.latent_runner.latent(
-            spk.spk_latents, self._tensor(text_arr), self._tensor([n]), codes_t,
-            self._tensor([code_len]), emovec)
+            spk.spk_latents.expand(B, -1, -1).contiguous(), self._tensor(text_arr),
+            self._tensor(lens), codes_t, self._tensor(np.asarray(code_lens)),
+            emovec.expand(B, -1).contiguous())
         return latent, codes_t
 
     @torch.inference_mode()
-    def _s2mel_mel(self, spk: SpeakerConditioning, latent, codes_t, code_len: int,
+    def _s2mel_mel(self, spk: SpeakerConditioning, latent, codes_t, code_lens,
                    target_len: int, noise) -> torch.Tensor:
-        """gpt_layer + vq2emb over the latent's and codes' width, the length
-        regulator over the `code_len` valid codes to `target_len` frames
-        (int(code_len * 1.72) of them valid), then the CFM solve: the mel
-        (1, 80, prompt frames + target_len)."""
+        """gpt_layer + vq2emb over the latent's and codes' width (B rows),
+        the length regulator over each row's `code_lens` valid codes (an int
+        for one row) to `target_len` frames (int(code_len * 1.72) of them
+        valid), then the CFM solve over the speaker's prompt broadcast to
+        the B rows, each row's valid frames its own (JAX `_s2mel_mel`,
+        indextts_tpu/runtime/engine.py:339-400): the mel (B, 80, prompt
+        frames + target_len)."""
         cfg = self.cfg
+        B = latent.shape[0]
+        code_lens = np.atleast_1d(np.asarray(code_lens, np.int64))
         # the regulator's valid length is rounded in float32, as in the JAX engine
-        ylen = int(np.floor(np.float32(code_len) * np.float32(1.72)))
-        code_len_t, ylens = self._tensor([code_len]), self._tensor([ylen])
+        ylens = self._tensor(np.floor(code_lens.astype(np.float32) * np.float32(1.72))
+                             .astype(np.int64))
         # the stop token that pads the codes to their bucket lies past the
         # codebook; the regulator reads no row at or past code_len, so those
         # rows are looked up clamped (the JAX engine's take fills them with NaN)
         codes_t = codes_t.clamp(max=cfg.semantic_codec.codebook_size - 1)
         s_infer = self.repcodec.vq2emb(codes_t) + self.s2mel.project_gpt_latent(latent)
-        cond = self.s2mel.regulate(s_infer, ylens, target_len, code_len_t)
-        cat_cond = torch.cat([spk.prompt_condition, cond], dim=1)
+        cond = self.s2mel.regulate(s_infer, ylens, target_len, self._tensor(code_lens))
+        cat_cond = torch.cat([spk.prompt_condition.expand(B, -1, -1), cond], dim=1)
         total_len = spk.ref_mel_len + target_len
-        prompt_x = torch.zeros((1, cfg.s2mel.dit.in_channels, total_len), device=self.device)
+        prompt_x = torch.zeros((B, cfg.s2mel.dit.in_channels, total_len), device=self.device)
         prompt_x[:, :, :spk.ref_mel_len] = spk.ref_mel
         return self.s2mel_runner.solve(cat_cond, spk.ref_mel_len + ylens, prompt_x,
-                                       spk.ref_mel_len, spk.style, noise)
+                                       spk.ref_mel_len, spk.style.expand(B, -1).contiguous(),
+                                       noise)
 
     @torch.inference_mode()
     def _vocode(self, mel, target_len: int) -> np.ndarray:
         """BigVGAN over `mel` (1, 80, T) padded to `target_len` frames with
-        log(1e-5) (silence), the PCM16 clip on the card under device_pcm16;
-        the waveform cut to T frames' samples, float32 on the host."""
+        log(1e-5) (silence): `_vocode_rows` of one row, cut to T frames."""
         pad = target_len - mel.shape[2]
-        exact = mel.shape[2] * self.cfg.vocoder.total_upsample
+        frames = mel.shape[2]
         if pad:
             mel = torch.nn.functional.pad(mel, (0, pad), value=float(np.log(1e-5)))
-        wav = self.vocoder_runner.vocode(mel)[0, :exact].cpu().numpy()
+        return self._vocode_rows(mel, [frames])[0]
+
+    @torch.inference_mode()
+    def _vocode_rows(self, mel, frames: Sequence[int]) -> List[np.ndarray]:
+        """BigVGAN over mels (B, 80, T), the PCM16 clip on the card under
+        device_pcm16; row b's waveform cut to `frames[b]` frames' samples,
+        float32 on the host."""
+        up = self.cfg.vocoder.total_upsample
+        wav = self.vocoder_runner.vocode(mel)[:, :max(frames) * up].cpu().numpy()
+        out = [wav[b, :f * up].astype(np.float32) for b, f in enumerate(frames)]
         if self.cfg.runtime.device_pcm16:
-            return wav.astype(np.float32) / 32767.0
-        return wav.astype(np.float32)
+            return [w / 32767.0 for w in out]
+        return out
+
+    def synthesize_segments_batched(
+        self,
+        spk: SpeakerConditioning,
+        emo: EmotionConditioning,
+        segments: List[np.ndarray],
+        emo_alpha: float = 1.0,
+        emo_vector: Optional[Sequence[float]] = None,
+        use_random: bool = False,
+        max_mel_tokens: Optional[int] = None,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+        seed: Optional[int] = None,
+    ) -> List[np.ndarray]:
+        """Every segment of one request at once (indextts_tpu/runtime/
+        engine.py:847-1004): one decode of B rows, the texts right-aligned
+        in one prompt at the 16-bucket of the longest (each row its own pad
+        hole), with the decoder's sampling (runtime.do_sample; no beams);
+        then one latent pass, one CFM solve and one vocoder call over the B
+        rows. Conditioning is computed anew (no key is read): emovec, the
+        banks' rows blended in under an emo_vector, conds repeated over the
+        rows. The decode draws from `seed`, the CFM noise from seed + 1, at
+        (B, 80, prompt frames + the 128-bucket of the longest target) and
+        cut to the solve's width. A row that stops at once is a stop-only
+        row of one code. Each row's mel is filled with log(1e-5) from its
+        own target length on and its waveform cut there. One segment takes
+        `synthesize_segment`. Stage seconds go to `_last_batched_stats`
+        (decode, host_trim, latent, s2mel, vocoder; under TARS_STAGE_SYNC=1
+        each stage ends in a wait for the card). Returns the waveforms in
+        segment order."""
+        rt, g = self.cfg.runtime, self.cfg.gpt
+        B = len(segments)
+        if B == 1:
+            r = self.synthesize_segment(
+                spk, emo, np.asarray(segments[0]), emo_alpha=emo_alpha, emo_vector=emo_vector,
+                use_random=use_random, max_mel_tokens=max_mel_tokens,
+                temperature=temperature, top_p=top_p, seed=seed)
+            return [r.wav]
+        stats: Dict[str, float] = {}
+        t_mark = time.perf_counter()
+
+        def mark(name: str) -> None:
+            nonlocal t_mark
+            self._stage_barrier()
+            now = time.perf_counter()
+            stats[name] = stats.get(name, 0.0) + now - t_mark
+            t_mark = now
+
+        with torch.inference_mode():
+            emovec, conds = self.segment_conds(spk, emo, emo_alpha, emo_vector, use_random,
+                                               seed)
+            segments = [np.asarray(seg) for seg in segments]
+            lens = np.asarray([len(seg) for seg in segments])
+            bucket = int(lens.max()) if self.precise else min(
+                next_bucket(int(lens.max()), 16, 16), g.max_text_tokens)
+            text = np.zeros((B, bucket), np.int64)
+            for b, seg in enumerate(segments):
+                text[b, :len(seg)] = seg
+            ids, pos, valid = self.decoder.build_text_prompt_arrays(text, lens, bucket)
+            res = self.decoder.generate(
+                conds.expand(B, -1, -1).contiguous(), self._tensor(ids), self._tensor(pos),
+                self._tensor(valid), self._seed(seed), max_new=max_mel_tokens or rt.max_mel_tokens,
+                temperature=temperature if temperature is not None else rt.temperature,
+                top_p=top_p if top_p is not None else rt.top_p,
+                repetition_penalty_value=rt.repetition_penalty)
+            codes, lengths = res.codes.cpu().numpy(), res.lengths.cpu().numpy()
+            mark("decode")
+            rows = [self.remove_long_silence(codes[b, :int(lengths[b])], g.stop_mel_token,
+                                             compress=rt.remove_long_silence)
+                    for b in range(B)]
+            code_lens = np.maximum([n for _, n in rows], 1)
+            mark("host_trim")
+            latent, codes_t = self._latent_rows(spk, emovec, segments, [r for r, _ in rows],
+                                                list(code_lens))
+            mark("latent")
+
+            target_exact = (code_lens * 1.72).astype(np.int64)
+            bucket_len = next_bucket(int(target_exact.max()), 128, 128)
+            target_len = int(target_exact.max()) if self.precise else bucket_len
+            shape = (B, self.cfg.s2mel.dit.in_channels, spk.ref_mel_len + target_len)
+            if self._noise_hook is not None:
+                noise = self._tensor(self._noise_hook(shape), torch.float32)
+            else:
+                noise = torch.randn(
+                    (B, shape[1], spk.ref_mel_len + bucket_len), device=self.device,
+                    generator=self._generator(None if seed is None else seed + 1)
+                )[:, :, :shape[2]]
+            vc = self._s2mel_mel(spk, latent, codes_t, code_lens, target_len, noise)
+            mel = vc[:, :, spk.ref_mel_len:spk.ref_mel_len + target_len]
+            # each row's frames past its own target length are silence
+            frame = torch.arange(target_len, device=self.device)
+            mel = torch.where(frame[None, None, :] < self._tensor(target_exact)[:, None, None],
+                              mel, float(np.log(1e-5)))
+            mark("s2mel")
+            wavs = self._vocode_rows(mel, list(target_exact))
+            mark("vocoder")
+        self._last_batched_stats = stats
+        return wavs
 
     def precompile(
         self,
@@ -945,19 +1074,27 @@ class IndexTTS2Engine:
         batched: bool = False,
         **gen_kwargs: Any,
     ):
-        """Synthesis over pre-tokenized segments, in order: pipelined
-        (`_pipelined_segments`) when the tail overlap is on and there are
-        several, else one after another. Returns {"sampling_rate", "audio",
-        "duration_sec", "rtf", "stats"}."""
-        if batched:
-            raise NotImplementedError("batched segments are not ported yet")
+        """Synthesis over pre-tokenized segments, in order: with `batched`
+        and several segments, all at once (`synthesize_segments_batched`,
+        which decodes with the decoder's sampling: num_beams and do_sample
+        are dropped, as the JAX engine drops them, and "stats" is empty);
+        else pipelined (`_pipelined_segments`) when the tail overlap is on
+        and there are several, else one after another. Returns
+        {"sampling_rate", "audio", "duration_sec", "rtf", "stats"}."""
         start = time.perf_counter()
         spk, emo, emo_alpha, key = self._conditioning(spk_audio, emo_audio, emo_alpha,
                                                       emo_vector, use_random)
+        if batched and len(text_ids_segments) > 1:
+            bkw = {k: v for k, v in gen_kwargs.items() if k not in ("num_beams", "do_sample")}
+            wavs = self.synthesize_segments_batched(
+                spk, emo, list(text_ids_segments), emo_alpha=emo_alpha, emo_vector=emo_vector,
+                use_random=use_random, seed=seed, **bkw)
+            return self._joined(wavs, [], start, interval_silence, output_path)
         stats = list(self._segment_results(spk, emo, text_ids_segments, emo_alpha, seed, key,
                                            emo_vector=emo_vector, use_random=use_random,
                                            **gen_kwargs))
-        return self._joined(stats, start, interval_silence, output_path)
+        return self._joined([r.wav for r in stats], stats, start, interval_silence,
+                            output_path)
 
     def infer_generator(
         self,
@@ -1004,7 +1141,7 @@ class IndexTTS2Engine:
         futs = self._submit_all(service, spk_audio, text_ids_segments, emo_audio, emo_alpha,
                                 emo_vector, seed)
         stats = [f.result(timeout=timeout) for f in futs]
-        return self._joined(stats, start, interval_silence, None)
+        return self._joined([r.wav for r in stats], stats, start, interval_silence, None)
 
     def infer_generator_continuous(
         self,
@@ -1046,16 +1183,16 @@ class IndexTTS2Engine:
         sr_out = self.cfg.runtime.sampling_rate
         return np.zeros(int(sr_out * interval_silence / 1000.0), np.float32)
 
-    def _joined(self, stats: List[SegmentResult], start: float, interval_silence: int,
-                output_path: Optional[str]):
+    def _joined(self, wavs: List[np.ndarray], stats: List[SegmentResult], start: float,
+                interval_silence: int, output_path: Optional[str]):
         """The segments' audio joined by interval_silence ms of silence, as
         infer() returns it."""
         sr_out = self.cfg.runtime.sampling_rate
         sil = self._silence(interval_silence)
         pieces = []
-        for i, r in enumerate(stats):
-            pieces.append(r.wav)
-            if i < len(stats) - 1:
+        for i, w in enumerate(wavs):
+            pieces.append(w)
+            if i < len(wavs) - 1:
                 pieces.append(sil)
         wav = np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
         total = time.perf_counter() - start

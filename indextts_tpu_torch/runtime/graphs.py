@@ -11,13 +11,17 @@ Three runners stand on it: runtime/s2mel_infer.py `S2MelRunner` (the CFM
 solve, JAX `_s2mel_program`), `LatentRunner` (the teacher-forced latent
 pass, JAX `_latent_program`) and `VocoderRunner` (BigVGAN with the PCM16
 clip or without, JAX `_vocoder_pcm16_f32_program` / `_vocoder_f32_program`).
+Each runner's keys begin with the batch's rows B: a request's segments
+batched into one call (the engine's `synthesize_segments_batched`) take
+keys of B > 1, which have a budget of their own (`MAX_BATCHED`), so that
+they never evict a one-row key that `precompile` warmed.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,11 +29,15 @@ from indextts_tpu_torch.models.bigvgan import BigVGAN, to_pcm16
 from indextts_tpu_torch.models.unified_voice import UnifiedVoice
 from indextts_tpu_torch.ops import cuda_lib, snake
 
-# latent-pass keys (text width, code width) whose graphs are kept: the
-# serving envelope of 512 codes holds 2 text buckets x 8 code buckets
+# one-row latent-pass keys (1, text width, code width) whose graphs are
+# kept: the serving envelope of 512 codes holds 2 text buckets x 8 code buckets
 MAX_LATENTS = 16
-# vocoder mel widths whose graphs are kept: 512 codes reach 7 target buckets
+# one-row vocoder keys (1, mel width) whose graphs are kept: 512 codes reach
+# 7 target buckets
 MAX_VOCODES = 8
+# keys of B > 1 rows whose graphs each runner keeps, apart from its one-row
+# keys
+MAX_BATCHED = 4
 
 
 class Program:
@@ -70,10 +78,13 @@ class GraphRunner:
     lock serializes a runner's calls (copy in, replay, copy out) on its one
     stream, so the shared pool is safe: no two of its graphs ever run at
     once. Runners do not share pools, so the replays of different runners
-    may overlap on the card. The least recently used of `max_keys` keys goes
-    with its graph. The launches that the kernels of `counters` make in a
-    capture are counted once a replay (`LaunchCounter.take_captured`). A
-    capture that fails raises; nothing falls back to an eager call.
+    may overlap on the card. A key's first element is its batch's rows B.
+    The least recently used of `max_keys` keys of one row, or of
+    MAX_BATCHED keys of more, goes with its graph when a new key of its
+    kind comes: a batched call never evicts a one-row key, nor the reverse.
+    The launches that the kernels of `counters` make in a capture are
+    counted once a replay (`LaunchCounter.take_captured`). A capture that
+    fails raises; nothing falls back to an eager call.
 
     `eager=True` runs `fn` eagerly on the same stream and buffers: the
     yardstick a replay is held to. The CPU always runs `fn` eagerly, on the
@@ -91,17 +102,19 @@ class GraphRunner:
         cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
-        self.programs: "OrderedDict[Hashable, Program]" = OrderedDict()
+        self.programs: "OrderedDict[Tuple, Program]" = OrderedDict()
         self.lock = threading.Lock()
 
-    def _program(self, key: Hashable, args: Sequence) -> Program:
+    def _program(self, key: Tuple, args: Sequence) -> Program:
         prog = self.programs.get(key)
         if prog is None:
-            if len(self.programs) >= self.max_keys:
+            batched = key[0] > 1
+            kind = [k for k in self.programs if (k[0] > 1) == batched]
+            if len(kind) >= (MAX_BATCHED if batched else self.max_keys):
                 # its last replay may still run on the card: the graph and
                 # buffers go once the stream is idle
                 self.stream.synchronize()
-                self.programs.popitem(last=False)
+                del self.programs[kind[0]]
             prog = self.programs[key] = Program(args, self.device)
         self.programs.move_to_end(key)
         return prog
@@ -117,7 +130,7 @@ class GraphRunner:
         prog.launches = [c.take_captured() for c in self.counters]
 
     @torch.inference_mode()
-    def __call__(self, key: Hashable, *args, eager: bool = False) -> torch.Tensor:
+    def __call__(self, key: Tuple, *args, eager: bool = False) -> torch.Tensor:
         if self.stream is None:
             return self.fn(*args)
         caller = torch.cuda.current_stream(self.device)
@@ -141,7 +154,7 @@ class GraphRunner:
             caller.wait_stream(self.stream)
         return out
 
-    def keys(self) -> Dict[Hashable, bool]:
+    def keys(self) -> Dict[Tuple, bool]:
         """The keys held, least recently used first, and whether each has
         its graph."""
         return {key: prog.graph is not None for key, prog in self.programs.items()}
@@ -153,7 +166,7 @@ def _device(module: torch.nn.Module) -> torch.device:
 
 class LatentRunner(GraphRunner):
     """The teacher-forced latent pass of one UnifiedVoice
-    (`forward_latent`), a graph per (text width, code width). On W8/W4 its
+    (`forward_latent`), a graph per (B, text width, code width). On W8/W4 its
     contractions take the plain int8 path (a call of many rows opens no
     decode kernel), W4 weights unpacked within the graph."""
 
@@ -162,15 +175,15 @@ class LatentRunner(GraphRunner):
 
     def latent(self, spk_latents, text_ids, text_lens, codes, code_lens, emovec,
                eager: bool = False) -> torch.Tensor:
-        """(1, codes width, D) from spk_latents (1, 32, D), text ids (1, Lt)
-        and their valid length (1,), codes (1, Lm) and theirs (1,), emovec
-        (1, D)."""
-        return self((text_ids.shape[1], codes.shape[1]), spk_latents, text_ids, text_lens,
-                    codes, code_lens, emovec, eager=eager)
+        """(B, codes width, D) from spk_latents (B, 32, D), text ids (B, Lt)
+        and their valid lengths (B,), codes (B, Lm) and theirs (B,), emovec
+        (B, D)."""
+        return self((codes.shape[0], text_ids.shape[1], codes.shape[1]), spk_latents,
+                    text_ids, text_lens, codes, code_lens, emovec, eager=eager)
 
 
 class VocoderRunner(GraphRunner):
-    """BigVGAN over a mel (1, 80, T), a graph per width T; with `pcm16` the
+    """BigVGAN over mels (B, 80, T), a graph per (B, T); with `pcm16` the
     waveform leaves it clipped to int16 (`to_pcm16`), else as float32.
     K2's launches (37 a call at the default config) are counted through
     replays."""
@@ -180,4 +193,4 @@ class VocoderRunner(GraphRunner):
         super().__init__(fn, _device(bigvgan), MAX_VOCODES, counters=(snake.counter,))
 
     def vocode(self, mel, eager: bool = False) -> torch.Tensor:
-        return self(mel.shape[2], mel, eager=eager)
+        return self((mel.shape[0], mel.shape[2]), mel, eager=eager)

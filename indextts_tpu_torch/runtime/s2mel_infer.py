@@ -24,8 +24,10 @@ from indextts_tpu_torch.models.s2mel import S2Mel
 from indextts_tpu_torch.ops import dit_attention
 from indextts_tpu_torch.runtime.graphs import GraphRunner
 
-# solve shapes (B, T) whose buffers and captured graphs are kept: at least
-# the 7 target buckets of the serving envelope (512 codes) for one prompt
+# one-row solve shapes (1, T) whose buffers and captured graphs are kept: at
+# least the 7 target buckets of the serving envelope (512 codes) for one
+# prompt; shapes of B > 1 rows have a budget of their own
+# (runtime/graphs.py MAX_BATCHED)
 MAX_SOLVES = 8
 
 
@@ -59,11 +61,12 @@ def cfm_inference(model: S2Mel, mu, x_lens, prompt_x, prompt_len, style,
 class S2MelRunner(GraphRunner):
     """The CFM solve of one S2Mel, `n_steps` Euler steps at `cfg_rate`, a
     graph per solve shape (B, T) (runtime/graphs.py `GraphRunner`; at most
-    MAX_SOLVES kept). A shape's first call on the card runs one velocity
-    step eagerly before the capture; K3's launches are counted through
-    replays. `solve(..., eager=True)` runs the same steps eagerly on the
-    runner's stream and buffers: the yardstick a replay is held to. The CPU
-    always runs them eagerly, on the caller's tensors."""
+    MAX_SOLVES of one row kept, and MAX_BATCHED of more). A shape's first
+    call on the card runs one velocity step eagerly before the capture; K3's
+    launches are counted through replays. `solve(..., eager=True)` runs the
+    same steps eagerly on the runner's stream and buffers: the yardstick a
+    replay is held to. The CPU always runs them eagerly, on the caller's
+    tensors."""
 
     def __init__(self, model: S2Mel, n_steps: int = 20, cfg_rate: float = 0.7):
         self.model = model

@@ -994,7 +994,7 @@ def test_latent_graph_matches_eager(cuda_device, route):
     for _ in range(2):
         for a, w in zip(reqs, want):
             assert torch.equal(runner.latent(*a), w)
-    assert runner.keys() == {(32, 64): True}
+    assert runner.keys() == {(1, 32, 64): True}
     assert cuda_lib.pool_bytes(runner.pool) > 0
     assert want[0].shape == (1, 64, 256) and not torch.equal(want[0], want[1])
 
@@ -1021,7 +1021,7 @@ def test_vocoder_graph_matches_eager_and_counts_k2(cuda_device, pcm16):
     assert counts == [37, 37, 74, 37, 37, 37]
     assert want[0].shape == (1, 32 * 256)
     assert want[0].dtype == (torch.int16 if pcm16 else torch.float32)
-    assert runner.keys() == {32: True}
+    assert runner.keys() == {(1, 32): True}
 
 
 @pytest.mark.cuda
@@ -1087,6 +1087,81 @@ def test_precompile_leaves_no_capture_to_a_request(cuda_device):
     out = eng.infer((wav, 16000), [np.arange(2, 14)], seed=0)
     assert chip_smoke.graph_counts(eng) == before
     assert out["audio"].size and np.isfinite(out["audio"]).all()
+
+
+def _stack(reqs):
+    """One-row runner requests as the rows of one batched request (a Python
+    number, the same in each, kept)."""
+    return tuple(torch.cat(parts) if isinstance(parts[0], torch.Tensor) else parts[0]
+                 for parts in zip(*reqs))
+
+
+@pytest.mark.cuda
+def test_batched_keys_sit_beside_one_row_keys(cuda_device, monkeypatch):
+    """Each tail runner keys on B: a batched call (3 rows, unequal valid
+    lengths) captures its own key beside the one-row key of the same
+    widths, its replays give the eager call's bits, and batched keys evict
+    only batched keys (MAX_BATCHED, here 1), never a one-row key."""
+    from indextts_tpu_torch.runtime import graphs
+    from indextts_tpu_torch.runtime.graphs import LatentRunner
+
+    monkeypatch.setattr(graphs, "MAX_BATCHED", 1)
+    dec, _ = _graph_decoder(cuda_device, "float")
+    lat = [_latent_request(cuda_device, 9 + 10 * i, 20 + 20 * i, 40 + i) for i in range(3)]
+    solves = [_solve_inputs(cuda_device, 256, 50, 256 - 40 * i, 50 + i) for i in range(3)]
+    mels = [(_mel(cuda_device, 32, 60 + i),) for i in range(3)]
+    stages = [  # (runner, call, one-row requests, the B=3 key)
+        (LatentRunner(dec.model), "latent", lat, (3, 32, 64)),
+        (_s2mel_runner(cuda_device), "solve", solves, (3, 256)),
+        (_vocoder(cuda_device), "vocode", mels, (3, 32))]
+    for runner, call, reqs, key in stages:
+        fn = getattr(runner, call)
+        rows = _stack(reqs)
+        one = fn(*reqs[0])
+        want = fn(*rows, eager=True)
+        for _ in range(2):
+            assert torch.equal(fn(*rows), want)
+        one_key = (1,) + key[1:]
+        assert runner.keys() == {one_key: True, key: True}
+        assert torch.equal(fn(*reqs[0]), one)
+        fn(*_stack(reqs[:2]))  # a second batched key evicts the first only
+        assert runner.keys() == {one_key: True, (2,) + key[1:]: True}
+
+
+@pytest.mark.cuda
+def test_batched_request_after_precompile_evicts_no_warmed_key(cuda_device):
+    """A small engine on the card: precompile over an envelope of 24 codes;
+    a batched request of 3 segments captures its own keys (B=3) and a
+    decode state of 3 rows, evicts no warmed key, and gives the same audio
+    again from its seed; a sequential request inside the envelope after it
+    captures nothing."""
+    import chip_smoke
+
+    from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
+
+    cfg = chip_smoke.small_config()
+    eng = IndexTTS2Engine(cfg, random_params(cfg, seed=0, device=cuda_device),
+                          device=cuda_device)
+    t = np.arange(16000) / 16000
+    wav = (0.3 * np.sin(2 * np.pi * 150 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 4 * t))
+           ).astype(np.float32)
+    eng.precompile(eng.prepare_speaker(wav, 16000), text_buckets=[16],
+                   max_code_len=cfg.runtime.max_mel_tokens)
+    runners = (eng.latent_runner, eng.s2mel_runner, eng.vocoder_runner)
+    warmed = [r.keys() for r in runners]
+    segs = [np.arange(2, 14), np.arange(3, 8), np.arange(5, 16)]
+    first = eng.infer((wav, 16000), segs, seed=0, batched=True)
+    for r, keys in zip(runners, warmed):
+        held = r.keys()
+        assert all(held.get(k) for k in keys)
+        assert [k[0] for k in held if k not in keys] == [3]
+    assert (3, 256) in {k[:2] for k in eng.decoder._states}
+    again = eng.infer((wav, 16000), segs, seed=0, batched=True)
+    np.testing.assert_array_equal(again["audio"], first["audio"])
+    before = chip_smoke.graph_counts(eng)
+    out = eng.infer((wav, 16000), [np.arange(2, 14)], seed=0)
+    assert chip_smoke.graph_counts(eng) == before
+    assert np.isfinite(first["audio"]).all() and np.isfinite(out["audio"]).all()
 
 
 # ---------------------------------------------------------------------------

@@ -185,11 +185,6 @@ def test_unported_routes_raise():
         bad = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, **fields))
         with pytest.raises(NotImplementedError):
             IndexTTS2Engine(bad, params, device="cpu")
-    eng = IndexTTS2Engine(cfg, params, device="cpu")
-    spk = (np.zeros(8000, np.float32), 16000)
-    for kw in ({"batched": True},):
-        with pytest.raises(NotImplementedError):
-            eng.infer(spk, [np.array([3, 4])], **kw)
 
 
 def test_uniform_fill_matches_jax_fill_range():
