@@ -73,6 +73,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (the same bits every time), and torch.profiler counts the device kernels
    one call of each of K1-K8 launches (one). K5-K8 print the host us of
    an eager call.
+   K2's and K3's bfloat16 instantiations (`check_k2_bf16`,
+   `check_k3_bf16`) are checked against their plain versions: K3-bf16 at
+   the main path's solve on the DiT's strided views, the longest segment,
+   T=37, a row with one valid key, a row with none and a batched solve's
+   16 rows, the kernel no farther from the float32 attention of the same
+   bfloat16 inputs than its plain version and within 3e-2 of max|out| of
+   it; K2-bf16 at every shape of a vocoder call at the main path and the
+   longest segment, at 8 rows, and at edge cases of its plan, within 2e-5
+   + 2^-7 of the plain version rounded to bfloat16 (one bfloat16 step).
+   Each is one launch, repeats its bits and is timed in turns with its
+   float32 instantiation on the same values (K3 at the main path, the
+   longest segment and 16 rows; K2 over an 8-row vocoder call, where the
+   batched route runs it); K3-bf16's bound counts 989 TFLOP/s bf16, its
+   library_ms is SDPA on the bfloat16 tensors.
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
@@ -122,7 +136,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    tokens/s, wall time and stage seconds; torch.profiler must find the
    same device kernels by name and count in one replay as in one eager
    step (less the generator's seed and offset, which PyTorch writes before
-   a replay); 8 replays are timed with CUDA events; and the reserved
+   a replay); 8 replays are timed with CUDA events (the W8 and W4 routes
+   run one round, graph then eager, so that the script keeps its time
+   with `bf16_phase`); and the reserved
    device memory the decode states free is printed. Phase 3 runs with
    TARS_STAGE_SYNC=1, so each stage's seconds hold its time on the card.
    The requests take the keyed route (the server's default prompt is a
@@ -233,6 +249,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    launches (W8 also captured against eager). The launches a batched
    request takes are printed per route before the kernels line.
 
+7. `bf16_phase` (the JAX engine's bf16 compute modes), after the float
+   route's batched phase, its float32 engine still loaded; each engine
+   is loaded from the checkpoint directory (`bf16_engine`, printing the
+   MiB each model stores). The float route with gpt_dtype bfloat16 and a
+   bfloat16 s2mel and vocoder: one /tts through a sequential server,
+   counters set to 0 just before and read just after (K1 over a
+   bfloat16 cache, K3-bf16, and K2 through the float32 vocoder sibling
+   must rise; K3, K2-bf16 and K4-K8 stay 0), then 2 rounds of a
+   one-segment request in turns with the float32 float route (wall,
+   decode tokens/s, stage seconds, device memory beyond what was
+   allocated). Then JAX bench.py's quantized configuration
+   (`bench_config`: W8 blocks, an int8 KV cache, the head float,
+   gemv_impl "pallas"), one engine in float32 and one with gpt_dtype,
+   s2mel and vocoder bfloat16: a counted /tts on each (the bf16 one:
+   K3-bf16, K4-K6 and K2 through the sibling; K3 and K2-bf16 0), a
+   counted batched 8-segment request on each (the bf16 one through
+   K2-bf16 and K3-bf16; K2 and K3 0), 2 rounds of a one-segment and a
+   batched request in turns, `bf16_tail` (the bf16 engine's codes
+   through the float32 and the bfloat16 tail over one GPT latent and one
+   CFM noise: the mel's and the waveform's relative L2 apart, and the
+   PCM16 steps the bfloat16 clip moves a sample, at the served peak and
+   scaled to 0.9) and the runners' graph pools (the dual vocoder's two).
+   K2-bf16's launches come from its batched request, K3-bf16's from its
+   /tts.
+
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
@@ -269,6 +310,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS = 989e12  # H100 SXM bfloat16 tensor cores, dense
 INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 MAX_MEL_TOKENS = 300
 L2_CYCLE_BYTES = 100_000_000  # twice the H100's 50 MB L2
@@ -316,6 +358,8 @@ BEAM_SEED = 19
 BATCH_ROUNDS = 2  # the batched request against its segments one after another, in turns
 BATCH_SEED = 23
 BATCH_CODES = 512  # the envelope the float route's precompile is measured at
+BF16_ROUNDS = 2  # each bf16 route against its float32 counterpart, in turns
+BF16_SEED = 31  # the turns' requests; the tail comparison's CFM noise
 
 
 def fail(msg: str):
@@ -848,14 +892,100 @@ def check_k2(shapes, long_seq):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
-def dit_qkv(g, B: int, heads: int, T: int):
-    """q, k, v as the DiT hands them to K3: q and k transposed views of
-    (B, T, H, 64) tensors (the rotary output), v a transposed slice of the
-    fused qkv projection."""
+def check_k2_bf16(shapes, long_seq):
+    """K2's bfloat16 instantiation (a bfloat16 vocoder) against its plain
+    version (x widened to float32, computed, rounded once), at every shape
+    of a vocoder call at the main path and at the longest segment, at a
+    batched call's 8 rows of the main path's first and last shapes, and at
+    edge cases of its plan. Both compute in float32 and round once; where
+    the float32 results straddle a rounding boundary they part by one
+    bfloat16 step: |err| <= 2e-5 + 2^-7 |plain|. Timed where it runs, on
+    the batched route's 8 rows, over one vocoder call (its 37 launches,
+    each on its own input), in turns with the float32 instantiation on the
+    same values (float32, bf16, bf16, float32)."""
     import torch
 
-    qkv = torch.randn((B, T, 3 * heads * 64), generator=g, device="cuda")
-    rot = torch.randn((2, B, T, heads, 64), generator=g, device="cuda")
+    from indextts_tpu_torch.ops import snake as k2
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rtol, atol = 2.0 ** -7, 2e-5
+    errs = {}
+
+    def inputs(B, C, T):
+        x, a, b = k2_inputs(g, B, C, T)
+        return x.bfloat16(), a.bfloat16(), b.bfloat16()
+
+    def check(name, x, a, b):
+        before = k2.bf16_counter.launches, k2.counter.launches
+        got = k2.anti_alias_snake(x, a, b, True)
+        if got.dtype != torch.bfloat16 or (k2.bf16_counter.launches, k2.counter.launches) != (
+                before[0] + 1, before[1]):
+            fail(f"K2-bf16 {name}: not one launch of the bfloat16 instantiation")
+        want = k2.anti_alias_snake_plain(x.float(), a.float(), b.float(), True).bfloat16().float()
+        d = (got.float() - want).abs()
+        errs[name] = err = d.max().item()
+        steps = (d > 0).float().mean().item()
+        B, C, T = x.shape
+        print(f"K2-bf16 {name}: B={B} C={C} T={T} max_abs_err={err:.3g} (tol {atol} + "
+              f"2^-7 |plain|; {steps:.2e} of the outputs one step apart)")
+        if not (d - atol - rtol * want.abs()).max().item() <= 0:
+            fail(f"K2-bf16 {name} disagrees with its plain version: {err}")
+
+    for name, B, C, T in (("T=7", 1, 24, 7), ("T%4=1", 1, 72, 1001), ("T%4=3", 1, 144, 2063),
+                          ("T%4=2", 2, 30, 4098), ("last block of one warp", 1, 5, 100)):
+        check(name, *inputs(B, C, T))
+    for label, seq in (("main", shapes["snake"]), ("longest", long_seq)):
+        for C, T in dict.fromkeys(seq):
+            check(f"{label} C={C} T={T}", *inputs(1, C, T))
+    for C, T in (shapes["snake"][0], shapes["snake"][-1]):
+        check(f"batched {CONT_REQUESTS} rows C={C} T={T}", *inputs(CONT_REQUESTS, C, T))
+    x, a, b = inputs(1, *shapes["snake"][0])
+    got = k2.anti_alias_snake(x, a, b, True)
+    one_launch("K2-bf16", lambda: k2.anti_alias_snake(x, a, b, True))
+    replays_equal("K2-bf16", lambda: k2.anti_alias_snake(x, a, b, True), got)
+    del x, a, b, got
+
+    seq = shapes["snake"]
+    bufs = [inputs(CONT_REQUESTS, C, T) for C, T in seq]
+    bufs32 = [(x.float(), a.float(), b.float()) for x, a, b in bufs]
+
+    def run(fn, bs):
+        return lambda: [fn(*buf, True) for buf in bs]
+
+    turns = [cuda_ms(run(k2.anti_alias_snake, bufs32), iters=2),
+             cuda_ms(run(k2.anti_alias_snake, bufs), iters=2),
+             cuda_ms(run(k2.anti_alias_snake, bufs), iters=2),
+             cuda_ms(run(k2.anti_alias_snake, bufs32), iters=2)]
+    del bufs32
+    ms, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    plain = cuda_ms(run(lambda x, a, b, ls: k2.anti_alias_snake_plain(
+        x.float(), a.float(), b.float(), ls).bfloat16(), bufs), iters=1, replays=2)
+    R = CONT_REQUESTS
+    flops = sum(R * C * T * 58 for C, T in seq)
+    # x read once and the output written once, 2 bytes an element (4 in
+    # float32), and alpha and beta in float32
+    b_ms, by = bound(sum(2 * R * C * T * 2 + 2 * C * 4 for C, T in seq), flops)
+    b32, _ = bound(sum(2 * R * C * T * 4 + 2 * C * 4 for C, T in seq), flops)
+    print(f"K2-bf16 batched vocoder call ({len(seq)} launches of {R} rows, each on its own "
+          f"input, {sum(2 * R * C * T for C, T in seq) / 1e9:.2f} GB of bf16 x): "
+          f"kernel_ms={ms:.4f} (turns float32, bf16, bf16, float32: "
+          f"{', '.join(f'{t:.4f}' for t in turns)}; float32 instantiation {ms32:.4f}, its "
+          f"bound {b32:.4f}) plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({by})")
+    return {"name": "K2-bf16 anti_alias_snake", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/snake.cu",
+            "replaces": "indextts_tpu/ops/snake_pallas.py:48",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def dit_qkv(g, B: int, heads: int, T: int, dtype=None):
+    """q, k, v as the DiT hands them to K3: q and k transposed views of
+    (B, T, H, 64) tensors (the rotary output), v a transposed slice of the
+    fused qkv projection; float32, or `dtype` (the draws rounded to it)."""
+    import torch
+
+    qkv = torch.randn((B, T, 3 * heads * 64), generator=g, device="cuda").to(dtype)
+    rot = torch.randn((2, B, T, heads, 64), generator=g, device="cuda").to(dtype)
     v = qkv[..., 2 * heads * 64:].reshape(B, T, heads, 64).transpose(1, 2)
     return rot[0].transpose(1, 2), rot[1].transpose(1, 2), v
 
@@ -931,6 +1061,99 @@ def check_k3(shapes, longest, heads: int):
     timed(f"longest T={long_T}")
     timed("batched 16 rows")
     return {"name": "K3 dit_attention", "route": "cuda",
+            "source": "indextts_tpu_torch/csrc/dit_attention.cu",
+            "replaces": "indextts_tpu/models/s2mel.py:141",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
+
+
+def check_k3_bf16(shapes, longest, heads: int):
+    """K3's bfloat16 instantiation (a bfloat16 DiT) against its plain
+    version on bfloat16 q, k, v (`dit_attention_plain`, the JAX XLA path
+    dtype by dtype: bfloat16 scores, float32 softmax), at the main path's
+    solve (T=898, 774 valid, on the DiT's strided views), the longest
+    segment's, T=37, a row with one valid key, a row with none, and a
+    batched solve's 16 rows. The plain version rounds the scores to
+    bfloat16, the kernel does not, so both are held to the float32
+    attention of the same bfloat16 inputs: the kernel no farther from it
+    than the plain version, and the two within 3e-2 of max|out| (the plain
+    version's score rounding moves it ~1.4e-2). Timed at the main path in
+    turns with the float32 instantiation on the same values (float32,
+    bf16, bf16, float32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.ops import dit_attention as k3
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(33)
+    T, tv = shapes["dit_T"], shapes["dit_valid"]
+    long_T, long_v = longest["dit_T"], longest["dit_valid"]
+    cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
+             ("T37", 37, [37, 20]), ("T255", 255, [255, 1]), ("no-valid-key", 300, [300, 0]),
+             ("batched 16 rows", T, shapes["batch_dit_valid"] * 2)]
+    errs, inputs = {}, {}
+    for name, t, lens in cases:
+        B = len(lens)
+        if name in ("main", "batched 16 rows") or name.startswith("longest"):
+            q, k, v = dit_qkv(g, B, heads, t, bf16)
+        else:
+            q, k, v = (torch.randn((B, heads, t, 64), generator=g, device=dev).to(bf16)
+                       for _ in range(3))
+        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+        before = k3.bf16_counter.launches, k3.counter.launches
+        got = k3.dit_attention(q, k, v, mask)
+        if got.dtype != bf16 or (k3.bf16_counter.launches, k3.counter.launches) != (
+                before[0] + 1, before[1]):
+            fail(f"K3-bf16 {name}: not one launch of the bfloat16 instantiation")
+        want = k3.dit_attention_plain(q, k, v, mask).float()
+        exact = k3.dit_attention_plain(q.float(), k.float(), v.float(), mask)
+        top = exact.abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        kern, plain = ((x - exact).abs().max().item() for x in (got.float(), want))
+        errs[name] = err
+        print(f"K3-bf16 {name}: B={B} H={heads} T={t} valid={lens} max_abs_err={err:.3g} "
+              f"(tol {3e-2 * top:.3g}: 3e-2 of max|out| {top:.3g}); against the float32 "
+              f"attention of the bf16 inputs: kernel {kern:.3g}, plain {plain:.3g}")
+        if not (err <= 3e-2 * top and kern <= plain):
+            fail(f"K3-bf16 {name} disagrees with its plain version: {err}, {kern} > {plain}")
+        inputs[name] = (q, k, v, mask, lens)
+    q, k, v, mask, lens = inputs["main"]
+    got = k3.dit_attention(q, k, v, mask)
+    same = [torch.equal(k3.dit_attention(q, k, v, mask), got),
+            torch.equal(k3.dit_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         mask), got)]
+    print(f"K3-bf16 main: a second call and contiguous copies of the strided views give the "
+          f"same bits: {same}")
+    if not all(same):
+        fail("K3-bf16: a repeated call or contiguous inputs changed the result")
+    one_launch("K3-bf16", lambda: k3.dit_attention(q, k, v, mask))
+
+    def timed(name):
+        q, k, v, mask, lens = inputs[name]
+        B, _, t, _ = q.shape
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        turns = [cuda_ms(lambda: k3.dit_attention(q32, k32, v32, mask)),
+                 cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention(q32, k32, v32, mask))]
+        ms, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain = cuda_ms(lambda: k3.dit_attention_plain(q, k, v, mask), iters=5)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None, None, :]))
+        nbytes = 4 * B * heads * t * 64 * 2 + B * t
+        flops = sum(4 * heads * t * n * 64 for n in lens)
+        b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+        print(f"K3-bf16 {name} B={B} H={heads} T={t}: kernel_ms={ms:.4f} (turns float32, "
+              f"bf16, bf16, float32: {', '.join(f'{x:.4f}' for x in turns)}; float32 "
+              f"instantiation {ms32:.4f}) plain_ms={plain:.4f} library_ms(sdpa bf16)={lib:.4f} "
+              f"bound_ms(bf16 tensor cores)={b_ms:.4f} ({by})")
+        return ms, plain, lib, b_ms, by
+
+    ms, plain, lib, b_ms, by = timed("main")
+    timed(f"longest T={long_T}")
+    timed("batched 16 rows")
+    return {"name": "K3-bf16 dit_attention", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/dit_attention.cu",
             "replaces": "indextts_tpu/models/s2mel.py:141",
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
@@ -1457,7 +1680,9 @@ def kernel_counters():
             "K2 anti_alias_snake": snake.counter, "K3 dit_attention": dit_attention.counter,
             "K4 ragged_decode_attention_q8": decode_attention.q8_counter,
             "K5 gemv_w8": gemv.gemv_counter, "K6 mlp_w8": gemv.mlp_counter,
-            "K7 gemv_w4": gemv.gemv4_counter, "K8 mlp_w4": gemv.mlp4_counter}
+            "K7 gemv_w4": gemv.gemv4_counter, "K8 mlp_w4": gemv.mlp4_counter,
+            "K2-bf16 anti_alias_snake": snake.bf16_counter,
+            "K3-bf16 dit_attention": dit_attention.bf16_counter}
 
 
 # ---------------------------------------------------------------------------
@@ -1664,7 +1889,7 @@ def check_loaded(engine, host, aux, label: str) -> None:
 
 
 def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model_dir: str,
-                     precompile: bool = False, written=None):
+                     precompile: bool = False, written=None, decode_rounds: int = DECODE_ROUNDS):
     """Serve `cfg` with the port's server, its engine loaded from the
     checkpoint directory `model_dir` (no model may be filled with random
     weights; with `written`, the (host state dicts, aux) that
@@ -1790,7 +2015,7 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model
         if name in stay and n != 0:
             fail(f"[{label}] {name} was launched {n} times; it has no place on this path")
     keyed_prefill_gate(engine, wav_path, label)
-    decode_turns(engine, wav_path, label)
+    decode_turns(engine, wav_path, label, decode_rounds)
     return launches, engine
 
 
@@ -1969,10 +2194,10 @@ def replays_ms(graph, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
-def decode_turns(engine, wav_path: str, label: str):
+def decode_turns(engine, wav_path: str, label: str, rounds: int = DECODE_ROUNDS):
     """The served engine's captured decode against its eager loop (the
     decoder's `eager` argument), on one request (the speaker prompt and
-    request 0's text, seed DECODE_SEED), DECODE_ROUNDS rounds in turns
+    request 0's text, seed DECODE_SEED), `rounds` rounds in turns
     (graph, eager; eager, graph; ...): each round's codes must equal the
     first's both ways, and each prints decode tokens/s, the request's wall
     time and its stage seconds. Then torch.profiler must find the same
@@ -1994,7 +2219,7 @@ def decode_turns(engine, wav_path: str, label: str):
     ids = fallback_segments(request_text(0), c.gpt.number_text_tokens,
                             c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
     first = None
-    for r in range(DECODE_ROUNDS):
+    for r in range(rounds):
         for mode in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
             if mode == "eager":
                 dec.generate = functools.partial(type(dec).generate, dec, eager=True)
@@ -2767,6 +2992,275 @@ def batched_phase(engine, wav_path: str, label: str, rise, stay) -> dict:
           + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the "
           f"batched phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 compute modes (gpt_dtype, s2mel_dtype, voc_dtype)
+# ---------------------------------------------------------------------------
+
+
+def bench_config(cfg, bf16: bool):
+    """The JAX package's bench.py quantized serving configuration
+    (BENCH_QUANT=1): W8 blocks, an int8 KV cache, the logits head float
+    (TARS_HEAD_QUANT unset), gemv_impl "pallas" as this script's W8 route;
+    with `bf16` the s2mel and the vocoder in bfloat16. The GPT's dtype is
+    the engine's argument, as bench.py passes it."""
+    dt = "bfloat16" if bf16 else "float32"
+    return dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, gpt_quantize=True, kv_quant=True, gpt_wbits=8, head_quant=False,
+        gemv_impl="pallas", s2mel_dtype=dt, voc_dtype=dt))
+
+
+def model_mib(engine) -> dict:
+    """Each model's stored bytes in MiB (the float32 vocoder sibling apart
+    where the engine keeps one)."""
+    mods = {"gpt": engine.gpt, "s2mel": engine.s2mel, "bigvgan": engine.bigvgan,
+            "repcodec": engine.repcodec, "campplus": engine.campplus,
+            "w2vbert": engine.w2vbert}
+    if engine.bigvgan_f32 is not engine.bigvgan:
+        mods["bigvgan_f32"] = engine.bigvgan_f32
+    return {name: round(sum(t.numel() * t.element_size() for t in m.state_dict().values())
+                        / 2**20, 1) for name, m in mods.items()}
+
+
+def bf16_engine(model_dir: str, cfg, label: str, gpt_dtype):
+    """An engine loaded from the checkpoint directory with `gpt_dtype` (the
+    constructor's argument; the others from cfg.runtime), none of its
+    models filled with random weights; its load's seconds and each model's
+    stored MiB printed."""
+    import torch
+
+    from indextts_tpu_torch.runtime.loader import load_engine
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = load_engine(model_dir, cfg=cfg, device="cuda", gpt_dtype=gpt_dtype)
+    torch.cuda.synchronize()
+    rt = engine.cfg.runtime
+    print(f"[{label}] loaded in {time.perf_counter() - t0:.1f} s: gpt_dtype "
+          f"{engine.gpt.gpt.dtype}, s2mel_dtype {rt.s2mel_dtype}, voc_dtype {rt.voc_dtype} "
+          f"(gpt_quantize={rt.gpt_quantize}, kv_quant={rt.kv_quant}, head_quant="
+          f"{rt.head_quant}, gemv_impl={rt.gemv_impl!r}); MiB stored per model "
+          f"{json.dumps(model_mib(engine))}; "
+          f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB allocated")
+    if engine.load_report.filled:
+        fail(f"[{label}] the checkpoint directory left {engine.load_report.filled} to random "
+             "weights")
+    return engine
+
+
+def bf16_served(engine, wav_path: str, label: str, tmp: str, rise, stay):
+    """One POST /tts through a sequential server over `engine` (its own
+    response cache), every counter set to 0 just before and read just
+    after: those in `rise` must have risen, those in `stay` be 0. Returns
+    (the launches, the SegmentResult, the tail's inputs: spk, emovec, text
+    ids, codes)."""
+    from indextts_tpu_torch import serve
+
+    os.environ["TARS_CACHE_DIR"] = os.path.join(tmp, f"cache-{label}")
+    # no background precompile: its launches would count with the request's
+    os.environ["TARS_PRECOMPILE"] = "0"
+    port = free_port()
+    server, _ = serve.build(["--host", "127.0.0.1", "--port", str(port),
+                             "--reference-audio", wav_path], engine=engine)
+    thread = ServerThread(server)
+    tails = []
+    finish = engine._finish_from_codes
+
+    def record(spk, emovec, text_ids, codes, *rest):
+        tails.append((spk, emovec, np.asarray(text_ids), np.asarray(codes)))
+        return finish(spk, emovec, text_ids, codes, *rest)
+
+    engine._finish_from_codes = record
+    counters = kernel_counters()
+    for cnt in counters.values():
+        cnt.launches = 0
+    try:
+        seg, wall, audio, toks = served_segment(engine, port, label, "sequential /tts", 0)
+    finally:
+        launches = {name: cnt.launches for name, cnt in counters.items()}
+        del engine._finish_from_codes
+        thread.stop()
+    check_launches(label, "sequential /tts request", launches, rise, stay)
+    print(f"[{label}] sequential /tts: wall_s={wall:.3f} audio_s={audio:.3f} "
+          f"decode_tokens={toks} decode_tok_per_s={toks / seg.gpt_gen_time:.1f} stages_s "
+          f"gpt_decode={seg.gpt_gen_time:.3f} gpt_latent={seg.gpt_forward_time:.3f} "
+          f"s2mel={seg.s2mel_time:.3f} bigvgan={seg.bigvgan_time:.3f}")
+    return launches, seg, tails[-1]
+
+
+def bf16_turns(engines: dict, wav_path: str, batched: bool) -> None:
+    """BF16_ROUNDS rounds in turns over `engines` ({label: engine}, the
+    float32 one first): a one-segment request (and with `batched` an
+    8-segment batched one) from the same seed on each, its wall, decode
+    tokens/s, stage seconds and the device memory it took beyond what was
+    allocated before it printed."""
+    import torch
+
+    for r in range(BF16_ROUNDS):
+        for label, engine in engines.items():
+            segs = batched_ids(engine)
+            runs = [("one segment", segs[:1])] + ([("batched", segs)] if batched else [])
+            for what, ss in runs:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                if what == "batched":
+                    res, _, toks, dsec, wall = batched_run(engine, wav_path, ss)
+                    stages = engine._last_batched_stats
+                else:
+                    tok0, sec0 = engine.decoder.tokens, engine.decoder.seconds
+                    t0 = time.perf_counter()
+                    res = engine.infer(wav_path, ss, seed=BF16_SEED + r)
+                    wall = time.perf_counter() - t0
+                    toks = engine.decoder.tokens - tok0
+                    dsec = engine.decoder.seconds - sec0
+                    st = res["stats"][0]
+                    stages = {"gpt_decode": st.gpt_gen_time, "gpt_latent": st.gpt_forward_time,
+                              "s2mel": st.s2mel_time, "bigvgan": st.bigvgan_time}
+                print_run(label, f"turn {r} {what}", res, stages, toks, dsec, wall)
+                print(f"[{label}] turn {r} {what}: peak device memory "
+                      f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB beyond the "
+                      f"{base / 2**30:.2f} GiB allocated before it")
+
+
+def bf16_tail(e32, e16, wav_path: str, inputs, label: str) -> None:
+    """The same codes (the bf16 engine's served request's) through the
+    float32 tail (e32's s2mel and vocoder) and the bf16 tail (e16's bf16
+    s2mel; its bf16 vocoder, and the float32 sibling that its sequential
+    route takes), over one GPT latent (e16's latent pass) and the same CFM
+    noise: the mel's and the waveform's relative L2 apart, and how many
+    PCM16 steps the bf16 waveform's clip (in bfloat16, as the JAX engine's
+    _vocode_pcm16) moves a sample from the float32 clip of the same
+    waveform."""
+    import torch
+
+    from indextts_tpu_torch.models.bigvgan import to_pcm16
+    from indextts_tpu_torch.runtime.engine import next_bucket
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    spk16, emovec, text_ids, codes = inputs
+    spk32 = e32.prepare_speaker(*audio_utils.load_wav(wav_path))
+    rt = e16.cfg.runtime
+    row, n = e16.remove_long_silence(codes, e16.cfg.gpt.stop_mel_token,
+                                     compress=rt.remove_long_silence)
+    n = max(n, 1)
+    latent, codes_t = e16._latent_pass(spk16, emovec, text_ids, row, n)
+    exact = int(n * 1.72)
+    target = next_bucket(exact, 128, 128)
+    ref = spk16.ref_mel_len
+    g = torch.Generator(device="cuda").manual_seed(BF16_SEED)
+    noise = torch.randn((1, e16.cfg.s2mel.dit.in_channels, ref + target), generator=g,
+                        device="cuda")
+    with torch.inference_mode():
+        mels = {k: e._s2mel_mel(spk, latent, codes_t, n, target, noise)[:, :, ref:ref + exact]
+                for k, e, spk in (("fp32", e32, spk32), ("bf16", e16, spk16))}
+        pad = {k: torch.nn.functional.pad(m, (0, target - exact), value=float(np.log(1e-5)))
+               for k, m in mels.items()}
+        wavs = {"fp32": e32._vocode_rows(pad["fp32"], [exact])[0],
+                "bf16 s2mel, fp32 sibling": e16._vocode_rows(pad["bf16"], [exact])[0],
+                "bf16 s2mel, bf16 vocoder": e16._vocode_rows(pad["bf16"], [exact],
+                                                             e16.batch_vocoder_runner)[0],
+                "fp32 mel, bf16 vocoder": e16._vocode_rows(pad["fp32"], [exact],
+                                                           e16.batch_vocoder_runner)[0]}
+        raw = e16.bigvgan(pad["bf16"])
+
+        def pcm_steps(w):
+            return (to_pcm16(w).int() - torch.clamp(w.float() * 32767.0, -32767.0, 32767.0)
+                    .to(torch.int16).int()).abs()
+
+        steps = pcm_steps(raw)
+        # the same waveform scaled to a peak of 0.9, as a loud recording's
+        peak = raw.float().abs().max().clamp_min(1e-12)
+        loud = pcm_steps((raw.float() * (0.9 / peak)).to(torch.bfloat16))
+    m32, m16 = (mels[k].float().cpu().numpy() for k in ("fp32", "bf16"))
+    if not all(np.isfinite(x).all() for x in [m32, m16, *wavs.values()]):
+        fail(f"[{label}] the tails' mels or waveforms are not finite")
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    print(f"[{label}] the same {n} codes through the float32 and the bf16 tail (one GPT "
+          f"latent, one CFM noise): mel relative L2 {rel(m16, m32):.4g} (the JAX package "
+          f"bounds its bf16 CFM at 0.08); waveform relative L2 against the float32 tail's: "
+          + ", ".join(f"{k} {rel(w, wavs['fp32']):.4g}" for k, w in wavs.items() if k != "fp32")
+          + " (the JAX package bounds its bf16 vocoder at 0.05)")
+    for what, st in ((f"the bf16 waveform (peak {peak.item():.4g})", steps),
+                     ("the same scaled to a peak of 0.9", loud)):
+        print(f"[{label}] PCM16 clip in bfloat16 (the JAX engine's _vocode_pcm16) against a "
+              f"float32 clip of the same samples, {what}: "
+              f"{(st > 1).float().mean().item():.3%} of {st.numel()} samples move by more than "
+              f"one PCM16 step, the largest by {int(st.max())}")
+
+
+def bf16_phase(float_engine, wav_path: str, model_dir: str, cfg, tmp: str, names) -> dict:
+    """Phase `bf16_phase`, after the float route's batched phase, its engine
+    still loaded. First the float route with gpt_dtype bfloat16 (and the
+    s2mel and vocoder in bfloat16): one counted /tts (K1 over its bf16
+    cache, K3-bf16, K2 in float32 through the vocoder sibling), then
+    BF16_ROUNDS rounds of a one-segment request against the float32 float
+    route's engine, in turns. Then bench.py's quantized configuration
+    (`bench_config`) in float32 and with gpt_dtype, s2mel and vocoder in
+    bfloat16, both loaded: a counted /tts on each (the bf16 one: K3-bf16,
+    K4-K6 and K2 through the sibling, not K3 nor K2-bf16), a counted
+    batched 8-segment request on each (the bf16 one through K2-bf16, not
+    K2), BF16_ROUNDS rounds of a one-segment and a batched request, in
+    turns, the vocoder pools' MiB (the dual vocoder's two), and
+    `bf16_tail`. Returns the launches of K2-bf16 (its batched request) and
+    K3-bf16 (its /tts)."""
+    import torch
+
+    from indextts_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    K = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K2b", "K3b"), names))
+    quant = [K[k] for k in ("K4", "K5", "K6")]
+
+    def others(rise):
+        return [k for k in names if k not in rise]
+
+    fcfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, s2mel_dtype="bfloat16", voc_dtype="bfloat16"))
+    label = "float-bf16"
+    e16 = bf16_engine(model_dir, fcfg, label, torch.bfloat16)
+    rise = [K["K1"], K["K2"], K["K3b"]]
+    bf16_served(e16, wav_path, label, tmp, rise, others(rise))
+    cache = [st.caches[0].dtype for st in e16.decoder._states.values()]
+    print(f"[{label}] decode caches: {cache}")
+    if not cache or any(d != torch.bfloat16 for d in cache):
+        fail(f"[{label}] the float route's bf16 GPT decoded over a {cache} cache")
+    bf16_turns({"float": float_engine, label: e16}, wav_path, batched=False)
+    del e16
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"bf16_phase: the float route done at {time.perf_counter() - t0:.1f} s")
+
+    e32 = bf16_engine(model_dir, bench_config(cfg, False), "w8-fp32", torch.float32)
+    w16 = bf16_engine(model_dir, bench_config(cfg, True), "w8-bf16", torch.bfloat16)
+    rise32 = [K["K2"], K["K3"], *quant]
+    bf16_served(e32, wav_path, "w8-fp32", tmp, rise32, others(rise32))
+    rise = [K["K2"], K["K3b"], *quant]
+    seq, _, tail_in = bf16_served(w16, wav_path, "w8-bf16", tmp, rise, others(rise))
+    segs = batched_ids(w16)
+    brise32 = [K["K2"], K["K3"], *quant]
+    counted_batched_run(e32, wav_path, segs, "w8-fp32", brise32, others(brise32))
+    brise = [K["K2b"], K["K3b"], *quant]
+    _, batched = counted_batched_run(w16, wav_path, segs, "w8-bf16", brise, others(brise))
+    bf16_turns({"w8-fp32": e32, "w8-bf16": w16}, wav_path, batched=True)
+    bf16_tail(e32, w16, wav_path, tail_in, "w8-bf16")
+    pools = {f"{lab} {name}": cuda_lib.pool_bytes(r.pool) / 2**20 for lab, e in (
+        ("w8-fp32", e32), ("w8-bf16", w16)) for name, r in (
+        ("vocoder", e.vocoder_runner), ("batch vocoder", e.batch_vocoder_runner),
+        ("s2mel", e.s2mel_runner)) if name != "batch vocoder" or r is not e.vocoder_runner}
+    print("bf16_phase: graph pools (MiB; the bf16 engine's vocoder pool is its float32 "
+          "sibling's, its batch vocoder pool the bf16 model's): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in pools.items())
+          + f"; keys vocoder {list(w16.vocoder_runner.keys())}, batch vocoder "
+          f"{list(w16.batch_vocoder_runner.keys())}")
+    del e32, w16
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"bf16_phase done in {time.perf_counter() - t0:.1f} s")
+    return {K["K2b"]: batched[K["K2b"]], K["K3b"]: seq[K["K3b"]]}
 
 
 def post_stream(port: int, payload: dict):
@@ -3692,15 +4186,17 @@ def main():
                check_k5(g.layers, g.model_dim, g.number_mel_codes),
                check_k6(g.layers, g.model_dim),
                check_k7(g.layers, g.model_dim),
-               check_k8(g.layers, g.model_dim)]
+               check_k8(g.layers, g.model_dim),
+               check_k2_bf16(shapes, longest["snake"]),
+               check_k3_bf16(shapes, longest, cfg.s2mel.dit.num_heads)]
     print(f"phases 1-2 (environment, kernels) done at {time.perf_counter() - t_start:.1f} s")
     names = [k["name"] for k in kernels]
-    k1, k6 = names[0], names[5]
+    k1, k6, bf16 = names[0], names[5], names[8:]
     routes = {  # label: (config change, kernels that must run, kernels that must not)
         "float": (lambda c: c, names[:3], names[3:]),
         "quantized": (quantized, names[1:6], [k1] + names[6:]),
         "w4": (lambda c: quantized(c, wbits=4, gemv_impl="auto"),
-               names[1:5] + names[6:], [k1, k6]),
+               names[1:5] + names[6:8], [k1, k6] + bf16),
     }
     with tempfile.TemporaryDirectory() as tmp:
         wav_path = os.path.join(tmp, "speaker.wav")
@@ -3724,10 +4220,13 @@ def main():
         print(f"phase reference_dir done at {time.perf_counter() - t_start:.1f} s")
         launches, beam_launches, batch_launches = {}, {}, {}
         for label, (change, rise, stay) in routes.items():
+            # the quantized routes' decode turns at one round (graph,
+            # eager), which keeps the script's time with bf16_phase added
             counts, engine = serve_full_width(
                 wav_path, change(full), label, rise, stay, tmp, model_dir,
                 precompile=label == "float",
-                written=(host, aux) if label == "float" else None)
+                written=(host, aux) if label == "float" else None,
+                decode_rounds=DECODE_ROUNDS if label == "float" else 1)
             host = aux = None  # the float route held its engine to them
             if label == "float":  # the s2mel stage does not depend on the GPT's route
                 s2mel_turns(engine, wav_path, label)
@@ -3736,6 +4235,8 @@ def main():
                 emotion_phase(engine, wav_path, label, tmp, card, rise, stay)
                 beam_launches[label] = beam_phase(engine, wav_path, label, tmp, rise, stay)
                 batch_launches[label] = batched_phase(engine, wav_path, label, rise, stay)
+                launches.update(bf16_phase(engine, wav_path, model_dir, full, tmp, names))
+                print(f"phase bf16_phase done at {time.perf_counter() - t_start:.1f} s")
             else:
                 beam_launches[label] = beam_request(engine, wav_path, label, tmp, rise, stay)
                 batch_launches[label] = batched_request(engine, wav_path, label, rise, stay,

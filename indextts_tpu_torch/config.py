@@ -318,7 +318,7 @@ class RuntimeConfig:
     remove_long_silence: bool = False
     # The knobs below keep the JAX package's names and defaults so that one
     # config tree (and its TARS_* env) drives both packages. The PyTorch port
-    # computes in float32 and honours the quantized GPT route: gpt_quantize
+    # honours the quantized GPT route: gpt_quantize
     # with gpt_wbits=8 (W8A8 blocks) or 4 (W4A8, packed nibbles), head_quant
     # (with gpt_quantize) and an int8 KV cache, which kv_quant or
     # attn_impl="pallas_q8" selects. gemv_impl resolves as in the JAX engine,
@@ -330,8 +330,12 @@ class RuntimeConfig:
     # conditioning prefix's KV (runtime/decode.py supports_cond_kv); the
     # port's attention runs its own kernels either way. seq_tail_overlap
     # overlaps segment k's tail with segment k+1's decode, as in the JAX
-    # engine. It ignores gpt_dtype and text_prefix_reuse, and raises
-    # NotImplementedError for a bfloat16 s2mel_dtype or voc_dtype.
+    # engine. s2mel_dtype and voc_dtype ("bfloat16": bfloat16 weights and
+    # compute, float32 islands; a bfloat16 vocoder serves the batched route
+    # beside a float32 sibling) resolve as in the JAX engine, as from
+    # TARS_S2MEL_DTYPE and TARS_VOC_DTYPE. Like the JAX engine it ignores
+    # gpt_dtype (the engine's gpt_dtype argument, float32 by default, sets
+    # the GPT's), and it ignores text_prefix_reuse.
     # compute dtype for the GPT decode loop ("bfloat16" | "float32")
     gpt_dtype: str = "bfloat16"
     # decode attention implementation in the JAX package: "auto", "xla",

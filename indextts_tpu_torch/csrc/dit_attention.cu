@@ -40,6 +40,23 @@
 // k-index t reads V's row 2t and k-index t+4 row 2t+1 (the sum over keys
 // does not care about their order). Tile overhang past T scores -inf (not a
 // key), a masked key -1e9: both mean the same in base 2.
+//
+// The bfloat16 instantiation (`dit_attention_bf16`: a bfloat16 DiT,
+// runtime.s2mel_dtype) reads q, k and v in bfloat16 through the same
+// strides (multiples of 8 elements, 16-byte aligned bases) and writes a
+// bfloat16 output in the same layout. Both products run in one pass on the
+// bfloat16 tensor cores (mma.sync.m16n8k16, float32 accumulation): bound
+// by operations, 4*T*T*Dh FLOPs per (b, h) over 989 TFLOP/s. Its design is
+// FlashAttention-2's plain form: a block of 4 warps owns 64 query rows,
+// each warp 16, whose Q fragments (unscaled) it keeps in registers; 64-key
+// K and V tiles in a 2-stage cp.async ring (rows padded to 72 elements);
+// S = Q.K^T from 32-bit reads of K's rows, scaled by Dh^-1/2 log2(e) in
+// float32, masked and taken through the online softmax in float32 exactly
+// as above; P rounded to bfloat16 straight from S's registers as the A
+// operand of O += P.V (the accumulator's keys (2t, 2t+1) of two key groups
+// are the A fragment's k-indices of one 16-key step); V's B fragments by
+// ldmatrix.trans from its row-major tile. The float32 row sums normalize
+// O, which is rounded to bfloat16 once.
 
 #include "common.cuh"
 
@@ -355,14 +372,212 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
+// ---- the bfloat16 instantiation ----------------------------------------
+
+constexpr int kWarps16 = 4;
+constexpr int kThreads16 = 32 * kWarps16;
+constexpr int kBM16 = 16 * kWarps16;  // query rows per block
+constexpr int kPitch16 = kD + 8;      // bfloat16 elements per shared row (144 bytes)
+constexpr int kTile16 = kBN * kPitch16;
+
+// d += a.b over one m16n8k16 bfloat16 tile, float32 accumulation
+__device__ __forceinline__ void mma16(float (&d)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bfloat16 (lo: the smaller column) in one register, rounded to nearest even
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16_bf16(unsigned dst, const __nv_bfloat16* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+__global__ void __launch_bounds__(kThreads16)
+dit_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ key_mask,
+                     __nv_bfloat16* __restrict__ out, const Layout L, int T, float scale) {
+  __shared__ __align__(16) __nv_bfloat16 sm[kStages * 2 * kTile16];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* kb = k + b * L.k[0] + h * L.k[1];
+  const __nv_bfloat16* vb = v + b * L.v[0] + h * L.v[1];
+  const uint8_t* mb = key_mask + b * L.m[0];
+  const int n_tiles = (T + kBN - 1) / kBN;
+
+  // key tile j into its stage: thread tid copies 16-byte chunk tid % 8 of
+  // rows tid / 8 + 16 i of K and V; keys past T are zero-filled
+  const int c_copy = 8 * (tid % 8);
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      __nv_bfloat16* ks = sm + (j % kStages) * 2 * kTile16;
+      __nv_bfloat16* vs = ks + kTile16;
+#pragma unroll
+      for (int r = tid / 8; r < kBN; r += kThreads16 / 8) {
+        const int key = j * kBN + r;
+        const long long kr = key < T ? key : 0;
+        cp_async16_bf16(smem_u32(ks + r * kPitch16 + c_copy), kb + kr * L.k[2] + c_copy,
+                        key < T);
+        cp_async16_bf16(smem_u32(vs + r * kPitch16 + c_copy), vb + kr * L.v[2] + c_copy,
+                        key < T);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) load_tile(j);
+
+  // this warp's 16 query rows; a warp past T only helps load. A fragments
+  // of Q for the 4 steps of 16 dims: a0 (g, 2t..), a1 (g+8, 2t..),
+  // a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+  const int row0 = blockIdx.x * kBM16 + warp * 16;
+  const bool active = row0 < T;
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+  unsigned qa[4][4];
+  {
+    const __nv_bfloat16* qb = q + b * L.q[0] + h * L.q[1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = 16 * kk + 2 * t;
+      qa[kk][0] = r0 < T ? *reinterpret_cast<const unsigned*>(qb + r0 * L.q[2] + c) : 0u;
+      qa[kk][1] = r1 < T ? *reinterpret_cast<const unsigned*>(qb + r1 * L.q[2] + c) : 0u;
+      qa[kk][2] = r0 < T ? *reinterpret_cast<const unsigned*>(qb + r0 * L.q[2] + c + 8) : 0u;
+      qa[kk][3] = r1 < T ? *reinterpret_cast<const unsigned*>(qb + r1 * L.q[2] + c + 8) : 0u;
+    }
+  }
+  scale *= kLog2e;
+
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();
+    load_tile(j + kStages - 1);
+    if (!active) continue;
+    const __nv_bfloat16* ks = sm + (j % kStages) * 2 * kTile16;
+    const __nv_bfloat16* vs = ks + kTile16;
+    const int key0 = j * kBN, n_keys = T - key0;
+    const bool mk_lo = lane < n_keys && mb[(key0 + lane) * L.m[1]] != 0;
+    const bool mk_hi = lane + 32 < n_keys && mb[(key0 + lane + 32) * L.m[1]] != 0;
+
+    // S = Q.K^T: key group n (8 keys), B operand from row 8n+g of K
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      const __nv_bfloat16* kr = ks + (8 * n + g) * kPitch16 + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma16(s[n], qa[kk], *reinterpret_cast<const unsigned*>(kr + 16 * kk),
+              *reinterpret_cast<const unsigned*>(kr + 16 * kk + 8));
+    }
+
+    // scale into base 2, mask, online softmax (as the float32 kernel)
+    const unsigned w_lo = __ballot_sync(0xffffffffu, mk_lo);
+    const unsigned w_hi = __ballot_sync(0xffffffffu, mk_hi);
+    const bool all_valid = n_keys >= kBN && (w_lo & w_hi) == 0xffffffffu;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const bool valid = ((n < 4 ? w_lo : w_hi) >> (c & 31)) & 1u;
+        const float x = s[n][e] * scale;
+        s[n][e] = all_valid ? x : c >= n_keys ? -INFINITY : valid ? x : kNegInf;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= al0;
+    l1 *= al1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[n][e] - (e < 2 ? m0 : m1));
+        s[n][e] = p;
+        if (e < 2) l0 += p;
+        else l1 += p;
+      }
+    }
+
+    // O += P.V, 16 keys a step: A from key groups 2kk and 2kk+1 of S; the
+    // B fragments of dim groups n and n+1 from one ldmatrix.x4.trans, lane
+    // l naming row (l & 7) of matrix l / 8: keys 16kk + 8((l / 8) & 1) on,
+    // dims 8(n + l / 16) on
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const int key = 16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7);
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        const unsigned addr = smem_u32(vs + key * kPitch16 + 8 * (n + (lane >> 4)));
+        unsigned b0, b1, b2, b3;
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+            : "r"(addr));
+        mma16(o[n], pa, b0, b1);
+        mma16(o[n + 1], pa, b2, b3);
+      }
+    }
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  // row g (and g+8), dims 8n + 2t and 8n + 2t + 1 of dim group n
+  __nv_bfloat16* ob = out + b * L.o[0] + h * L.o[1];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (r0 < T)
+      *reinterpret_cast<unsigned*>(ob + r0 * L.o[2] + c) = pack_bf16(o[n][0] * i0, o[n][1] * i0);
+    if (r1 < T)
+      *reinterpret_cast<unsigned*>(ob + r1 * L.o[2] + c) = pack_bf16(o[n][2] * i1, o[n][3] * i1);
+  }
+}
+
 }  // namespace
 
-// strides: 14 element strides, those of q, k, v and out over (b, h, t), then
-// key_mask's over (b, t)
-EXPORT int dit_attention(const void* q, const void* k, const void* v,
-                         const void* key_mask, void* out, const long long* strides,
-                         int B, int H, int T, float scale, void* stream) {
-  if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
+static Layout layout(const long long* strides) {
   Layout L;
   for (int i = 0; i < 3; ++i) {
     L.q[i] = strides[i];
@@ -372,6 +587,16 @@ EXPORT int dit_attention(const void* q, const void* k, const void* v,
   }
   L.m[0] = strides[12];
   L.m[1] = strides[13];
+  return L;
+}
+
+// strides: 14 element strides, those of q, k, v and out over (b, h, t), then
+// key_mask's over (b, t)
+EXPORT int dit_attention(const void* q, const void* k, const void* v,
+                         const void* key_mask, void* out, const long long* strides,
+                         int B, int H, int T, float scale, void* stream) {
+  if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  const Layout L = layout(strides);
   // set on every call: the attribute holds per device, and the call is cheap
   cudaError_t e = cudaFuncSetAttribute(
       dit_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -382,5 +607,20 @@ EXPORT int dit_attention(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(key_mask),
       static_cast<float*>(out), L, T, scale);
+  return (int)cudaGetLastError();
+}
+
+// The same over bfloat16 q, k, v and out.
+EXPORT int dit_attention_bf16(const void* q, const void* k, const void* v,
+                              const void* key_mask, void* out, const long long* strides,
+                              int B, int H, int T, float scale, void* stream) {
+  if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  const Layout L = layout(strides);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 grid((T + kBM16 - 1) / kBM16, H, B);
+  dit_attn_bf16_kernel<<<grid, kThreads16, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(key_mask),
+      static_cast<__nv_bfloat16*>(out), L, T, scale);
   return (int)cudaGetLastError();
 }

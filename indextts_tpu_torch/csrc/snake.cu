@@ -36,6 +36,13 @@
 // - The sine is reduced by pi and taken by a polynomial on the FMA pipe
 //   (`sin_pm`): its sign does not matter to sin^2.
 //
+// x and the output are float32, or bfloat16 (`anti_alias_snake_bf16`: the
+// JAX package's bfloat16 vocoder): a bfloat16 row is read in 8-byte loads
+// of 4 elements where T % 4 == 0, every value widened to float32, all the
+// arithmetic above in float32 and each output rounded to bfloat16 once, to
+// nearest even. alpha and beta are read as float32 or, with a bfloat16 x,
+// as the bfloat16 a bfloat16 model stores them (`ab_bf16`), and widened.
+//
 // Chosen on the card (PERF.md): R = 12, a launch bound of 8 blocks an SM.
 // tools/snake_times.py --probe rebuilds an edited copy of this file.
 
@@ -81,6 +88,24 @@ __device__ __forceinline__ float sin_pm(float v) {
   return fmaf(r2 * r, p, r);
 }
 
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// four consecutive outputs: one 16-byte store of float32, one 8-byte of
+// bfloat16
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
 __device__ __forceinline__ float snake(float u, float a, float inv) {
   const float s = sin_pm(u * a);  // its sign cancels in inv * s * s
   return u + inv * s * s;
@@ -119,8 +144,8 @@ __device__ __forceinline__ int extra_pair(int lane, int t0, int T, int R, bool e
 // One warp's chunk [t0, t0 + 32 R) of row xr -> yr. kEdge: the chunk
 // reaches within 6 of a row's end (index clamps, the up signal's edge
 // clamp, stores bounded by T).
-template <int R, bool kVec, bool kEdge>
-__device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __restrict__ yr,
+template <int R, bool kVec, bool kEdge, typename E>
+__device__ __forceinline__ void chunk(const E* __restrict__ xr, E* __restrict__ yr,
                                       const Taps& tp, float a, float inv, int T, int t0,
                                       int lane) {
   const int tl = t0 + lane * R;
@@ -129,7 +154,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
   float xv[R + 6];
   if constexpr (kEdge) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) xv[3 + i] = xr[min(tl + i, T - 1)];
+    for (int i = 0; i < R; ++i) xv[3 + i] = ld(xr + min(tl + i, T - 1));
   } else if constexpr (kVec) {
 #pragma unroll
     for (int i = 0; i < R / 4; ++i) {
@@ -141,7 +166,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < R; ++i) xv[3 + i] = xr[tl + i];
+    for (int i = 0; i < R; ++i) xv[3 + i] = ld(xr + tl + i);
   }
 
   const int ge = extra_pair(lane, t0, T, R, kEdge);
@@ -149,7 +174,7 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
   float xe[7] = {}, ee = 0.f, eo = 0.f;
   if (extra) {
 #pragma unroll
-    for (int m = 0; m < 7; ++m) xe[m] = xr[kEdge ? min(max(ge - 3 + m, 0), T - 1) : ge - 3 + m];
+    for (int m = 0; m < 7; ++m) xe[m] = ld(xr + (kEdge ? min(max(ge - 3 + m, 0), T - 1) : ge - 3 + m));
     pair(tp, xe, a, inv, ee, eo);
   }
 
@@ -228,23 +253,22 @@ __device__ __forceinline__ void chunk(const float* __restrict__ xr, float* __res
   if constexpr (kEdge) {
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      if (tl + i < T) yr[tl + i] = y[i];
+      if (tl + i < T) st(yr + tl + i, y[i]);
   } else if constexpr (kVec) {
 #pragma unroll
     for (int i = 0; i < R / 4; ++i)
-      *reinterpret_cast<float4*>(yr + tl + 4 * i) =
-          make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+      store4(yr + tl + 4 * i, y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
   } else {
 #pragma unroll
-    for (int i = 0; i < R; ++i) yr[tl + i] = y[i];
+    for (int i = 0; i < R; ++i) st(yr + tl + i, y[i]);
   }
 }
 
 // Warp w takes chunk w % chunks of row w / chunks (row = b * C + c).
-template <bool kVec>
+template <bool kVec, typename E, typename P>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-snake_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
-             const float* __restrict__ beta, const Taps tp, float* __restrict__ out, int C,
+snake_kernel(const E* __restrict__ x, const P* __restrict__ alpha,
+             const P* __restrict__ beta, const Taps tp, E* __restrict__ out, int C,
              int T, int chunks, int warps, int logscale) {
   const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (w >= warps) return;
@@ -252,45 +276,73 @@ snake_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
   const int row = w / chunks;
   const int t0 = (w - row * chunks) * (32 * kR);
   const int c = row % C;
-  float a = alpha[c], bt = beta[c];
+  float a = ld(alpha + c), bt = ld(beta + c);
   if (logscale) {
     a = expf(a);
     bt = expf(bt);
   }
   const float inv = 1.f / (bt + 1e-9f);
-  const float* xr = x + (size_t)row * T;
-  float* yr = out + (size_t)row * T;
+  const E* xr = x + (size_t)row * T;
+  E* yr = out + (size_t)row * T;
   if (t0 >= 6 && t0 + 32 * kR + 6 <= T)
     chunk<kR, kVec, false>(xr, yr, tp, a, inv, T, t0, lane);
   else
     chunk<kR, false, true>(xr, yr, tp, a, inv, T, t0, lane);
 }
 
-}  // namespace
-
-// taps: 24 host floats, `Taps` in order. The plan (R, chunks, blocks, vec)
-// comes from ops/snake.py `snake_plan`; a plan that does not fit the shape
-// or the pointers returns cudaErrorInvalidValue without a launch.
-EXPORT int anti_alias_snake(const void* x, const void* alpha, const void* beta,
-                            const float* taps, void* out, int B, int C, int T, int logscale,
-                            int R, int chunks, int blocks, int vec, void* stream) {
+// The launch of element type E, alpha and beta of type P; a plan that
+// does not fit the shape or the pointers returns cudaErrorInvalidValue
+// without a launch.
+template <typename E, typename P>
+int launch(const void* x, const void* alpha, const void* beta, const float* taps, void* out,
+           int B, int C, int T, int logscale, int R, int chunks, int blocks, int vec,
+           void* stream) {
   const long long warps = (long long)B * C * chunks;
-  const bool aligned = T % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // vector loads and stores of 4 elements: 16 bytes of float32, 8 of bfloat16
+  const uintptr_t align = 4 * sizeof(E);
+  const bool aligned = T % 4 == 0 && reinterpret_cast<uintptr_t>(x) % align == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % align == 0;
   if (B < 1 || C < 1 || T < 1 || R != kR || chunks != (T + 32 * kR - 1) / (32 * kR) ||
       warps > 0x7fffffffll || blocks != (warps + kWarps - 1) / kWarps || (vec && !aligned))
     return (int)cudaErrorInvalidValue;
   Taps tp;
   memcpy(&tp, taps, sizeof(tp));
-  const float* xf = static_cast<const float*>(x);
-  const float* af = static_cast<const float*>(alpha);
-  const float* bf = static_cast<const float*>(beta);
-  float* of = static_cast<float*>(out);
+  const E* xe = static_cast<const E*>(x);
+  const P* ap = static_cast<const P*>(alpha);
+  const P* bp = static_cast<const P*>(beta);
+  E* oe = static_cast<E*>(out);
   const int n = (int)warps;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (vec)
-    snake_kernel<true><<<blocks, kThreads, 0, s>>>(xf, af, bf, tp, of, C, T, chunks, n, logscale);
+    snake_kernel<true, E, P><<<blocks, kThreads, 0, s>>>(xe, ap, bp, tp, oe, C, T, chunks, n,
+                                                         logscale);
   else
-    snake_kernel<false><<<blocks, kThreads, 0, s>>>(xf, af, bf, tp, of, C, T, chunks, n, logscale);
+    snake_kernel<false, E, P><<<blocks, kThreads, 0, s>>>(xe, ap, bp, tp, oe, C, T, chunks, n,
+                                                          logscale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// taps: 24 host floats, `Taps` in order. The plan (R, chunks, blocks, vec)
+// comes from ops/snake.py `snake_plan`. x and out float32; alpha and beta
+// float32 (C,).
+EXPORT int anti_alias_snake(const void* x, const void* alpha, const void* beta,
+                            const float* taps, void* out, int B, int C, int T, int logscale,
+                            int R, int chunks, int blocks, int vec, void* stream) {
+  return launch<float, float>(x, alpha, beta, taps, out, B, C, T, logscale, R, chunks, blocks,
+                              vec, stream);
+}
+
+// The same with x and out bfloat16, and alpha and beta bfloat16 where
+// ab_bf16, else float32.
+EXPORT int anti_alias_snake_bf16(const void* x, const void* alpha, const void* beta,
+                                 const float* taps, void* out, int B, int C, int T,
+                                 int logscale, int R, int chunks, int blocks, int vec,
+                                 int ab_bf16, void* stream) {
+  if (ab_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, alpha, beta, taps, out, B, C, T, logscale,
+                                                R, chunks, blocks, vec, stream);
+  return launch<__nv_bfloat16, float>(x, alpha, beta, taps, out, B, C, T, logscale, R, chunks,
+                                      blocks, vec, stream);
 }

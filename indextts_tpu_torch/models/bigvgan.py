@@ -10,6 +10,11 @@ three (channels never mix, so the math is that of three calls). Resblocks
 with differing dilations raise NotImplementedError. Module names
 follow the reference state_dict (`ups.{i}.0`, `resblocks.{k}.convs1.{m}`,
 `resblocks.{k}.activations.{2m}.act.alpha`, ...).
+
+It computes in its parameters' dtype, as the JAX BigVGAN in its `dtype`:
+the mel is cast to it, and a bfloat16 model's waveform stays bfloat16 to
+the PCM16 clip (`to_pcm16`). K2 takes bfloat16 in and out with float32
+arithmetic inside (ops/snake.py).
 """
 
 from __future__ import annotations
@@ -105,7 +110,7 @@ class BigVGAN(nn.Module):
         """mel (B, n_mels, T) -> waveform (B, T * 256) in [-1, 1]."""
         c = self.cfg
         nk = len(c.resblock_kernel_sizes)
-        x = self.conv_pre(mel)
+        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
         for i in range(len(self.ups)):
             x = self._stage(self.ups[i][0](x), list(self.resblocks[i * nk:(i + 1) * nk]))
         x = self.conv_post(self.activation_post(x))[:, 0]
@@ -113,5 +118,10 @@ class BigVGAN(nn.Module):
 
 
 def to_pcm16(wav: torch.Tensor) -> torch.Tensor:
-    """On-device PCM16 (reference: clamp(32767*wav).int16, infer_v2.py:866)."""
-    return torch.clamp(wav * 32767.0, -32767.0, 32767.0).to(torch.int16)
+    """On-device PCM16 (reference: clamp(32767*wav).int16, infer_v2.py:866),
+    computed in the waveform's dtype as the JAX engine's `_vocode_pcm16`.
+    In bfloat16 the bounds round to +-32768; the conversion saturates at
+    int16's range, as XLA's does, where a plain cast would wrap 32768 to
+    -32768."""
+    y = torch.clamp(wav * 32767.0, -32767.0, 32767.0)
+    return y.float().clamp(-32768.0, 32767.0).to(torch.int16)

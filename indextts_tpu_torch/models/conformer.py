@@ -17,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from indextts_tpu_torch.config import ConditionModuleConfig
-from indextts_tpu_torch.models.layers import ChannelsLastConv1d, Pointwise
+from indextts_tpu_torch.models.layers import (ChannelsLastConv1d, LayerNorm, Linear, Pointwise,
+                                              dtype_of)
 
 NEG_INF = -1e9
 
@@ -40,7 +41,7 @@ class Conv2dSubsampling2(nn.Module):
     def __init__(self, idim: int, odim: int):
         super().__init__()
         self.conv = nn.Sequential(nn.Conv2d(1, odim, 3, 2))
-        self.out = nn.Sequential(nn.Linear(odim * ((idim - 1) // 2), odim))
+        self.out = nn.Sequential(Linear(odim * ((idim - 1) // 2), odim))
 
     def forward(self, x):
         # (B, T, F) -> (B, C, T', F') -> (B, T', C * F') channel-major
@@ -53,11 +54,11 @@ class RelPositionAttention(nn.Module):
     def __init__(self, heads: int, dim: int):
         super().__init__()
         self.h, self.d_k = heads, dim // heads
-        self.linear_q = nn.Linear(dim, dim)
-        self.linear_k = nn.Linear(dim, dim)
-        self.linear_v = nn.Linear(dim, dim)
-        self.linear_out = nn.Linear(dim, dim)
-        self.linear_pos = nn.Linear(dim, dim, bias=False)
+        self.linear_q = Linear(dim, dim)
+        self.linear_k = Linear(dim, dim)
+        self.linear_v = Linear(dim, dim)
+        self.linear_out = Linear(dim, dim)
+        self.linear_pos = Linear(dim, dim, bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(heads, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(heads, self.d_k))
 
@@ -89,7 +90,7 @@ class ConvolutionModule(nn.Module):
             channels, channels, kernel_size, padding=(kernel_size - 1) // 2,
             groups=channels,
         )
-        self.norm = nn.LayerNorm(channels, eps=1e-5)
+        self.norm = LayerNorm(channels, eps=1e-5)
         self.pointwise_conv2 = Pointwise(channels, channels)
 
     def forward(self, x, pad_mask):
@@ -104,8 +105,8 @@ class ConvolutionModule(nn.Module):
 class ConformerFFN(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.w_1 = nn.Linear(dim, hidden)
-        self.w_2 = nn.Linear(hidden, dim)
+        self.w_1 = Linear(dim, hidden)
+        self.w_2 = Linear(hidden, dim)
 
     def forward(self, x):
         return self.w_2(F.silu(self.w_1(x)))
@@ -118,10 +119,10 @@ class ConformerLayer(nn.Module):
         self.self_attn = RelPositionAttention(cfg.attention_heads, d)
         self.conv_module = ConvolutionModule(d, cfg.cnn_module_kernel)
         self.feed_forward = ConformerFFN(d, cfg.linear_units)
-        self.norm_mha = nn.LayerNorm(d, eps=1e-5)
-        self.norm_conv = nn.LayerNorm(d, eps=1e-5)
-        self.norm_ff = nn.LayerNorm(d, eps=1e-5)
-        self.norm_final = nn.LayerNorm(d, eps=1e-5)
+        self.norm_mha = LayerNorm(d, eps=1e-5)
+        self.norm_conv = LayerNorm(d, eps=1e-5)
+        self.norm_ff = LayerNorm(d, eps=1e-5)
+        self.norm_final = LayerNorm(d, eps=1e-5)
 
     def forward(self, x, pos_emb, mask):
         x = x + self.self_attn(self.norm_mha(x), pos_emb, mask)
@@ -139,9 +140,12 @@ class ConformerEncoder(nn.Module):
         self.cfg = cfg
         self.embed = Conv2dSubsampling2(cfg.input_size, cfg.output_size)
         self.encoders = nn.ModuleList(ConformerLayer(cfg) for _ in range(cfg.num_blocks))
-        self.after_norm = nn.LayerNorm(cfg.output_size, eps=1e-5)
+        self.after_norm = LayerNorm(cfg.output_size, eps=1e-5)
 
     def forward(self, xs, xs_lens):
+        """Computes in its parameters' dtype, as the JAX encoder in its
+        `dtype`: the input is cast to it."""
+        xs = xs.to(dtype_of(self))
         T = xs.shape[1]
         mask = torch.arange(T, device=xs.device)[None, :] < xs_lens[:, None]
         xs = self.embed(xs)

@@ -34,6 +34,14 @@ kernels too. Every other call (prefill, the latent pass, and every call with
 W4 weights unpacked once per call. `QuantDenseHead` is the int8 logits head
 (`head_quant`); it stays W8 under W4, as in the JAX package.
 
+The core computes in its stored parameters' dtype (`GPT2Core.dtype`, the
+engine's gpt_dtype), as the JAX GPT2Core in its `dtype`: the embeddings are
+cast to it, LayerNorm takes float32 statistics and rounds once
+(models/layers.py), the attention softmax is float32, a float cache holds
+the dtype and the decode attention reads it with a float32 query. The
+quantized layers quantize a float32 copy of their input and return their
+float32 result in the input's dtype; their per-channel scales stay float32.
+
 Module names follow the reference state_dict keys (`h.{i}.attn.c_attn`, ...);
 a quantized layer carries `weight_q` (W8) or `weight_q4` (W4),
 `weight_scale` and `bias`.
@@ -47,6 +55,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from indextts_tpu_torch.models.layers import LayerNorm
 from indextts_tpu_torch.ops import gemv as gemv_ops
 from indextts_tpu_torch.ops.decode_attention import (
     ragged_decode_attention,
@@ -266,9 +275,9 @@ class GPT2Block(nn.Module):
     def __init__(self, dim: int, n_head: int, quantize: bool = False, gemv: bool = False,
                  wbits: int = 8):
         super().__init__()
-        self.ln_1 = nn.LayerNorm(dim, eps=1e-5)
+        self.ln_1 = LayerNorm(dim, eps=1e-5)
         self.attn = GPT2Attention(dim, n_head, quantize, gemv, wbits)
-        self.ln_2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ln_2 = LayerNorm(dim, eps=1e-5)
         self.mlp = GPT2MLP(dim, quantize, gemv, wbits)
 
     def forward(self, x, attn_bias, past=None):
@@ -300,7 +309,13 @@ class GPT2Core(nn.Module):
         super().__init__()
         self.h = nn.ModuleList(GPT2Block(dim, n_head, quantize, gemv, wbits)
                                for _ in range(n_layer))
-        self.ln_f = nn.LayerNorm(dim, eps=1e-5)
+        self.ln_f = LayerNorm(dim, eps=1e-5)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype, that of the stored float parameters: the
+        blocks' input is cast to it (the JAX GPT2Core's `dtype`)."""
+        return self.ln_f.weight.dtype
 
     def forward(self, inputs_embeds, attention_mask: Optional[torch.Tensor] = None,
                 past: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -313,6 +328,7 @@ class GPT2Core(nn.Module):
         (L, B, H, P+T, Dh)."""
         B, T = inputs_embeds.shape[:2]
         dev = inputs_embeds.device
+        inputs_embeds = inputs_embeds.to(self.dtype)
         P = 0 if past is None else past[0].shape[3]
         causal = torch.tril(torch.ones(T, P + T, dtype=torch.bool, device=dev), diagonal=P)
         zero = torch.zeros((), device=dev)
@@ -340,6 +356,7 @@ class GPT2Core(nn.Module):
         in place at slot index[b] ((B,) int64); keys < valid_len ((B,) int32)
         outside [hole_s, hole_e) attend. Every per-token value is a device
         tensor, so the step can be captured in a CUDA graph."""
+        x = x.to(self.dtype)
         for i, blk in enumerate(self.h):
             x = blk.decode_step(x, [c[i] for c in caches], index, valid_len, hole_s, hole_e)
         return self.ln_f(x)

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from indextts_tpu_torch.models.layers import Linear
+
 NEG_INF = -1e9
 
 
@@ -36,9 +38,9 @@ class PerceiverAttention(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_kv = nn.Linear(dim, 2 * inner, bias=False)
-        self.to_out = nn.Linear(inner, dim, bias=False)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_kv = Linear(dim, 2 * inner, bias=False)
+        self.to_out = Linear(inner, dim, bias=False)
 
     def forward(self, latents, context, mask: Optional[torch.Tensor] = None):
         B, N, _ = latents.shape
@@ -66,7 +68,7 @@ class GEGLU(nn.Module):
 
 def feed_forward(dim: int, mult: int) -> nn.Sequential:
     inner = int(dim * mult * 2 / 3)
-    return nn.Sequential(nn.Linear(dim, 2 * inner), GEGLU(), nn.Linear(inner, dim))
+    return nn.Sequential(Linear(dim, 2 * inner), GEGLU(), Linear(inner, dim))
 
 
 class PerceiverResampler(nn.Module):
@@ -75,7 +77,7 @@ class PerceiverResampler(nn.Module):
                  ff_mult: int = 4):
         super().__init__()
         self.proj_context = (
-            nn.Linear(dim_context, dim) if dim_context != dim else None
+            Linear(dim_context, dim) if dim_context != dim else None
         )
         self.latents = nn.Parameter(torch.empty(num_latents, dim).normal_(std=0.02))
         self.layers = nn.ModuleList(

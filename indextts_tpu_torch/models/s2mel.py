@@ -10,6 +10,15 @@ pads and silently drops its `padding=` kwarg, encodec.py:196-228). Module
 names follow the reference state_dict (`cfm.estimator.transformer.layers.{i}
 .attention.wqkv`, `length_regulator.model.{3i}`, `gpt_layer.{i}`, ...).
 Layout (B, T, C) except where noted.
+
+Its layers compute in the promoted dtype of input and weights
+(models/layers.py), as the JAX modules without a `dtype`: stored in
+bfloat16 (runtime.s2mel_dtype) and fed bfloat16 by the engine and the CFM
+solver, the DiT and regulator compute in bfloat16, with float32 islands as
+in the JAX model: the time embeddings (cast to the stack's dtype after),
+the RMSNorm, LayerNorm and GroupNorm statistics and the attention softmax
+(K3's bfloat16 instantiation on the card). The speaker prompt's float32
+condition goes through the regulator in float32 over the bfloat16 weights.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from indextts_tpu_torch.config import (
     S2MelConfig,
     WaveNetConfig,
 )
-from indextts_tpu_torch.models.layers import Pointwise
+from indextts_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, Pointwise
 from indextts_tpu_torch.ops.dit_attention import dit_attention
 
 
@@ -38,8 +47,8 @@ class TimestepEmbedder(nn.Module):
     def __init__(self, hidden: int, freq_dim: int = 256):
         super().__init__()
         self.freq_dim = freq_dim
-        self.mlp = nn.Sequential(nn.Linear(freq_dim, hidden), nn.SiLU(),
-                                 nn.Linear(hidden, hidden))
+        self.mlp = nn.Sequential(Linear(freq_dim, hidden), nn.SiLU(),
+                                 Linear(hidden, hidden))
 
     def forward(self, t):
         half = self.freq_dim // 2
@@ -70,7 +79,7 @@ class AdaptiveRMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.norm = RMSNorm(dim, eps)
-        self.project_layer = nn.Linear(dim, 2 * dim)
+        self.project_layer = Linear(dim, 2 * dim)
 
     def forward(self, x, c):
         weight, bias = self.project_layer(c).chunk(2, dim=-1)
@@ -96,7 +105,8 @@ def apply_rotary(x, rope):
         [xs[..., 0] * cos - xs[..., 1] * sin, xs[..., 1] * cos + xs[..., 0] * sin],
         dim=-1,
     )
-    return out.reshape(x.shape)
+    # the float32 table promotes a bfloat16 x; the rotation comes back in x's dtype
+    return out.reshape(x.shape).to(x.dtype)
 
 
 class DiTAttention(nn.Module):
@@ -105,8 +115,8 @@ class DiTAttention(nn.Module):
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         self.h, self.dh = cfg.num_heads, cfg.head_dim
-        self.wqkv = nn.Linear(cfg.hidden_dim, 3 * cfg.num_heads * cfg.head_dim, bias=False)
-        self.wo = nn.Linear(cfg.num_heads * cfg.head_dim, cfg.hidden_dim, bias=False)
+        self.wqkv = Linear(cfg.hidden_dim, 3 * cfg.num_heads * cfg.head_dim, bias=False)
+        self.wo = Linear(cfg.num_heads * cfg.head_dim, cfg.hidden_dim, bias=False)
 
     def forward(self, x, rope, key_mask):
         B, T, _ = x.shape
@@ -124,9 +134,9 @@ class DiTFeedForward(nn.Module):
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        self.w1 = nn.Linear(cfg.hidden_dim, cfg.intermediate_size, bias=False)
-        self.w3 = nn.Linear(cfg.hidden_dim, cfg.intermediate_size, bias=False)
-        self.w2 = nn.Linear(cfg.intermediate_size, cfg.hidden_dim, bias=False)
+        self.w1 = Linear(cfg.hidden_dim, cfg.intermediate_size, bias=False)
+        self.w3 = Linear(cfg.hidden_dim, cfg.intermediate_size, bias=False)
+        self.w2 = Linear(cfg.intermediate_size, cfg.hidden_dim, bias=False)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -136,7 +146,7 @@ class DiTBlock(nn.Module):
     def __init__(self, cfg: DiTConfig, receive_skip: bool):
         super().__init__()
         if receive_skip:
-            self.skip_in_linear = nn.Linear(2 * cfg.hidden_dim, cfg.hidden_dim)
+            self.skip_in_linear = Linear(2 * cfg.hidden_dim, cfg.hidden_dim)
         self.attention_norm = AdaptiveRMSNorm(cfg.hidden_dim, cfg.norm_eps)
         self.attention = DiTAttention(cfg)
         self.ffn_norm = AdaptiveRMSNorm(cfg.hidden_dim, cfg.norm_eps)
@@ -195,7 +205,7 @@ class _Wrap(nn.Module):
 
 
 def _sconv(cin: int, cout: int, k: int = 1, dilation: int = 1) -> _Wrap:
-    return _Wrap(_Wrap(nn.Conv1d(cin, cout, k, dilation=dilation)))
+    return _Wrap(_Wrap(Conv1d(cin, cout, k, dilation=dilation)))
 
 
 class WaveNet(nn.Module):
@@ -247,9 +257,9 @@ class FinalLayer(nn.Module):
 
     def __init__(self, cond_dim: int, hidden: int):
         super().__init__()
-        self.norm_final = nn.LayerNorm(hidden, eps=1e-6, elementwise_affine=False)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(cond_dim, 2 * hidden))
-        self.linear = nn.Linear(hidden, hidden)
+        self.norm_final = LayerNorm(hidden, eps=1e-6, elementwise_affine=False)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(cond_dim, 2 * hidden))
+        self.linear = Linear(hidden, hidden)
 
     def forward(self, x, c):
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
@@ -264,18 +274,18 @@ class DiT(nn.Module):
         super().__init__()
         self.cfg, self.wn_cfg = cfg, wn
         self.t_embedder = TimestepEmbedder(cfg.hidden_dim, cfg.time_freq_dim)
-        self.cond_projection = nn.Linear(cfg.content_dim, cfg.hidden_dim)
+        self.cond_projection = Linear(cfg.content_dim, cfg.hidden_dim)
         merge_in = 2 * cfg.in_channels + cfg.hidden_dim
         if cfg.style_condition and not cfg.style_as_token:
             merge_in += cfg.style_dim
-        self.cond_x_merge_linear = nn.Linear(merge_in, cfg.hidden_dim)
+        self.cond_x_merge_linear = Linear(merge_in, cfg.hidden_dim)
         self.transformer = DiTTransformer(cfg)
         if cfg.long_skip_connection:
-            self.skip_linear = nn.Linear(cfg.hidden_dim + cfg.in_channels, cfg.hidden_dim)
-        self.conv1 = nn.Linear(cfg.hidden_dim, wn.hidden_dim)
+            self.skip_linear = Linear(cfg.hidden_dim + cfg.in_channels, cfg.hidden_dim)
+        self.conv1 = Linear(cfg.hidden_dim, wn.hidden_dim)
         self.t_embedder2 = TimestepEmbedder(wn.hidden_dim, cfg.time_freq_dim)
         self.wavenet = WaveNet(wn, wn.hidden_dim)
-        self.res_projection = nn.Linear(cfg.hidden_dim, wn.hidden_dim)
+        self.res_projection = Linear(cfg.hidden_dim, wn.hidden_dim)
         self.final_layer = FinalLayer(cfg.hidden_dim, wn.hidden_dim)
         self.conv2 = Pointwise(wn.hidden_dim, cfg.in_channels)
 
@@ -291,12 +301,15 @@ class DiT(nn.Module):
         if c.style_condition and not c.style_as_token:
             x_in = torch.cat([x_in, style[:, None].expand(B, T, style.shape[-1])], dim=-1)
         x_in = self.cond_x_merge_linear(x_in)
+        # the stack computes in the caller's dtype: the float32 time
+        # embedding would otherwise promote every AdaLN-modulated activation
+        t1 = t1.to(x_in.dtype)
         valid = torch.arange(T, device=x.device)[None, :] < x_lens[:, None]
         x_res = self.transformer(x_in, t1[:, None], valid)
         if c.long_skip_connection:
             x_res = self.skip_linear(torch.cat([x_res, xt], dim=-1))
         h = self.conv1(x_res)
-        t2 = self.t_embedder2(t)
+        t2 = self.t_embedder2(t).to(h.dtype)
         mask = valid[:, None, :].to(h.dtype)
         wn = self.wavenet(h.transpose(1, 2), mask, t2[:, :, None]).transpose(1, 2)
         h = wn + self.res_projection(x_res)
@@ -320,11 +333,11 @@ class InterpolateRegulator(nn.Module):
         super().__init__()
         C = cfg.channels
         self.n = len(cfg.sampling_ratios)
-        self.content_in_proj = nn.Linear(cfg.in_channels, C)
+        self.content_in_proj = Linear(cfg.in_channels, C)
         mods = []
         for _ in range(self.n):
-            mods += [nn.Conv1d(C, C, 3, padding=1), nn.GroupNorm(1, C), nn.Mish()]
-        mods.append(nn.Conv1d(C, C, 1))
+            mods += [Conv1d(C, C, 3, padding=1), nn.GroupNorm(1, C), nn.Mish()]
+        mods.append(Conv1d(C, C, 1))
         self.model = nn.Sequential(*mods)
 
     @staticmethod
@@ -371,7 +384,7 @@ class S2Mel(nn.Module):
         self.length_regulator = InterpolateRegulator(cfg.length_regulator)
         d = cfg.gpt_dims
         self.gpt_layer = nn.Sequential(
-            *(nn.Linear(d[i], d[i + 1]) for i in range(len(d) - 1))
+            *(Linear(d[i], d[i + 1]) for i in range(len(d) - 1))
         )
 
     def regulate(self, x, ylens, out_len: int, xlens=None):

@@ -10,7 +10,12 @@ embeddings, final_norm + mel_head. Inference only: the training head
 `quantize=True` builds the quantized GPT-2 blocks of `wbits` bits (8 or 4)
 and `head_quant=True` the int8 logits head (models/gpt2.py), as the JAX
 package's `quantize_gpt`, `wbits` and `head_quant`; embeddings, norms and
-the conditioning stay float. `gemv=True` sends the blocks' and the head's
+the conditioning stay float. Stored in bfloat16 (the engine's gpt_dtype),
+the conformers, perceivers and GPT blocks compute in bfloat16 as the JAX
+modules with dtype=bfloat16; the emotion projections, the final norm and
+the head promote with their input (models/layers.py): the final norm and
+the logits are float32, and merge_emovec returns float32, as the JAX
+engine's emovec. `gemv=True` sends the blocks' and the head's
 single-row decode calls through the kernels of ops/gemv.py, as the JAX
 package's `gemv_impl="pallas"`; `gemv=False` is its "xla" route.
 """
@@ -23,6 +28,7 @@ from torch import nn
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.conformer import ConformerEncoder
 from indextts_tpu_torch.models.gpt2 import GPT2Core, QuantDenseHead
+from indextts_tpu_torch.models.layers import LayerNorm, Linear
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
 
 
@@ -57,11 +63,11 @@ class UnifiedVoice(nn.Module):
         self.mel_pos_embedding = LearnedPositionEmbeddings(c.max_mel_position, c.model_dim)
         self.text_pos_embedding = LearnedPositionEmbeddings(c.max_text_position, c.model_dim)
         self.speed_emb = nn.Embedding(2, c.model_dim)
-        self.emovec_layer = nn.Linear(1024, c.model_dim)
-        self.emo_layer = nn.Linear(c.model_dim, c.model_dim)
-        self.final_norm = nn.LayerNorm(c.model_dim, eps=1e-5)
+        self.emovec_layer = Linear(1024, c.model_dim)
+        self.emo_layer = Linear(c.model_dim, c.model_dim)
+        self.final_norm = LayerNorm(c.model_dim, eps=1e-5)
         self.mel_head = (QuantDenseHead(c.model_dim, c.number_mel_codes, gemv) if head_quant
-                         else nn.Linear(c.model_dim, c.number_mel_codes))
+                         else Linear(c.model_dim, c.number_mel_codes))
         self.gpt = GPT2Core(c.layers, c.model_dim, c.heads, quantize, gemv, wbits)
 
     # -- conditioning ------------------------------------------------------
@@ -84,10 +90,12 @@ class UnifiedVoice(nn.Module):
 
     def merge_emovec(self, spk_cond_emb, emo_cond_emb, spk_lens, emo_lens,
                      alpha: float = 1.0):
-        """base + alpha * (emo - base) (model_v2.py:904-910)."""
+        """base + alpha * (emo - base) (model_v2.py:904-910), float32: the
+        JAX engine's alpha is a float32 array, which promotes a bfloat16
+        model's difference."""
         emo = self.get_emovec(emo_cond_emb, emo_lens)
         base = self.get_emovec(spk_cond_emb, spk_lens)
-        return base + alpha * (emo - base)
+        return base.float() + alpha * (emo - base).float()
 
     def build_conds_latent(self, spk_latents, emovec):
         """[spk_latents + emovec, speed_emb(1), speed_emb(0)] -> (B, 34, D)."""

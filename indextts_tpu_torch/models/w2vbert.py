@@ -5,7 +5,10 @@ Wav2Vec2BertModel, facebook/w2v-bert-2.0): relative_key position bias,
 causal depthwise conv k=31, swish FFNs. Only the first `tap_layer` layers run:
 the engine taps hidden_states[17], the input of layer 17. Module names follow
 the HF state_dict (`feature_projection.projection`, `encoder.layers.{i}...`).
-Layout (B, T, C).
+Layout (B, T, C). Its layers compute in the promoted dtype of input and
+weights (models/layers.py), as the JAX encoder's: under a bfloat16
+cond_dtype the weights are stored in bfloat16 and the float32 features
+carry the computation in float32.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from indextts_tpu_torch.config import W2VBertConfig
-from indextts_tpu_torch.models.layers import Pointwise
+from indextts_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, Pointwise, promoted
 
 NEG_INF = -1e9
 
@@ -26,8 +29,8 @@ NEG_INF = -1e9
 class W2VFeedForward(nn.Module):
     def __init__(self, cfg: W2VBertConfig):
         super().__init__()
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
         return self.output_dense(F.silu(self.intermediate_dense(x)))
@@ -38,10 +41,10 @@ class W2VSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         D = cfg.hidden_size
-        self.linear_q = nn.Linear(D, D)
-        self.linear_k = nn.Linear(D, D)
-        self.linear_v = nn.Linear(D, D)
-        self.linear_out = nn.Linear(D, D)
+        self.linear_q = Linear(D, D)
+        self.linear_k = Linear(D, D)
+        self.linear_v = Linear(D, D)
+        self.linear_out = Linear(D, D)
         if cfg.position_embeddings_type == "relative_key":
             self.distance_embedding = nn.Embedding(
                 cfg.left_max_position_embeddings + cfg.right_max_position_embeddings + 1,
@@ -64,6 +67,7 @@ class W2VSelfAttention(nn.Module):
             ar = torch.arange(T, device=x.device)
             dist = torch.clamp(ar[None, :] - ar[:, None], -L, R) + L
             pos_emb = self.distance_embedding(dist)  # (T, T, Dh)
+            pos_emb = pos_emb.to(promoted(q, pos_emb))
             rel = torch.einsum("bhld,lrd->bhlr", q, pos_emb)
             scores = scores + rel / math.sqrt(Dh)
         if attn_bias is not None:
@@ -78,10 +82,10 @@ class W2VConvModule(nn.Module):
         super().__init__()
         D, k = cfg.hidden_size, cfg.conv_depthwise_kernel_size
         self.k = k
-        self.layer_norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
+        self.layer_norm = LayerNorm(D, eps=cfg.layer_norm_eps)
         self.pointwise_conv1 = Pointwise(D, 2 * D, bias=False)
-        self.depthwise_conv = nn.Conv1d(D, D, k, groups=D, bias=False)
-        self.depthwise_layer_norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
+        self.depthwise_conv = Conv1d(D, D, k, groups=D, bias=False)
+        self.depthwise_layer_norm = LayerNorm(D, eps=cfg.layer_norm_eps)
         self.pointwise_conv2 = Pointwise(D, D, bias=False)
 
     def forward(self, x, pad_mask: Optional[torch.Tensor]):
@@ -98,14 +102,14 @@ class W2VEncoderLayer(nn.Module):
     def __init__(self, cfg: W2VBertConfig):
         super().__init__()
         D, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.ffn1_layer_norm = nn.LayerNorm(D, eps=eps)
+        self.ffn1_layer_norm = LayerNorm(D, eps=eps)
         self.ffn1 = W2VFeedForward(cfg)
-        self.self_attn_layer_norm = nn.LayerNorm(D, eps=eps)
+        self.self_attn_layer_norm = LayerNorm(D, eps=eps)
         self.self_attn = W2VSelfAttention(cfg)
         self.conv_module = W2VConvModule(cfg)
-        self.ffn2_layer_norm = nn.LayerNorm(D, eps=eps)
+        self.ffn2_layer_norm = LayerNorm(D, eps=eps)
         self.ffn2 = W2VFeedForward(cfg)
-        self.final_layer_norm = nn.LayerNorm(D, eps=eps)
+        self.final_layer_norm = LayerNorm(D, eps=eps)
 
     def forward(self, x, attn_bias, pad_mask):
         x = x + 0.5 * self.ffn1(self.ffn1_layer_norm(x))
@@ -118,9 +122,9 @@ class W2VEncoderLayer(nn.Module):
 class _FeatureProjection(nn.Module):
     def __init__(self, cfg: W2VBertConfig):
         super().__init__()
-        self.layer_norm = nn.LayerNorm(cfg.feature_projection_input_dim,
+        self.layer_norm = LayerNorm(cfg.feature_projection_input_dim,
                                        eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
+        self.projection = Linear(cfg.feature_projection_input_dim, cfg.hidden_size)
 
 
 class _Encoder(nn.Module):

@@ -8,6 +8,15 @@ Layout (B, C, T), as torch's Conv1d gives it. The CUDA kernel
 `anti_alias_snake_sliced` in plain PyTorch, which the wrapper runs for CPU
 tensors. `snake_plan` is the kernel's launch, worked out here and checked
 by the C launcher; `kernel_taps` the taps it takes by value.
+
+x may be float32 or bfloat16 (a bfloat16 vocoder, runtime.voc_dtype): the
+output has x's dtype, and the arithmetic is float32 either way, alpha and
+beta widened to it, as the JAX package's Pallas kernels upcast them
+(indextts_tpu/ops/snake_pallas.py:250-255, 309-313). A bfloat16 x takes
+the kernel's bfloat16 instantiation (`anti_alias_snake_bf16`, counted on
+`bf16_counter`), which reads a bfloat16 model's alpha and beta as they
+are stored (or float32 ones), so a call stays one launch; its plain
+version widens x, computes and rounds once.
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ import torch.nn.functional as F
 from indextts_tpu_torch.ops import cuda_lib
 
 
-counter = cuda_lib.LaunchCounter()
+counter = cuda_lib.LaunchCounter()  # the float32 instantiation's launches
+bf16_counter = cuda_lib.LaunchCounter()  # the bfloat16 instantiation's
 
 
 def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> np.ndarray:
@@ -63,7 +73,8 @@ def polyphase_taps() -> Tuple[List[float], List[float], List[float]]:
 
 
 def anti_alias_snake_plain(x, alpha, beta, logscale: bool = True):
-    """x (B, C, T) float32; alpha, beta (C,). Returns (B, C, T)."""
+    """x (B, C, T); alpha, beta (C,), all of one dtype (float32 on the
+    path). Returns (B, C, T)."""
     even_taps, odd_taps, down_taps = polyphase_taps()
     T = x.shape[-1]
     n_up = T + 6
@@ -141,29 +152,42 @@ def _taps_arg() -> ctypes.Array:
 
 
 def anti_alias_snake(x, alpha, beta, logscale: bool = True):
-    """K2 on CUDA tensors, the plain version on CPU tensors."""
+    """K2 on CUDA tensors, the plain version on CPU tensors. x (B, C, T)
+    float32 or bfloat16, the output of its dtype; alpha, beta (C,) of any
+    float dtype, read as float32."""
     if x.device.type == "cpu":
-        return anti_alias_snake_plain(x, alpha, beta, logscale)
+        return anti_alias_snake_plain(x.float(), alpha.float(), beta.float(),
+                                      logscale).to(x.dtype)
     if x.dim() != 3:
         raise ValueError(f"x must be (B, C, T), got {tuple(x.shape)}")
     B, C, T = x.shape
     if alpha.shape != (C,) or beta.shape != (C,):
         raise ValueError(f"alpha/beta must be ({C},)")
-    if x.dtype != torch.float32 or alpha.dtype != torch.float32 \
-            or beta.dtype != torch.float32:
-        raise TypeError(f"float32 only, got {x.dtype}/{alpha.dtype}/{beta.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or not alpha.is_floating_point() \
+            or not beta.is_floating_point():
+        raise TypeError(f"x float32 or bfloat16, alpha/beta float, got "
+                        f"{x.dtype}/{alpha.dtype}/{beta.dtype}")
     if alpha.device != x.device or beta.device != x.device:
         raise ValueError("all inputs must be on the same device")
-    x = x.contiguous()
-    alpha = alpha.contiguous()
-    beta = beta.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    # the bf16 instantiation reads alpha and beta as bfloat16 or float32
+    ab_bf16 = bf16 and alpha.dtype == beta.dtype == torch.bfloat16
+    if not ab_bf16:
+        alpha, beta = alpha.float(), beta.float()
+    x, alpha, beta = x.contiguous(), alpha.contiguous(), beta.contiguous()
     out = torch.empty_like(x)
-    vec = T % 4 == 0 and x.data_ptr() % 16 == 0
-    fn = cuda_lib.function("snake", "anti_alias_snake",
-                           [cuda_lib.P] * 5 + [cuda_lib.I] * 8 + [cuda_lib.P])
+    vec = T % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+    args = (x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ctypes.addressof(_taps_arg()),
+            out.data_ptr(), B, C, T, int(logscale), *snake_plan(B, C, T), int(vec))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ctypes.addressof(_taps_arg()),
-             out.data_ptr(), B, C, T, int(logscale), *snake_plan(B, C, T), int(vec), stream)
-    cuda_lib.check(err, "anti_alias_snake")
-    counter.add()
+    if bf16:
+        symbol = "anti_alias_snake_bf16"
+        fn = cuda_lib.function("snake", symbol, [cuda_lib.P] * 5 + [cuda_lib.I] * 9 + [cuda_lib.P])
+        err = fn(*args, int(ab_bf16), stream)
+    else:
+        symbol = "anti_alias_snake"
+        fn = cuda_lib.function("snake", symbol, [cuda_lib.P] * 5 + [cuda_lib.I] * 8 + [cuda_lib.P])
+        err = fn(*args, stream)
+    cuda_lib.check(err, symbol)
+    (bf16_counter if bf16 else counter).add()
     return out

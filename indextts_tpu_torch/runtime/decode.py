@@ -55,6 +55,13 @@ A request's segments decoded at once (the engine's batched route) are one
 own pad hole, every row's next key at the same slot, the loop ending once
 every row has finished.
 
+A bfloat16 GPT (the engine's `gpt_dtype`) decodes in bfloat16 as the JAX
+decoder with `param_dtype` bfloat16: the prompt and step embeddings, the
+blocks and a float cache in bfloat16 (K1 reads it with a float32 query and
+returns float32), an int8 cache quantized from the bfloat16 K/V in float32;
+the logits float32 (the final norm and the head on the float32 hidden
+state), and sampling on them in float32.
+
 Still missing against the JAX package: text-prefix KV reuse.
 """
 
@@ -163,10 +170,13 @@ class _LoopState:
     slots, the logits, the codes, the finished flags, the penalty set, each
     row's prompt hole, the sampling scalars and the generator the draws come
     from; and the step captured over them for each value of do_sample
-    (`graphs`: the CUDA graph and each step counter's launches in it)."""
+    (`graphs`: the CUDA graph and each step counter's launches in it). A
+    float cache holds the model's compute dtype (`dtype`, that of its
+    projections, as the JAX decoder's cache takes theirs); the logits are
+    float32 either way."""
 
     def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
         L, H, V = cfg.layers, cfg.heads, cfg.number_mel_codes
         kv = (L, batch, H, cap, cfg.model_dim // H)
         if kv_int8:
@@ -174,7 +184,7 @@ class _LoopState:
                                 for _ in range(2)) + tuple(
                 torch.zeros(kv[:4], device=device) for _ in range(2))
         else:
-            self.caches = tuple(torch.zeros(kv, device=device) for _ in range(2))
+            self.caches = tuple(torch.zeros(kv, dtype=dtype, device=device) for _ in range(2))
         self.cap = cap
         self.generator = generator
         zeros = functools.partial(torch.zeros, device=device)
@@ -198,8 +208,8 @@ class DecodeState(_LoopState):
     at the same index `step` and its next key at slot S + step."""
 
     def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device,
-                 generator: torch.Generator):
-        super().__init__(cfg, batch, cap, kv_int8, device, generator)
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, batch, cap, kv_int8, device, generator, dtype)
         zeros = functools.partial(torch.zeros, device=device, dtype=torch.long)
         self.tok = zeros(batch)  # the last code picked
         self.step = zeros(1)  # index of the last code picked
@@ -216,8 +226,8 @@ class BeamState(DecodeState):
     on every row; and the length penalty."""
 
     def __init__(self, cfg: GPTConfig, nb: int, cap: int, kv_int8: bool, device,
-                 generator: torch.Generator):
-        super().__init__(cfg, nb, cap, kv_int8, device, generator)
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, nb, cap, kv_int8, device, generator, dtype)
         zeros = functools.partial(torch.zeros, device=device)
         self.beam_scores = zeros(nb)
         self.fin_scores = zeros(nb)
@@ -237,8 +247,8 @@ class SlotState(_LoopState):
     and its last code column take the writes of its idle steps."""
 
     def __init__(self, cfg: GPTConfig, n_slots: int, cap: int, max_new: int, kv_int8: bool,
-                 device, generator: torch.Generator):
-        super().__init__(cfg, n_slots, cap, kv_int8, device, generator)
+                 device, generator: torch.Generator, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, n_slots, cap, kv_int8, device, generator, dtype)
         self.max_new = max_new
         zeros = functools.partial(torch.zeros, n_slots, device=device)
         self.pos = zeros(dtype=torch.long)
@@ -350,7 +360,7 @@ class GPTDecoder:
                 self._states.popitem(last=False)
             st = self._states[key] = (BeamState if beam else DecodeState)(
                 self.cfg, batch, cap, self.beam_kv_int8 if beam else self.kv_int8,
-                self.device, self.generator)
+                self.device, self.generator, self.model.gpt.dtype)
         self._states.move_to_end(key)
         return st
 
@@ -722,7 +732,8 @@ class GPTDecoder:
         and its own generator seeded once with `seed`."""
         with self.on_stream():
             st = SlotState(self.cfg, n_slots, cap, max_new, self.kv_int8, self.device,
-                           torch.Generator(device=self.device).manual_seed(seed))
+                           torch.Generator(device=self.device).manual_seed(seed),
+                           self.model.gpt.dtype)
             st.temperature.fill_(temperature)
             st.top_p.fill_(top_p)
             st.penalty.fill_(penalty)

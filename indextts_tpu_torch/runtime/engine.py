@@ -72,8 +72,7 @@ as the JAX engine's `synthesize_segments_batched` (indextts_tpu/runtime/
 engine.py:847-1004, 1570-1579): one decode of B rows with the decoder's
 sampling, then one latent pass, one CFM solve and one vocoder call over
 the B rows, each stage's graph keyed on B; one segment takes the
-sequential route. Routes the port does not implement raise
-NotImplementedError: bfloat16 s2mel or vocoder dtypes. `infer_continuous`
+sequential route. `infer_continuous`
 decodes the segments in a shared runtime/batcher.py ContinuousService,
 with sampling only, as the JAX batcher does.
 
@@ -81,9 +80,26 @@ The AR decode (runtime/decode.py `GPTDecoder`) replays a captured step on
 the card; the engine hands it each request's seed (a random one for a
 seedless request), from which the decoder reseeds its own generator.
 
-Runs on `cuda` unless the caller passes `device="cpu"`. Float32 compute;
-the constructor turns TF32 off for matmuls and cuDNN convolutions, which
-PyTorch would otherwise use for float32 convolutions on the card.
+The compute dtypes follow the JAX engine's (indextts_tpu/runtime/engine.py:
+95-226): `gpt_dtype` (float32 by default; the config's runtime.gpt_dtype
+is not read, as the JAX engine does not read it), `cond_dtype` for
+w2v-BERT (float32), runtime.s2mel_dtype for the regulator, gpt_layer and
+DiT, and runtime.voc_dtype (or the `voc_dtype` argument) for BigVGAN; each
+model's float weights are stored in its dtype (weights.py `put_as`: the
+int8 layers' scales stay float32), RepCodec and CAMPPlus in float32.
+Layers compute in the promoted dtype of input and weights, and a model
+whose JAX counterpart has a `dtype` casts its input to it
+(models/layers.py). A bfloat16 s2mel keeps the Euler state, the time
+embedding, the norm statistics and the softmax in float32, and its mel
+comes out float32. A bfloat16 vocoder is dual, as in the JAX engine: a
+float32 sibling (`bigvgan_f32`, its own runner `vocoder_runner`) vocodes
+the sequential, streaming and continuous routes and precompile's grid,
+and the bfloat16 model (`bigvgan`, `batch_vocoder_runner`) only the
+batched route, its waveform bfloat16 up to the PCM16 clip.
+
+Runs on `cuda` unless the caller passes `device="cpu"`. The constructor
+turns TF32 off for matmuls and cuDNN convolutions, which PyTorch would
+otherwise use for float32 convolutions on the card.
 """
 
 from __future__ import annotations
@@ -116,7 +132,7 @@ from indextts_tpu_torch.runtime.graphs import LatentRunner, VocoderRunner
 from indextts_tpu_torch.runtime.s2mel_infer import S2MelRunner
 from indextts_tpu_torch.utils import audio as audio_utils
 from indextts_tpu_torch.utils.device import resolve_device
-from indextts_tpu_torch.weights import quantize_gpt_state_dict
+from indextts_tpu_torch.weights import put_as, quantize_gpt_state_dict
 
 # each model of the cascade, built from the config for the device it runs on
 MODELS: Dict[str, Callable[[IndexTTS2Config, torch.device], torch.nn.Module]] = {
@@ -172,12 +188,13 @@ def precompile_grid(max_text_tokens: int, max_text_tokens_per_segment: int,
 
 
 def load_model(name: str, cfg: IndexTTS2Config, state_dict: Dict[str, torch.Tensor],
-               device: torch.device) -> torch.nn.Module:
-    """Build model `name` without initializing it and adopt `state_dict`
-    (moved to `device`) as its parameters; eval mode, no gradients."""
+               device: torch.device, dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """Build model `name` without initializing it and adopt `state_dict`,
+    stored in `dtype` (`put_as`, cast before the move) and moved to
+    `device`, as its parameters; eval mode, no gradients."""
     with torch.device("meta"):
         m = MODELS[name](cfg, device)
-    sd = {k: v.to(device) for k, v in state_dict.items()}
+    sd = {k: v.to(device) for k, v in put_as(state_dict, dtype).items()}
     m.load_state_dict(sd, strict=True, assign=True)
     return m.eval().requires_grad_(False)
 
@@ -251,10 +268,18 @@ def _check_supported(cfg: IndexTTS2Config) -> None:
     if rt.gpt_quantize and rt.gpt_wbits not in (8, 4):
         raise ValueError(f"runtime.gpt_wbits={rt.gpt_wbits}: quantized GPT weights "
                          "have 8 or 4 bits")
-    for name in ("s2mel_dtype", "voc_dtype"):
-        if getattr(rt, name) != "float32":
-            raise NotImplementedError(f"runtime.{name}={getattr(rt, name)!r}: "
-                                      "only float32 is ported")
+
+
+def config_dtype(name: str) -> torch.dtype:
+    """A runtime dtype setting ("bfloat16" or anything else) as the JAX
+    engine resolves it: bfloat16, else float32."""
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def _compute_dtype(dtype, what: str) -> torch.dtype:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}={dtype}: float32 or bfloat16")
+    return dtype
 
 
 def random_params(cfg: IndexTTS2Config, seed: int = 0, device=None) -> Dict[str, Dict]:
@@ -287,9 +312,15 @@ class IndexTTS2Engine:
         precise_shapes: bool = False,
         emo_matrix: Optional[np.ndarray] = None,
         spk_matrix: Optional[np.ndarray] = None,
+        gpt_dtype: torch.dtype = torch.float32,
+        voc_dtype: Optional[torch.dtype] = None,
+        cond_dtype: torch.dtype = torch.float32,
     ):
         """params: {"gpt", "s2mel", "bigvgan", "repcodec", "campplus",
         "w2vbert"} state dicts (weights.from_jax_params or random_params).
+        gpt_dtype, cond_dtype: the GPT's and w2v-BERT's compute dtypes;
+        voc_dtype: BigVGAN's, None for runtime.voc_dtype (the JAX engine's
+        arguments and defaults).
         With runtime.gpt_quantize, a float GPT state dict is quantized here
         (the JAX engine's quantize_gpt_tree step). precise_shapes: solve
         the CFM at the exact target length, not its 128-frame bucket (the
@@ -308,10 +339,21 @@ class IndexTTS2Engine:
         if cfg.runtime.gpt_quantize and "gpt.h.0.attn.c_attn.weight" in gpt_sd:
             params["gpt"] = quantize_gpt_state_dict(gpt_sd, head=head_quant(cfg),
                                                     bits=cfg.runtime.gpt_wbits)
-        mods = {name: load_model(name, cfg, params[name], self.device) for name in MODELS}
+        if voc_dtype is None:
+            voc_dtype = config_dtype(cfg.runtime.voc_dtype)
+        self.s2mel_dtype = config_dtype(cfg.runtime.s2mel_dtype)
+        dtypes = {"gpt": _compute_dtype(gpt_dtype, "gpt_dtype"), "s2mel": self.s2mel_dtype,
+                  "bigvgan": _compute_dtype(voc_dtype, "voc_dtype"),
+                  "w2vbert": _compute_dtype(cond_dtype, "cond_dtype")}
+        mods = {name: load_model(name, cfg, params[name], self.device,
+                                 dtypes.get(name, torch.float32)) for name in MODELS}
         self.gpt: UnifiedVoice = mods["gpt"]
         self.s2mel: S2Mel = mods["s2mel"]
         self.bigvgan: BigVGAN = mods["bigvgan"]
+        # the float32 vocoder that serves one row (the JAX engine's
+        # bigvgan_f32): a second model beside a bfloat16 one
+        self.bigvgan_f32: BigVGAN = (self.bigvgan if voc_dtype == torch.float32 else
+                                     load_model("bigvgan", cfg, params["bigvgan"], self.device))
         self.repcodec: RepCodec = mods["repcodec"]
         self.campplus: CAMPPlus = mods["campplus"]
         self.w2vbert: W2VBertEncoder = mods["w2vbert"]
@@ -328,7 +370,10 @@ class IndexTTS2Engine:
                                   kv_int8=kv_int8(cfg), attn_impl=rt.attn_impl)
         self.latent_runner = LatentRunner(self.gpt)
         self.s2mel_runner = S2MelRunner(self.s2mel, rt.diffusion_steps, rt.cfg_rate)
-        self.vocoder_runner = VocoderRunner(self.bigvgan, rt.device_pcm16)
+        self.vocoder_runner = VocoderRunner(self.bigvgan_f32, rt.device_pcm16)
+        # the batched route's runner: the voc_dtype model's
+        self.batch_vocoder_runner = (self.vocoder_runner if self.bigvgan is self.bigvgan_f32
+                                     else VocoderRunner(self.bigvgan, rt.device_pcm16))
         self._spk_cache: Dict[str, SpeakerConditioning] = {}
         self._emo_cache: Dict[str, EmotionConditioning] = {}
         # per conditioning key: ((emovec, conds), ready) and (prefix KV,
@@ -720,8 +765,10 @@ class IndexTTS2Engine:
         valid), then the CFM solve over the speaker's prompt broadcast to
         the B rows, each row's valid frames its own (JAX `_s2mel_mel`,
         indextts_tpu/runtime/engine.py:339-400): the mel (B, 80, prompt
-        frames + target_len)."""
-        cfg = self.cfg
+        frames + target_len), float32. The latent and the conditions enter
+        the s2mel dtype as in the JAX engine: gpt_layer over the latent cast
+        to it, its sum with vq2emb taken in float32 and cast."""
+        cfg, dt = self.cfg, self.s2mel_dtype
         B = latent.shape[0]
         code_lens = np.atleast_1d(np.asarray(code_lens, np.int64))
         # the regulator's valid length is rounded in float32, as in the JAX engine
@@ -731,9 +778,12 @@ class IndexTTS2Engine:
         # codebook; the regulator reads no row at or past code_len, so those
         # rows are looked up clamped (the JAX engine's take fills them with NaN)
         codes_t = codes_t.clamp(max=cfg.semantic_codec.codebook_size - 1)
-        s_infer = self.repcodec.vq2emb(codes_t) + self.s2mel.project_gpt_latent(latent)
+        # in the s2mel dtype, the sum in float32 (the JAX engine's casts)
+        s_infer = (self.repcodec.vq2emb(codes_t)
+                   + self.s2mel.project_gpt_latent(latent.to(dt)).float()).to(dt)
         cond = self.s2mel.regulate(s_infer, ylens, target_len, self._tensor(code_lens))
-        cat_cond = torch.cat([spk.prompt_condition.expand(B, -1, -1), cond], dim=1)
+        cat_cond = torch.cat([spk.prompt_condition.to(dt).expand(B, -1, -1), cond.to(dt)],
+                             dim=1)
         total_len = spk.ref_mel_len + target_len
         prompt_x = torch.zeros((B, cfg.s2mel.dit.in_channels, total_len), device=self.device)
         prompt_x[:, :, :spk.ref_mel_len] = spk.ref_mel
@@ -752,12 +802,17 @@ class IndexTTS2Engine:
         return self._vocode_rows(mel, [frames])[0]
 
     @torch.inference_mode()
-    def _vocode_rows(self, mel, frames: Sequence[int]) -> List[np.ndarray]:
-        """BigVGAN over mels (B, 80, T), the PCM16 clip on the card under
-        device_pcm16; row b's waveform cut to `frames[b]` frames' samples,
-        float32 on the host."""
+    def _vocode_rows(self, mel, frames: Sequence[int],
+                     runner: Optional[VocoderRunner] = None) -> List[np.ndarray]:
+        """BigVGAN over mels (B, 80, T) through `runner` (by default the
+        float32 vocoder's), the PCM16 clip on the card under device_pcm16;
+        row b's waveform cut to `frames[b]` frames' samples, float32 on the
+        host."""
         up = self.cfg.vocoder.total_upsample
-        wav = self.vocoder_runner.vocode(mel)[:, :max(frames) * up].cpu().numpy()
+        wav = (runner or self.vocoder_runner).vocode(mel)[:, :max(frames) * up]
+        if wav.dtype == torch.bfloat16:
+            wav = wav.float()
+        wav = wav.cpu().numpy()
         out = [wav[b, :f * up].astype(np.float32) for b, f in enumerate(frames)]
         if self.cfg.runtime.device_pcm16:
             return [w / 32767.0 for w in out]
@@ -856,7 +911,8 @@ class IndexTTS2Engine:
             mel = torch.where(frame[None, None, :] < self._tensor(target_exact)[:, None, None],
                               mel, float(np.log(1e-5)))
             mark("s2mel")
-            wavs = self._vocode_rows(mel, list(target_exact))
+            # the voc_dtype vocoder: bfloat16 under a bfloat16 voc_dtype
+            wavs = self._vocode_rows(mel, list(target_exact), self.batch_vocoder_runner)
             mark("vocoder")
         self._last_batched_stats = stats
         return wavs
@@ -894,7 +950,10 @@ class IndexTTS2Engine:
         decodes in its own batcher). Latent: one
         pass a (text bucket, code bucket); s2mel: one stage a reachable
         (code bucket, target bucket), its solve keyed on the prompt's frames
-        + the target bucket; vocoder: one call a target bucket. Captures
+        + the target bucket; vocoder: one call a target bucket, through
+        the float32 vocoder that serves one row (a bfloat16 voc_dtype's
+        model serves only the batched route's keys of B > 1 rows, which the
+        grid does not hold, as in the JAX engine). Captures
         take turns (`cuda_lib.capture`); the eager warm-ups before them may
         overlap. On the CPU nothing is captured, and no job runs. With
         `block=False` the jobs go on in the background. Returns the number

@@ -184,13 +184,18 @@ class LatentRunner(GraphRunner):
 
 class VocoderRunner(GraphRunner):
     """BigVGAN over mels (B, 80, T), a graph per (B, T); with `pcm16` the
-    waveform leaves it clipped to int16 (`to_pcm16`), else as float32.
-    K2's launches (37 a call at the default config) are counted through
-    replays."""
+    waveform leaves it clipped to int16 (`to_pcm16`), else in the model's
+    dtype. The static mel is in the model's dtype too: a call casts its
+    mel before copying it in. K2's launches (37 a call at the default
+    config, of its float32 or its bfloat16 instantiation) are counted
+    through replays. A runner serves one model, so its keys and graphs
+    hold one dtype."""
 
     def __init__(self, bigvgan: BigVGAN, pcm16: bool):
         fn = (lambda mel: to_pcm16(bigvgan(mel))) if pcm16 else bigvgan
-        super().__init__(fn, _device(bigvgan), MAX_VOCODES, counters=(snake.counter,))
+        self.dtype = bigvgan.conv_pre.weight.dtype
+        super().__init__(fn, _device(bigvgan), MAX_VOCODES,
+                         counters=(snake.counter, snake.bf16_counter))
 
     def vocode(self, mel, eager: bool = False) -> torch.Tensor:
-        return self((mel.shape[0], mel.shape[2]), mel, eager=eager)
+        return self((mel.shape[0], mel.shape[2]), mel.to(self.dtype), eager=eager)

@@ -3,7 +3,9 @@
 Counterpart of indextts_tpu/runtime/s2mel_infer.py (reference
 s2mel/modules/flow_matching.py:30-115): uniform t grid, CFG by stacking
 (cond, null) into one 2B batch per step, prompt frames pinned to zero in the
-state and re-injected through prompt_x. The Euler state stays float32.
+state and re-injected through prompt_x. The Euler state, the CFG combine
+and the update stay float32; the DiT's stacked inputs are cast to its
+parameters' dtype (runtime.s2mel_dtype), its velocity back to float32.
 
 The JAX package runs the solve as one jitted program (`lax.fori_loop`
 inside the engine's `_s2mel_program`). Here `S2MelRunner` (a
@@ -20,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from indextts_tpu_torch.models.layers import dtype_of
 from indextts_tpu_torch.models.s2mel import S2Mel
 from indextts_tpu_torch.ops import dit_attention
 from indextts_tpu_torch.runtime.graphs import GraphRunner
@@ -38,18 +41,19 @@ def cfm_inference(model: S2Mel, mu, x_lens, prompt_x, prompt_len, style,
     prompt_len an int or a 0-d tensor; style (B, 192); noise (B, 80, T).
     Returns the solved mel (B, 80, T)."""
     B, _, T = noise.shape
+    dt_model = dtype_of(model)
     in_prompt = (torch.arange(T, device=noise.device) < prompt_len)[None, None, :]
     x = torch.where(in_prompt, torch.zeros_like(noise), noise)
     dt = 1.0 / n_steps
-    stacked_prompt = torch.cat([prompt_x, torch.zeros_like(prompt_x)], dim=0)
-    stacked_style = torch.cat([style, torch.zeros_like(style)], dim=0)
-    stacked_mu = torch.cat([mu, torch.zeros_like(mu)], dim=0)
+    stacked_prompt = torch.cat([prompt_x, torch.zeros_like(prompt_x)], dim=0).to(dt_model)
+    stacked_style = torch.cat([style, torch.zeros_like(style)], dim=0).to(dt_model)
+    stacked_mu = torch.cat([mu, torch.zeros_like(mu)], dim=0).to(dt_model)
     stacked_lens = torch.cat([x_lens, x_lens]) if x_lens.shape[0] == B else x_lens
     for step in range(n_steps):
         # t before the update, rounded in float32 as the JAX solver does
         t = float(np.float32(step) * np.float32(dt))
         stacked_t = torch.full((2 * B,), t, dtype=torch.float32, device=noise.device)
-        dphi = model.velocity(torch.cat([x, x], dim=0), stacked_prompt, stacked_lens,
+        dphi = model.velocity(torch.cat([x, x], dim=0).to(dt_model), stacked_prompt, stacked_lens,
                               stacked_t, stacked_style, stacked_mu).float()
         d_cond, d_null = dphi.chunk(2, dim=0)
         d = (1.0 + cfg_rate) * d_cond - cfg_rate * d_null
@@ -74,7 +78,7 @@ class S2MelRunner(GraphRunner):
         self.cfg_rate = cfg_rate
         super().__init__(functools.partial(self._run, n_steps=n_steps),
                          next(model.parameters()).device, MAX_SOLVES,
-                         counters=(dit_attention.counter,),
+                         counters=(dit_attention.counter, dit_attention.bf16_counter),
                          warmup=functools.partial(self._run, n_steps=1))
 
     def _run(self, mu, x_lens, prompt_x, prompt_len, style, noise, n_steps: int):

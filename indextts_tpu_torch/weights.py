@@ -27,6 +27,12 @@ float state dict. Quantized weights keep the JAX layout byte for byte: int8
 (in, out) row-major, or packed int4 pairs (in/2, out), or (in, out/2) for
 the MLP's c_proj; that is what the kernels of ops/gemv.py read.
 
+`put_as(sd, dtype)` is the JAX engine's store of a tree in a compute
+dtype (indextts_tpu/runtime/engine.py `put_as`): every float tensor cast to
+`dtype` (round to nearest even, as numpy's and XLA's casts), except the
+int8 layers' per-channel `weight_scale` (JAX `kernel_scale`), which stays
+float32; integer tensors (int8 weights, BatchNorm counters) as they are.
+
 `qwen3_sd` carries the JAX Qwen3 tree of the text-to-emotion model across
 the same way, into the Hugging Face checkpoint's keys.
 """
@@ -362,6 +368,17 @@ CONVERTERS = {
     "campplus": campplus_sd,
     "w2vbert": w2vbert_sd,
 }
+
+
+def put_as(sd: SD, dtype: torch.dtype) -> SD:
+    """`sd` stored in the compute dtype `dtype`: float tensors cast to it,
+    the int8 layers' scales (`*.weight_scale`) float32, the rest as is.
+    float32 returns `sd` itself, as the JAX engine puts a float32 tree as
+    it comes."""
+    if dtype == torch.float32:
+        return sd
+    return {k: v.to(dtype) if v.is_floating_point() and not k.endswith(".weight_scale") else v
+            for k, v in sd.items()}
 
 
 def quantize_gpt_state_dict(sd: SD, head: bool, bits: int = 8) -> SD:

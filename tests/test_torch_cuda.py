@@ -195,6 +195,30 @@ def test_k2_cuda_replays_its_bits(cuda_device):
         assert torch.equal(out, want)
 
 
+# K2's bfloat16 instantiation at the main path's vocoder shapes (the mel at
+# the s2mel bucket's 640 frames: its first and last stages) and the longest
+# segment's, at one row and at a batched call's 8, and edge cases of
+# its plan (scalar loads where T % 4 != 0, a short row). Its float32
+# arithmetic is the float32 kernel's; the plain version widens, computes
+# and rounds once, so the two differ by one bfloat16 step where their
+# float32 results straddle a rounding boundary: atol 2e-5, rtol 2^-7.
+K2_BF16_CASES = [(1, 2304, 2560), (8, 2304, 2560), (1, 24, 163840), (1, 2304, 10752),
+                 (1, 24, 688128), (1, 24, 37), (2, 72, 1001), (1, 144, 2063)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,T", K2_BF16_CASES)
+def test_k2_bf16_cuda_matches_plain(cuda_device, B, C, T):
+    x, a, b = _k2_inputs(cuda_device, B, C, T, True)
+    x, a, b = x.bfloat16(), a.bfloat16(), b.bfloat16()
+    counted = k2.bf16_counter.launches, k2.counter.launches
+    got = k2.anti_alias_snake(x, a, b, True)
+    assert got.dtype == torch.bfloat16
+    assert (k2.bf16_counter.launches, k2.counter.launches) == (counted[0] + 1, counted[1])
+    want = k2.anti_alias_snake_plain(x.float(), a.float(), b.float(), True)
+    torch.testing.assert_close(got.float(), want.bfloat16().float(), atol=2e-5, rtol=2 ** -7)
+
+
 def _k3_inputs(dev, T, lens):
     g = torch.Generator(device=dev).manual_seed(T)
     q, k, v = (torch.randn((len(lens), 8, T, 64), generator=g, device=dev) for _ in range(3))
@@ -246,6 +270,36 @@ def test_k3_cuda_reads_strided_views(cuda_device):
     want = k3.dit_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
     assert torch.equal(got, want)
     assert got.transpose(1, 2).is_contiguous()
+
+
+# K3's bfloat16 instantiation at chip_smoke.py's shapes: the main path's
+# CFG-stacked solve (T=898, 774 valid frames), the longest segment (T=2946,
+# 2838 valid), T=37 below one tile, a row with one valid key and a row with
+# none. The plain version rounds the scores to bfloat16 before its float32
+# softmax (the JAX XLA path); the kernel keeps them in float32 and rounds
+# only the probabilities and the output. So each is held to the float32
+# attention of the same bfloat16 inputs: the kernel at most as far from it
+# as the plain version, and the two within 3e-2 of max|out| of each other
+# (the plain version's score rounding alone moves it ~1.4e-2).
+K3_BF16_CASES = [(898, [774, 774]), (2946, [2838, 2838]), (37, [37, 20]), (255, [255, 1]),
+                 (300, [300, 0])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", K3_BF16_CASES)
+def test_k3_bf16_cuda_matches_plain(cuda_device, T, lens):
+    q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                     for x in _k3_inputs(cuda_device, T, lens))
+    counted = k3.bf16_counter.launches, k3.counter.launches
+    got = k3.dit_attention(q, k, v, mask)
+    assert got.dtype == torch.bfloat16
+    assert (k3.bf16_counter.launches, k3.counter.launches) == (counted[0] + 1, counted[1])
+    want = k3.dit_attention_plain(q, k, v, mask).float()
+    exact = k3.dit_attention_plain(q.float(), k.float(), v.float(), mask)
+    top = exact.abs().max()
+    err, plain_err = (got.float() - exact).abs().max(), (want - exact).abs().max()
+    assert err <= plain_err, (err, plain_err)
+    assert (got.float() - want).abs().max() <= 3e-2 * top
 
 
 @pytest.mark.cuda

@@ -173,18 +173,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_routes_raise():
-    """Routes outside this slice raise NotImplementedError, never run
-    something else."""
+    """The bfloat16 s2mel and vocoder routes, which raised before the port
+    had them, now build: a bfloat16 s2mel_dtype stores the s2mel's float
+    weights in bfloat16; a bfloat16 voc_dtype the vocoder's, beside its
+    float32 sibling; every other model stays float32."""
     import dataclasses
 
     from indextts_tpu_torch.runtime.engine import IndexTTS2Engine, random_params
 
     cfg = to_port_config(parity_config())
     params = random_params(cfg, seed=0, device="cpu")
-    for fields in ({"s2mel_dtype": "bfloat16"}, {"voc_dtype": "bfloat16"}):
-        bad = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, **fields))
-        with pytest.raises(NotImplementedError):
-            IndexTTS2Engine(bad, params, device="cpu")
+
+    def float_dtypes(module):
+        return {p.dtype for p in module.state_dict().values() if p.is_floating_point()}
+
+    for name, fields in (("s2mel", {"s2mel_dtype": "bfloat16"}),
+                         ("bigvgan", {"voc_dtype": "bfloat16"})):
+        bf = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, **fields))
+        eng = IndexTTS2Engine(bf, params, device="cpu")
+        assert float_dtypes(getattr(eng, name)) == {torch.bfloat16}
+        others = [n for n in ("gpt", "s2mel", "bigvgan", "repcodec", "campplus", "w2vbert")
+                  if n != name]
+        assert all(float_dtypes(getattr(eng, n)) == {torch.float32} for n in others)
+        assert float_dtypes(eng.bigvgan_f32) == {torch.float32}
+        assert (eng.bigvgan_f32 is eng.bigvgan) == (name != "bigvgan")
 
 
 def test_uniform_fill_matches_jax_fill_range():
