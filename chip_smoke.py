@@ -273,6 +273,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    scaled to 0.9) and the runners' graph pools (the dual vocoder's two).
    K2-bf16's launches come from its batched request, K3-bf16's from its
    /tts.
+8. `train_phase` (runtime/train.py, finetune.py), after the three routes'
+   engines are freed, at full width (GPT 24L x 1280 with its text_head;
+   S2Mel with the DiT 13L x 512), seeded random weights, AdamW at lr
+   1e-4: `finetune.main` on the card for each target (synthetic batches
+   of 8: two steps with a save, then a resume for one more, which must
+   start at step 2 and end at 3), then ten make_cfm_train_step steps on
+   the main path's solve shape (8 rows of T=898, the batched solve's
+   valid frames, 774 down) and ten make_train_step steps on its text ids
+   and codes, printing the losses, the first step's seconds, steps/s and
+   the peak device memory. Every kernel count is set to 0 just before the
+   CFM steps and read after: K3, K9 and K10 once a DiT layer a step (13),
+   every other kernel 0; the GPT steps launch none. The CFM loss at one
+   fixed draw of t, z and drop must fall over the steps, the GPT's step
+   loss on its fixed batch too; then torch.profiler takes the device
+   kernels of three more steps of each (device ms against the step, the
+   idle share, K3's, K9's and K10's share, the largest kernels). K9's and
+   K10's `launches` come from the CFM steps. Phase 2 checks K3's row statistics and K9 and K10
+   (`check_k9_k10`) against autograd through the plain attention at K3's
+   cases, each gradient within 2e-5 of max(1, max|plain|), repeating its
+   bits; timed at the main path, the longest segment and 16 rows, with
+   the backward of scaled_dot_product_attention as library_ms. No /tts
+   request of any route launches K9 or K10.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -304,6 +326,7 @@ import threading
 import time
 import wave
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -313,6 +336,8 @@ TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS = 989e12  # H100 SXM bfloat16 tensor cores, dense
 INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 MAX_MEL_TOKENS = 300
+# the library flash attention whose backward kernels K9 and K10 replace
+LIBRARY_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 L2_CYCLE_BYTES = 100_000_000  # twice the H100's 50 MB L2
 N_REQUESTS = 2
 DECODE_ROUNDS = 2  # captured against eager decode, in turns
@@ -360,6 +385,8 @@ BATCH_SEED = 23
 BATCH_CODES = 512  # the envelope the float route's precompile is measured at
 BF16_ROUNDS = 2  # each bf16 route against its float32 counterpart, in turns
 BF16_SEED = 31  # the turns' requests; the tail comparison's CFM noise
+TRAIN_SEED = 37  # train_phase's weights, batches and CFM noise
+TRAIN_STEPS = 10  # train_phase's optimizer steps a target
 
 
 def fail(msg: str):
@@ -537,7 +564,10 @@ def main_path_shapes(cfg, max_mel: int):
             # the CFM solve's width: the target bucketed to 128 frames, as the
             # engine's default (precise_shapes=False) runs it
             "dit_T": ref_mel + next_bucket(target, 128, 128),
-            "dit_valid": min(ref_mel + ylen, ref_mel + next_bucket(target, 128, 128))}
+            "dit_valid": min(ref_mel + ylen, ref_mel + next_bucket(target, 128, 128)),
+            # the prompt's mel frames, the batched phase's text ids and codes
+            # (train_phase's batches)
+            "ref_mel": ref_mel, "batch_text": n_batch, "batch_codes": batch_codes}
 
 
 def decode_cases(cap: int, slot_prompt: int, beam_prompt: int, beam_hole, batch_prompt: int,
@@ -1160,6 +1190,187 @@ def check_k3_bf16(shapes, longest, heads: int):
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
 
 
+def events_ms(fn, iters: int = 10) -> float:
+    """Device time of one eager fn() call from CUDA events around `iters`
+    calls after two warm-ups: for autograd calls, which this script does
+    not capture in a graph."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def check_k9_k10(shapes, longest, heads: int):
+    """K3's row statistics, and K9 (dK, dV) and K10 (dQ), the backward of
+    the float32 DiT attention, against autograd through
+    `dit_attention_plain`, at K3's cases: the main path's solve (T=898, 774
+    valid, on the DiT's strided views), the longest segment's (T=2946, 2838
+    valid), T=37 below one tile, T=100, a row with one valid key, T=300,
+    T=1000, a row with none (uniform softmax: a dV but no dQ, dK) and a
+    batched solve's 16 rows. Each gradient is held to 2e-5 of
+    max(1, max|plain|): both sum ~T float32 terms in another order, the
+    kernels over K3's 3xTF32 statistics. K3's output with statistics is
+    the bits of K3's without, its m + log2 l within 1e-4 of the plain
+    base-2 log-sum-exp (m = -1e9 and log2 l = log2 T in the row with no
+    valid key). The main case repeats its bits on a second call. Timed at
+    the main path, the longest segment and 16 rows: K3 with its
+    statistics in turns with K3 without, then each backward kernel alone;
+    the plain version is the backward of the plain graph with respect to
+    the kernel's inputs (K9: k, v; K10: q). The library's fused backward of
+    scaled_dot_product_attention computes dq, dk and dv in one call, so its
+    time stands in both rows and is held against K9 + K10 + D. The bound
+    is K3's: the 3xTF32 tensor-core rate, three products per product."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.ops import dit_attention as k3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    tol = 2e-5
+    T, tv = shapes["dit_T"], shapes["dit_valid"]
+    long_T, long_v = longest["dit_T"], longest["dit_valid"]
+    cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
+             ("T37", 37, [37, 20]), ("T100", 100, [100, 37]), ("T255", 255, [255, 1]),
+             ("T300", 300, [300, 150]), ("T1000", 1000, [999, 600]),
+             ("no-valid-key", 300, [300, 0]),
+             ("batched 16 rows", T, shapes["batch_dit_valid"] * 2)]
+    errs, inputs = {"K9": {}, "K10": {}}, {}
+    for name, t, lens in cases:
+        B = len(lens)
+        if name in ("main", "batched 16 rows") or name.startswith("longest"):
+            q, k, v = dit_qkv(g, B, heads, t)
+        else:
+            q, k, v = (torch.randn((B, heads, t, 64), generator=g, device=dev) for _ in range(3))
+        dout = torch.randn((B, heads, t, 64), generator=g, device=dev)
+        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+        out, stats = k3.dit_attention_stats(q, k, v, mask)
+        if not torch.equal(out, k3.dit_attention(q, k, v, mask)):
+            fail(f"K3 {name}: the output with statistics differs from the output without")
+        scores = (torch.einsum("bhtd,bhsd->bhts", q, k) / 8.0).masked_fill(
+            ~mask[:, None, None, :], k3.NEG_INF)
+        lse2 = torch.logsumexp(scores, -1) / math.log(2.0)
+        rows = torch.tensor([n > 0 for n in lens], device=dev)
+        st_err = ((stats[..., 0] + stats[..., 1]) - lse2)[rows].abs().max().item() \
+            if any(lens) else 0.0
+        if 0 in lens:
+            r = lens.index(0)
+            if not (bool((stats[r, ..., 0] == k3.NEG_INF).all())
+                    and (stats[r, ..., 1] - math.log2(t)).abs().max().item() <= 1e-5):
+                fail(f"K3 {name}: the row without a valid key has stats "
+                     f"{stats[r, 0, :2].tolist()}")
+        if not st_err <= 1e-4:
+            fail(f"K3 {name}: row statistics off the plain log-sum-exp by {st_err}")
+        del scores, lse2
+        before = k3.bwd_dkv_counter.launches, k3.bwd_dq_counter.launches
+        dq, dk, dv = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+        if (k3.bwd_dkv_counter.launches, k3.bwd_dq_counter.launches) != (
+                before[0] + 1, before[1] + 1):
+            fail(f"K9/K10 {name}: not one launch of each")
+        want = k3.dit_attention_bwd_plain(q, k, v, mask, dout)
+        torch.cuda.synchronize()
+        e = {}
+        for label, got_t, want_t in (("dq", dq, want[0]), ("dk", dk, want[1]),
+                                     ("dv", dv, want[2])):
+            top = max(1.0, want_t.abs().max().item())
+            e[label] = (got_t - want_t).abs().max().item() / top
+        errs["K9"][name], errs["K10"][name] = max(e["dk"], e["dv"]), e["dq"]
+        print(f"K9/K10 {name}: B={B} H={heads} T={t} valid={lens} err/max(1,max|plain|): "
+              + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in e.items())
+              + f" (tol {tol}); K3 stats off the plain base-2 log-sum-exp by {st_err:.3g}")
+        if not all(x <= tol for x in e.values()):
+            fail(f"K9/K10 {name} disagree with autograd of the plain version: {e}")
+        if 0 in lens:
+            r = lens.index(0)
+            if dq[r].abs().max().item() != 0 or dk[r].abs().max().item() != 0 \
+                    or dv[r].abs().max().item() == 0:
+                fail(f"K9/K10 {name}: the row with no valid key must have dq = dk = 0 and "
+                     f"dv != 0")
+        inputs[name] = (q, k, v, mask, lens, out, stats, dout)
+    q, k, v, mask, lens, out, stats, dout = inputs["main"]
+    got = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+    again = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+    same = [torch.equal(a, b) for a, b in zip(got, again)]
+    print(f"K9/K10 main: a second call gives the same bits (dq, dk, dv): {same}")
+    if not all(same):
+        fail("K9/K10: a repeated call changed the result")
+    delta = (dout * out).sum(-1).contiguous()
+    one_launch("K9", lambda: k3.dit_attention_bwd_dkv(q, k, v, mask, stats, dout, delta))
+    one_launch("K10", lambda: k3.dit_attention_bwd_dq(q, k, v, mask, stats, dout, delta))
+
+    def timed(name):
+        q, k, v, mask, lens, out, stats, dout = inputs[name]
+        B, _, t, _ = q.shape
+        delta = (dout * out).sum(-1).contiguous()
+        # K3 with its row statistics against K3 without, in turns
+        turns = [cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention_stats(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention_stats(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention(q, k, v, mask))]
+        print(f"K3 with row statistics {name} B={B} H={heads} T={t}: kernel_ms="
+              f"{(turns[1] + turns[2]) / 2:.4f}, without {(turns[0] + turns[3]) / 2:.4f} "
+              f"(turns without, with, with, without: {', '.join(f'{x:.4f}' for x in turns)})")
+        ms9 = cuda_ms(lambda: k3.dit_attention_bwd_dkv(q, k, v, mask, stats, dout, delta))
+        ms10 = cuda_ms(lambda: k3.dit_attention_bwd_dq(q, k, v, mask, stats, dout, delta))
+        ms_d = cuda_ms(lambda: (dout * out).sum(-1).contiguous())
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        plain_out = k3.dit_attention_plain(qg, kg, vg, mask)
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask[:, None, None, :])
+        # SDPA's fused backward computes dq, dk and dv in one call whatever
+        # it is asked for: the library's time is its whole backward, held
+        # against K9 + K10 + D below, and stands in both rows
+        lib = events_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,
+                                                    retain_graph=True))
+        plain_all = events_ms(lambda: torch.autograd.grad(plain_out, (qg, kg, vg), dout,
+                                                          retain_graph=True), iters=5)
+        res = {}
+        for kname, ms, wrt, ops, nout in (("K9", ms9, (kg, vg), 8, 2), ("K10", ms10, (qg,), 6, 1)):
+            plain = events_ms(lambda: torch.autograd.grad(plain_out, wrt, dout,
+                                                          retain_graph=True), iters=5)
+            # q, k, v, dO read, the gradients written; stats, D and the mask
+            nbytes = 4 * B * heads * t * 64 * (4 + nout) + 12 * B * heads * t + B * t
+            # a row with no valid key still has a uniform dV over all T keys
+            flops = sum(ops * heads * t * (n if n or kname == "K10" else t) * 64 for n in lens)
+            fp32_ms, _ = bound(nbytes, flops)
+            # as K3's: 3xTF32, three TF32 products per product, on the tensor cores
+            b_ms, by = bound(nbytes, 3 * flops, TF32_FLOPS)
+            print(f"{kname} {name} B={B} H={heads} T={t}: kernel_ms={ms:.4f} "
+                  f"plain_ms(autograd of the plain graph)={plain:.4f} "
+                  f"bound_ms(3xTF32 tensor cores)={b_ms:.4f} ({by}) "
+                  f"bound_ms(fp32 CUDA cores)={fp32_ms:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{ms / b_ms:.1f}x the bound")
+            res[kname] = (ms, plain, lib, b_ms, by)
+        total = ms9 + ms10 + ms_d
+        print(f"K9 + K10 + D {name} B={B} H={heads} T={t}: {total:.4f} ms (D {ms_d:.4f}) "
+              f"against library_ms(sdpa backward, dq dk dv)={lib:.4f}: {total / lib:.2f}x; "
+              f"plain backward (dq dk dv) {plain_all:.4f}")
+        del plain_out, lib_out
+        return res
+
+    at_main = timed("main")
+    timed(f"longest T={long_T}")
+    timed("batched 16 rows")
+    rows = []
+    for kname, label, what in (("K9", "K9 dit_attention_bwd_dkv", "dkv"),
+                               ("K10", "K10 dit_attention_bwd_dq", "dq")):
+        ms, plain, lib, b_ms, by = at_main[kname]
+        rows.append({"name": label, "route": "cuda",
+                    "source": "indextts_tpu_torch/csrc/dit_attention_bwd.cu",
+                    "replaces": LIBRARY_FLASH + (":941" if what == "dkv" else ":1287"),
+                    "max_abs_err": max(errs[kname].values()), "ms": ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": by, "library_ms": lib})
+    return rows
+
+
 def check_k4(shapes, layers: int, heads: int):
     import torch
 
@@ -1682,7 +1893,204 @@ def kernel_counters():
             "K5 gemv_w8": gemv.gemv_counter, "K6 mlp_w8": gemv.mlp_counter,
             "K7 gemv_w4": gemv.gemv4_counter, "K8 mlp_w4": gemv.mlp4_counter,
             "K2-bf16 anti_alias_snake": snake.bf16_counter,
-            "K3-bf16 dit_attention": dit_attention.bf16_counter}
+            "K3-bf16 dit_attention": dit_attention.bf16_counter,
+            "K9 dit_attention_bwd_dkv": dit_attention.bwd_dkv_counter,
+            "K10 dit_attention_bwd_dq": dit_attention.bwd_dq_counter}
+
+
+# ---------------------------------------------------------------------------
+# phase train_phase: the training path at full width
+# ---------------------------------------------------------------------------
+
+
+def train_batches(cfg, shapes, g):
+    """The main path's shapes as training batches, drawn on the card from
+    `g`: the GPT's 8 rows of the batched phase's text ids (bucketed to 16)
+    and codes (MAX_MEL_TOKENS - 37 b); the CFM's 8 rows of the solve's
+    width (T=898) with the batched solve's valid frames (774 down) and the
+    speaker prompt's mel frames."""
+    import torch
+
+    from indextts_tpu_torch.runtime.engine import next_bucket
+
+    dev = torch.device("cuda")
+    G, d = cfg.gpt, cfg.s2mel.dit
+    B, texts, codes = len(shapes["batch_codes"]), shapes["batch_text"], shapes["batch_codes"]
+    Lt, T = next_bucket(max(texts), 16, 16), shapes["dit_T"]
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    gpt = {"spk_latents": normal(B, G.condition_num_latent, G.model_dim),
+           "text_ids": ints(2, G.number_text_tokens, (B, Lt)),
+           "text_lens": torch.tensor(texts, device=dev),
+           "mel_codes": ints(0, G.start_mel_token, (B, max(codes))),
+           "mel_lens": torch.tensor(codes, device=dev),
+           "emovec": normal(B, G.model_dim)}
+    cfm = {"x1": normal(B, d.in_channels, T),
+           "x_lens": torch.tensor(shapes["batch_dit_valid"], device=dev),
+           "prompt_lens": torch.full((B,), shapes["ref_mel"], device=dev),
+           "mu": normal(B, T, d.content_dim), "style": normal(B, d.style_dim)}
+    return gpt, cfm
+
+
+def finetune_runs(target: str, tmp: str) -> None:
+    """finetune.main on the card for `target`, full width, synthetic batches
+    of 8: two steps with a save at step 2, then a resume for one more step
+    (from step 2, to step 3, the checkpoint's meta at 3); finite losses."""
+    from indextts_tpu_torch import finetune
+
+    out_dir = os.path.join(tmp, target)
+    argv = ["--target", target, "--synthetic", "8", "--out-dir", out_dir, "--log-every", "1"]
+    runs = []
+    for steps, more in ((2, ["--save-every", "2"]), (1, [])):
+        t0 = time.perf_counter()
+        out = finetune.main(argv + ["--steps", str(steps)] + more)
+        ckpt = sum(f.stat().st_size for f in Path(out_dir, "latest").iterdir())
+        print(f"[train] finetune {target}: {json.dumps(out)} in {time.perf_counter() - t0:.1f} "
+              f"s; checkpoint {ckpt / 2**30:.2f} GiB")
+        if not all(math.isfinite(x) for x in (out["loss_first"], out["loss_last"])):
+            fail(f"[train] finetune {target}: a non-finite loss {out}")
+        runs.append(out)
+    meta = json.loads(Path(out_dir, "latest", "meta.json").read_text())["step"]
+    if (runs[0]["final_step"], runs[1]["from_step"], runs[1]["final_step"], meta) != (2, 2, 3, 3):
+        fail(f"[train] finetune {target}: the resume did not continue the step counter: "
+             f"{runs}, meta {meta}")
+
+
+def train_steps(label: str, model, step, batch, steps: int = TRAIN_STEPS):
+    """`steps` optimizer steps on one fixed batch: the losses, the seconds of
+    the first step and the steps/s of the rest (each step synchronized), and
+    the peak device memory beyond what was allocated before the steps (the
+    parameters and the batch are; the gradients and AdamW's state come with
+    the first step)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(batch).item())
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    rate = (steps - 1) / sum(times[1:])
+    print(f"[train] {label}: {steps} steps, losses {[round(x, 5) for x in losses]}; first step "
+          f"{times[0]:.3f} s, then {rate:.3f} steps/s ({1e3 / rate:.1f} ms a step); peak device "
+          f"memory {peak:.2f} GiB beyond the {held / 2**30:.2f} GiB held before the steps; "
+          f"{n_params / 1e6:.1f} M parameters")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"[train] {label}: a non-finite loss {losses}")
+    return losses, rate, peak
+
+
+def step_profile(label: str, fn, step_ms: float, calls: int = 3) -> None:
+    """The device kernels of one training step (torch.profiler over `calls`
+    steps after one): their device ms a step against the step's `step_ms`
+    (the rest is the device's idle share), the share of K3, K9 and K10, and
+    the largest kernels by device ms."""
+    kernels = device_kernels(fn, calls=calls)
+    total = sum(ms for _, ms in kernels.values())
+    ours = {k: sum(ms for name, (_, ms) in kernels.items() if key in name)
+            for k, key in (("K3", "dit_attn_kernel"), ("K9", "dit_attn_bwd_dkv"),
+                           ("K10", "dit_attn_bwd_dq"))}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"[train] {label} step profile: {sum(n for n, _ in kernels.values()):g} kernels, "
+          f"{total:.2f} device ms a step of {step_ms:.1f} ms ({100 * (1 - total / step_ms):.1f} % "
+          f"idle); " + ", ".join(f"{k} {ms:.2f} ms ({100 * ms / total:.1f} %)"
+                                  for k, ms in ours.items())
+          + "; largest: " + "; ".join(f"{short_name(name)[:48]} {n:g} x {ms:.2f}"
+                                      for name, (n, ms) in top))
+
+
+def train_phase(shapes, card: str) -> dict:
+    """Phase `train_phase`, the training path on one card at full width (GPT
+    24L x 1280 with its text_head; S2Mel with the DiT 13L x 512), after the
+    serving routes are freed: `finetune_runs` for each target, then
+    TRAIN_STEPS steps of make_cfm_train_step on the main path's solve shape
+    (8 rows of T=898, valid frames 774 down; CFM noise from a seeded
+    generator) and of make_train_step on its text and codes (`train_batches`),
+    AdamW at lr 1e-4, from seeded random weights. The counts of every kernel
+    are set to 0 just before the CFM steps and read after: K3, K9 and K10
+    once a DiT layer a step, no other kernel. The CFM loss at one fixed draw
+    of t, z and drop must fall over the steps, the GPT's step loss (its
+    batch fixed, its loss deterministic) too. Then a few more steps of each
+    are profiled (`step_profile`). Returns K9's and K10's launches over the
+    CFM steps."""
+    import torch
+
+    from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.runtime import train
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    depth = cfg.s2mel.dit.depth
+    with tempfile.TemporaryDirectory() as tmp:
+        for target in ("gpt", "cfm"):
+            finetune_runs(target, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"[train] finetune runs done at {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    gpt_batch, cfm_batch = train_batches(cfg, shapes, g)
+
+    model = train.train_model(cfg, "cfm", "cuda", seed=TRAIN_SEED)
+    opt = train.adamw(model.parameters(), 1e-4)
+    cfm_step = train.make_cfm_train_step(model, opt)
+    fixed = train.cfm_noise(cfm_batch, g)
+
+    def fixed_loss():
+        with torch.no_grad():
+            return train.cfm_loss(model, *(cfm_batch[k] for k in (
+                "x1", "x_lens", "prompt_lens", "mu", "style")), *fixed)[0].item()
+
+    before = fixed_loss()
+    counters = kernel_counters()
+    for cnt in counters.values():
+        cnt.launches = 0
+    losses, rate, peak = train_steps("cfm", model, lambda b: cfm_step(b, g), cfm_batch)
+    launches = {name: cnt.launches for name, cnt in counters.items()}
+    after = fixed_loss()
+    print(f"[train] cfm: loss at a fixed t, z and drop {before:.5f} before the steps, "
+          f"{after:.5f} after; launches over the steps {json.dumps(launches)}")
+    want = {name: TRAIN_STEPS * depth if name.startswith(("K3 ", "K9 ", "K10 ")) else 0
+            for name in counters}
+    if launches != want:
+        fail(f"[train] cfm: launches {launches}, not {want}")
+    if not (math.isfinite(after) and after < before):
+        fail(f"[train] cfm: the fixed-noise loss did not fall: {before} -> {after}")
+    step_profile("cfm", lambda: cfm_step(cfm_batch, g), 1e3 / rate)
+    del model, opt, cfm_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = train.train_model(cfg, "gpt", "cuda", seed=TRAIN_SEED)
+    opt = train.adamw(model.parameters(), 1e-4)
+    for cnt in counters.values():
+        cnt.launches = 0
+    gpt_losses, gpt_rate, gpt_peak = train_steps("gpt", model, train.make_train_step(model, opt),
+                                                 gpt_batch)
+    gpt_launches = {name: cnt.launches for name, cnt in counters.items() if cnt.launches}
+    if gpt_launches:  # the GPT's training forward is full-sequence plain torch
+        fail(f"[train] gpt: launched {gpt_launches}")
+    if not gpt_losses[-1] < gpt_losses[0]:
+        fail(f"[train] gpt: the loss on a fixed batch did not fall: {gpt_losses}")
+    gpt_step = train.make_train_step(model, opt)
+    step_profile("gpt", lambda: gpt_step(gpt_batch), 1e3 / gpt_rate)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] {card}: cfm {rate:.3f} steps/s, peak {peak:.2f} GiB, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} (fixed noise {before:.5f} -> {after:.5f}); gpt "
+          f"{gpt_rate:.3f} steps/s, peak {gpt_peak:.2f} GiB, loss {gpt_losses[0]:.5f} -> "
+          f"{gpt_losses[-1]:.5f}")
+    print(f"phase train_phase done in {time.perf_counter() - t0:.1f} s")
+    return {name: launches[name] for name in launches if name.startswith(("K9 ", "K10 "))}
 
 
 # ---------------------------------------------------------------------------
@@ -4188,7 +4596,8 @@ def main():
                check_k7(g.layers, g.model_dim),
                check_k8(g.layers, g.model_dim),
                check_k2_bf16(shapes, longest["snake"]),
-               check_k3_bf16(shapes, longest, cfg.s2mel.dit.num_heads)]
+               check_k3_bf16(shapes, longest, cfg.s2mel.dit.num_heads),
+               *check_k9_k10(shapes, longest, cfg.s2mel.dit.num_heads)]
     print(f"phases 1-2 (environment, kernels) done at {time.perf_counter() - t_start:.1f} s")
     names = [k["name"] for k in kernels]
     k1, k6, bf16 = names[0], names[5], names[8:]
@@ -4251,6 +4660,7 @@ def main():
             torch.cuda.empty_cache()
             print(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
                   f"still allocated; route done at {time.perf_counter() - t_start:.1f} s")
+    launches.update(train_phase(shapes, card))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"launches a {BEAMS}-beam request (beam-multinomial, {MAX_MEL_TOKENS} steps at "

@@ -41,6 +41,17 @@
 // does not care about their order). Tile overhang past T scores -inf (not a
 // key), a masked key -1e9: both mean the same in base 2.
 //
+// Row statistics (`stats`, a training forward): with a non-null pointer the
+// float32 kernel also writes each query row's log-sum-exp in base 2, the
+// counterpart of the library forward's `save_residuals` (its l and m), as
+// two floats: m, the row's largest base-2 score, and log2 l, where l is the
+// sum of 2^(s - m) over the row's keys. The backward (dit_attention_bwd.cu)
+// recomputes p = 2^((s - m) - log2 l). One float m + log2 l would not do:
+// in a row with no valid key m = -1e9, whose float32 step (64) swallows
+// log2 l, and that row's p = 1/T would come back as 1. A null pointer
+// launches the instantiation without the store (`kStats` false), the
+// serving path's kernel as it was.
+//
 // The bfloat16 instantiation (`dit_attention_bf16`: a bfloat16 DiT,
 // runtime.s2mel_dtype) reads q, k and v in bfloat16 through the same
 // strides (multiples of 8 elements, 16-byte aligned bases) and writes a
@@ -132,10 +143,12 @@ __device__ __forceinline__ unsigned elem(const uint4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads, 1)
 dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
-                float* __restrict__ out, const Layout L, int T, float scale) {
+                float* __restrict__ out, float* __restrict__ stats, const Layout L, int T,
+                float scale) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int h = blockIdx.y, b = blockIdx.z;
@@ -349,6 +362,11 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float i0 = 1.f / l0, i1 = 1.f / l1;
+  if (kStats && t == 0) {  // (B, H, T, 2) contiguous: m, log2 l
+    float2* sb = reinterpret_cast<float2*>(stats) + (long long)(b * gridDim.y + h) * T;
+    if (r0 < T) sb[r0] = make_float2(m0, log2f(l0));
+    if (r1 < T) sb[r1] = make_float2(m1, log2f(l1));
+  }
   // row g's columns 2t and 2t+1 of groups 0-3 are dims 8t..8t+7, of groups
   // 4-7 dims 32+8t..32+8t+7
   float* ob = out + b * L.o[0] + h * L.o[1];
@@ -591,22 +609,25 @@ static Layout layout(const long long* strides) {
 }
 
 // strides: 14 element strides, those of q, k, v and out over (b, h, t), then
-// key_mask's over (b, t)
+// key_mask's over (b, t); stats: null, or (B, H, T, 2) contiguous float32
+// for each row's m and log2 l
 EXPORT int dit_attention(const void* q, const void* k, const void* v,
-                         const void* key_mask, void* out, const long long* strides,
-                         int B, int H, int T, float scale, void* stream) {
+                         const void* key_mask, void* out, void* stats,
+                         const long long* strides, int B, int H, int T, float scale,
+                         void* stream) {
   if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
   const Layout L = layout(strides);
+  auto kernel = stats ? dit_attn_kernel<true> : dit_attn_kernel<false>;
   // set on every call: the attribute holds per device, and the call is cheap
-  cudaError_t e = cudaFuncSetAttribute(
-      dit_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid((T + kBM - 1) / kBM, H, B);
-  dit_attn_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const uint8_t*>(key_mask),
-      static_cast<float*>(out), L, T, scale);
+      static_cast<float*>(out), static_cast<float*>(stats), L, T, scale);
   return (int)cudaGetLastError();
 }
 

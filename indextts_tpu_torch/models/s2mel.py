@@ -37,7 +37,7 @@ from indextts_tpu_torch.config import (
     WaveNetConfig,
 )
 from indextts_tpu_torch.models.layers import Conv1d, LayerNorm, Linear, Pointwise
-from indextts_tpu_torch.ops.dit_attention import dit_attention
+from indextts_tpu_torch.ops.dit_attention import dit_attention_train
 
 
 class TimestepEmbedder(nn.Module):
@@ -110,7 +110,10 @@ def apply_rotary(x, rope):
 
 
 class DiTAttention(nn.Module):
-    """Fused wqkv, RoPE, then kernel K3 over the key-padding mask."""
+    """Fused wqkv, RoPE, then kernel K3 over the key-padding mask
+    (ops/dit_attention.py `dit_attention_train`); with grad enabled
+    (training), K3 with its row statistics and the backward kernels K9 and
+    K10."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -125,7 +128,7 @@ class DiTAttention(nn.Module):
         k = apply_rotary(k.reshape(B, T, self.h, self.dh), rope)
         v = v.reshape(B, T, self.h, self.dh)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        ctx = dit_attention(q, k, v, key_mask)
+        ctx = dit_attention_train(q, k, v, key_mask)
         return self.wo(ctx.transpose(1, 2).reshape(B, T, self.h * self.dh))
 
 
@@ -289,9 +292,12 @@ class DiT(nn.Module):
         self.final_layer = FinalLayer(cfg.hidden_dim, wn.hidden_dim)
         self.conv2 = Pointwise(wn.hidden_dim, cfg.in_channels)
 
-    def forward(self, x, prompt_x, x_lens, t, style, cond):
+    def forward(self, x, prompt_x, x_lens, t, style, cond, drop_cond=None):
         """x, prompt_x (B, 80, T); x_lens (B,); t (B,); style (B, 192);
-        cond (B, T, content_dim). Returns the velocity (B, 80, T)."""
+        cond (B, T, content_dim); drop_cond None or (B,) bool, the CFG
+        class dropout of training: a dropped row's merged-input columns
+        past in_channels (prompt, projected cond with its bias, style) are
+        multiplied by 0, as the JAX DiT's. Returns the velocity (B, 80, T)."""
         c = self.cfg
         B, _, T = x.shape
         t1 = self.t_embedder(t)
@@ -300,6 +306,10 @@ class DiT(nn.Module):
         x_in = torch.cat([xt, prompt_x.transpose(1, 2), cond], dim=-1)
         if c.style_condition and not c.style_as_token:
             x_in = torch.cat([x_in, style[:, None].expand(B, T, style.shape[-1])], dim=-1)
+        if drop_cond is not None:
+            keep = 1.0 - drop_cond.to(x_in.dtype)[:, None, None]
+            x_in = torch.cat([x_in[..., :c.in_channels], x_in[..., c.in_channels:] * keep],
+                             dim=-1)
         x_in = self.cond_x_merge_linear(x_in)
         # the stack computes in the caller's dtype: the float32 time
         # embedding would otherwise promote every AdaLN-modulated activation
@@ -393,5 +403,5 @@ class S2Mel(nn.Module):
     def project_gpt_latent(self, x):
         return self.gpt_layer(x)
 
-    def velocity(self, x, prompt_x, x_lens, t, style, cond):
-        return self.cfm.estimator(x, prompt_x, x_lens, t, style, cond)
+    def velocity(self, x, prompt_x, x_lens, t, style, cond, drop_cond=None):
+        return self.cfm.estimator(x, prompt_x, x_lens, t, style, cond, drop_cond)

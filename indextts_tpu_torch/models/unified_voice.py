@@ -4,8 +4,11 @@ Counterpart of indextts_tpu/models/unified_voice.py (reference
 gpt/model_v2.py:338-910): conformer+perceiver speaker conditioning (32
 latents), emotion conditioning (1 latent @1024 -> emovec_layer -> emo_layer),
 two duration tokens, GPT-2 core over [conds][text][mel], learned position
-embeddings, final_norm + mel_head. Inference only: the training head
-`text_head` is not built. Module names follow the reference state_dict.
+embeddings, final_norm + mel_head. The training head `text_head` is built
+only for a training model (`text_head=True`; runtime/train.py), whose
+`forward_train` gives the text and mel logits of the JAX package's; a
+serving model holds no text_head. Module names follow the reference
+state_dict.
 
 `quantize=True` builds the quantized GPT-2 blocks of `wbits` bits (8 or 4)
 and `head_quant=True` the int8 logits head (models/gpt2.py), as the JAX
@@ -43,7 +46,7 @@ class LearnedPositionEmbeddings(nn.Module):
 
 class UnifiedVoice(nn.Module):
     def __init__(self, cfg: GPTConfig, quantize: bool = False, head_quant: bool = False,
-                 wbits: int = 8, gemv: bool = False):
+                 wbits: int = 8, gemv: bool = False, text_head: bool = False):
         super().__init__()
         self.cfg = c = cfg
         self.conditioning_encoder = ConformerEncoder(c.condition_module)
@@ -69,6 +72,8 @@ class UnifiedVoice(nn.Module):
         self.mel_head = (QuantDenseHead(c.model_dim, c.number_mel_codes, gemv) if head_quant
                          else Linear(c.model_dim, c.number_mel_codes))
         self.gpt = GPT2Core(c.layers, c.model_dim, c.heads, quantize, gemv, wbits)
+        if text_head:
+            self.text_head = Linear(c.model_dim, c.number_text_tokens + 1)
 
     # -- conditioning ------------------------------------------------------
 
@@ -144,6 +149,39 @@ class UnifiedVoice(nn.Module):
         index (B,) and valid_len (B,) integer tensors (GPT2Core.decode_step)."""
         return self.gpt.decode_step(token_embeds, caches, index, valid_len,
                                     hole_s, hole_e)
+
+    # -- training forward: text + mel logits with aligned targets ------------
+
+    def forward_train(self, spk_latents, text_ids, text_lens, mel_codes, mel_lens, emovec):
+        """text_ids (B, Lt), mel_codes (B, Lm); slots past text_lens and
+        mel_lens are the stop tokens. Returns (text_logits (B, Lt+2, V_text),
+        mel_logits (B, Lm+2, V_mel), text_targets, mel_targets), the targets
+        the sequences shifted right by one with two stop tokens after (the
+        JAX package's UnifiedVoice.forward_train). The GPT runs with no
+        padding mask, as there."""
+        c = self.cfg
+        B, Lt = text_ids.shape
+        Lm = mel_codes.shape[1]
+        dev = text_ids.device
+
+        def framed(ids, lens, start, stop):
+            pos = torch.arange(ids.shape[1], device=dev)
+            ids = torch.where(pos[None] < lens[:, None], ids, stop).long()
+            inp = torch.cat([torch.full((B, 1), start, device=dev), ids,
+                             torch.full((B, 1), stop, device=dev)], dim=1)
+            return inp, torch.cat([ids, torch.full((B, 2), stop, device=dev)], dim=1)
+
+        text_inp, text_tar = framed(text_ids, text_lens, c.start_text_token, c.stop_text_token)
+        mel_inp, mel_tar = framed(mel_codes, mel_lens, c.start_mel_token, c.stop_mel_token)
+        text_emb = self.text_embedding(text_inp) + self.text_pos_embedding(
+            torch.arange(Lt + 2, device=dev)[None])
+        mel_emb = self.mel_embedding(mel_inp) + self.mel_pos_embedding(
+            torch.arange(Lm + 2, device=dev)[None])
+        conds = self.build_conds_latent(spk_latents, emovec)
+        hidden, _ = self.gpt(torch.cat([conds, text_emb, mel_emb], dim=1))
+        enc = self.final_norm(hidden[:, conds.shape[1]:].float())
+        return (self.text_head(enc[:, :Lt + 2]), self.mel_head(enc[:, -(Lm + 2):]),
+                text_tar, mel_tar)
 
     # -- teacher-forced latent pass (model_v2.py:673-723) ----------------------
 

@@ -26,7 +26,7 @@ from typing import Dict, List
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("decode_attention", "snake", "dit_attention", "gemv")
+SOURCES = ("decode_attention", "snake", "dit_attention", "dit_attention_bwd", "gemv")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -56,9 +56,12 @@ def _load(path: Path):
 
 
 def convert_reference_checkpoints(
-        model_dir: str, cfg: IndexTTS2Config) -> Tuple[Dict[str, Dict], Dict[str, Any]]:
+        model_dir: str, cfg: IndexTTS2Config,
+        text_head: bool = False) -> Tuple[Dict[str, Dict], Dict[str, Any]]:
     """Checkpoint directory -> (state dicts of the models whose files are
-    there, aux: "semantic_stats", "emo_matrix", "spk_matrix" where present)."""
+    there, aux: "semantic_stats", "emo_matrix", "spk_matrix" where present).
+    With `text_head`, the GPT's is a training model's, gpt.pth's text_head
+    kept (finetune.py `--init-from`)."""
     d = Path(model_dir)
     params: Dict[str, Dict] = {}
     aux: Dict[str, Any] = {}
@@ -68,7 +71,7 @@ def convert_reference_checkpoints(
         sd = _load(path)
         if isinstance(sd, dict) and "model" in sd:
             sd = sd["model"]
-        params["gpt"] = tc.convert("gpt", tc.to_numpy_sd(sd), cfg, str(path))
+        params["gpt"] = tc.convert("gpt", tc.to_numpy_sd(sd), cfg, str(path), text_head)
 
     path = d / "s2mel.pth"
     if path.exists():

@@ -16,8 +16,9 @@ as tensors under the port's keys. The tensors are those of
 - the s2mel checkpoint's `net` modules become the prefixes of the port's
   keys (`cfm.`, `length_regulator.`, `gpt_layer.`), their DDP `module.`
   prefixes stripped (`strip_ddp_prefix`);
-- a key the JAX converter reads that no port module holds (the GPT's
-  `text_head`) is read and dropped; BatchNorm's `num_batches_tracked`,
+- a key the JAX converter reads that no serving module holds (the GPT's
+  `text_head`) is read and dropped, and kept for a training model
+  (`text_head=True`, runtime/train.py); BatchNorm's `num_batches_tracked`,
   which it never reads, is 0;
 - a key the JAX converter reads that the file lacks raises a KeyError that
   names the key and the file.
@@ -41,7 +42,7 @@ SD = Dict[str, Array]
 
 # s2mel.pth's `net` modules, in the port's key prefixes
 S2MEL_MODULES = ("cfm", "length_regulator", "gpt_layer")
-# layers the JAX converter reads but no port module holds
+# layers the JAX converter reads but no serving module holds
 DROPPED = {"gpt": ("text_head",)}
 
 
@@ -98,10 +99,12 @@ class _Reader:
         return fold_weight_norm(self.sd, layer)
 
 
-def convert(name: str, sd: SD, cfg: IndexTTS2Config, source: str) -> Dict[str, torch.Tensor]:
+def convert(name: str, sd: SD, cfg: IndexTTS2Config, source: str,
+            text_head: bool = False) -> Dict[str, torch.Tensor]:
     """One model's reference state dict (float32 numpy, DDP prefixes
     stripped; for "s2mel" the `net` modules' keys under their prefixes, see
-    `s2mel_net`) -> the port's state dict for `name`."""
+    `s2mel_net`) -> the port's state dict for `name`. With `text_head`, a
+    training GPT's: the DROPPED layers are kept."""
     read = _Reader(sd, source)
     out = {}
     for key, like in port_state(name, cfg).items():
@@ -116,9 +119,11 @@ def convert(name: str, sd: SD, cfg: IndexTTS2Config, source: str) -> Dict[str, t
             w = read(key)
         out[key] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
     for layer in DROPPED.get(name, ()):
-        read(f"{layer}.weight")
-        if f"{layer}.bias" in sd:
-            read(f"{layer}.bias")
+        for leaf in ("weight", "bias"):
+            if leaf == "weight" or f"{layer}.bias" in sd:
+                w = read(f"{layer}.{leaf}")
+                if text_head:
+                    out[f"{layer}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
     return out
 
 

@@ -156,7 +156,8 @@ def _quantized(p: dict) -> dict:
             "bias": p["bias"]}
 
 
-def unified_voice_sd(p: dict, cfg: IndexTTS2Config) -> SD:
+def unified_voice_sd(p: dict, cfg: IndexTTS2Config, text_head: bool = False) -> SD:
+    """With `text_head`, a training model's: the tree's text_head too."""
     g = cfg.gpt
     sd: SD = {}
     _conformer(sd, "conditioning_encoder", p["conditioning_encoder"],
@@ -174,6 +175,8 @@ def unified_voice_sd(p: dict, cfg: IndexTTS2Config) -> SD:
     head = p["mel_head"]
     _put(sd, "mel_head", _quantized(head) if "kernel_q" in head else linear(head))
     _put(sd, "final_norm", layernorm(p["final_norm"]))
+    if text_head:
+        _put(sd, "text_head", linear(p["text_head"]))
     gp = p["gpt"]
     for i in range(g.layers):
         lp, b = gp[f"h_{i}"], f"gpt.h.{i}"
@@ -419,10 +422,15 @@ def quantize_gpt_state_dict(sd: SD, head: bool, bits: int = 8) -> SD:
     return out
 
 
-def from_jax_params(params: Dict[str, Any], cfg: IndexTTS2Config) -> Dict[str, SD]:
+def from_jax_params(params: Dict[str, Any], cfg: IndexTTS2Config,
+                    text_head: bool = False) -> Dict[str, SD]:
     """{"gpt", "s2mel", "bigvgan", "repcodec", "campplus", "w2vbert"} flax
-    trees (numpy leaves) -> the port's state dicts, same keys."""
-    return {name: CONVERTERS[name](params[name], cfg) for name in CONVERTERS}
+    trees (numpy leaves) -> the port's state dicts, same keys. With
+    `text_head`, the GPT's is a training model's, with the tree's
+    text_head (which the JAX converter reads and its serving tree from
+    random_params lacks)."""
+    return {name: unified_voice_sd(params[name], cfg, text_head) if name == "gpt"
+            else CONVERTERS[name](params[name], cfg) for name in CONVERTERS}
 
 
 def qwen3_sd(params: Dict[str, Any], cfg) -> SD:

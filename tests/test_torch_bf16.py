@@ -238,7 +238,7 @@ def test_dit_attention_bf16_against_jax_xla(bf16_pair, monkeypatch):
             {"params": p}, jnp.asarray(x).astype(dt), rope, jnp.asarray(mask)[:, None, None, :]
         ).astype(jnp.float32))
 
-    from indextts_tpu_torch.models import s2mel as s2mel_mod
+    from indextts_tpu_torch.ops import dit_attention as k3
 
     seen = []
 
@@ -246,8 +246,10 @@ def test_dit_attention_bf16_against_jax_xla(bf16_pair, monkeypatch):
         seen.append((q.dtype, k.dtype, v.dtype))
         return kernel(q, k, v, key_mask)
 
-    kernel = s2mel_mod.dit_attention
-    monkeypatch.setattr(s2mel_mod, "dit_attention", spy)
+    # DiTAttention calls dit_attention_train, which outside autograd calls
+    # the module's dit_attention (K3)
+    kernel = k3.dit_attention
+    monkeypatch.setattr(k3, "dit_attention", spy)
     layer = pe16.s2mel.cfm.estimator.transformer
     with torch.inference_mode():
         got = layer.layers[0].attention(t(x).bfloat16(), layer.rope(T, torch.device("cpu")),

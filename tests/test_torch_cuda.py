@@ -8,7 +8,10 @@ on the tensor cores); the same fp32 algebra with the kernel's
 sine, expf and FMA contraction (K2); for K4 as for K1 over an int8 cache, 1e-5; K5
 to K8 exact int32 sums with the plain versions' float32 operations in the
 same order, so their results agree to the last bit (K7 is held to that) or
-within one unit of it (1e-6 of max|out| is allowed).
+within one unit of it (1e-6 of max|out| is allowed); K9 and K10 (K3's
+backward) within 2e-5 of max(1, max|plain|) of autograd through the plain
+attention, and one training step on the card against the CPU's (`-k
+train`).
 """
 
 import dataclasses
@@ -1372,3 +1375,119 @@ def test_load_engine_builds_on_the_card(cuda_device, tmp_path):
             err = (got[key].cpu() - want).abs().max()
             assert err <= (1e-6 * want.abs().max() if chip_smoke.weight_normed(name, key)
                            else 0), (name, key)
+
+
+# K9 and K10 (the backward of K3, csrc/dit_attention_bwd.cu) against
+# autograd through the plain version, at K3's cases: partial masks, T=37
+# below one tile, the main path's solve (T=898, 774 valid), a row with one
+# valid key and a row with none (uniform softmax: a dV, no dQ or dK). Both
+# sum ~T float32 terms in other orders, the kernels over K3's 3xTF32 row
+# statistics: each gradient within 2e-5 of max(1, max|plain|).
+K9_CASES = [(100, [100, 50]), (37, [37, 20]), (898, [774, 774]), (255, [255, 1]),
+            (300, [300, 0])]
+
+
+def _k9_inputs(dev, T, lens):
+    q, k, v, mask = _k3_inputs(dev, T, lens)
+    g = torch.Generator(device=dev).manual_seed(T + 1)
+    return q, k, v, mask, torch.randn(q.shape, generator=g, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", K9_CASES)
+def test_train_k9_k10_cuda_match_plain(cuda_device, T, lens):
+    q, k, v, mask, dout = _k9_inputs(cuda_device, T, lens)
+    out, stats = k3.dit_attention_stats(q, k, v, mask)
+    assert torch.equal(out, k3.dit_attention(q, k, v, mask))
+    counted = k3.bwd_dkv_counter.launches, k3.bwd_dq_counter.launches
+    got = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+    assert (k3.bwd_dkv_counter.launches, k3.bwd_dq_counter.launches) == (
+        counted[0] + 1, counted[1] + 1)
+    want = k3.dit_attention_bwd_plain(q, k, v, mask, dout)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert (a - b).abs().max() <= 2e-5 * max(1.0, b.abs().max().item()), name
+    if 0 in lens:
+        row = lens.index(0)
+        assert not got[0][row].any() and not got[1][row].any() and got[2][row].abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_train_k9_k10_cuda_repeat_their_bits(cuda_device):
+    q, k, v, mask, dout = _k9_inputs(cuda_device, 898, [774, 500])
+    out, stats = k3.dit_attention_stats(q, k, v, mask)
+    first = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+    second = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _train_batches(cfg, target, seed=0):
+    import numpy as np
+
+    from indextts_tpu_torch import finetune
+
+    rng = np.random.default_rng(seed)
+    if target == "gpt":
+        return finetune.synthetic_gpt_batch(cfg, 2, rng), None
+    T, B = 300, 2
+    d = cfg.s2mel.dit
+    batch = {"x1": rng.standard_normal((B, d.in_channels, T)).astype(np.float32),
+             "x_lens": np.array([T, 211], np.int32), "prompt_lens": np.array([30, 17], np.int32),
+             "mu": rng.standard_normal((B, T, d.content_dim)).astype(np.float32),
+             "style": rng.standard_normal((B, d.style_dim)).astype(np.float32)}
+    noise = (rng.uniform(0, 1, B).astype(np.float32),
+             rng.standard_normal((B, d.in_channels, T)).astype(np.float32),
+             np.array([False, True]))
+    return batch, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ["cfm", "gpt"])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, target):
+    """One AdamW step of make_cfm_train_step / make_train_step on the card
+    (the DiT's attention through K3 with statistics, K9 and K10: one launch
+    of each a DiT layer) against the same step on the CPU, from the same
+    weights, batch and noise. Loss within 1e-5, gradients within 1e-4 of
+    their largest |value|, and each parameter's distance from the CPU's
+    within 1e-2 of the update's norm plus 1e-6 a element (Adam divides by
+    the root mean square of each element's gradient, so elements whose
+    gradient is rounding move up to lr either way; the GPT's key bias, whose
+    gradient is zero in exact arithmetic, is left out)."""
+    import chip_smoke
+    from indextts_tpu_torch import finetune
+    from indextts_tpu_torch.runtime import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = chip_smoke.small_config()
+    batch, noise = _train_batches(cfg, target)
+    lr = 1e-3
+    models, grads, losses = {}, {}, {}
+    start = train.train_model(cfg, target, "cpu", seed=0).state_dict()
+    for dev in (torch.device("cpu"), cuda_device):
+        model = train.train_model(cfg, target, dev, start)
+        opt = train.adamw(model.parameters(), lr)
+        b = finetune.to_device(batch, dev)
+        counted = (k3.counter.launches, k3.bwd_dkv_counter.launches,
+                   k3.bwd_dq_counter.launches)
+        if target == "gpt":
+            step = train.make_train_step(model, opt)
+            loss = step(b)
+        else:
+            step = train.make_cfm_train_step(model, opt)
+            loss = step(b, noise=tuple(torch.from_numpy(x).to(dev) for x in noise))
+        if dev.type == "cuda":
+            n = cfg.s2mel.dit.depth if target == "cfm" else 0
+            assert (k3.counter.launches, k3.bwd_dkv_counter.launches,
+                    k3.bwd_dq_counter.launches) == tuple(c + n for c in counted)
+        losses[dev.type] = loss.item()
+        grads[dev.type] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        models[dev.type] = {k: v.cpu() for k, v in model.state_dict().items()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+    D = cfg.gpt.model_dim
+    for name, want in grads["cpu"].items():
+        assert (grads["cuda"][name] - want).abs().max() <= 1e-4 * max(
+            want.abs().max().item(), 1e-30), name
+        got, w, w0 = models["cuda"][name], models["cpu"][name], start[name]
+        if target == "gpt" and name.endswith("attn.c_attn.bias"):
+            got, w, w0 = (torch.cat([x[:D], x[2 * D:]]) for x in (got, w, w0))
+        assert (got - w).norm() <= 1e-2 * (w - w0).norm() + 1e-6 * w.numel() ** 0.5, name
