@@ -291,10 +291,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    idle share, K3's, K9's and K10's share, the largest kernels). K9's and
    K10's `launches` come from the CFM steps. Phase 2 checks K3's row statistics and K9 and K10
    (`check_k9_k10`) against autograd through the plain attention at K3's
-   cases, each gradient within 2e-5 of max(1, max|plain|), repeating its
-   bits; timed at the main path, the longest segment and 16 rows, with
-   the backward of scaled_dot_product_attention as library_ms. No /tts
-   request of any route launches K9 or K10.
+   cases and a mask whose valid keys are no prefix, each gradient within
+   2e-5 of max(1, max|plain|), dK and dV exactly 0 at masked keys of rows
+   with a valid key, repeating its bits, with no register spills; timed
+   at the main path, the longest segment and 16 rows (`time_k9_k10`,
+   which tools/dit_bwd_times.py runs on another tree), with the backward
+   of scaled_dot_product_attention as library_ms. No /tts request of any
+   route launches K9 or K10.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -1209,58 +1212,156 @@ def events_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
-def check_k9_k10(shapes, longest, heads: int):
-    """K3's row statistics, and K9 (dK, dV) and K10 (dQ), the backward of
-    the float32 DiT attention, against autograd through
-    `dit_attention_plain`, at K3's cases: the main path's solve (T=898, 774
-    valid, on the DiT's strided views), the longest segment's (T=2946, 2838
-    valid), T=37 below one tile, T=100, a row with one valid key, T=300,
-    T=1000, a row with none (uniform softmax: a dV but no dQ, dK) and a
-    batched solve's 16 rows. Each gradient is held to 2e-5 of
-    max(1, max|plain|): both sum ~T float32 terms in another order, the
-    kernels over K3's 3xTF32 statistics. K3's output with statistics is
-    the bits of K3's without, its m + log2 l within 1e-4 of the plain
-    base-2 log-sum-exp (m = -1e9 and log2 l = log2 T in the row with no
-    valid key). The main case repeats its bits on a second call. Timed at
-    the main path, the longest segment and 16 rows: K3 with its
-    statistics in turns with K3 without, then each backward kernel alone;
-    the plain version is the backward of the plain graph with respect to
-    the kernel's inputs (K9: k, v; K10: q). The library's fused backward of
-    scaled_dot_product_attention computes dq, dk and dv in one call, so its
-    time stands in both rows and is held against K9 + K10 + D. The bound
-    is K3's: the 3xTF32 tensor-core rate, three products per product."""
+def nonprefix_row(t: int):
+    """A (t,) bool row of keys whose valid keys are no prefix: a whole
+    128-key run masked between valid keys (keys 192-319: two of K9's 64-key
+    blocks and four of K10's 32-key tiles), every seventh key masked
+    elsewhere, and the last five."""
+    import torch
+
+    j = torch.arange(t, device="cuda")
+    return ~(((j >= 192) & (j < 320)) | (j % 7 == 3) | (j >= t - 5))
+
+
+def key_mask(t: int, rows):
+    """(len(rows), t) bool key mask: a row n valid keys for an int n, the
+    keys of `nonprefix_row` for "non-prefix"."""
+    import torch
+
+    j = torch.arange(t, device="cuda")
+    return torch.stack([nonprefix_row(t) if r == "non-prefix" else j < r for r in rows])
+
+
+def k9_k10_cases(shapes, longest):
+    """(name, T, rows) of K9's and K10's checks: the main path's solve
+    (T=898, 774 valid, on the DiT's strided views), the longest segment's
+    (T=2946, 2838 valid), T=37 below one tile, T=100, a row with one valid
+    key, T=300, T=1000, a row with none (uniform softmax: a dV but no dQ,
+    dK), a batched solve's 16 rows, and a row whose valid keys are no
+    prefix beside a row with none."""
+    T, tv = shapes["dit_T"], shapes["dit_valid"]
+    long_T, long_v = longest["dit_T"], longest["dit_valid"]
+    return [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
+            ("T37", 37, [37, 20]), ("T100", 100, [100, 37]), ("T255", 255, [255, 1]),
+            ("T300", 300, [300, 150]), ("T1000", 1000, [999, 600]),
+            ("no-valid-key", 300, [300, 0]),
+            ("batched 16 rows", T, shapes["batch_dit_valid"] * 2),
+            ("non-prefix", T, ["non-prefix", 0])]
+
+
+def k9_k10_inputs(g, name: str, t: int, rows, heads: int):
+    """(q, k, v, mask, lens, out, stats, dout) of one case: the DiT's
+    strided views at the main path's shapes, else contiguous draws; K3's
+    output and row statistics; lens each row's valid keys."""
+    import torch
+
+    from indextts_tpu_torch.ops import dit_attention as k3
+
+    B = len(rows)
+    if name in ("main", "batched 16 rows") or name.startswith("longest"):
+        q, k, v = dit_qkv(g, B, heads, t)
+    else:
+        q, k, v = (torch.randn((B, heads, t, 64), generator=g, device="cuda") for _ in range(3))
+    dout = torch.randn((B, heads, t, 64), generator=g, device="cuda")
+    mask = key_mask(t, rows)
+    out, stats = k3.dit_attention_stats(q, k, v, mask)
+    return q, k, v, mask, mask.sum(1).tolist(), out, stats, dout
+
+
+def time_k9_k10(name: str, inputs, heads: int, full: bool = True):
+    """K9, K10, D and K9 + K10 + D (CUDA events over graph replays) and
+    SDPA's one backward of dq, dk and dv (events over eager autograd calls)
+    on one case's inputs; with `full`, also K3 with its row statistics in
+    turns with K3 without, and the plain versions (autograd of the plain
+    graph with respect to each kernel's inputs: K9 k, v; K10 q). Bounds at
+    K3's rate: 3xTF32, three TF32 products per product, on the tensor cores,
+    over the valid keys (a row with no valid key still has a uniform dV over
+    all T keys). Returns {"K9": (ms, plain, lib, bound, by), "K10": ...}."""
     import torch
     import torch.nn.functional as F
 
     from indextts_tpu_torch.ops import dit_attention as k3
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, mask, lens, out, stats, dout = inputs
+    B, _, t, _ = q.shape
+    delta = (dout * out).sum(-1).contiguous()
+    if full:
+        turns = [cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention_stats(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention_stats(q, k, v, mask)),
+                 cuda_ms(lambda: k3.dit_attention(q, k, v, mask))]
+        print(f"K3 with row statistics {name} B={B} H={heads} T={t}: kernel_ms="
+              f"{(turns[1] + turns[2]) / 2:.4f}, without {(turns[0] + turns[3]) / 2:.4f} "
+              f"(turns without, with, with, without: {', '.join(f'{x:.4f}' for x in turns)})")
+    ms9 = cuda_ms(lambda: k3.dit_attention_bwd_dkv(q, k, v, mask, stats, dout, delta))
+    ms10 = cuda_ms(lambda: k3.dit_attention_bwd_dq(q, k, v, mask, stats, dout, delta))
+    ms_d = cuda_ms(lambda: (dout * out).sum(-1).contiguous())
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask[:, None, None, :])
+    # SDPA's fused backward computes dq, dk and dv in one call whatever it
+    # is asked for: the library's time is its whole backward, held against
+    # K9 + K10 + D below, and stands in both rows
+    lib = events_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout, retain_graph=True))
+    plain_out = k3.dit_attention_plain(qg, kg, vg, mask) if full else None
+    res = {}
+    for kname, ms, wrt, ops, nout in (("K9", ms9, (kg, vg), 8, 2), ("K10", ms10, (qg,), 6, 1)):
+        plain = events_ms(lambda: torch.autograd.grad(plain_out, wrt, dout, retain_graph=True),
+                          iters=5) if full else None
+        # q, k, v, dO read, the gradients written; stats, D and the mask
+        nbytes = 4 * B * heads * t * 64 * (4 + nout) + 12 * B * heads * t + B * t
+        flops = sum(ops * heads * t * (n if n or kname == "K10" else t) * 64 for n in lens)
+        fp32_ms, _ = bound(nbytes, flops)
+        b_ms, by = bound(nbytes, 3 * flops, TF32_FLOPS)
+        print(f"{kname} {name} B={B} H={heads} T={t}: kernel_ms={ms:.4f} "
+              + (f"plain_ms(autograd of the plain graph)={plain:.4f} " if full else "")
+              + f"bound_ms(3xTF32 tensor cores)={b_ms:.4f} ({by}) "
+              f"bound_ms(fp32 CUDA cores)={fp32_ms:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{ms / b_ms:.1f}x the bound")
+        res[kname] = (ms, plain, lib, b_ms, by)
+    total = ms9 + ms10 + ms_d
+    plain_all = events_ms(lambda: torch.autograd.grad(plain_out, (qg, kg, vg), dout,
+                                                      retain_graph=True), iters=5) if full else None
+    print(f"K9 + K10 + D {name} B={B} H={heads} T={t}: {total:.4f} ms (D {ms_d:.4f}) "
+          f"against library_ms(sdpa backward, dq dk dv)={lib:.4f}: {total / lib:.2f}x"
+          + (f"; plain backward (dq dk dv) {plain_all:.4f}" if full else ""))
+    return res
+
+
+def check_k9_k10(shapes, longest, heads: int):
+    """K3's row statistics, and K9 (dK, dV) and K10 (dQ), the backward of
+    the float32 DiT attention, against autograd through
+    `dit_attention_plain` at `k9_k10_cases`. Each gradient is held to 2e-5
+    of max(1, max|plain|): both sum ~T float32 terms in another order, the
+    kernels in 3xTF32 over K3's statistics. In a row with a valid key dK
+    and dV are exactly 0 at every masked key (the kernels skip key tiles
+    and warps that hold no valid key); in a row with none dq = dk = 0 and
+    dv != 0. K3's output with statistics is the bits of K3's without, its
+    m + log2 l within 1e-4 of the plain base-2 log-sum-exp (m = -1e9 and
+    log2 l = log2 T in the row with no valid key). The main case repeats
+    its bits on a second call. Prints each kernel's registers and local
+    (spill) bytes a thread, which must be 0. Timed (`time_k9_k10`) at the
+    main path, the longest segment and 16 rows; the library's fused
+    backward of scaled_dot_product_attention computes dq, dk and dv in
+    one call, so its time stands in both rows and is held against K9 +
+    K10 + D. The bound is K3's: the 3xTF32 tensor-core rate."""
+    import torch
+
+    from indextts_tpu_torch.ops import dit_attention as k3
+
+    g = torch.Generator(device="cuda").manual_seed(9)
     tol = 2e-5
-    T, tv = shapes["dit_T"], shapes["dit_valid"]
-    long_T, long_v = longest["dit_T"], longest["dit_valid"]
-    cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
-             ("T37", 37, [37, 20]), ("T100", 100, [100, 37]), ("T255", 255, [255, 1]),
-             ("T300", 300, [300, 150]), ("T1000", 1000, [999, 600]),
-             ("no-valid-key", 300, [300, 0]),
-             ("batched 16 rows", T, shapes["batch_dit_valid"] * 2)]
     errs, inputs = {"K9": {}, "K10": {}}, {}
-    for name, t, lens in cases:
-        B = len(lens)
-        if name in ("main", "batched 16 rows") or name.startswith("longest"):
-            q, k, v = dit_qkv(g, B, heads, t)
-        else:
-            q, k, v = (torch.randn((B, heads, t, 64), generator=g, device=dev) for _ in range(3))
-        dout = torch.randn((B, heads, t, 64), generator=g, device=dev)
-        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
-        out, stats = k3.dit_attention_stats(q, k, v, mask)
+    for name, t, rows in k9_k10_cases(shapes, longest):
+        inp = k9_k10_inputs(g, name, t, rows, heads)
+        q, k, v, mask, lens, out, stats, dout = inp
+        B = len(rows)
         if not torch.equal(out, k3.dit_attention(q, k, v, mask)):
             fail(f"K3 {name}: the output with statistics differs from the output without")
         scores = (torch.einsum("bhtd,bhsd->bhts", q, k) / 8.0).masked_fill(
             ~mask[:, None, None, :], k3.NEG_INF)
         lse2 = torch.logsumexp(scores, -1) / math.log(2.0)
-        rows = torch.tensor([n > 0 for n in lens], device=dev)
-        st_err = ((stats[..., 0] + stats[..., 1]) - lse2)[rows].abs().max().item() \
+        has = torch.tensor([n > 0 for n in lens], device="cuda")
+        st_err = ((stats[..., 0] + stats[..., 1]) - lse2)[has].abs().max().item() \
             if any(lens) else 0.0
         if 0 in lens:
             r = lens.index(0)
@@ -1289,13 +1390,18 @@ def check_k9_k10(shapes, longest, heads: int):
               + f" (tol {tol}); K3 stats off the plain base-2 log-sum-exp by {st_err:.3g}")
         if not all(x <= tol for x in e.values()):
             fail(f"K9/K10 {name} disagree with autograd of the plain version: {e}")
+        for r, n in enumerate(lens):
+            masked = ~mask[r]
+            if n and (dk[r][:, masked].any() or dv[r][:, masked].any()):
+                fail(f"K9 {name}: row {r} has a valid key, but dK or dV is not exactly 0 "
+                     f"at its masked keys")
         if 0 in lens:
             r = lens.index(0)
             if dq[r].abs().max().item() != 0 or dk[r].abs().max().item() != 0 \
                     or dv[r].abs().max().item() == 0:
                 fail(f"K9/K10 {name}: the row with no valid key must have dq = dk = 0 and "
                      f"dv != 0")
-        inputs[name] = (q, k, v, mask, lens, out, stats, dout)
+        inputs[name] = inp
     q, k, v, mask, lens, out, stats, dout = inputs["main"]
     got = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
     again = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
@@ -1306,59 +1412,17 @@ def check_k9_k10(shapes, longest, heads: int):
     delta = (dout * out).sum(-1).contiguous()
     one_launch("K9", lambda: k3.dit_attention_bwd_dkv(q, k, v, mask, stats, dout, delta))
     one_launch("K10", lambda: k3.dit_attention_bwd_dq(q, k, v, mask, stats, dout, delta))
+    attrs = k3.bwd_attributes()
+    for kname, (regs, local) in attrs.items():
+        print(f"{kname}: {regs} registers a thread, {local} bytes of local memory (spills) a "
+              f"thread")
+    if any(local for _, local in attrs.values()):
+        fail(f"K9/K10 spill to local memory: {attrs}")
 
-    def timed(name):
-        q, k, v, mask, lens, out, stats, dout = inputs[name]
-        B, _, t, _ = q.shape
-        delta = (dout * out).sum(-1).contiguous()
-        # K3 with its row statistics against K3 without, in turns
-        turns = [cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
-                 cuda_ms(lambda: k3.dit_attention_stats(q, k, v, mask)),
-                 cuda_ms(lambda: k3.dit_attention_stats(q, k, v, mask)),
-                 cuda_ms(lambda: k3.dit_attention(q, k, v, mask))]
-        print(f"K3 with row statistics {name} B={B} H={heads} T={t}: kernel_ms="
-              f"{(turns[1] + turns[2]) / 2:.4f}, without {(turns[0] + turns[3]) / 2:.4f} "
-              f"(turns without, with, with, without: {', '.join(f'{x:.4f}' for x in turns)})")
-        ms9 = cuda_ms(lambda: k3.dit_attention_bwd_dkv(q, k, v, mask, stats, dout, delta))
-        ms10 = cuda_ms(lambda: k3.dit_attention_bwd_dq(q, k, v, mask, stats, dout, delta))
-        ms_d = cuda_ms(lambda: (dout * out).sum(-1).contiguous())
-        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
-        plain_out = k3.dit_attention_plain(qg, kg, vg, mask)
-        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask[:, None, None, :])
-        # SDPA's fused backward computes dq, dk and dv in one call whatever
-        # it is asked for: the library's time is its whole backward, held
-        # against K9 + K10 + D below, and stands in both rows
-        lib = events_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dout,
-                                                    retain_graph=True))
-        plain_all = events_ms(lambda: torch.autograd.grad(plain_out, (qg, kg, vg), dout,
-                                                          retain_graph=True), iters=5)
-        res = {}
-        for kname, ms, wrt, ops, nout in (("K9", ms9, (kg, vg), 8, 2), ("K10", ms10, (qg,), 6, 1)):
-            plain = events_ms(lambda: torch.autograd.grad(plain_out, wrt, dout,
-                                                          retain_graph=True), iters=5)
-            # q, k, v, dO read, the gradients written; stats, D and the mask
-            nbytes = 4 * B * heads * t * 64 * (4 + nout) + 12 * B * heads * t + B * t
-            # a row with no valid key still has a uniform dV over all T keys
-            flops = sum(ops * heads * t * (n if n or kname == "K10" else t) * 64 for n in lens)
-            fp32_ms, _ = bound(nbytes, flops)
-            # as K3's: 3xTF32, three TF32 products per product, on the tensor cores
-            b_ms, by = bound(nbytes, 3 * flops, TF32_FLOPS)
-            print(f"{kname} {name} B={B} H={heads} T={t}: kernel_ms={ms:.4f} "
-                  f"plain_ms(autograd of the plain graph)={plain:.4f} "
-                  f"bound_ms(3xTF32 tensor cores)={b_ms:.4f} ({by}) "
-                  f"bound_ms(fp32 CUDA cores)={fp32_ms:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, "
-                  f"{ms / b_ms:.1f}x the bound")
-            res[kname] = (ms, plain, lib, b_ms, by)
-        total = ms9 + ms10 + ms_d
-        print(f"K9 + K10 + D {name} B={B} H={heads} T={t}: {total:.4f} ms (D {ms_d:.4f}) "
-              f"against library_ms(sdpa backward, dq dk dv)={lib:.4f}: {total / lib:.2f}x; "
-              f"plain backward (dq dk dv) {plain_all:.4f}")
-        del plain_out, lib_out
-        return res
-
-    at_main = timed("main")
-    timed(f"longest T={long_T}")
-    timed("batched 16 rows")
+    long_name = next(name for name in inputs if name.startswith("longest"))
+    at_main = time_k9_k10("main", inputs["main"], heads)
+    for name in (long_name, "batched 16 rows"):
+        time_k9_k10(name, inputs[name], heads)
     rows = []
     for kname, label, what in (("K9", "K9 dit_attention_bwd_dkv", "dkv"),
                                ("K10", "K10 dit_attention_bwd_dq", "dq")):

@@ -70,6 +70,57 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
       : "memory");
 }
 
+// 16 bytes global -> shared, zero-filled when !full (the source is not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+// ---- 3xTF32 on the tensor cores (K3, K9, K10) ----------------------------
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away), lo the exact
+// rest, of which the tensor cores read the top 19 bits
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;  // cvt.rna.tf32.f32 is slower
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 2^x by the hardware's approximation (ex2.approx), 0 at -inf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a.b over one m16n8k8 TF32 tile
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a.b in 3xTF32 for N accumulators sharing a, the small products first
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N][4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4], const unsigned (&bh)[N][2],
+                                     const unsigned (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], ah, bh[n]);
+}
+
+__device__ __forceinline__ float elem(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ unsigned elem(const uint4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
 constexpr int kMaxDevices = 64;
 
 // allows `kernel` `bytes` of dynamic shared memory on the current device;

@@ -19,7 +19,8 @@
 // bits) at 495. This kernel keeps float32 accuracy on the tensor cores with
 // 3xTF32: x = hi + lo, both TF32, and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi
 // (the dropped lo.lo term is ~2^-22 of the product), three products per
-// product, so its floor is 3 x FLOPs over 495 TFLOP/s.
+// product, so its floor is 3 x FLOPs over 495 TFLOP/s. The helpers (split,
+// mma, mma3, ex2) are common.cuh's, shared with K9 and K10.
 //
 // Design (FlashAttention-2 on mma.sync.m16n8k8 TF32): a block of 8 warps
 // owns 128 query rows of one (b, h); each warp owns 16 rows, whose Q
@@ -91,58 +92,6 @@ struct Layout {
   long long q[3], k[3], v[3], o[3], m[2];
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !full (the source is not read)
-__device__ __forceinline__ void cp_async16(unsigned dst, const float* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(full ? 16 : 0));
-}
-
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away), lo the exact
-// rest, of which the tensor cores read the top 19 bits
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;  // cvt.rna.tf32.f32 is slower
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// 2^x by the hardware's approximation (ex2.approx), 0 at -inf
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d += a.b over one m16n8k8 TF32 tile
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a.b in 3xTF32 for 8 accumulators sharing a, the small products first
-__device__ __forceinline__ void mma3(float (&d)[8][4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4], const unsigned (&bh)[8][2],
-                                     const unsigned (&bl)[8][2]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) mma(d[n], al, bh[n]);
-#pragma unroll
-  for (int n = 0; n < 8; ++n) mma(d[n], ah, bl[n]);
-#pragma unroll
-  for (int n = 0; n < 8; ++n) mma(d[n], ah, bh[n]);
-}
-
-__device__ __forceinline__ float elem(const float4& x, int i) {
-  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
-}
-
-__device__ __forceinline__ unsigned elem(const uint4& x, int i) {
-  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
-}
-
 template <bool kStats>
 __global__ void __launch_bounds__(kThreads, 1)
 dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -171,8 +120,8 @@ dit_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = tid / 16; r < kBN; r += kThreads / 16) {
         const int key = j * kBN + r;
         const long long kr = key < T ? key : 0;
-        cp_async16(smem_u32(ks + r * kPitch + c_copy), kb + kr * L.k[2] + c_copy, key < T);
-        cp_async16(smem_u32(vs + r * kPitch + c_copy), vb + kr * L.v[2] + c_copy, key < T);
+        cp_async16(smem_addr(ks + r * kPitch + c_copy), kb + kr * L.k[2] + c_copy, key < T);
+        cp_async16(smem_addr(vs + r * kPitch + c_copy), vb + kr * L.v[2] + c_copy, key < T);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
@@ -414,11 +363,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-__device__ __forceinline__ void cp_async16_bf16(unsigned dst, const __nv_bfloat16* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(full ? 16 : 0));
-}
-
 __global__ void __launch_bounds__(kThreads16)
 dit_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ key_mask,
@@ -443,9 +387,9 @@ dit_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int r = tid / 8; r < kBN; r += kThreads16 / 8) {
         const int key = j * kBN + r;
         const long long kr = key < T ? key : 0;
-        cp_async16_bf16(smem_u32(ks + r * kPitch16 + c_copy), kb + kr * L.k[2] + c_copy,
+        cp_async16(smem_addr(ks + r * kPitch16 + c_copy), kb + kr * L.k[2] + c_copy,
                         key < T);
-        cp_async16_bf16(smem_u32(vs + r * kPitch16 + c_copy), vb + kr * L.v[2] + c_copy,
+        cp_async16(smem_addr(vs + r * kPitch16 + c_copy), vb + kr * L.v[2] + c_copy,
                         key < T);
       }
     }
@@ -562,7 +506,7 @@ dit_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       const int key = 16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7);
 #pragma unroll
       for (int n = 0; n < 8; n += 2) {
-        const unsigned addr = smem_u32(vs + key * kPitch16 + 8 * (n + (lane >> 4)));
+        const unsigned addr = smem_addr(vs + key * kPitch16 + 8 * (n + (lane >> 4)));
         unsigned b0, b1, b2, b3;
         asm volatile(
             "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -197,6 +197,15 @@ def dit_attention_bwd_dq(q, k, v, key_mask, stats, dout, delta):
     return dq
 
 
+def bwd_attributes() -> dict:
+    """K9's and K10's compiled registers a thread and local (spill) bytes a
+    thread on the current card: {"K9": (regs, local), "K10": (...)}."""
+    out = (ctypes.c_int * 4)()
+    fn = cuda_lib.function("dit_attention_bwd", "dit_attention_bwd_attributes", [cuda_lib.P])
+    cuda_lib.check(fn(ctypes.addressof(out)), "dit_attention_bwd_attributes")
+    return {"K9": (out[0], out[1]), "K10": (out[2], out[3])}
+
+
 def dit_attention_bwd(q, k, v, key_mask, out, stats, dout):
     """K9 and K10: (dq, dk, dv) of K3 at (q, k, v, key_mask), from its
     output `out`, its `stats` and the output's gradient `dout`, each a

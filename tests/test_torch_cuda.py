@@ -1380,15 +1380,32 @@ def test_load_engine_builds_on_the_card(cuda_device, tmp_path):
 # K9 and K10 (the backward of K3, csrc/dit_attention_bwd.cu) against
 # autograd through the plain version, at K3's cases: partial masks, T=37
 # below one tile, the main path's solve (T=898, 774 valid), a row with one
-# valid key and a row with none (uniform softmax: a dV, no dQ or dK). Both
-# sum ~T float32 terms in other orders, the kernels over K3's 3xTF32 row
+# valid key and a row with none (uniform softmax: a dV, no dQ or dK), the
+# longest segment (T=2946, 2838 valid), a batched solve's 16 rows
+# (chip_smoke.py's batch_dit_valid, cond and null halves alike) and a row
+# whose valid keys are no prefix (a whole 128-key run masked between valid
+# keys, chip_smoke.py `nonprefix_row`) beside a row with none. Both sum ~T
+# float32 terms in other orders, the kernels in 3xTF32 over K3's row
 # statistics: each gradient within 2e-5 of max(1, max|plain|).
 K9_CASES = [(100, [100, 50]), (37, [37, 20]), (898, [774, 774]), (255, [255, 1]),
-            (300, [300, 0])]
+            (300, [300, 0]), (2946, [2838, 2838]), (898, "batched 16 rows"),
+            (898, "non-prefix")]
 
 
 def _k9_inputs(dev, T, lens):
-    q, k, v, mask = _k3_inputs(dev, T, lens)
+    """q, k, v (seeded by T, as `_k3_inputs`), the key mask of `lens`
+    (valid keys a row, or a named case of K9_CASES) and dout."""
+    import chip_smoke
+    from indextts_tpu_torch.config import load_config
+
+    if lens == "batched 16 rows":
+        lens = chip_smoke.main_path_shapes(load_config(), chip_smoke.MAX_MEL_TOKENS)[
+            "batch_dit_valid"] * 2
+    elif lens == "non-prefix":
+        lens = ["non-prefix", 0]
+    g = torch.Generator(device=dev).manual_seed(T)
+    q, k, v = (torch.randn((len(lens), 8, T, 64), generator=g, device=dev) for _ in range(3))
+    mask = chip_smoke.key_mask(T, lens)
     g = torch.Generator(device=dev).manual_seed(T + 1)
     return q, k, v, mask, torch.randn(q.shape, generator=g, device=dev)
 
@@ -1406,9 +1423,28 @@ def test_train_k9_k10_cuda_match_plain(cuda_device, T, lens):
     want = k3.dit_attention_bwd_plain(q, k, v, mask, dout)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert (a - b).abs().max() <= 2e-5 * max(1.0, b.abs().max().item()), name
-    if 0 in lens:
-        row = lens.index(0)
-        assert not got[0][row].any() and not got[1][row].any() and got[2][row].abs().max() > 0
+    for row in range(len(mask)):
+        if not mask[row].any():
+            assert not got[0][row].any() and not got[1][row].any()
+            assert got[2][row].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", [(898, [774, 774]), (898, "batched 16 rows"),
+                                    (898, "non-prefix")])
+def test_train_k9_k10_cuda_skip_masked_keys_exactly(cuda_device, T, lens):
+    """In a row with a valid key, dK and dV are exactly 0 at every masked
+    key (K9 skips the warps and blocks whose keys are all masked, K10 the
+    key tiles without a valid key), and dQ is the plain version's within
+    2e-5 of max(1, max|plain|)."""
+    q, k, v, mask, dout = _k9_inputs(cuda_device, T, lens)
+    out, stats = k3.dit_attention_stats(q, k, v, mask)
+    dq, dk, dv = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+    want = k3.dit_attention_bwd_plain(q, k, v, mask, dout)[0]
+    assert (dq - want).abs().max() <= 2e-5 * max(1.0, want.abs().max().item())
+    for row in range(len(mask)):
+        if mask[row].any():
+            assert not dk[row][:, ~mask[row]].any() and not dv[row][:, ~mask[row]].any(), row
 
 
 @pytest.mark.cuda

@@ -188,16 +188,24 @@ def jax_masked_attention(q, k, v, mask):
     return jnp.einsum("bhts,bhsd->bhtd", probs, v)
 
 
-@pytest.mark.parametrize("dh", [8, 64])
-def test_attention_function_gradients_match_jax(dh):
+@pytest.mark.parametrize("dh,T", [pytest.param(8, 19, id="8"), pytest.param(64, 19, id="64"),
+                                  pytest.param(8, 130, id="8-T130"),
+                                  pytest.param(64, 130, id="64-T130")])
+def test_attention_function_gradients_match_jax(dh, T):
     """dit_attention_train on CPU tensors (the plain version, autograd
     through it) against jax.grad of the JAX masked attention: a full row, a
     row of one valid key and a row of none (uniform softmax: dV but no dQ,
-    dK)."""
+    dK). T=130 crosses K9's and K10's tiles (64 and 32 rows) and adds a row
+    whose valid keys are no prefix: keys 64-127, a whole tile of each,
+    masked between valid keys, every seventh key elsewhere too."""
+    j = np.arange(T)
+    rows = [j < T, j < 1, j < 0]
+    if T > 128:
+        rows.append(~(((j >= 64) & (j < 128)) | (j % 7 == 3)))
+    mask = np.stack(rows)
     rng = np.random.default_rng(dh)
-    B, H, T = 3, 2, 19
-    q, k, v, dout = (rng.standard_normal((B, H, T, dh)).astype(np.float32) for _ in range(4))
-    mask = np.arange(T)[None] < np.array([[T], [1], [0]])
+    q, k, v, dout = (rng.standard_normal((len(rows), 2, T, dh)).astype(np.float32)
+                     for _ in range(4))
     jout, vjp = jax.vjp(lambda a, b, c: jax_masked_attention(a, b, c, jnp.asarray(mask)),
                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     jgrads = vjp(jnp.asarray(dout))
@@ -208,6 +216,8 @@ def test_attention_function_gradients_match_jax(dh):
     for name, x, want in zip("qkv", qkv, jgrads):
         assert_close_rel(x.grad, want, 1e-5, f"d{name}")
     assert not qkv[0].grad[2].any() and not qkv[1].grad[2].any() and qkv[2].grad[2].abs().max() > 0
+    for r in np.flatnonzero(mask.any(1)):  # a masked key of a row with a valid key: no gradient
+        assert not qkv[1].grad[r][:, ~mask[r]].any() and not qkv[2].grad[r][:, ~mask[r]].any()
 
 
 def test_attention_function_refuses_bfloat16_training():
