@@ -76,15 +76,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    K2's and K3's bfloat16 instantiations (`check_k2_bf16`,
    `check_k3_bf16`) are checked against their plain versions: K3-bf16 at
    the main path's solve on the DiT's strided views, the longest segment,
-   T=37, a row with one valid key, a row with none and a batched solve's
-   16 rows, the kernel no farther from the float32 attention of the same
-   bfloat16 inputs than its plain version and within 3e-2 of max|out| of
-   it; K2-bf16 at every shape of a vocoder call at the main path and the
+   T=37, a row with one valid key, a row with none, a batched solve's
+   16 rows and a row whose first and a middle 128-key tile hold no valid
+   key (`k3_bf16_cases`), the kernel no farther from the float32 attention
+   of the same bfloat16 inputs than its plain version and within 3e-2 of
+   max|out| of it, every row with a valid key keeping its bits when the k
+   and v of its masked keys are replaced by other draws, and 0 bytes of
+   spills (its registers printed); K2-bf16 at every shape of a vocoder
+   call at the main path and the
    longest segment, at 8 rows, and at edge cases of its plan, within 2e-5
    + 2^-7 of the plain version rounded to bfloat16 (one bfloat16 step).
    Each is one launch, repeats its bits and is timed in turns with its
    float32 instantiation on the same values (K3 at the main path, the
-   longest segment and 16 rows; K2 over an 8-row vocoder call, where the
+   longest segment and 16 rows, `time_k3_bf16`, which tools/dit_times.py
+   runs on another tree; K2 over an 8-row vocoder call, where the
    batched route runs it); K3-bf16's bound counts 989 TFLOP/s bf16, its
    library_ms is SDPA on the bfloat16 tensors.
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
@@ -1100,43 +1105,112 @@ def check_k3(shapes, longest, heads: int):
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib}
 
 
-def check_k3_bf16(shapes, longest, heads: int):
-    """K3's bfloat16 instantiation (a bfloat16 DiT) against its plain
-    version on bfloat16 q, k, v (`dit_attention_plain`, the JAX XLA path
-    dtype by dtype: bfloat16 scores, float32 softmax), at the main path's
-    solve (T=898, 774 valid, on the DiT's strided views), the longest
-    segment's, T=37, a row with one valid key, a row with none, and a
-    batched solve's 16 rows. The plain version rounds the scores to
-    bfloat16, the kernel does not, so both are held to the float32
-    attention of the same bfloat16 inputs: the kernel no farther from it
-    than the plain version, and the two within 3e-2 of max|out| (the plain
-    version's score rounding moves it ~1.4e-2). Timed at the main path in
-    turns with the float32 instantiation on the same values (float32,
-    bf16, bf16, float32)."""
+def masked_head_row(t: int):
+    """A (t,) bool row whose valid keys are no prefix, cut at K3-bf16's
+    128-key tiles: the first 128 keys masked (the first tile has no valid
+    key), keys 384-511 masked between valid keys (a whole tile), every
+    seventh key of 640-767 masked (a mixed tile), and the last five; the
+    other tiles hold valid keys only."""
     import torch
+
+    j = torch.arange(t, device="cuda")
+    return ~((j < 128) | ((j >= 384) & (j < 512)) | ((j >= 640) & (j < 768) & (j % 7 == 3))
+             | (j >= t - 5))
+
+
+def k3_bf16_cases(shapes, longest):
+    """(name, T, rows) of K3-bf16's checks: the main path's solve (T=898,
+    774 valid, on the DiT's strided views), the longest segment's (T=2946,
+    2838 valid), T=37 below one tile, a row with one valid key, a row with
+    none, a batched solve's 16 rows (8 unequal valid counts, each in the
+    cond and the null half), and a row whose first tile and a middle tile
+    have no valid key (`masked_head_row`) beside a row with none, at 2 rows
+    and at 16 (blocks of 2 and of 3 consumer warpgroups)."""
+    T, tv = shapes["dit_T"], shapes["dit_valid"]
+    long_T, long_v = longest["dit_T"], longest["dit_valid"]
+    return [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
+            ("T37", 37, [37, 20]), ("T255", 255, [255, 1]), ("no-valid-key", 300, [300, 0]),
+            ("batched 16 rows", T, shapes["batch_dit_valid"] * 2),
+            ("non-prefix", T, ["masked-head", 0]),
+            ("non-prefix 16 rows", T, ["masked-head", 0] * 8)]
+
+
+def k3_bf16_inputs(g, name: str, t: int, rows, heads: int):
+    """(q, k, v, mask, lens) of one K3-bf16 case in bfloat16: the DiT's
+    strided views at the main path's shapes, else contiguous draws; lens
+    each row's valid keys."""
+    import torch
+
+    bf16 = torch.bfloat16
+    B = len(rows)
+    if name in ("main", "batched 16 rows") or name.startswith("longest"):
+        q, k, v = dit_qkv(g, B, heads, t, bf16)
+    else:
+        q, k, v = (torch.randn((B, heads, t, 64), generator=g, device="cuda").to(bf16)
+                   for _ in range(3))
+    mask = key_mask(t, rows)
+    return q, k, v, mask, mask.sum(1).tolist()
+
+
+def time_k3_bf16(name: str, inputs, heads: int):
+    """K3-bf16 in turns with the float32 instantiation on the same values
+    (float32, bf16, bf16, float32), its plain version and SDPA on the
+    bfloat16 tensors, by CUDA events over graph replays, on one case's
+    inputs; the bound counts 989 TFLOP/s bf16 over the valid keys.
+    Returns (ms, plain, lib, bound, by)."""
     import torch.nn.functional as F
 
     from indextts_tpu_torch.ops import dit_attention as k3
 
-    dev, bf16 = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(33)
-    T, tv = shapes["dit_T"], shapes["dit_valid"]
-    long_T, long_v = longest["dit_T"], longest["dit_valid"]
-    cases = [("main", T, [tv, tv]), (f"longest T={long_T}", long_T, [long_v, long_v]),
-             ("T37", 37, [37, 20]), ("T255", 255, [255, 1]), ("no-valid-key", 300, [300, 0]),
-             ("batched 16 rows", T, shapes["batch_dit_valid"] * 2)]
+    q, k, v, mask, lens = inputs
+    B, _, t, _ = q.shape
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    turns = [cuda_ms(lambda: k3.dit_attention(q32, k32, v32, mask)),
+             cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
+             cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
+             cuda_ms(lambda: k3.dit_attention(q32, k32, v32, mask))]
+    ms, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    plain = cuda_ms(lambda: k3.dit_attention_plain(q, k, v, mask), iters=5)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None, None, :]))
+    nbytes = 4 * B * heads * t * 64 * 2 + B * t
+    flops = sum(4 * heads * t * n * 64 for n in lens)
+    b_ms, by = bound(nbytes, flops, BF16_FLOPS)
+    print(f"K3-bf16 {name} B={B} H={heads} T={t}: kernel_ms={ms:.4f} (turns float32, "
+          f"bf16, bf16, float32: {', '.join(f'{x:.4f}' for x in turns)}; float32 "
+          f"instantiation {ms32:.4f}) plain_ms={plain:.4f} library_ms(sdpa bf16)={lib:.4f} "
+          f"bound_ms(bf16 tensor cores)={b_ms:.4f} ({by}); {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{ms / b_ms:.1f}x the bound, {ms / lib:.2f}x SDPA")
+    return ms, plain, lib, b_ms, by
+
+
+def check_k3_bf16(shapes, longest, heads: int):
+    """K3's bfloat16 instantiation (a bfloat16 DiT) against its plain
+    version on bfloat16 q, k, v (`dit_attention_plain`, the JAX XLA path
+    dtype by dtype: bfloat16 scores, float32 softmax) at `k3_bf16_cases`.
+    The plain version rounds the scores to bfloat16, the kernel does not,
+    so both are held to the float32 attention of the same bfloat16 inputs:
+    the kernel no farther from it than the plain version, and the two
+    within 3e-2 of max|out| (the plain version's score rounding moves it
+    ~1.4e-2). Each call is one launch of the bfloat16 instantiation and
+    none of the float32 one. Masking is exact: with the k and v of every
+    masked key replaced by other finite draws (x100), each row with a valid
+    key keeps its bits. The main case repeats its bits on a second call
+    and on contiguous copies of the strided views. Prints the kernel's
+    registers and local (spill) bytes a thread, which must be 0. Timed
+    (`time_k3_bf16`) at the main path, the longest segment and 16 rows."""
+    import torch
+
+    from indextts_tpu_torch.ops import dit_attention as k3
+
+    g = torch.Generator(device="cuda").manual_seed(33)
     errs, inputs = {}, {}
-    for name, t, lens in cases:
-        B = len(lens)
-        if name in ("main", "batched 16 rows") or name.startswith("longest"):
-            q, k, v = dit_qkv(g, B, heads, t, bf16)
-        else:
-            q, k, v = (torch.randn((B, heads, t, 64), generator=g, device=dev).to(bf16)
-                       for _ in range(3))
-        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    for name, t, rows in k3_bf16_cases(shapes, longest):
+        q, k, v, mask, lens = inp = k3_bf16_inputs(g, name, t, rows, heads)
+        B = len(rows)
         before = k3.bf16_counter.launches, k3.counter.launches
         got = k3.dit_attention(q, k, v, mask)
-        if got.dtype != bf16 or (k3.bf16_counter.launches, k3.counter.launches) != (
+        if got.dtype != torch.bfloat16 or (k3.bf16_counter.launches, k3.counter.launches) != (
                 before[0] + 1, before[1]):
             fail(f"K3-bf16 {name}: not one launch of the bfloat16 instantiation")
         want = k3.dit_attention_plain(q, k, v, mask).float()
@@ -1150,7 +1224,16 @@ def check_k3_bf16(shapes, longest, heads: int):
               f"attention of the bf16 inputs: kernel {kern:.3g}, plain {plain:.3g}")
         if not (err <= 3e-2 * top and kern <= plain):
             fail(f"K3-bf16 {name} disagrees with its plain version: {err}, {kern} > {plain}")
-        inputs[name] = (q, k, v, mask, lens)
+        masked = ~mask[:, None, :, None]
+        junk = [torch.where(masked, 100 * torch.randn(x.shape, generator=g, device="cuda")
+                            .to(x.dtype), x) for x in (k, v)]
+        again = k3.dit_attention(q, *junk, mask)
+        kept = [bool(torch.equal(again[r], got[r])) for r, n in enumerate(lens) if n]
+        print(f"K3-bf16 {name}: masked keys' k and v replaced by other draws (x100): rows "
+              f"with a valid key keep their bits: {all(kept)} ({sum(kept)} of {len(kept)})")
+        if not all(kept):
+            fail(f"K3-bf16 {name}: the values at masked keys changed an output")
+        inputs[name] = inp
     q, k, v, mask, lens = inputs["main"]
     got = k3.dit_attention(q, k, v, mask)
     same = [torch.equal(k3.dit_attention(q, k, v, mask), got),
@@ -1161,31 +1244,17 @@ def check_k3_bf16(shapes, longest, heads: int):
     if not all(same):
         fail("K3-bf16: a repeated call or contiguous inputs changed the result")
     one_launch("K3-bf16", lambda: k3.dit_attention(q, k, v, mask))
+    attrs = k3.bf16_attributes()
+    for n, (regs, local) in attrs.items():
+        print(f"K3-bf16, blocks of {n} consumer warpgroups: {regs} registers a thread at "
+              f"launch, {local} bytes of local memory (spills) a thread")
+    if any(local for _, local in attrs.values()):
+        fail(f"K3-bf16 spills to local memory: {attrs}")
 
-    def timed(name):
-        q, k, v, mask, lens = inputs[name]
-        B, _, t, _ = q.shape
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        turns = [cuda_ms(lambda: k3.dit_attention(q32, k32, v32, mask)),
-                 cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
-                 cuda_ms(lambda: k3.dit_attention(q, k, v, mask)),
-                 cuda_ms(lambda: k3.dit_attention(q32, k32, v32, mask))]
-        ms, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-        plain = cuda_ms(lambda: k3.dit_attention_plain(q, k, v, mask), iters=5)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask[:, None, None, :]))
-        nbytes = 4 * B * heads * t * 64 * 2 + B * t
-        flops = sum(4 * heads * t * n * 64 for n in lens)
-        b_ms, by = bound(nbytes, flops, BF16_FLOPS)
-        print(f"K3-bf16 {name} B={B} H={heads} T={t}: kernel_ms={ms:.4f} (turns float32, "
-              f"bf16, bf16, float32: {', '.join(f'{x:.4f}' for x in turns)}; float32 "
-              f"instantiation {ms32:.4f}) plain_ms={plain:.4f} library_ms(sdpa bf16)={lib:.4f} "
-              f"bound_ms(bf16 tensor cores)={b_ms:.4f} ({by})")
-        return ms, plain, lib, b_ms, by
-
-    ms, plain, lib, b_ms, by = timed("main")
-    timed(f"longest T={long_T}")
-    timed("batched 16 rows")
+    ms, plain, lib, b_ms, by = time_k3_bf16("main", inputs["main"], heads)
+    for name in inputs:
+        if name.startswith("longest") or name == "batched 16 rows":
+            time_k3_bf16(name, inputs[name], heads)
     return {"name": "K3-bf16 dit_attention", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/dit_attention.cu",
             "replaces": "indextts_tpu/models/s2mel.py:141",
@@ -1225,11 +1294,13 @@ def nonprefix_row(t: int):
 
 def key_mask(t: int, rows):
     """(len(rows), t) bool key mask: a row n valid keys for an int n, the
-    keys of `nonprefix_row` for "non-prefix"."""
+    keys of `nonprefix_row` for "non-prefix", of `masked_head_row` for
+    "masked-head"."""
     import torch
 
     j = torch.arange(t, device="cuda")
-    return torch.stack([nonprefix_row(t) if r == "non-prefix" else j < r for r in rows])
+    special = {"non-prefix": nonprefix_row, "masked-head": masked_head_row}
+    return torch.stack([special[r](t) if isinstance(r, str) else j < r for r in rows])
 
 
 def k9_k10_cases(shapes, longest):

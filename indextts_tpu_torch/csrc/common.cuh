@@ -1,6 +1,7 @@
 // Shared helpers for the port's CUDA kernels (sm_90a, plain C interface).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,20 +47,23 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
 
 // waits for the barrier's phase of the given parity (0: its first); a
 // copy that has not landed after ~2^34 cycles traps, so the launch fails
-// instead of hanging
+// instead of hanging. The loop is PTX's own, so the compiler sees no
+// branch that a warp might take apart (wgmma after it stays asynchronous).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity = 0) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 17179869184;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
@@ -68,6 +72,61 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
           "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// one arrival on the barrier (its count set by mbar_init) where `pred`,
+// predicated rather than branched around
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      ::"r"(smem_addr(bar)), "r"((int)pred)
+      : "memory");
+}
+
+// box {x, y} of the 2-D tensor map into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// box {x, y, z, w} of the 4-D tensor map into shared memory
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int x, int y,
+                                            int z, int w, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(w),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query, so that only the runtime is linked; null if missing
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
 // 16 bytes global -> shared, zero-filled when !full (the source is not read)

@@ -74,7 +74,6 @@
 //   of up to 4 rows run 512 threads, of up to 16 rows 256.
 
 #include <cooperative_groups.h>
-#include <cuda.h>
 
 #include <map>
 #include <mutex>
@@ -100,16 +99,6 @@ __device__ __forceinline__ void wait_count(const unsigned* p, unsigned v) {
     if (n == v) return;
     if (clock64() - t0 > (1ll << 34)) __trap();
   }
-}
-
-// box {x, y} of the 2-D tensor map into shared memory
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // w[i] holds 4 bytes of row i of a 4 x 4 byte tile; returns its columns:
@@ -700,31 +689,6 @@ mlp_kernel(const __grid_constant__ CUtensorMap fc_map, const int8_t* __restrict_
     }
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
-// entry-point query, so that only the runtime is linked; null if missing
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // Host-side set-up of the K5-K8 launches, kept across calls and shared by

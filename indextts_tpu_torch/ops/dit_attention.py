@@ -13,8 +13,10 @@ the DiT hands it are not copied, and it writes its output laid out as
 
 q, k and v are float32, or bfloat16 (a bfloat16 DiT, runtime.s2mel_dtype),
 the output of their dtype. float32 takes the kernel's 3xTF32 instantiation
-(`counter`), bfloat16 its one-pass bfloat16 tensor-core instantiation
-(`dit_attention_bf16`, `bf16_counter`), with a float32 softmax.
+(`counter`), bfloat16 its wgmma instantiation (`dit_attention_bf16`,
+`bf16_counter`: TMA-fed tiles, a float32 softmax, key tiles without a
+valid key skipped), which reads q, k and v through tensor maps of their
+strides.
 `dit_attention_plain` on bfloat16 tensors follows the JAX XLA path dtype
 by dtype: bfloat16 scores, a float32 softmax, bfloat16 probabilities.
 
@@ -204,6 +206,17 @@ def bwd_attributes() -> dict:
     fn = cuda_lib.function("dit_attention_bwd", "dit_attention_bwd_attributes", [cuda_lib.P])
     cuda_lib.check(fn(ctypes.addressof(out)), "dit_attention_bwd_attributes")
     return {"K9": (out[0], out[1]), "K10": (out[2], out[3])}
+
+
+def bf16_attributes() -> dict:
+    """The bfloat16 instantiation's compiled registers a thread at launch
+    (before its warpgroups' setmaxnreg) and local (spill) bytes a thread on
+    the current card, for its blocks of 2 and of 3 consumer warpgroups:
+    {2: (regs, local), 3: (regs, local)}."""
+    out = (ctypes.c_int * 4)()
+    fn = cuda_lib.function("dit_attention", "dit_attention_bf16_attributes", [cuda_lib.P])
+    cuda_lib.check(fn(ctypes.addressof(out)), "dit_attention_bf16_attributes")
+    return {2: (out[0], out[1]), 3: (out[2], out[3])}
 
 
 def dit_attention_bwd(q, k, v, key_mask, out, stats, dout):

@@ -222,10 +222,22 @@ def test_k2_bf16_cuda_matches_plain(cuda_device, B, C, T):
     torch.testing.assert_close(got.float(), want.bfloat16().float(), atol=2e-5, rtol=2 ** -7)
 
 
+def _masked_head_row(dev, T):
+    """Keys whose valid ones are no prefix, cut at K3-bf16's 128-key tiles:
+    the first 128 masked, a masked 128-key run (384-511) between valid
+    keys, every seventh key of 640-767 and the last five masked."""
+    j = torch.arange(T, device=dev)
+    return ~((j < 128) | ((j >= 384) & (j < 512)) | ((j >= 640) & (j < 768) & (j % 7 == 3))
+             | (j >= T - 5))
+
+
 def _k3_inputs(dev, T, lens):
+    """q, k, v (len(lens), 8, T, 64) float32 and the key mask: a row n
+    valid keys for an int n, `_masked_head_row` for "masked-head"."""
     g = torch.Generator(device=dev).manual_seed(T)
     q, k, v = (torch.randn((len(lens), 8, T, 64), generator=g, device=dev) for _ in range(3))
-    mask = torch.arange(T, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    j = torch.arange(T, device=dev)
+    mask = torch.stack([_masked_head_row(dev, T) if r == "masked-head" else j < r for r in lens])
     return q, k, v, mask
 
 
@@ -277,15 +289,20 @@ def test_k3_cuda_reads_strided_views(cuda_device):
 
 # K3's bfloat16 instantiation at chip_smoke.py's shapes: the main path's
 # CFG-stacked solve (T=898, 774 valid frames), the longest segment (T=2946,
-# 2838 valid), T=37 below one tile, a row with one valid key and a row with
-# none. The plain version rounds the scores to bfloat16 before its float32
-# softmax (the JAX XLA path); the kernel keeps them in float32 and rounds
-# only the probabilities and the output. So each is held to the float32
-# attention of the same bfloat16 inputs: the kernel at most as far from it
-# as the plain version, and the two within 3e-2 of max|out| of each other
-# (the plain version's score rounding alone moves it ~1.4e-2).
+# 2838 valid), T=37 below one tile, a row with one valid key, a row with
+# none, a batched solve's 16 rows (chip_smoke.py's `batch_dit_valid`, in
+# the cond and the null half), and a row whose first 128-key tile and a
+# middle one hold no valid key beside a row with none, at 2 rows and at 16
+# (the kernel's blocks of 2 and of 3 consumer warpgroups). The plain version
+# rounds the scores to bfloat16 before its float32 softmax (the JAX XLA
+# path); the kernel keeps them in float32 and rounds only the
+# probabilities and the output. So each is held to the float32 attention
+# of the same bfloat16 inputs: the kernel at most as far from it as the
+# plain version, and the two within 3e-2 of max|out| of each other (the
+# plain version's score rounding alone moves it ~1.4e-2).
 K3_BF16_CASES = [(898, [774, 774]), (2946, [2838, 2838]), (37, [37, 20]), (255, [255, 1]),
-                 (300, [300, 0])]
+                 (300, [300, 0]), (898, [774, 710, 646, 583, 519, 455, 392, 328] * 2),
+                 (898, ["masked-head", 0]), (898, ["masked-head", 0] * 8)]
 
 
 @pytest.mark.cuda
@@ -303,6 +320,25 @@ def test_k3_bf16_cuda_matches_plain(cuda_device, T, lens):
     err, plain_err = (got.float() - exact).abs().max(), (want - exact).abs().max()
     assert err <= plain_err, (err, plain_err)
     assert (got.float() - want).abs().max() <= 3e-2 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", K3_BF16_CASES)
+def test_k3_bf16_cuda_masking_is_exact(cuda_device, T, lens):
+    """A masked key adds exactly nothing, whether its tile is skipped or
+    masked: with the k and v of every masked key replaced by other finite
+    draws (x100), each row with a valid key keeps its bits."""
+    q, k, v, mask = (x.bfloat16() if x.is_floating_point() else x
+                     for x in _k3_inputs(cuda_device, T, lens))
+    got = k3.dit_attention(q, k, v, mask)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    masked = ~mask[:, None, :, None]
+    k2, v2 = (torch.where(masked, 100 * torch.randn(x.shape, generator=g, device=cuda_device)
+                          .bfloat16(), x) for x in (k, v))
+    again = k3.dit_attention(q, k2, v2, mask)
+    for r in range(len(lens)):
+        if mask[r].any():
+            assert torch.equal(again[r], got[r]), r
 
 
 @pytest.mark.cuda

@@ -7,6 +7,8 @@ paths beside them. tests/test_torch_cuda.py compares each CUDA kernel with
 its plain version on a GPU.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -337,6 +339,56 @@ def test_k3_plain_fully_masked_rows_stay_finite(rng):
                for _ in range(3))
     out = k3.dit_attention(q, k, v, torch.zeros((1, 8), dtype=torch.bool))
     assert torch.isfinite(out).all()
+
+
+def _masked_row(pattern, T):
+    """A (T,) bool key row: "head" masks the first 64 keys (a whole leading
+    tile of K3-bf16's at 64 keys, half of one at 128), "run" a 64-key run
+    between valid keys and every fifth key of a second stretch, "none"
+    every key."""
+    j = np.arange(T)
+    if pattern == "head":
+        return j >= 64
+    if pattern == "run":
+        return ~(((j >= 64) & (j < 128)) | ((j >= 150) & (j % 5 == 2)))
+    return np.zeros(T, bool)
+
+
+@pytest.mark.parametrize("pattern", ["head", "run", "none"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_plain_matches_xla_math_at_skipped_tiles(rng, dtype, pattern):
+    """`dit_attention_plain`, which the card holds K3 and K3-bf16 to,
+    against the JAX XLA attention math (indextts_tpu/models/s2mel.py
+    `DiTAttention.__call__`, its non-flash branch) on the same numpy draws
+    at T=200, at the masks whose key tiles the kernels skip: a masked
+    first tile, a masked run between valid keys, and a row with no valid
+    key (beside a row of all valid keys). Tolerance: float32 1e-5 (einsum
+    and softmax in another order); bfloat16 2^-8 of max|out| (both round
+    the scores, the probabilities and the output to bfloat16, at times on
+    either side of a rounding boundary)."""
+    import jax
+
+    from indextts_tpu.models.s2mel import NEG_INF
+
+    T, H, Dh = 200, 2, 64
+    q, k, v = (rng.standard_normal((2, H, T, Dh)).astype(np.float32) for _ in range(3))
+    mask = np.stack([_masked_row(pattern, T), np.ones(T, bool)])
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else \
+        (jnp.bfloat16, torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(x, dtype=jdt) for x in (q, k, v))
+    scores = jnp.einsum("bhtd,bhsd->bhts", jq, jk) / math.sqrt(Dh)
+    scores = jnp.where(jnp.asarray(mask)[:, None, None, :], scores, NEG_INF)
+    probs = jax.nn.softmax(scores.astype(jnp.float32), axis=-1).astype(jv.dtype)
+    want = np.asarray(jnp.einsum("bhts,bhsd->bhtd", probs, jv).astype(jnp.float32))
+    got = k3.dit_attention_plain(*(_t(x).to(tdt) for x in (q, k, v)), _t(mask)).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    else:
+        assert np.abs(got - want).max() <= 2 ** -8 * np.abs(want).max()
+    if pattern == "none":  # the row with no valid key averages v over all T keys
+        mean = _t(v[0]).to(tdt).float().numpy().mean(axis=1, keepdims=True)
+        np.testing.assert_allclose(got[0], np.broadcast_to(mean, got[0].shape),
+                                   atol=1e-5 if dtype == "float32" else 1e-3)
 
 
 # ---------------------------------------------------------------------------
