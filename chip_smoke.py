@@ -82,16 +82,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    of the same bfloat16 inputs than its plain version and within 3e-2 of
    max|out| of it, every row with a valid key keeping its bits when the k
    and v of its masked keys are replaced by other draws, and 0 bytes of
-   spills (its registers printed); K2-bf16 at every shape of a vocoder
-   call at the main path and the
-   longest segment, at 8 rows, and at edge cases of its plan, within 2e-5
-   + 2^-7 of the plain version rounded to bfloat16 (one bfloat16 step).
-   Each is one launch, repeats its bits and is timed in turns with its
-   float32 instantiation on the same values (K3 at the main path, the
-   longest segment and 16 rows, `time_k3_bf16`, which tools/dit_times.py
-   runs on another tree; K2 over an 8-row vocoder call, where the
-   batched route runs it); K3-bf16's bound counts 989 TFLOP/s bf16, its
-   library_ms is SDPA on the bfloat16 tensors.
+   spills (its registers printed); K2-bf16 (a kernel of its own, both
+   FIRs on the tensor cores) at every shape of a vocoder call at the
+   main path and the longest segment, at 8 rows, and at the edges of its
+   tiling (`k2_bf16_cases`), within 2e-5 + 2^-7 of the plain version
+   rounded to bfloat16 (one bfloat16 step), with 0 bytes of spills (its
+   registers printed) and a checksum of the float32 K2's output on fixed
+   inputs (`k2_checksum`, to compare with another tree). Each is one
+   launch, repeats its bits and is timed in turns with its float32
+   instantiation on the same values (K3 at the main path, the longest
+   segment and 16 rows, `time_k3_bf16`, which tools/dit_times.py runs on
+   another tree; K2-bf16 over an 8-row vocoder call, where the batched
+   route runs it, and over one row, `time_k2_bf16`, which
+   tools/snake_times.py runs on another tree); K3-bf16's bound counts 989
+   TFLOP/s bf16, its library_ms is SDPA on the bfloat16 tensors.
 3. Slice: a small configuration whose heads are 64 wide runs greedy on the
    card and on the CPU (plain versions) from the same weights and CFM noise:
    float; quantized W8 (gpt_quantize, head_quant, kv_quant, gemv_impl
@@ -930,17 +934,114 @@ def check_k2(shapes, long_seq):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
+def k2_checksum() -> str:
+    """sha256 (16 hex digits) of the float32 K2's outputs on fixed inputs:
+    the main path's first shape, a row of T % 4 != 0 and its last shape,
+    the same on two trees whose float32 kernel computes the same bits."""
+    import hashlib
+
+    import torch
+
+    from indextts_tpu_torch.ops import snake as k2
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = hashlib.sha256()
+    for C, T in ((2304, 2560), (72, 1001), (24, 163840)):
+        h.update(k2.anti_alias_snake(*k2_inputs(g, 1, C, T), True).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def k2_bf16_cases():
+    """K2-bf16's cases (name, B, C, T, alpha and beta float32, logscale,
+    small beta):
+    first the five of its first version, on the same draws; then
+    the edges of its tiling (ops/snake.py `snake_bf16_plan`: tiles of 16
+    rows, segments of L outputs a multiple of the 64-position TMA box,
+    chunks of 8): T = 1, 2, below a window of 16 and one either side; T at
+    a box and one either side; rows past a tile (15, 16, 17 rows); T % 8
+    = 3..6 (the kernel without TMA; 1, 2 and 7 above); segments longer
+    than a box, the last one partial (the main path's first shape and an
+    output block either side); alpha and beta
+    float32; logscale False; beta = exp(-4) on every fourth channel (h =
+    27 lifts the snake's values, whose hi + lo split keeps 2^-17 of them)."""
+    from indextts_tpu_torch.ops import cuda_lib
+    from indextts_tpu_torch.ops import snake as k2
+
+    cases = [("T=7", 1, 24, 7), ("T%4=1", 1, 72, 1001), ("T%4=3", 1, 144, 2063),
+             ("T%4=2", 2, 30, 4098), ("last block of one warp", 1, 5, 100)]
+    cases += [(f"T={t}", 1, 24, t) for t in (1, 2, 15, 16, 17)]
+    cases += [(f"box{d:+d} T={64 + d}", 3, 5, 64 + d) for d in (-1, 0, 1)]
+    cases += [(f"{r} rows", 1, r, 200 + r) for r in (15, 16, 17)]
+    cases += [(f"T%8={t % 8}", 2, 12, t) for t in (203, 204, 205, 206)]
+    # the main path's first shape and an output block either side: segments
+    # of L > 64 (the plan on this card), the last one partial
+    sms = cuda_lib.sm_count(0)
+    for t in (2552, 2560, 2568):
+        L, segs = k2.snake_bf16_plan(1, 2304, t, sms)[:2]
+        cases.append((f"segments T={t} L={L} segs={segs}", 1, 2304, t))
+    cases = [(*c, False, True, False) for c in cases]
+    return cases + [("alpha, beta float32", 2, 72, 1001, True, True, False),
+                    ("logscale False", 1, 72, 1000, False, False, False),
+                    ("small beta", 2, 72, 1000, False, True, True)]
+
+
+def time_k2_bf16(seq, g, rows: int, with32: bool = True, plain: bool = False, call=None):
+    """Device ms of one vocoder call of K2-bf16 over `rows` rows (one
+    launch per (C, T) of seq, each on its own input), in turns with the
+    float32 instantiation on the same values (float32, bf16, bf16,
+    float32) where `with32`, else twice; with `plain`, the plain version's.
+    `call` stands in for the wrapper on the bfloat16 inputs
+    (tools/snake_times.py). Returns (ms, float32 ms or None, the turns,
+    plain ms or None, bound ms, what bounds it, float32 bound ms)."""
+    from indextts_tpu_torch.ops import snake as k2
+
+    call = call or k2.anti_alias_snake
+
+    bufs = []
+    for C, T in seq:
+        x, a, b = k2_inputs(g, rows, C, T)
+        bufs.append((x.bfloat16(), a.bfloat16(), b.bfloat16()))
+
+    def run(fn, bs):
+        return lambda: [fn(*buf, True) for buf in bs]
+
+    if with32:
+        bufs32 = [(x.float(), a.float(), b.float()) for x, a, b in bufs]
+        turns = [cuda_ms(run(k2.anti_alias_snake, bufs32), iters=2),
+                 cuda_ms(run(call, bufs), iters=2),
+                 cuda_ms(run(call, bufs), iters=2),
+                 cuda_ms(run(k2.anti_alias_snake, bufs32), iters=2)]
+        del bufs32
+        ms, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    else:
+        turns = [cuda_ms(run(call, bufs), iters=2) for _ in range(2)]
+        ms, ms32 = sum(turns) / 2, None
+    plain_ms = cuda_ms(run(lambda x, a, b, ls: k2.anti_alias_snake_plain(
+        x.float(), a.float(), b.float(), ls).bfloat16(), bufs), iters=1, replays=2) \
+        if plain else None
+    flops = sum(rows * C * T * 58 for C, T in seq)
+    # x read once and the output written once, 2 bytes an element (4 in
+    # float32), and alpha and beta in float32
+    b_ms, by = bound(sum(2 * rows * C * T * 2 + 2 * C * 4 for C, T in seq), flops)
+    b32, _ = bound(sum(2 * rows * C * T * 4 + 2 * C * 4 for C, T in seq), flops)
+    return ms, ms32, turns, plain_ms, b_ms, by, b32
+
+
 def check_k2_bf16(shapes, long_seq):
-    """K2's bfloat16 instantiation (a bfloat16 vocoder) against its plain
+    """K2-bf16, the bfloat16 kernel (a bfloat16 vocoder), against its plain
     version (x widened to float32, computed, rounded once), at every shape
     of a vocoder call at the main path and at the longest segment, at a
     batched call's 8 rows of the main path's first and last shapes, and at
-    edge cases of its plan. Both compute in float32 and round once; where
-    the float32 results straddle a rounding boundary they part by one
-    bfloat16 step: |err| <= 2e-5 + 2^-7 |plain|. Timed where it runs, on
-    the batched route's 8 rows, over one vocoder call (its 37 launches,
-    each on its own input), in turns with the float32 instantiation on the
-    same values (float32, bf16, bf16, float32)."""
+    the edges of its tiling (`k2_bf16_cases`). The kernel's float32-class
+    result and the plain version's part by one bfloat16 step where they
+    straddle a rounding boundary: |err| <= 2e-5 + 2^-7 |plain|; each case
+    prints the share of outputs one step apart. Prints the kernel's
+    registers and local (spill) bytes a thread, which must be 0. Timed
+    where it runs, on the batched route's 8 rows, over one vocoder call
+    (its 37 launches, each on its own input), in turns with the float32
+    instantiation on the same values (float32, bf16, bf16, float32), and
+    at one row of the same shapes (`time_k2_bf16`, which
+    tools/snake_times.py runs on another tree)."""
     import torch
 
     from indextts_tpu_torch.ops import snake as k2
@@ -949,17 +1050,18 @@ def check_k2_bf16(shapes, long_seq):
     rtol, atol = 2.0 ** -7, 2e-5
     errs = {}
 
-    def inputs(B, C, T):
-        x, a, b = k2_inputs(g, B, C, T)
-        return x.bfloat16(), a.bfloat16(), b.bfloat16()
+    def inputs(B, C, T, ab32=False, logscale=True, small_beta=False):
+        x, a, b = k2_inputs(g, B, C, T, logscale, small_beta)
+        return x.bfloat16(), *((a, b) if ab32 else (a.bfloat16(), b.bfloat16()))
 
-    def check(name, x, a, b):
+    def check(name, x, a, b, logscale=True):
         before = k2.bf16_counter.launches, k2.counter.launches
-        got = k2.anti_alias_snake(x, a, b, True)
+        got = k2.anti_alias_snake(x, a, b, logscale)
         if got.dtype != torch.bfloat16 or (k2.bf16_counter.launches, k2.counter.launches) != (
                 before[0] + 1, before[1]):
             fail(f"K2-bf16 {name}: not one launch of the bfloat16 instantiation")
-        want = k2.anti_alias_snake_plain(x.float(), a.float(), b.float(), True).bfloat16().float()
+        want = k2.anti_alias_snake_plain(x.float(), a.float(), b.float(),
+                                         logscale).bfloat16().float()
         d = (got.float() - want).abs()
         errs[name] = err = d.max().item()
         steps = (d > 0).float().mean().item()
@@ -969,9 +1071,8 @@ def check_k2_bf16(shapes, long_seq):
         if not (d - atol - rtol * want.abs()).max().item() <= 0:
             fail(f"K2-bf16 {name} disagrees with its plain version: {err}")
 
-    for name, B, C, T in (("T=7", 1, 24, 7), ("T%4=1", 1, 72, 1001), ("T%4=3", 1, 144, 2063),
-                          ("T%4=2", 2, 30, 4098), ("last block of one warp", 1, 5, 100)):
-        check(name, *inputs(B, C, T))
+    for name, B, C, T, ab32, logscale, small_beta in k2_bf16_cases():
+        check(name, *inputs(B, C, T, ab32, logscale, small_beta), logscale)
     for label, seq in (("main", shapes["snake"]), ("longest", long_seq)):
         for C, T in dict.fromkeys(seq):
             check(f"{label} C={C} T={T}", *inputs(1, C, T))
@@ -982,33 +1083,26 @@ def check_k2_bf16(shapes, long_seq):
     one_launch("K2-bf16", lambda: k2.anti_alias_snake(x, a, b, True))
     replays_equal("K2-bf16", lambda: k2.anti_alias_snake(x, a, b, True), got)
     del x, a, b, got
+    attrs = k2.bf16_attributes()
+    for (tma, ab), (regs, local) in attrs.items():
+        print(f"K2-bf16 kernel {'with' if tma else 'without'} TMA, alpha and beta {ab}: "
+              f"{regs} registers a thread, {local} bytes of local memory (spills) a thread")
+    if any(local for _, local in attrs.values()):
+        fail(f"K2-bf16 spills to local memory: {attrs}")
+    print(f"K2 float32 output checksum on fixed inputs: {k2_checksum()}")
 
     seq = shapes["snake"]
-    bufs = [inputs(CONT_REQUESTS, C, T) for C, T in seq]
-    bufs32 = [(x.float(), a.float(), b.float()) for x, a, b in bufs]
-
-    def run(fn, bs):
-        return lambda: [fn(*buf, True) for buf in bs]
-
-    turns = [cuda_ms(run(k2.anti_alias_snake, bufs32), iters=2),
-             cuda_ms(run(k2.anti_alias_snake, bufs), iters=2),
-             cuda_ms(run(k2.anti_alias_snake, bufs), iters=2),
-             cuda_ms(run(k2.anti_alias_snake, bufs32), iters=2)]
-    del bufs32
-    ms, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-    plain = cuda_ms(run(lambda x, a, b, ls: k2.anti_alias_snake_plain(
-        x.float(), a.float(), b.float(), ls).bfloat16(), bufs), iters=1, replays=2)
     R = CONT_REQUESTS
-    flops = sum(R * C * T * 58 for C, T in seq)
-    # x read once and the output written once, 2 bytes an element (4 in
-    # float32), and alpha and beta in float32
-    b_ms, by = bound(sum(2 * R * C * T * 2 + 2 * C * 4 for C, T in seq), flops)
-    b32, _ = bound(sum(2 * R * C * T * 4 + 2 * C * 4 for C, T in seq), flops)
+    ms, ms32, turns, plain, b_ms, by, b32 = time_k2_bf16(seq, g, R, plain=True)
     print(f"K2-bf16 batched vocoder call ({len(seq)} launches of {R} rows, each on its own "
           f"input, {sum(2 * R * C * T for C, T in seq) / 1e9:.2f} GB of bf16 x): "
           f"kernel_ms={ms:.4f} (turns float32, bf16, bf16, float32: "
           f"{', '.join(f'{t:.4f}' for t in turns)}; float32 instantiation {ms32:.4f}, its "
           f"bound {b32:.4f}) plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({by})")
+    one, one32, turns1, _, b1, _, b1_32 = time_k2_bf16(seq, g, 1)
+    print(f"K2-bf16 one-row vocoder call ({len(seq)} launches): kernel_ms={one:.4f} (turns "
+          f"float32, bf16, bf16, float32: {', '.join(f'{t:.4f}' for t in turns1)}; float32 "
+          f"{one32:.4f}, its bound {b1_32:.4f}) bound_ms={b1:.4f}")
     return {"name": "K2-bf16 anti_alias_snake", "route": "cuda",
             "source": "indextts_tpu_torch/csrc/snake.cu",
             "replaces": "indextts_tpu/ops/snake_pallas.py:48",

@@ -93,6 +93,35 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// shared memory into box {x, y} of the 2-D tensor map (elements past the
+// map's bounds are not written), as one bulk group of this thread
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int x,
+                                             int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
+      "cp.async.bulk.commit_group;" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(x), "r"(y), "r"(smem_addr(src))
+      : "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read shared
+// memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// waits until this thread's bulk groups have completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// orders this thread's shared-memory writes before later bulk copies
+// (the async proxy) read them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // box {x, y, z, w} of the 4-D tensor map into shared memory
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int x, int y,
                                             int z, int w, uint64_t* bar) {

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -169,6 +170,12 @@ def pool_bytes(pool) -> int:
     segments)."""
     return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, for the launch plans."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

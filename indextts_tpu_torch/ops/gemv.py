@@ -244,11 +244,6 @@ def gemv_plan(rows: int, f: int, sms: int) -> tuple:
     return tile, box, pass_boxes
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _f32(t):
     """t as a contiguous float32 tensor: t itself where it is one already
     (a conversion call costs about a microsecond of host time even when it
@@ -295,7 +290,7 @@ def _launch_gemv(symbol, counter, xq, a, w, w_scale, bias, d, f):
     b = xq.shape[0]
     if a.numel() != b or w_scale.shape != (f,) or bias.shape != (f,):
         raise ValueError(f"{symbol}: scale or bias shape does not match")
-    plan = gemv_plan(w.shape[0], f, _sm_count(xq.device.index))
+    plan = gemv_plan(w.shape[0], f, cuda_lib.sm_count(xq.device.index))
     fn = cuda_lib.function("gemv", symbol, [cuda_lib.P] * 6 + [cuda_lib.I] * 6 + [cuda_lib.P])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     return by_row_chunks(_gemv_once, MAX_ROWS, xq, a, w, w_scale, bias,

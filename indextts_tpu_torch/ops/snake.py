@@ -10,13 +10,16 @@ tensors. `snake_plan` is the kernel's launch, worked out here and checked
 by the C launcher; `kernel_taps` the taps it takes by value.
 
 x may be float32 or bfloat16 (a bfloat16 vocoder, runtime.voc_dtype): the
-output has x's dtype, and the arithmetic is float32 either way, alpha and
-beta widened to it, as the JAX package's Pallas kernels upcast them
-(indextts_tpu/ops/snake_pallas.py:250-255, 309-313). A bfloat16 x takes
-the kernel's bfloat16 instantiation (`anti_alias_snake_bf16`, counted on
-`bf16_counter`), which reads a bfloat16 model's alpha and beta as they
-are stored (or float32 ones), so a call stays one launch; its plain
-version widens x, computes and rounds once.
+output has x's dtype, and the arithmetic is float32-class either way,
+alpha and beta widened to float32, as the JAX package's Pallas kernels
+upcast them (indextts_tpu/ops/snake_pallas.py:250-255, 309-313). A
+bfloat16 x takes K2-bf16 (`anti_alias_snake_bf16`, counted on
+`bf16_counter`), a kernel of its own with both FIRs on the tensor cores,
+which reads a bfloat16 model's alpha and beta as they are stored (or
+float32 ones), so a call stays one launch; its plain version widens x,
+computes and rounds once. `band_taps` are the banded tap matrices it
+multiplies by (`band_fragments` as it takes them) and `snake_bf16_plan`
+its launch.
 """
 
 from __future__ import annotations
@@ -151,6 +154,117 @@ def _taps_arg() -> ctypes.Array:
     return (ctypes.c_float * 24)(*kernel_taps())
 
 
+SNAKE_BF16_WARPS = 4  # warps a block of K2-bf16: csrc/snake.cu kBWarps
+SNAKE_BF16_BLOCKS = 4  # its blocks an SM: kBMinBlocks
+SNAKE_BF16_ROWS = 16  # rows (B * C flattened) a tile: the mma's M
+SNAKE_BF16_BOX = 64  # time positions a TMA box: kBox
+# steps (8 outputs each) a segment costs beyond its own: the pair block
+# before its first output block, the chunk loads outside its boxes, the
+# row's alpha and beta
+SNAKE_BF16_ITEM_STEPS = 4
+
+
+@functools.lru_cache(maxsize=1)
+def band_matrices() -> np.ndarray:
+    """K2-bf16's four banded Toeplitz matrices, float32 (4, 16, 8) (k x n),
+    in `kernel_taps`' values (the up gain folded in):
+
+    - 0, 1: the up FIR's even and odd phase. Row k is x[8q - 8 + k] of a
+      window of 16 inputs, column n the pair 8q - 4 + n (up[2p] = sum
+      even[m] x[p - 3 + m], up[2p + 1] = sum odd[m] x[p - 2 + m]).
+    - 2, 3: the down FIR over pair block q = b and q = b + 1 (pairs 8q - 4
+      + i) of output block b (outputs 8b + n): row k < 8 the even sample
+      of pair i = k, row k >= 8 the odd sample of pair i = k - 8, with
+      out[t] = sum down[j] up[2t + j - 5]."""
+    taps = kernel_taps()
+    even, odd, down = taps[:6], taps[6:12], taps[12:]
+    m = np.zeros((4, 16, 8), np.float32)
+    for k in range(16):
+        for n in range(8):
+            if 0 <= k - n - 1 < 6:
+                m[0, k, n] = even[k - n - 1]
+            if 0 <= k - n - 2 < 6:
+                m[1, k, n] = odd[k - n - 2]
+            for i, d in ((2, -4), (3, 4)):  # pair 8q - 4 lies d from output 8b
+                j = 2 * (d + k - n) + 5 if k < 8 else 2 * (d + k - 8 - n) + 6
+                if 0 <= j < 12:
+                    m[i, k, n] = down[j]
+    return m
+
+
+@functools.lru_cache(maxsize=1)
+def band_taps() -> np.ndarray:
+    """The bits of `band_matrices` split hi + lo (each rounded to bfloat16
+    to nearest even, hi + lo within 2^-17 of the tap), uint16 (8, 16, 8) in
+    the order even hi, even lo, odd hi, odd lo, left hi, left lo, right hi,
+    right lo."""
+    m = torch.from_numpy(band_matrices())
+    hi = m.bfloat16()
+    lo = (m - hi.float()).bfloat16()
+    bits = torch.stack([hi, lo], 1).reshape(8, 16, 8).view(torch.int16).numpy()
+    return bits.view(np.uint16)
+
+
+@functools.lru_cache(maxsize=1)
+def band_fragments() -> np.ndarray:
+    """`band_taps` as the kernel takes them (csrc/snake.cu `Band`): uint32
+    (8, 32, 2), the B fragment of mma.m16n8k16 of each matrix for each
+    lane (g, c) = (lane // 4, lane % 4): rows 2c, 2c + 1, then 2c + 8, 2c +
+    9 of column g, the lower row in the low 16 bits."""
+    m = band_taps().astype(np.uint32)
+    lane = np.arange(32)
+    g, c = lane // 4, lane % 4
+    return np.stack([m[:, 2 * c + 8 * h, g] | m[:, 2 * c + 1 + 8 * h, g] << 16
+                     for h in (0, 1)], -1)
+
+
+@functools.lru_cache(maxsize=1)
+def _band_arg() -> ctypes.Array:
+    return (ctypes.c_uint32 * (8 * 32 * 2))(*band_fragments().ravel().tolist())
+
+
+@functools.lru_cache(maxsize=None)
+def snake_bf16_plan(B: int, C: int, T: int, sms: int,
+                    blocks_per_sm=None) -> Tuple[int, int, int, int]:
+    """K2-bf16's launch over x (B, C, T) on a card of `sms` SMs: (L,
+    segs, items, blocks). `blocks_per_sm` (default SNAKE_BF16_BLOCKS, the
+    kernel's) for a build of other occupancy (tools/snake_times.py).
+
+    Rows (B * C flattened) go in tiles of 16; a row's T outputs in segs =
+    ceil(T / L) segments of L (a multiple of the 64-position box), the
+    last one shorter. Item i is tile i // segs, segment i % segs. The
+    grid's warps (blocks of SNAKE_BF16_WARPS, at most SNAKE_BF16_BLOCKS a
+    SM, none without an item) are persistent: warp w takes items w, w + W,
+    ... L is the one whose busiest warp walks the fewest steps, each item
+    SNAKE_BF16_ITEM_STEPS steps more than its outputs' blocks of 8; a tie
+    takes the longer L."""
+    if B < 1 or C < 1 or T < 1:
+        raise ValueError(f"anti_alias_snake: x must be non-empty, got ({B}, {C}, {T})")
+    tiles = -(-B * C // SNAKE_BF16_ROWS)
+    per_sm = blocks_per_sm or SNAKE_BF16_BLOCKS
+    warps = sms * per_sm * SNAKE_BF16_WARPS
+    box = SNAKE_BF16_BOX
+    best = None
+    for L in range(box, -(-T // box) * box + 1, box):
+        segs = -(-T // L)
+        cost = -(-tiles * segs // warps) * (-(-min(L, T) // 8) + SNAKE_BF16_ITEM_STEPS)
+        if best is None or cost <= best[0]:
+            best = (cost, L, segs)
+    _, L, segs = best
+    items = tiles * segs
+    return L, segs, items, min(-(-items // SNAKE_BF16_WARPS), sms * per_sm)
+
+
+def bf16_attributes() -> dict:
+    """K2-bf16's compiled registers and local (spill) bytes a thread on the
+    current card: {(tma, alpha/beta dtype): (regs, local)}."""
+    out = (ctypes.c_int * 8)()
+    fn = cuda_lib.function("snake", "anti_alias_snake_bf16_attributes", [cuda_lib.P])
+    cuda_lib.check(fn(ctypes.addressof(out)), "anti_alias_snake_bf16_attributes")
+    keys = [(True, "bfloat16"), (False, "bfloat16"), (True, "float32"), (False, "float32")]
+    return {k: (out[2 * i], out[2 * i + 1]) for i, k in enumerate(keys)}
+
+
 def anti_alias_snake(x, alpha, beta, logscale: bool = True):
     """K2 on CUDA tensors, the plain version on CPU tensors. x (B, C, T)
     float32 or bfloat16, the output of its dtype; alpha, beta (C,) of any
@@ -176,18 +290,19 @@ def anti_alias_snake(x, alpha, beta, logscale: bool = True):
         alpha, beta = alpha.float(), beta.float()
     x, alpha, beta = x.contiguous(), alpha.contiguous(), beta.contiguous()
     out = torch.empty_like(x)
-    vec = T % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
-    args = (x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ctypes.addressof(_taps_arg()),
-            out.data_ptr(), B, C, T, int(logscale), *snake_plan(B, C, T), int(vec))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if bf16:
         symbol = "anti_alias_snake_bf16"
+        plan = snake_bf16_plan(B, C, T, cuda_lib.sm_count(x.device.index or 0))
         fn = cuda_lib.function("snake", symbol, [cuda_lib.P] * 5 + [cuda_lib.I] * 9 + [cuda_lib.P])
-        err = fn(*args, int(ab_bf16), stream)
+        err = fn(x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ctypes.addressof(_band_arg()),
+                 out.data_ptr(), B, C, T, int(logscale), *plan, int(ab_bf16), stream)
     else:
         symbol = "anti_alias_snake"
+        vec = T % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
         fn = cuda_lib.function("snake", symbol, [cuda_lib.P] * 5 + [cuda_lib.I] * 8 + [cuda_lib.P])
-        err = fn(*args, stream)
+        err = fn(x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), ctypes.addressof(_taps_arg()),
+                 out.data_ptr(), B, C, T, int(logscale), *snake_plan(B, C, T), int(vec), stream)
     cuda_lib.check(err, symbol)
     (bf16_counter if bf16 else counter).add()
     return out

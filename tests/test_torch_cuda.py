@@ -5,7 +5,9 @@ port is installed: `python -m pytest --noconftest tests/test_torch_cuda.py`
 (the repository's conftest imports JAX). Tolerances: fp32 online softmax
 against a one-shot softmax (K1; K3 also within 2e-5 absolute, in 3xTF32
 on the tensor cores); the same fp32 algebra with the kernel's
-sine, expf and FMA contraction (K2); for K4 as for K1 over an int8 cache, 1e-5; K5
+sine, expf and FMA contraction (K2); K2-bf16 (both FIRs on the tensor cores,
+float32-class sums) within one bfloat16 step of the plain version rounded
+once; for K4 as for K1 over an int8 cache, 1e-5; K5
 to K8 exact int32 sums with the plain versions' float32 operations in the
 same order, so their results agree to the last bit (K7 is held to that) or
 within one unit of it (1e-6 of max|out| is allowed); K9 and K10 (K3's
@@ -198,15 +200,22 @@ def test_k2_cuda_replays_its_bits(cuda_device):
         assert torch.equal(out, want)
 
 
-# K2's bfloat16 instantiation at the main path's vocoder shapes (the mel at
-# the s2mel bucket's 640 frames: its first and last stages) and the longest
-# segment's, at one row and at a batched call's 8, and edge cases of
-# its plan (scalar loads where T % 4 != 0, a short row). Its float32
-# arithmetic is the float32 kernel's; the plain version widens, computes
-# and rounds once, so the two differ by one bfloat16 step where their
-# float32 results straddle a rounding boundary: atol 2e-5, rtol 2^-7.
+# K2-bf16 at the main path's vocoder shapes (the mel at the s2mel bucket's
+# 640 frames: its first and last stages) and the longest segment's, at one
+# row and at a batched call's 8, and edge cases: T % 4 != 0, a short row;
+# then the edges of its tiling (snake.snake_bf16_plan: tiles of 16 rows,
+# segments of L outputs a multiple of the 64-position TMA box, chunks of
+# 8): T = 1, 2, 15-17 about a window of 16, 63-65 about a box; 5, 15, 17
+# and 24 rows; T % 8 = 3..6 (the kernel without TMA); rows whose last
+# segment ends one short of a box (T = 2303, 3071). Its float32-class arithmetic and
+# the plain version's (which widens, computes and rounds once) differ by
+# one bfloat16 step where they straddle a rounding boundary: atol 2e-5,
+# rtol 2^-7.
 K2_BF16_CASES = [(1, 2304, 2560), (8, 2304, 2560), (1, 24, 163840), (1, 2304, 10752),
-                 (1, 24, 688128), (1, 24, 37), (2, 72, 1001), (1, 144, 2063)]
+                 (1, 24, 688128), (1, 24, 37), (2, 72, 1001), (1, 144, 2063),
+                 (1, 24, 1), (1, 24, 2), (1, 24, 15), (1, 24, 16), (1, 24, 17), (3, 5, 63),
+                 (3, 5, 64), (3, 5, 65), (1, 15, 201), (1, 17, 203), (2, 12, 205),
+                 (1, 24, 206), (1, 5, 100), (1, 72, 2303), (1, 72, 3071)]
 
 
 @pytest.mark.cuda
@@ -220,6 +229,29 @@ def test_k2_bf16_cuda_matches_plain(cuda_device, B, C, T):
     assert (k2.bf16_counter.launches, k2.counter.launches) == (counted[0] + 1, counted[1])
     want = k2.anti_alias_snake_plain(x.float(), a.float(), b.float(), True)
     torch.testing.assert_close(got.float(), want.bfloat16().float(), atol=2e-5, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_k2_bf16_cuda_replays_its_bits(cuda_device):
+    """K2-bf16 at the main path's first shape: two more calls and two
+    replays of a CUDA graph of one call give the first call's bits (one
+    launch, no scratch, a fixed order of sums), and it spills nothing."""
+    x, a, b = (t.bfloat16() for t in _k2_inputs(cuda_device, 1, 2304, 2560, True))
+    want = k2.anti_alias_snake(x, a, b, True)
+    assert all(torch.equal(k2.anti_alias_snake(x, a, b, True), want) for _ in range(2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k2.anti_alias_snake(x, a, b, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k2.anti_alias_snake(x, a, b, True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert all(local == 0 for _, local in k2.bf16_attributes().values())
 
 
 def _masked_head_row(dev, T):
