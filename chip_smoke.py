@@ -307,6 +307,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    which tools/dit_bwd_times.py runs on another tree), with the backward
    of scaled_dot_product_attention as library_ms. No /tts request of any
    route launches K9 or K10.
+9. The rest of the serving path (PR 24). On the float route after
+   `tail_turns`, `native_dsp_phase`: the native host DSP (utils/native.py,
+   csrc/dsp.cpp built with g++ on first use) against numpy on the 3-s
+   prompt's fbank (host ms, within 1e-4), and the route the engine's
+   features take (native twice a prepare_speaker); then `prefix_phase` on
+   the float route and on W8 + int8 KV (after its requests): text-prefix
+   KV reuse turned on, two keyed greedy requests whose texts share 77 ids
+   (a miss caching the 64-id grid prefix, then a hit), each with its K1 or
+   K4 launches, the tail it prefilled against the prompt's length and the
+   cache's entries and MiB; the same two with the flag off (codes in
+   common printed); the hit's last logits and KV against the monolithic
+   prefill's within KEYED_TOL; the prompt prefill's device ms monolithic,
+   keyed and on the hit, in turns. Before `train_phase`, `dilation_phase`:
+   a full-width BigVGAN whose resblocks differ in their dilations, one
+   vocoder call at 640 frames (one resblock at a time: K2 launched 109
+   times) held to the same call with K2's plain version, timed beside the
+   release config's lockstep call.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -399,6 +416,23 @@ BF16_ROUNDS = 2  # each bf16 route against its float32 counterpart, in turns
 BF16_SEED = 31  # the turns' requests; the tail comparison's CFM noise
 TRAIN_SEED = 37  # train_phase's weights, batches and CFM noise
 TRAIN_STEPS = 10  # train_phase's optimizer steps a target
+# the prefix phase: two texts whose first 77 ids agree (byte ids: a miss at
+# 92 ids caches the 64-id grid prefix, the 114-id text misses at 96 and hits
+# it), the requests' seed, prefill readings in turns and calls a reading
+PREFIX_TEXT = "The port keeps the start of this sentence for the next request that shares "
+PREFIX_TAILS = ("it with this one.", "its first words, which need no prefill.")
+PREFIX_SEED = 41
+PREFIX_ROUNDS = 3
+PREFIX_ITERS = 10
+# end-to-end rounds of the prefix phase: a request without reuse, on a
+# miss and on a hit, in turns
+PREFIX_E2E_ROUNDS = 4
+# rounds in turns of the native DSP phase's host timings
+NATIVE_ROUNDS = 6
+P_COND = 34  # the GPT's conditioning positions
+# the dilation phase: resblocks of differing dilations, the weights' seed
+DILATIONS = ((1, 3, 5), (1, 2, 4), (2, 3, 6))
+DILATION_SEED = 43
 
 
 def fail(msg: str):
@@ -2656,20 +2690,22 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model
     return launches, engine
 
 
-def keyed_prefill_errors(dec, conds, ids, pos, valid):
-    """The keyed prefill (the conditioning prefix's KV from `cond_prefill`,
-    the prompt's tail prefilled on top of it) against the monolithic one on
-    the same prompt: the largest difference of the last logits and of the
-    float KV of the prompt's S slots, each relative to the monolithic
-    one's largest |value|. The KV is compared before any int8 quantization
-    (a copy of the decoder with a float cache), as the prefill makes it."""
+def keyed_prefill_errors(dec, conds, ids, pos, valid, prefix=None):
+    """The keyed prefill (the prefix's KV, by default the conditioning
+    prefix's from `cond_prefill`, the rest of the prompt's tail prefilled
+    on top of it) against the monolithic one on the same prompt: the
+    largest difference of the last logits and of the float KV of the
+    prompt's S slots, each relative to the monolithic one's largest
+    |value|. The KV is compared before any int8 quantization (a copy of the
+    decoder with a float cache), as the prefill makes it."""
     import torch
 
     flat = copy.copy(dec)
     flat.kv_int8 = False
     with torch.inference_mode():
         lw, kv_w, _ = flat._prompt_prefill(conds, ids, pos, valid)
-        lk, kv_k, _ = flat._prompt_prefill(conds, ids, pos, valid, flat.cond_prefill(conds))
+        lk, kv_k, _ = flat._prompt_prefill(conds, ids, pos, valid,
+                                           flat.cond_prefill(conds) if prefix is None else prefix)
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -2714,6 +2750,359 @@ def keyed_prefill_gate(engine, wav_path: str, label: str):
     same = next((i for i, (a, b) in enumerate(zip(*rows)) if a != b), min(map(len, rows)))
     print(f"[{label}] greedy codes, keyed and monolithic prefill: the first {same} of "
           f"{len(rows[0])} / {len(rows[1])} agree")
+
+
+def prefix_phase(engine, wav_path: str, label: str, card: str) -> None:
+    """Text-prefix KV reuse (runtime/engine.py `_lookup_text_prefix`) on the
+    served engine, text_prefix_reuse turned on for the phase: two keyed
+    greedy requests whose texts share their first PREFIX_SHARED ids (a miss
+    that caches the 64-id grid prefix, then a hit on it), each with its
+    K1/K4 launches (counters set to 0 just before it, read just after) and
+    the tail prefilled on top of the prefix (the hit: [text[64:]][stop]
+    [start_mel], its length against the whole prompt's); the cache's
+    entries and MiB; the two texts again with the flag off (the
+    conditioning prefix only; how many greedy codes agree is printed, not
+    gated: the chunked tail sums in another order). On the hit's prompt,
+    its last logits and float KV against the monolithic prefill's, within
+    KEYED_TOL; and the prompt prefill's ms monolithic, keyed (conditioning
+    prefix) and on the text prefix, PREFIX_ROUNDS rounds in turns, each
+    way as device time (`cuda_ms`: replays of PREFIX_ITERS captured calls)
+    and eagerly (CUDA events around PREFIX_ITERS eager calls, so the host's
+    launches are in it, as in a request), beside text_prefix_prefill's
+    eager ms (a miss's extra work). Last, end to end (`prefix_e2e_turns`):
+    the second text's request without reuse, on a miss and on a hit,
+    PREFIX_E2E_ROUNDS rounds in turns."""
+    import torch
+
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t_phase = time.perf_counter()
+    c, dec = engine.cfg, engine.decoder
+    if not dec.supports_cond_kv:
+        fail(f"[{label}] the served decoder reuses no prefix (attn_impl "
+             f"{c.runtime.attn_impl!r})")
+    texts = [fallback_segments(PREFIX_TEXT + tail, c.gpt.number_text_tokens,
+                               c.runtime.max_text_tokens_per_segment,
+                               c.gpt.max_text_tokens) for tail in PREFIX_TAILS]
+    if any(len(segs) != 1 for segs in texts):
+        fail(f"[{label}] a prefix-phase text is more than one segment")
+    ids = [segs[0] for segs in texts]
+    g, shared = engine.TEXT_PREFIX_GRAN, len(PREFIX_TEXT)
+    m = shared // g * g
+    if not (m >= 64 and len(ids[0]) // g * g == m and len(ids[1]) // g * g > m):
+        fail(f"[{label}] the prefix-phase texts ({list(map(len, ids))} ids) do not give a "
+             f"miss at m={m}, then a hit")
+    attn = "K4 ragged_decode_attention_q8" if dec.kv_int8 else "K1 ragged_decode_attention"
+    counters = kernel_counters()
+    codes, tails = [], []
+    finish, with_past = engine._finish_from_codes, engine.gpt.gpt_prefill_with_past
+
+    def record(spk, emovec, text_ids, row, seed, t_gen):
+        codes.append(np.asarray(row).copy())
+        return finish(spk, emovec, text_ids, row, seed, t_gen)
+
+    def tail_spy(tail, mask, past):
+        tails.append((past[0].shape[3], tail.shape[1]))
+        return with_past(tail, mask, past)
+
+    cfg0 = engine.cfg
+    engine._finish_from_codes, engine.gpt.gpt_prefill_with_past = record, tail_spy
+    engine._text_prefix_cache.clear()
+    try:
+        for reuse in (True, False):
+            engine.cfg = dataclasses.replace(cfg0, runtime=dataclasses.replace(
+                cfg0.runtime, text_prefix_reuse=reuse))
+            for i, text in enumerate(ids):
+                for cnt in counters.values():
+                    cnt.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = engine.infer(wav_path, [text], seed=PREFIX_SEED, do_sample=False,
+                                   num_beams=1)
+                wall = time.perf_counter() - t0
+                wav = np.asarray(out["audio"])
+                if not (wav.size and np.isfinite(wav).all() and np.abs(wav).max() > 0):
+                    fail(f"[{label}] prefix request {i} (reuse {reuse}): empty, silent or "
+                         "not finite")
+                launches = {k: n for k, n in ((k, c.launches) for k, c in counters.items())
+                            if n}
+                past, tail = tails[-1]
+                S = past + tail
+                stats = out["stats"][0]
+                print(f"[{label} prefix] request {i} ({len(text)} ids), text_prefix_reuse="
+                      f"{reuse}: wall_s={wall:.3f} gpt_decode_s={stats.gpt_gen_time:.3f} codes="
+                      f"{len(codes[-1])}; prefill on top of {past} positions: a tail of {tail} "
+                      f"of the prompt's {S}; launches {json.dumps(launches)}")
+                if not launches.get(attn):
+                    fail(f"[{label}] {attn} was not launched by prefix request {i}")
+                want_past = P_COND + 1 + m if reuse else P_COND
+                if past != want_past or tail != S - want_past:
+                    fail(f"[{label}] prefix request {i} (reuse {reuse}) prefilled {tail} on "
+                         f"top of {past}, not {S - want_past} on top of {want_past}")
+                if reuse:
+                    entries = engine._text_prefix_cache
+                    mib = sum(t.numel() * t.element_size() for kv, _ in entries.values()
+                              for t in kv) / 2**20
+                    print(f"[{label} prefix] the prefix cache after request {i} ("
+                          f"{'miss' if i == 0 else 'hit'}): {len(entries)} entries, "
+                          f"m={[k[1] for k in entries]}, {mib:.2f} MiB")
+                    if [k[1] for k in entries] != [m]:
+                        fail(f"[{label}] the prefix cache holds m={[k[1] for k in entries]}, "
+                             f"not [{m}]")
+    finally:
+        engine.cfg = cfg0
+        engine.__dict__.pop("_finish_from_codes", None)
+        engine.gpt.__dict__.pop("gpt_prefill_with_past", None)
+        engine._text_prefix_cache.clear()
+    for i in range(len(ids)):
+        a, b = codes[i], codes[i + len(ids)]
+        same = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        print(f"[{label} prefix] request {i}: greedy codes with and without text-prefix "
+              f"reuse (seed {PREFIX_SEED}): the first {same} of {len(a)} / {len(b)} agree")
+
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    _, conds = engine.segment_conds(spk, EmotionConditioning(spk.spk_cond_emb, spk.cond_len))
+    text = ids[1]
+    with torch.inference_mode():
+        text_kv = dec.text_prefix_prefill(conds, text[:m])
+        cond_kv = dec.cond_prefill(conds)
+    left, right = ([engine._tensor(a) for a in dec.build_text_prompt_arrays(
+        text[None], np.asarray([len(text)]), len(text), align)] for align in ("left", "right"))
+    logit_err, kv_err = keyed_prefill_errors(dec, conds, *left, text_kv)
+    tol = KEYED_TOL[c.runtime.gpt_quantize]
+    print(f"[{label} prefix] the hit's prefill against the monolithic one (m={m}, "
+          f"S={P_COND + left[0].shape[1] + 1}): logits max rel err {logit_err:.3g}, KV max rel "
+          f"err {kv_err:.3g} (tol {tol:g})")
+    if not (logit_err <= tol and kv_err <= tol):
+        fail(f"[{label}] the text-prefix prefill disagrees with the monolithic one")
+    ways = {"monolithic": lambda: dec._prompt_prefill(conds, *right),
+            "keyed": lambda: dec._prompt_prefill(conds, *right, cond_kv),
+            "text-prefix hit": lambda: dec._prompt_prefill(conds, *left, text_kv)}
+    times = {(k, how): [] for k in ways for how in ("device", "eager")}
+    with torch.inference_mode():
+        for r in range(PREFIX_ROUNDS):
+            for k in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+                times[k, "device"].append(cuda_ms(ways[k], iters=PREFIX_ITERS, replays=2))
+                times[k, "eager"].append(events_ms(ways[k], PREFIX_ITERS))
+        # eager only: its ids go to the card from the host
+        miss_ms = events_ms(lambda: dec.text_prefix_prefill(conds, text[:m]), PREFIX_ITERS)
+    for how in ("device", "eager"):
+        print(f"[{label} prefix] prompt prefill ms, {how}, in turns ({PREFIX_ITERS} calls a "
+              f"reading): " + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in times[k, how])
+                                         for k in ways)
+              + (f"; text_prefix_prefill of {m} ids {miss_ms:.4f}" if how == "eager" else "")
+              + f" ({card})")
+    prefix_e2e_turns(engine, wav_path, label, card, text)
+    print(f"[{label}] the prefix phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def prefix_e2e_turns(engine, wav_path: str, label: str, card: str, text) -> None:
+    """One keyed greedy request of `text` three ways, PREFIX_E2E_ROUNDS
+    rounds in turns (the order reversed every other round): "off"
+    (text_prefix_reuse False: the conditioning prefix's KV), "miss" (reuse
+    on, the prefix cache emptied first: text_prefix_prefill of the longest
+    grid prefix, then the tail on top of it) and "hit" (reuse on, the
+    cache holding only the miss's entry). Each request's wall seconds, its
+    gpt_decode seconds and its seconds to the prompt's prefill (from the
+    request's start until `GPTDecoder.prefill` returns, the card
+    synchronized there: the miss's extra prefill is in it), every reading
+    and the medians printed, with the hit's saving and the miss's cost
+    against "off". The ways' code counts are printed, not gated (the
+    chunked tail sums in another order)."""
+    import torch
+
+    dec, cfg0 = engine.decoder, engine.cfg
+    ways = ("off", "miss", "hit")
+    got = {w: {"wall": [], "gpt": [], "prefill": []} for w in ways}
+    codes, saved, marks, t_req = {}, {}, [], [0.0]
+    prefill = dec.prefill
+
+    def prefill_spy(*a, **k):
+        st = prefill(*a, **k)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter() - t_req[0])
+        return st
+
+    dec.prefill = prefill_spy
+    try:
+        for r in range(PREFIX_E2E_ROUNDS):
+            for way in (ways if r % 2 == 0 else ways[::-1]):
+                engine.cfg = dataclasses.replace(cfg0, runtime=dataclasses.replace(
+                    cfg0.runtime, text_prefix_reuse=way != "off"))
+                engine._text_prefix_cache.clear()
+                if way == "hit":
+                    engine._text_prefix_cache.update(saved)
+                torch.cuda.synchronize()
+                marks.clear()
+                t_req[0] = time.perf_counter()
+                out = engine.infer(wav_path, [text], seed=PREFIX_SEED, do_sample=False,
+                                   num_beams=1)
+                wall = time.perf_counter() - t_req[0]
+                if way == "miss" and not saved:
+                    saved.update(engine._text_prefix_cache)
+                want = {"off": 0, "miss": 1, "hit": 1}[way]
+                if len(marks) != 1 or len(engine._text_prefix_cache) != want or (
+                        way == "hit" and engine._text_prefix_cache != saved):
+                    fail(f"[{label}] prefix e2e round {r} ({way}): {len(marks)} prefills, "
+                         f"{len(engine._text_prefix_cache)} cache entries")
+                stats = out["stats"][0]
+                codes.setdefault(way, stats.codes_len)
+                got[way]["wall"].append(wall)
+                got[way]["gpt"].append(stats.gpt_gen_time)
+                got[way]["prefill"].append(marks[0])
+    finally:
+        engine.cfg = cfg0
+        dec.__dict__.pop("prefill", None)
+        engine._text_prefix_cache.clear()
+    med = {w: {k: statistics.median(v) for k, v in got[w].items()} for w in ways}
+    for w in ways:
+        print(f"[{label} prefix e2e] {w} ({len(text)} ids, {codes[w]} codes), "
+              f"{PREFIX_E2E_ROUNDS} rounds in turns: " + "; ".join(
+                  f"{k}_s " + ", ".join(f"{x:.4f}" for x in got[w][k])
+                  + f" (median {med[w][k]:.4f})" for k in ("wall", "gpt", "prefill"))
+              + f" ({card})")
+    print(f"[{label} prefix e2e] medians against off, ms: " + "; ".join(
+        f"{w} " + ", ".join(f"{k} {1e3 * (med[w][k] - med['off'][k]):+.2f}"
+                            for k in ("prefill", "gpt", "wall")) for w in ("hit", "miss"))
+          + f" ({card})")
+
+
+def native_dsp_phase(engine, wav_path: str, card: str) -> None:
+    """The native host DSP (utils/native.py over csrc/dsp.cpp, built with
+    g++ on first use), each of its three routes against the numpy/scipy one
+    on the host, NATIVE_ROUNDS rounds of 10 calls in turns (the medians
+    and every reading printed): the fbank of the 3-s prompt at 16 kHz
+    (within 1e-4), `pcm16_bytes` of the prompt at 22.05 kHz as a streamed
+    chunk (bit-equal) and `resample` of the prompt to 16 and 22.05 kHz as
+    prepare_speaker does (within 1e-6 of scipy), each through the call
+    site's dispatch with INDEXTTS_NATIVE_DSP set for the route; then which
+    route the engine's features took (INDEXTTS_NATIVE_DSP as the script
+    found it, unset: native), counted over one unkeyed prepare_speaker."""
+    from indextts_tpu_torch.frontend import features as feat
+    from indextts_tpu_torch.utils import audio as audio_utils
+    from indextts_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.lib()
+    load_s = time.perf_counter() - t0
+    audio, sr = audio_utils.load_wav(wav_path)
+    wav = audio_utils.resample(audio, sr, 16000) * 2 ** 15
+    chunk = audio_utils.resample(audio, sr, 22050)
+    env0 = os.environ.get("INDEXTTS_NATIVE_DSP")
+    # each operation: (its call, the switch's value for native, for numpy)
+    ops = {"fbank": (lambda: feat._fbank_dispatch(wav), "1", "0"),
+           "pcm16_bytes": (lambda: audio_utils.pcm16_bytes(chunk), "1", "0"),
+           "resample": (lambda: [audio_utils.resample(audio, sr, r) for r in (16000, 22050)],
+                        "all", "0")}
+    per = {(op, route): [] for op in ops for route in ("native", "numpy")}
+    out = {}
+    try:
+        for r in range(NATIVE_ROUNDS):
+            for op, (fn, on, off) in ops.items():
+                for route, value in ((("native", on), ("numpy", off)) if r % 2 == 0
+                                     else (("numpy", off), ("native", on))):
+                    os.environ["INDEXTTS_NATIVE_DSP"] = value
+                    out[op, route] = fn()
+                    t = time.perf_counter()
+                    for _ in range(10):
+                        fn()
+                    per[op, route].append((time.perf_counter() - t) / 10 * 1e3)
+    finally:
+        if env0 is None:
+            os.environ.pop("INDEXTTS_NATIVE_DSP", None)
+        else:
+            os.environ["INDEXTTS_NATIVE_DSP"] = env0
+    got, want = native.kaldi_fbank(wav), feat.kaldi_fbank_core(wav)
+    errs = {"fbank": float(np.abs(got - want).max()),
+            "pcm16_bytes": float(np.abs(
+                np.frombuffer(out["pcm16_bytes", "native"], np.int16).astype(np.int32)
+                - np.frombuffer(out["pcm16_bytes", "numpy"], np.int16)).max()),
+            "resample": max(float(np.abs(a - b).max()) for a, b in
+                            zip(out["resample", "native"], out["resample", "numpy"]))}
+    print(f"native DSP: loaded in {load_s:.2f} s ({native.so_path().name}); the "
+          f"{PROMPT_SECONDS}-s prompt at {sr} Hz ({got.shape[0]} fbank frames at 16 kHz, "
+          f"{len(chunk)} samples at 22.05 kHz), host ms a call, {NATIVE_ROUNDS} rounds of 10 "
+          f"calls in turns ({card}):")
+    for op in ops:
+        med = {route: statistics.median(per[op, route]) for route in ("native", "numpy")}
+        print(f"native DSP: {op}: native {med['native']:.4f} ms ("
+              + ", ".join(f"{x:.4f}" for x in per[op, "native"]) + f"), numpy "
+              f"{med['numpy']:.4f} ms (" + ", ".join(f"{x:.4f}" for x in per[op, "numpy"])
+              + f"), native/numpy {med['native'] / med['numpy']:.3f}; max |diff| "
+              f"{errs[op]:.3g}")
+    if got.shape != want.shape or not errs["fbank"] <= 1e-4:
+        fail(f"native fbank {got.shape} differs from numpy's {want.shape} by "
+             f"{errs['fbank']:.3g}")
+    if errs["pcm16_bytes"] != 0 or not errs["resample"] <= 1e-6:
+        fail(f"native PCM16 or resample differs from numpy/scipy: {errs}")
+    calls = []
+    fbank = native.kaldi_fbank
+    native.kaldi_fbank = lambda *a, **k: calls.append(1) or fbank(*a, **k)
+    try:
+        engine.prepare_speaker(audio, sr)
+    finally:
+        native.kaldi_fbank = fbank
+    route = os.environ.get("INDEXTTS_NATIVE_DSP", "unset")
+    print(f"native DSP: INDEXTTS_NATIVE_DSP={route}; the engine's prepare_speaker took the "
+          f"native fbank {len(calls)} times (w2v-BERT features, CAMPPlus)")
+    if len(calls) != 2:
+        fail(f"the engine's features took the native fbank {len(calls)} times, not 2")
+
+
+def dilation_phase(card: str) -> None:
+    """A full-width BigVGAN whose resblocks differ in their dilations
+    (DILATIONS; random weights from DILATION_SEED, conv_post scaled by 1e-3
+    to keep the waveform off the clip) over a mel of the main path's 640
+    frames: it runs each resblock alone. K2's launches counted over one call
+    (6 stages x 9 dilations x 2 + 1 = 109), the waveform within 1e-3 of its
+    peak of the same call with K2's plain version, and device ms (CUDA
+    events over replays) beside the release config's lockstep call on
+    weights of the same seed."""
+    import torch
+
+    from indextts_tpu_torch.config import BigVGANConfig
+    from indextts_tpu_torch.models import bigvgan as bv
+    from indextts_tpu_torch.ops import snake
+
+    def model(dilations):
+        with torch.random.fork_rng(devices=[0]):
+            torch.manual_seed(DILATION_SEED)
+            m = bv.BigVGAN(BigVGANConfig(resblock_dilation_sizes=dilations))
+        m.conv_post.weight.data.mul_(1e-3)
+        return m.to("cuda").eval().requires_grad_(False)
+
+    t0 = time.perf_counter()
+    voc = model(DILATIONS)
+    if voc.lockstep:
+        fail("a BigVGAN of differing dilations runs in lockstep")
+    g = torch.Generator(device="cuda").manual_seed(DILATION_SEED)
+    mel = torch.randn((1, 80, 640), device="cuda", generator=g) - 5.0
+    want_launches = len(voc.cfg.upsample_rates) * sum(map(len, DILATIONS)) * 2 + 1
+    with torch.inference_mode():
+        snake.counter.launches = 0
+        got = voc(mel)
+        torch.cuda.synchronize()
+        launches = snake.counter.launches
+        bv.anti_alias_snake = snake.anti_alias_snake_plain
+        try:
+            want = voc(mel)
+        finally:
+            bv.anti_alias_snake = snake.anti_alias_snake
+        peak = float(want.abs().max())
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: voc(mel), iters=2, replays=3)
+        release = model(BigVGANConfig().resblock_dilation_sizes)
+        release_ms = cuda_ms(lambda: release(mel), iters=2, replays=3)
+    print(f"differing dilations {DILATIONS}: one vocoder call at 640 frames, K2 launches "
+          f"{launches} (want {want_launches}), {ms:.3f} device ms (the release config in "
+          f"lockstep {release_ms:.3f}); against plain K2: max |err| {err:.3g}, peak {peak:.3g}, "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    if launches != want_launches:
+        fail(f"the differing-dilation vocoder launched K2 {launches} times, not {want_launches}")
+    if not (torch.isfinite(got).all() and 0 < peak < 1.0 and err <= 1e-3 * peak):
+        fail("the differing-dilation vocoder disagrees with its plain-K2 version")
 
 
 def step_kernels(fn, pad: int = 64):
@@ -4869,6 +5258,8 @@ def main():
             if label == "float":  # the s2mel stage does not depend on the GPT's route
                 s2mel_turns(engine, wav_path, label)
                 tail_turns(engine, wav_path, label)
+                native_dsp_phase(engine, wav_path, card)
+                prefix_phase(engine, wav_path, label, card)
                 stream_phase(engine, wav_path, label, tmp, card)
                 emotion_phase(engine, wav_path, label, tmp, card, rise, stay)
                 beam_launches[label] = beam_phase(engine, wav_path, label, tmp, rise, stay)
@@ -4876,6 +5267,8 @@ def main():
                 launches.update(bf16_phase(engine, wav_path, model_dir, full, tmp, names))
                 print(f"phase bf16_phase done at {time.perf_counter() - t_start:.1f} s")
             else:
+                if label == "quantized":  # W8 + int8 KV, attn_impl "auto" (xla)
+                    prefix_phase(engine, wav_path, label, card)
                 beam_launches[label] = beam_request(engine, wav_path, label, tmp, rise, stay)
                 batch_launches[label] = batched_request(engine, wav_path, label, rise, stay,
                                                         eager_check=label == "quantized")
@@ -4889,6 +5282,8 @@ def main():
             torch.cuda.empty_cache()
             print(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
                   f"still allocated; route done at {time.perf_counter() - t_start:.1f} s")
+    dilation_phase(card)
+    print(f"phase dilation_phase done at {time.perf_counter() - t_start:.1f} s")
     launches.update(train_phase(shapes, card))
     for k in kernels:
         k["launches"] = launches[k["name"]]

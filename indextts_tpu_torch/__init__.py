@@ -6,6 +6,8 @@ Hopper. Mirrors the JAX package's layout module for module:
               each beside its plain PyTorch version; STFT/mel
   models/     nn.Module definitions named after the reference state_dict keys
   runtime/    decode loop, CFM solver, engine, HTTP server (copy)
+  utils/      audio I/O, the native host DSP (csrc/dsp.cpp via ctypes)
+  client.py   HTTP client and REPL (copy)
   weights.py  JAX parameter trees -> the port's state dicts
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.

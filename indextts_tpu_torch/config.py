@@ -335,7 +335,9 @@ class RuntimeConfig:
     # beside a float32 sibling) resolve as in the JAX engine, as from
     # TARS_S2MEL_DTYPE and TARS_VOC_DTYPE. Like the JAX engine it ignores
     # gpt_dtype (the engine's gpt_dtype argument, float32 by default, sets
-    # the GPT's), and it ignores text_prefix_reuse.
+    # the GPT's). text_prefix_reuse left-aligns a keyed request's prompt and
+    # reuses the KV of its text's prefix on the sequential routes, as in the
+    # JAX engine (runtime/engine.py `_lookup_text_prefix`).
     # compute dtype for the GPT decode loop ("bfloat16" | "float32")
     gpt_dtype: str = "bfloat16"
     # decode attention implementation in the JAX package: "auto", "xla",

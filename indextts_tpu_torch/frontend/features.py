@@ -9,18 +9,30 @@ Two consumers, both 16 kHz:
     (CAMPPlus mean-subtracts per coefficient downstream, so absolute input
     scaling cancels).
 
-Implemented from the Kaldi spec. This copy keeps the numpy path only; the
-JAX package's optional native (csrc/dsp.cpp) fbank is not carried over.
+Implemented from the Kaldi spec. As in the JAX package, both consumers
+take the fbank of the native host library (csrc/dsp.cpp through
+utils/native.py) unless INDEXTTS_NATIVE_DSP is "0"; `kaldi_fbank_core` is
+the numpy version, within 1e-4 of it.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 
+from indextts_tpu_torch.utils import native
 
+
+def _fbank_dispatch(waveform: np.ndarray, **kw) -> np.ndarray:
+    """The native fbank (float32 samples in) unless INDEXTTS_NATIVE_DSP is
+    "0", then the numpy one (JAX frontend/features.py `_fbank_dispatch`).
+    A native library that fails to build or load raises."""
+    if os.environ.get("INDEXTTS_NATIVE_DSP", "1") != "0":
+        return native.kaldi_fbank(np.asarray(waveform, np.float32), **kw)
+    return kaldi_fbank_core(waveform, **kw)
 
 
 def povey_window(length: int) -> np.ndarray:
@@ -111,7 +123,7 @@ def seamless_features(
 
     Returns (input_features (1, T//2, 160), attention_mask (1, T//2))."""
     wav = np.squeeze(np.asarray(waveform_16k, dtype=np.float32)) * (2 ** 15)
-    feats = kaldi_fbank_core(wav)
+    feats = _fbank_dispatch(wav)
     # per-mel-bin zero-mean unit-var (ddof=1)
     feats = (feats - feats.mean(0, keepdims=True)) / np.sqrt(
         feats.var(0, ddof=1, keepdims=True) + 1e-7
@@ -134,4 +146,4 @@ def campplus_fbank(waveform_16k: np.ndarray) -> np.ndarray:
     mean subtraction applied by the caller. Returns (frames, 80)."""
     wav = np.squeeze(np.asarray(waveform_16k, dtype=np.float64))
     # torchaudio kaldi uses energy_floor eps; log-mel floor is tiny
-    return kaldi_fbank_core(wav, mel_floor=1.1920928955078125e-07)
+    return _fbank_dispatch(wav, mel_floor=1.1920928955078125e-07)

@@ -3,11 +3,13 @@
 Counterpart of indextts_tpu/models/bigvgan.py (reference bigvgan.py:243-400,
 `nvidia/bigvgan_v2_22khz_80band_256x` hyperparameters): AMPBlock1 resblocks,
 SnakeBeta with log-scale alphas through kernel K2 (ops/snake.py), no
-bias/tanh at the end (clip instead). Layout (B, C, T). The parallel
-resblocks of a stage share their dilations and run in lockstep: one wide
-anti-aliased activation over the channel-concatenated groups instead of
-three (channels never mix, so the math is that of three calls). Resblocks
-with differing dilations raise NotImplementedError. Module names
+bias/tanh at the end (clip instead). Layout (B, C, T). Where the parallel
+resblocks of a stage share their dilations (the release config) they run
+in lockstep: one wide anti-aliased activation over the channel-
+concatenated groups instead of three (channels never mix, so the math is
+that of three calls). Resblocks with differing dilations run one at a
+time, each with its own activations, and are averaged, as in the JAX
+BigVGAN (indextts_tpu/models/bigvgan.py:176-181). Module names
 follow the reference state_dict (`ups.{i}.0`, `resblocks.{k}.convs1.{m}`,
 `resblocks.{k}.activations.{2m}.act.alpha`, ...).
 
@@ -69,10 +71,8 @@ class BigVGAN(nn.Module):
     def __init__(self, cfg: BigVGANConfig):
         super().__init__()
         self.cfg = c = cfg
-        if any(tuple(d) != tuple(c.resblock_dilation_sizes[0])
-               for d in c.resblock_dilation_sizes):
-            raise NotImplementedError(
-                "BigVGAN resblocks with differing dilations are not ported yet")
+        self.lockstep = all(tuple(d) == tuple(c.resblock_dilation_sizes[0])
+                            for d in c.resblock_dilation_sizes)
         self.conv_pre = nn.Conv1d(c.num_mels, c.upsample_initial_channel, 7, padding=3)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
@@ -88,7 +88,15 @@ class BigVGAN(nn.Module):
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3, bias=c.use_bias_at_final)
 
     def _stage(self, x, rs):
-        """The mean of the stage's resblocks over x, all run in lockstep."""
+        """The mean of the stage's resblocks over x: in lockstep where they
+        share their dilations, else each resblock alone."""
+        if not self.lockstep:
+            return sum(self._lockstep(x, [r]) for r in rs) / len(rs)
+        return self._lockstep(x, rs)
+
+    def _lockstep(self, x, rs):
+        """The mean of resblocks `rs`, of one dilation sequence, over x, run
+        in lockstep."""
         G, ch = len(rs), x.shape[1]
         X = torch.cat([x] * G, dim=1)
         for j in range(len(rs[0].convs1)):

@@ -26,6 +26,8 @@ from typing import Dict, List
 
 import torch
 
+from indextts_tpu_torch.utils.build import build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_attention", "snake", "dit_attention", "dit_attention_bwd", "gemv")
 NVCC_FLAGS = [
@@ -40,14 +42,6 @@ _LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, ctypes._CFuncPtr] = {}
-
-
-def build_dir() -> Path:
-    """INDEXTTS_TORCH_BUILD_DIR, else `build/torch_kernels` at the repo root."""
-    env = os.environ.get("INDEXTTS_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return CSRC.parent.parent / "build" / "torch_kernels"
 
 
 def nvcc_path() -> str:

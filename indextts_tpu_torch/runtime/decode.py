@@ -62,7 +62,15 @@ returns float32), an int8 cache quantized from the bfloat16 K/V in float32;
 the logits float32 (the final norm and the head on the float32 hidden
 state), and sampling on them in float32.
 
-Still missing against the JAX package: text-prefix KV reuse.
+Text-prefix KV reuse (JAX `text_prefix_prefill`, the `prefix_extra` slice
+of `_generate` and `generate_beam`): with the prompt's text LEFT-aligned
+(`build_text_prompt_arrays(align="left")`), [conds][start_text][text[:m]]
+sits at the same slots in every request whose text starts with those m
+tokens, so its float KV (`text_prefix_prefill`) serves as `cond_kv`, and
+the prefill runs only the rest of the tail: [text[m:]][stop][pads]
+[start_mel]. The pads then sit between [stop] and [start_mel], and that
+hole reaches K1 and K4 through the state's hole fields as the right-
+aligned prompt's does.
 """
 
 from __future__ import annotations
@@ -328,10 +336,35 @@ class GPTDecoder:
         _, kv = self.model.gpt_prefill(conds_latent, mask)
         return kv
 
+    @torch.inference_mode()
+    def text_prefix_prefill(self, conds_latent, prefix_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The float KV (pk, pv) of [conds][start_text][prefix_ids], each (L,
+        1, H, P+1+m, Dh) for m prefix ids, on the current stream (JAX
+        `text_prefix_prefill`, indextts_tpu/runtime/decode.py:207-243): the
+        causal prefix of every LEFT-aligned prompt whose text starts with
+        `prefix_ids`, for `generate(cond_kv=...)`. Float under `kv_int8`
+        too, as `cond_prefill`'s."""
+        m = len(prefix_ids)
+        dev = conds_latent.device
+        ids = torch.as_tensor(np.concatenate([[self.cfg.start_text_token], prefix_ids]),
+                              dtype=torch.long, device=dev)[None]
+        pos = torch.arange(m + 1, device=dev)[None]
+        valid = torch.ones((1, m + 1), dtype=torch.bool, device=dev)
+        prompt = torch.cat([conds_latent, self.model.embed_text_prompt(ids, pos, valid)], dim=1)
+        _, kv = self.model.gpt_prefill(prompt, torch.ones(prompt.shape[:2], dtype=torch.bool,
+                                                          device=dev))
+        return kv
+
     def build_text_prompt_arrays(self, text_ids: np.ndarray, text_lens: np.ndarray,
-                                 bucket: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Place [start][text][stop] right-aligned in a (B, bucket+2) buffer
-        (prepare_gpt_inputs left-padding, model_v2.py:749-779)."""
+                                 bucket: int, align: str = "right"
+                                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Place [start][text][stop] in a (B, bucket+2) buffer: right-aligned,
+        the pads first (prepare_gpt_inputs left-padding, model_v2.py:749-779),
+        or with align="left" the sequence first and the pads after it, so
+        that a shared text prefix takes the same slots in every request
+        (text-prefix reuse; JAX `build_text_prompt_arrays`)."""
+        if align not in ("left", "right"):
+            raise ValueError(f"align={align!r}: 'left' or 'right'")
         B = text_ids.shape[0]
         L = bucket + 2
         ids = np.zeros((B, L), dtype=np.int64)
@@ -341,10 +374,10 @@ class GPTDecoder:
             n = int(text_lens[b])
             seq = [self.cfg.start_text_token] + list(text_ids[b, :n]) + [
                 self.cfg.stop_text_token]
-            off = L - len(seq)
-            ids[b, off:] = seq
-            pos[b, off:] = np.arange(len(seq))
-            valid[b, off:] = True
+            off = 0 if align == "left" else L - len(seq)
+            ids[b, off:off + len(seq)] = seq
+            pos[b, off:off + len(seq)] = np.arange(len(seq))
+            valid[b, off:off + len(seq)] = True
         return ids, pos, valid
 
     def _state(self, batch: int, cap: int, beam: bool = False) -> DecodeState:
@@ -392,8 +425,10 @@ class GPTDecoder:
         """The prompt [conds][text][start_mel] through the GPT: its last
         logits, its KV as the cache holds it (quantized with `kv_int8`, by
         default the decoder's) and its (B, S) mask. With `cond_kv`
-        (`cond_prefill` of these conds) only the tail [text][start_mel]
-        runs, on top of the prefix."""
+        (`cond_prefill` of these conds, or `text_prefix_prefill` of them
+        and the first m text ids of a left-aligned prompt) only the rest of
+        the tail runs, on top of the prefix: the tail's first
+        `cond_kv[0].shape[3] - P` positions are the prefix's."""
         model = self.model
         B = conds_latent.shape[0]
         dev = conds_latent.device
@@ -407,7 +442,9 @@ class GPTDecoder:
             hidden, (pk, pv) = model.gpt_prefill(torch.cat([conds_latent, tail], dim=1),
                                                  prompt_mask)
         else:
-            hidden, (pk, pv) = model.gpt_prefill_with_past(tail, tail_mask, cond_kv)
+            extra = cond_kv[0].shape[3] - conds_latent.shape[1]
+            hidden, (pk, pv) = model.gpt_prefill_with_past(tail[:, extra:],
+                                                           tail_mask[:, extra:], cond_kv)
         if self.kv_int8 if kv_int8 is None else kv_int8:
             (k8, ksc), (v8, vsc) = quantize_kv(pk), quantize_kv(pv)
             prompt_kv = (k8, v8, ksc, vsc)
@@ -422,7 +459,7 @@ class GPTDecoder:
         once with `kv_int8`, its last logits, S and the prompt's hole. The
         slots past S keep an earlier request's values, which no step reads:
         every key a step attends to was written by this request. With
-        `cond_kv` the conditioning prefix's KV is taken from it and only the
+        `cond_kv` the prefix's KV is taken from it and only the rest of the
         tail is prefilled (`_prompt_prefill`); S and the hole are the same.
         With `num_beams` the one prompt (B=1) is prefilled once, and its KV
         and logits copied into every row of a BeamState of num_beams rows."""
@@ -556,8 +593,10 @@ class GPTDecoder:
         instead, on the same stream and state: the yardstick the captured
         loop is held to (same codes from one seed). The CPU always runs
         them eagerly. `cond_kv`: `cond_prefill(conds_latent)` (B or 1
-        rows), whose prefix the prefill then reuses; the caller's current
-        stream must be ordered after the work that made it."""
+        rows), or `text_prefix_prefill` of them and the text's first ids on
+        a left-aligned prompt, whose prefix the prefill then reuses; the
+        caller's current stream must be ordered after the work that made
+        it."""
         if cond_kv is not None and not self.supports_cond_kv:
             raise ValueError(f"cond_kv on a decoder whose layout prefills whole "
                              f"(attn_impl={self.attn_impl!r}, kv_int8={self.kv_int8})")

@@ -41,11 +41,19 @@ engine.py:580-661, 1300-1588). When both conditionings are file paths,
 takes (emovec, conds) from `_emoconds_cache` and, where the decoder's layout allows it
 (`GPTDecoder.supports_cond_kv`), the conditioning prefix's KV from
 `_cond_kv_cache`, and prefills only the text tail on top of it. Each cache
-holds 8 keys. A request of several segments runs through
-`_pipelined_segments` (`runtime.seq_tail_overlap`, off under
-TARS_STAGE_SYNC=1): a producer thread decodes segment k+1 while one tail
-worker finishes segment k; results come out in segment order, and a
-segment's seed gives the same waveform on either route. `infer_generator`
+holds 8 keys. With `runtime.text_prefix_reuse` (TARS_PREFIX_REUSE, off by
+default) a keyed segment's prompt is built left-aligned and its prefix is
+looked up in `_text_prefix_cache` first (`_lookup_text_prefix`, JAX
+indextts_tpu/runtime/engine.py:1189-1225): the float KV of
+[conds][start_text][text[:m]] for the longest m on a grid of
+TEXT_PREFIX_GRAN tokens that an earlier segment of the key cached, 8
+entries at most; a miss prefills and caches the longest grid prefix of
+this text. The batched and continuous routes do not reuse, as in JAX.
+A request of several segments runs through `_pipelined_segments`
+(`runtime.seq_tail_overlap`, off under TARS_STAGE_SYNC=1): a producer
+thread decodes segment k+1 while one tail worker finishes segment k;
+results come out in segment order, and a segment's seed gives the same
+waveform on either route. `infer_generator`
 streams each segment's waveform and the silence after it;
 `infer_generator_continuous` streams through a ContinuousService.
 
@@ -106,6 +114,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import os
 import queue
 import threading
@@ -381,6 +390,8 @@ class IndexTTS2Engine:
         # (None on the CPU); one lock covers a lookup, its miss and insert
         self._emoconds_cache: Dict[tuple, tuple] = {}
         self._cond_kv_cache: Dict[tuple, tuple] = {}
+        # per (key, m, sha256 of text[:m]): (text-prefix KV, ready)
+        self._text_prefix_cache: Dict[tuple, tuple] = {}
         self._keyed_lock = threading.Lock()
         # seeds for seedless requests (serving threads share the engine)
         self._seed_gen = np.random.default_rng()
@@ -550,18 +561,55 @@ class IndexTTS2Engine:
             emovec = rows + (1.0 - float(np.sum(emo_vector))) * emovec
         return emovec, self.gpt.build_conds_latent(spk.spk_latents, emovec)
 
+    # text-prefix reuse's grid: prefixes are cached at multiples of this
+    # many text ids (the JAX engine's)
+    TEXT_PREFIX_GRAN = 32
+
+    def _reuses_text(self, cond_kv_key: Optional[tuple]) -> bool:
+        """Does a segment under `cond_kv_key` take text-prefix reuse, with
+        its prompt left-aligned? The JAX rule (indextts_tpu/runtime/
+        engine.py:624-629): the flag set, the request keyed and the
+        decoder reusing a prefix."""
+        return (self.cfg.runtime.text_prefix_reuse and cond_kv_key is not None
+                and self.decoder.supports_cond_kv)
+
+    def _lookup_text_prefix(self, cond_kv_key: tuple, conds, text_ids: np.ndarray):
+        """The cached (text-prefix KV, ready) of the longest grid prefix of
+        `text_ids` under `cond_kv_key`, keyed as the JAX engine keys it:
+        (key, m, sha256 of text[:m] as int32). On a miss the longest grid
+        prefix of this text is prefilled and cached (8 entries at most).
+        None for a text shorter than the grid. Called under _keyed_lock."""
+        g = self.TEXT_PREFIX_GRAN
+        text = np.asarray(text_ids, np.int32)
+        m_max = len(text) // g * g
+        if m_max < g:
+            return None
+        keys = [(cond_kv_key, m, hashlib.sha256(text[:m].tobytes()).hexdigest())
+                for m in range(m_max, g - 1, -g)]
+        hit = next((self._text_prefix_cache[k] for k in keys if k in self._text_prefix_cache),
+                   None)
+        if hit is None:
+            hit = (self.decoder.text_prefix_prefill(conds, text[:m_max]), self._mark())
+            if len(self._text_prefix_cache) >= 8:
+                evict_one(self._text_prefix_cache)
+            self._text_prefix_cache[keys[0]] = hit
+        return hit
+
     @torch.inference_mode()
     def _segment_inputs(self, spk: SpeakerConditioning, emo: EmotionConditioning,
                         emo_alpha: float, cond_kv_key: Optional[tuple],
                         emo_vector: Optional[Sequence[float]] = None,
-                        use_random: bool = False, seed: Optional[int] = None):
+                        use_random: bool = False, seed: Optional[int] = None,
+                        text_ids: Optional[np.ndarray] = None):
         """(emovec, conds, prefix KV or None) for a segment. Without a key,
         `segment_conds` anew and no prefix KV. With one, the cached values
         of the key (indextts_tpu/runtime/engine.py:580-661), each made on a
-        miss: (emovec, conds) always, and the conditioning prefix's KV
-        (`GPTDecoder.cond_prefill`) where the decoder reuses it. The
-        current stream waits for the work that made them, which may have
-        run on another thread's stream."""
+        miss: (emovec, conds) always, and, where the decoder reuses a
+        prefix, the KV of the text prefix of `text_ids` when they are given
+        (text-prefix reuse, `_lookup_text_prefix`; the prompt must then be
+        left-aligned), else of the conditioning prefix
+        (`GPTDecoder.cond_prefill`). The current stream waits for the work
+        that made them, which may have run on another thread's stream."""
         conds_args = (emo_alpha, emo_vector, use_random, seed)
         if cond_kv_key is None:
             return (*self.segment_conds(spk, emo, *conds_args), None)
@@ -574,16 +622,18 @@ class IndexTTS2Engine:
                 self._emoconds_cache[cond_kv_key] = hit
             (emovec, conds), ready = hit
             self._after(ready)
-            prefix = None
-            if self.decoder.supports_cond_kv:
+            kv_hit = None
+            if text_ids is not None and self.decoder.supports_cond_kv:
+                kv_hit = self._lookup_text_prefix(cond_kv_key, conds, text_ids)
+            if kv_hit is None and self.decoder.supports_cond_kv:
                 kv_hit = self._cond_kv_cache.get(cond_kv_key)
                 if kv_hit is None:
                     kv_hit = (self.decoder.cond_prefill(conds), self._mark())
                     if len(self._cond_kv_cache) >= 8:
                         evict_one(self._cond_kv_cache)
                     self._cond_kv_cache[cond_kv_key] = kv_hit
-                prefix, kv_ready = kv_hit
-                self._after(kv_ready)
+            prefix, kv_ready = kv_hit or (None, None)
+            self._after(kv_ready)
         return emovec, conds, prefix
 
     def _decode_segment_codes(
@@ -600,11 +650,16 @@ class IndexTTS2Engine:
     ) -> Tuple[torch.Tensor, np.ndarray, float]:
         """Conditioning (cached under `cond_kv_key`) + AR decode, ending at
         the host-side trimmed code row. Returns (emovec, codes, decode
-        seconds)."""
+        seconds). Whether the segment takes text-prefix reuse is decided
+        here alone: its text prefix is looked up and its prompt
+        left-aligned together."""
         t0 = time.perf_counter()
+        reuse = self._reuses_text(cond_kv_key)
         emovec, conds, prefix = self._segment_inputs(spk, emo, emo_alpha, cond_kv_key,
-                                                     emo_vector, use_random, seed)
-        codes = self._generate_codes(conds, text_ids, prefix, seed=seed, **gen_kwargs)
+                                                     emo_vector, use_random, seed,
+                                                     text_ids if reuse else None)
+        codes = self._generate_codes(conds, text_ids, prefix, seed=seed,
+                                     align="left" if reuse else "right", **gen_kwargs)
         return emovec, codes, time.perf_counter() - t0
 
     @torch.inference_mode()
@@ -620,9 +675,11 @@ class IndexTTS2Engine:
         num_beams: Optional[int] = None,
         do_sample: Optional[bool] = None,
         length_penalty: Optional[float] = None,
+        align: str = "right",
     ) -> np.ndarray:
         """The AR decode of one segment from its conds (1, 34, D), on top of
-        the prefix KV `cond_kv` when given: the code row, stop token
+        the prefix KV `cond_kv` when given, its prompt's text aligned by
+        `align` (left under text-prefix reuse): the code row, stop token
         included, on the host. Routed by num_beams as the JAX engine
         (indextts_tpu/runtime/engine.py:615-690): beam search (multinomial
         with do_sample, else deterministic) past one beam, over the text
@@ -631,13 +688,16 @@ class IndexTTS2Engine:
         engine's; else the sampling loop over the text at its exact
         width (the pads are masked, so its codes are the same)."""
         rt = self.cfg.runtime
+        if cond_kv is not None and cond_kv[0].shape[3] > conds.shape[1] and align != "left":
+            # the prefill drops the tail's first positions as the prefix's
+            raise ValueError("a text-prefix KV needs a left-aligned prompt")
         nb = num_beams if num_beams is not None else rt.num_beams
         n = len(text_ids)
         bucket = n
         if nb > 1 and not self.precise:
             bucket = min(next_bucket(n, 16, 16), self.cfg.gpt.max_text_tokens)
         ids, pos, valid = self.decoder.build_text_prompt_arrays(
-            np.asarray(text_ids)[None], np.asarray([n]), bucket)
+            np.asarray(text_ids)[None], np.asarray([n]), bucket, align)
         args = (conds, self._tensor(ids), self._tensor(pos), self._tensor(valid),
                 self._seed(seed))
         kwargs = dict(max_new=max_mel_tokens or rt.max_mel_tokens,

@@ -1,17 +1,22 @@
 """Audio I/O + resampling (host-side).
 
 Replaces the reference's librosa.load / torchaudio Resample / torchaudio.save
-(infer_v2.py:510-522, 628-630, 912) with scipy + numpy. numpy/scipy only:
-the JAX package's optional native resampler is not carried over."""
+(infer_v2.py:510-522, 628-630, 912) with scipy + numpy. INDEXTTS_NATIVE_DSP
+routes work to the native host library (utils/native.py) as in the JAX
+package: the streaming PCM16 conversion unless it is "0", the resampler
+only under "all" (scipy's FIR, its answers to float32 rounding)."""
 
 from __future__ import annotations
 
 import io
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
+
+from indextts_tpu_torch.utils import native
 
 
 def load_wav(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
@@ -36,6 +41,8 @@ def load_wav(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, in
 def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     if sr_in == sr_out:
         return x
+    if os.environ.get("INDEXTTS_NATIVE_DSP") == "all":
+        return native.resample(x, sr_in, sr_out)
     g = np.gcd(sr_in, sr_out)
     return resample_poly(x, sr_out // g, sr_in // g).astype(np.float32)
 
@@ -70,6 +77,8 @@ def pcm16_bytes(waveform: np.ndarray) -> bytes:
     w = np.asarray(waveform)
     if w.dtype != np.int16:
         if np.abs(w).max() <= 1.5:
+            if os.environ.get("INDEXTTS_NATIVE_DSP", "1") != "0":
+                return native.float_to_pcm16(w).tobytes()
             w = np.clip(w * 32767.0, -32767, 32767)
         w = w.astype(np.int16)
     return w.tobytes()

@@ -272,37 +272,70 @@ def test_cfm_inference_matches(pair):
     assert_rel(got, want, 1e-4, "CFM")
 
 
-def test_bigvgan_matches(pair):
-    """BigVGAN v2 (AMPBlock1, lockstep wide activation, ConvTranspose trim,
-    conv_post clip) and on-device PCM16, with the waveform off the clip
-    (tests/torch_parity.py). Waveform 1e-4 of its peak; PCM16 within one
+# resblocks of differing dilations (and kernel sizes), which run one at a
+# time on both sides
+DIFFERING = dict(resblock_kernel_sizes=(3, 5, 3), resblock_dilation_sizes=((1, 3), (1, 2),
+                                                                            (2, 5)))
+
+
+def _differing_vocoders():
+    """JAX BigVGAN and the port's on the same converted weights, at the tiny
+    vocoder with DIFFERING resblocks: (JAX apply fn, port model)."""
+    import dataclasses
+
+    from indextts_tpu.models.bigvgan import BigVGAN as JBigVGAN
+
+    from indextts_tpu_torch.runtime.engine import load_model
+
+    cfg = parity_config()
+    cfg = dataclasses.replace(cfg, vocoder=dataclasses.replace(cfg.vocoder, **DIFFERING))
+    pcfg = to_port_config(cfg)
+    jp = parity_params(cfg)
+    jm = JBigVGAN(cfg.vocoder)
+    model = load_model("bigvgan", pcfg, from_jax_params(jp, pcfg)["bigvgan"], "cpu")
+    assert not model.lockstep
+    return lambda mel: jm.apply({"params": jp["bigvgan"]}, mel), model
+
+
+@pytest.mark.parametrize("resblocks", ["release", "differing"])
+def test_bigvgan_matches(pair, resblocks):
+    """BigVGAN v2 (AMPBlock1, ConvTranspose trim, conv_post clip) with the
+    waveform off the clip (tests/torch_parity.py): the tiny config's
+    resblocks in lockstep (one wide activation), and resblocks of
+    differing dilations one at a time, against the JAX BigVGAN; and, on
+    the first, on-device PCM16. Waveform 1e-4 of its peak; PCM16 within one
     step."""
     from indextts_tpu_torch.models.bigvgan import to_pcm16
 
     _, je, pe = pair
     mel = np.random.default_rng(8).standard_normal((1, 80, 12)).astype(np.float32)
-    want = np.asarray(je._vocoder_program(je.p_bigvgan, jnp.asarray(mel)))
+    if resblocks == "differing":
+        jfn, model = _differing_vocoders()
+        want = np.asarray(jfn(jnp.asarray(mel)))
+    else:
+        model = pe.bigvgan
+        want = np.asarray(je._vocoder_program(je.p_bigvgan, jnp.asarray(mel)))
     assert 0 < np.abs(want).max() < 1.0
     with torch.inference_mode():
-        got = pe.bigvgan(t(mel))
+        got = model(t(mel))
     assert_rel(got, want, 1e-4, "BigVGAN")
-    jpcm = np.asarray(je._vocoder_pcm16_program(je.p_bigvgan, jnp.asarray(mel)))
-    assert np.abs(n(to_pcm16(got)).astype(np.int32) - jpcm).max() <= 1
+    if resblocks == "release":
+        jpcm = np.asarray(je._vocoder_pcm16_program(je.p_bigvgan, jnp.asarray(mel)))
+        assert np.abs(n(to_pcm16(got)).astype(np.int32) - jpcm).max() <= 1
 
 
 def test_bigvgan_runs_each_stage_in_lockstep(pair):
     """Every stage runs its resblocks through one wide activation per conv:
     2 per dilation per stage plus the post activation (BigVGAN v2 at full
-    width: 6 x 3 x 2 + 1 = 37). Resblocks whose dilations differ cannot run
-    so and raise."""
+    width: 6 x 3 x 2 + 1 = 37). Resblocks whose dilations differ run one at
+    a time: 2 activations per dilation per resblock per stage, each over
+    one resblock's channels (6 x 3 x 3 x 2 + 1 = 109 at full width)."""
     from indextts_tpu_torch.config import BigVGANConfig
     from indextts_tpu_torch.models.bigvgan import BigVGAN
     from indextts_tpu_torch.ops import snake
 
     cfg, _, pe = pair
     voc = cfg.vocoder
-    with pytest.raises(NotImplementedError):
-        BigVGAN(BigVGANConfig(resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 7))))
     before = snake.counter.launches
     calls = []
     orig = snake.anti_alias_snake_plain
@@ -311,16 +344,26 @@ def test_bigvgan_runs_each_stage_in_lockstep(pair):
         calls.append(x.shape[1])
         return orig(x, a, b, logscale)
 
+    _, differing = _differing_vocoders()
     snake.anti_alias_snake_plain = spy
     try:
         with torch.inference_mode():
             pe.bigvgan(torch.zeros((1, 80, 4)))
+            n_lockstep = len(calls)
+            differing(torch.zeros((1, 80, 4)))
     finally:
         snake.anti_alias_snake_plain = orig
     assert snake.counter.launches == before  # no kernel launch on the CPU
     n_dil = len(voc.resblock_dilation_sizes[0])
-    assert len(calls) == len(voc.upsample_rates) * n_dil * 2 + 1
+    assert n_lockstep == len(voc.upsample_rates) * n_dil * 2 + 1
     G = len(voc.resblock_kernel_sizes)
     assert calls[0] == G * voc.upsample_initial_channel // 2
+    dils = DIFFERING["resblock_dilation_sizes"]
+    assert len(calls) - n_lockstep == len(voc.upsample_rates) * sum(map(len, dils)) * 2 + 1
+    assert calls[n_lockstep] == voc.upsample_initial_channel // 2
     full = BigVGANConfig()
     assert len(full.upsample_rates) * len(full.resblock_dilation_sizes[0]) * 2 + 1 == 37
+    with torch.device("meta"):
+        assert BigVGAN(full).lockstep
+        assert not BigVGAN(BigVGANConfig(resblock_dilation_sizes=((1, 3, 5), (1, 2, 4),
+                                                                  (2, 3, 6)))).lockstep
