@@ -324,6 +324,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    vocoder call at 640 frames (one resblock at a time: K2 launched 109
    times) held to the same call with K2's plain version, timed beside the
    release config's lockstep call.
+10. `v1_phase` (IndexTTS v1, runtime/engine_v1.py), after the three routes
+   and before `dilation_phase`: the JAX package's v1 defaults at full
+   width (GPT 24L x 1280 over a 100-bin mel, condition_module input 100;
+   BigVGANv1Config(): 1536 initial channels, rates (4, 4, 2, 2, 2, 2),
+   ECAPA (512, 512, 512, 512, 1536)), seeded random weights
+   (random_params_v1 on the card), the 3-s prompt. Float route, then W8
+   (quantize_gpt, kv_quant, head_quant, gemv_impl "pallas"): infer_fast of
+   3 segments of unequal length (one bucket of 3 rows), 300 codes at most,
+   seed 0, twice (the first captures the decode step), printing wall,
+   decode tokens/s and stage seconds; the audio finite at 24 kHz, the codes
+   inside the vocabulary; every kernel count set to 0 just before the
+   second request and read just after (float: K1 and 37 K2; W8: K4, K5, K6
+   and 37 K2); ECAPA's device ms over the 3 rows; greedy decode of 128
+   codes captured and eager, the same codes. Float: K1 at the bucket's
+   first and last step (B=3, a 32-position conditioning, each row its own
+   hole) and at the longest call's 4 rows of 600 codes, K2 at every shape
+   of a v1 vocoder call at 300 codes (3 rows) and at 600 (4 rows, C=72 at
+   T=614,400), each against its plain version at phase 2's tolerance, K2
+   timed over one row's vocoder call at 300 codes (`time_k2`); one
+   vocoder call over 3 rows of 300 latents with K2 (37 launches) against
+   the same call with plain K2 (1e-3 of its peak), both timed. W8: K4 at
+   those cases, K5 (c_attn, attn c_proj, the head) and K6 at 3 rows. Then
+   one DVAE.get_codebook_indices at full width (DVAEConfig()) on the
+   card, each code the nearest entry by the CPU's distances.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -3105,6 +3129,370 @@ def dilation_phase(card: str) -> None:
         fail("the differing-dilation vocoder disagrees with its plain-K2 version")
 
 
+# ---------------------------------------------------------------------------
+# phase v1_phase: the IndexTTS v1 family at full width
+# ---------------------------------------------------------------------------
+
+V1_SEED = 47  # the v1 weights' seed (random_params_v1)
+V1_TEXTS = ("The first segment.",
+            "A second segment of the request, a little longer than the first one.",
+            "The third segment, the middle one of the three in length.")
+V1_LONG_TEXT = "A fourth segment joins the longest vocoder call of the v1 engine."
+V1_LONGEST = 600  # the v1 engine's default max_mel_tokens
+V1_EAGER_CODES = 128  # greedy codes decoded captured and eagerly, on each route
+
+
+def v1_snake_shapes(voc, codes: int):
+    """The (C, T) of every K2 launch of one BigVGAN v1 call over `codes`
+    GPT latents (upsampled 4x first), its resblocks in lockstep: 37."""
+    G = len(voc.resblock_kernel_sizes)
+    ch, T = voc.upsample_initial_channel, 4 * codes
+    shapes = []
+    for u in voc.upsample_rates:
+        ch //= 2
+        T *= u
+        shapes += [(G * ch, T)] * (2 * len(voc.resblock_dilation_sizes[0]))
+    return shapes + [(ch, T)]
+
+
+def v1_prompt(engine, texts):
+    """The v1 decoder's prompt arrays for `texts` (right-aligned at the
+    longest, as infer_fast builds a bucket) and each row's pad hole after
+    the 32 conditioning positions."""
+    from indextts_tpu_torch.frontend.tokenizer import byte_fallback_ids
+
+    g = engine.gpt_cfg
+    ids = [byte_fallback_ids(t, g.number_text_tokens, 200) for t in texts]
+    L = max(map(len, ids))
+    text = np.zeros((len(ids), L), np.int64)
+    for b, row in enumerate(ids):
+        text[b, :len(row)] = row
+    lens = np.array([len(r) for r in ids])
+    arrays = engine.decoder.build_text_prompt_arrays(text, lens, L)
+    c0 = g.condition_num_latent
+    return ([engine._tensor(a) for a in arrays], ids, c0 + L + 2 + 1,
+            ([c0] * len(ids), [c0 + L - n for n in lens]))
+
+
+def v1_request(engine, wav_path: str, label: str, card: str) -> dict:
+    """infer_fast of the three V1_TEXTS (one bucket of 3 rows) at
+    MAX_MEL_TOKENS, seed 0, twice (the first captures the decode step): audio finite at 24 kHz, codes inside the vocabulary; every
+    kernel count set to 0 just before the last request and read just
+    after. Prints wall, decode tokens/s and stage seconds of each, and
+    ECAPA's device ms over the 3 rows' reference mel. Returns the counts."""
+    import torch
+
+    from indextts_tpu_torch.frontend.tokenizer import byte_fallback_ids
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    g = engine.gpt_cfg
+    segs = [np.asarray(byte_fallback_ids(t, g.number_text_tokens, 200)) for t in V1_TEXTS]
+    seen = []
+    gen = engine.decoder.generate
+
+    def spy(*a, **k):
+        res = gen(*a, **k)
+        seen.append(res.codes.cpu().numpy())
+        return res
+
+    engine.decoder.generate = spy
+    counters = kernel_counters()
+    try:
+        for r in range(2):
+            if r == 1:
+                for c in counters.values():
+                    c.launches = 0
+            tok0 = engine.decoder.tokens
+            t0 = time.perf_counter()
+            out = engine.infer_fast(wav_path, segs, max_mel_tokens=MAX_MEL_TOKENS, seed=0)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            st = engine.last_stats
+            toks = engine.decoder.tokens - tok0
+            print(f"v1 {label} request {r + 1} ({'captures' if r == 0 else 'replays'} the "
+                  f"decode step): wall {wall:.3f} s, {out['duration_sec']:.3f} s of audio, "
+                  f"decode {toks} tokens over 3 rows, {toks / st['decode']:.1f} tok/s; stages "
+                  f"(s) " + ", ".join(f"{k} {v:.4f}" for k, v in st.items()) + f" ({card})")
+    finally:
+        engine.decoder.generate = gen
+    launches = {name: c.launches for name, c in counters.items()}
+    audio = out["audio"]
+    codes = seen[-1]
+    if not (out["sampling_rate"] == 24000 and audio.size and np.isfinite(audio).all()):
+        fail(f"v1 {label}: the audio is not finite 24 kHz audio")
+    if not (codes.shape[0] == 3 and 0 <= codes.min() and codes.max() < g.number_mel_codes):
+        fail(f"v1 {label}: codes outside the vocabulary or not one bucket of 3 rows")
+    ref = engine.prepare_conditioning(*audio_utils.load_wav(wav_path), key=wav_path)[0]
+    ref3 = ref.expand(3, -1, -1)
+    with torch.inference_mode():
+        ecapa = events_ms(lambda: engine.bigvgan.speaker_embedding(ref3), iters=5)
+    print(f"v1 {label}: launches a request " + json.dumps({k: n for k, n in launches.items()
+                                                           if n}) +
+          f"; ECAPA {ecapa:.3f} device ms over 3 rows of {ref.shape[1]} frames; peak "
+          f"|audio| {np.abs(audio).max():.4f} ({card})")
+    return launches
+
+
+def v1_decode_turns(engine, wav_path: str, label: str) -> None:
+    """Greedy decode of the three V1_TEXTS, V1_EAGER_CODES codes, captured
+    and eager: the same codes."""
+    import torch
+
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    arrays = v1_prompt(engine, V1_TEXTS)[0]
+    mel, n = engine.prepare_conditioning(*audio_utils.load_wav(wav_path), key=wav_path)
+    with torch.inference_mode():
+        conds = engine.gpt.get_conditioning(mel, engine._tensor([n])).expand(3, -1, -1)
+        runs = {}
+        for eager in (False, True):
+            t0 = time.perf_counter()
+            runs[eager] = engine.decoder.generate(conds.contiguous(), *arrays, 0,
+                                                  max_new=V1_EAGER_CODES, do_sample=False,
+                                                  eager=eager)
+            torch.cuda.synchronize()
+            print(f"v1 {label} greedy decode {'eager' if eager else 'captured'}: "
+                  f"{V1_EAGER_CODES} codes x 3 rows in {time.perf_counter() - t0:.3f} s")
+    same = torch.equal(runs[True].codes, runs[False].codes)
+    print(f"v1 {label}: captured and eager greedy codes equal: {same}")
+    if not same:
+        fail(f"v1 {label}: captured and eager greedy decode differ")
+
+
+def v1_attention_cases(engine):
+    """K1's (and K4's) cases at the v1 path's shapes: a bucket of the three
+    V1_TEXTS (B=3, a 32-position conditioning, each row its own pad hole)
+    at its first and last step of MAX_MEL_TOKENS, and the longest call's 4
+    rows at the last of V1_LONGEST."""
+    from indextts_tpu_torch.runtime.decode import cache_cap
+
+    _, _, S, holes = v1_prompt(engine, V1_TEXTS)
+    _, _, S4, holes4 = v1_prompt(engine, V1_TEXTS + (V1_LONG_TEXT,))
+    cap = cache_cap(S, MAX_MEL_TOKENS)
+    return [("v1 B=3 first step", 3, cap, [S + 1] * 3, *holes),
+            ("v1 B=3 last step", 3, cap, [S + MAX_MEL_TOKENS] * 3, *holes),
+            ("v1 B=4 longest", 4, cache_cap(S4, V1_LONGEST), [S4 + V1_LONGEST] * 4, *holes4)]
+
+
+def v1_kernel_checks(engine, heads: int) -> None:
+    """K1 at the v1 decode's shapes and K2 at every shape of a v1 vocoder
+    call at MAX_MEL_TOKENS codes (3 rows) and at V1_LONGEST (4 rows),
+    against their plain versions at phase 2's tolerances; K2's device ms
+    over one row's vocoder call (`time_k2`)."""
+    import torch
+
+    from indextts_tpu_torch.ops import decode_attention as k1
+    from indextts_tpu_torch.ops import snake as k2
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(V1_SEED)
+
+    def make(B, c):
+        q = torch.randn((B, heads, 64), generator=g, device=dev)
+        return q, *(torch.randn((B, heads, c, 64), generator=g, device=dev) for _ in range(2))
+
+    check_decode_cases("K1", k1.ragged_decode_attention, k1.ragged_decode_attention_plain,
+                       v1_attention_cases(engine), make, 2e-5)
+    tol = 2e-5
+    for rows, codes in ((3, MAX_MEL_TOKENS), (4, V1_LONGEST)):
+        for C, T in dict.fromkeys(v1_snake_shapes(engine.voc_cfg, codes)):
+            x, a, b = k2_inputs(g, rows, C, T)
+            err = (k2.anti_alias_snake(x, a, b, True)
+                   - k2.anti_alias_snake_plain(x, a, b, True)).abs().max().item()
+            print(f"K2 v1 {codes} codes: B={rows} C={C} T={T} max_abs_err={err:.3g} "
+                  f"(tol {tol})")
+            if not err <= tol:
+                fail(f"K2 at the v1 shape B={rows} C={C} T={T} disagrees with its plain "
+                     f"version: {err}")
+            del x, a, b
+    torch.cuda.empty_cache()
+    seq = v1_snake_shapes(engine.voc_cfg, MAX_MEL_TOKENS)
+    ms, _, b_ms, by = time_k2(seq, g, plain=False)
+    print(f"K2 v1 vocoder call, one row of {MAX_MEL_TOKENS} codes ({len(seq)} launches, each "
+          f"on its own input): kernel_ms={ms:.4f} bound_ms={b_ms:.4f} ({by})")
+    torch.cuda.empty_cache()
+
+
+def v1_q8_checks(engine, heads: int, d: int, vocab: int) -> None:
+    """K4 at the v1 decode's shapes, K5 (c_attn, attn c_proj, the head) and
+    K6 at its 3 rows, against their plain versions at phase 2's
+    tolerances."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt2 import quantize_kv
+    from indextts_tpu_torch.ops import decode_attention as k4
+    from indextts_tpu_torch.ops import gemv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(V1_SEED + 1)
+
+    def make(B, c):
+        q = torch.randn((B, heads, 64), generator=g, device=dev)
+        k8, ksc = quantize_kv(torch.randn((B, heads, c, 64), generator=g, device=dev))
+        v8, vsc = quantize_kv(torch.randn((B, heads, c, 64), generator=g, device=dev))
+        return q, k8, v8, ksc, vsc
+
+    check_decode_cases("K4", k4.ragged_decode_attention_q8, k4.ragged_decode_attention_q8_plain,
+                       v1_attention_cases(engine), make, 2e-5)
+    fpad = -(-vocab // 128) * 128
+    for label, call, plain, wd in (
+            ("K5 c_attn", gemv.gemv_w8, gemv.gemv_w8_plain, lambda: q8_weight(g, d, 3 * d)),
+            ("K5 attn c_proj", gemv.gemv_w8, gemv.gemv_w8_plain, lambda: q8_weight(g, d, d)),
+            ("K5 head", gemv.gemv_w8, gemv.gemv_w8_plain, lambda: q8_weight(g, d, fpad)),
+            ("K6", gemv.mlp_w8, gemv.mlp_w8_plain,
+             lambda: q8_weight(g, d, 4 * d) + q8_weight(g, 4 * d, d))):
+        xq, a = q8_row(g, 3, d)
+        w = wd()
+        got, want = call(xq, a, *w), plain(xq, a, *w)
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        print(f"{label} v1 3 rows: D={d} max_abs_err={err:.3g} of max|y| {scale:.3g} "
+              f"(tol 1e-6 relative)")
+        if not err <= 1e-6 * scale:
+            fail(f"{label} at the v1 decode's 3 rows disagrees with its plain version: {err}")
+
+
+def v1_vocoder_check(engine, wav_path: str, card: str) -> None:
+    """The float route's vocoder call over 3 rows of MAX_MEL_TOKENS latents
+    (the GPT's latent pass over the three V1_TEXTS and seeded codes) with
+    K2 (37 launches) against the same call with K2's plain version: the
+    waveform within 1e-3 of its peak; device ms of each."""
+    import torch
+
+    from indextts_tpu_torch.models import bigvgan as bv
+    from indextts_tpu_torch.ops import snake
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    g = engine.gpt_cfg
+    arrays, ids, _, _ = v1_prompt(engine, V1_TEXTS)
+    mel, n = engine.prepare_conditioning(*audio_utils.load_wav(wav_path), key=wav_path)
+    rng = np.random.default_rng(V1_SEED)
+    codes = rng.integers(0, g.stop_mel_token - 1, (3, MAX_MEL_TOKENS))
+    L = max(map(len, ids))
+    text = np.zeros((3, L), np.int64)
+    for b, row in enumerate(ids):
+        text[b, :len(row)] = row
+    ref = mel.expand(3, -1, -1)
+    t = engine._tensor
+    with torch.inference_mode():
+        lat = engine.gpt.forward_latent(ref, t([n] * 3), t(text), t([len(r) for r in ids]),
+                                        t(codes), t([MAX_MEL_TOKENS * g.mel_length_compression] * 3))
+        snake.counter.launches = 0
+        got = engine.bigvgan(lat, ref)
+        torch.cuda.synchronize()
+        launches = snake.counter.launches
+        bv.anti_alias_snake = snake.anti_alias_snake_plain
+        try:
+            want = engine.bigvgan(lat, ref)
+            plain_ms = events_ms(lambda: engine.bigvgan(lat, ref), iters=2)
+        finally:
+            bv.anti_alias_snake = snake.anti_alias_snake
+        ms = events_ms(lambda: engine.bigvgan(lat, ref), iters=3)
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    sat = float((want.abs() > 0.99).float().mean())
+    print(f"v1 vocoder call, 3 rows x {MAX_MEL_TOKENS} codes ({got.shape[1]} samples a row): "
+          f"K2 launches {launches} (want 37), {ms:.3f} device ms (with plain K2 "
+          f"{plain_ms:.3f}); against plain K2: max |err| {err:.3g}, peak {peak:.3g}, "
+          f"{100 * sat:.2f} % of samples past 0.99 ({card})")
+    if launches != 37:
+        fail(f"the v1 vocoder launched K2 {launches} times, not 37")
+    if not (torch.isfinite(got).all() and 0 < peak and err <= 1e-3 * peak):
+        fail("the v1 vocoder call with K2 disagrees with the call with K2's plain version")
+
+
+def v1_dvae(wav_path: str, card: str) -> None:
+    """One DVAE.get_codebook_indices at full width (DVAEConfig()) on the
+    prompt's v1 mel, its codebook at the latents' scale: each code the
+    nearest entry, within 1e-4 of the nearest distance, by the CPU's
+    distances from the same weights."""
+    import torch
+
+    from indextts_tpu_torch.config import MelConfig
+    from indextts_tpu_torch.models.dvae import DVAE, DVAEConfig
+    from indextts_tpu_torch.ops.mel import mel_spectrogram_v1
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    audio, sr = audio_utils.load_wav(wav_path)
+    y = audio_utils.resample(audio, sr, 24000)
+    mel = mel_spectrogram_v1(torch.as_tensor(y[None]), MelConfig(
+        sample_rate=24000, n_fft=1024, hop_length=256, win_length=1024, n_mels=100))
+    mel = mel.transpose(1, 2).contiguous()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(V1_SEED)
+        m = DVAE(DVAEConfig()).eval().requires_grad_(False)
+    with torch.no_grad():
+        m.codebook.embed.mul_(float(m.encode_latents(mel).std()))
+        z = m.encode_latents(mel).reshape(-1, m.cfg.codebook_dim)
+        e = m.codebook.embed
+        dist = (z * z).sum(1, keepdim=True) - 2.0 * z @ e + (e * e).sum(0)[None]
+    m.to("cuda")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ids = m.get_codebook_indices(mel.to("cuda"))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    ids = ids.cpu()
+    picked = dist.gather(1, ids.reshape(-1, 1))[:, 0]
+    best = dist.min(dim=1).values
+    gap = float(((picked - best) / best.abs().clamp(min=1e-6)).max())
+    same = float((ids.reshape(-1) == dist.argmin(1)).float().mean())
+    print(f"v1 DVAE (DVAEConfig()) on the card: {tuple(mel.shape)} mel -> {tuple(ids.shape)} "
+          f"codes, {len(set(ids.reshape(-1).tolist()))} distinct, {secs * 1e3:.2f} ms; "
+          f"{100 * same:.1f} % equal to the CPU's argmin, the picks' distance at most "
+          f"{gap:.3g} above the nearest, relative ({card})")
+    # two stride-2 convolutions of kernel 3 and pad 1: ceil(ceil(T / 2) / 2) codes
+    if not (ids.shape == (1, -(-(-(-mel.shape[1] // 2)) // 2)) and gap <= 1e-4):
+        fail("the DVAE on the card picked a code that is not the nearest")
+
+
+def v1_phase(card: str) -> dict:
+    """IndexTTS v1 at full width on the card (GPT 24L x 1280 over a 100-bin
+    mel, BigVGAN v1 with ECAPA), seeded random weights (random_params_v1),
+    the float route then W8 (quantize_gpt, kv_quant, head_quant,
+    gemv_impl "pallas"). Returns each route's launches a request."""
+    import torch
+
+    from indextts_tpu_torch.config import ConditionModuleConfig, GPTConfig
+    from indextts_tpu_torch.models.bigvgan_v1 import BigVGANv1Config
+    from indextts_tpu_torch.runtime.engine_v1 import IndexTTSV1Engine, random_params_v1
+
+    t0 = time.perf_counter()
+    gcfg = GPTConfig(condition_module=ConditionModuleConfig(input_size=100))
+    voc = BigVGANv1Config()
+    params = random_params_v1(gcfg, voc, seed=V1_SEED, device="cuda")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = os.path.join(tmp, "speaker.wav")
+        speaker_wav(wav_path)
+        for label, kw in (("float", {}), ("W8", dict(quantize_gpt=True, kv_quant=True,
+                                                     head_quant=True, gemv_impl="pallas"))):
+            engine = IndexTTSV1Engine(gcfg, voc, params, device="cuda", **kw)
+            launches[label] = v1_request(engine, wav_path, label, card)
+            v1_decode_turns(engine, wav_path, label)
+            if label == "float":
+                v1_kernel_checks(engine, gcfg.heads)
+                v1_vocoder_check(engine, wav_path, card)
+            else:
+                v1_q8_checks(engine, gcfg.heads, gcfg.model_dim, gcfg.number_mel_codes)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        v1_dvae(wav_path, card)
+    want = {"float": ("K1 ragged_decode_attention", "K2 anti_alias_snake"),
+            "W8": ("K2 anti_alias_snake", "K4 ragged_decode_attention_q8", "K5 gemv_w8",
+                   "K6 mlp_w8")}
+    for label, names in want.items():
+        if not all(launches[label][k] for k in names):
+            fail(f"v1 {label}: a kernel of the route was not launched: {launches[label]}")
+        if launches[label]["K2 anti_alias_snake"] != 37:
+            fail(f"v1 {label}: K2 launched {launches[label]['K2 anti_alias_snake']} times a "
+                 "request, not 37 (one vocoder call)")
+    print(f"v1 launches a request (3 segments, one bucket): " + json.dumps(
+        {label: {k: n for k, n in c.items() if n} for label, c in launches.items()}))
+    print(f"phase v1_phase done in {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
 def step_kernels(fn, pad: int = 64):
     """The device kernels of one fn() call, from torch.profiler after one
     warm-up call: {name: (count, device ms)}. A profiler run loses
@@ -5282,6 +5670,8 @@ def main():
             torch.cuda.empty_cache()
             print(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
                   f"still allocated; route done at {time.perf_counter() - t_start:.1f} s")
+    v1_phase(card)
+    print(f"phase v1_phase done at {time.perf_counter() - t_start:.1f} s")
     dilation_phase(card)
     print(f"phase dilation_phase done at {time.perf_counter() - t_start:.1f} s")
     launches.update(train_phase(shapes, card))

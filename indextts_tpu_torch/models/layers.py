@@ -36,6 +36,20 @@ def dtype_of(module: nn.Module) -> torch.dtype:
     return next(p.dtype for p in module.parameters() if p.is_floating_point())
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """x (..., T) padded by `pad` on each side of its last axis, reflected
+    as numpy's and jnp.pad's "reflect": F.pad where pad < T, else the
+    periodic reflection they continue into (F.pad raises there)."""
+    T = x.shape[-1]
+    if pad < T:
+        return F.pad(x, (pad, pad), mode="reflect")
+    if T == 1:
+        return x.expand(*x.shape[:-1], T + 2 * pad)
+    period = 2 * (T - 1)
+    m = torch.arange(-pad, T + pad, device=x.device).remainder(period)
+    return x.index_select(-1, torch.where(m >= T, period - m, m))
+
+
 class Linear(nn.Linear):
     def forward(self, x):
         dt = promoted(x, self.weight)

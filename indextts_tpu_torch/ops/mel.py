@@ -6,6 +6,12 @@ indextts_tpu/ops/mel.py: reflect-pad by (n_fft-hop)/2, STFT with center=False
 and a periodic hann window, magnitude sqrt(re^2 + im^2 + 1e-9), slaney mel
 filterbank (librosa semantics), log with a 1e-5 clamp. The filterbank and
 basis helpers are numpy copies of that module.
+
+`mel_spectrogram_v1` is the IndexTTS v1 conditioning mel (JAX
+`mel_spectrogram_v1`, indextts_tpu/ops/mel.py:192-207): torchaudio's
+MelSpectrogram as the reference's MelSpectrogramFeatures uses it, centred
+(reflect pad n_fft // 2), the power-1 magnitude with no epsilon, an HTK
+filterbank with no norm, log clipped at 1e-7.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from indextts_tpu_torch.config import MelConfig
+from indextts_tpu_torch.models.layers import reflect_pad
 
 
 def hz_to_mel(frequencies, htk: bool = False):
@@ -123,13 +130,16 @@ def _dft_basis(n_fft: int, win_length: int) -> tuple:
     return cos_b, sin_b
 
 
-def _basis(cfg: MelConfig, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    key = (cfg, str(device))
+def _basis(cfg: MelConfig, device: torch.device, v1: bool = False
+           ) -> Tuple[torch.Tensor, ...]:
+    """The DFT basis and the transposed filterbank on `device`: slaney, or
+    with `v1` HTK with no norm."""
+    key = (cfg, str(device), v1)
     got = _BASIS.get(key)
     if got is None:
         cos_b, sin_b = _dft_basis(cfg.n_fft, cfg.win_length)
         fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
-                            cfg.fmax)
+                            cfg.fmax, htk=v1, norm=None if v1 else "slaney")
         got = tuple(torch.from_numpy(a).to(device) for a in (cos_b, sin_b, fb.T.copy()))
         _BASIS[key] = got
     return got
@@ -148,6 +158,20 @@ def mel_spectrogram(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     imag = frames @ sin_b
     mag = torch.sqrt(real * real + imag * imag + 1e-9)
     mel = torch.log(torch.clamp(mag @ fb_t, min=1e-5))
+    return mel.transpose(1, 2)
+
+
+def mel_spectrogram_v1(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """y (B, T) float32 waveform at cfg.sample_rate -> (B, n_mels, frames),
+    frames = T // hop + 1. The centre pad reflects as jnp.pad's does, also
+    where it reaches past a short input (`reflect_pad`)."""
+    y = reflect_pad(y, cfg.n_fft // 2)
+    frames = y.unfold(-1, cfg.n_fft, cfg.hop_length)
+    cos_b, sin_b, fb_t = _basis(cfg, y.device, v1=True)
+    real = frames @ cos_b
+    imag = frames @ sin_b
+    mag = torch.sqrt(real * real + imag * imag)
+    mel = torch.log(torch.clamp(mag @ fb_t, min=1e-7))
     return mel.transpose(1, 2)
 
 

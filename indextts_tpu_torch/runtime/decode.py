@@ -1,4 +1,5 @@
-"""Autoregressive decode loop for UnifiedVoice (sampling and greedy routes).
+"""Autoregressive decode loop for UnifiedVoice and UnifiedVoiceV1 (sampling
+and greedy routes).
 
 Counterpart of indextts_tpu/runtime/decode.py `GPTDecoder.generate`: prefill
 [conds][right-aligned text][start_mel] once, then one token per step against
@@ -33,9 +34,11 @@ and the host reads the rows once a chunk (`read_slots`).
 runtime/batcher.py schedules the requests.
 
 Conditioning-prefix KV reuse (JAX `cond_prefill`, `_prefill_with_cond`):
-`cond_prefill` returns the float KV of the 34 conditioning positions, which
-depend on nothing else; `generate(cond_kv=...)` then prefills only the
-prompt's tail [text][start_mel] on top of it, as one chunk through the GPT
+`cond_prefill` returns the float KV of the conditioning positions (34 for
+UnifiedVoice, 32 for UnifiedVoiceV1: every width here is the conds' own
+shape), which depend on nothing else; `generate(cond_kv=...)` then
+prefills only the prompt's tail [text][start_mel] on top of it, as one
+chunk through the GPT
 (`UnifiedVoice.gpt_prefill_with_past`, plain torch ops as XLA ran it). The
 prefix stays float under `kv_int8`: the whole prompt's KV is quantized after
 the tail, the values the monolithic prefill quantizes. The captured step

@@ -203,9 +203,17 @@ def load_model(name: str, cfg: IndexTTS2Config, state_dict: Dict[str, torch.Tens
     `device`, as its parameters; eval mode, no gradients."""
     with torch.device("meta"):
         m = MODELS[name](cfg, device)
+    return adopt(m, state_dict, device, dtype)
+
+
+def adopt(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor], device: torch.device,
+          dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """`model` (built on the meta device) with `state_dict`, stored in
+    `dtype` (`put_as`, cast before the move) and moved to `device`, as its
+    parameters; eval mode, no gradients."""
     sd = {k: v.to(device) for k, v in put_as(state_dict, dtype).items()}
-    m.load_state_dict(sd, strict=True, assign=True)
-    return m.eval().requires_grad_(False)
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.eval().requires_grad_(False)
 
 
 def evict_one(cache: Dict) -> None:
@@ -256,10 +264,14 @@ def resolve_gemv(cfg: IndexTTS2Config, device) -> bool:
     packed weights pay only through the kernels, and leaves W8 and every
     other device on the plain contraction; anything else does not."""
     rt = cfg.runtime
-    if rt.gemv_impl == "auto":
-        wbits = rt.gpt_wbits if rt.gpt_quantize else 8
+    return gemv_route(rt.gemv_impl, rt.gpt_wbits if rt.gpt_quantize else 8, device)
+
+
+def gemv_route(gemv_impl: str, wbits: int, device) -> bool:
+    """`resolve_gemv` of the knob `gemv_impl` for `wbits`-bit weights."""
+    if gemv_impl == "auto":
         return wbits == 4 and torch.device(device).type == "cuda"
-    return rt.gemv_impl == "pallas"
+    return gemv_impl == "pallas"
 
 
 def kv_int8(cfg: IndexTTS2Config) -> bool:

@@ -25,6 +25,11 @@ as tensors under the port's keys. The tensors are those of
 
 Every other key of the file is ignored, as the JAX converter ignores it
 (w2v-BERT's layers past `tap_layer`, `masked_spec_embed`, ...).
+
+The v1 family has converters of its own, `convert_unified_voice_v1`,
+`convert_ecapa`, `convert_bigvgan_v1` and `convert_dvae`, which give the
+tensors of weights.py's `unified_voice_v1_sd`, `ecapa_sd`, `bigvgan_v1_sd`
+and `dvae_sd` applied to the JAX converters' trees, by the same rules.
 """
 
 from __future__ import annotations
@@ -35,6 +40,10 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch.config import IndexTTS2Config
+from indextts_tpu_torch.models.bigvgan_v1 import BigVGANv1
+from indextts_tpu_torch.models.dvae import DVAE
+from indextts_tpu_torch.models.ecapa import ECAPA_TDNN
+from indextts_tpu_torch.models.unified_voice_v1 import UnifiedVoiceV1
 from indextts_tpu_torch.runtime.engine import MODELS, _float_gpt
 
 Array = np.ndarray
@@ -42,8 +51,6 @@ SD = Dict[str, Array]
 
 # s2mel.pth's `net` modules, in the port's key prefixes
 S2MEL_MODULES = ("cfm", "length_regulator", "gpt_layer")
-# layers the JAX converter reads but no serving module holds
-DROPPED = {"gpt": ("text_head",)}
 
 
 def to_numpy_sd(torch_state_dict) -> SD:
@@ -99,32 +106,90 @@ class _Reader:
         return fold_weight_norm(self.sd, layer)
 
 
+def _read(state: Dict[str, torch.Tensor], read: "_Reader", folded) -> Dict[str, torch.Tensor]:
+    """The port's state dict whose keys, shapes and dtypes `state` gives,
+    read with `read`: a weight for which `folded(layer)` holds from its
+    weight-norm pair, BatchNorm's num_batches_tracked 0, the rest as is."""
+    out = {}
+    for key, like in state.items():
+        if like.dtype == torch.int64:  # num_batches_tracked
+            out[key] = torch.zeros((), dtype=torch.long)
+            continue
+        layer, _, leaf = key.rpartition(".")
+        w = read.fold(layer) if leaf == "weight" and folded(layer) else read(key)
+        out[key] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+    return out
+
+
+def _text_head(out, read: "_Reader", sd: SD, keep: bool):
+    """Read the GPT's text_head, which the JAX converter reads, and keep it
+    for a training model only."""
+    for leaf in ("weight", "bias"):
+        if leaf == "weight" or f"text_head.{leaf}" in sd:
+            w = read(f"text_head.{leaf}")
+            if keep:
+                out[f"text_head.{leaf}"] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+
+
 def convert(name: str, sd: SD, cfg: IndexTTS2Config, source: str,
             text_head: bool = False) -> Dict[str, torch.Tensor]:
     """One model's reference state dict (float32 numpy, DDP prefixes
     stripped; for "s2mel" the `net` modules' keys under their prefixes, see
     `s2mel_net`) -> the port's state dict for `name`. With `text_head`, a
-    training GPT's: the DROPPED layers are kept."""
+    training GPT's: its text_head is kept."""
     read = _Reader(sd, source)
-    out = {}
-    for key, like in port_state(name, cfg).items():
-        if like.dtype == torch.int64:  # num_batches_tracked
-            out[key] = torch.zeros((), dtype=torch.long)
-            continue
-        layer, _, leaf = key.rpartition(".")
-        if leaf == "weight" and (always_folded(name, layer) or (
-                name == "bigvgan" and f"{layer}.weight_g" in sd)):
-            w = read.fold(layer)
-        else:
-            w = read(key)
-        out[key] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
-    for layer in DROPPED.get(name, ()):
-        for leaf in ("weight", "bias"):
-            if leaf == "weight" or f"{layer}.bias" in sd:
-                w = read(f"{layer}.{leaf}")
-                if text_head:
-                    out[f"{layer}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+    out = _read(port_state(name, cfg), read, lambda layer: always_folded(name, layer) or (
+        name == "bigvgan" and f"{layer}.weight_g" in sd))
+    if name == "gpt":
+        _text_head(out, read, sd, text_head)
     return out
+
+
+# the v1 family: the JAX converters `convert_unified_voice_v1`,
+# `convert_ecapa`, `convert_bigvgan_v1` and `convert_dvae`
+# (indextts_tpu/runtime/torch_convert.py:611-722). BigVGAN v1 folds a
+# weight-norm pair where the file has one in the layers that the JAX
+# `_bv_conv1d` / `_bv_convtranspose1d` read (conv_pre, conv_post, ups,
+# resblocks); its ECAPA and conditioning layers are plain convolutions.
+V1_MAYBE_FOLDED = ("conv_pre", "conv_post", "ups.", "resblocks.")
+
+
+def _meta_state(ctor) -> Dict[str, torch.Tensor]:
+    with torch.device("meta"):
+        return ctor().state_dict()
+
+
+def convert_unified_voice_v1(sd: SD, cfg, source: str) -> Dict[str, torch.Tensor]:
+    """The reference UnifiedVoice v1 state dict -> the port's (float).
+    cfg: the v1 GPTConfig. The text_head is read, as the JAX converter
+    reads it, and dropped."""
+    read = _Reader(sd, source)
+    out = _read(_meta_state(lambda: UnifiedVoiceV1(cfg)), read, lambda layer: False)
+    _text_head(out, read, sd, keep=False)
+    return out
+
+
+def convert_ecapa(sd: SD, source: str, prefix: str = "", **ecapa) -> Dict[str, torch.Tensor]:
+    """A reference ECAPA-TDNN state dict (its keys after `prefix`) -> the
+    port's, keys without the prefix. `ecapa`: models/ecapa.py ECAPA_TDNN's
+    arguments (input_size, lin_neurons, channels, ...)."""
+    read = _Reader({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)},
+                   source)
+    return _read(_meta_state(lambda: ECAPA_TDNN(**ecapa)), read, lambda layer: False)
+
+
+def convert_bigvgan_v1(sd: SD, cfg, source: str) -> Dict[str, torch.Tensor]:
+    """The reference BigVGAN v1 state dict (weight-norm pairs or folded)
+    -> the port's. cfg: BigVGANv1Config."""
+    return _read(_meta_state(lambda: BigVGANv1(cfg)), _Reader(sd, source),
+                 lambda layer: layer.startswith(V1_MAYBE_FOLDED)
+                 and f"{layer}.weight_g" in sd)
+
+
+def convert_dvae(sd: SD, cfg, source: str) -> Dict[str, torch.Tensor]:
+    """The reference DiscreteVAE state dict -> the port's encoder side.
+    cfg: DVAEConfig."""
+    return _read(_meta_state(lambda: DVAE(cfg)), _Reader(sd, source), lambda layer: False)
 
 
 def s2mel_net(net: Dict[str, Dict[str, torch.Tensor]], source: str) -> SD:

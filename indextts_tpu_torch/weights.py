@@ -33,6 +33,10 @@ dtype (indextts_tpu/runtime/engine.py `put_as`): every float tensor cast to
 int8 layers' per-channel `weight_scale` (JAX `kernel_scale`), which stays
 float32; integer tensors (int8 weights, BatchNorm counters) as they are.
 
+The v1 family carries across the same way: `unified_voice_v1_sd` (a float
+tree, or one that `quantize_gpt_tree` quantized at 8 bits), `ecapa_sd`,
+`bigvgan_v1_sd` (with its ECAPA under `speaker_encoder.`) and `dvae_sd`.
+
 `qwen3_sd` carries the JAX Qwen3 tree of the text-to-emotion model across
 the same way, into the Hugging Face checkpoint's keys.
 """
@@ -44,7 +48,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from indextts_tpu_torch.config import IndexTTS2Config
+from indextts_tpu_torch.config import GPTConfig, IndexTTS2Config
 
 SD = Dict[str, torch.Tensor]
 
@@ -156,6 +160,31 @@ def _quantized(p: dict) -> dict:
             "bias": p["bias"]}
 
 
+def _gpt_head_and_core(sd: SD, p: dict, layers: int, text_head: bool):
+    """The embeddings, final norm, mel head (float or int8), the optional
+    text head and the GPT-2 core, which UnifiedVoice and v1 share."""
+    for n in ("text_embedding", "mel_embedding"):
+        _put(sd, n, {"weight": p[n]["embedding"]})
+    for n in ("mel_pos_embedding", "text_pos_embedding"):
+        _put(sd, f"{n}.emb", {"weight": p[n]["embedding"]})
+    head = p["mel_head"]
+    _put(sd, "mel_head", _quantized(head) if "kernel_q" in head else linear(head))
+    _put(sd, "final_norm", layernorm(p["final_norm"]))
+    if text_head:
+        _put(sd, "text_head", linear(p["text_head"]))
+    gp = p["gpt"]
+    for i in range(layers):
+        lp, b = gp[f"h_{i}"], f"gpt.h.{i}"
+        _put(sd, f"{b}.ln_1", layernorm(lp["ln_1"]))
+        _put(sd, f"{b}.ln_2", layernorm(lp["ln_2"]))
+        for mod, names in (("attn", ("c_attn", "c_proj")), ("mlp", ("c_fc", "c_proj"))):
+            for n in names:
+                q = lp[mod][n]
+                _put(sd, f"{b}.{mod}.{n}", {"weight": q["kernel"], "bias": q["bias"]}
+                     if "kernel" in q else _quantized(q))
+    _put(sd, "gpt.ln_f", layernorm(gp["ln_f"]))
+
+
 def unified_voice_sd(p: dict, cfg: IndexTTS2Config, text_head: bool = False) -> SD:
     """With `text_head`, a training model's: the tree's text_head too."""
     g = cfg.gpt
@@ -166,28 +195,10 @@ def unified_voice_sd(p: dict, cfg: IndexTTS2Config, text_head: bool = False) -> 
     _conformer(sd, "emo_conditioning_encoder", p["emo_conditioning_encoder"],
                g.emo_condition_module.num_blocks)
     _perceiver(sd, "emo_perceiver_encoder", p["emo_perceiver_encoder"])
-    for n in ("text_embedding", "mel_embedding", "speed_emb"):
-        _put(sd, n, {"weight": p[n]["embedding"]})
-    for n in ("mel_pos_embedding", "text_pos_embedding"):
-        _put(sd, f"{n}.emb", {"weight": p[n]["embedding"]})
+    _put(sd, "speed_emb", {"weight": p["speed_emb"]["embedding"]})
     for n in ("emovec_layer", "emo_layer"):
         _put(sd, n, linear(p[n]))
-    head = p["mel_head"]
-    _put(sd, "mel_head", _quantized(head) if "kernel_q" in head else linear(head))
-    _put(sd, "final_norm", layernorm(p["final_norm"]))
-    if text_head:
-        _put(sd, "text_head", linear(p["text_head"]))
-    gp = p["gpt"]
-    for i in range(g.layers):
-        lp, b = gp[f"h_{i}"], f"gpt.h.{i}"
-        _put(sd, f"{b}.ln_1", layernorm(lp["ln_1"]))
-        _put(sd, f"{b}.ln_2", layernorm(lp["ln_2"]))
-        for mod, names in (("attn", ("c_attn", "c_proj")), ("mlp", ("c_fc", "c_proj"))):
-            for n in names:
-                q = lp[mod][n]
-                _put(sd, f"{b}.{mod}.{n}", {"weight": q["kernel"], "bias": q["bias"]}
-                     if "kernel" in q else _quantized(q))
-    _put(sd, "gpt.ln_f", layernorm(gp["ln_f"]))
+    _gpt_head_and_core(sd, p, g.layers, text_head)
     return sd
 
 
@@ -251,15 +262,10 @@ def s2mel_sd(p: dict, cfg: IndexTTS2Config) -> SD:
 # ---------------------------------------------------------------------------
 
 
-def bigvgan_sd(p: dict, cfg: IndexTTS2Config) -> SD:
-    c = cfg.vocoder
-    sd: SD = {}
-    _put(sd, "conv_pre", conv1d(p["conv_pre"]))
-    _put(sd, "conv_post", conv1d(p["conv_post"]))
-    _put(sd, "activation_post.act", {"alpha": p["alpha_post"], "beta": p["beta_post"]})
+def _resblocks(sd: SD, p: dict, c):
+    """The AMP resblocks of every stage (BigVGAN v2 and v1 alike)."""
     nk = len(c.resblock_kernel_sizes)
     for i in range(len(c.upsample_rates)):
-        _put(sd, f"ups.{i}.0", conv_transpose1d(p[f"up_{i}"]))
         for j in range(nk):
             blk, r = p[f"resblock_{i}_{j}"], f"resblocks.{i * nk + j}"
             for m in range(len(c.resblock_dilation_sizes[j])):
@@ -269,6 +275,17 @@ def bigvgan_sd(p: dict, cfg: IndexTTS2Config) -> SD:
                      {"alpha": blk[f"alpha1_{m}"], "beta": blk[f"beta1_{m}"]})
                 _put(sd, f"{r}.activations.{2 * m + 1}.act",
                      {"alpha": blk[f"alpha2_{m}"], "beta": blk[f"beta2_{m}"]})
+
+
+def bigvgan_sd(p: dict, cfg: IndexTTS2Config) -> SD:
+    c = cfg.vocoder
+    sd: SD = {}
+    _put(sd, "conv_pre", conv1d(p["conv_pre"]))
+    _put(sd, "conv_post", conv1d(p["conv_post"]))
+    _put(sd, "activation_post.act", {"alpha": p["alpha_post"], "beta": p["beta_post"]})
+    for i in range(len(c.upsample_rates)):
+        _put(sd, f"ups.{i}.0", conv_transpose1d(p[f"up_{i}"]))
+    _resblocks(sd, p, c)
     return sd
 
 
@@ -371,6 +388,86 @@ CONVERTERS = {
     "campplus": campplus_sd,
     "w2vbert": w2vbert_sd,
 }
+
+
+# ---------------------------------------------------------------------------
+# the v1 family: UnifiedVoice v1, ECAPA-TDNN, BigVGAN v1, DVAE
+# ---------------------------------------------------------------------------
+
+
+def unified_voice_v1_sd(p: dict, cfg: GPTConfig) -> SD:
+    """The JAX UnifiedVoiceV1 tree (float, or quantized at 8 bits by
+    `quantize_gpt_tree`) -> the port's state dict. cfg: the v1 GPTConfig.
+    A text_head in the tree is left out."""
+    sd: SD = {}
+    _conformer(sd, "conditioning_encoder", p["conditioning_encoder"],
+               cfg.condition_module.num_blocks)
+    _perceiver(sd, "perceiver_encoder", p["perceiver_encoder"])
+    _gpt_head_and_core(sd, p, cfg.layers, text_head=False)
+    return sd
+
+
+def _tdnn(sd: SD, pre: str, p: dict):
+    _put(sd, f"{pre}.conv.conv", conv1d(p["conv"]))
+    _put(sd, f"{pre}.norm.norm", batchnorm(p["norm"]))
+
+
+def ecapa_sd(p: dict, prefix: str = "") -> SD:
+    """The JAX ECAPA_TDNN tree -> the port's state dict, its keys after
+    `prefix` (e.g. "speaker_encoder.", trailing dot included)."""
+    sd: SD = {}
+    _tdnn(sd, f"{prefix}blocks.0", p["block_0"])
+    i = 1
+    while f"block_{i}" in p:
+        bp, b = p[f"block_{i}"], f"{prefix}blocks.{i}"
+        _tdnn(sd, f"{b}.tdnn1", bp["tdnn1"])
+        _tdnn(sd, f"{b}.tdnn2", bp["tdnn2"])
+        for n in ("conv1", "conv2"):
+            _put(sd, f"{b}.se_block.{n}.conv", pointwise(bp["se_block"][n]))
+        r2 = bp["res2net_block"]
+        for j in range(len(r2)):
+            _tdnn(sd, f"{b}.res2net_block.blocks.{j}", r2[f"block_{j}"])
+        if "shortcut" in bp:
+            _put(sd, f"{b}.shortcut.conv", pointwise(bp["shortcut"]))
+        i += 1
+    _tdnn(sd, f"{prefix}mfa", p["mfa"])
+    _tdnn(sd, f"{prefix}asp.tdnn", p["asp"]["tdnn"])
+    _put(sd, f"{prefix}asp.conv.conv", pointwise(p["asp"]["conv"]))
+    _put(sd, f"{prefix}asp_bn.norm", batchnorm(p["asp_bn"]))
+    _put(sd, f"{prefix}fc.conv", pointwise(p["fc"]))
+    return sd
+
+
+def bigvgan_v1_sd(p: dict, cfg) -> SD:
+    """The JAX BigVGANv1 tree -> the port's state dict. cfg:
+    BigVGANv1Config."""
+    sd = ecapa_sd(p["speaker_encoder"], "speaker_encoder.")
+    _put(sd, "conv_pre", conv1d(p["conv_pre"]))
+    _put(sd, "cond_layer", pointwise(p["cond_layer"]))
+    _put(sd, "conv_post", conv1d(p["conv_post"]))
+    _put(sd, "activation_post.act", {"alpha": p["alpha_post"], "beta": p["beta_post"]})
+    for i in range(len(cfg.upsample_rates)):
+        _put(sd, f"ups.{i}.0", conv_transpose1d(p[f"up_{i}"]))
+        if cfg.cond_d_vector_in_each_upsampling_layer:
+            _put(sd, f"conds.{i}", pointwise(p[f"cond_{i}"]))
+    _resblocks(sd, p, cfg)
+    return sd
+
+
+def dvae_sd(p: dict, cfg) -> SD:
+    """The JAX DVAE tree (encoder side) -> the port's state dict. cfg:
+    DVAEConfig."""
+    sd: SD = {"codebook.embed": _t(p["codebook"])}
+    idx = 0
+    for i in range(cfg.num_layers):
+        _put(sd, f"encoder.{idx}.0", conv1d(p[f"enc_conv_{i}"]))
+        idx += 1
+    for r in range(cfg.num_resnet_blocks):
+        for j in range(3):
+            _put(sd, f"encoder.{idx}.net.{2 * j}", conv1d(p[f"enc_res_{r}"][f"conv_{j}"]))
+        idx += 1
+    _put(sd, f"encoder.{idx}", conv1d(p["enc_out"]))
+    return sd
 
 
 def put_as(sd: SD, dtype: torch.dtype) -> SD:

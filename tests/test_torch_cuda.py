@@ -1595,3 +1595,96 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, target):
         if target == "gpt" and name.endswith("attn.c_attn.bias"):
             got, w, w0 = (torch.cat([x[:D], x[2 * D:]]) for x in (got, w, w0))
         assert (got - w).norm() <= 1e-2 * (w - w0).norm() + 1e-6 * w.numel() ** 0.5, name
+
+
+# ---------------------------------------------------------------------------
+# the v1 family: IndexTTSV1Engine on the card
+# ---------------------------------------------------------------------------
+
+V1_ROUTES = {"float": {}, "w8": dict(quantize_gpt=True, kv_quant=True, head_quant=True,
+                                     gemv_impl="pallas")}
+
+
+def _v1_engines(dev, route):
+    """The v1 engine on `route` on the card and on the CPU from the same
+    seeded weights, both greedy: a 2-layer GPT of width 256 (4 heads of 64,
+    so that K4-K6's gates open) over a 100-bin mel, and a BigVGAN v1 whose
+    three resblocks share (1, 3, 5) (3 stages: 3 x 3 x 2 + 1 = 19 K2
+    launches a call, in lockstep)."""
+    from indextts_tpu_torch import config as C
+    from indextts_tpu_torch.models.bigvgan_v1 import BigVGANv1Config
+    from indextts_tpu_torch.runtime.decode import SamplingConfig
+    from indextts_tpu_torch.runtime.engine_v1 import IndexTTSV1Engine, random_params_v1
+
+    cfg = C.GPTConfig(
+        model_dim=256, layers=2, heads=4, max_mel_tokens=64, max_text_tokens=32,
+        number_text_tokens=50, number_mel_codes=36, start_mel_token=34, stop_mel_token=35,
+        condition_module=C.ConditionModuleConfig(
+            output_size=32, linear_units=48, attention_heads=4, num_blocks=1, input_size=100))
+    voc = BigVGANv1Config(
+        gpt_dim=256, upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
+        upsample_initial_channel=32, speaker_embedding_dim=16,
+        ecapa_channels=(16, 16, 16, 16, 48), ecapa_attention_channels=8, ecapa_se_channels=8)
+    params = random_params_v1(cfg, voc, seed=0, device="cpu")
+    engines = [IndexTTSV1Engine(cfg, voc, params, device=d, **V1_ROUTES[route])
+               for d in (dev, "cpu")]
+    for e in engines:
+        e.decoder.sampling = SamplingConfig(do_sample=False)
+    return engines
+
+
+def _v1_counts():
+    return dict(_counts(), K2=k2.counter.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(V1_ROUTES))
+def test_v1_engine_on_the_card_matches_the_cpu(cuda_device, route):
+    """infer_fast of 3 segments (one bucket of 3 rows over a 32-position
+    conditioning prefix) on the card, its decode a captured step: the
+    CPU's greedy codes, the waveform within 1e-3 of its peak plus one
+    PCM16 step; K1 (float) or K4-K6 (W8) and K2 launched, 19 K2 launches
+    a vocoder call."""
+    gpu, cpu = _v1_engines(cuda_device, route)
+    rng = np.random.default_rng(0)
+    prompt = (0.1 * rng.standard_normal(24000)).astype(np.float32)
+    segs = [rng.integers(2, 50, L) for L in (9, 5, 12)]
+    codes = {}
+    for name, e in (("gpu", gpu), ("cpu", cpu)):
+        gen, seen = e.decoder.generate, []
+
+        def spy(*a, **k):
+            res = gen(*a, **k)
+            seen.append(res.codes.cpu())
+            return res
+
+        e.decoder.generate = spy
+        before = _v1_counts()
+        out = e.infer_fast((prompt, 24000), segs, max_mel_tokens=20, seed=0)
+        rise = {k: v - before[k] for k, v in _v1_counts().items()}
+        codes[name] = (seen[0], out["audio"], rise)
+    (gc, ga, rise), (cc, ca, _) = codes["gpu"], codes["cpu"]
+    assert torch.equal(gc, cc) and gc.shape[0] == 3
+    assert ga.shape == ca.shape and np.isfinite(ga).all()
+    assert np.abs(ga - ca).max() <= 1e-3 * np.abs(ca).max() + 1 / 32767
+    assert rise["K2"] == 19
+    want = ("K4", "K5", "K6") if route == "w8" else ("K1",)
+    assert all(rise[k] > 0 for k in want), rise
+    assert all(rise[k] == 0 for k in ("K1", "K4", "K5", "K6", "K7", "K8") if k not in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(V1_ROUTES))
+def test_v1_graph_decode_matches_eager(cuda_device, route):
+    """The v1 decoder's captured step and its eager step give the same
+    greedy codes over 3 rows of a 32-position prompt."""
+    gpu, _ = _v1_engines(cuda_device, route)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    conds = torch.randn((3, 32, 256), generator=g, device=cuda_device)
+    text = np.random.default_rng(3).integers(2, 50, (3, 10))
+    arrays = [torch.as_tensor(a, device=cuda_device) for a in
+              gpu.decoder.build_text_prompt_arrays(text, np.array([10, 6, 8]), 10)]
+    runs = [gpu.decoder.generate(conds, *arrays, 0, max_new=40, eager=eager)
+            for eager in (True, False, False)]
+    for r in runs[1:]:
+        assert torch.equal(r.codes, runs[0].codes) and torch.equal(r.lengths, runs[0].lengths)
