@@ -348,6 +348,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    those cases, K5 (c_attn, attn c_proj, the head) and K6 at 3 rows. Then
    one DVAE.get_codebook_indices at full width (DVAEConfig()) on the
    card, each code the nearest entry by the CPU's distances.
+11. `sampling_phase` (runtime/decode.py SamplingConfig, the JAX fields), on
+   the float route after `batched_phase`: decoders over its full-width GPT.
+   `ban_stop_token` decodes exactly 300 codes, none of them stop,
+   captured; greedy captured against eager with each knob flipped on its
+   own (128 codes); a sampled decode with the typical filter, captured
+   against eager from one seed; a captured step with the typical filter
+   timed against one without, in turns.
+12. `parallel_phase` (parallel/), after `train_phase`, at full width from
+   PARALLEL_SEED: (a) NCCL at a world of 1, the GPT cut over
+   make_mesh(1, 1) gives the one-process float decode's 64 codes and last
+   logits bit for bit; (b) two processes on the one card over gloo
+   (`parallel_worker`), make_mesh(1, 2): TP greedy decode of 64 codes
+   (stop banned) on the float and the W8 GPT token-exact with the
+   one-process runs, 10 of 20 heads a rank; the TP DiT velocity (4 of 8
+   heads) within 1e-4 of the largest value of the one-process one; K1 and
+   K3 counted at those head counts and checked against their plain
+   versions; (c) make_mesh(2, 1), one data-parallel CFM step at 4 rows
+   against the one-process step (loss within 1e-5 relative, the averaged
+   gradient within 1e-4 of each leaf's largest value, parameters within
+   1e-5). Each prints its time and its collectives' share, with the card's
+   name and power limit: two ranks share one card, so no scaling is
+   measured.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -357,6 +379,7 @@ and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -453,6 +476,15 @@ PREFIX_ITERS = 10
 PREFIX_E2E_ROUNDS = 4
 # rounds in turns of the native DSP phase's host timings
 NATIVE_ROUNDS = 6
+SAMPLING_SEED = 47
+SAMPLING_CHECK_NEW = 128  # codes of each knob's captured and eager greedy decodes
+# each knob flipped on its own from the JAX defaults (runtime/decode.py SamplingConfig)
+SAMPLING_KNOBS = ({"use_repetition_penalty": False}, {"hf_fake_prompt_penalty": False},
+                  {"use_typical_sampling": True}, {"ban_stop_token": True})
+PARALLEL_SEED = 53  # parallel_phase's weights, prompt and batch
+PARALLEL_NEW = 64  # codes of parallel_phase's decodes
+PARALLEL_TIMEOUT = 600  # seconds a parallel_phase worker process may take
+CFM_DP_ROWS = 4  # the data-parallel CFM step's global batch
 P_COND = 34  # the GPT's conditioning positions
 # the dilation phase: resblocks of differing dilations, the weights' seed
 DILATIONS = ((1, 3, 5), (1, 2, 4), (2, 3, 6))
@@ -5578,6 +5610,481 @@ def serve_continuous(wav_path: str, engine, label: str, rise, stay, tmp: str, ca
           f"decoder streams; the service decoder's stream has its own: {svc_key in gemv._arrived}")
 
 
+# ---------------------------------------------------------------------------
+# the decoder's sampling knobs (runtime/decode.py SamplingConfig) and
+# parallel/ (torch.distributed) at full width
+# ---------------------------------------------------------------------------
+
+
+def sampling_phase(engine, wav_path: str, label: str, card: str) -> None:
+    """Phase `sampling_phase`, on the float route's engine: decoders over its
+    GPT (full width) with the JAX SamplingConfig's knobs, on the speaker
+    prompt's conds and request 0's text. `ban_stop_token` decodes exactly
+    MAX_MEL_TOKENS codes, none of them the stop code, captured; greedy
+    decode captured against eager with each knob flipped on its own
+    (SAMPLING_KNOBS), SAMPLING_CHECK_NEW codes, the same codes; a sampled
+    decode with the typical filter, captured against eager from one seed,
+    the same codes; then a captured step with the typical filter against
+    one without (both banning the stop code, their states after 300
+    codes), replays timed with CUDA events in turns."""
+    import torch
+
+    from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.serve import fallback_segments
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t0 = time.perf_counter()
+    c, rt = engine.cfg, engine.cfg.runtime
+    stop = c.gpt.stop_mel_token
+    spk = engine.prepare_speaker(*audio_utils.load_wav(wav_path), cache_key=wav_path)
+    emo = EmotionConditioning(spk.spk_cond_emb, spk.cond_len)
+    ids = fallback_segments(request_text(0), c.gpt.number_text_tokens,
+                            c.runtime.max_text_tokens_per_segment, c.gpt.max_text_tokens)[0]
+    _, conds, _ = engine._segment_inputs(spk, emo, 1.0, None, seed=SAMPLING_SEED)
+    arrays = [torch.as_tensor(a, device=engine.device)
+              for a in engine.decoder.build_text_prompt_arrays(
+                  np.asarray(ids)[None], np.asarray([len(ids)]), len(ids))]
+    kw = dict(temperature=rt.temperature, top_p=rt.top_p,
+              repetition_penalty_value=rt.repetition_penalty)
+
+    def decoder(**knobs):
+        return GPTDecoder(engine.gpt, c.gpt, SamplingConfig(top_k=rt.top_k, **knobs),
+                          kv_int8=engine.decoder.kv_int8, attn_impl=engine.decoder.attn_impl)
+
+    def run(dec, max_new, seed=None, eager=False):
+        res = dec.generate(conds, *arrays, seed, max_new=max_new, eager=eager, **kw)
+        return res.codes[0].cpu().numpy(), int(res.lengths[0])
+
+    banned = decoder(ban_stop_token=True)
+    codes, n = run(banned, MAX_MEL_TOKENS, SAMPLING_SEED)
+    free_n = run(decoder(), MAX_MEL_TOKENS, SAMPLING_SEED)[1]
+    print(f"[{label}] sampling: ban_stop_token decodes {n} codes of {MAX_MEL_TOKENS} "
+          f"(stop codes among them: {int((codes == stop).sum())}); without the ban the "
+          f"same seed decodes {free_n}")
+    if n != MAX_MEL_TOKENS or (codes == stop).any():
+        fail(f"[{label}] sampling: ban_stop_token gave {n} codes, "
+             f"{int((codes == stop).sum())} of them stop")
+    base = run(decoder(do_sample=False), SAMPLING_CHECK_NEW)[0]
+    for knobs in SAMPLING_KNOBS:
+        dec = decoder(do_sample=False, **knobs)
+        (graph, n_g), (eager, n_e) = run(dec, SAMPLING_CHECK_NEW), run(
+            dec, SAMPLING_CHECK_NEW, eager=True)
+        print(f"[{label}] sampling greedy {knobs}: captured {n_g} codes, eager {n_e}, "
+              f"equal {np.array_equal(graph, eager)}; differs from the default greedy "
+              f"row: {not np.array_equal(graph, base)}")
+        if not np.array_equal(graph, eager):
+            fail(f"[{label}] sampling greedy {knobs}: captured and eager codes differ")
+    typical = decoder(use_typical_sampling=True)
+    (graph, n_g), (eager, n_e) = (run(typical, SAMPLING_CHECK_NEW, SAMPLING_SEED),
+                                  run(typical, SAMPLING_CHECK_NEW, SAMPLING_SEED, eager=True))
+    print(f"[{label}] sampling with the typical filter, seed {SAMPLING_SEED}: captured "
+          f"{n_g} codes, eager {n_e}, equal {np.array_equal(graph, eager)}")
+    if not np.array_equal(graph, eager):
+        fail(f"[{label}] sampling: captured and eager typical sampling differ")
+
+    typical_banned = decoder(ban_stop_token=True, use_typical_sampling=True)
+    if run(typical_banned, MAX_MEL_TOKENS, SAMPLING_SEED)[1] != MAX_MEL_TOKENS:
+        fail(f"[{label}] sampling: typical + ban_stop_token stopped early")
+    steps = {}
+    for dec in (banned, typical_banned):
+        st = next(reversed(dec._states.values()))
+        if int(st.start) + int(st.step) + 4 * 8 >= st.cap:
+            fail(f"[{label}] sampling: no room in the cache to time steps")
+        steps[dec] = (st.graphs[True][0], [])
+    for dec in (banned, typical_banned, typical_banned, banned):
+        graph, times = steps[dec]
+        with dec._lock, torch.inference_mode(), torch.cuda.stream(dec._stream):
+            times.append(replays_ms(graph, 8))
+    (plain_ms, typical_ms) = (statistics.mean(steps[d][1]) for d in (banned, typical_banned))
+    print(f"[{label}] sampling: a captured sampling step (GPT 24L x 1280, ban_stop_token) "
+          f"{plain_ms:.4f} ms without the typical filter, {typical_ms:.4f} ms with it "
+          f"(log_softmax, a stable argsort over {c.gpt.number_mel_codes}, cumsum, scatter): "
+          f"+{typical_ms - plain_ms:.4f} ms a step; 8 replays a turn, two turns each, CUDA "
+          f"events; {card}")
+    print(f"[{label}] sampling_phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def parallel_gpt(cfg, w8: bool = False):
+    """The full-width serving GPT from PARALLEL_SEED's PyTorch initialization
+    on the card (the same bits in every process), float, or its W8 blocks
+    on the plain contraction."""
+    import torch
+
+    from indextts_tpu_torch.models.unified_voice import UnifiedVoice
+    from indextts_tpu_torch.runtime.engine import adopt
+    from indextts_tpu_torch.weights import quantize_gpt_state_dict
+
+    with torch.random.fork_rng(devices=[0]):
+        torch.manual_seed(PARALLEL_SEED)
+        with torch.device("cuda"):
+            model = UnifiedVoice(cfg.gpt)
+    if w8:
+        sd = quantize_gpt_state_dict(model.state_dict(), head=False)
+        with torch.device("meta"):
+            model = UnifiedVoice(cfg.gpt, quantize=True)
+        return adopt(model, sd, torch.device("cuda"))
+    return model.eval().requires_grad_(False)
+
+
+def parallel_s2mel(cfg, train: bool = False):
+    """The full-width S2Mel from PARALLEL_SEED, for inference or training."""
+    from indextts_tpu_torch.runtime import train as T
+
+    model = T.train_model(cfg, "cfm", "cuda", seed=PARALLEL_SEED)
+    return model if train else model.eval().requires_grad_(False)
+
+
+def parallel_inputs(cfg, gpt):
+    """The decode prompt (conds, text arrays for `gpt`'s decoder), the
+    velocity's inputs at the main path's solve shape (the cond and null
+    halves, T=898) and the CFM step's global batch of CFM_DP_ROWS rows with
+    its noise, all from seeds on the card."""
+    import torch
+
+    from indextts_tpu_torch import finetune
+    from indextts_tpu_torch.runtime import train as T
+    from indextts_tpu_torch.runtime.decode import GPTDecoder
+    from indextts_tpu_torch.serve import fallback_segments
+
+    g = torch.Generator(device="cuda").manual_seed(PARALLEL_SEED)
+    dev = torch.device("cuda")
+    gc_ = cfg.gpt
+    ids = fallback_segments(request_text(0), gc_.number_text_tokens,
+                            cfg.runtime.max_text_tokens_per_segment, gc_.max_text_tokens)[0]
+    arrays = GPTDecoder(gpt, gc_).build_text_prompt_arrays(
+        np.asarray(ids)[None], np.asarray([len(ids)]), len(ids))
+    decode = [torch.randn((1, gc_.condition_num_latent + 2, gc_.model_dim), generator=g,
+                          device=dev)] + [torch.as_tensor(a, device=dev) for a in arrays]
+    shapes = main_path_shapes(cfg, MAX_MEL_TOKENS)
+    T_, valid, d = shapes["dit_T"], shapes["dit_valid"], cfg.s2mel.dit
+    velocity = (torch.randn((2, d.in_channels, T_), generator=g, device=dev),
+                torch.randn((2, d.in_channels, T_), generator=g, device=dev),
+                torch.tensor([valid, valid], device=dev),
+                torch.tensor([0.3, 0.3], device=dev),
+                torch.randn((2, d.style_dim), generator=g, device=dev),
+                torch.randn((2, T_, d.content_dim), generator=g, device=dev))
+    batch = finetune.to_device(finetune.synthetic_cfm_batch(
+        cfg, CFM_DP_ROWS, np.random.default_rng(PARALLEL_SEED)), dev)
+    noise = T.cfm_noise(batch, torch.Generator(device="cuda").manual_seed(PARALLEL_SEED))
+    return decode, velocity, batch, noise
+
+
+class TimedCollectives:
+    """While entered, torch.distributed's all_reduce and all_gather (which
+    parallel/sharding.py calls) synchronize the card before and after each
+    call and add its seconds to `seconds`; the functions are restored on
+    exit. The synchronization serializes the card's work around every
+    collective, so the share is an upper bound of what overlapping could
+    hide."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.seconds, self._saved = 0.0, (dist.all_reduce, dist.all_gather)
+
+        def timed(fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                return out
+            return call
+
+        dist.all_reduce, dist.all_gather = (timed(f) for f in self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce, dist.all_gather = self._saved
+
+
+def parallel_decode(model, cfg, decode, mesh=None):
+    """Greedy decode of PARALLEL_NEW codes, the stop code banned (so that
+    every run takes PARALLEL_NEW - 1 steps), eager: (codes, the last
+    logits, wall seconds, the collectives' seconds or None, the state).
+    With `mesh`, its groups' first collective (which sets a communicator
+    up) runs before the clock starts, and the decode's collectives are
+    timed (`TimedCollectives`)."""
+    import torch
+
+    from indextts_tpu_torch.parallel.sharding import all_reduce
+    from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
+
+    dec = GPTDecoder(model, cfg.gpt, SamplingConfig(do_sample=False, ban_stop_token=True))
+    if mesh is not None:
+        all_reduce(torch.zeros(1, device="cuda"), mesh)
+    timer = TimedCollectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer if mesh is not None else contextlib.nullcontext():
+        res = dec.generate(*decode, None, max_new=PARALLEL_NEW, eager=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = next(iter(dec._states.values()))
+    return (res.codes[0].clone(), st.logits.clone(), wall,
+            timer.seconds if mesh is not None else None, st)
+
+
+def parallel_phase(card: str) -> None:
+    """Phase `parallel_phase` (parallel/: multihost.py, sharding.py, tp.py,
+    data.py) at full width (GPT 24L x 1280, 20 heads; DiT 13L x 512, 8
+    heads), weights from PARALLEL_SEED. This process first makes the
+    one-process references: greedy decode of PARALLEL_NEW codes (stop
+    banned) on the float and the W8 GPT, the DiT velocity at the main
+    path's solve shape, one CFM step at CFM_DP_ROWS rows. (a) NCCL at a world
+    of 1 (tcp://127.0.0.1): the GPT cut by tensor_parallel over
+    make_mesh(1, 1) gives the float decode's codes and last logits bit for
+    bit. (b) and (c): two worker processes on the one card over gloo
+    (`parallel_worker`), each under its own timeout."""
+    import torch
+    import torch.distributed as dist
+
+    from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.parallel.sharding import GPT_PARTITION_RULES, make_mesh
+    from indextts_tpu_torch.parallel.tp import tensor_parallel
+    from indextts_tpu_torch.runtime import train as T
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    gpt = parallel_gpt(cfg)
+    decode, velocity, batch, noise = parallel_inputs(cfg, gpt)
+    codes, logits, wall, _, _ = parallel_decode(gpt, cfg, decode)
+    codes8, _, wall8, _, _ = parallel_decode(parallel_gpt(cfg, w8=True), cfg, decode)
+    s2mel = parallel_s2mel(cfg)
+    with torch.inference_mode():
+        vel = s2mel.velocity(*velocity)
+    del s2mel
+    model = parallel_s2mel(cfg, train=True)
+    opt = T.adamw(model.parameters(), 1e-4)
+    grads = record_gradients(model, opt)
+    loss = float(T.make_cfm_train_step(model, opt)(batch, noise=noise))
+    ref = {"decode": decode, "codes": codes, "codes8": codes8, "velocity_in": velocity,
+           "velocity": vel, "batch": batch, "noise": noise, "loss": loss, "grads": grads[0],
+           "params": {k: v.detach() for k, v in model.state_dict().items()}}
+    del model, opt, grads
+    print(f"[parallel] one-process references: float decode {PARALLEL_NEW} codes eager "
+          f"{wall:.3f} s, W8 {wall8:.3f} s; CFM step loss {loss:.6f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) NCCL at a world of 1
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        tp_codes, tp_logits, tp_wall, coll, _ = parallel_decode(
+            tensor_parallel(gpt, mesh, GPT_PARTITION_RULES), cfg, decode, mesh)
+        same = torch.equal(tp_codes, codes) and torch.equal(tp_logits, logits)
+        print(f"[parallel] (a) NCCL world 1, make_mesh(1, 1): the cut GPT's {PARALLEL_NEW} "
+              f"codes and last logits equal the one-process decode's bit for bit: {same}; "
+              f"eager decode {tp_wall:.3f} s against {wall:.3f} s, its collectives "
+              f"synchronized and timed: {coll:.3f} s; {card}")
+        if not same:
+            fail("parallel (a): the one-rank NCCL mesh changed the decode")
+    finally:
+        dist.destroy_process_group()
+    del gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.pt")
+        torch.save(ref, path)
+        del ref
+        coord = f"127.0.0.1:{free_port()}"
+        here = os.path.dirname(os.path.abspath(__file__))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; chip_smoke.parallel_worker(*sys.argv[1:])",
+             path, coord, str(r)], cwd=here, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines():
+                print(f"[parallel rank {r}] {line}")
+            if p.returncode != 0 or "PARALLEL_WORKER_OK" not in log:
+                fail(f"parallel: worker {r} failed (exit {p.returncode})")
+    print(f"[parallel] parallel_phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def record_gradients(model, opt) -> list:
+    """A list that takes, at each of `opt`'s steps, every parameter's
+    gradient as the step is given it (a step pre-hook)."""
+    grads = []
+    opt.register_step_pre_hook(lambda *_: grads.append(
+        {k: p.grad.clone() for k, p in model.named_parameters()}))
+    return grads
+
+
+def parallel_worker(path: str, coord: str, rank: str) -> None:
+    """One of parallel_phase's two processes on the one card, over gloo
+    (torch.distributed.init_process_group at tcp://`coord`: NCCL refuses
+    two ranks on one device; gloo's collectives take the CUDA tensors).
+    (b) make_mesh(1, 2): the GPT cut by GPT_PARTITION_RULES (10 of 20 heads
+    a rank) decodes the one-process float codes and the W8 codes (the plain
+    W8A8 contraction) token for token; the DiT cut by DIT_PARTITION_RULES
+    (4 of 8 heads) within 1e-4 of the largest value of the one-process
+    velocity; K1's and K3's launches at the local heads counted (K1 once a
+    layer a step, K3 once a layer a call) and each checked against its
+    plain version at those shapes. (c) make_mesh(2, 1): one CFM step
+    through finetune.data_parallel_step, each rank its rows of the global
+    batch and its slice of the global noise, gradients averaged: the loss
+    within 1e-5 relative of the one-process step's; the gradient AdamW is
+    given, leaf by leaf, within 1e-4 of the largest |value| of the
+    one-process step's leaf (a summed or wrongly scaled average is off by
+    its whole size: the parameters alone cannot show it, an AdamW step
+    ignoring the gradient's scale); every parameter within 1e-5 of the
+    one-process step's (an AdamW step moves a weight by about the learning
+    rate, 1e-4, whatever the size of its gradient, so float32 differences
+    of the averaged gradients may move it by a part of that: 10 %). Each
+    step's time and its collectives' share (`TimedCollectives`) are
+    printed: two ranks share one card, so the times measure no scaling."""
+    import torch
+    import torch.distributed as dist
+
+    from indextts_tpu_torch import finetune
+    from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.ops import decode_attention, dit_attention
+    from indextts_tpu_torch.parallel.sharding import (
+        DIT_PARTITION_RULES,
+        GPT_PARTITION_RULES,
+        all_reduce,
+        make_mesh,
+    )
+    from indextts_tpu_torch.parallel.tp import tensor_parallel
+    from indextts_tpu_torch.runtime import train as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{coord}", world_size=2, rank=int(rank))
+    cfg = load_config()
+    ref = torch.load(path, map_location="cuda", weights_only=False)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    note = f"two ranks sharing one card, which measures no scaling; {card}"
+    L, depth = cfg.gpt.layers, cfg.s2mel.dit.depth
+    mesh = make_mesh(1, 2)
+    g = torch.Generator(device="cuda").manual_seed(PARALLEL_SEED + mesh.rank)
+
+    for w8 in (False, True):
+        label = "W8" if w8 else "float"
+        model = tensor_parallel(parallel_gpt(cfg, w8), mesh, GPT_PARTITION_RULES)
+        n0 = decode_attention.counter.launches
+        codes, _, wall, coll, st = parallel_decode(model, cfg, ref["decode"], mesh)
+        launches = decode_attention.counter.launches - n0
+        heads = st.caches[0].shape[2]
+        want = ref["codes8" if w8 else "codes"]
+        print(f"(b) TP decode {label}: {heads} of {cfg.gpt.heads} heads a rank, "
+              f"{PARALLEL_NEW} greedy codes equal the one-process run's: "
+              f"{torch.equal(codes, want)}; K1 launches a decode {launches} (expected "
+              f"{(PARALLEL_NEW - 1) * L}); {wall / PARALLEL_NEW * 1e3:.2f} ms a code, the "
+              f"collectives synchronized and timed: {coll:.3f} s of {wall:.3f} s "
+              f"({100 * coll / wall:.1f} %); {note}")
+        if not torch.equal(codes, want) or heads != cfg.gpt.heads // 2 \
+                or launches != (PARALLEL_NEW - 1) * L:
+            fail(f"parallel (b): TP {label} decode")
+        if not w8:
+            cap = st.cap
+            q = torch.randn((1, heads, 64), generator=g, device="cuda")
+            k, v = (torch.randn((1, heads, cap, 64), generator=g, device="cuda")
+                    for _ in range(2))
+            args = (q, k, v, torch.tensor([cap - 7], device="cuda"),
+                    torch.tensor([40], device="cuda"), torch.tensor([45], device="cuda"))
+            err = (decode_attention.ragged_decode_attention(*args)
+                   - decode_attention.ragged_decode_attention_plain(*args)).abs().max().item()
+            print(f"(b) K1 at the local heads (B=1, H={heads}, cap={cap}): max_abs_err "
+                  f"{err:.3g} against its plain version (tol 2e-5)")
+            if not err <= 2e-5:
+                fail("parallel (b): K1 at the local heads")
+        del model, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    s2mel = tensor_parallel(parallel_s2mel(cfg), mesh, DIT_PARTITION_RULES)
+    heads = s2mel.cfm.estimator.transformer.layers[0].attention.h
+
+    def velocity():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = s2mel.velocity(*ref["velocity_in"])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    n0 = dit_attention.counter.launches
+    vel, _ = velocity()
+    launches = dit_attention.counter.launches - n0
+    vel, wall = velocity()
+    with TimedCollectives() as timer:
+        _, timed = velocity()
+    want = ref["velocity"]
+    rel = ((vel - want).abs().max() / want.abs().max()).item()
+    print(f"(b) TP DiT velocity: {heads} of {cfg.s2mel.dit.num_heads} heads a rank, B=2 "
+          f"T={want.shape[-1]}: max error {rel:.3g} of the largest value (tol 1e-4); K3 "
+          f"launches a call {launches} (expected {depth}); {wall * 1e3:.2f} ms a call; "
+          f"collectives timed: {timer.seconds * 1e3:.2f} ms of {timed * 1e3:.2f} "
+          f"ms ({100 * timer.seconds / timed:.1f} %); {note}")
+    if not rel <= 1e-4 or launches != depth or heads != cfg.s2mel.dit.num_heads // 2:
+        fail("parallel (b): TP DiT velocity")
+    x, _, _, _, _, _ = ref["velocity_in"]
+    T_, valid = x.shape[-1], int(ref["velocity_in"][2][0])
+    q, k, v = (torch.randn((2, heads, T_, 64), generator=g, device="cuda") for _ in range(3))
+    mask = torch.arange(T_, device="cuda")[None] < torch.tensor([valid, valid // 2],
+                                                                device="cuda")[:, None]
+    err = (dit_attention.dit_attention(q, k, v, mask)
+           - dit_attention.dit_attention_plain(q, k, v, mask)).abs().max().item()
+    print(f"(b) K3 at the local heads (B=2, H={heads}, T={T_}): max_abs_err {err:.3g} "
+          "against its plain version (tol 2e-5)")
+    if not err <= 2e-5:
+        fail("parallel (b): K3 at the local heads")
+    del s2mel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dmesh = make_mesh(2, 1)
+    model = parallel_s2mel(cfg, train=True)
+    opt = T.adamw(model.parameters(), 1e-4)
+    grads = record_gradients(model, opt)
+    step = finetune.data_parallel_step("cfm", model, opt, dmesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TimedCollectives() as timer:
+        loss = step(ref["batch"], noise=ref["noise"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss = float(all_reduce(loss.clone(), dmesh, axis="data")) / 2
+    (got,) = grads
+    grad_err = max((got[k] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                   for k, w in ref["grads"].items())
+    diff = max((p - ref["params"][k]).abs().max().item()
+               for k, p in model.state_dict().items())
+    rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    print(f"(c) DP CFM step, make_mesh(2, 1), {CFM_DP_ROWS // 2} of {CFM_DP_ROWS} rows a rank: "
+          f"loss {loss:.6f} against the one-process {ref['loss']:.6f} (rel {rel:.3g}, tol "
+          f"1e-5); the averaged gradient against the one-process step's, the worst leaf "
+          f"{grad_err:.3g} of its largest value (tol 1e-4); largest parameter difference "
+          f"{diff:.3g} (tol 1e-5); step {wall * 1e3:.1f} ms with its collectives timed: "
+          f"{timer.seconds * 1e3:.1f} ms ({100 * timer.seconds / wall:.1f} %); {note}")
+    if not (rel <= 1e-5 and grad_err <= 1e-4 and diff <= 1e-5 and set(got) == set(ref["grads"])):
+        fail("parallel (c): the DP CFM step differs from the one-process step")
+    dist.destroy_process_group()
+    print("PARALLEL_WORKER_OK", flush=True)
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -5652,6 +6159,7 @@ def main():
                 emotion_phase(engine, wav_path, label, tmp, card, rise, stay)
                 beam_launches[label] = beam_phase(engine, wav_path, label, tmp, rise, stay)
                 batch_launches[label] = batched_phase(engine, wav_path, label, rise, stay)
+                sampling_phase(engine, wav_path, label, card)
                 launches.update(bf16_phase(engine, wav_path, model_dir, full, tmp, names))
                 print(f"phase bf16_phase done at {time.perf_counter() - t_start:.1f} s")
             else:
@@ -5675,6 +6183,7 @@ def main():
     dilation_phase(card)
     print(f"phase dilation_phase done at {time.perf_counter() - t_start:.1f} s")
     launches.update(train_phase(shapes, card))
+    parallel_phase(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"launches a {BEAMS}-beam request (beam-multinomial, {MAX_MEL_TOKENS} steps at "

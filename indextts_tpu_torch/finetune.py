@@ -1,6 +1,7 @@
-"""Fine-tuning on one card: training steps, checkpoints and resume.
+"""Fine-tuning: training steps, checkpoints and resume, on one card or over
+the data axis of several processes.
 
-Counterpart of tools/finetune.py for the port, in one process:
+Counterpart of tools/finetune.py for the port:
 
   * target `gpt` (UnifiedVoice's text + mel cross-entropy) or `cfm` (the
     s2mel flow-matching step), runtime/train.py, with AdamW as
@@ -18,8 +19,17 @@ Counterpart of tools/finetune.py for the port, in one process:
     continues the step counter.
 
 It runs on the card unless `--device cpu` is given, and prints one JSON
-summary line, that of tools/finetune.py. `--model-parallel` above 1 (sharded
-training) is not ported yet: ROADMAP.md's `parallel/` item.
+summary line, that of tools/finetune.py, with the real mesh.
+
+Several processes (TARS_COORDINATOR, TARS_NUM_PROCESSES, TARS_PROCESS_ID;
+parallel/multihost.py, nccl on the card, gloo on the CPU) train over the
+data axis: every rank draws the same global batch (and, for the CFM, the
+same noise for the whole of it) and takes its rows of it (parallel/data.py),
+the gradients are averaged before AdamW, and the logged loss is the mean
+over the ranks. `--batch` must divide over them. Rank 0 writes the
+checkpoints; every rank resumes from the same one. `--model-parallel` above 1
+(training over the model axis) is not ported yet: ROADMAP.md's item
+"training over the model axis".
 
 Examples:
   python -m indextts_tpu_torch.finetune --target gpt --synthetic 8 --steps 50 \\
@@ -38,8 +48,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from indextts_tpu_torch.config import load_config
+from indextts_tpu_torch.parallel.data import average_gradients, local_rows
+from indextts_tpu_torch.parallel.multihost import global_mesh, maybe_initialize_distributed
+from indextts_tpu_torch.parallel.sharding import all_reduce
 from indextts_tpu_torch.runtime import train as T
 from indextts_tpu_torch.utils.device import resolve_device
 
@@ -136,13 +150,45 @@ def initial_state(args, cfg):
     return params[name]
 
 
+def data_parallel_step(target: str, model, opt, mesh):
+    """step(global_batch, generator=None, noise=None) -> this rank's loss:
+    one AdamW step on this rank's rows of the global batch, the gradients
+    averaged over the mesh's data axis first (parallel/data.py). The CFM's
+    noise (t, z, drop) is that of the whole global batch, given or drawn
+    from `generator`, and sliced like the rows."""
+
+    def sync(m):
+        average_gradients(m.parameters(), mesh)
+
+    if target == "gpt":
+        train_step = T.make_train_step(model, opt, grad_sync=sync)
+        return lambda glob, generator=None, noise=None: train_step(local_rows(glob, mesh))
+    cfm_step = T.make_cfm_train_step(model, opt, grad_sync=sync)
+
+    def step(glob, generator=None, noise=None):
+        t, z, drop = T.cfm_noise(glob, generator) if noise is None else noise
+        rows = local_rows({"t": t, "z": z} if drop is None else
+                          {"t": t, "z": z, "drop": drop}, mesh)
+        return cfm_step(local_rows(glob, mesh), noise=(rows["t"], rows["z"], rows.get("drop")))
+
+    return step
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1: sharded training is not ported yet (ROADMAP.md, the "
-            "parallel/ item: torch.distributed with the GPT's and DiT's partition rules)")
+            "--model-parallel > 1: training over the model axis is not ported yet "
+            "(ROADMAP.md, Queue 1: training over the model axis; the collectives of "
+            "parallel/tp.py are not autograd functions)")
     dev = resolve_device(args.device)
+    maybe_initialize_distributed(dev)
+    mesh = global_mesh(model=args.model_parallel)
+    data = mesh.shape["data"]
+    if args.batch % data:
+        raise SystemExit(f"--batch {args.batch} must be divisible by the data axis ({data} "
+                         "processes)")
+    rank0 = mesh.rank == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(args.cfg)
@@ -158,17 +204,7 @@ def main(argv=None):
         step0 = int(json.loads((latest / "meta.json").read_text())["step"])
         print(f"resumed from step {step0}", file=sys.stderr)
 
-    if args.target == "gpt":
-        train_step = T.make_train_step(model, opt)
-
-        def run_step(batch, gen):
-            return train_step(batch)
-    else:
-        cfm_step = T.make_cfm_train_step(model, opt)
-
-        def run_step(batch, gen):
-            return cfm_step(batch, gen)
-
+    run_step = data_parallel_step(args.target, model, opt, mesh)
     stream = batch_stream(args, cfg, args.batch)
     # the CFM noise: seeded with the step the run starts from, so a resumed run
     # does not repeat the noise of the steps before it
@@ -180,15 +216,15 @@ def main(argv=None):
         batch = to_device(next(stream), dev)
         loss = run_step(batch, gen)
         if (step + 1) % args.log_every == 0 or step == step0:
-            lv = float(loss)
+            lv = float(all_reduce(loss.clone(), mesh, axis="data")) / data
             losses.append(lv)
             print(f"step {step + 1}: loss {lv:.4f}", file=sys.stderr)
             if not np.isfinite(lv):
                 raise SystemExit(f"non-finite loss at step {step + 1}")
         if latest and (step + 1) % args.save_every == 0:
-            saved = save(latest, model, opt, step + 1)
+            saved = save(latest, model, opt, step + 1, rank0)
     if latest and saved != step0 + args.steps:
-        save(latest, model, opt, step0 + args.steps)
+        save(latest, model, opt, step0 + args.steps, rank0)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t_start
@@ -198,7 +234,7 @@ def main(argv=None):
         "from_step": step0,
         "final_step": step0 + args.steps,
         "batch": args.batch,
-        "mesh": {"data": 1, "model": 1},
+        "mesh": dict(mesh.shape),
         "loss_first": losses[0] if losses else None,
         "loss_last": losses[-1] if losses else None,
         "steps_per_s": round(args.steps / wall, 3),
@@ -207,9 +243,14 @@ def main(argv=None):
     return out
 
 
-def save(latest: Path, model, opt, step: int) -> int:
+def save(latest: Path, model, opt, step: int, write: bool = True) -> int:
     """params.pt, opt_state.pt and meta.json under `latest`, each written
-    to a temporary name and renamed, meta.json last. Returns `step`."""
+    to a temporary name and renamed, meta.json last, by the rank that
+    `write`s (rank 0); the others wait for it. Returns `step`."""
+    if not write:
+        if dist.is_initialized():
+            dist.barrier()
+        return step
     latest.mkdir(parents=True, exist_ok=True)
     for name, obj in (("params.pt", model.state_dict()), ("opt_state.pt", opt.state_dict())):
         tmp = latest / f".{name}.tmp"
@@ -218,6 +259,8 @@ def save(latest: Path, model, opt, step: int) -> int:
     tmp = latest / ".meta.json.tmp"
     tmp.write_text(json.dumps({"step": step}) + "\n")
     os.replace(tmp, latest / "meta.json")
+    if dist.is_initialized():
+        dist.barrier()
     return step
 
 

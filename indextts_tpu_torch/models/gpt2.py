@@ -72,11 +72,16 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def quant_row(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quant_row(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row int8 activation quantization (W8A8 input side):
-    (x_q int8, a f32 with a kept last axis of 1)."""
+    (x_q int8, a f32 with a kept last axis of 1). `amax`, with that kept
+    axis, is the whole row's absolute maximum where x holds a slice of the
+    row (a row-cut layer, parallel/tp.py); by default x's own."""
     xf = x.float()
-    a = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    a = amax / 127.0 + 1e-12
     return torch.clamp(torch.round(xf / a), -127, 127).to(torch.int8), a
 
 
@@ -114,10 +119,16 @@ def _single_rows(x: torch.Tensor) -> int:
     return x.numel() // x.shape[-1]
 
 
-def w8a8(x, w_q, w_scale, bias):
-    """The plain W8A8 contraction: ((x_q . w_q) * a) * s + bias, float32."""
-    x_q, a = quant_row(x)
-    return gemv_ops.int8_matmul(x_q, w_q) * a * w_scale + bias
+def w8a8(x, w_q, w_scale, bias, amax=None, reduce=None):
+    """The plain W8A8 contraction: ((x_q . w_q) * a) * s + bias, float32. A
+    row-cut layer (parallel/tp.py) gives its whole row's `amax` and
+    `reduce`, which sums the exact integer partial sums over the shards
+    before the scales, so that the layer gives the unsharded bits."""
+    x_q, a = quant_row(x, amax)
+    acc = gemv_ops.int8_sums(x_q, w_q)
+    if reduce is not None:
+        acc = reduce(acc)
+    return acc.float() * a * w_scale + bias
 
 
 class Conv1D(nn.Module):
@@ -191,6 +202,10 @@ def _linear(nx: int, nf: int, quantize: bool, gemv: bool, wbits: int,
 
 
 class GPT2Attention(nn.Module):
+    """Fused [q | k | v] projection, `n_head` heads. The widths follow the
+    projections' own, so that a tensor-parallel rank (parallel/tp.py), which
+    holds each of q, k and v for its own heads, runs the same code."""
+
     def __init__(self, dim: int, n_head: int, quantize: bool = False, gemv: bool = False,
                  wbits: int = 8):
         super().__init__()
@@ -206,16 +221,16 @@ class GPT2Attention(nn.Module):
         the P positions before x, (B, H, P, Dh), or None (P = 0); attn_bias
         broadcastable to (B,1,T,P+T). Returns (out, (k, v)) with k, v
         (B, H, P+T, Dh)."""
-        B, T, D = x.shape
-        q, k, v = self.c_attn(x).split(D, dim=-1)
+        B, T, _ = x.shape
+        q, k, v = self.c_attn(x).chunk(3, dim=-1)
         q, k, v = self._heads(q, B), self._heads(k, B), self._heads(v, B)
         if past is not None:
             k, v = torch.cat([past[0], k], dim=2), torch.cat([past[1], v], dim=2)
-        scale = 1.0 / math.sqrt(D // self.n_head)
+        scale = 1.0 / math.sqrt(q.shape[-1])
         scores = torch.einsum("bhtd,bhsd->bhts", q, k).float() * scale
         probs = torch.softmax(scores + attn_bias, dim=-1).to(v.dtype)
         ctx = torch.einsum("bhts,bhsd->bhtd", probs, v)
-        return self.c_proj(ctx.transpose(1, 2).reshape(B, T, D)), (k, v)
+        return self.c_proj(ctx.transpose(1, 2).reshape(B, T, -1)), (k, v)
 
     def decode_step(self, x, cache: Sequence[torch.Tensor], index: torch.Tensor, valid_len,
                     hole_s, hole_e):
@@ -226,8 +241,8 @@ class GPT2Attention(nn.Module):
         slots). The writes are `scatter_` over the index expanded along the
         heads: indexing with a tensor (`cache[b, :, t] = ...`) would read t
         on the host, which a captured step cannot."""
-        B, _, D = x.shape
-        q, k, v = self.c_attn(x).split(D, dim=-1)
+        B = x.shape[0]
+        q, k, v = self.c_attn(x).chunk(3, dim=-1)
         q, k, v = self._heads(q, B), self._heads(k, B), self._heads(v, B)
         q = q[:, :, 0].float()
         at = index[:, None, None]  # (B, 1, 1)
@@ -243,7 +258,7 @@ class GPT2Attention(nn.Module):
             for c, t in ((k_cache, k), (v_cache, v)):
                 c.scatter_(2, at[..., None].expand(t.shape), t.to(c.dtype))
             ctx = ragged_decode_attention(q, k_cache, v_cache, valid_len, hole_s, hole_e)
-        return self.c_proj(ctx.to(x.dtype).reshape(B, 1, D))
+        return self.c_proj(ctx.to(x.dtype).reshape(B, 1, -1))
 
 
 class GPT2MLP(nn.Module):

@@ -135,10 +135,16 @@ def unpack_w4(wp: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return torch.cat([lo, w >> 4], dim=axis).to(torch.int8)
 
 
-def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_sums(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact int8 x int8 contraction over the last axis of xq and the first
-    of w, as float32 (each int32 sum rounded once, as XLA's astype does)."""
-    return torch.matmul(xq.to(torch.float64), w.to(torch.float64)).float()
+    of w: the int32 sums, held exactly in float64."""
+    return torch.matmul(xq.to(torch.float64), w.to(torch.float64))
+
+
+def int8_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`int8_sums` as float32 (each int32 sum rounded once, as XLA's astype
+    does)."""
+    return int8_sums(xq, w).float()
 
 
 def gelu_new_kernel_form(h: torch.Tensor) -> torch.Tensor:

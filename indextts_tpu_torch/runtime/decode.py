@@ -8,11 +8,12 @@ valid_len outside the prompt's left-pad hole. The cache is float (kernel K1)
 or, with `kv_int8` (the JAX package's `kv_quant` or `attn_impl="pallas_q8"`),
 int8 with per-(layer, row, head, token) f32 scales (kernel K4): the prefill
 KV is quantized once with `quantize_kv`, and each step quantizes and writes
-its own token's K/V and scales in place. Warper order as
-HF: repetition penalty (the fake-prompt tokens {1, start_mel} included,
-model_v2.py:785-794) -> temperature -> top-k -> top-p -> draw; greedy takes
-the argmax after the penalty. Codes are stop-padded; lengths count the stop
-token.
+its own token's K/V and scales in place. Processor order as the JAX
+loop's: repetition penalty (the fake-prompt tokens {1, start_mel} included,
+model_v2.py:785-794) -> typical filter -> stop ban, each as the decoder's
+`SamplingConfig` says, then temperature -> top-k -> top-p -> draw; greedy
+takes the argmax of the processed logits. Codes are stop-padded; lengths
+count the stop token.
 
 The JAX package runs the loop as one jitted `lax.while_loop`. Here the loop
 state lives in static buffers (`DecodeState`: caches, logits, codes, the
@@ -107,8 +108,22 @@ MAX_STATES = 8
 
 @dataclass(frozen=True)
 class SamplingConfig:
+    """The JAX package's SamplingConfig (indextts_tpu/runtime/decode.py:35-50),
+    its fields and defaults in its order. A decoder's captured steps belong
+    to its one SamplingConfig, as a change recompiles the JAX loop."""
+
     do_sample: bool = True
     top_k: int = 30
+    use_repetition_penalty: bool = True
+    # the HF fake-prompt tokens {1, start_mel} in the penalty set, as the
+    # reference's generate() over fake_inputs (model_v2.py:785-794)
+    hf_fake_prompt_penalty: bool = True
+    # never emit the stop token: every row decodes exactly max_new codes
+    # (deterministic work on any weights, as the JAX benchmarks decode)
+    ban_stop_token: bool = False
+    # typical sampling (model_v2.py:858-866), after the repetition penalty
+    use_typical_sampling: bool = False
+    typical_mass: float = 0.9
 
 
 @dataclass
@@ -121,6 +136,34 @@ def repetition_penalty(logits, penal_mask, penalty):
     """HF RepetitionPenaltyLogitsProcessor: score<0 ? score*p : score/p."""
     penalized = torch.where(logits < 0, logits * penalty, logits / penalty)
     return torch.where(penal_mask, penalized, logits)
+
+
+def typical_filter(scores, mass: float, min_tokens_to_keep: int = 1) -> torch.Tensor:
+    """HF TypicalLogitsWarper as the JAX package's `typical_filter`
+    (indextts_tpu/runtime/decode.py:92-115), step for step: keep the tokens
+    whose -log p lies closest to the entropy until `mass` of probability is
+    reached; the others get NEG_INF. The sort is stable, as jnp.argsort is,
+    so equal scores keep the lower index first. No host read and no shape
+    that depends on the data, so a captured step may run it."""
+    normalized = torch.log_softmax(scores, dim=-1)
+    p = torch.exp(normalized)
+    ent = -torch.sum(torch.where(p > 0, normalized * p, torch.zeros_like(p)), dim=-1,
+                     keepdim=True)
+    shifted = torch.abs(-normalized - ent)
+    order = torch.argsort(shifted, dim=-1, stable=True)  # ascending
+    sorted_shifted = torch.gather(shifted, -1, order)
+    sorted_logits = torch.gather(scores, -1, order)
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    # every cum < mass (mass >= 1) leaves JAX's index past the end, which its
+    # gather fills with NaN and removes nothing; the last index removes
+    # nothing too
+    last_ind = torch.sum(cum < mass, dim=-1, keepdim=True).clamp(max=scores.shape[-1] - 1)
+    cutoff = torch.gather(sorted_shifted, -1, last_ind)
+    remove_sorted = sorted_shifted > cutoff
+    if min_tokens_to_keep > 1:
+        remove_sorted[..., :min_tokens_to_keep] = False
+    remove = torch.empty_like(remove_sorted).scatter_(-1, order, remove_sorted)
+    return torch.where(remove, torch.full_like(scores, NEG_INF), scores)
 
 
 def warp_top_k_top_p(logits, temperature, top_p, top_k: int, min_tokens_to_keep: int = 1
@@ -184,12 +227,13 @@ class _LoopState:
     (`graphs`: the CUDA graph and each step counter's launches in it). A
     float cache holds the model's compute dtype (`dtype`, that of its
     projections, as the JAX decoder's cache takes theirs); the logits are
-    float32 either way."""
+    float32 either way. The caches hold `heads` heads (the model's: a
+    tensor-parallel model's local heads)."""
 
-    def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device,
-                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
-        L, H, V = cfg.layers, cfg.heads, cfg.number_mel_codes
-        kv = (L, batch, H, cap, cfg.model_dim // H)
+    def __init__(self, cfg: GPTConfig, heads: int, batch: int, cap: int, kv_int8: bool,
+                 device, generator: torch.Generator, dtype: torch.dtype = torch.float32):
+        L, H, V = cfg.layers, heads, cfg.number_mel_codes
+        kv = (L, batch, H, cap, cfg.head_dim)
         if kv_int8:
             self.caches = tuple(torch.zeros(kv, dtype=torch.int8, device=device)
                                 for _ in range(2)) + tuple(
@@ -218,9 +262,9 @@ class DecodeState(_LoopState):
     """One request's decode of B rows in step: every row's last code sits
     at the same index `step` and its next key at slot S + step."""
 
-    def __init__(self, cfg: GPTConfig, batch: int, cap: int, kv_int8: bool, device,
-                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
-        super().__init__(cfg, batch, cap, kv_int8, device, generator, dtype)
+    def __init__(self, cfg: GPTConfig, heads: int, batch: int, cap: int, kv_int8: bool,
+                 device, generator: torch.Generator, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, heads, batch, cap, kv_int8, device, generator, dtype)
         zeros = functools.partial(torch.zeros, device=device, dtype=torch.long)
         self.tok = zeros(batch)  # the last code picked
         self.step = zeros(1)  # index of the last code picked
@@ -236,9 +280,9 @@ class BeamState(DecodeState):
     entries: normalized scores, codes, lengths); `finished`, HF's is_done
     on every row; and the length penalty."""
 
-    def __init__(self, cfg: GPTConfig, nb: int, cap: int, kv_int8: bool, device,
-                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
-        super().__init__(cfg, nb, cap, kv_int8, device, generator, dtype)
+    def __init__(self, cfg: GPTConfig, heads: int, nb: int, cap: int, kv_int8: bool,
+                 device, generator: torch.Generator, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, heads, nb, cap, kv_int8, device, generator, dtype)
         zeros = functools.partial(torch.zeros, device=device)
         self.beam_scores = zeros(nb)
         self.fin_scores = zeros(nb)
@@ -257,9 +301,10 @@ class SlotState(_LoopState):
     prompt of S and S + max_new keys; the last slot of an idle row's cache
     and its last code column take the writes of its idle steps."""
 
-    def __init__(self, cfg: GPTConfig, n_slots: int, cap: int, max_new: int, kv_int8: bool,
-                 device, generator: torch.Generator, dtype: torch.dtype = torch.float32):
-        super().__init__(cfg, n_slots, cap, kv_int8, device, generator, dtype)
+    def __init__(self, cfg: GPTConfig, heads: int, n_slots: int, cap: int, max_new: int,
+                 kv_int8: bool, device, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, heads, n_slots, cap, kv_int8, device, generator, dtype)
         self.max_new = max_new
         zeros = functools.partial(torch.zeros, n_slots, device=device)
         self.pos = zeros(dtype=torch.long)
@@ -291,7 +336,12 @@ class GPTDecoder:
     States are keyed on (B, cap): the route (float, W8 or W4 blocks, a
     float or int8 cache) is the decoder's own, one decoder per model. A
     lock makes one request at a time own them: prefill, steps and
-    readout."""
+    readout.
+
+    A model that parallel/tp.py `tensor_parallel` cut over a mesh's model
+    axis (`model.mesh`) decodes with its local heads in the caches, every
+    rank of a model group picking the same code from the gathered logits;
+    its steps run eagerly, their collectives outside any capture."""
 
     def __init__(self, model: UnifiedVoice, cfg: GPTConfig,
                  sampling: SamplingConfig = SamplingConfig(), kv_int8: bool = False,
@@ -306,6 +356,8 @@ class GPTDecoder:
         self.beam_kv_int8 = kv_int8 and attn_impl != "pallas_q8"
         self.attn_impl = attn_impl
         self.device = model.mel_embedding.weight.device
+        self.mesh = getattr(model, "mesh", None)
+        self.heads = model.gpt.h[0].attn.n_head
         self.generator = torch.Generator(device=self.device)
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._states: "OrderedDict[tuple, DecodeState]" = OrderedDict()
@@ -395,7 +447,7 @@ class GPTDecoder:
             if len(self._states) >= MAX_STATES:
                 self._states.popitem(last=False)
             st = self._states[key] = (BeamState if beam else DecodeState)(
-                self.cfg, batch, cap, self.beam_kv_int8 if beam else self.kv_int8,
+                self.cfg, self.heads, batch, cap, self.beam_kv_int8 if beam else self.kv_int8,
                 self.device, self.generator, self.model.gpt.dtype)
         self._states.move_to_end(key)
         return st
@@ -482,24 +534,49 @@ class GPTDecoder:
         st.hole_e.copy_(hole_e)
         return st
 
+    def _fake_prompt_penalty(self, penal_mask: torch.Tensor):
+        """A fresh penalty set, (rows, V) or one row (V,): empty, or the HF
+        fake-prompt tokens {1, start_mel} where the sampling config penalizes
+        them (JAX decode.py:443-445, batcher.py:178-179)."""
+        penal_mask.zero_()
+        s = self.sampling
+        if s.use_repetition_penalty and s.hf_fake_prompt_penalty:
+            penal_mask[..., 1] = True
+            penal_mask[..., self.cfg.start_mel_token] = True
+
     def _reset(self, st: DecodeState, temperature: float, top_p: float, penalty: float):
         """A request's loop state before its first pick: no codes (all stop),
-        nothing finished, the HF fake-prompt tokens {1, start_mel} in the
-        penalty set, step 0, and its sampling scalars."""
+        nothing finished, the fake-prompt penalty set, step 0, and its
+        sampling scalars."""
         st.codes.fill_(self.cfg.stop_mel_token)
         st.finished.zero_()
-        st.penal_mask.zero_()
-        st.penal_mask[:, 1] = True
-        st.penal_mask[:, self.cfg.start_mel_token] = True
+        self._fake_prompt_penalty(st.penal_mask)
         st.step.zero_()
         st.temperature.fill_(temperature)
         st.top_p.fill_(top_p)
         st.penalty.fill_(penalty)
 
+    def _processed(self, st: _LoopState) -> torch.Tensor:
+        """The logits as the JAX loop hands them to its warpers or argmax
+        (indextts_tpu/runtime/decode.py:457-467): the repetition penalty with
+        use_repetition_penalty, then the typical filter with
+        use_typical_sampling, then the stop token banned with
+        ban_stop_token."""
+        s = self.sampling
+        lg = st.logits
+        if s.use_repetition_penalty:
+            lg = repetition_penalty(lg, st.penal_mask, st.penalty)
+        if s.use_typical_sampling:
+            lg = typical_filter(lg, s.typical_mass)
+        if s.ban_stop_token:
+            lg = lg.clone()  # never the state's logits
+            lg[:, self.cfg.stop_mel_token] = NEG_INF
+        return lg
+
     def _choose(self, st: _LoopState, do_sample: bool) -> torch.Tensor:
-        """Each row's next code from its penalized logits: a draw from the
-        state's generator, or the argmax."""
-        lg = repetition_penalty(st.logits, st.penal_mask, st.penalty)
+        """Each row's next code from its processed logits (`_processed`): a
+        draw from the state's generator, or the argmax."""
+        lg = self._processed(st)
         if do_sample:
             return sample_top_k_top_p(lg, st.generator, st.temperature, st.top_p,
                                       self.sampling.top_k)
@@ -558,6 +635,9 @@ class GPTDecoder:
         stop once every row has finished, checked on the host every
         FINISH_CHECK_EVERY steps."""
         capture = not eager and self._stream is not None
+        if capture and self.mesh is not None:
+            raise ValueError("a tensor-parallel decoder steps eagerly (its collectives are "
+                             "not captured): pass eager=True")
         graph, rise = st.graphs.get(do_sample, (None, None)) if capture else (None, None)
         replays = 0
         for r in range(n):
@@ -642,7 +722,8 @@ class GPTDecoder:
         """One step of beam search, the unit a CUDA graph captures: the body
         of the JAX loop (indextts_tpu/runtime/decode.py:663-757) after its
         condition, HF's is_done (`:761-773`), computed here on the card.
-        log_softmax; the repetition penalty; with do_sample the warpers a
+        log_softmax; the repetition penalty and the stop ban as the sampling
+        config says (no typical filter, as in JAX); with do_sample the warpers a
         beam (temperature, top-k, top-p, two tokens kept); each beam's
         score added; 2 nb candidates, the top ones or, with do_sample, 2 nb
         draws without replacement sorted by their score; the eos candidates
@@ -661,8 +742,12 @@ class GPTDecoder:
         worst = st.fin_scores[nb - 1]
         done = st.finished[0] | ((worst > NEG_INF) & (worst >= st.beam_scores.max() / norm[0]))
 
-        logp = repetition_penalty(torch.log_softmax(st.logits.float(), dim=-1),
-                                  st.penal_mask, st.penalty)
+        s = self.sampling
+        logp = torch.log_softmax(st.logits.float(), dim=-1)
+        if s.use_repetition_penalty:
+            logp = repetition_penalty(logp, st.penal_mask, st.penalty)
+        if s.ban_stop_token:
+            logp[:, cfg.stop_mel_token] = NEG_INF
         if do_sample:
             vals, idx = warp_top_k_top_p(logp, st.temperature, st.top_p, self.sampling.top_k,
                                          min_tokens_to_keep=2)
@@ -773,8 +858,8 @@ class GPTDecoder:
         """A SlotState on the decoder's device, with its sampling scalars
         and its own generator seeded once with `seed`."""
         with self.on_stream():
-            st = SlotState(self.cfg, n_slots, cap, max_new, self.kv_int8, self.device,
-                           torch.Generator(device=self.device).manual_seed(seed),
+            st = SlotState(self.cfg, self.heads, n_slots, cap, max_new, self.kv_int8,
+                           self.device, torch.Generator(device=self.device).manual_seed(seed),
                            self.model.gpt.dtype)
             st.temperature.fill_(temperature)
             st.top_p.fill_(top_p)
@@ -786,7 +871,7 @@ class GPTDecoder:
         """Prefill one request (B=1) into row `slot`: its KV into the row's
         slots [0, S), quantized on insert with `kv_int8`; its last logits;
         pos S, no codes (all stop), not finished, active; its prompt hole;
-        the HF fake-prompt tokens {1, start_mel} as its penalty set. Runs on
+        the fake-prompt penalty set (`_fake_prompt_penalty`). Runs on
         the current stream, the host reading nothing."""
         logits, prompt_kv, prompt_mask = self._prompt_prefill(
             conds_latent, text_ids, text_pos, text_valid)
@@ -804,14 +889,12 @@ class GPTDecoder:
         st.gen_count[slot].fill_(0)
         st.finished[slot].fill_(False)
         st.active[slot].fill_(True)
-        st.penal_mask[slot].zero_()
-        st.penal_mask[slot, 1] = True
-        st.penal_mask[slot, self.cfg.start_mel_token] = True
+        self._fake_prompt_penalty(st.penal_mask[slot])
         st.codes[slot].fill_(self.cfg.stop_mel_token)
 
     def slot_step(self, st: SlotState, do_sample: bool):
         """One step of every row, as the body of JAX `_step_chunk`: pick
-        from the penalized logits; an idle row (finished or inactive) takes
+        from the processed logits (`_processed`); an idle row (finished or inactive) takes
         stop and writes no code; codes go at gen_count; a row finishes on
         stop or at max_new codes; the penalty scatter; the code's embedding
         at mel position gen_count + 2 (the count before this code); the

@@ -51,15 +51,20 @@ def adamw(params: Iterable[torch.nn.Parameter], lr: float) -> torch.optim.AdamW:
 
 
 def _descend(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-             loss_fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+             loss_fn: Callable[[], torch.Tensor],
+             grad_sync: Optional[Callable[[torch.nn.Module], None]] = None) -> torch.Tensor:
     """One optimizer step on loss_fn()'s gradients; every parameter has a
-    gradient, zero where the loss does not reach it (optax's decay)."""
+    gradient, zero where the loss does not reach it (optax's decay).
+    `grad_sync(model)` runs between the backward pass and the step (the
+    data axis's gradient average, parallel/data.py)."""
     optimizer.zero_grad(set_to_none=False)
     loss = loss_fn()
     loss.backward()
     for p in model.parameters():
         if p.requires_grad and p.grad is None:
             p.grad = torch.zeros_like(p)
+    if grad_sync is not None:
+        grad_sync(model)
     optimizer.step()
     return loss.detach()
 
@@ -80,15 +85,16 @@ def mel_text_loss(model: UnifiedVoice, spk_latents, text_ids, text_lens, mel_cod
     return 0.01 * lt + lm
 
 
-def make_train_step(model: UnifiedVoice, optimizer: torch.optim.Optimizer):
+def make_train_step(model: UnifiedVoice, optimizer: torch.optim.Optimizer,
+                    grad_sync: Optional[Callable[[torch.nn.Module], None]] = None):
     """step(batch) -> loss: one AdamW step of `mel_text_loss` on batch
     {"spk_latents", "text_ids", "text_lens", "mel_codes", "mel_lens",
-    "emovec"}."""
+    "emovec"}; `grad_sync` as `_descend`'s."""
 
     def step(batch: Batch) -> torch.Tensor:
         return _descend(model, optimizer, lambda: mel_text_loss(
             model, batch["spk_latents"], batch["text_ids"], batch["text_lens"],
-            batch["mel_codes"], batch["mel_lens"], batch["emovec"]))
+            batch["mel_codes"], batch["mel_lens"], batch["emovec"]), grad_sync)
 
     return step
 
@@ -145,11 +151,13 @@ def cfm_noise(batch: Batch, generator: torch.Generator, class_dropout_prob: floa
 
 def make_cfm_train_step(model: S2Mel, optimizer: torch.optim.Optimizer,
                         class_dropout_prob: float = 0.1, sigma_min: float = 1e-6,
-                        loss_type: str = "l2", zero_prompt_speech_token: bool = False):
+                        loss_type: str = "l2", zero_prompt_speech_token: bool = False,
+                        grad_sync: Optional[Callable[[torch.nn.Module], None]] = None):
     """step(batch, generator=None, noise=None) -> loss: one AdamW step of
     `cfm_loss` on batch {"x1", "x_lens", "prompt_lens", "mu", "style"},
     with per-sample CFG dropout at `class_dropout_prob`. `noise` is (t, z,
-    drop); without it they are drawn from `generator` (`cfm_noise`)."""
+    drop); without it they are drawn from `generator` (`cfm_noise`).
+    `grad_sync` as `_descend`'s."""
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None,
              noise=None) -> torch.Tensor:
@@ -161,7 +169,7 @@ def make_cfm_train_step(model: S2Mel, optimizer: torch.optim.Optimizer,
         return _descend(model, optimizer, lambda: cfm_loss(
             model, batch["x1"], batch["x_lens"], batch["prompt_lens"], batch["mu"],
             batch["style"], t, z, drop, sigma_min=sigma_min, loss_type=loss_type,
-            zero_prompt_speech_token=zero_prompt_speech_token)[0])
+            zero_prompt_speech_token=zero_prompt_speech_token)[0], grad_sync)
 
     return step
 

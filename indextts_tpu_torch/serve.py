@@ -310,6 +310,11 @@ def build(argv=None, cfg=None, engine=None):
                         "beam-multinomial route. Continuous batching samples "
                         "whatever this says.")
     args = p.parse_args(argv)
+    # multi-process jobs: torch.distributed before any device use, as the
+    # JAX server initializes jax.distributed; a strict no-op for one process
+    from indextts_tpu_torch.parallel.multihost import maybe_initialize_distributed
+
+    maybe_initialize_distributed(args.device)
     from indextts_tpu_torch.runtime.server import ServerSettings, TTSServer
     from indextts_tpu_torch.utils.obs import print_stage, setup_logging
 
