@@ -357,9 +357,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    timed against one without, in turns.
 12. `parallel_phase` (parallel/), after `train_phase`, at full width from
    PARALLEL_SEED: (a) NCCL at a world of 1, the GPT cut over
-   make_mesh(1, 1) gives the one-process float decode's 64 codes and last
+   make_mesh(1, 1) gives the one-process float decode's 32 codes and last
    logits bit for bit; (b) two processes on the one card over gloo
-   (`parallel_worker`), make_mesh(1, 2): TP greedy decode of 64 codes
+   (`parallel_worker`), make_mesh(1, 2): TP greedy decode of 32 codes
    (stop banned) on the float and the W8 GPT token-exact with the
    one-process runs, 10 of 20 heads a rank; the TP DiT velocity (4 of 8
    heads) within 1e-4 of the largest value of the one-process one; K1 and
@@ -370,6 +370,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    1e-5). Each prints its time and its collectives' share, with the card's
    name and power limit: two ranks share one card, so no scaling is
    measured.
+13. `tools_phase` (indextts_tpu_torch/tools/), after the three routes, on
+   `reference_dir`'s directory: verify_checkpoint --synth (every component
+   ok, finite audio); precompute's .npz loaded back gives the fresh
+   speaker's codes and waveform bit for bit; build_dataset, 3 utterances
+   on 2 threads (--deterministic), then a resume that launches no kernel;
+   synthesize_clips synth --batched of 2 phrase-bank clips. The last three
+   share one engine. Each tool's seconds printed.
+14. `tp_train_phase` (training over the model axis), after
+   `parallel_phase`, at full width: two processes on the one card over
+   gloo, make_mesh(1, 2) (`tp_train_worker`). One CFM step at the main
+   path's solve (8 rows, T=898; DiT at 4 of 8 heads a rank: K3 with its
+   statistics, K9 and K10 13 launches each a rank, counted) and one GPT
+   step (TP_GPT_ROWS rows; 10 of 20 heads; no kernel), each held to the
+   one-process step on the card (TF32 off): loss within 1e-5 relative,
+   the gathered gradient within 1e-4 of each leaf's largest |value|; each
+   step's ms and its collectives' share printed; K3, K9 and K10 at the
+   local heads against their plain versions. Then finetune.py
+   --model-parallel 2 writes a checkpoint, which this process resumes at
+   --model-parallel 1. Two ranks share one card: no scaling is measured.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -416,7 +435,7 @@ MAX_MEL_TOKENS = 300
 LIBRARY_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 L2_CYCLE_BYTES = 100_000_000  # twice the H100's 50 MB L2
 N_REQUESTS = 2
-DECODE_ROUNDS = 2  # captured against eager decode, in turns
+DECODE_ROUNDS = 1  # captured against eager decode, in turns
 DECODE_SEED = 7
 S2MEL_ROUNDS = 2  # the s2mel stage captured against eager, in turns
 TAIL_ROUNDS = 2  # the latent pass and the vocoder captured against eager, in turns
@@ -428,7 +447,7 @@ STREAM_TEXT = ("The port streams this answer in pieces, so that the first words 
                "while the rest is still being made on the card; each piece is one "
                "segment, decoded, then its tail: latent pass, CFM solve and vocoder.")
 STREAM_QUICK = 40
-STREAM_ROUNDS = 2  # overlap on / off (and keyed / unkeyed), in turns
+STREAM_ROUNDS = 1  # overlap on / off (and keyed / unkeyed), in turns
 # the keyed prefill against the monolithic one (logits and KV of [0, S),
 # relative to the largest |value|): float32 summed in another order, and
 # on W8/W4 one int8 step of an activation row that the noise may flip
@@ -449,17 +468,17 @@ QWEN_SMALL_TOKENS = 24
 # to the largest |logit|
 QWEN_LOGIT_TOL = 1e-4
 QWEN_MAX_NEW = 256  # QwenEmoConfig.max_new_tokens
-QWEN_ROUNDS = 2  # captured against eager decode, in turns
+QWEN_ROUNDS = 1  # captured against eager decode, in turns
 QWEN_EAGER_NEW = 64  # tokens of an eager decode (a captured one runs QWEN_MAX_NEW)
 QWEN_EOS = 151645  # Qwen3's <|im_end|>
 TEXT_HEAD_SEED = 17  # the checkpoint's text_head, which the loader reads and drops
 BEAMS = 3  # the beam phase's beams: the config's default num_beams
-BEAM_ROUNDS = 2  # captured against eager beam search, in turns
+BEAM_ROUNDS = 1  # captured against eager beam search, in turns
 BEAM_SEED = 19
-BATCH_ROUNDS = 2  # the batched request against its segments one after another, in turns
+BATCH_ROUNDS = 1  # the batched request against its segments one after another, in turns
 BATCH_SEED = 23
 BATCH_CODES = 512  # the envelope the float route's precompile is measured at
-BF16_ROUNDS = 2  # each bf16 route against its float32 counterpart, in turns
+BF16_ROUNDS = 1  # each bf16 route against its float32 counterpart, in turns
 BF16_SEED = 31  # the turns' requests; the tail comparison's CFM noise
 TRAIN_SEED = 37  # train_phase's weights, batches and CFM noise
 TRAIN_STEPS = 10  # train_phase's optimizer steps a target
@@ -469,11 +488,11 @@ TRAIN_STEPS = 10  # train_phase's optimizer steps a target
 PREFIX_TEXT = "The port keeps the start of this sentence for the next request that shares "
 PREFIX_TAILS = ("it with this one.", "its first words, which need no prefill.")
 PREFIX_SEED = 41
-PREFIX_ROUNDS = 3
+PREFIX_ROUNDS = 2
 PREFIX_ITERS = 10
 # end-to-end rounds of the prefix phase: a request without reuse, on a
 # miss and on a hit, in turns
-PREFIX_E2E_ROUNDS = 4
+PREFIX_E2E_ROUNDS = 2
 # rounds in turns of the native DSP phase's host timings
 NATIVE_ROUNDS = 6
 SAMPLING_SEED = 47
@@ -482,9 +501,14 @@ SAMPLING_CHECK_NEW = 128  # codes of each knob's captured and eager greedy decod
 SAMPLING_KNOBS = ({"use_repetition_penalty": False}, {"hf_fake_prompt_penalty": False},
                   {"use_typical_sampling": True}, {"ban_stop_token": True})
 PARALLEL_SEED = 53  # parallel_phase's weights, prompt and batch
-PARALLEL_NEW = 64  # codes of parallel_phase's decodes
+PARALLEL_NEW = 32  # codes of parallel_phase's decodes
 PARALLEL_TIMEOUT = 600  # seconds a parallel_phase worker process may take
 CFM_DP_ROWS = 4  # the data-parallel CFM step's global batch
+TP_TRAIN_SEED = 59  # tp_train_phase's weights, batches and CFM noise
+TP_GPT_ROWS = 4  # the rows of tp_train_phase's GPT step
+# tp_train_phase's finetune run: one CFM step on synthetic batches of 2
+TP_FINETUNE = ["--target", "cfm", "--synthetic", "2", "--steps", "1", "--log-every", "1"]
+TOOLS_SEED = 61  # tools_phase's segment seed
 P_COND = 34  # the GPT's conditioning positions
 # the dilation phase: resblocks of differing dilations, the weights' seed
 DILATIONS = ((1, 3, 5), (1, 2, 4), (2, 3, 6))
@@ -5895,28 +5919,35 @@ def parallel_phase(card: str) -> None:
         path = os.path.join(tmp, "reference.pt")
         torch.save(ref, path)
         del ref
-        coord = f"127.0.0.1:{free_port()}"
-        here = os.path.dirname(os.path.abspath(__file__))
-        procs = [subprocess.Popen(
-            [sys.executable, "-c",
-             "import sys, chip_smoke; chip_smoke.parallel_worker(*sys.argv[1:])",
-             path, coord, str(r)], cwd=here, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            for line in log.splitlines():
-                print(f"[parallel rank {r}] {line}")
-            if p.returncode != 0 or "PARALLEL_WORKER_OK" not in log:
-                fail(f"parallel: worker {r} failed (exit {p.returncode})")
+        run_workers("parallel_worker", [path], "parallel")
     print(f"[parallel] parallel_phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def run_workers(func: str, args, label: str) -> None:
+    """Two processes on the one card, each `chip_smoke.<func>(*args,
+    coordinator, rank)` under PARALLEL_TIMEOUT; their output printed under
+    `label`; fails unless both exit 0 having printed PARALLEL_WORKER_OK. A
+    process still running at the end is killed."""
+    coord = f"127.0.0.1:{free_port()}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{func}(*sys.argv[1:])",
+         *args, coord, str(r)], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            print(f"[{label} rank {r}] {line}")
+        if p.returncode != 0 or "PARALLEL_WORKER_OK" not in log:
+            fail(f"{label}: worker {r} failed (exit {p.returncode})")
 
 
 def record_gradients(model, opt) -> list:
@@ -6085,6 +6116,310 @@ def parallel_worker(path: str, coord: str, rank: str) -> None:
     print("PARALLEL_WORKER_OK", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase tp_train_phase: training over the model axis, two ranks on the card
+# ---------------------------------------------------------------------------
+
+
+def tp_train_phase(shapes, card: str) -> None:
+    """Phase `tp_train_phase` (parallel/ f and g, train_model(mesh=),
+    finetune.py --model-parallel), at full width (DiT 13L x 512, 4 of 8
+    heads a rank; GPT 24L x 1280, 10 of 20): two processes on the one card
+    over gloo (`tp_train_worker`), then, in this process, a resume at
+    --model-parallel 1 of the checkpoint they wrote at 2. Two ranks share
+    one card: the times measure no scaling."""
+    from indextts_tpu_torch import finetune
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_workers("tp_train_worker", [tmp], "tp_train")
+        out = finetune.main(TP_FINETUNE + ["--out-dir", tmp])
+        print(f"[tp_train] the --model-parallel 2 checkpoint resumed at 1: {json.dumps(out)}")
+        if (out["from_step"], out["final_step"], out["mesh"]) != (
+                1, 2, {"data": 1, "model": 1}) or not math.isfinite(out["loss_last"]):
+            fail(f"[tp_train] the resume at --model-parallel 1: {out}")
+    print(f"[tp_train] tp_train_phase done in {time.perf_counter() - t0:.1f} s; {card}")
+
+
+def tp_train_worker(tmp: str, coord: str, rank: str) -> None:
+    """One of tp_train_phase's two processes, over gloo, make_mesh(1, 2).
+    For each target, rank 0 first takes the one-process step on the card
+    (TF32 off): the CFM at the main path's solve (`train_batches`: 8 rows
+    of T=898, CFM noise from TP_TRAIN_SEED), the GPT at TP_GPT_ROWS of its
+    rows; then both ranks take the same step with the model cut
+    (train_model(mesh=)) through finetune.data_parallel_step, every kernel
+    count set to 0 just before and read after: the CFM step runs K3 with
+    its statistics, K9 and K10 13 times each at 4 heads, the GPT step no
+    kernel. The loss within 1e-5 relative of the one-process step's; the
+    gradient AdamW was given, gathered to the full layout (tp.py
+    full_state), within 1e-4 of the largest |value| of each leaf of the
+    one-process step's gradient. Each step's ms and its collectives' share
+    (`TimedCollectives`) printed. Rank 0 also holds K3 (with statistics), K9
+    and K10 at the local heads to their plain versions (the main case of
+    `k9_k10_cases`, 2e-5). A second step of each, past the first's
+    set-up, is timed too (and the one-process one on rank 0). Then
+    finetune.main --model-parallel 2 (the CFM, TP_FINETUNE's one step)
+    writes its checkpoint under `tmp`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from indextts_tpu_torch import finetune
+    from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.ops import dit_attention as k3
+    from indextts_tpu_torch.parallel.sharding import make_mesh
+    from indextts_tpu_torch.parallel.tp import full_state
+    from indextts_tpu_torch.runtime import train as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{coord}", world_size=2, rank=int(rank),
+                            timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT))
+    cfg = load_config()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    note = f"two ranks sharing one card, which measures no scaling; {card}"
+    mesh = make_mesh(1, 2)
+    lead = mesh.rank == 0
+    shapes = main_path_shapes(cfg, MAX_MEL_TOKENS)
+    g = torch.Generator(device="cuda").manual_seed(TP_TRAIN_SEED)
+    gpt_batch, cfm_batch = train_batches(cfg, shapes, g)
+    gpt_batch = {k: v[:TP_GPT_ROWS] for k, v in gpt_batch.items()}
+    noise = T.cfm_noise(cfm_batch, g)
+    depth = cfg.s2mel.dit.depth
+    counters = kernel_counters()
+
+    def agree(ok: bool, what: str) -> None:
+        """Both ranks fail together when rank 0's check fails."""
+        bad = torch.tensor([0 if ok else 1])
+        dist.all_reduce(bad)
+        if int(bad):
+            fail(f"[tp_train] {what}")
+
+    for target, batch in (("cfm", cfm_batch), ("gpt", gpt_batch)):
+        rows = batch["x1" if target == "cfm" else "text_ids"].shape[0]
+        ref = None
+        if lead:
+            model = T.train_model(cfg, target, "cuda", seed=TP_TRAIN_SEED)
+            opt = T.adamw(model.parameters(), 1e-4)
+            grads = record_gradients(model, opt)
+            step = (T.make_cfm_train_step(model, opt) if target == "cfm"
+                    else T.make_train_step(model, opt))
+            ref_ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                loss = float(step(batch, noise=noise) if target == "cfm" else step(batch))
+                ref_ms.append((time.perf_counter() - t1) * 1e3)
+                if len(ref_ms) == 1:
+                    ref = (loss, {k: v.cpu() for k, v in grads[0].items()})
+            del model, opt, grads, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        model = T.train_model(cfg, target, "cuda", seed=TP_TRAIN_SEED, mesh=mesh)
+        opt = T.adamw(model.parameters(), 1e-4)
+        step = finetune.data_parallel_step(target, model, opt, mesh)
+        for cnt in counters.values():
+            cnt.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with TimedCollectives() as timer:
+            loss = float(step(batch, noise=noise))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {name: cnt.launches for name, cnt in counters.items()}
+        # the gradient AdamW was given (it stays until the next zero_grad)
+        got = full_state(model, {k: p.grad for k, p in model.named_parameters()})
+        heads = (model.cfm.estimator.transformer.layers[0].attention.h if target == "cfm"
+                 else model.gpt.h[0].attn.n_head)
+        want = {name: depth if target == "cfm" and name.startswith(("K3 ", "K9 ", "K10 "))
+                else 0 for name in counters}
+        print(f"({target}) TP step, make_mesh(1, 2), {heads} heads a rank, {rows} rows: "
+              f"{wall * 1e3:.1f} ms, its collectives synchronized and timed "
+              f"{timer.seconds * 1e3:.1f} ms ({100 * timer.seconds / wall:.1f} %); launches "
+              f"{json.dumps({k: n for k, n in launches.items() if n})}; {note}")
+        ok = launches == want
+        if lead:
+            ref_loss, ref_grads = ref
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            worst = max(((got[k].cpu() - w).abs().max().item() / max(w.abs().max().item(), 1e-30),
+                         k) for k, w in ref_grads.items())
+            print(f"({target}) loss {loss:.6f} against the one-process step's {ref_loss:.6f} "
+                  f"(rel {rel:.3g}, tol 1e-5; that step {ref_ms[0]:.1f} ms, the first of its "
+                  f"process, a second {ref_ms[1]:.1f} ms); the gathered gradient against the "
+                  f"one-process step's, the worst "
+                  f"leaf {worst[1]} {worst[0]:.3g} of its largest |value| (tol 1e-4); "
+                  f"launches {'as' if ok else 'NOT as'} expected ({json.dumps(want)})")
+            ok = ok and rel <= 1e-5 and worst[0] <= 1e-4 and set(got) == set(ref_grads)
+        agree(ok, f"the {target} step over the model axis differs from the one-process step")
+        # a second step, past the first's set-up of the kernels and the
+        # ranks' connections
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with TimedCollectives() as timer:
+            loss = float(step(batch, noise=noise))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        print(f"({target}) a second TP step: {wall * 1e3:.1f} ms, its collectives "
+              f"{timer.seconds * 1e3:.1f} ms ({100 * timer.seconds / wall:.1f} %), loss "
+              f"{loss:.6f}; {note}")
+        agree(math.isfinite(loss), f"the {target} second step's loss {loss}")
+        del model, opt, step, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    ok = True
+    if lead:
+        heads = cfg.s2mel.dit.num_heads // 2
+        name, t, rows = k9_k10_cases(shapes, shapes)[0]
+        q, k, v, mask, lens, out, stats, dout = k9_k10_inputs(g, name, t, rows, heads)
+        errs = {"K3 (stats)": (out - k3.dit_attention_plain(q, k, v, mask)).abs().max().item()}
+        got = k3.dit_attention_bwd(q, k, v, mask, out, stats, dout)
+        want = k3.dit_attention_bwd_plain(q, k, v, mask, dout)
+        for label, a, b in (("K10 dq", got[0], want[0]), ("K9 dk", got[1], want[1]),
+                            ("K9 dv", got[2], want[2])):
+            errs[label] = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        print(f"K3 (stats), K9 and K10 at the local heads (B={len(rows)}, H={heads}, T={t}, "
+              f"valid {lens}): errors against the plain versions "
+              + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items()) + " (tol 2e-5)")
+        ok = all(e <= 2e-5 for e in errs.values())
+    agree(ok, "K3, K9 or K10 at the local heads disagree with the plain versions")
+
+    out = finetune.main(TP_FINETUNE + ["--out-dir", tmp, "--model-parallel", "2"])
+    print(f"finetune --model-parallel 2: {json.dumps(out)}")
+    agree(out["mesh"] == {"data": 1, "model": 2} and math.isfinite(out["loss_last"]),
+          f"finetune --model-parallel 2: {out}")
+    dist.destroy_process_group()
+    print("PARALLEL_WORKER_OK", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase tools_phase: the offline tools on the checkpoint directory
+# ---------------------------------------------------------------------------
+
+
+def tools_phase(model_dir: str, wav_path: str, tmp: str, card: str) -> None:
+    """Phase `tools_phase` (indextts_tpu_torch/tools/) on `reference_dir`'s
+    full-width directory, each tool through its main(argv) on the card:
+    verify_checkpoint --synth (its own engine) reports ok with finite audio;
+    then precompute, build_dataset and synthesize_clips share one engine,
+    as one process would hold it (the loader's load_engine kept for the
+    directory while the phase runs). A segment from the loaded .npz gives
+    the fresh speaker's codes and waveform, bit for bit; build_dataset
+    synthesizes 3 utterances on 2 threads (--deterministic), then a resume
+    synthesizes nothing (no kernel launched); synth --batched writes 2
+    clips of the phrase bank. Each tool's seconds printed."""
+    import torch
+
+    from indextts_tpu_torch.frontend.tokenizer import byte_fallback_ids
+    from indextts_tpu_torch.runtime import loader
+    from indextts_tpu_torch.runtime.engine import EmotionConditioning
+    from indextts_tpu_torch.tools import (
+        build_dataset,
+        synthesize_clips,
+        verify_checkpoint,
+        voice_conditioning,
+    )
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d)
+    report_path = os.path.join(d, "verify.json")
+    rc = verify_checkpoint.main(["--model-dir", model_dir, "--synth", "--spk-audio", wav_path,
+                                 "--output", report_path])
+    report = json.loads(Path(report_path).read_text())
+    statuses = {k: c["status"] for k, c in report["components"].items()}
+    t1 = time.perf_counter()
+    print(f"[tools] verify_checkpoint --synth: exit {rc}, ok {report['ok']}, components "
+          f"{json.dumps(statuses)}, synth {json.dumps(report['synth'])}; {t1 - t0:.1f} s")
+    if rc or not report["ok"] or set(statuses.values()) != {"ok"} \
+            or not report["synth"]["finite"] or report["synth"]["audio_s"] <= 0:
+        fail(f"[tools] verify_checkpoint: {report}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engines, real = {}, loader.load_engine
+
+    def shared(path, *args, **kwargs):
+        if path not in engines:
+            engines[path] = real(path, *args, **kwargs)
+        return engines[path]
+
+    loader.load_engine = shared
+    try:
+        npz = os.path.join(d, "speaker.npz")
+        if voice_conditioning.main(["precompute", "--audio", wav_path, "--output", npz,
+                                    "--model-dir", model_dir]):
+            fail("[tools] precompute failed")
+        engine = engines[model_dir]
+        ids = byte_fallback_ids(request_text(0), engine.cfg.gpt.number_text_tokens)
+        results = []
+        for spk in (voice_conditioning.load_precomputed_speaker(npz, "cuda"),
+                    engine.prepare_speaker(*audio_utils.load_wav(wav_path))):
+            # synthesize_segment's two halves, so that the codes are seen
+            emovec, codes, t_gen = engine._decode_segment_codes(
+                spk, EmotionConditioning(spk.spk_cond_emb, spk.cond_len), ids, seed=TOOLS_SEED)
+            res = engine._finish_from_codes(spk, emovec, ids, codes, TOOLS_SEED, t_gen)
+            results.append((codes, res.wav))
+        same = (np.array_equal(results[0][0], results[1][0])
+                and np.array_equal(results[0][1], results[1][1]))
+        t2 = time.perf_counter()
+        print(f"[tools] precompute: {npz} ({os.path.getsize(npz) / 1e6:.2f} MB); a segment from "
+              f"the loaded bundle ({results[0][0].shape[-1]} codes, {results[0][1].size} "
+              f"samples) equals the fresh speaker's, codes and waveform: {same}; {t2 - t1:.1f} s")
+        if not same:
+            fail("[tools] the precomputed speaker's segment differs from the fresh one's")
+
+        corpus = os.path.join(d, "corpus.jsonl")
+        Path(corpus).write_text("".join(json.dumps({"id": f"u{i}", "text": request_text(i)})
+                                        + "\n" for i in range(3)))
+        out = os.path.join(d, "dataset")
+        argv = ["--input", corpus, "--out-dir", out, "--workers", "2", "--deterministic",
+                "--model-dir", model_dir, "--spk-audio", wav_path]
+        build_dataset.main(argv)
+        rows = [json.loads(line) for line in open(os.path.join(out, "manifest.jsonl"))]
+        t3 = time.perf_counter()
+        counters = kernel_counters()
+        for cnt in counters.values():
+            cnt.launches = 0
+        build_dataset.main(argv)
+        again = [json.loads(line) for line in open(os.path.join(out, "manifest.jsonl"))]
+        launched = sum(cnt.launches for cnt in counters.values())
+        t4 = time.perf_counter()
+        brief = [{k: r.get(k) for k in ("id", "duration_sec", "worker", "error")} for r in rows]
+        print(f"[tools] build_dataset, 3 utterances on 2 threads: {json.dumps(brief)}; "
+              f"{t3 - t2:.1f} s; the resume: {len(again)} rows, {launched} kernel launches, "
+              f"{t4 - t3:.1f} s")
+        if sorted(r["id"] for r in rows) != ["u0", "u1", "u2"] or any("error" in r for r in rows) \
+                or again != rows or launched:
+            fail(f"[tools] build_dataset: {rows}, resumed {again}, {launched} launches")
+
+        inp, clips = os.path.join(d, "clips.jsonl"), os.path.join(d, "clips")
+        synthesize_clips.main(["make-input", "--output", inp, "--count", "2"])
+        if synthesize_clips.main(["synth", "--input", inp, "--reference", wav_path,
+                                  "--output-dir", clips, "--model-dir", model_dir,
+                                  "--batched"]):
+            fail("[tools] synthesize_clips synth failed")
+        summary = json.loads(Path(clips, "manifest.json").read_text())
+        t5 = time.perf_counter()
+        print(f"[tools] synthesize_clips synth --batched: {summary['total_clips']} clips, "
+              f"{summary['total_duration']:.2f} s of audio in "
+              f"{summary['total_generation_time']:.2f} s; {t5 - t4:.1f} s")
+        if summary["total_clips"] != 2 or any("error" in c for c in summary["clips"]):
+            fail(f"[tools] synthesize_clips: {summary}")
+    finally:
+        loader.load_engine = real
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[tools] tools_phase done in {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -6178,12 +6513,16 @@ def main():
             torch.cuda.empty_cache()
             print(f"{label} engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
                   f"still allocated; route done at {time.perf_counter() - t_start:.1f} s")
+        tools_phase(model_dir, wav_path, tmp, card)
+        print(f"phase tools_phase done at {time.perf_counter() - t_start:.1f} s")
     v1_phase(card)
     print(f"phase v1_phase done at {time.perf_counter() - t_start:.1f} s")
     dilation_phase(card)
     print(f"phase dilation_phase done at {time.perf_counter() - t_start:.1f} s")
     launches.update(train_phase(shapes, card))
     parallel_phase(card)
+    tp_train_phase(shapes, card)
+    print(f"phase tp_train_phase done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"launches a {BEAMS}-beam request (beam-multinomial, {MAX_MEL_TOKENS} steps at "

@@ -1,5 +1,5 @@
 """Fine-tuning: training steps, checkpoints and resume, on one card or over
-the data axis of several processes.
+the (data, model) mesh of several processes.
 
 Counterpart of tools/finetune.py for the port:
 
@@ -22,14 +22,28 @@ It runs on the card unless `--device cpu` is given, and prints one JSON
 summary line, that of tools/finetune.py, with the real mesh.
 
 Several processes (TARS_COORDINATOR, TARS_NUM_PROCESSES, TARS_PROCESS_ID;
-parallel/multihost.py, nccl on the card, gloo on the CPU) train over the
-data axis: every rank draws the same global batch (and, for the CFM, the
-same noise for the whole of it) and takes its rows of it (parallel/data.py),
-the gradients are averaged before AdamW, and the logged loss is the mean
-over the ranks. `--batch` must divide over them. Rank 0 writes the
-checkpoints; every rank resumes from the same one. `--model-parallel` above 1
-(training over the model axis) is not ported yet: ROADMAP.md's item
-"training over the model axis".
+parallel/multihost.py, nccl on the card, gloo on the CPU) train on the
+(data, model) mesh of `global_mesh(model=--model-parallel)`, as
+tools/finetune.py does:
+
+  * over the model axis, each model group holds one model cut by the
+    target's rules (GPT_PARTITION_RULES or DIT_PARTITION_RULES;
+    parallel/tp.py, whose f and g carry the gradients across the cut);
+    the DiT's attention then trains through K3, K9 and K10 at its local
+    heads;
+  * over the data axis (N / --model-parallel processes) every rank draws
+    the same global batch (and, for the CFM, the same noise for the whole
+    of it) and takes its data coordinate's rows of it (parallel/data.py),
+    the gradients are averaged before AdamW, and the logged loss is the
+    mean over the data ranks. `--batch` must divide over them.
+
+Checkpoints keep the full, unwrapped layout whatever the mesh, as
+tools/finetune.py's global arrays do: the parameters and AdamW's moments are
+gathered over the model axis under the unwrapped names (parallel/tp.py
+`full_state`) and rank 0 writes them; a resume, at any --model-parallel,
+reads them and cuts them again (`local_state`). So a checkpoint written at
+--model-parallel 2 resumes at 1, and its params.pt is the one-process
+model's state dict.
 
 Examples:
   python -m indextts_tpu_torch.finetune --target gpt --synthetic 8 --steps 50 \\
@@ -54,6 +68,7 @@ from indextts_tpu_torch.config import load_config
 from indextts_tpu_torch.parallel.data import average_gradients, local_rows
 from indextts_tpu_torch.parallel.multihost import global_mesh, maybe_initialize_distributed
 from indextts_tpu_torch.parallel.sharding import all_reduce
+from indextts_tpu_torch.parallel.tp import full_name, full_state, local_state
 from indextts_tpu_torch.runtime import train as T
 from indextts_tpu_torch.utils.device import resolve_device
 
@@ -176,31 +191,29 @@ def data_parallel_step(target: str, model, opt, mesh):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1: training over the model axis is not ported yet "
-            "(ROADMAP.md, Queue 1: training over the model axis; the collectives of "
-            "parallel/tp.py are not autograd functions)")
     dev = resolve_device(args.device)
     maybe_initialize_distributed(dev)
     mesh = global_mesh(model=args.model_parallel)
     data = mesh.shape["data"]
     if args.batch % data:
         raise SystemExit(f"--batch {args.batch} must be divisible by the data axis ({data} "
-                         "processes)")
+                         f"= processes / --model-parallel)")
     rank0 = mesh.rank == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(args.cfg)
 
-    model = T.train_model(cfg, args.target, dev, initial_state(args, cfg), seed=args.seed)
-    opt = T.adamw(model.parameters(), args.lr)
     step0 = 0
     ckpt_dir = Path(args.out_dir) if args.out_dir else None
     latest = ckpt_dir / "latest" if ckpt_dir else None
-    if latest and not args.no_resume and (latest / "params.pt").exists():
-        model.load_state_dict(torch.load(latest / "params.pt", map_location=dev))
-        opt.load_state_dict(torch.load(latest / "opt_state.pt", map_location=dev))
+    resume = latest is not None and not args.no_resume and (latest / "params.pt").exists()
+    state = (torch.load(latest / "params.pt", map_location=dev) if resume
+             else initial_state(args, cfg))
+    model = T.train_model(cfg, args.target, dev, state, seed=args.seed, mesh=mesh)
+    opt = T.adamw(model.parameters(), args.lr)
+    if resume:
+        opt.load_state_dict(local_moments(model, torch.load(latest / "opt_state.pt",
+                                                            map_location=dev)))
         step0 = int(json.loads((latest / "meta.json").read_text())["step"])
         print(f"resumed from step {step0}", file=sys.stderr)
 
@@ -243,16 +256,51 @@ def main(argv=None):
     return out
 
 
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def full_moments(model, opt) -> dict:
+    """`opt.state_dict()` of a (possibly cut) model in the full layout:
+    AdamW's moments gathered over the model axis (`full_state`, a
+    collective), each parameter's state under its index among the full
+    model's parameters, which the cut model's keep in their order."""
+    sd = opt.state_dict()
+    names = [n for n, _ in model.named_parameters()]
+    state = {i: dict(st) for i, st in sd["state"].items()}
+    for key in MOMENTS:
+        full = full_state(model, {names[i]: st[key] for i, st in state.items()})
+        for i, st in state.items():
+            st[key] = full[full_name(model, names[i])]
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
+def local_moments(model, sd: dict) -> dict:
+    """The inverse of `full_moments`: a full-layout optimizer state cut for
+    this rank's model (`local_state`)."""
+    names = [n for n, _ in model.named_parameters()]
+    state = {i: dict(st) for i, st in sd["state"].items()}
+    for key in MOMENTS:
+        local = local_state(model, {full_name(model, names[i]): st[key]
+                                    for i, st in state.items()})
+        for i, st in state.items():
+            st[key] = local[names[i]]
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
 def save(latest: Path, model, opt, step: int, write: bool = True) -> int:
-    """params.pt, opt_state.pt and meta.json under `latest`, each written
-    to a temporary name and renamed, meta.json last, by the rank that
-    `write`s (rank 0); the others wait for it. Returns `step`."""
+    """params.pt, opt_state.pt and meta.json under `latest`, in the full
+    layout (`full_state`, `full_moments`: collectives every rank of a model
+    group joins), each written to a temporary name and renamed, meta.json
+    last, by the rank that `write`s (rank 0); the others wait for it.
+    Returns `step`."""
+    params = full_state(model, model.state_dict())
+    moments = full_moments(model, opt)
     if not write:
         if dist.is_initialized():
             dist.barrier()
         return step
     latest.mkdir(parents=True, exist_ok=True)
-    for name, obj in (("params.pt", model.state_dict()), ("opt_state.pt", opt.state_dict())):
+    for name, obj in (("params.pt", params), ("opt_state.pt", moments)):
         tmp = latest / f".{name}.tmp"
         torch.save(obj, tmp)
         os.replace(tmp, latest / name)

@@ -1,5 +1,7 @@
 """Mesh construction, the collectives over one of its axes (`all_reduce`,
-`all_gather_last`) and parameter partition rules.
+`all_gather`, and `copy_to_model`, `reduce_from_model`,
+`gather_from_model` for autograd), parameter partition rules, and the cut
+and its inverse (`shard_params`, `unshard_params`).
 
 Counterpart of indextts_tpu/parallel/sharding.py: one 2-D mesh (data,
 model) of processes, one device each.
@@ -115,15 +117,77 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = "model",
     return t
 
 
-def all_gather_last(t: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
-    """The group's tensors concatenated along the last axis, in rank order."""
+def all_gather(t: torch.Tensor, mesh: Mesh, dim: int, axis: str = "model") -> torch.Tensor:
+    """The group's tensors concatenated along `dim`, in rank order."""
     group = mesh.group(axis)
     if group is None:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(parts, dim=dim)
+
+
+# Megatron's f and g over the model axis, for training through a cut model:
+# f (`copy_to_model`) in front of a column-cut layer, whose ranks each see
+# only their own columns' part of the input's gradient; g (`reduce_from_model`)
+# after a row-cut contraction. Outside autograd (no grad, or an input that
+# does not need one) each is the plain collective, so that inference keeps its
+# bits and its in-place all_reduce.
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return all_gather(x, mesh, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i, w = ctx.mesh.coord["model"], ctx.width
+        return grad[..., i * w:(i + 1) * w], None
+
+
+def _trains(x: torch.Tensor, mesh: Mesh) -> bool:
+    return mesh.group("model") is not None and torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """f: x itself forward; its gradient all-reduced over the model axis."""
+    return _CopyToModel.apply(x, mesh) if _trains(x, mesh) else x
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """g: x all-reduced over the model axis (out of place under autograd, in
+    place otherwise); its gradient passed through."""
+    return _ReduceFromModel.apply(x, mesh) if _trains(x, mesh) else all_reduce(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The model group's x concatenated along the last axis; the gradient
+    of this rank's columns passed back."""
+    return _GatherFromModel.apply(x, mesh) if _trains(x, mesh) else all_gather(x, mesh, -1)
 
 
 _H = r"^gpt\.h\.\d+\."
@@ -218,6 +282,15 @@ def cut(t: torch.Tensor, dim: int, parts: int, size: int, index: int) -> torch.T
     return torch.cat([b.chunk(size, dim=dim)[index] for b in blocks], dim=dim)
 
 
+def local_piece(t: torch.Tensor, spec: P, mesh: Mesh) -> torch.Tensor:
+    """This rank's piece of `t` by `spec` (`cut` along each cut axis; t
+    itself where none is)."""
+    for dim, axis in enumerate(spec.axes):
+        if axis is not None:
+            t = cut(t, dim, spec.parts, mesh.shape[axis], mesh.coord[axis])
+    return t
+
+
 def shard_params(state_dict: Dict[str, torch.Tensor], mesh: Mesh, rules,
                  strict: bool = False) -> Dict[str, torch.Tensor]:
     """This rank's shard of every tensor of `state_dict` by the rules: a cut
@@ -229,11 +302,48 @@ def shard_params(state_dict: Dict[str, torch.Tensor], mesh: Mesh, rules,
     for name, t in state_dict.items():
         spec, notes = placement(name, t.shape, mesh, rules)
         dropped += notes
-        for dim, axis in enumerate(spec.axes):
-            if axis is not None:
-                t = cut(t, dim, spec.parts, mesh.shape[axis], mesh.coord[axis])
-        out[name] = t
+        out[name] = local_piece(t, spec, mesh)
     if dropped and strict:
         raise ValueError("partition rules dropped (axis not divisible by mesh):\n  "
                          + "\n  ".join(dropped))
+    return out
+
+
+def cut_layout(state_dict: Dict[str, torch.Tensor], mesh: Mesh, rules) -> Dict[str, P]:
+    """The spec of every tensor of `state_dict` (full shapes) that a rule
+    cuts on `mesh`: what `shard_params` did to it, which `unshard_params`
+    undoes."""
+    out = {}
+    for name, t in state_dict.items():
+        spec = placement(name, t.shape, mesh, rules)[0]
+        if any(a is not None for a in spec.axes):
+            out[name] = spec
+    return out
+
+
+def unshard_params(local_state: Dict[str, torch.Tensor], mesh: Mesh,
+                   layout: Dict[str, P]) -> Dict[str, torch.Tensor]:
+    """The inverse of `shard_params`: every tensor that `layout` (`cut_layout`
+    of the full state) names gathered over its mesh axis and put back
+    together, the ranks' pieces of each of the spec's parts in rank order
+    (q, k and v each by heads); the others as they are. The layout, not the
+    rules, says what was cut: a rule whose axis did not divide left its
+    tensor whole, which the local shape alone cannot tell from a cut one.
+    A collective a cut tensor: every rank of the group calls it with the
+    same names in the same order."""
+    out = {}
+    for name, t in local_state.items():
+        spec = layout.get(name)
+        if spec is None:
+            out[name] = t
+            continue
+        for dim, axis in enumerate(spec.axes):
+            if axis is not None:
+                if spec.parts == 1:
+                    t = all_gather(t, mesh, dim, axis)
+                else:
+                    pieces = all_gather(t, mesh, dim, axis).chunk(mesh.shape[axis], dim=dim)
+                    blocks = [p.chunk(spec.parts, dim=dim) for p in pieces]
+                    t = torch.cat([b[k] for k in range(spec.parts) for b in blocks], dim=dim)
+        out[name] = t
     return out

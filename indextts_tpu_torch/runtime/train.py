@@ -27,8 +27,9 @@ and PyTorch's streams differ, so `cfm_loss` takes t, z and drop as
 arguments, as the JAX one does, and the step takes them ready-made too.
 
 On the card the DiT's attention trains through kernels K3 (with its row
-statistics), K9 and K10 (ops/dit_attention.py); the GPT's attention stays
-plain, as XLA computes it in the JAX package. Float32 only: a bfloat16
+statistics), K9 and K10 (ops/dit_attention.py), at all its heads or, cut
+over a mesh's model axis (`train_model(..., mesh=)`), at this rank's; the
+GPT's attention stays plain, as XLA computes it in the JAX package. Float32 only: a bfloat16
 model does not train in the JAX package either.
 """
 
@@ -41,6 +42,8 @@ import torch.nn.functional as F
 
 from indextts_tpu_torch.models.s2mel import S2Mel
 from indextts_tpu_torch.models.unified_voice import UnifiedVoice
+from indextts_tpu_torch.parallel.sharding import DIT_PARTITION_RULES, GPT_PARTITION_RULES, Mesh
+from indextts_tpu_torch.parallel.tp import tensor_parallel
 
 Batch = Dict[str, torch.Tensor]
 
@@ -179,11 +182,15 @@ def make_cfm_train_step(model: S2Mel, optimizer: torch.optim.Optimizer,
 # ---------------------------------------------------------------------------
 
 
-def train_model(cfg, target: str, device, state_dict=None, seed: int = 0) -> torch.nn.Module:
+def train_model(cfg, target: str, device, state_dict=None, seed: int = 0,
+                mesh: Optional[Mesh] = None) -> torch.nn.Module:
     """The float32 model that `target` ("gpt": UnifiedVoice with its
     text_head; "cfm": S2Mel) trains, on `device`, its parameters requiring
-    grad: `state_dict` loaded (strict), else drawn from `seed` (each
-    module's PyTorch initialization, as runtime/engine.py random_params)."""
+    grad: `state_dict` (the full layout) loaded (strict), else drawn from
+    `seed` (each module's PyTorch initialization, as runtime/engine.py
+    random_params). With a `mesh` whose model axis is above 1, the model is
+    then cut over it by the target's rules (parallel/tp.py
+    `tensor_parallel`), before an optimizer is built on its parameters."""
     dev = torch.device(device)
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
@@ -193,4 +200,8 @@ def train_model(cfg, target: str, device, state_dict=None, seed: int = 0) -> tor
     if state_dict is not None:
         model.load_state_dict({k: v.to(dev, torch.float32) if v.is_floating_point()
                                else v.to(dev) for k, v in state_dict.items()}, strict=True)
-    return model.eval().requires_grad_(True)
+    model.eval().requires_grad_(True)
+    if mesh is not None and mesh.shape["model"] > 1:
+        tensor_parallel(model, mesh, GPT_PARTITION_RULES if target == "gpt"
+                        else DIT_PARTITION_RULES)
+    return model

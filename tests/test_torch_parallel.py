@@ -191,8 +191,14 @@ def shared(setup, tmp_path_factory):
     as_t = lambda dd: {k: t(v, torch.long) if k in ints else t(v) for k, v in dd.items()}
     conds, ids, pos, valid = dec_in
     train_jp, train_sds, runs = _train_inputs(cfg, pcfg, jp)
+    data_dirs = {}
+    for target, run in runs.items():
+        data_dirs[target] = str(d / f"ft_data_{target}")
+        os.makedirs(data_dirs[target])
+        np.savez(os.path.join(data_dirs[target], "b0.npz"), **run["batches"][0])
     torch.save({
         "train": {"lr": TRAIN_LR, "gpt_sd": train_sds["gpt"], "cfm_sd": train_sds["s2mel"],
+                  "data_dirs": data_dirs,
                   "runs": {target: {"batches": [finetune.to_device(b, torch.device("cpu"))
                                                 for b in run["batches"]],
                                     "noises": [None if z is None else tuple(t(x) for x in z)
@@ -526,6 +532,16 @@ def test_data_parallel_steps_match_jax(dp_run, shared, setup, target):
     against JAX's gradient over the global batch (a summed or wrongly scaled
     average fails here); the parameters after, against JAX's; both ranks
     hold the same gradients and parameters."""
+    _hold_steps_to_jax([o[f"steps_{target}"] for o in dp_run], shared, setup, target)
+
+
+def _hold_steps_to_jax(gots, shared, setup, target):
+    """Each rank's record of the TRAIN_STEPS steps (`gots`: losses, the
+    gradient AdamW was given at each step and the parameters after, in the
+    full layout) against JAX's steps over the global batches: the loss
+    within 1e-5 relative; each gradient leaf within 1e-4 of the largest
+    |value| of JAX's; the parameters as the module's docstring says; every
+    rank's gradients and parameters equal to the first's."""
     from indextts_tpu_torch import weights
 
     jcfg, pcfg = setup[0], setup[1]
@@ -534,7 +550,7 @@ def test_data_parallel_steps_match_jax(dp_run, shared, setup, target):
     jlosses, jgrads, jparams = _jax_train_steps(target, jcfg, train_jp[name], runs[target])
     convert = ((lambda tree: weights.unified_voice_sd(tree, pcfg, text_head=True))
                if target == "gpt" else (lambda tree: weights.s2mel_sd(tree, pcfg)))
-    got0, got1 = (o[f"steps_{target}"] for o in dp_run)
+    got0 = gots[0]
     np.testing.assert_allclose(got0["losses"], jlosses, rtol=1e-5)
     assert len(got0["grads"]) == TRAIN_STEPS
     for i, jg in enumerate(jgrads):
@@ -542,7 +558,9 @@ def test_data_parallel_steps_match_jax(dp_run, shared, setup, target):
         assert set(got0["grads"][i]) == set(want)
         for k, w in want.items():
             g0 = got0["grads"][i][k]
-            assert torch.equal(g0, got1["grads"][i][k]), f"step {i + 1} {k}: the ranks differ"
+            for r, other in enumerate(gots[1:], 1):
+                assert torch.equal(g0, other["grads"][i][k]), (
+                    f"step {i + 1} {k}: rank {r} differs from rank 0")
             w = n(w)
             top = max(float(np.abs(w).max()), 1e-30)
             err = float(np.abs(n(g0) - w).max())
@@ -557,7 +575,8 @@ def test_data_parallel_steps_match_jax(dp_run, shared, setup, target):
               for k, g in convert(jg).items()} for jg in jgrads]
     for k, w in want.items():
         p, w0 = got0["params"][k], start[k]
-        assert torch.equal(p, got1["params"][k]), f"{k}: the ranks' parameters differ"
+        for other in gots[1:]:
+            assert torch.equal(p, other["params"][k]), f"{k}: the ranks' parameters differ"
         loose = torch.stack([m[k] for m in noise]).any(dim=0)
         off = (p - w)[loose].abs()
         assert off.numel() == 0 or float(off.max()) <= 2 * TRAIN_STEPS * TRAIN_LR * 1.001, k
@@ -593,3 +612,145 @@ def test_data_parallel_finetune_matches_one_process(dp_run, shared, setup, targe
     got = torch.load(d / "params.pt")
     for k in want:
         np.testing.assert_allclose(n(got[k]), n(want[k]), rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+# -- the model axis: training through the cut models --------------------------
+
+
+@pytest.mark.parametrize("target", ["gpt", "cfm"])
+def test_one_rank_mesh_trains_as_unsharded(setup, shared, target):
+    """tensor_parallel at (1, 1) in one process on a training model (f and
+    g with no group): one loss and backward on the first global batch give
+    the unwrapped model's loss and, under the unwrapped names (in the
+    unwrapped model's parameter order, which the checkpoints' optimizer
+    state relies on), its gradients, within 1e-5 of each leaf's largest."""
+    from indextts_tpu_torch.parallel.sharding import (
+        DIT_PARTITION_RULES as DR,
+        GPT_PARTITION_RULES as GR,
+    )
+    from indextts_tpu_torch.parallel.tp import full_name, full_state, tensor_parallel
+    from indextts_tpu_torch.runtime import train as T
+
+    pcfg = setup[1]
+    _, train_sds, runs = shared[1]["train"]
+    sd = train_sds["gpt" if target == "gpt" else "s2mel"]
+    batch = finetune.to_device(runs[target]["batches"][0], torch.device("cpu"))
+    noise = runs[target]["noises"][0]
+
+    def grads(model):
+        if target == "gpt":
+            loss = T.mel_text_loss(model, *(batch[k] for k in (
+                "spk_latents", "text_ids", "text_lens", "mel_codes", "mel_lens", "emovec")))
+        else:
+            loss = T.cfm_loss(model, *(batch[k] for k in (
+                "x1", "x_lens", "prompt_lens", "mu", "style")), *(t(x) for x in noise))[0]
+        loss.backward()
+        return float(loss), {k: p.grad for k, p in model.named_parameters()
+                             if p.grad is not None}
+
+    plain = T.train_model(pcfg, target, "cpu", sd)
+    cut = tensor_parallel(T.train_model(pcfg, target, "cpu", sd), Mesh(1, 1),
+                          GR if target == "gpt" else DR)
+    assert len(cut.tp_layout) > 4
+    assert [full_name(cut, k) for k, _ in cut.named_parameters()] == [
+        k for k, _ in plain.named_parameters()]
+    loss, want = grads(plain)
+    got_loss, got = grads(cut)
+    got = full_state(cut, got)
+    assert abs(got_loss - loss) <= 1e-6 * abs(loss)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        top = max(float(w.abs().max()), 1e-30)
+        assert float((got[k] - w).abs().max()) <= 1e-5 * top, k
+
+
+def _mp_outs(mesh, dp_run, tp_run):
+    return dp_run if mesh == "1x2" else tp_run
+
+
+@pytest.mark.parametrize("target", ["gpt", "cfm"])
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_model_parallel_steps_match_jax(dp_run, tp_run, shared, setup, mesh, target):
+    """Two AdamW steps with the model cut over the model axis of a (1, 2)
+    mesh (2 processes, every rank the 4 rows) and of a (2, 2) mesh (4
+    processes, 2 rows a data rank), gradients through f and g, averaged over
+    the data axis: the losses, the gradient AdamW is given gathered to the
+    full layout (a missing f leaves a replicated leaf's gradient partial:
+    the parameters alone cannot show it, AdamW normalizing the scale away)
+    and the parameters after, held to JAX's steps over the 4 rows as the
+    data axis's steps are; 2 of 4 heads a rank; the replicated parameters
+    bit-equal on the ranks of a model group."""
+    outs = _mp_outs(mesh, dp_run, tp_run)
+    gots = [o[f"mp_{target}"] for o in outs]
+    data = 1 if mesh == "1x2" else 2
+    for g in gots:
+        assert g["mesh"] == {"data": data, "model": 2} and g["heads"] == 2
+    _hold_steps_to_jax(gots, shared, setup, target)
+    group = (lambda o: o["coord"]["data"]) if mesh == "2x2" else (lambda o: 0)
+    for o in outs:
+        (twin,) = [p for p in outs if p is not o and group(p) == group(o)]
+        mine, other = o[f"mp_{target}"]["local"], twin[f"mp_{target}"]["local"]
+        assert set(mine) == set(other) and len(mine) > 10
+        for k, v in mine.items():
+            assert torch.equal(v, other[k]), f"{k}: the model ranks' replicated copies differ"
+
+
+@pytest.mark.parametrize("target", ["gpt", "cfm"])
+def test_model_parallel_checkpoint_resumes_at_one(dp_run, shared, setup, target, monkeypatch,
+                                                 tmp_path):
+    """finetune.main --model-parallel 2 over 2 processes, one step on a
+    stored global batch of 4 rows, writes its checkpoint in the unwrapped
+    layout (the one-process model's names and shapes, AdamW's moments
+    gathered); --model-parallel 1 resumes it here for one more step. The
+    GPT's two steps match an uninterrupted one-process run of two steps on
+    the same batch; the CFM's, the one-process run that saves after its
+    first step and resumes (a resumed run draws its noise from the seed
+    plus its first step, so no uninterrupted run draws the same): the loss
+    within 1e-5 relative, the parameters within 1e-5 + 1e-5 relative. The
+    port's loader reads the GPT checkpoint as gpt.pth: load_engine's GPT
+    state is the checkpoint's, its text_head dropped."""
+    import shutil
+
+    from indextts_tpu_torch.runtime.loader import convert_reference_checkpoints, load_engine
+
+    pcfg = setup[1]
+    monkeypatch.setattr(finetune, "load_config", lambda *a, **k: pcfg)
+    data = str(shared[0] / f"ft_data_{target}")
+    common = ["--device", "cpu", "--target", target, "--data-dir", data, "--batch", "4",
+              "--log-every", "1", "--lr", "1e-3"]
+    for o in dp_run:
+        assert o[f"ft_mp_{target}"]["mesh"] == {"data": 1, "model": 2}
+    written = shared[0] / f"ft_mp_{target}"
+    params = torch.load(written / "latest" / "params.pt")
+    want_shapes = {k: v.shape for k, v in finetune.T.train_model(
+        pcfg, target, "cpu").state_dict().items()}
+    assert {k: v.shape for k, v in params.items()} == want_shapes
+    resumed_dir = tmp_path / "resumed"
+    shutil.copytree(written, resumed_dir)
+    resumed = finetune.main(common + ["--out-dir", str(resumed_dir), "--steps", "1"])
+    assert (resumed["from_step"], resumed["final_step"], resumed["mesh"]) == (
+        1, 2, {"data": 1, "model": 1})
+    one_dir = tmp_path / "one"
+    if target == "gpt":
+        one = finetune.main(common + ["--out-dir", str(one_dir), "--steps", "2"])
+    else:
+        finetune.main(common + ["--out-dir", str(one_dir), "--steps", "1"])
+        one = finetune.main(common + ["--out-dir", str(one_dir), "--steps", "1"])
+    np.testing.assert_allclose(resumed["loss_last"], one["loss_last"], rtol=1e-5)
+    want = torch.load(one_dir / "latest" / "params.pt")
+    got = torch.load(resumed_dir / "latest" / "params.pt")
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(n(got[k]), n(want[k]), rtol=1e-5, atol=1e-5, err_msg=k)
+    if target == "gpt":
+        d = tmp_path / "ckpt"
+        d.mkdir()
+        shutil.copy(written / "latest" / "params.pt", d / "gpt.pth")
+        read, _ = convert_reference_checkpoints(str(d), pcfg, text_head=True)
+        assert set(read["gpt"]) == set(params)
+        for k, v in params.items():
+            assert torch.equal(read["gpt"][k], v), k
+        engine = load_engine(str(d), cfg=pcfg, device="cpu")
+        assert "gpt" not in engine.load_report.filled
+        for k, v in engine.gpt.state_dict().items():
+            assert torch.equal(v, params[k]), k

@@ -367,7 +367,9 @@ def test_finetune_init_from_a_reference_directory(tiny_finetune, setup, tmp_path
 
 
 def test_finetune_refuses_model_parallel_and_a_missing_card(tiny_finetune):
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    # a model axis of 2 needs 2 processes (one device each); one process
+    # has a mesh of one rank (tests/test_torch_parallel.py trains over 2)
+    with pytest.raises(ValueError, match="model=2 must divide the 1 processes"):
         finetune.main(["--device", "cpu", "--model-parallel", "2", "--steps", "1"])
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is available")

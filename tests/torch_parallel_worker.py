@@ -10,14 +10,18 @@ Jobs:
       GPT_PARTITION_RULES: forward_latent and the speaker conditioning
       (conformer FFNs cut) on this data rank's rows, and greedy decode on
       the float and the W8 GPT; S2Mel cut by DIT_PARTITION_RULES: the DiT
-      velocity on this data rank's rows.
+      velocity on this data rank's rows; two training steps of each target
+      on the (2, 2) mesh (`model_parallel_steps`).
   dp  (2 processes, mesh (2, 1) from global_mesh): a DP-split greedy decode
       gathered over the data axis and held token-exact to this process's
       one-process loop; two steps of each target through
       finetune.data_parallel_step on the setup's global batches, recording
       the averaged gradients that AdamW is given (a step pre-hook), the
       losses averaged over the ranks and the parameters after; finetune.main
-      one step of each target over the data axis, and a resume.
+      one step of each target over the data axis, and a resume; two
+      training steps of each target on a (1, 2) mesh
+      (`model_parallel_steps`); finetune.main --model-parallel 2, one step
+      of each target on one stored batch, with a checkpoint.
 
 Each process writes out/<job>_<rank>.pt; the test compares them with the
 JAX package's unsharded results.
@@ -101,6 +105,43 @@ def tp_job(setup, out_dir):
         out["velocity"] = s2mel.velocity(v["x"], v["prompt_x"], v["x_lens"], v["t"],
                                          v["style"], v["cond"])
     out["dit_heads"] = s2mel.cfm.estimator.transformer.layers[0].attention.h
+    out.update(model_parallel_steps(setup, mesh))
+    return out
+
+
+def model_parallel_steps(setup, mesh):
+    """The setup's training steps of each target with the model cut over
+    `mesh`'s model axis (runtime/train.py train_model(mesh=)) through
+    finetune.data_parallel_step: the losses averaged over the data axis;
+    at each step the gradient AdamW is given, gathered to the full layout
+    (parallel/tp.py full_state, in a step pre-hook); the parameters after,
+    gathered, and this rank's replicated ones as they are."""
+    from indextts_tpu_torch import finetune
+    from indextts_tpu_torch.parallel.sharding import all_reduce
+    from indextts_tpu_torch.parallel.tp import full_state
+    from indextts_tpu_torch.runtime import train as T
+
+    out = {}
+    for target, run in setup["train"]["runs"].items():
+        model = T.train_model(setup["cfg"], target, "cpu", setup["train"][f"{target}_sd"],
+                              mesh=mesh)
+        opt = T.adamw(model.parameters(), setup["train"]["lr"])
+        grads = []
+        opt.register_step_pre_hook(lambda *_: grads.append(full_state(
+            model, {k: p.grad.clone() for k, p in model.named_parameters()})))
+        step = finetune.data_parallel_step(target, model, opt, mesh)
+        losses = []
+        for batch, noise in zip(run["batches"], run["noises"]):
+            loss = step(batch, noise=noise)
+            losses.append(float(all_reduce(loss.clone(), mesh, axis="data"))
+                          / mesh.shape["data"])
+        local = {k: v.clone() for k, v in model.state_dict().items()
+                 if model.tp_names[k] not in model.tp_layout}
+        heads = (model.gpt.h[0].attn.n_head if target == "gpt"
+                 else model.cfm.estimator.transformer.layers[0].attention.h)
+        out[f"mp_{target}"] = {"losses": losses, "grads": grads, "local": local,
+                               "params": full_state(model, model.state_dict()),
+                               "mesh": dict(mesh.shape), "heads": heads}
     return out
 
 
@@ -110,6 +151,7 @@ def dp_job(setup, out_dir):
     from indextts_tpu_torch import finetune
     from indextts_tpu_torch.parallel.data import local_rows
     from indextts_tpu_torch.parallel.multihost import global_mesh
+    from indextts_tpu_torch.parallel.sharding import make_mesh
 
     mesh = global_mesh(model=1)
     assert mesh.shape == {"data": 2, "model": 1}
@@ -152,6 +194,14 @@ def dp_job(setup, out_dir):
                   "--log-every", "1", "--lr", "1e-3"]
         out[f"ft_{target}"] = finetune.main(common + ["--steps", "1"])
         out[f"ft_{target}_resumed"] = finetune.main(common + ["--steps", "1"])
+
+    out.update(model_parallel_steps(setup, make_mesh(1, 2)))
+    for target in ("gpt", "cfm"):
+        out[f"ft_mp_{target}"] = finetune.main(
+            ["--device", "cpu", "--target", target, "--data-dir",
+             setup["train"]["data_dirs"][target], "--batch", "4", "--out-dir",
+             os.path.join(out_dir, f"ft_mp_{target}"), "--log-every", "1", "--lr", "1e-3",
+             "--model-parallel", "2", "--steps", "1"])
     return out
 
 
