@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the build of every CUDA kernel from csrc/ (one nvcc per source,
-   all started together).
+   all started together); then the port's environment check
+   (indextts_tpu_torch/tools/env_check.py, a process of its own: every
+   kernel library loaded, the native DSP, a matmul check), which must exit
+   0.
 2. Kernels: K1 (ragged decode attention), K2 (anti-aliased SnakeBeta), K3
    (DiT attention), K4 (int8-cache decode attention), K5 (W8A8 GEMV), K6
    (fused W8 MLP), K7 (W4A8 GEMV) and K8 (fused W4 MLP) against their plain
@@ -115,9 +118,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    hf/semantic_codec.safetensors, hf/campplus_cn_common.bin,
    hf/bigvgan_generator.pt; the stats; feat1.pt and feat2.pt, the emotion
    phase's seeded banks; no config.yaml, bpe.model or Qwen directory),
-   printing each file's bytes and the seconds taken. Each route's server is
-   built with `--model-dir` on that directory (runtime/loader.py), printing
-   the load's seconds (reading the files, building the engine on the card),
+   printing each file's bytes and the seconds taken. Then `cache_phase`
+   (the loader's converted-weights cache, float route): the directory's
+   free disk, a cold load (the files converted, torch_cache/ written) and
+   a warm load (torch_cache/ read), the read, write and build seconds of
+   each and the cache's bytes; every tensor of the warm engine, the banks
+   and the stats equal to the cold engine's to the bit, and one segment's
+   greedy codes equal. Each route's server is
+   built with `--model-dir` on that directory (runtime/loader.py), which
+   must read the cache, printing
+   the load's seconds (reading the cache, building the engine on the card),
    the host's peak resident memory, the peak device memory and the models
    filled with random weights, which must be none; on the float route every
    tensor of every module (and the banks and stats) is held to what was
@@ -136,7 +146,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    synthetic 3-s speaker wav, each answer must be a 200 with a valid,
    non-silent WAV from finite mels, and every counter of the route must have
    risen, those of other routes staying at 0 (float: K1-K3; W8: K2-K6; W4:
-   K2-K5, K7, K8, with K5 the logits head). Only runtime.max_mel_tokens is
+   K2-K5, K7, K8, with K5 the logits head). On the float route the live-
+   server smoke tool (indextts_tpu_torch/tools/run_server_test.py) then
+   runs against the server in a process of its own (healthz, readyz, a
+   WAV, a stream) and must exit 0. Only runtime.max_mel_tokens is
    lowered, since random weights rarely emit the stop token. The GPT
    decode replays a captured step (runtime/decode.py); then, on each
    route's engine, `decode_turns` runs one request's decode captured and
@@ -389,6 +402,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    local heads against their plain versions. Then finetune.py
    --model-parallel 2 writes a checkpoint, which this process resumes at
    --model-parallel 1. Two ranks share one card: no scaling is measured.
+15. `dryrun_phase` (parallel/dryrun.py, the JAX __graft_entry__'s
+   dryrun_multichip), last: four processes on the one card over gloo, mesh
+   (2, 2), every attention head 64 wide (K1 and K3 take Dh=64), 300 s a
+   worker: (a) a GPT training step cut over the model axis, the batch over
+   the data axis, its loss within 1e-5 relative of the one-process step's;
+   (b) the 20-head GPT's greedy decode cut and split, codes equal to the
+   unsharded ones; (c) the cascade (decode, latent pass, regulator, 2 CFM
+   steps, vocoder) with rows over the data axis and the GPT and DiT cut,
+   codes equal and the waveform within 2e-4 of the unsharded peak. Each
+   rank's K1 ((b), (c)), K3 and K2 ((c)) launches printed, each above 0;
+   then K1 and K3 against their plain versions at the shapes the ranks
+   gave them, and K2 at each call of one vocoder call of the cascade's
+   BigVGAN over a rank's rows, at phase 2's tolerances.
 
 The last three lines are a JSON object listing the kernels, the card's name
 and power limit, and {"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -413,7 +439,6 @@ import resource
 import shutil
 import socket
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
@@ -509,6 +534,9 @@ TP_GPT_ROWS = 4  # the rows of tp_train_phase's GPT step
 # tp_train_phase's finetune run: one CFM step on synthetic batches of 2
 TP_FINETUNE = ["--target", "cfm", "--synthetic", "2", "--steps", "1", "--log-every", "1"]
 TOOLS_SEED = 61  # tools_phase's segment seed
+CACHE_SEED = 67  # cache_phase's segment seed
+DRYRUN_PROCS = 4  # dryrun_phase's processes: the mesh (2, 2), gloo ranks sharing the card
+DRYRUN_SEED = 71  # dryrun_phase's kernel inputs
 P_COND = 34  # the GPT's conditioning positions
 # the dilation phase: resblocks of differing dilations, the weights' seed
 DILATIONS = ((1, 3, 5), (1, 2, 4), (2, 3, 6))
@@ -555,6 +583,15 @@ def environment():
     paths = cuda_lib.build(verbose=True)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in paths.values())})")
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    check = subprocess.run([sys.executable, "-m", "indextts_tpu_torch.tools.env_check"],
+                           cwd=here, capture_output=True, text=True, timeout=300)
+    for line in (check.stdout + check.stderr).splitlines():
+        print(f"[env_check] {line}")
+    print(f"[env_check] exit {check.returncode} in {time.perf_counter() - t0:.1f} s; {card}")
+    if check.returncode != 0:
+        fail(f"tools/env_check exited {check.returncode}")
     return card
 
 
@@ -2440,33 +2477,13 @@ def train_phase(shapes, card: str) -> dict:
 # the checkpoint directory: the full-width weights in the reference's layout
 # ---------------------------------------------------------------------------
 
-ST_DTYPES = {"float64": "F64", "float32": "F32", "float16": "F16", "bfloat16": "BF16",
-             "int64": "I64", "int32": "I32", "int16": "I16", "int8": "I8", "uint8": "U8",
-             "bool": "BOOL"}
-
-
 def save_safetensors(path, tensors, metadata=None) -> None:
-    """Write `tensors` (CPU torch tensors) in the safetensors format: an
-    8-byte little-endian header length, the JSON header (padded with spaces
-    to 8 bytes), the raw bytes in the header's order."""
-    import torch
+    """Write `tensors` in the safetensors format with the port's own writer
+    (utils/safetensors.py `save_file`), which needs no `safetensors`
+    package."""
+    from indextts_tpu_torch.utils.safetensors import save_file
 
-    header = {"__metadata__": dict(metadata)} if metadata else {}
-    views, offset = [], 0
-    for name, t in tensors.items():
-        t = t.detach().cpu().contiguous()
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": ST_DTYPES[str(t.dtype).removeprefix("torch.")],
-                        "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
-        views.append(t.reshape(-1).view(torch.uint8).numpy())
-        offset += nbytes
-    blob = json.dumps(header, separators=(",", ":")).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(blob)))
-        f.write(blob)
-        for v in views:
-            f.write(memoryview(v))
+    save_file(tensors, path, metadata)
 
 
 def weight_normed(name: str, key: str) -> bool:
@@ -2594,6 +2611,70 @@ def reference_dir(cfg, tmp: str):
     return d, host, aux
 
 
+def cache_phase(model_dir: str, cfg, wav_path: str, card: str) -> None:
+    """Phase `cache_phase` (runtime/loader.py's converted-weights cache) on
+    `reference_dir`'s full-width directory, float route: the free disk
+    first; a cold load (the reference's files converted, then torch_cache/
+    written) and a warm load (torch_cache/ read), each's read, write and
+    build seconds and the cache's bytes; every tensor of every module of the
+    warm engine, the banks and the stats equal to the cold engine's to the
+    bit; one segment's greedy decode (the same seed) gives the same codes on
+    both engines."""
+    import torch
+
+    from indextts_tpu_torch.frontend.tokenizer import byte_fallback_ids
+    from indextts_tpu_torch.runtime import loader
+    from indextts_tpu_torch.runtime.engine import MODELS, EmotionConditioning
+    from indextts_tpu_torch.utils import audio as audio_utils
+
+    t0 = time.perf_counter()
+    free = shutil.disk_usage(model_dir).free
+    print(f"[cache] {model_dir}: {free / 1e9:.1f} GB free before the cache is written")
+    engines = {}
+    for state in ("written", "read"):
+        eng = loader.load_engine(model_dir, cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+        r = eng.load_report
+        print(f"[cache] {'cold' if state == 'written' else 'warm'} load: torch_cache {r.cache}, "
+              f"{r.cache_bytes / 1e9:.3f} GB; read {r.read_seconds:.2f} s"
+              f"{' (the reference files converted)' if state == 'written' else ''}, cache "
+              f"written in {r.write_seconds:.2f} s, engine built on the card in "
+              f"{r.build_seconds:.2f} s; {card}")
+        if r.cache != state:
+            fail(f"[cache] the {'cold' if state == 'written' else 'warm'} load's cache is "
+                 f"{r.cache!r}, not {state!r} ({free / 1e9:.1f} GB were free)")
+        engines[state] = eng
+    cold, warm = engines["written"], engines["read"]
+    n = 0
+    for name in MODELS:
+        want, got = getattr(cold, name).state_dict(), getattr(warm, name).state_dict()
+        if set(got) != set(want) or not all(torch.equal(got[k], v) for k, v in want.items()):
+            fail(f"[cache] {name}: the warm engine's tensors are not the cold one's")
+        n += len(want)
+    for key in ("emo_matrix", "spk_matrix"):
+        if not all(torch.equal(a, b) for a, b in zip(getattr(cold, key), getattr(warm, key))):
+            fail(f"[cache] the warm engine's {key} is not the cold one's")
+    if not (torch.equal(cold.semantic_mean, warm.semantic_mean)
+            and torch.equal(cold.semantic_std, warm.semantic_std)):
+        fail("[cache] the warm engine's semantic stats are not the cold one's")
+    ids = byte_fallback_ids(request_text(0), cfg.gpt.number_text_tokens)
+    codes = []
+    for eng in (cold, warm):
+        spk = eng.prepare_speaker(*audio_utils.load_wav(wav_path))
+        codes.append(eng._decode_segment_codes(
+            spk, EmotionConditioning(spk.spk_cond_emb, spk.cond_len), ids, seed=CACHE_SEED)[1])
+    same = np.array_equal(codes[0], codes[1])
+    print(f"[cache] warm against cold: {n} tensors of {len(MODELS)} models equal to the bit, "
+          f"banks and stats equal; one segment's {np.asarray(codes[0]).shape[-1]} codes "
+          f"(seed {CACHE_SEED}) equal: {same}; cache_phase done in "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    if not same:
+        fail("[cache] the warm engine's codes differ from the cold engine's")
+    del cold, warm, engines, eng, spk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def peak_rss_gib() -> float:
     """This process's peak resident memory (Linux: ru_maxrss in KiB)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
@@ -2640,7 +2721,8 @@ def check_loaded(engine, host, aux, label: str) -> None:
 
 
 def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model_dir: str,
-                     precompile: bool = False, written=None, decode_rounds: int = DECODE_ROUNDS):
+                     precompile: bool = False, written=None, decode_rounds: int = DECODE_ROUNDS,
+                     *, card: str, server_test: bool = False):
     """Serve `cfg` with the port's server, its engine loaded from the
     checkpoint directory `model_dir` (no model may be filled with random
     weights; with `written`, the (host state dicts, aux) that
@@ -2651,8 +2733,12 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model
     0. Each route has its own response cache, so no request
     is answered from another route's. With `precompile` the server's
     background precompile over the main path's envelope is waited for
-    before the requests, which must then capture nothing new. Returns the
-    counts and the engine."""
+    before the requests, which must then capture nothing new. The engine
+    must be loaded from the directory's converted-weights cache
+    (`cache_phase` wrote it). With `server_test`, the live-server smoke tool
+    (indextts_tpu_torch/tools/run_server_test.py) runs against the server
+    after the counted requests, in a process of its own. Returns the counts
+    and the engine."""
     import torch
 
     from indextts_tpu_torch import serve
@@ -2676,12 +2762,16 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model
     report = engine.load_report
     print(f"[{label}] full-width engine built and warmed up in {time.perf_counter() - t0:.1f} s "
           f"(peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
-    print(f"[{label}] loaded from {model_dir}: files read in {report.read_seconds:.2f} s, "
-          f"engine built on the card in {report.build_seconds:.2f} s; host peak resident "
-          f"{peak_rss_gib():.2f} GiB; models filled with random weights: "
-          f"{report.filled or 'none'}")
+    print(f"[{label}] loaded from {model_dir}: torch_cache {report.cache} "
+          f"({report.cache_bytes / 1e9:.3f} GB) in {report.read_seconds:.2f} s (PR 16's "
+          f"conversion from the reference's files: 3.09-5.66 s), engine built on the card in "
+          f"{report.build_seconds:.2f} s; host peak resident {peak_rss_gib():.2f} GiB; models "
+          f"filled with random weights: {report.filled or 'none'}; {card}")
     if report.filled:
         fail(f"[{label}] the checkpoint directory left {report.filled} to random weights")
+    if report.cache != "read":
+        fail(f"[{label}] the engine was not loaded from the converted-weights cache: "
+             f"{report.cache}")
     if written is not None:
         check_loaded(engine, *written, label)
     if precompile:
@@ -2746,17 +2836,19 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model
             print(f"[{label}] request {i}: stages_s gpt_decode={seg.gpt_gen_time:.3f} "
                   f"gpt_latent={seg.gpt_forward_time:.3f} s2mel={seg.s2mel_time:.3f} "
                   f"bigvgan={seg.bigvgan_time:.3f}")
-    finally:
         launches = {name: cnt.launches for name, cnt in counters.items()}
+        captured, mels = graph_counts(engine), list(engine._mel_taps)
+        if server_test:
+            run_server_test(port, tmp, label, card)
+    finally:
         thread.stop()
     print(f"[{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if precompile and graph_counts(engine) != graphs:
+    if precompile and captured != graphs:
         fail(f"[{label}] the requests captured graphs the precompile had not: (decode, "
-             f"latent, s2mel, vocoder) {graphs} before, {graph_counts(engine)} after")
+             f"latent, s2mel, vocoder) {graphs} before, {captured} after")
     if precompile:
         print(f"[{label}] the requests captured nothing new: graphs (decode, latent, s2mel, "
               f"vocoder) {graphs}")
-    mels = engine._mel_taps
     if len(mels) != N_REQUESTS or not all(np.isfinite(m).all() for m in mels):
         fail(f"[{label}] the requests' mels are missing or not finite")
     for name, n in launches.items():
@@ -2768,6 +2860,28 @@ def serve_full_width(wav_path: str, cfg, label: str, rise, stay, tmp: str, model
     keyed_prefill_gate(engine, wav_path, label)
     decode_turns(engine, wav_path, label, decode_rounds)
     return launches, engine
+
+
+def run_server_test(port: int, tmp: str, label: str, card: str) -> None:
+    """The live-server smoke tool against the server on `port`, from a
+    directory of its own (it writes server_test.wav and .pcm there):
+    healthz, readyz, a blocking WAV and a streamed PCM; fails unless it
+    exits 0."""
+    d = os.path.join(tmp, f"server_test-{label}")
+    os.makedirs(d)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "indextts_tpu_torch.tools.run_server_test",
+                          "--url", f"http://127.0.0.1:{port}"], cwd=d, env=env,
+                         capture_output=True, text=True, timeout=300)
+    for line in (out.stdout + out.stderr).splitlines():
+        print(f"[{label}] run_server_test: {line}")
+    print(f"[{label}] run_server_test exit {out.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    if out.returncode != 0:
+        fail(f"[{label}] run_server_test exited {out.returncode}")
 
 
 def keyed_prefill_errors(dec, conds, ids, pos, valid, prefix=None):
@@ -6298,6 +6412,101 @@ def tp_train_worker(tmp: str, coord: str, rank: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase dryrun_phase: the (data, model) dryrun, four ranks on the card
+# ---------------------------------------------------------------------------
+
+
+def dryrun_phase(card: str) -> None:
+    """Phase `dryrun_phase` (parallel/dryrun.py): `dryrun_multichip` with
+    DRYRUN_PROCS processes, mesh (2, 2), gloo ranks sharing the one card,
+    every attention 64 wide (K1 and K3 take Dh=64), 300 s a worker
+    (dryrun.WORKER_TIMEOUT):
+    (a) the GPT step, (b) the TP decode, (c) the cascade, each rank's
+    results and its launches of K1 ((b) and (c)), K3 and K2 ((c)), all of
+    which must be above 0. Then, in this process, K1 and K3 against their
+    plain versions at the shapes the ranks gave them (the local rows and
+    heads, the decode's cache and its last valid length, the CFM's frames
+    and valid lengths) on seeded inputs, and K2 at each call of one vocoder
+    call of the cascade's BigVGAN on a seeded mel of a rank's rows: the
+    inputs each K2 call got, held to 2e-5 + 1e-5 of the plain output (phase
+    2's tolerance). Two ranks share the card, so no scaling is measured."""
+    import torch
+
+    from indextts_tpu_torch.models import bigvgan as bv
+    from indextts_tpu_torch.ops import decode_attention, dit_attention, snake
+    from indextts_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    try:
+        results = dryrun.dryrun_multichip(DRYRUN_PROCS, "cuda",
+                                          log=lambda line: print(f"[dryrun] {line}"))
+    except RuntimeError as e:
+        fail(f"[dryrun] {e}")
+    wall = time.perf_counter() - t0
+    for r in results:
+        a, b, c = r["train"], r["decode"], r["cascade"]
+        print(f"[dryrun] rank {r['rank']} mesh {r['mesh']} {r['backend']} on {r['device']}: "
+              f"(a) GPT step loss {a['loss']:.6f} against one process {a['loss_one_process']:.6f}"
+              f" (rel {a['rel']:.3g}, tol 1e-5), {a['seconds']:.2f} s; (b) TP decode codes equal "
+              f"{b['ok']}, K1 launches {b['launches']['K1']}, {b['seconds']:.2f} s; (c) cascade "
+              f"codes equal {c['codes_equal']}, waveform {c['max_rel']:.3g} of the unsharded "
+              f"peak (tol 2e-4), launches {json.dumps(c['launches'])}, {c['seconds']:.2f} s; "
+              f"{card}")
+        if min(b["launches"]["K1"], *c["launches"].values()) <= 0:
+            fail(f"[dryrun] rank {r['rank']}: a kernel of the path was not launched: "
+                 f"(b) {b['launches']}, (c) {c['launches']}")
+    g = torch.Generator(device="cuda").manual_seed(DRYRUN_SEED)
+    dev = torch.device("cuda")
+    errs = {}
+    r = results[0]
+    for part in ("decode", "cascade"):
+        B, H, cap, Dh = r[part]["k1_shape"]
+        q = torch.randn((B, H, Dh), generator=g, device=dev)
+        k, v = (torch.randn((B, H, cap, Dh), generator=g, device=dev) for _ in range(2))
+        valid = torch.full((B,), r[part]["k1_valid"], device=dev)
+        zero = torch.zeros((B,), dtype=torch.long, device=dev)
+        args = (q, k, v, valid, zero, zero)
+        errs[f"K1 {part} {[B, H, cap, Dh]} valid {r[part]['k1_valid']}"] = (
+            decode_attention.ragged_decode_attention(*args)
+            - decode_attention.ragged_decode_attention_plain(*args)).abs().max().item(), 2e-5
+    B, H, T, Dh = r["cascade"]["k3_shape"]
+    q, k, v = (torch.randn((B, H, T, Dh), generator=g, device=dev) for _ in range(3))
+    valid = torch.tensor(r["cascade"]["k3_valid"] * 2, device=dev)
+    mask = torch.arange(T, device=dev)[None] < valid[:, None]
+    errs[f"K3 {[B, H, T, Dh]} valid {r['cascade']['k3_valid']}"] = (
+        dit_attention.dit_attention(q, k, v, mask)
+        - dit_attention.dit_attention_plain(q, k, v, mask)).abs().max().item(), 2e-5
+    voc = dryrun.cascade_models(dryrun.cascade_config(64), dev)["bigvgan"]
+    calls = []
+
+    def record(x, alpha, beta, logscale=True):
+        calls.append((x.clone(), alpha, beta, logscale))
+        return snake.anti_alias_snake(x, alpha, beta, logscale)
+
+    bv.anti_alias_snake = record
+    try:
+        with torch.inference_mode():
+            voc(torch.randn(r["cascade"]["mel_shape"], generator=g, device=dev))
+    finally:
+        bv.anti_alias_snake = snake.anti_alias_snake
+    err = tol = 0.0
+    for x, alpha, beta, logscale in calls:
+        want = snake.anti_alias_snake_plain(x, alpha, beta, logscale)
+        e = (snake.anti_alias_snake(x, alpha, beta, logscale) - want).abs().max().item()
+        t = 2e-5 + 1e-5 * want.abs().max().item()
+        if e / t > err / max(tol, 1e-30):
+            err, tol = e, t
+    errs[f"K2, the worst of the {len(calls)} calls of a vocoder call on "
+         f"{r['cascade']['mel_shape']} against its tolerance 2e-5 + 1e-5 max|plain|"] = err, tol
+    for what, (err, tol) in errs.items():
+        print(f"[dryrun] {what}: max_abs_err {err:.3g} against its plain version (tol {tol:.3g})")
+        if not err <= tol:
+            fail(f"[dryrun] {what} disagrees with its plain version")
+    print(f"[dryrun] dryrun_phase done in {time.perf_counter() - t0:.1f} s (the workers "
+          f"{wall:.1f} s); ranks share one card, so no scaling is measured; {card}")
+
+
+# ---------------------------------------------------------------------------
 # phase tools_phase: the offline tools on the checkpoint directory
 # ---------------------------------------------------------------------------
 
@@ -6357,6 +6566,11 @@ def tools_phase(model_dir: str, wav_path: str, tmp: str, card: str) -> None:
                                     "--model-dir", model_dir]):
             fail("[tools] precompute failed")
         engine = engines[model_dir]
+        print(f"[tools] the shared engine: torch_cache {engine.load_report.cache}, read in "
+              f"{engine.load_report.read_seconds:.2f} s (PR 16's conversion: 3.09-5.66 s); "
+              f"{card}")
+        if engine.load_report.cache != "read":
+            fail(f"[tools] the shared engine's cache: {engine.load_report.cache}")
         ids = byte_fallback_ids(request_text(0), engine.cfg.gpt.number_text_tokens)
         results = []
         for spk in (voice_conditioning.load_precomputed_speaker(npz, "cuda"),
@@ -6475,6 +6689,8 @@ def main():
         full = load_config()
         model_dir, host, aux = reference_dir(full, tmp)
         print(f"phase reference_dir done at {time.perf_counter() - t_start:.1f} s")
+        cache_phase(model_dir, full, wav_path, card)
+        print(f"phase cache_phase done at {time.perf_counter() - t_start:.1f} s")
         launches, beam_launches, batch_launches = {}, {}, {}
         for label, (change, rise, stay) in routes.items():
             # the quantized routes' decode turns at one round (graph,
@@ -6483,7 +6699,8 @@ def main():
                 wav_path, change(full), label, rise, stay, tmp, model_dir,
                 precompile=label == "float",
                 written=(host, aux) if label == "float" else None,
-                decode_rounds=DECODE_ROUNDS if label == "float" else 1)
+                decode_rounds=DECODE_ROUNDS if label == "float" else 1,
+                card=card, server_test=label == "float")
             host = aux = None  # the float route held its engine to them
             if label == "float":  # the s2mel stage does not depend on the GPT's route
                 s2mel_turns(engine, wav_path, label)
@@ -6523,6 +6740,8 @@ def main():
     parallel_phase(card)
     tp_train_phase(shapes, card)
     print(f"phase tp_train_phase done at {time.perf_counter() - t_start:.1f} s")
+    dryrun_phase(card)
+    print(f"phase dryrun_phase done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"launches a {BEAMS}-beam request (beam-multinomial, {MAX_MEL_TOKENS} steps at "

@@ -1,8 +1,10 @@
 """The offline tools on the port, each run as
 `python -m indextts_tpu_torch.tools.<name>` with the CLI of the JAX
 package's tools/<name>.py: `verify_checkpoint`, `voice_conditioning`,
-`build_dataset`, `synthesize_clips`. Each builds its engine on the card
-unless `--device cpu` is given."""
+`build_dataset`, `synthesize_clips`, each building its engine on the card
+unless `--device cpu` is given; `env_check`, which checks the card (or,
+with `--device cpu`, the CPU route); `run_server_test`, which checks a
+live server."""
 
 from __future__ import annotations
 

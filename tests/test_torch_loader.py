@@ -21,6 +21,16 @@ bpe.model):
   filled with the port's random_params(cfg, seed=0); the safetensors
   reader against the `safetensors` package both ways; config.yaml against
   the JAX load_config.
+* The converted-weights cache (torch_cache/): a first load writes it, a
+  second converts nothing (a counting spy, as the JAX package's
+  test_native_cache_reload_matches) and gives every state dict and aux
+  tensor to the bit, and its engine the JAX engine's greedy codes;
+  use_native_cache=False reads and writes nothing; a partial directory
+  caches only what it had; a replaced gpt.pth is converted again; a write
+  that fails is named on stderr and the engine loads; the JAX loader's
+  jax_cache/ and torch_cache/ sit in one directory, neither read by the
+  other package. The port's safetensors writer round-trips every dtype its
+  reader takes, and the `safetensors` package reads what it writes.
 * serve.build --model-dir answers POST /tts through the loaded bpe.model;
   a Qwen directory in it is attached (use_emo_text answers 200), one that
   fails to load is reported and left out; GET /ui and /metrics.
@@ -28,6 +38,7 @@ bpe.model):
 
 import asyncio
 import dataclasses
+import errno
 import http.client
 import io
 import json
@@ -37,6 +48,8 @@ import threading
 import time
 import wave
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -45,7 +58,8 @@ import chip_smoke
 from indextts_tpu_torch.runtime import loader
 from indextts_tpu_torch.runtime import torch_convert as tc
 from indextts_tpu_torch.runtime.engine import MODELS, random_params
-from indextts_tpu_torch.utils.safetensors import load_file
+from indextts_tpu_torch.utils.safetensors import (DTYPES, load_file, load_file_with_metadata,
+                                                   save_file)
 from indextts_tpu_torch.weights import from_jax_params
 from test_torch_s2mel_graph import _request
 from test_torch_slice import _free_port
@@ -313,6 +327,237 @@ def test_safetensors_package_reads_the_writer(tmp_path):
     chip_smoke.save_safetensors(path, tensors, metadata={"format": "pt"})
     _assert_same(safetensors.torch.load_file(str(path)), tensors)
     _assert_same(load_file(path), tensors)
+
+
+def test_safetensors_writer_round_trips_every_dtype(tmp_path):
+    """save_file then load_file gives every dtype of the reader's table back
+    to the bit, with the metadata; the `safetensors` package reads the same
+    tensors and metadata."""
+    import safetensors
+    import safetensors.torch
+
+    g = torch.Generator().manual_seed(3)
+    tensors = {}
+    for code, dtype in DTYPES.items():
+        if dtype.is_floating_point:
+            x = torch.randn((3, 4), generator=g).to(dtype)
+        elif dtype is torch.bool:
+            x = torch.randint(0, 2, (3, 4), generator=g).bool()
+        else:
+            info = torch.iinfo(dtype)
+            x = torch.randint(info.min, info.max, (3, 4), generator=g, dtype=dtype)
+        tensors[code] = x
+        tensors[f"{code}.scalar"] = x.reshape(-1)[0].clone()
+        tensors[f"{code}.empty"] = x[:0]
+    tensors["strided"] = torch.arange(24, dtype=torch.float32).reshape(4, 6)[:, ::2]
+    path = tmp_path / "all.safetensors"
+    meta = {"format": "pt", "note": "x"}
+    save_file(tensors, path, meta)
+    got, got_meta = load_file_with_metadata(path)
+    _assert_same(got, {k: v.contiguous() for k, v in tensors.items()})
+    assert got_meta == meta
+    _assert_same(safetensors.torch.load_file(str(path)), got)
+    with safetensors.safe_open(str(path), "pt") as f:
+        assert f.metadata() == meta
+
+
+def _linked_dir(d, src, names=None):
+    """A directory `d` whose files are links to `src`'s reference files
+    (`names`, by default all of them but its caches)."""
+    d.mkdir(exist_ok=True)
+    for name in names or sorted(os.listdir(src)):
+        if name not in ("torch_cache", "jax_cache"):
+            os.symlink(src / name, d / name)
+    return d
+
+
+@pytest.fixture
+def conversions(monkeypatch):
+    """The calls the port's load_engine makes to convert_reference_checkpoints."""
+    calls = []
+    real = loader.convert_reference_checkpoints
+
+    def counting(*args, **kwargs):
+        calls.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(loader, "convert_reference_checkpoints", counting)
+    return calls
+
+
+def _assert_engine_holds(eng, want, filled=()):
+    for name in MODELS:
+        if name not in filled:
+            _assert_same(getattr(eng, name).state_dict(), want[name])
+
+
+def test_cache_written_then_read(ckpt, converted, tmp_path, conversions):
+    """A first load converts and writes torch_cache/ (a file a model and
+    aux.safetensors); a second converts nothing and reads every state dict
+    and aux tensor to the bit."""
+    d = _linked_dir(tmp_path / "model", ckpt[0])
+    pcfg, want, want_aux = ckpt[2], converted[2], converted[3]
+    cold = loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert conversions == [str(d)] and cold.load_report.cache == "written"
+    files = sorted(os.listdir(d / loader.CACHE_DIR))
+    assert files == sorted([f"{m}.safetensors" for m in MODELS] + ["aux.safetensors"])
+    assert cold.load_report.cache_bytes == sum(
+        (d / loader.CACHE_DIR / f).stat().st_size for f in files)
+    warm = loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert conversions == [str(d)], "a current cache must skip the conversion"
+    assert warm.load_report.cache == "read" and warm.load_report.filled == []
+    params, aux, nbytes = loader.read_cache(str(d), pcfg)
+    assert nbytes == cold.load_report.cache_bytes and set(params) == set(MODELS)
+    for name in MODELS:
+        _assert_same(params[name], want[name])
+    assert set(aux) == set(want_aux)
+    for key in ("emo_matrix", "spk_matrix"):
+        assert aux[key].dtype == want_aux[key].dtype and np.array_equal(aux[key], want_aux[key])
+    for a, w in zip(aux["semantic_stats"], want_aux["semantic_stats"]):
+        assert a.dtype == w.dtype and np.array_equal(a, w)
+    _assert_engine_holds(warm, want)
+    for key in ("emo_matrix", "spk_matrix"):
+        assert all(torch.equal(a, b) for a, b in zip(getattr(warm, key), getattr(cold, key)))
+    assert torch.equal(warm.semantic_mean, cold.semantic_mean)
+    assert torch.equal(warm.semantic_std, cold.semantic_std)
+
+
+def test_warm_engine_matches_jax_loader(ckpt, engines, conversions):
+    """The engine read from the cache (the module's directory, whose cache
+    the `engines` fixture wrote) gives the JAX loader's engine's greedy
+    codes, mel and waveform at test_engines_match_jax_loader's tolerances."""
+    je, _ = engines
+    warm = loader.load_engine(str(ckpt[0]), cfg=ckpt[2], device="cpu")
+    assert warm.load_report.cache == "read" and conversions == []
+    noise = _noise()
+    jc, jm, jw, _ = _request(je, 0, noise)
+    pc, pm, pw, _ = _request(warm, 0, noise)
+    assert len(jc) > 2
+    np.testing.assert_array_equal(pc, jc)
+    assert np.abs(pm - jm).max() <= 1e-4 * np.abs(jm).max()
+    assert np.abs(pw - jw).max() <= 1e-3 * np.abs(jw).max()
+
+
+def test_cache_off_reads_and_writes_nothing(ckpt, converted, tmp_path, conversions):
+    """use_native_cache=False: no torch_cache/ is made, and one that is there
+    (here a current one whose GPT file was altered) is not read."""
+    d = _linked_dir(tmp_path / "model", ckpt[0])
+    pcfg = ckpt[2]
+    eng = loader.load_engine(str(d), cfg=pcfg, device="cpu", use_native_cache=False)
+    assert not (d / loader.CACHE_DIR).exists() and eng.load_report.cache == "not used"
+    loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    path = d / loader.CACHE_DIR / "gpt.safetensors"
+    sd, meta = load_file_with_metadata(path)
+    sd = {k: v + 1 for k, v in sd.items()}
+    save_file(sd, path, meta)
+    before = sorted((p.name, p.stat().st_mtime_ns) for p in (d / loader.CACHE_DIR).iterdir())
+    eng = loader.load_engine(str(d), cfg=pcfg, device="cpu", use_native_cache=False)
+    assert conversions == [str(d)] * 3 and eng.load_report.cache == "not used"
+    _assert_engine_holds(eng, converted[2])
+    assert sorted((p.name, p.stat().st_mtime_ns)
+                  for p in (d / loader.CACHE_DIR).iterdir()) == before
+
+
+def test_partial_directory_caches_what_it_had(ckpt, converted, tmp_path, conversions,
+                                              capsys):
+    """Without hf/: the cache holds the GPT, s2mel and aux only; the warm
+    load reads them and fills the four others from random_params(cfg,
+    seed=0), naming them, as the cold one did."""
+    d = _linked_dir(tmp_path / "model", ckpt[0], ["gpt.pth", "s2mel.pth",
+                                                 "wav2vec2bert_stats.pt", "feat1.pt",
+                                                 "feat2.pt"])
+    pcfg = ckpt[2]
+    filled = ["bigvgan", "repcodec", "campplus", "w2vbert"]
+    cold = loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert sorted(os.listdir(d / loader.CACHE_DIR)) == [
+        "aux.safetensors", "gpt.safetensors", "s2mel.safetensors"]
+    warm = loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert conversions == [str(d)] and warm.load_report.cache == "read"
+    assert cold.load_report.filled == warm.load_report.filled == filled
+    assert capsys.readouterr().err.count(f"no checkpoint for {', '.join(filled)}") == 2
+    rand = random_params(pcfg, seed=0, device="cpu")
+    _assert_engine_holds(warm, {**converted[2], **{m: rand[m] for m in filled}})
+
+
+def test_replaced_source_is_converted_again(ckpt, tmp_path, conversions):
+    """gpt.pth replaced by other weights (its mtime moved on, whatever the
+    clock's resolution): the next load converts again, rewrites the cache
+    and holds the new weights; the load after it reads them."""
+    d = _linked_dir(tmp_path / "model", ckpt[0])
+    pcfg = ckpt[2]
+    loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    sd = torch.load(d / "gpt.pth")
+    key = "gpt.h.0.mlp.c_fc.weight"
+    sd[key] = sd[key] * 0.5
+    mtime = (d / "gpt.pth").stat().st_mtime_ns
+    os.unlink(d / "gpt.pth")
+    torch.save(sd, d / "gpt.pth")
+    os.utime(d / "gpt.pth", ns=(mtime + 10**9, mtime + 10**9))
+    again = loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert conversions == [str(d)] * 2 and again.load_report.cache == "written"
+    assert torch.equal(again.gpt.state_dict()[key], sd[key])
+    warm = loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert conversions == [str(d)] * 2 and warm.load_report.cache == "read"
+    _assert_same(warm.gpt.state_dict(), again.gpt.state_dict())
+
+
+@pytest.mark.parametrize("how", ["read_only", "blocked"])
+def test_failed_cache_write_is_named_and_the_load_goes_on(ckpt, converted, tmp_path,
+                                                         monkeypatch, capsys, how):
+    """The write fails: a read-only file system (EROFS from the writer,
+    after part of a file was written) or a file where the cache directory
+    would go. One stderr line names the path and the error, no cache file
+    and no partial file is left, and the engine holds the converted
+    weights."""
+    d = _linked_dir(tmp_path / "model", ckpt[0])
+    if how == "read_only":
+        def refuse(tensors, path, metadata=None):
+            Path(path).write_bytes(b"partial")
+            raise OSError(errno.EROFS, "Read-only file system", str(path))
+
+        monkeypatch.setattr(loader, "save_file", refuse)
+    else:
+        (d / loader.CACHE_DIR).write_text("not a directory")
+    eng = loader.load_engine(str(d), cfg=ckpt[2], device="cpu")
+    err = [line for line in capsys.readouterr().err.splitlines() if "cache" in line]
+    assert len(err) == 1 and str(d / loader.CACHE_DIR) in err[0]
+    assert ("Read-only file system" if how == "read_only" else "File exists") in err[0]
+    assert eng.load_report.cache == "not used" and eng.load_report.filled == []
+    if how == "read_only":
+        assert os.listdir(d / loader.CACHE_DIR) == []
+    _assert_engine_holds(eng, converted[2])
+
+
+def test_jax_and_port_caches_coexist(ckpt, tmp_path, conversions, monkeypatch):
+    """The JAX loader writes jax_cache/, the port torch_cache/, in one
+    directory; each package then reads its own (no conversion), and neither
+    reads the other's: without jax_cache/ the JAX loader converts again
+    beside a current torch_cache/, and the port's cache read does not
+    change when jax_cache/ goes."""
+    from indextts_tpu.runtime import loader as jax_loader
+
+    d = _linked_dir(tmp_path / "model", ckpt[0])
+    cfg, pcfg = ckpt[1], ckpt[2]
+    jax_calls = []
+    real = jax_loader.convert_reference_checkpoints
+
+    def jax_counting(*args, **kwargs):
+        jax_calls.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(jax_loader, "convert_reference_checkpoints", jax_counting)
+    jax_loader.load_engine(str(d), cfg=cfg)
+    loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert (d / "jax_cache" / "params").exists() and (d / loader.CACHE_DIR).is_dir()
+    assert len(jax_calls) == 1 and len(conversions) == 1
+    jax_loader.load_engine(str(d), cfg=cfg)
+    warm = loader.load_engine(str(d), cfg=pcfg, device="cpu")
+    assert len(jax_calls) == 1 and len(conversions) == 1
+    assert warm.load_report.cache == "read"
+    shutil.rmtree(d / "jax_cache")
+    assert loader.load_engine(str(d), cfg=pcfg, device="cpu").load_report.cache == "read"
+    jax_loader.load_engine(str(d), cfg=cfg)
+    assert len(jax_calls) == 2 and len(conversions) == 1
 
 
 def test_config_yaml_matches_jax_load_config(tmp_path):
