@@ -389,7 +389,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    speaker's codes and waveform bit for bit; build_dataset, 3 utterances
    on 2 threads (--deterministic), then a resume that launches no kernel;
    synthesize_clips synth --batched of 2 phrase-bank clips. The last three
-   share one engine. Each tool's seconds printed.
+   share one engine. Each tool's seconds printed. Then `eval_phase`
+   (tools/eval_quality.py main on the same directory, float route, the
+   library's 3-beam decode, 300 codes at most): examples/cases.jsonl's 6
+   cases against the synthetic prompt, --asr mock, controls on, seed 0;
+   every case's row, with WER 0, finite cosines and K1, K2 and K3 each
+   launched in each case (launches printed a case), then one case with
+   --mock-asr-drop 0.5, whose WER must be above 0; the aggregate, the
+   controls' margins and the meta flags printed (random weights:
+   spk_sim_discriminative false is expected, not a failure). Then
+   `soak_phase`: tools/soak_server.py in a process of its own with
+   TARS_CHECKPOINT_DIR set to the directory (its own defaults: W8 + int8
+   KV, 192 codes, sequential, no precompile), SOAK_REQUESTS requests from
+   4 clients in SOAK_WAVES waves; exit 0 (host RSS, device memory and p50
+   drift within its gates), its device gauge "memory_stats", each wave's
+   line (p50, RSS, GB in use, captured graphs) and the summary printed.
 14. `tp_train_phase` (training over the model axis), after
    `parallel_phase`, at full width: two processes on the one card over
    gloo, make_mesh(1, 2) (`tp_train_worker`). One CFM step at the main
@@ -537,6 +551,12 @@ TOOLS_SEED = 61  # tools_phase's segment seed
 CACHE_SEED = 67  # cache_phase's segment seed
 DRYRUN_PROCS = 4  # dryrun_phase's processes: the mesh (2, 2), gloo ranks sharing the card
 DRYRUN_SEED = 71  # dryrun_phase's kernel inputs
+EVAL_DROP_CASE = "en_long"  # eval_phase's case run again under --mock-asr-drop 0.5
+# soak_phase's requests from 4 clients, in waves: 16 in 2 (24 in 3 took the
+# whole script past 900 s)
+SOAK_REQUESTS = 16
+SOAK_WAVES = 2
+SOAK_TIMEOUT = 480  # seconds the soak's process may take
 P_COND = 34  # the GPT's conditioning positions
 # the dilation phase: resblocks of differing dilations, the weights' seed
 DILATIONS = ((1, 3, 5), (1, 2, 4), (2, 3, 6))
@@ -629,10 +649,11 @@ def cuda_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return a.elapsed_time(b) / (iters * replays)
 
 
-def device_kernels(fn, calls: int = 48):
-    """The device kernels that one fn() call launches, from torch.profiler
-    over `calls` calls after one warm-up: {kernel name: (launches per call,
-    device ms per call)}."""
+def profile_calls(fn, calls: int = 48):
+    """torch.profiler over `calls` fn() calls after one warm-up: ({device
+    kernel name: (launches per call, device ms per call)}, the host's
+    kernel-launch API records (cudaLaunchKernel and its variants) per
+    call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -642,8 +663,16 @@ def device_kernels(fn, calls: int = 48):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: (e.count / calls, e.device_time_total / 1e3 / calls)
-            for e in prof.key_averages() if e.device_time_total > 0}
+    host = sum(1 for e in prof.events()
+               if e.device_type != torch.autograd.DeviceType.CUDA and "LaunchKernel" in e.name)
+    return ({e.key: (e.count / calls, e.device_time_total / 1e3 / calls)
+             for e in prof.key_averages() if e.device_time_total > 0}, host / calls)
+
+
+def device_kernels(fn, calls: int = 48):
+    """The device kernels that one fn() call launches (`profile_calls`):
+    {kernel name: (launches per call, device ms per call)}."""
+    return profile_calls(fn, calls)[0]
 
 
 def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
@@ -1969,17 +1998,24 @@ def one_launch(label: str, call, tries: int = 3):
     A profile that saw fewer kernels than calls lost records (every call
     launches at least one kernel; one full run of this script saw 10 of
     K6's 48) and is taken again, up to `tries` profiles in all; a count
-    above one fails at once."""
+    above one fails at once. Where every profile lost device records, one
+    kernel and no other was seen, and the host recorded exactly one launch
+    call a call, the call is one launch: two full runs saw 47 of K3-bf16's
+    48 device records in each of three profiles, which the kernel alone
+    under the profiler never showed."""
     for _ in range(tries):
-        kernels = device_kernels(call)
+        kernels, host = profile_calls(call)
         for name, (n, ms) in kernels.items():
             print(f"{label} device kernel {name[:60]}: {n:g} per call, {ms:.5f} ms")
         n = sum(n for n, _ in kernels.values())
-        print(f"{label} kernels launched per call: {n:g}")
+        print(f"{label} kernels launched per call: {n:g} (launch calls on the host: {host:g})")
         if n >= 1:
             break
         print(f"{label}: the profiler lost kernel records; profiling again")
-    if n != 1:
+    if 0 < n < 1 and host == 1 and len(kernels) == 1:
+        print(f"{label}: device records lost in each of {tries} profiles; the host recorded "
+              "one launch call a call, of the one kernel seen: one launch a call")
+    elif n != 1:
         fail(f"{label} launches {n} kernels per call, not one")
 
 
@@ -3759,9 +3795,7 @@ def short_name(kernel: str) -> str:
 def graph_counts(engine):
     """The engine's captured graphs: (decode steps, latent passes, CFM
     solves, vocoder calls)."""
-    return (sum(len(st.graphs) for st in engine.decoder._states.values()),
-            *(sum(r.keys().values()) for r in (
-                engine.latent_runner, engine.s2mel_runner, engine.vocoder_runner)))
+    return tuple(engine.captured_graphs().values())
 
 
 def replays_ms(graph, n: int) -> float:
@@ -6634,6 +6668,135 @@ def tools_phase(model_dir: str, wav_path: str, tmp: str, card: str) -> None:
     print(f"[tools] tools_phase done in {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------------------
+# phases eval_phase and soak_phase: the quality harness and the soak gate
+# ---------------------------------------------------------------------------
+
+
+def eval_phase(model_dir: str, wav_path: str, tmp: str, card: str) -> None:
+    """Phase `eval_phase` (indextts_tpu_torch/tools/eval_quality.py): main
+    on `reference_dir`'s full-width directory, float route, one engine for
+    both runs (the loader's load_engine kept for the directory). The 6
+    cases of examples/cases.jsonl against the synthetic prompt, --asr mock,
+    controls on, seed 0: every case present with WER 0, finite cosines and
+    margins, and K1, K2 and K3 each launched in each case; then
+    EVAL_DROP_CASE again with --mock-asr-drop 0.5, whose WER must be above
+    0. Rows, aggregate, margins, meta flags, K1-K3 launches a case and the
+    memory left allocated on the card before and after printed."""
+    import torch
+
+    from indextts_tpu_torch.runtime import loader
+    from indextts_tpu_torch.tools import eval_quality
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated() / 2**30
+    d = os.path.join(tmp, "eval")
+    os.makedirs(d)
+    cases_path = str(Path(__file__).resolve().parent / "examples" / "cases.jsonl")
+    cases = [json.loads(line) for line in open(cases_path) if line.strip()]
+    counters = kernel_counters()
+    names = {n.split()[0]: n for n in counters if n.split()[0] in ("K1", "K2", "K3")}
+    launches, real_synth = {}, eval_quality._synthesize
+
+    def counted(engine, case, spk, seed, gen_kwargs=None):
+        for n in names.values():
+            counters[n].launches = 0
+        out = real_synth(engine, case, spk, seed, gen_kwargs)
+        launches[case.get("id")] = {k: counters[n].launches for k, n in names.items()}
+        return out
+
+    engines, real_load = {}, loader.load_engine
+
+    def shared(path, *args, **kwargs):
+        if path not in engines:
+            engines[path] = real_load(path, *args, **kwargs)
+        return engines[path]
+
+    eval_quality._synthesize, loader.load_engine = counted, shared
+    try:
+        out = os.path.join(d, "EVAL.json")
+        res = eval_quality.main(["--cases", cases_path, "--model-dir", model_dir,
+                                 "--spk-audio", wav_path, "--asr", "mock", "--seed", "0",
+                                 "--output", out])
+        t1 = time.perf_counter()
+        for row in res["cases"]:
+            print(f"[eval] {json.dumps(row)}; launches {json.dumps(launches.get(row['id']))}")
+        ctl, meta = res.get("controls", {}), res["meta"]
+        flags = {k: meta.get(k) for k in ("weights", "device", "max_mel_tokens", "asr",
+                                           "spk_sim_discriminative", "emo_sim_discriminative")}
+        print(f"[eval] aggregate {json.dumps(res['aggregate'])}; margins: spk "
+              f"{ctl.get('spk_margin_mean')} (synthetic control "
+              f"{ctl.get('spk_control_synthetic')}), emo {ctl.get('emo_margin_mean')}; meta "
+              f"{json.dumps(flags)}; {t1 - t0:.1f} s for {len(cases)} cases; {card}")
+        ids = [c["id"] for c in cases]
+        cosines = [r[k] for r in res["cases"] for k in ("spk_sim", "emo_sim")] + [
+            r["margin"] for part in ("spk", "emo") for r in ctl.get(part, [])]
+        if [r["id"] for r in res["cases"]] != ids or not ctl.get("spk"):
+            fail(f"[eval] cases {[r['id'] for r in res['cases']]} against {ids}")
+        if res["aggregate"]["wer"] != 0 or any(r["wer"] != 0 for r in res["cases"]):
+            fail(f"[eval] the exact mock ASR gave WER {res['aggregate']['wer']}")
+        if not all(math.isfinite(c) for c in cosines):
+            fail(f"[eval] a cosine is not finite: {cosines}")
+        if any(launches.get(i, {}).get(k, 0) == 0 for i in ids for k in names):
+            fail(f"[eval] a case launched no K1, K2 or K3: {launches}")
+
+        one = os.path.join(d, "one.jsonl")
+        Path(one).write_text(json.dumps(next(c for c in cases if c["id"] == EVAL_DROP_CASE))
+                             + "\n")
+        drop = eval_quality.main(["--cases", one, "--model-dir", model_dir,
+                                  "--spk-audio", wav_path, "--asr", "mock", "--seed", "0",
+                                  "--mock-asr-drop", "0.5",
+                                  "--output", os.path.join(d, "EVAL_drop.json")])
+        row = drop["cases"][0]
+        print(f"[eval] {EVAL_DROP_CASE} under --mock-asr-drop 0.5: WER {row['wer']} "
+              f"({row['wer_errors']} of {row['ref_tokens']} tokens); "
+              f"{time.perf_counter() - t1:.1f} s")
+        if not row["wer"] > 0:
+            fail(f"[eval] --mock-asr-drop 0.5 gave WER {row['wer']}")
+    finally:
+        eval_quality._synthesize, loader.load_engine = real_synth, real_load
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[eval] eval_phase done in {time.perf_counter() - t0:.1f} s; allocated on the card "
+          f"before it {before:.2f} GiB, after its engine was freed "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {card}")
+
+
+def soak_phase(model_dir: str, tmp: str, card: str) -> None:
+    """Phase `soak_phase` (indextts_tpu_torch/tools/soak_server.py) in a
+    process of its own, TARS_CHECKPOINT_DIR set to `reference_dir`'s
+    directory and the soak's own environment defaults (this script's
+    TARS_MAX_MEL_TOKENS and TARS_STAGE_SYNC taken out): SOAK_REQUESTS
+    requests from 4 clients in SOAK_WAVES waves. It must exit 0 with its
+    device gauge "memory_stats"; each wave's line and the summary printed."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "soak.json")
+    env = dict(os.environ, TARS_CHECKPOINT_DIR=model_dir)
+    for k in ("TARS_MAX_MEL_TOKENS", "TARS_STAGE_SYNC"):
+        env.pop(k, None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "indextts_tpu_torch.tools.soak_server",
+             "--requests", str(SOAK_REQUESTS), "--clients", "4", "--waves", str(SOAK_WAVES),
+             "--port", str(free_port()), "--output", out],
+            cwd=here, env=env, capture_output=True, text=True, timeout=SOAK_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        fail(f"[soak] no exit in {SOAK_TIMEOUT} s; stderr tail: {str(e.stderr)[-2000:]}")
+    waves = [line for line in proc.stderr.splitlines() if line.startswith('{"wave"')]
+    for line in waves:
+        print(f"[soak] {line}")
+    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else "{}"
+    print(f"[soak] {summary}")
+    print(f"[soak] exit {proc.returncode} in {time.perf_counter() - t0:.1f} s (the process's "
+          f"start, the W8 engine's warm load, its warm-up and {SOAK_REQUESTS} requests); {card}")
+    if proc.returncode != 0 or len(waves) != SOAK_WAVES \
+            or json.loads(summary).get("hbm_gauge") != "memory_stats":
+        fail(f"[soak] exit {proc.returncode}, {len(waves)} waves, {summary}; stderr tail: "
+             f"{proc.stderr[-3000:]}")
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -6732,6 +6895,10 @@ def main():
                   f"still allocated; route done at {time.perf_counter() - t_start:.1f} s")
         tools_phase(model_dir, wav_path, tmp, card)
         print(f"phase tools_phase done at {time.perf_counter() - t_start:.1f} s")
+        eval_phase(model_dir, wav_path, tmp, card)
+        print(f"phase eval_phase done at {time.perf_counter() - t_start:.1f} s")
+        soak_phase(model_dir, tmp, card)
+        print(f"phase soak_phase done at {time.perf_counter() - t_start:.1f} s")
     v1_phase(card)
     print(f"phase v1_phase done at {time.perf_counter() - t_start:.1f} s")
     dilation_phase(card)

@@ -989,6 +989,17 @@ class IndexTTS2Engine:
         self._last_batched_stats = stats
         return wavs
 
+    def captured_graphs(self) -> Dict[str, int]:
+        """The CUDA graphs the engine holds, by stage: decode steps (every
+        decode state's), latent passes, CFM solves and vocoder calls (the
+        batched route's runner too when it is a runner of its own). Each
+        capture keeps its memory pool on the card; all 0 on the CPU."""
+        vocoders = {id(r): r for r in (self.vocoder_runner, self.batch_vocoder_runner)}
+        return {"decode": sum(len(st.graphs) for st in self.decoder._states.values()),
+                "latent": sum(self.latent_runner.keys().values()),
+                "s2mel": sum(self.s2mel_runner.keys().values()),
+                "vocoder": sum(sum(r.keys().values()) for r in vocoders.values())}
+
     def precompile(
         self,
         spk: SpeakerConditioning,

@@ -358,10 +358,15 @@ def build(argv=None, cfg=None, engine=None):
     return server, engine
 
 
-def main(argv=None):
+def main(argv=None, on_built: Optional[Callable] = None):
+    """Build and serve until shut down; `on_built(server, engine)`, when
+    given, is called once both are built (tools/soak_server.py reads the
+    engine's captured graphs through it)."""
     from indextts_tpu_torch.utils.obs import GracefulShutdown, print_stage
 
-    server, _ = build(argv)
+    server, engine = build(argv)
+    if on_built is not None:
+        on_built(server, engine)
     GracefulShutdown().install()
     print_stage(f"Serving on {server.settings.host}:{server.settings.port}", "complete")
     server.run()

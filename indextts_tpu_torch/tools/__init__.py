@@ -4,7 +4,11 @@ package's tools/<name>.py: `verify_checkpoint`, `voice_conditioning`,
 `build_dataset`, `synthesize_clips`, each building its engine on the card
 unless `--device cpu` is given; `env_check`, which checks the card (or,
 with `--device cpu`, the CPU route); `run_server_test`, which checks a
-live server."""
+live server; `eval_quality`, the quality harness (WER through a pluggable
+ASR, CAMPPlus speaker similarity, emotion-vector fidelity, negative
+controls) over a JSONL of cases; `soak_server`, the serving soak gate
+(host RSS, device memory and p50 drift over waves of requests against an
+in-process server, exit 1 past a gate)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""chip_smoke.py's comparison of a captured step's replay with an eager step.
+"""chip_smoke.py's comparison of a captured step's replay with an eager
+step, and its check that a kernel's call is one launch.
 
 The profiler runs only on the card, so `step_kernels` and
 `rng_replay_kernels` are replaced by fakes that hand out the kernel
@@ -92,3 +93,33 @@ def test_graph_copy_node_counts_as_the_eager_memcpy(monkeypatch):
                      [{**REPLAY, "memcpy32_post": (1, 0.001)}], [RNG])
     *_, counts = chip_smoke.replay_against_eager(lambda: None, graph, True, "w8")
     assert counts[0] == counts[1]
+
+
+K = "dit_attn_bf16_kernel<2>"
+
+
+@pytest.mark.parametrize("windows,passes", [
+    ([({K: (1.0, 0.01)}, 1.0)], True),
+    # device records lost in every profile, one launch call a call on the host
+    ([({K: (47 / 48, 0.01)}, 1.0)] * 3, True),
+    # lost, then a whole profile
+    ([({K: (47 / 48, 0.01)}, 1.0), ({K: (1.0, 0.01)}, 1.0)], True),
+    # lost, and the host recorded fewer launch calls than calls
+    ([({K: (47 / 48, 0.01)}, 47 / 48)] * 3, False),
+    # lost, and a second kernel seen
+    ([({K: (0.5, 0.01), "other": (0.25, 0.001)}, 1.0)] * 3, False),
+    # two kernels a call fail at once
+    ([({K: (1.0, 0.01), "other": (1.0, 0.001)}, 2.0)], False),
+    ([({}, 0.0)] * 3, False),
+])
+def test_one_launch(monkeypatch, windows, passes):
+    """one_launch over profiles that hand out `windows` in turn: passes or
+    fails as stated, profiling no more than it needs."""
+    seen = iter(windows)
+    monkeypatch.setattr(chip_smoke, "profile_calls", lambda fn: next(seen))
+    if passes:
+        chip_smoke.one_launch("K3-bf16", lambda: None)
+    else:
+        with pytest.raises(SystemExit, match="not one"):
+            chip_smoke.one_launch("K3-bf16", lambda: None)
+    assert next(seen, None) is None
