@@ -404,6 +404,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    4 clients in SOAK_WAVES waves; exit 0 (host RSS, device memory and p50
    drift within its gates), its device gauge "memory_stats", each wave's
    line (p50, RSS, GB in use, captured graphs) and the summary printed.
+   Then `bench_phase`: the six measurement tools, each in a process of its
+   own at full width as a user runs it, at short settings (BENCH_TOOLS):
+   all at once, so that their start-ups overlap (their numbers checked,
+   not compared: they share the card): `python -m indextts_tpu_torch.bench`
+   (BENCH_RUNS=1, every section on: W8 + int8 KV, bf16 s2mel and vocoder),
+   tools/benchmark_infer.py on a 2-case file over the directory,
+   bench_server_concurrent.py in each mode, the two processes that
+   run_server_bench.sh runs one after the other (2 clients x 2 requests,
+   both passes), bench_s2mel.py at one shape, and bench_w4.py and
+   bench_decode_kernels.py at a hundred or two steps. Each
+   must exit 0 and print parsable JSON: the bench's lines progressive
+   supersets with every section landed and none failed, its value,
+   tokens/s and every section's number finite and above 0 (the batched
+   stages' host trim at least 0), its timed runs' decoded codes exactly
+   BENCH_MEL_TOKENS x BENCH_RUNS (the stop token banned) and its tokens/s
+   within 10 % of them over the timed runs' gpt_gen seconds, its
+   `device.name` the card's, K2, K3-bf16, K5 and K6 launched in its timed
+   runs (W8's "auto" GEMV route takes K5 and K6 on the card), K4 exactly
+   24 layers x (BENCH_MEL_TOKENS - 1) steps x BENCH_RUNS, and K1, K7, K8
+   not; the other tools' numbers finite and above 0, each A/B
+   run's kernel launches those of its route (bench_s2mel: K3 and K3-bf16
+   260 a solve; bench_w4: K7 and K8 only on W4; bench_decode_kernels: K5
+   and K6 under "pallas" and "auto", K1 only on the float cache, K4 only
+   on the int8 one). Each tool's headline printed on a line of its own.
 14. `tp_train_phase` (training over the model axis), after
    `parallel_phase`, at full width: two processes on the one card over
    gloo, make_mesh(1, 2) (`tp_train_worker`). One CFM step at the main
@@ -2186,7 +2210,7 @@ def small_config(model_dim: int = 128):
 def quantized(cfg, wbits: int = 8, gemv_impl: str = "pallas"):
     """`cfg` with the JAX package's quantized GPT route: W8A8 or W4A8 blocks,
     the int8 logits head and the int8 KV cache, and gemv_impl (W8 reaches
-    K5 and K6 only under "pallas")."""
+    K5 and K6 under "pallas", and under "auto" on the card)."""
     rt = dataclasses.replace(cfg.runtime, gpt_quantize=True, head_quant=True, kv_quant=True,
                              gpt_wbits=wbits, gemv_impl=gemv_impl)
     return dataclasses.replace(cfg, runtime=rt)
@@ -2301,17 +2325,11 @@ def post_tts(port: int, payload: dict):
 
 
 def kernel_counters():
-    from indextts_tpu_torch.ops import decode_attention, dit_attention, gemv, snake
+    """Every kernel's launch counter by its long name ("K5 gemv_w8"), from
+    the package's one registry (`ops.KERNELS`)."""
+    from indextts_tpu_torch.ops import launch_counters
 
-    return {"K1 ragged_decode_attention": decode_attention.counter,
-            "K2 anti_alias_snake": snake.counter, "K3 dit_attention": dit_attention.counter,
-            "K4 ragged_decode_attention_q8": decode_attention.q8_counter,
-            "K5 gemv_w8": gemv.gemv_counter, "K6 mlp_w8": gemv.mlp_counter,
-            "K7 gemv_w4": gemv.gemv4_counter, "K8 mlp_w4": gemv.mlp4_counter,
-            "K2-bf16 anti_alias_snake": snake.bf16_counter,
-            "K3-bf16 dit_attention": dit_attention.bf16_counter,
-            "K9 dit_attention_bwd_dkv": dit_attention.bwd_dkv_counter,
-            "K10 dit_attention_bwd_dq": dit_attention.bwd_dq_counter}
+    return launch_counters(long_names=True)
 
 
 # ---------------------------------------------------------------------------
@@ -6797,6 +6815,223 @@ def soak_phase(model_dir: str, tmp: str, card: str) -> None:
              f"{proc.stderr[-3000:]}")
 
 
+# ---------------------------------------------------------------------------
+# phase bench_phase: the measurement tools, each in a process of its own
+# ---------------------------------------------------------------------------
+
+# the tools' short settings: the bench's one timed run with every section;
+# a few hundred decode steps and one s2mel shape for the A/B tools
+BENCH_TOOLS = {"bench_runs": "1", "w4_steps": "200", "decode_steps": "100",
+               "decode_batches": "1,16", "s2mel_shape": "1x512", "s2mel_iters": "3",
+               "server_clients": "2", "server_requests": "2", "server_segments": "1",
+               "server_codes": "64"}
+BENCH_MEL_TOKENS = "50"  # the bench's codes a segment (its default 400)
+BENCH_TIMEOUT = 420  # seconds a tool's process may take (all seven run at once)
+BENCH_STDERR_LINES = 12  # the last lines of a tool's stderr printed
+
+
+def tool_start(label: str, cmd, env: dict, tmp: str):
+    """Start a tool's command from the checkout's root, its stdout and
+    stderr going to files under `tmp`: (label, process, the two paths, the
+    start time)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out, err = (os.path.join(tmp, f"{label}.{k}") for k in ("out", "err"))
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=fo, stderr=fe, text=True)
+    return label, proc, out, err, time.perf_counter()
+
+
+def tool_wait(started, card: str):
+    """Wait for a `tool_start`ed tool: its stdout's JSON lines; the last
+    lines of stderr printed. Fails on a timeout (the process killed), a
+    non-zero exit or a stdout line that is not JSON."""
+    label, proc, out, err, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, BENCH_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"[bench] {label}: no exit in {BENCH_TIMEOUT} s; stderr tail: "
+             f"{Path(err).read_text()[-2000:]}")
+    stdout, stderr = Path(out).read_text(), Path(err).read_text()
+    for line in stderr.splitlines()[-BENCH_STDERR_LINES:]:
+        print(f"[bench] {label} stderr: {line[:300]}")
+    print(f"[bench] {label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; {card}")
+    if proc.returncode != 0:
+        fail(f"[bench] {label} exited {proc.returncode}; stderr tail: {stderr[-3000:]}")
+    try:
+        return [json.loads(line) for line in stdout.splitlines() if line.strip()]
+    except ValueError:
+        fail(f"[bench] {label}: a line is not JSON: {stdout[-2000:]}")
+
+
+def positive(label: str, what: str, x) -> None:
+    if not (isinstance(x, (int, float)) and math.isfinite(x) and x > 0):
+        fail(f"[bench] {label}: {what} = {x!r}, not a finite number above 0")
+
+
+def check_bench_lines(lines, name: str, card: str, layers: int) -> dict:
+    """`python -m indextts_tpu_torch.bench`'s lines: progressive supersets
+    of the headline, every section landed, the numbers finite and above 0,
+    exactly BENCH_MEL_TOKENS codes a timed run and tokens/s against them
+    over the timed runs' gpt_gen seconds, the card's name, and the default
+    route's kernels (K4's launches exactly those of `layers` layers a step).
+    Returns the last line."""
+    if not lines:
+        fail("[bench] bench printed no line")
+    head, last = lines[0], lines[-1]
+    for line in lines[1:]:
+        if any(line.get(k) != v for k, v in head.items()):
+            fail(f"[bench] a later line is no superset of the headline: {line}")
+    if last["sections_skipped"] or last["sections_failed"]:
+        fail(f"[bench] sections skipped {last['sections_skipped']}, failed "
+             f"{last['sections_failed']}")
+    for key in ("value", "tokens_per_s", "rtf", "batched_decode_tok_s",
+                "batched_decode_tok_s_b16", "batched_e2e_audio_s", "beam3_audio_s"):
+        positive("bench", key, last.get(key))
+    for section in ("stages", "seq_tail", "batched_stages"):
+        for k, v in last.get(section, {}).items():
+            if k == "host_trim":  # a host step, rounded to ms: 0 is allowed
+                if not (math.isfinite(v) and v >= 0):
+                    fail(f"[bench] {section}.{k} = {v}")
+            elif k != "segments":
+                positive("bench", f"{section}.{k}", v)
+    if set(last.get("stages", {})) != {"gpt_gen", "gpt_fwd", "s2mel", "bigvgan"} or \
+            set(last.get("seq_tail", {})) != {"overlap", "inline", "segments"}:
+        fail(f"[bench] sections: {last}")
+    timed = last["timed_stages"]
+    for k, v in timed.items():
+        positive("bench", f"timed_stages.{k}", v)
+    runs = int(BENCH_TOOLS["bench_runs"])
+    codes = int(BENCH_MEL_TOKENS) * runs
+    if last["codes_decoded"] != codes:
+        fail(f"[bench] the timed runs decoded {last['codes_decoded']} codes, not "
+             f"BENCH_MEL_TOKENS x BENCH_RUNS = {codes}")
+    expect = last["codes_decoded"] / timed["gpt_gen"]
+    if abs(last["tokens_per_s"] - expect) > 0.1 * expect:
+        fail(f"[bench] tokens_per_s {last['tokens_per_s']} against {codes} codes over the "
+             f"timed runs' gpt_gen {timed['gpt_gen']} s = {expect:.1f}")
+    if last["device"]["name"] != name or last["device"]["power_limit_w"] is None:
+        fail(f"[bench] device {last['device']} on {card}")
+    # the default route: W8 blocks on K5 and K6 ("auto" on the card), K4's
+    # attention once a layer a step after the first code
+    launched = last["launches"]
+    k4 = layers * (int(BENCH_MEL_TOKENS) - 1) * runs
+    if any(not launched.get(k) for k in ("K2", "K3-bf16", "K5", "K6")) or any(
+            launched.get(k) for k in ("K1", "K7", "K8")) or launched.get("K4") != k4:
+        fail(f"[bench] the default route's launches: {launched} (K4 should be {k4})")
+    return last
+
+
+def bench_phase(model_dir: str, wav_path: str, tmp: str, card: str) -> None:
+    """Phase `bench_phase`: each measurement tool of the port in a process
+    of its own at full width, as a user runs it, at BENCH_TOOLS's settings,
+    all at once so that their processes' start-ups overlap (the card is
+    shared while they run: their numbers are checked, not compared; the
+    server's two modes run as the two processes that run_server_bench.sh
+    runs one after the other); each output held as the module docstring
+    says and its headline printed on a line of its own."""
+    import torch
+
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    d = os.path.join(tmp, "bench")
+    os.makedirs(d)
+    # each tool's own defaults: this script's TARS_MAX_MEL_TOKENS and
+    # TARS_STAGE_SYNC taken out
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TARS_MAX_MEL_TOKENS", "TARS_STAGE_SYNC")}
+    py = [sys.executable, "-m"]
+    cases = os.path.join(d, "cases.jsonl")
+    Path(cases).write_text(json.dumps({"text": request_text(0)}) + "\n" + json.dumps(
+        {"text": request_text(1), "emo_alpha": 0.6}) + "\n")
+    iters = int(BENCH_TOOLS["s2mel_iters"])
+    server = ["indextts_tpu_torch.tools.bench_server_concurrent", "--clients",
+              BENCH_TOOLS["server_clients"], "--requests", BENCH_TOOLS["server_requests"],
+              "--segments", BENCH_TOOLS["server_segments"], "--blocking-pass"]
+    server_env = dict(env, TARS_MAX_MEL_TOKENS=BENCH_TOOLS["server_codes"])
+    started = [
+        tool_start("bench", py + ["indextts_tpu_torch.bench"], dict(
+            env, BENCH_RUNS=BENCH_TOOLS["bench_runs"], BENCH_MEL_TOKENS=BENCH_MEL_TOKENS), d),
+        tool_start("benchmark_infer", py + [
+            "indextts_tpu_torch.tools.benchmark_infer", "--cases", cases, "--model-dir",
+            model_dir, "--spk-audio", wav_path, "--output", os.path.join(d, "infer.json")],
+            dict(env, TARS_MAX_MEL_TOKENS=str(MAX_MEL_TOKENS)), d),
+        *(tool_start(f"bench_server_concurrent {mode}",
+                     py + server + ["--mode", mode, "--port", str(free_port())], server_env, d)
+          for mode in ("sequential", "continuous")),
+        tool_start("bench_s2mel", py + [
+            "indextts_tpu_torch.tools.bench_s2mel", "--shapes", BENCH_TOOLS["s2mel_shape"],
+            "--iters", str(iters)], env, d),
+        tool_start("bench_w4", py + ["indextts_tpu_torch.tools.bench_w4"],
+                   dict(env, BENCH_W4_STEPS=BENCH_TOOLS["w4_steps"]), d),
+        tool_start("bench_decode_kernels", py + [
+            "indextts_tpu_torch.tools.bench_decode_kernels", "--steps",
+            BENCH_TOOLS["decode_steps"], "--batches", BENCH_TOOLS["decode_batches"]], env, d)]
+    try:
+        done = {s[0]: tool_wait(s, card) for s in started}
+    finally:
+        for s in started:
+            if s[1].poll() is None:
+                s[1].kill()
+                s[1].wait()
+
+    from indextts_tpu_torch.config import load_config
+
+    lines = done["bench"]
+    last = check_bench_lines(lines, name, card, load_config().gpt.layers)
+    print(f"[bench] bench: {len(lines)} lines; last: {json.dumps(last)}")
+
+    summary = done["benchmark_infer"][-1]
+    print(f"[bench] benchmark_infer: {json.dumps(summary)}")
+    if summary["cases"] != 2:
+        fail(f"[bench] benchmark_infer: {summary}")
+    for row in summary["results"]:
+        for k in ("gen_time_s", "audio_dur_s", "rtf", "hbm_peak_gb"):
+            positive("benchmark_infer", f"case {row['case']} {k}", row[k])
+
+    n = int(BENCH_TOOLS["server_clients"]) * int(BENCH_TOOLS["server_requests"])
+    for mode in ("sequential", "continuous"):
+        res = done[f"bench_server_concurrent {mode}"][-1]
+        print(f"[bench] bench_server_concurrent --mode {mode}: {json.dumps(res)}")
+        if res["n_results"] != n or res["blocking"]["n_results"] != n or \
+                res["device"]["name"] != name:
+            fail(f"[bench] {mode}: {res}")
+        for part, r in ((mode, res), (f"{mode} blocking", res["blocking"])):
+            for k in ("wall_s", "aggregate_audio_s", "aggregate_audio_s_per_s",
+                      "total_p50_s", "total_p95_s", "ttfb_p50_s", "ttfb_p95_s"):
+                positive("bench_server_concurrent", f"{part} {k}", r[k])
+
+    s2 = done["bench_s2mel"][-1]
+    print(f"[bench] bench_s2mel: {json.dumps(s2)}")
+    shape = BENCH_TOOLS["s2mel_shape"]
+    for kind, kernel in (("fp32", "K3"), ("bf16", "K3-bf16")):
+        positive("bench_s2mel", f"{shape}_{kind}_ms", s2.get(f"{shape}_{kind}_ms"))
+        if s2["launches"][f"{shape}_{kind}"] != {kernel: 260 * iters}:
+            fail(f"[bench] bench_s2mel {kind} launches: {s2['launches']}")
+
+    w4 = done["bench_w4"][-1]
+    print(f"[bench] bench_w4: {json.dumps(w4)}")
+    positive("bench_w4", "w4_over_w8", w4["w4_over_w8"])
+    for run in w4["runs"]:
+        positive("bench_w4", f"{run['tag']} tok_s", run["tok_s"])
+        gemv = {k for k in ("K5", "K6", "K7", "K8") if run["launches"].get(k)}
+        if not run["launches"].get("K4") or gemv != ({"K7", "K8"} if run["gemv"] else set()):
+            fail(f"[bench] bench_w4 {run['tag']} launches: {run['launches']}")
+
+    dk = done["bench_decode_kernels"][-1]
+    print(f"[bench] bench_decode_kernels: {json.dumps(dk)}")
+    for run in dk["runs"]:
+        positive("bench_decode_kernels", f"{run['tag']} B={run['B']} tok_s", run["tok_s"])
+        want = {"K4" if run["cache"] == "int8" else "K1"} | (
+            {"K5", "K6"} if run["gemv"] else set())
+        got = {k for k in ("K1", "K4", "K5", "K6", "K7", "K8") if run["launches"].get(k)}
+        if got != want:
+            fail(f"[bench] bench_decode_kernels {run['tag']} B={run['B']} launches: "
+                 f"{run['launches']}")
+    print(f"[bench] bench_phase done in {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -6899,6 +7134,8 @@ def main():
         print(f"phase eval_phase done at {time.perf_counter() - t_start:.1f} s")
         soak_phase(model_dir, tmp, card)
         print(f"phase soak_phase done at {time.perf_counter() - t_start:.1f} s")
+        bench_phase(model_dir, wav_path, tmp, card)
+        print(f"phase bench_phase done at {time.perf_counter() - t_start:.1f} s")
     v1_phase(card)
     print(f"phase v1_phase done at {time.perf_counter() - t_start:.1f} s")
     dilation_phase(card)

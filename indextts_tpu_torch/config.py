@@ -321,11 +321,11 @@ class RuntimeConfig:
     # honours the quantized GPT route: gpt_quantize
     # with gpt_wbits=8 (W8A8 blocks) or 4 (W4A8, packed nibbles), head_quant
     # (with gpt_quantize) and an int8 KV cache, which kv_quant or
-    # attn_impl="pallas_q8" selects. gemv_impl resolves as in the JAX engine,
-    # with the card in the TPU's place (runtime/engine.py resolve_gemv):
-    # "pallas" sends the quantized GPT's single-row decode calls through the
-    # GEMV and fused-MLP kernels where their gating opens, "xla" through the
-    # plain contraction, and "auto" takes the kernels for W4 on CUDA only.
+    # attn_impl="pallas_q8" selects. gemv_impl (runtime/engine.py
+    # resolve_gemv): "pallas" sends the quantized GPT's single-row decode
+    # calls through the GEMV and fused-MLP kernels where their gating opens,
+    # "xla" through the plain contraction, and "auto" takes the kernels on
+    # CUDA (W8 and W4) and the plain contraction elsewhere.
     # attn_impl decides, by the JAX rule, whether a keyed request reuses the
     # conditioning prefix's KV (runtime/decode.py supports_cond_kv); the
     # port's attention runs its own kernels either way. seq_tail_overlap

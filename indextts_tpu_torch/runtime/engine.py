@@ -30,9 +30,8 @@ The quantized GPT route of the JAX package is honoured: `gpt_quantize`
 `attn_impl="pallas_q8"`). The engine quantizes a float GPT state dict at
 construction (a tree already quantized by the JAX package's
 `quantize_gpt_tree` is taken as is) and keeps no float copy of the
-quantized weights. `gemv_impl` resolves as in the JAX engine
-(`resolve_gemv`), with the card in the TPU's place: the decode kernels of
-ops/gemv.py run under "pallas", and under "auto" for W4 on CUDA only.
+quantized weights. `gemv_impl` (`resolve_gemv`): the decode kernels of
+ops/gemv.py run under "pallas", and under "auto" on CUDA for W8 and W4.
 
 Fixed-speaker serving follows the JAX engine (indextts_tpu/runtime/
 engine.py:580-661, 1300-1588). When both conditionings are file paths,
@@ -258,19 +257,19 @@ def head_quant(cfg: IndexTTS2Config) -> bool:
 
 def resolve_gemv(cfg: IndexTTS2Config, device) -> bool:
     """Do the quantized GPT's single-token decode calls take the kernels of
-    ops/gemv.py? The JAX engine's resolution of `gemv_impl`
-    (indextts_tpu/runtime/engine.py:117-138), with the card in the TPU's
-    place: "pallas" takes them; "auto" takes them for W4 on CUDA, where the
-    packed weights pay only through the kernels, and leaves W8 and every
-    other device on the plain contraction; anything else does not."""
-    rt = cfg.runtime
-    return gemv_route(rt.gemv_impl, rt.gpt_wbits if rt.gpt_quantize else 8, device)
+    ops/gemv.py? "pallas" takes them; "auto" takes them on CUDA, W8 and W4
+    alike, and leaves every other device on the plain contraction; anything
+    else does not. The JAX engine (indextts_tpu/runtime/engine.py:117-138)
+    keeps W8 on XLA's int8 product under "auto", which matches its kernel on
+    a TPU; the port's plain contraction widens the int8 blocks to float64
+    every step and decodes at about half the rate of K5 and K6 on an H100."""
+    return cfg.runtime.gpt_quantize and gemv_route(cfg.runtime.gemv_impl, device)
 
 
-def gemv_route(gemv_impl: str, wbits: int, device) -> bool:
-    """`resolve_gemv` of the knob `gemv_impl` for `wbits`-bit weights."""
+def gemv_route(gemv_impl: str, device) -> bool:
+    """`resolve_gemv` of the knob `gemv_impl` for quantized weights."""
     if gemv_impl == "auto":
-        return wbits == 4 and torch.device(device).type == "cuda"
+        return torch.device(device).type == "cuda"
     return gemv_impl == "pallas"
 
 

@@ -21,9 +21,8 @@ The decode knobs are the v2 engine's: `quantize_gpt` (W8A8 blocks, the
 float weights quantized here), `head_quant` (the int8 logits head, with
 quantize_gpt), `kv_quant` (an int8 cache, K4), `attn_impl` and `gemv_impl`
 ("pallas": K5 and K6 for the blocks' and the head's single-row calls;
-"auto" takes them for W4 only, which v1 has not; the JAX v1 engine's
-default is "xla"), resolved as `runtime/engine.py` `resolve_gemv`, and
-`gpt_dtype`. v1 samples at temperature 1.0, top_p 0.8 and repetition
+"auto" takes them on CUDA; the JAX v1 engine's default is "xla"),
+resolved as `runtime/engine.py` `resolve_gemv`, and `gpt_dtype`. v1 samples at temperature 1.0, top_p 0.8 and repetition
 penalty 10.0 by default (top_k 30), the reference's infer_fast defaults.
 
 Runs on `cuda` unless the caller passes `device="cpu"`. Stage seconds of
@@ -129,7 +128,7 @@ class IndexTTSV1Engine:
             gpt_sd = quantize_gpt_state_dict(gpt_sd, head=head_quant)
         with torch.device("meta"):
             gpt = v1_model("gpt", gpt_cfg, voc_cfg, quantize_gpt, head_quant,
-                           gemv_route(gemv_impl, 8, dev))
+                           gemv_route(gemv_impl, dev))
             voc = v1_model("bigvgan", gpt_cfg, voc_cfg)
         self.gpt: UnifiedVoiceV1 = adopt(gpt, gpt_sd, dev, gpt_dtype)
         self.bigvgan: BigVGANv1 = adopt(voc, params["bigvgan"], dev)

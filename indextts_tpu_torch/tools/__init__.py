@@ -8,7 +8,14 @@ live server; `eval_quality`, the quality harness (WER through a pluggable
 ASR, CAMPPlus speaker similarity, emotion-vector fidelity, negative
 controls) over a JSONL of cases; `soak_server`, the serving soak gate
 (host RSS, device memory and p50 drift over waves of requests against an
-in-process server, exit 1 past a gate)."""
+in-process server, exit 1 past a gate). The measurement tools beside
+`python -m indextts_tpu_torch.bench`: `benchmark_infer` (a JSONL of cases:
+GenTime, AudioDur, RTF, peak device memory), `bench_server_concurrent`
+(concurrent HTTP clients against an in-process server, one serving mode
+a process; `run_server_bench.sh` and `run_prefix_bench.sh` run two and
+merge them), `bench_s2mel` (the fp32 against the bf16 CFM solve),
+`bench_w4` (W4A8 against W8A8 decode) and `bench_decode_kernels` (the
+port's decode dispatch: `gemv_impl`, the KV cache)."""
 
 from __future__ import annotations
 

@@ -16,3 +16,33 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def card_info(device) -> dict:
+    """What a measurement ran on: {"name", "power_limit_w"}. For a CUDA
+    device, torch's name for it and the power limit in W that `nvidia-smi
+    --query-gpu=name,power.limit` gives for a card of that name (None
+    without nvidia-smi or such a line); for the CPU, {"name": "cpu",
+    "power_limit_w": None}."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"name": "cpu", "power_limit_w": None}
+    name = torch.cuda.get_device_name(dev)
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    limit = None
+    for line in out.splitlines():
+        card, _, power = line.rpartition(",")
+        if card.strip() == name:
+            try:
+                limit = float(power.split()[0])
+            except (ValueError, IndexError):
+                pass
+            break
+    return {"name": name, "power_limit_w": limit}

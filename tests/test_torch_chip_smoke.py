@@ -1,5 +1,6 @@
 """chip_smoke.py's comparison of a captured step's replay with an eager
-step, and its check that a kernel's call is one launch.
+step, its check that a kernel's call is one launch, and bench_phase's
+check of the bench's JSON lines.
 
 The profiler runs only on the card, so `step_kernels` and
 `rng_replay_kernels` are replaced by fakes that hand out the kernel
@@ -123,3 +124,56 @@ def test_one_launch(monkeypatch, windows, passes):
         with pytest.raises(SystemExit, match="not one"):
             chip_smoke.one_launch("K3-bf16", lambda: None)
     assert next(seen, None) is None
+
+
+# ---------------------------------------------------------------------------
+# bench_phase's check of `python -m indextts_tpu_torch.bench`'s lines
+# ---------------------------------------------------------------------------
+
+
+def _bench_lines(layers=24):
+    """A headline and a last line as the bench prints them on the default
+    route at chip_smoke's settings."""
+    runs = int(chip_smoke.BENCH_TOOLS["bench_runs"])
+    codes = int(chip_smoke.BENCH_MEL_TOKENS) * runs
+    head = {"value": 1.5, "tokens_per_s": round(codes / 0.4, 1), "rtf": 0.6,
+            "sections_skipped": [], "sections_failed": [], "codes_decoded": codes,
+            "timed_stages": {"gpt_gen": 0.4, "gpt_fwd": 0.01, "s2mel": 0.05, "bigvgan": 0.02},
+            "device": {"name": "H100", "power_limit_w": 700.0},
+            "launches": {"K2": 37, "K3-bf16": 260, "K4": layers * (codes // runs - 1) * runs,
+                         "K5": 2401, "K6": 1176}}
+    last = dict(head, batched_decode_tok_s=900.0, batched_decode_tok_s_b16=1500.0,
+                batched_e2e_audio_s=10.0, beam3_audio_s=2.0,
+                stages={"gpt_gen": 0.4, "gpt_fwd": 0.01, "s2mel": 0.05, "bigvgan": 0.02},
+                seq_tail={"overlap": 2.0, "inline": 1.9, "segments": 4},
+                batched_stages={"decode": 1.0, "host_trim": 0.0, "latent": 0.1})
+    return [head, last]
+
+
+@pytest.mark.parametrize("fault", [None, "codes", "tokens_per_s", "k4", "k5_missing",
+                                   "k1_launched", "failed", "device"])
+def test_check_bench_lines(fault):
+    """The default route's line passes; one fewer decoded code, a tokens/s
+    off its codes over gpt_gen, K4 off one launch a layer a step, K5 not
+    launched, K1 launched, a failed section or another card fail it."""
+    lines = _bench_lines()
+    for line in lines:
+        if fault == "codes":
+            line["codes_decoded"] -= 1
+        elif fault == "tokens_per_s":
+            line["tokens_per_s"] *= 1.2
+        elif fault == "k4":
+            line["launches"] = dict(line["launches"], K4=line["launches"]["K4"] + 24)
+        elif fault == "k5_missing":
+            line["launches"] = {k: v for k, v in line["launches"].items() if k != "K5"}
+        elif fault == "k1_launched":
+            line["launches"] = dict(line["launches"], K1=10)
+        elif fault == "device":
+            line["device"] = {"name": "A100", "power_limit_w": 400.0}
+    if fault == "failed":
+        lines[-1]["sections_failed"] = ["beam"]
+    if fault is None:
+        assert chip_smoke.check_bench_lines(lines, "H100", "card", 24) is lines[-1]
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.check_bench_lines(lines, "H100", "card", 24)

@@ -157,7 +157,7 @@ def test_mlp_w4_plain_matches_jax(b, d):
 
 
 @pytest.mark.parametrize("impl,quantize,wbits,device,kernels", [
-    ("auto", True, 8, "cuda", False),
+    ("auto", True, 8, "cuda", True),
     ("auto", True, 8, "cpu", False),
     ("auto", True, 4, "cuda", True),
     ("auto", True, 4, "cpu", False),
@@ -167,9 +167,10 @@ def test_mlp_w4_plain_matches_jax(b, d):
     ("pallas", True, 4, "cuda", True),
 ])
 def test_resolve_gemv(impl, quantize, wbits, device, kernels):
-    """indextts_tpu/runtime/engine.py:117-138 with the card in the TPU's
-    place: "pallas" takes the kernels, "xla" does not, "auto" only for W4
-    on CUDA."""
+    """"pallas" takes the kernels, "xla" does not, "auto" on CUDA for W8
+    and W4 (the JAX engine, indextts_tpu/runtime/engine.py:117-138, keeps
+    W8 on XLA under "auto"; the port's plain W8 contraction decodes at about
+    half K5's and K6's rate on the card); an unquantized GPT takes none."""
     cfg = to_port_config(parity_config(gpt_quantize=quantize, gpt_wbits=wbits, gemv_impl=impl))
     assert resolve_gemv(cfg, device) is kernels
 
@@ -177,10 +178,12 @@ def test_resolve_gemv(impl, quantize, wbits, device, kernels):
 @pytest.mark.parametrize("impl", ["xla", "auto"])
 def test_w8_mlp_layer_matches_jax_xla_route(impl):
     """A D=512 W8 MLP layer of a model that the engine would build for the
-    card under gemv_impl="xla" or "auto": its single-row call quantizes the
-    hidden per row over all 2048 columns, as the JAX GPT2MLP with gemv=False
-    (the engine's "xla" route), not per group of 1024 as mlp_w8 does. Within
-    1e-4 of max|out|."""
+    card under gemv_impl="xla" or "auto", against the JAX GPT2MLP of the
+    same route. "xla": its single-row call quantizes the hidden per row over
+    all 2048 columns, as the JAX GPT2MLP with gemv=False, not per group of
+    1024 as mlp_w8 does. "auto" takes K6 on the card; here its plain
+    version, against the JAX GPT2MLP with gemv=True (the Pallas mlp_w8 in
+    interpret mode). Within 1e-4 of max|out|."""
     from indextts_tpu.models.gpt2 import GPT2MLP as JMLP
     from indextts_tpu.models.gpt2 import quantize_conv1d_params
 
@@ -200,7 +203,9 @@ def test_w8_mlp_layer_matches_jax_xla_route(impl):
         layer.weight_scale.copy_(t(tree[name]["kernel_scale"]))
         layer.bias.copy_(t(tree[name]["bias"]))
     x = rng.standard_normal((1, 1, d)).astype(np.float32)
-    want = np.asarray(JMLP(quantize=True).apply({"params": tree}, jnp.asarray(x)))
+    want = np.asarray(JMLP(quantize=True, gemv=mlp.gemv, pallas_interpret=True).apply(
+        {"params": tree}, jnp.asarray(x)))
+    assert mlp.gemv is (impl == "auto")
     got = n(mlp(t(x)))
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
 
