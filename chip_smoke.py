@@ -371,10 +371,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 12. `parallel_phase` (parallel/), after `train_phase`, at full width from
    PARALLEL_SEED: (a) NCCL at a world of 1, the GPT cut over
    make_mesh(1, 1) gives the one-process float decode's 32 codes and last
-   logits bit for bit; (b) two processes on the one card over gloo
-   (`parallel_worker`), make_mesh(1, 2): TP greedy decode of 32 codes
-   (stop banned) on the float and the W8 GPT token-exact with the
-   one-process runs, 10 of 20 heads a rank; the TP DiT velocity (4 of 8
+   logits bit for bit, and so do the W8 GPT on K5/K6 with an int8 cache
+   and the W4 GPT on K7/K8 with the int8 head (PARALLEL_ROUTES); (b) two
+   processes on the one card over gloo (`parallel_worker`), make_mesh(1,
+   2): TP greedy decode of 32 codes (stop banned) on the float and the W8
+   GPT token-exact with the one-process runs, 10 of 20 heads a rank; on
+   the two kernel routes (`tp_kernel_decode`) the codes equal up to the
+   first low-margin step, the teacher-forced logits within
+   PARALLEL_LOGIT_TOL, K1 and K4-K8 counted against their expected
+   launches and each checked at the rank's widths; the TP DiT velocity (4 of 8
    heads) within 1e-4 of the largest value of the one-process one; K1 and
    K3 counted at those head counts and checked against their plain
    versions; (c) make_mesh(2, 1), one data-parallel CFM step at 4 rows
@@ -566,6 +571,21 @@ SAMPLING_KNOBS = ({"use_repetition_penalty": False}, {"hf_fake_prompt_penalty": 
 PARALLEL_SEED = 53  # parallel_phase's weights, prompt and batch
 PARALLEL_NEW = 32  # codes of parallel_phase's decodes
 PARALLEL_TIMEOUT = 600  # seconds a parallel_phase worker process may take
+# parallel_phase's GPTs: (weight bits or None for float, on the GEMV kernels,
+# the int8 head, an int8 cache). "W8 kernels" is JAX bench.py's configuration
+# (W8 blocks, float head, int8 cache) as gemv_impl "auto" builds it on the card
+PARALLEL_ROUTES = {"float": (None, False, False, False), "W8": (8, False, False, False),
+                   "W8 kernels": (8, True, False, True), "W4 kernels": (4, True, True, False)}
+# the cut kernel routes' tolerance on the teacher-forced logits, of their
+# largest |value|: the ranks' float outputs of the row-cut K5 and of the fused
+# MLP are summed in another order than one process sums them (about 1e-7 of a
+# value), which can move an int8 rounding of a later activation, hidden value
+# or head input by one step, 1/127 of its row's or group's largest, and 24
+# layers carry such steps on. The one-process GPT's own logits move by 1.9 %
+# (W8 kernels) and 2.4 % (W4 kernels) of their largest when its conditioning
+# latents move by one float32 step (parallel_phase prints it each run): the
+# cut is held to about twice that
+PARALLEL_LOGIT_TOL = 5e-2
 CFM_DP_ROWS = 4  # the data-parallel CFM step's global batch
 TP_TRAIN_SEED = 59  # tp_train_phase's weights, batches and CFM noise
 TP_GPT_ROWS = 4  # the rows of tp_train_phase's GPT step
@@ -5895,10 +5915,10 @@ def sampling_phase(engine, wav_path: str, label: str, card: str) -> None:
     print(f"[{label}] sampling_phase done in {time.perf_counter() - t0:.1f} s")
 
 
-def parallel_gpt(cfg, w8: bool = False):
+def parallel_gpt(cfg, route: str = "float"):
     """The full-width serving GPT from PARALLEL_SEED's PyTorch initialization
-    on the card (the same bits in every process), float, or its W8 blocks
-    on the plain contraction."""
+    on the card (the same bits in every process), float, or quantized as
+    PARALLEL_ROUTES[route] says."""
     import torch
 
     from indextts_tpu_torch.models.unified_voice import UnifiedVoice
@@ -5909,10 +5929,12 @@ def parallel_gpt(cfg, w8: bool = False):
         torch.manual_seed(PARALLEL_SEED)
         with torch.device("cuda"):
             model = UnifiedVoice(cfg.gpt)
-    if w8:
-        sd = quantize_gpt_state_dict(model.state_dict(), head=False)
+    bits, gemv, head, _ = PARALLEL_ROUTES[route]
+    if bits:
+        sd = quantize_gpt_state_dict(model.state_dict(), head=head, bits=bits)
         with torch.device("meta"):
-            model = UnifiedVoice(cfg.gpt, quantize=True)
+            model = UnifiedVoice(cfg.gpt, quantize=True, head_quant=head, wbits=bits,
+                                 gemv=gemv)
         return adopt(model, sd, torch.device("cuda"))
     return model.eval().requires_grad_(False)
 
@@ -5993,19 +6015,27 @@ class TimedCollectives:
         dist.all_reduce, dist.all_gather = self._saved
 
 
-def parallel_decode(model, cfg, decode, mesh=None):
+def parallel_decoder(model, cfg, route: str = "float"):
+    """A greedy decoder over `model`, the stop code banned, with the cache
+    of PARALLEL_ROUTES[route]."""
+    from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
+
+    return GPTDecoder(model, cfg.gpt, SamplingConfig(do_sample=False, ban_stop_token=True),
+                      kv_int8=PARALLEL_ROUTES[route][3])
+
+
+def parallel_decode(model, cfg, decode, mesh=None, route: str = "float"):
     """Greedy decode of PARALLEL_NEW codes, the stop code banned (so that
-    every run takes PARALLEL_NEW - 1 steps), eager: (codes, the last
-    logits, wall seconds, the collectives' seconds or None, the state).
-    With `mesh`, its groups' first collective (which sets a communicator
-    up) runs before the clock starts, and the decode's collectives are
-    timed (`TimedCollectives`)."""
+    every run takes PARALLEL_NEW - 1 steps), eager, with `route`'s cache:
+    (codes, the last logits, wall seconds, the collectives' seconds or
+    None, the state). With `mesh`, its groups' first collective (which sets
+    a communicator up) runs before the clock starts, and the decode's
+    collectives are timed (`TimedCollectives`)."""
     import torch
 
     from indextts_tpu_torch.parallel.sharding import all_reduce
-    from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
 
-    dec = GPTDecoder(model, cfg.gpt, SamplingConfig(do_sample=False, ban_stop_token=True))
+    dec = parallel_decoder(model, cfg, route)
     if mesh is not None:
         all_reduce(torch.zeros(1, device="cuda"), mesh)
     timer = TimedCollectives()
@@ -6020,17 +6050,71 @@ def parallel_decode(model, cfg, decode, mesh=None):
             timer.seconds if mesh is not None else None, st)
 
 
+def parallel_forced(model, cfg, decode, codes, route: str):
+    """The (PARALLEL_NEW, V) logits of `model` teacher-forced on `codes`
+    (GPTDecoder.forced_logits), with `route`'s cache."""
+    return parallel_decoder(model, cfg, route).forced_logits(*decode, codes[None])[0]
+
+
+def low_margin_step(logits, codes, tol: float, cfg) -> int:
+    """The first step at which the top-2 margin of `logits` (PARALLEL_NEW,
+    V), as the greedy loop processes them (the repetition penalty over the
+    fake-prompt tokens and the codes before, the stop ban), is under `tol`;
+    len(codes) where none is."""
+    import torch
+
+    from indextts_tpu_torch.runtime.decode import repetition_penalty
+
+    mask = torch.zeros(logits.shape[-1], dtype=torch.bool, device=logits.device)
+    mask[[1, cfg.gpt.start_mel_token]] = True
+    for i, c in enumerate(codes.tolist()):
+        lg = repetition_penalty(logits[i], mask, 10.0)
+        lg[cfg.gpt.stop_mel_token] = -1e9
+        top2 = torch.topk(lg, 2).values
+        if float(top2[0] - top2[1]) < tol:
+            return i
+        mask[c] = True
+    return len(codes)
+
+
+def cut_layer_routes(model) -> str:
+    """What each quantized layer of a cut GPT's first block and its head
+    take on a single-token call: the wrapper, the local widths and the
+    kernel whose gate opens there, or the plain contraction."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt2 import QConv1D
+
+    blk = model.gpt.h[0]
+
+    def layer(name, mod):
+        inner = getattr(mod, "inner", mod)
+        if not isinstance(inner, QConv1D):
+            return f"{name} {type(mod).__name__} float"
+        x = torch.zeros((1, 1, inner.nx))
+        kernel = ("K7" if inner.wbits == 4 else "K5") if inner.kernel_rows(x) else "plain"
+        return f"{name} {type(mod).__name__} {inner.nx}x{inner.nf} {kernel}"
+
+    mlp = blk.mlp
+    fused = (f"MLP {'K8' if mlp.w4 else 'K6'} over {mlp.c_fc.nf} hidden columns in groups "
+             f"of {mlp.group}" if mlp.group else "MLP plain")
+    return "; ".join([layer("c_attn", blk.attn.c_attn), layer("attn c_proj", blk.attn.c_proj),
+                      fused, layer("head", model.mel_head)])
+
+
 def parallel_phase(card: str) -> None:
     """Phase `parallel_phase` (parallel/: multihost.py, sharding.py, tp.py,
     data.py) at full width (GPT 24L x 1280, 20 heads; DiT 13L x 512, 8
     heads), weights from PARALLEL_SEED. This process first makes the
     one-process references: greedy decode of PARALLEL_NEW codes (stop
-    banned) on the float and the W8 GPT, the DiT velocity at the main
+    banned) on each GPT of PARALLEL_ROUTES (on the kernel routes also the
+    logits teacher-forced on those codes), the DiT velocity at the main
     path's solve shape, one CFM step at CFM_DP_ROWS rows. (a) NCCL at a world
-    of 1 (tcp://127.0.0.1): the GPT cut by tensor_parallel over
-    make_mesh(1, 1) gives the float decode's codes and last logits bit for
-    bit. (b) and (c): two worker processes on the one card over gloo
-    (`parallel_worker`), each under its own timeout."""
+    of 1 (tcp://127.0.0.1): the float GPT and the two kernel-route GPTs cut
+    by tensor_parallel over make_mesh(1, 1) give their decodes' codes and
+    last logits bit for bit (a group of one sums nothing). (b) and (c): two
+    worker processes on the one card over gloo (`parallel_worker`), each
+    under its own timeout."""
     import torch
     import torch.distributed as dist
 
@@ -6044,7 +6128,23 @@ def parallel_phase(card: str) -> None:
     gpt = parallel_gpt(cfg)
     decode, velocity, batch, noise = parallel_inputs(cfg, gpt)
     codes, logits, wall, _, _ = parallel_decode(gpt, cfg, decode)
-    codes8, _, wall8, _, _ = parallel_decode(parallel_gpt(cfg, w8=True), cfg, decode)
+    codes8, _, wall8, _, _ = parallel_decode(parallel_gpt(cfg, "W8"), cfg, decode)
+    # the kernel routes: their codes, last logits and teacher-forced logits
+    kernel_gpts, kernel_refs = {}, {}
+    for route in ("W8 kernels", "W4 kernels"):
+        model = kernel_gpts[route] = parallel_gpt(cfg, route)
+        k_codes, k_logits, k_wall, _, _ = parallel_decode(model, cfg, decode, route=route)
+        forced = parallel_forced(model, cfg, decode, k_codes, route)
+        # the GPT's own response to float noise: the conditioning latents one
+        # float32 step up, the same codes forced
+        nudged = [torch.nextafter(decode[0], torch.full_like(decode[0], math.inf))] + decode[1:]
+        moved = (parallel_forced(model, cfg, nudged, k_codes, route) - forced).abs().amax(-1)
+        kernel_refs[route] = {"codes": k_codes, "logits": k_logits, "forced": forced}
+        print(f"[parallel] one-process {route}: {PARALLEL_NEW} codes eager {k_wall:.3f} s; "
+              f"{cut_layer_routes(model)}; the logits teacher-forced on its codes with the "
+              f"conditioning latents one float32 step up move by {moved.max().item():.3g} "
+              f"of the largest {forced.abs().max().item():.3g} (by step: "
+              f"{', '.join(f'{e:.2g}' for e in moved.tolist())})")
     s2mel = parallel_s2mel(cfg)
     with torch.inference_mode():
         vel = s2mel.velocity(*velocity)
@@ -6053,7 +6153,9 @@ def parallel_phase(card: str) -> None:
     opt = T.adamw(model.parameters(), 1e-4)
     grads = record_gradients(model, opt)
     loss = float(T.make_cfm_train_step(model, opt)(batch, noise=noise))
-    ref = {"decode": decode, "codes": codes, "codes8": codes8, "velocity_in": velocity,
+    ref = {"decode": decode, "codes": codes, "codes8": codes8,
+           "kernels": {r: {k: v for k, v in d.items() if k != "logits"}
+                       for r, d in kernel_refs.items()}, "velocity_in": velocity,
            "velocity": vel, "batch": batch, "noise": noise, "loss": loss, "grads": grads[0],
            "params": {k: v.detach() for k, v in model.state_dict().items()}}
     del model, opt, grads
@@ -6075,9 +6177,19 @@ def parallel_phase(card: str) -> None:
               f"synchronized and timed: {coll:.3f} s; {card}")
         if not same:
             fail("parallel (a): the one-rank NCCL mesh changed the decode")
+        for route, model in kernel_gpts.items():
+            want = kernel_refs[route]
+            tp_codes, tp_logits, tp_wall, coll, _ = parallel_decode(
+                tensor_parallel(model, mesh, GPT_PARTITION_RULES), cfg, decode, mesh, route)
+            same = torch.equal(tp_codes, want["codes"]) and torch.equal(tp_logits, want["logits"])
+            print(f"[parallel] (a) NCCL world 1, {route}: the cut GPT's {PARALLEL_NEW} codes "
+                  f"and last logits equal the unwrapped model's bit for bit: {same}; eager "
+                  f"decode {tp_wall:.3f} s, collectives {coll:.3f} s; {card}")
+            if not same:
+                fail(f"parallel (a): the one-rank NCCL mesh changed the {route} decode")
     finally:
         dist.destroy_process_group()
-    del gpt
+    del gpt, kernel_gpts, model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6131,7 +6243,9 @@ def parallel_worker(path: str, coord: str, rank: str) -> None:
     two ranks on one device; gloo's collectives take the CUDA tensors).
     (b) make_mesh(1, 2): the GPT cut by GPT_PARTITION_RULES (10 of 20 heads
     a rank) decodes the one-process float codes and the W8 codes (the plain
-    W8A8 contraction) token for token; the DiT cut by DIT_PARTITION_RULES
+    W8A8 contraction) token for token; the W8 GPT on K5/K6 with an int8
+    cache and the W4 GPT on K7/K8 with the int8 head as `tp_kernel_decode`
+    holds them; the DiT cut by DIT_PARTITION_RULES
     (4 of 8 heads) within 1e-4 of the largest value of the one-process
     velocity; K1's and K3's launches at the local heads counted (K1 once a
     layer a step, K3 once a layer a call) and each checked against its
@@ -6177,15 +6291,14 @@ def parallel_worker(path: str, coord: str, rank: str) -> None:
     mesh = make_mesh(1, 2)
     g = torch.Generator(device="cuda").manual_seed(PARALLEL_SEED + mesh.rank)
 
-    for w8 in (False, True):
-        label = "W8" if w8 else "float"
-        model = tensor_parallel(parallel_gpt(cfg, w8), mesh, GPT_PARTITION_RULES)
+    for route in ("float", "W8"):
+        model = tensor_parallel(parallel_gpt(cfg, route), mesh, GPT_PARTITION_RULES)
         n0 = decode_attention.counter.launches
         codes, _, wall, coll, st = parallel_decode(model, cfg, ref["decode"], mesh)
         launches = decode_attention.counter.launches - n0
         heads = st.caches[0].shape[2]
-        want = ref["codes8" if w8 else "codes"]
-        print(f"(b) TP decode {label}: {heads} of {cfg.gpt.heads} heads a rank, "
+        want = ref["codes8" if route == "W8" else "codes"]
+        print(f"(b) TP decode {route}: {heads} of {cfg.gpt.heads} heads a rank, "
               f"{PARALLEL_NEW} greedy codes equal the one-process run's: "
               f"{torch.equal(codes, want)}; K1 launches a decode {launches} (expected "
               f"{(PARALLEL_NEW - 1) * L}); {wall / PARALLEL_NEW * 1e3:.2f} ms a code, the "
@@ -6193,8 +6306,8 @@ def parallel_worker(path: str, coord: str, rank: str) -> None:
               f"({100 * coll / wall:.1f} %); {note}")
         if not torch.equal(codes, want) or heads != cfg.gpt.heads // 2 \
                 or launches != (PARALLEL_NEW - 1) * L:
-            fail(f"parallel (b): TP {label} decode")
-        if not w8:
+            fail(f"parallel (b): TP {route} decode")
+        if route == "float":
             cap = st.cap
             q = torch.randn((1, heads, 64), generator=g, device="cuda")
             k, v = (torch.randn((1, heads, cap, 64), generator=g, device="cuda")
@@ -6210,6 +6323,8 @@ def parallel_worker(path: str, coord: str, rank: str) -> None:
         del model, st
         gc.collect()
         torch.cuda.empty_cache()
+    for route in ("W8 kernels", "W4 kernels"):
+        tp_kernel_decode(cfg, route, ref["decode"], ref["kernels"][route], mesh, g, note)
 
     s2mel = tensor_parallel(parallel_s2mel(cfg), mesh, DIT_PARTITION_RULES)
     heads = s2mel.cfm.estimator.transformer.layers[0].attention.h
@@ -6280,6 +6395,106 @@ def parallel_worker(path: str, coord: str, rank: str) -> None:
         fail("parallel (c): the DP CFM step differs from the one-process step")
     dist.destroy_process_group()
     print("PARALLEL_WORKER_OK", flush=True)
+
+
+def tp_kernel_decode(cfg, route: str, decode, want: dict, mesh, g, note: str) -> None:
+    """(b) for a GPT on the GEMV kernels (PARALLEL_ROUTES[route]), cut over
+    `mesh` (make_mesh(1, 2)): greedy decode of PARALLEL_NEW codes, which
+    must equal the one-process run's `want["codes"]` up to the first step
+    whose one-process top-2 margin is under PARALLEL_LOGIT_TOL of its
+    largest logit (reported); the logits teacher-forced on those codes
+    within that tolerance of `want["forced"]`; the launches of K1 and K4-K8
+    in the decode against the count its layers and steps give; each kernel
+    of the route against its plain version at this rank's widths."""
+    import torch
+
+    from indextts_tpu_torch.ops import decode_attention as att
+    from indextts_tpu_torch.ops import gemv as gm
+    from indextts_tpu_torch.parallel.sharding import GPT_PARTITION_RULES
+    from indextts_tpu_torch.parallel.tp import tensor_parallel
+
+    bits, _, _, kv_int8 = PARALLEL_ROUTES[route]
+    L, steps = cfg.gpt.layers, PARALLEL_NEW - 1
+    model = tensor_parallel(parallel_gpt(cfg, route), mesh, GPT_PARTITION_RULES)
+    counters = {"K1": att.counter, "K4": att.q8_counter, "K5": gm.gemv_counter,
+                "K6": gm.mlp_counter, "K7": gm.gemv4_counter, "K8": gm.mlp4_counter}
+    n0 = {k: c.launches for k, c in counters.items()}
+    codes, _, wall, coll, st = parallel_decode(model, cfg, decode, mesh, route)
+    launches = {k: c.launches - n0[k] for k, c in counters.items()}
+    gemv, mlp = ("K7", "K8") if bits == 4 else ("K5", "K6")
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"K4" if kv_int8 else "K1": steps * L, gemv: 2 * steps * L, mlp: steps * L})
+    forced = parallel_forced(model, cfg, decode, want["codes"], route)
+    top = want["forced"].abs().max().item()
+    by_step = (forced - want["forced"]).abs().amax(-1)
+    err = by_step.max().item()
+    tol = PARALLEL_LOGIT_TOL * top
+    low = low_margin_step(want["forced"], want["codes"], tol, cfg)
+    agree = torch.equal(codes[:low], want["codes"][:low])
+    heads = st.caches[0].shape[2]
+    print(f"(b) TP decode {route}: {heads} of {cfg.gpt.heads} heads a rank; "
+          f"{cut_layer_routes(model)}; {PARALLEL_NEW} greedy codes equal the one-process "
+          f"run's up to step {low} (the first whose one-process top-2 margin is under "
+          f"{tol:.3g}: {'none' if low == PARALLEL_NEW else low}): {agree}, all "
+          f"{PARALLEL_NEW}: {torch.equal(codes, want['codes'])}; logits teacher-forced on "
+          f"the one-process codes max_abs_err {err:.3g} of the largest {top:.3g} (tol "
+          f"{PARALLEL_LOGIT_TOL} of it; by step: "
+          f"{', '.join(f'{e:.2g}' for e in by_step.tolist())}); launches a decode {launches} (expected "
+          f"{expected}); {wall / PARALLEL_NEW * 1e3:.2f} ms a code, the collectives "
+          f"synchronized and timed: {coll:.3f} s of {wall:.3f} s "
+          f"({100 * coll / wall:.1f} %); {note}")
+    if not (agree and err <= tol and launches == expected and heads == cfg.gpt.heads // 2):
+        fail(f"parallel (b): TP {route} decode")
+
+    blk = model.gpt.h[0]
+    attn_in, proj = blk.attn.c_attn, blk.attn.c_proj.inner
+    d, fh = attn_in.nx, blk.mlp.c_fc.nf
+    if bits == 4:
+        gemv_fn, gemv_plain, mlp_fn, mlp_plain = (gm.gemv_w4, gm.gemv_w4_plain, gm.mlp_w4,
+                                                  gm.mlp_w4_plain)
+        mlp_w = q4_weight(g, d, fh) + q4_weight(g, fh, d, cols=True)
+        weight = q4_weight
+    else:
+        gemv_fn, gemv_plain, mlp_fn, mlp_plain = (gm.gemv_w8, gm.gemv_w8_plain, gm.mlp_w8,
+                                                  gm.mlp_w8_plain)
+        mlp_w = q8_weight(g, d, fh) + q8_weight(g, fh, d)
+        weight = q8_weight
+    errs = []
+    for name, di, f in (("c_attn", d, attn_in.nf), ("attn c_proj", proj.nx, proj.nf)):
+        xq, a = q8_row(g, 1, di)
+        w = weight(g, di, f)
+        got, plain = gemv_fn(xq, a, *w), gemv_plain(xq, a, *w)
+        rel = (got - plain).abs().max().item() / plain.abs().max().item()
+        errs.append(rel <= 1e-6)
+        print(f"(b) {gemv} at the rank's {name} ({di} x {f}): max error {rel:.3g} of max|y| "
+              f"against its plain version (tol 1e-6)")
+    xq, a = q8_row(g, 1, d)
+    got = mlp_fn(xq, a, *mlp_w, blk.mlp.group)
+    plain = mlp_plain(xq, a, *mlp_w, blk.mlp.group)
+    rel = (got - plain).abs().max().item() / plain.abs().max().item()
+    errs.append(rel <= 1e-6)
+    print(f"(b) {mlp} at the rank's hidden slice (D={d}, {fh} columns, {fh // blk.mlp.group} "
+          f"groups of {blk.mlp.group}): max error {rel:.3g} of max|out| against its plain "
+          f"version (tol 1e-6)")
+    if kv_int8:
+        from indextts_tpu_torch.models.gpt2 import quantize_kv
+
+        cap = st.cap
+        q = torch.randn((1, heads, 64), generator=g, device="cuda")
+        (k8, ksc), (v8, vsc) = (quantize_kv(torch.randn((1, heads, cap, 64), generator=g,
+                                                        device="cuda")) for _ in range(2))
+        args = (q, k8, v8, ksc, vsc, torch.tensor([cap - 7], device="cuda"),
+                torch.tensor([40], device="cuda"), torch.tensor([45], device="cuda"))
+        err4 = (att.ragged_decode_attention_q8(*args)
+                - att.ragged_decode_attention_q8_plain(*args)).abs().max().item()
+        errs.append(err4 <= 2e-5)
+        print(f"(b) K4 at the local heads (B=1, H={heads}, cap={cap}): max_abs_err "
+              f"{err4:.3g} against its plain version (tol 2e-5)")
+    if not all(errs):
+        fail(f"parallel (b): a kernel of the {route} route at the rank's widths")
+    del model, st
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -26,10 +26,11 @@ packed along its output columns. `gemv=True` is the JAX package's
 `gemv_impl="pallas"`: single-token decode calls, at any row count, take
 the kernels of ops/gemv.py where the JAX package's shape gating opens them
 (K5 or K7 for c_attn and attn c_proj, K6 or K8 for the whole MLP, K5 for
-the int8 logits head); the wrappers launch them in chunks of rows. The JAX
-package's row threshold (TARS_GEMV_MAX_ROWS, 1 by default, from a TPU
-measurement) has no counterpart: a continuous batch's rows take the
-kernels too. Every other call (prefill, the latent pass, and every call with
+the int8 logits head); the wrappers launch them in chunks of rows. On a
+tensor-parallel rank (parallel/tp.py) a layer's gate reads its own widths,
+the fused MLP's the whole MLP's. The JAX package's row threshold
+(TARS_GEMV_MAX_ROWS, 1 by default, from a TPU measurement) has no
+counterpart: a continuous batch's rows take the kernels too. Every other call (prefill, the latent pass, and every call with
 `gemv=False`, the JAX package's "xla" route) takes the plain contraction,
 W4 weights unpacked once per call. `QuantDenseHead` is the int8 logits head
 (`head_quant`); it stays W8 under W4, as in the JAX package.
@@ -148,13 +149,15 @@ class QConv1D(nn.Module):
     channel scale, and an int8 weight (in, out) with wbits=8, or int4 pairs
     packed along the rows (in/2, out), or with `cols` along the columns
     (in, out/2), with wbits=4. With `gemv`, single-token decode calls take
-    kernel K5 (W8) or K7 (W4, rows) where the JAX shape gating opens it."""
+    kernel K5 (W8) or K7 (W4, rows) where the JAX shape gating opens it.
+    The widths `nx` and `nf` are the stored weight's: a tensor-parallel
+    rank's (parallel/tp.py) are its own piece's, and so are its gating and
+    its kernels' launch plans."""
 
     def __init__(self, nx: int, nf: int, gemv: bool = False, wbits: int = 8,
                  cols: bool = False):
         super().__init__()
         self.gemv, self.wbits, self.cols = gemv, wbits, cols
-        self.nx, self.nf = nx, nf
         if wbits == 4:
             shape = (nx, nf // 2) if cols else (nx // 2, nf)
             self.register_buffer("weight_q4", torch.zeros(shape, dtype=torch.int8))
@@ -168,19 +171,50 @@ class QConv1D(nn.Module):
         """The weight as stored: int8, or packed int4 pairs."""
         return self.weight_q4 if self.wbits == 4 else self.weight_q
 
+    @property
+    def nx(self) -> int:
+        """The contraction width of the stored weight."""
+        n = self.stored_weight.shape[0]
+        return 2 * n if self.wbits == 4 and not self.cols else n
+
+    @property
+    def nf(self) -> int:
+        """The output width of the stored weight."""
+        n = self.stored_weight.shape[1]
+        return 2 * n if self.wbits == 4 and self.cols else n
+
+    def kernel_rows(self, x: torch.Tensor) -> int:
+        """The row count of a call that takes K5 or K7, 0 for any other: a
+        single-token call of a `gemv` layer whose widths open the kernel."""
+        rows = _single_rows(x) if self.gemv else 0
+        if not rows:
+            return 0
+        if self.wbits == 4:
+            opens = not self.cols and gemv_ops.supports_w4(self.nx, self.nf)
+        else:
+            opens = gemv_ops.supports(self.nx, self.nf)
+        return rows if opens else 0
+
+    def kernel(self, x_q: torch.Tensor, a: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """K5 (W8) or K7 (W4) over the stored weight with `bias`: (rows,
+        nf) float32."""
+        gemv = gemv_ops.gemv_w4 if self.wbits == 4 else gemv_ops.gemv_w8
+        return gemv(x_q, a, self.stored_weight, self.weight_scale, bias)
+
+    def int8_weight(self) -> torch.Tensor:
+        """The (nx, nf) int8 weight of the plain contraction: W4 weights
+        unpacked anew on every call."""
+        if self.wbits == 4:
+            return gemv_ops.unpack_w4(self.weight_q4, axis=1 if self.cols else 0)
+        return self.weight_q
+
     def forward(self, x):
-        d, f = self.nx, self.nf
-        rows = _single_rows(x)
-        w4 = self.wbits == 4
-        opens = (not self.cols and gemv_ops.supports_w4(d, f)) if w4 else gemv_ops.supports(d, f)
-        if self.gemv and rows and opens:
-            x_q, a = quant_row(x.reshape(rows, d))
-            gemv = gemv_ops.gemv_w4 if w4 else gemv_ops.gemv_w8
-            y = gemv(x_q, a, self.stored_weight, self.weight_scale, self.bias)
-            return y.reshape(*x.shape[:-1], f).to(x.dtype)
-        # W4 weights are unpacked anew on every call
-        w = gemv_ops.unpack_w4(self.weight_q4, axis=1 if self.cols else 0) if w4 else self.weight_q
-        return w8a8(x, w, self.weight_scale, self.bias).to(x.dtype)
+        rows = self.kernel_rows(x)
+        if rows:
+            x_q, a = quant_row(x.reshape(rows, self.nx))
+            y = self.kernel(x_q, a, self.bias)
+            return y.reshape(*x.shape[:-1], self.nf).to(x.dtype)
+        return w8a8(x, self.int8_weight(), self.weight_scale, self.bias).to(x.dtype)
 
 
 class QuantDenseHead(QConv1D):
@@ -262,26 +296,41 @@ class GPT2Attention(nn.Module):
 
 
 class GPT2MLP(nn.Module):
+    """c_fc, gelu_new, c_proj. A quantized MLP with `gemv` takes the fused
+    kernel K6 (W8) or K8 (W4) on single-token decode calls where the JAX
+    gating opens it at its widths (D, 4D), its hidden quantized in groups
+    of `group` columns, that gating's width (0 where it is closed). A
+    tensor-parallel rank (parallel/tp.py) holds a slice of the hidden
+    columns: it runs the kernel over them in groups of the same width with
+    the bias of its row-cut c_proj's partial output (the whole bias on one
+    rank of the model group), and sums the ranks' outputs with `reduce`."""
+
     def __init__(self, dim: int, quantize: bool = False, gemv: bool = False,
                  wbits: int = 8):
         super().__init__()
-        self.quantize, self.gemv = quantize, gemv
+        self.gemv = gemv
         self.w4 = quantize and wbits == 4
         # the JAX MLP's c_fc never takes the single-row GEMV on its own; under
         # W4 its c_proj is packed along the output columns, as mlp_w4 reads it
         self.c_fc = _linear(dim, 4 * dim, quantize, False, wbits)
         self.c_proj = _linear(4 * dim, dim, quantize, gemv, wbits, cols=self.w4)
+        if self.w4:
+            supported, group = gemv_ops.supports_mlp_w4, gemv_ops.mlp_group_w4
+        else:
+            supported, group = gemv_ops.supports_mlp, gemv_ops.mlp_group
+        self.group = group(dim, 4 * dim) if quantize and gemv and supported(dim, 4 * dim) else 0
+        self.reduce = None
 
     def forward(self, x):
-        d = x.shape[-1]
         rows = _single_rows(x)
-        supported = gemv_ops.supports_mlp_w4 if self.w4 else gemv_ops.supports_mlp
-        if self.quantize and self.gemv and rows and supported(d, 4 * d):
+        if self.group and rows:
             fc, pj = self.c_fc, self.c_proj
             fused = gemv_ops.mlp_w4 if self.w4 else gemv_ops.mlp_w8
-            x_q, a = quant_row(x.reshape(rows, d))
+            x_q, a = quant_row(x.reshape(rows, x.shape[-1]))
             y = fused(x_q, a, fc.stored_weight, fc.weight_scale, fc.bias,
-                      pj.stored_weight, pj.weight_scale, pj.bias)
+                      pj.stored_weight, pj.weight_scale, pj.bias, self.group)
+            if self.reduce is not None:
+                y = self.reduce(y)
             return y.reshape(x.shape).to(x.dtype)
         return self.c_proj(gelu_new(self.c_fc(x)))
 

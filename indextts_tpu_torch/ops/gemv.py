@@ -21,8 +21,9 @@ both signed. The MLP's fc is packed along its rows (the contraction) and
 its fc2 along its output columns. The hidden of the MLP is quantized to
 int8 per group of `mlp_group(D, FH)` (W8) or `mlp_group_w4(D, FH)` (W4)
 columns, each group with its own absmax scale: that width is part of the
-function (the JAX kernel's tile), not a tiling choice of the CUDA kernels.
-The gating (`supports`, `supports_mlp`, `supports_w4`, `supports_mlp_w4`)
+function (the JAX kernel's tile), not a tiling choice of the CUDA kernels,
+so a tensor-parallel rank, which holds a slice of the hidden, passes the
+whole MLP's width (`group`). The gating (`supports`, `supports_mlp`, `supports_w4`, `supports_mlp_w4`)
 is the JAX package's.
 
 The plain versions accumulate int8 x int8 exactly: in float64, which is exact
@@ -164,28 +165,32 @@ def gemv_w4_plain(xq, a, w_p, w_scale, bias):
     return gemv_w8_plain(xq, a, unpack_w4(w_p, axis=0), w_scale, bias)
 
 
-def mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
+def mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, group=0):
     """xq (b, D) int8; a (b,) or (b, 1); fc_q (D, FH) int8; fc2_q (FH, D)
-    int8; scales and biases f32. Returns (b, D) f32."""
-    hb = mlp_group(*fc_q.shape)
+    int8; scales and biases f32. Returns (b, D) f32. The hidden's groups
+    are `group` columns wide, by default mlp_group(D, FH): a tensor-parallel
+    rank, which holds a slice of the hidden, gives the whole MLP's."""
+    hb = group or mlp_group(*fc_q.shape)
     return _mlp_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, hb)
 
 
-def mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
+def mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias, group=0):
     """mlp_w8_plain over fc_p (D/2, FH), packed along its rows, and fc2_p
     (FH, D/2), packed along its columns: output columns j and j + D/2
-    share a byte. The hidden's groups are mlp_group_w4 wide."""
+    share a byte. The hidden's groups are `group` columns wide, by default
+    mlp_group_w4(D, FH)."""
     d2, fh = fc_p.shape
     return _mlp_plain(xq, a, unpack_w4(fc_p, axis=0), fc_scale, fc_bias,
                       unpack_w4(fc2_p, axis=1), fc2_scale, fc2_bias,
-                      mlp_group_w4(2 * d2, fh))
+                      group or mlp_group_w4(2 * d2, fh))
 
 
 def _mlp_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, hb):
     b, d = xq.shape
     fh = fc_q.shape[1]
-    if hb == 0:
-        raise ValueError(f"the fused MLP has no group width for D={d}, FH={fh}")
+    if hb == 0 or fh % hb:
+        raise ValueError(f"the fused MLP's hidden of {fh} columns is not a whole number of "
+                         f"groups (group {hb}, D={d})")
     n_groups = fh // hb
     h = int8_matmul(xq, fc_q) * (a.reshape(-1, 1).float() * fc_scale) + fc_bias
     h = gelu_new_kernel_form(h).reshape(b, n_groups, hb)
@@ -314,34 +319,39 @@ def _gemv_once(xq, a, w, w_scale, bias, fn, symbol, counter, stream, d, f, plan)
     return out
 
 
-def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias):
-    """K6 on CUDA tensors, the plain version on CPU tensors. On the card a
-    launch takes 16 rows up to D=2304 at FH=4*D, fewer past that (a block's
-    shared memory, `mlp_rows`); more rows go in chunks."""
+def mlp_w8(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, group=0):
+    """K6 on CUDA tensors, the plain version on CPU tensors; the hidden's
+    groups as mlp_w8_plain's. On the card a launch takes 16 rows up to
+    D=2304 at FH=4*D, fewer past that (a block's shared memory,
+    `mlp_rows`); more rows go in chunks."""
     if xq.device.type == "cpu":
-        return mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias)
+        return mlp_w8_plain(xq, a, fc_q, fc_scale, fc_bias, fc2_q, fc2_scale, fc2_bias, group)
     d, fh = fc_q.shape
-    if not supports_mlp(d, fh) or fc2_q.shape != (fh, d):
+    hb = group or mlp_group(d, fh)
+    if not supports_mlp(d, fh) or fh % hb or fc2_q.shape != (fh, d):
         raise ValueError(f"mlp_w8: weights {tuple(fc_q.shape)} and {tuple(fc2_q.shape)} "
-                         "are not a supported (D, FH) and (FH, D)")
+                         f"are not a supported (D, FH) and (FH, D) in groups of {hb}")
     return _launch_mlp("mlp_w8", mlp_counter, xq, a, fc_q, fc_scale, fc_bias,
-                       fc2_q, fc2_scale, fc2_bias, d, fh, mlp_group(d, fh))
+                       fc2_q, fc2_scale, fc2_bias, d, fh, hb)
 
 
-def mlp_w4(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias):
+def mlp_w4(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias, group=0):
     """K8 on CUDA tensors, the plain version on CPU tensors. fc_p (D/2, FH)
-    is packed along its rows, fc2_p (FH, D/2) along its columns. On the
-    card a launch takes 16 rows up to D=3200 at FH=4*D, fewer past that,
-    and more rows go in chunks, as in mlp_w8."""
+    is packed along its rows, fc2_p (FH, D/2) along its columns; the
+    hidden's groups as mlp_w4_plain's. On the card a launch takes 16 rows
+    up to D=3200 at FH=4*D, fewer past that, and more rows go in chunks, as
+    in mlp_w8."""
     if xq.device.type == "cpu":
-        return mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias)
+        return mlp_w4_plain(xq, a, fc_p, fc_scale, fc_bias, fc2_p, fc2_scale, fc2_bias, group)
     d2, fh = fc_p.shape
     d = 2 * d2
-    if not supports_mlp_w4(d, fh) or fc2_p.shape != (fh, d2):
+    hb = group or mlp_group_w4(d, fh)
+    if not supports_mlp_w4(d, fh) or fh % hb or fc2_p.shape != (fh, d2):
         raise ValueError(f"mlp_w4: packed weights {tuple(fc_p.shape)} and "
-                         f"{tuple(fc2_p.shape)} are not a supported (D/2, FH) and (FH, D/2)")
+                         f"{tuple(fc2_p.shape)} are not a supported (D/2, FH) and (FH, D/2) "
+                         f"in groups of {hb}")
     return _launch_mlp("mlp_w4", mlp4_counter, xq, a, fc_p, fc_scale, fc_bias,
-                       fc2_p, fc2_scale, fc2_bias, d, fh, mlp_group_w4(d, fh))
+                       fc2_p, fc2_scale, fc2_bias, d, fh, hb)
 
 
 _arrived = {}

@@ -592,11 +592,10 @@ class GPTDecoder:
         st.finished.logical_or_(tok == stop)
         st.penal_mask.scatter_(1, tok[:, None], True)
 
-    def _advance(self, st: DecodeState, do_sample: bool):
-        """One decode step over the state, the unit a CUDA graph captures:
-        the last code's embedding at mel position step + 2 through the GPT,
-        its K/V written at slot S + step, keys < S + step + 1 attending;
-        then step + 1 and the pick of that code."""
+    def _forward(self, st: DecodeState):
+        """The last code's embedding at mel position step + 2 through the
+        GPT, its K/V written at slot S + step, keys < S + step + 1
+        attending: the next logits; then step + 1."""
         model = self.model
         B = st.tok.shape[0]
         index = st.start + st.step
@@ -606,6 +605,11 @@ class GPTDecoder:
                                        st.hole_s, st.hole_e)
         st.logits.copy_(model.mel_logits_from_hidden(hidden[:, 0]))
         st.step.add_(1)
+
+    def _advance(self, st: DecodeState, do_sample: bool):
+        """One decode step over the state, the unit a CUDA graph captures:
+        `_forward`, then the pick of the next code."""
+        self._forward(st)
         self._pick(st, do_sample)
 
     def _capture(self, st: _LoopState, step, do_sample: bool):
@@ -699,6 +703,24 @@ class GPTDecoder:
             self.tokens += int(lengths.sum())
             self.seconds += time.perf_counter() - t0
         return GenerateResult(codes=codes, lengths=lengths)
+
+    @torch.inference_mode()
+    def forced_logits(self, conds_latent, text_ids, text_pos, text_valid,
+                      codes: torch.Tensor) -> torch.Tensor:
+        """Teacher forcing: the (B, n, V) float32 logits that each of the n
+        `codes` (B, n) of a row is picked from, every step fed the given
+        code instead of a pick; the raw logits, before the penalty, the
+        filters and the stop ban. The steps run eagerly."""
+        n = codes.shape[1]
+        with self._lock, self._on_request(None):
+            st = self.prefill(conds_latent, text_ids, text_pos, text_valid, n)
+            st.step.zero_()
+            out = [st.logits.clone()]
+            for i in range(n - 1):
+                st.tok.copy_(codes[:, i])
+                self._forward(st)
+                out.append(st.logits.clone())
+        return torch.stack(out, dim=1)
 
     # -- beam search ----------------------------------------------------------
     # The counterpart of the JAX decoder's generate_beam (indextts_tpu/

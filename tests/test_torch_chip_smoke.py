@@ -1,6 +1,7 @@
 """chip_smoke.py's comparison of a captured step's replay with an eager
-step, its check that a kernel's call is one launch, and bench_phase's
-check of the bench's JSON lines.
+step, its check that a kernel's call is one launch, bench_phase's check of
+the bench's JSON lines, and parallel_phase's reading of a cut quantized
+GPT's routes and of the greedy margins.
 
 The profiler runs only on the card, so `step_kernels` and
 `rng_replay_kernels` are replaced by fakes that hand out the kernel
@@ -177,3 +178,49 @@ def test_check_bench_lines(fault):
     else:
         with pytest.raises(SystemExit):
             chip_smoke.check_bench_lines(lines, "H100", "card", 24)
+
+
+def test_low_margin_step():
+    """The top-2 margin is read off the logits as the greedy loop processes
+    them: the repetition penalty over the fake-prompt tokens {1, start_mel}
+    and the codes before the step, the stop token banned."""
+    import torch
+    from types import SimpleNamespace
+
+    cfg = SimpleNamespace(gpt=SimpleNamespace(start_mel_token=8, stop_mel_token=9))
+    lg = torch.zeros(3, 10)
+    lg[0, 2], lg[0, 3] = 3.0, 1.0  # margin 2
+    # code 2 penalized to 0.3 and the stop token banned: margin 1.0 - 0.5
+    lg[1, 2], lg[1, 4], lg[1, 5], lg[1, 9] = 3.0, 1.0, 0.5, 5.0
+    # start_mel penalized to 0.4: margin 1.0 - 0.95
+    lg[2, 8], lg[2, 6], lg[2, 7] = 4.0, 1.0, 0.95
+    codes = torch.tensor([2, 4, 6])
+    assert chip_smoke.low_margin_step(lg, codes, 0.01, cfg) == 3
+    assert chip_smoke.low_margin_step(lg, codes, 0.1, cfg) == 2
+    assert chip_smoke.low_margin_step(lg, codes, 0.6, cfg) == 1
+    assert chip_smoke.low_margin_step(lg, codes, 2.5, cfg) == 0
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_cut_layer_routes(wbits):
+    """What parallel_phase prints of a cut GPT on the GEMV kernels (D=512,
+    4 heads, the int8 head, model=2): c_attn's local columns on K5 or K7,
+    the W8 attn c_proj row-cut or the W4 one whole after the gather, the
+    fused MLP over the rank's hidden slice in the one-process groups, the
+    head's 64 local columns on the plain contraction (K5's gate closed)."""
+    import dataclasses
+
+    from indextts_tpu_torch.models.unified_voice import UnifiedVoice
+    from indextts_tpu_torch.parallel.sharding import GPT_PARTITION_RULES, Mesh
+    from indextts_tpu_torch.parallel.tp import tensor_parallel
+    from test_torch_quant import _gpt_config
+    from torch_parity import parity_config, to_port_config
+
+    gcfg = to_port_config(dataclasses.replace(parity_config(), gpt=_gpt_config(512, 4))).gpt
+    model = UnifiedVoice(gcfg, quantize=True, head_quant=True, wbits=wbits, gemv=True)
+    tensor_parallel(model, Mesh(1, 2, rank=1), GPT_PARTITION_RULES)
+    gemv, mlp, proj = ("K7", "K8", "GatherHeads 512x512") if wbits == 4 else (
+        "K5", "K6", "RowParallel 256x512")
+    assert chip_smoke.cut_layer_routes(model) == (
+        f"c_attn QConv1D 512x768 {gemv}; attn c_proj {proj} {gemv}; MLP {mlp} over 1024 "
+        f"hidden columns in groups of 1024; head GatherColumns 512x64 plain")

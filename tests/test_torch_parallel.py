@@ -12,7 +12,12 @@ In this process:
 * `shard_params(strict=True)` raising on an axis that does not divide,
   naming it;
 * a one-rank mesh, where tensor_parallel's wrapped layers run without a
-  collective, gives the unsharded codes.
+  collective, gives the unsharded codes; at the wide GPT (D=512, 4 heads,
+  where every K5-K8 gate opens) the cut W4 GPT on the plain contraction
+  and the W8 and W4 GPTs on the kernels' plain versions give the unwrapped
+  model's codes and teacher-forced logits bit for bit;
+* tensor_parallel raising ValueError where a rank's hidden slice is not a
+  whole number of the fused MLP's one-process groups (D=256, model=2).
 
 In 4 processes (mesh (2, 2); tests/torch_parallel_worker.py `tp`), each
 held to the JAX package's unsharded result on the same parameters:
@@ -20,9 +25,14 @@ held to the JAX package's unsharded result on the same parameters:
 * forward_latent (1e-4 of the largest value) and the speaker conditioning
   (conformer FFNs cut; 1e-4) on each data rank's rows;
 * the DiT velocity (DiT cut, K3's plain version over 2 of 4 heads; 1e-4);
-* greedy decode, float and W8A8 (the plain contraction, int32 sums
-  reduced before the scales), token-exact, with 2 of 4 heads in a rank's
-  cache.
+* greedy decode, float, W8A8 and W4A8 (the plain contraction, int32 sums
+  reduced before the scales, W4's attn c_proj whole after the heads'
+  gather), token-exact, with 2 of 4 heads in a rank's cache;
+* the wide GPT, W8 and W4 on the GEMV kernels' plain versions with the
+  int8 head and an int8 cache, against JAX's unsharded loop on its Pallas
+  kernels in interpret mode: the logits teacher-forced on JAX's codes
+  within WIDE_TOL (2 %) of the largest, the codes equal up to the first
+  step whose JAX top-2 margin is under it (reported).
 
 In 2 processes through `maybe_initialize_distributed()` with a localhost
 TARS_COORDINATOR (worker `dp`, the shape of test_multihost_2proc.py): a
@@ -47,6 +57,7 @@ gradient averages where a weight's two gradients nearly cancel in m.
 Every spawned process has its own timeout (WORKER_TIMEOUT).
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -90,12 +101,12 @@ def setup():
     return cfg, pcfg, jp, sds
 
 
-def _decode_inputs(jdec):
-    rng = np.random.default_rng(42)
+def _decode_inputs(jdec, dim=64, seed=42):
+    rng = np.random.default_rng(seed)
     text = rng.integers(2, 50, (B, LT))
     lens = np.array([LT, LT - 1, LT - 2, LT])
     ids, pos, valid = jdec.build_text_prompt_arrays(text, lens, LT)
-    conds = rng.standard_normal((B, 34, 64)).astype(np.float32)
+    conds = rng.standard_normal((B, 34, dim)).astype(np.float32)
     return conds, ids, pos, valid
 
 
@@ -129,24 +140,104 @@ def _launch(job: str, procs: int, setup_path: Path, out_dir: Path):
     return [torch.load(out_dir / f"{job}_{r}.pt", weights_only=False) for r in range(procs)]
 
 
-def _jax_decoder(cfg, quantize=False):
+def _jax_decoder(cfg, quantize=False, **kw):
     from indextts_tpu.models.unified_voice import UnifiedVoice as JUV
     from indextts_tpu.runtime.decode import GPTDecoder as JDecoder
     from indextts_tpu.runtime.decode import SamplingConfig as JSampling
 
-    return JDecoder(JUV(cfg.gpt, attn_impl="xla", quantize_gpt=quantize), cfg.gpt,
+    return JDecoder(JUV(cfg.gpt, attn_impl="xla", quantize_gpt=quantize, **kw), cfg.gpt,
                     JSampling(do_sample=False))
 
 
-def _jax_codes(cfg, tree, inputs, quantize=False):
-    jdec = _jax_decoder(cfg, quantize)
+def _jax_codes(cfg, tree, inputs, quantize=False, **kw):
+    jdec = _jax_decoder(cfg, quantize, **kw)
     res = jdec.generate({"params": tree}, *(jnp.asarray(a) for a in inputs),
                         jax.random.PRNGKey(0), max_new=MAX_NEW)
     return np.asarray(res.codes), np.asarray(res.lengths)
 
 
 @pytest.fixture(scope="module")
-def shared(setup, tmp_path_factory):
+def wide():
+    """The wide GPT (D=512, 4 heads of 128, 2 layers), where every K5-K8
+    gate opens, at a model axis of 2 too (one MLP group of 1024 a rank):
+    its JAX config and SEED's numpy-filled tree (tests/test_torch_quant.py
+    `_jax_gpt_tree`), the port's GPT config and float state dict, and B
+    decode prompts, as numpy arrays and as tensors."""
+    from indextts_tpu_torch import weights
+    from test_torch_quant import _gpt_config, _jax_gpt_tree
+
+    jcfg = dataclasses.replace(parity_config(), gpt=_gpt_config(512, 4))
+    pcfg = to_port_config(jcfg)
+    tree = _jax_gpt_tree(jcfg.gpt, seed=SEED)
+    arrays = _decode_inputs(_jax_decoder(jcfg), dim=512, seed=43)
+    return {"jcfg": jcfg, "tree": tree, "gcfg": pcfg.gpt,
+            "sd": weights.unified_voice_sd(tree, pcfg), "arrays": arrays,
+            "inputs": tuple(t(a) for a in arrays)}
+
+
+def _jax_forced_logits(jdec, params, arrays, codes):
+    """The JAX decoder's teacher-forced logits (B, n, V) on `codes` (B, n):
+    its loop's prefill into an int8 cache (kv_quant, the "xla" attention)
+    and its step (indextts_tpu/runtime/decode.py `_generate`), each step
+    fed the given code."""
+    from indextts_tpu.models.gpt2 import quantize_kv
+    from indextts_tpu.models.unified_voice import UnifiedVoice as JUV
+
+    m = jdec.model
+    conds, ids, pos, valid = (jnp.asarray(a) for a in arrays)
+    nb, steps = codes.shape
+    prompt = jnp.concatenate([conds, m.apply(params, ids, pos, valid,
+                                             method=JUV.embed_text_prompt),
+                              m.apply(params, nb, method=JUV.embed_mel_start)], axis=1)
+    mask = jnp.concatenate([jnp.ones((nb, conds.shape[1]), bool), valid,
+                            jnp.ones((nb, 1), bool)], axis=1)
+    S = prompt.shape[1]
+    hidden, kv = m.apply(params, prompt, mask, method=JUV.gpt_prefill)
+    caches = []
+    for c in kv:
+        q, sc = quantize_kv(c)
+        caches.append((jnp.pad(q, [(0, 0)] * 3 + [(0, steps), (0, 0)]),
+                       jnp.pad(sc, [(0, 0)] * 3 + [(0, steps)])))
+    caches = (caches[0][0], caches[1][0], caches[0][1], caches[1][1])
+    cap_mask = jnp.concatenate([mask, jnp.ones((nb, steps), bool)], axis=1)
+
+    @jax.jit
+    def step(params, caches, tok, i):
+        emb = m.apply(params, tok, i, method=JUV.embed_mel_step)
+        h, caches = m.apply(params, emb, caches, S + i, jnp.full((nb,), S + i + 1, jnp.int32),
+                            cap_mask, method=JUV.gpt_decode_step)
+        return caches, m.apply(params, h[:, 0], method=JUV.mel_logits_from_hidden)
+
+    out = [m.apply(params, hidden[:, -1], method=JUV.mel_logits_from_hidden)]
+    for i in range(steps - 1):
+        caches, lg = step(params, caches, jnp.asarray(codes[:, i], jnp.int32), i)
+        out.append(lg)
+    return np.stack([np.asarray(o) for o in out], axis=1)
+
+
+def _jax_wide(wide, wbits):
+    """JAX's unsharded greedy decode of the wide GPT with `wbits` blocks,
+    the int8 head and an int8 cache on its Pallas GEMV kernels in interpret
+    mode (gemv_impl="pallas", as tests/test_torch_w4.py runs them), with
+    TARS_GEMV_MAX_ROWS raised to the 4 rows so that they take them, as the
+    port's do at any row count: (codes, lengths, teacher-forced logits on
+    those codes)."""
+    from indextts_tpu.runtime.torch_convert import quantize_gpt_tree
+
+    jdec = _jax_decoder(wide["jcfg"], True, head_quant=True, kv_quant=True,
+                        gemv_impl="pallas", wbits=wbits, pallas_interpret=True)
+    params = {"params": quantize_gpt_tree(wide["tree"], head=True, bits=wbits)}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TARS_GEMV_MAX_ROWS", str(B))
+        res = jdec.generate(params, *(jnp.asarray(a) for a in wide["arrays"]),
+                            jax.random.PRNGKey(0), max_new=MAX_NEW)
+        codes = np.asarray(res.codes)
+        forced = _jax_forced_logits(jdec, params, wide["arrays"], codes)
+    return codes, np.asarray(res.lengths), forced
+
+
+@pytest.fixture(scope="module")
+def shared(setup, wide, tmp_path_factory):
     """setup.pt for the workers (the port's configs, state dicts and
     inputs) and the JAX package's unsharded results on the same values."""
     from indextts_tpu.models.s2mel import S2Mel as JS2Mel
@@ -186,6 +277,9 @@ def shared(setup, tmp_path_factory):
             method=JS2Mel.velocity)),
         "codes": _jax_codes(cfg, jp["gpt"], dec_in),
         "w8_codes": _jax_codes(cfg, quantize_gpt_tree(jp["gpt"]), dec_in, quantize=True),
+        "w4_codes": _jax_codes(cfg, quantize_gpt_tree(jp["gpt"], bits=4), dec_in,
+                               quantize=True, wbits=4),
+        "wide": {wbits: _jax_wide(wide, wbits) for wbits in (8, 4)},
     }
     ints = ("text", "text_lens", "codes", "code_lens", "feat_lens", "x_lens")
     as_t = lambda dd: {k: t(v, torch.long) if k in ints else t(v) for k, v in dd.items()}
@@ -206,6 +300,13 @@ def shared(setup, tmp_path_factory):
                            for target, run in runs.items()}},
         "cfg": pcfg, "gpt_cfg": pcfg.gpt, "s2mel_cfg": pcfg.s2mel,
         "gpt_sd": sds["gpt"], "gpt_w8_sd": quantize_gpt_state_dict(sds["gpt"], head=False),
+        "gpt_w4_sd": quantize_gpt_state_dict(sds["gpt"], head=False, bits=4),
+        "wide": {"cfg": wide["gcfg"], "decode": dict(zip(("conds", "ids", "pos", "valid"),
+                                                         wide["inputs"])),
+                 "sd": {wbits: quantize_gpt_state_dict(wide["sd"], head=True, bits=wbits)
+                        for wbits in (8, 4)},
+                 "jax_codes": {wbits: t(want["wide"][wbits][0], torch.long)
+                               for wbits in (8, 4)}},
         "s2mel_sd": sds["s2mel"], "forward": as_t(fwd), "velocity": as_t(vel),
         "decode": {"conds": t(conds), "ids": t(ids), "pos": t(pos), "valid": t(valid),
                    "max_new": MAX_NEW},
@@ -435,20 +536,69 @@ def test_one_rank_mesh_runs_the_wrapped_layers(setup, shared):
     np.testing.assert_array_equal(n(got.lengths), lengths)
 
 
-@pytest.mark.parametrize("route", ["w4", "gemv"])
-def test_tensor_parallel_refuses_w4_and_the_gemv_kernels(setup, route):
-    """W4 blocks (whose attn c_proj the rules replicate) and layers on the
-    GEMV kernels are not cut: tensor_parallel raises instead of running
-    them at the wrong widths."""
+def _quantized_gpt(gcfg, sd, wbits, gemv, head=True):
+    """The port's UnifiedVoice with `wbits` blocks (on the GEMV kernels with
+    `gemv`) and, with `head`, the int8 head, from the float state dict."""
+    from indextts_tpu_torch.models.unified_voice import UnifiedVoice
+
+    model = UnifiedVoice(gcfg, quantize=True, head_quant=head, wbits=wbits, gemv=gemv)
+    model.load_state_dict(quantize_gpt_state_dict(sd, head=head, bits=wbits))
+    return model.eval().requires_grad_(False)
+
+
+ROUTES = {"w4": (4, False), "w8_gemv": (8, True), "w4_gemv": (4, True)}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_one_rank_mesh_cuts_quantized_gpts(wide, route):
+    """At the wide GPT (D=512, 4 heads: every K5-K8 gate opens), the W4 GPT
+    on the plain contraction and the W8 and W4 GPTs on the kernels' plain
+    versions, each with the int8 head and an int8 cache, cut over a one-rank
+    mesh: the attn c_proj row-cut (W8) or gathered (W4), the fused MLP over
+    all its groups with the bias on the first (only) rank. Greedy codes and
+    their teacher-forced logits are the unwrapped model's bit for bit."""
+    from indextts_tpu_torch.parallel.tp import GatherHeads, RowParallel, tensor_parallel
+    from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
+
+    wbits, gemv = ROUTES[route]
+    gcfg, sd, inputs = wide["gcfg"], wide["sd"], wide["inputs"]
+    got = {}
+    for cut in (False, True):
+        model = _quantized_gpt(gcfg, sd, wbits, gemv)
+        if cut:
+            tensor_parallel(model, Mesh(1, 1), GPT_PARTITION_RULES)
+            proj = model.gpt.h[0].attn.c_proj
+            assert isinstance(proj, GatherHeads if wbits == 4 else RowParallel)
+        assert model.gpt.h[0].mlp.group == (1024 if gemv else 0)
+        dec = GPTDecoder(model, gcfg, SamplingConfig(do_sample=False), kv_int8=True)
+        res = dec.generate(*inputs, None, max_new=MAX_NEW, eager=True)
+        got[cut] = res.codes, dec.forced_logits(*inputs, res.codes)
+    assert len(set(n(got[False][0]).ravel().tolist())) > 6
+    assert torch.equal(got[True][0], got[False][0])
+    assert torch.equal(got[True][1], got[False][1])
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_tensor_parallel_refuses_a_partial_mlp_group(wbits):
+    """At D=256 the fused MLP (K6 or K8) quantizes its hidden in one group
+    of 1024 columns; cut over model=2 a rank holds 512 of them, so its
+    groups would not be the one-process ones: tensor_parallel raises
+    ValueError naming the MLP and the group width, on either rank, before
+    it changes the model."""
     from indextts_tpu_torch.models.unified_voice import UnifiedVoice
     from indextts_tpu_torch.parallel.tp import tensor_parallel
+    from test_torch_quant import _gpt_config
 
-    _, pcfg, _, sds = setup
-    bits = 4 if route == "w4" else 8
-    model = UnifiedVoice(pcfg.gpt, quantize=True, wbits=bits, gemv=route == "gemv")
-    model.load_state_dict(quantize_gpt_state_dict(sds["gpt"], head=False, bits=bits))
-    with pytest.raises(NotImplementedError, match="plain contraction"):
-        tensor_parallel(model, Mesh(1, 1), GPT_PARTITION_RULES)
+    gcfg = to_port_config(dataclasses.replace(parity_config(), gpt=_gpt_config(256, 4))).gpt
+    for rank in (0, 1):
+        model = UnifiedVoice(gcfg, quantize=True, wbits=wbits, gemv=True)
+        before = {k: v.shape for k, v in model.state_dict().items()}
+        with pytest.raises(ValueError, match=r"gpt\.h\.0\.mlp: a hidden slice of 512 columns "
+                                             r"\(model=2\) is not a whole number of the fused "
+                                             r"MLP's groups of 1024"):
+            tensor_parallel(model, Mesh(1, 2, rank=rank), GPT_PARTITION_RULES)
+        assert {k: v.shape for k, v in model.state_dict().items()} == before
+        assert model.gpt.h[0].attn.n_head == 4
 
 
 # -- 4 processes, mesh (2, 2) -------------------------------------------------
@@ -511,6 +661,89 @@ def test_tp_decode_w8_token_exact(tp_run, shared):
     _model_ranks_agree(tp_run, "w8_codes")
     np.testing.assert_array_equal(_gathered(tp_run, "w8_codes"), codes)
     np.testing.assert_array_equal(_gathered(tp_run, "w8_lengths"), lengths)
+
+
+def test_tp_decode_w4_token_exact(tp_run, shared):
+    """W4A8 blocks on the plain contraction: c_attn and c_fc cut on their
+    output columns, the mlp c_proj (packed along its output columns) row-cut
+    with the W8 layers' amax and int32 sums, the attn c_proj whole after the
+    gather of the heads (GatherHeads): JAX's unsharded W4 loop's codes
+    (quantize_gpt_tree(bits=4), gemv_impl="xla")."""
+    codes, lengths = shared[1]["w4_codes"]
+    _model_ranks_agree(tp_run, "w4_codes")
+    np.testing.assert_array_equal(_gathered(tp_run, "w4_codes"), codes)
+    np.testing.assert_array_equal(_gathered(tp_run, "w4_lengths"), lengths)
+
+
+# the kernel route's tolerance on the logits, of their largest |value|. The
+# one-process port already differs from JAX by one int8 rounding at times:
+# XLA's LayerNorm and softmax round differently in the last bits, and where an
+# activation sits at a rounding boundary its int8 value differs by one step,
+# 1/127 of its row's largest; in the head's input that moves the logits by
+# that step times the head's weights (on this seed's prompts, rows 2 and 3 of
+# the wide GPT's prefill: 0.032 of 4.45, 0.72 %, on the plain and on the
+# kernel route alike). The cut sums the row-cut K5's and the fused MLP's
+# float outputs in another order (about 1e-7 of a value), which can move such
+# a rounding too. 2 % admits a few of them.
+WIDE_TOL = 2e-2
+
+
+def _low_margin_step(logits, codes, length, tol, penalty=10.0):
+    """The first step < `length` at which the top-2 margin of the
+    penalized logits (the repetition penalty over the fake-prompt tokens
+    {1, start_mel} and the codes before it, as the greedy loop applies it)
+    is under `tol`, or `length`."""
+    from indextts_tpu_torch.runtime.decode import repetition_penalty
+
+    lg = torch.from_numpy(logits)
+    mask = torch.zeros(lg.shape[-1], dtype=torch.bool)
+    mask[[1, 34]] = True  # the tiny config's start_mel_token is 34
+    for i in range(length):
+        top2 = torch.topk(repetition_penalty(lg[i], mask, penalty), 2).values
+        if float(top2[0] - top2[1]) < tol:
+            return i
+        mask[int(codes[i])] = True
+    return length
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_tp_gemv_decode_matches_jax_kernels(tp_run, shared, wbits):
+    """The wide GPT (D=512, 4 heads) with W8 or W4 blocks on the GEMV
+    kernels' plain versions, the int8 head and an int8 cache, cut over the
+    (2, 2) mesh: 2 of 4 heads a rank in the cache, c_attn on K5 or K7 over
+    768 of 1536 columns, the attn c_proj row-cut on K5 (W8) or whole on K7
+    after the gather (W4), the fused MLP (K6 or K8) over 1024 of 2048 hidden
+    columns in one group of the one-process width 1024, the head's 64 of
+    128 columns gathered. Against JAX's unsharded loop on its Pallas
+    kernels in interpret mode: the logits teacher-forced on JAX's codes
+    within WIDE_TOL of the largest |logit|, and the greedy codes equal up to
+    the first step whose JAX top-2 margin is under that tolerance (reported
+    where one is; the row's codes after it are not compared)."""
+    jcodes, jlengths, jforced = shared[1]["wide"][wbits]
+    outs = sorted(tp_run, key=lambda o: o["rank"])
+    got = [o[f"wide_w{wbits}"] for o in outs]
+    for g in got:
+        assert (g["heads"], g["hidden"], g["group"]) == (2, 1024, 1024)
+        assert g["proj"] == ("RowParallel" if wbits == 8 else "GatherHeads")
+    for a, b in ((got[0], got[1]), (got[2], got[3])):  # each data rank's model group
+        assert torch.equal(a["codes"], b["codes"]) and torch.equal(a["forced"], b["forced"])
+    forced = np.concatenate([n(got[0]["forced"]), n(got[2]["forced"])])
+    codes = np.concatenate([n(got[0]["codes"]), n(got[2]["codes"])])
+    top = float(np.abs(jforced).max())
+    err = float(np.abs(forced - jforced).max())
+    assert err <= WIDE_TOL * top, f"teacher-forced logits off by {err:.3g} of {top:.3g}"
+    assert len(set(jcodes.ravel().tolist())) > 6
+    for b in range(B):
+        cut = _low_margin_step(jforced[b], jcodes[b], int(jlengths[b]), WIDE_TOL * top)
+        if cut < int(jlengths[b]):
+            import warnings
+
+            warnings.warn(f"W{wbits} row {b}: JAX's top-2 margin at step {cut} is under "
+                          f"{WIDE_TOL * top:.3g}; its codes from there are not compared")
+        np.testing.assert_array_equal(codes[b, :cut], jcodes[b, :cut])
+        if cut == int(jlengths[b]):
+            np.testing.assert_array_equal(codes[b], jcodes[b])
+    print(f"W{wbits}: teacher-forced logits within {err:.3g} of JAX's (largest {top:.3g})")
 
 
 # -- 2 processes through the TARS_* env, data axis -----------------------------

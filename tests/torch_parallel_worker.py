@@ -9,7 +9,10 @@ Jobs:
   tp  (4 processes, mesh (2, 2)): the mesh layout; UnifiedVoice cut by
       GPT_PARTITION_RULES: forward_latent and the speaker conditioning
       (conformer FFNs cut) on this data rank's rows, and greedy decode on
-      the float and the W8 GPT; S2Mel cut by DIT_PARTITION_RULES: the DiT
+      the float GPT and the W8 and W4 GPTs on the plain contraction; the
+      wide W8 and W4 GPTs on the GEMV kernels' plain versions with the int8
+      head and an int8 cache: greedy codes, and logits teacher-forced on
+      the JAX package's codes; S2Mel cut by DIT_PARTITION_RULES: the DiT
       velocity on this data rank's rows; two training steps of each target
       on the (2, 2) mesh (`model_parallel_steps`).
   dp  (2 processes, mesh (2, 1) from global_mesh): a DP-split greedy decode
@@ -48,22 +51,26 @@ def main() -> None:
     print(f"WORKER_OK {job} rank={out['rank']}", flush=True)
 
 
-def _gpt(cfg, sd, quantize=False):
+def _gpt(cfg, sd, quantize=False, **kw):
     from indextts_tpu_torch.models.unified_voice import UnifiedVoice
 
-    model = UnifiedVoice(cfg, quantize=quantize)
+    model = UnifiedVoice(cfg, quantize=quantize, **kw)
     model.load_state_dict(sd, strict=True)
     return model.eval().requires_grad_(False)
 
 
-def _decode(model, cfg, inp, eager=True):
+def _decode(model, cfg, inp, eager=True, kv_int8=False, forced=None):
+    """Greedy decode of inp's rows: (result, the cache's shape), and with
+    `forced` (B, n) codes, the teacher-forced logits on them."""
     from indextts_tpu_torch.runtime.decode import GPTDecoder, SamplingConfig
 
-    dec = GPTDecoder(model, cfg, SamplingConfig(do_sample=False))
-    res = dec.generate(inp["conds"], inp["ids"], inp["pos"], inp["valid"], None,
-                       max_new=inp["max_new"], do_sample=False, eager=eager)
+    dec = GPTDecoder(model, cfg, SamplingConfig(do_sample=False), kv_int8=kv_int8)
+    prompt = (inp["conds"], inp["ids"], inp["pos"], inp["valid"])
+    res = dec.generate(*prompt, None, max_new=inp["max_new"], do_sample=False, eager=eager)
     (st,) = dec._states.values()
-    return res, st.caches[0].shape
+    if forced is None:
+        return res, st.caches[0].shape
+    return res, st.caches[0].shape, dec.forced_logits(*prompt, forced)
 
 
 def tp_job(setup, out_dir):
@@ -96,6 +103,21 @@ def tp_job(setup, out_dir):
                          GPT_PARTITION_RULES)
     res, _ = _decode(w8, cfg, dec_in)
     out["w8_codes"], out["w8_lengths"] = res.codes, res.lengths
+    w4 = tensor_parallel(_gpt(cfg, setup["gpt_w4_sd"], quantize=True, wbits=4), mesh,
+                         GPT_PARTITION_RULES)
+    res, _ = _decode(w4, cfg, dec_in)
+    out["w4_codes"], out["w4_lengths"] = res.codes, res.lengths
+    wide = setup["wide"]
+    for wbits, sd in wide["sd"].items():
+        model = tensor_parallel(_gpt(wide["cfg"], sd, quantize=True, head_quant=True,
+                                     wbits=wbits, gemv=True), mesh, GPT_PARTITION_RULES)
+        rows = local_rows(dict(wide["decode"], jax_codes=wide["jax_codes"][wbits]), mesh)
+        res, shape, forced = _decode(model, wide["cfg"], dict(rows, max_new=dec_in["max_new"]),
+                                     kv_int8=True, forced=rows["jax_codes"])
+        mlp = model.gpt.h[0].mlp
+        out[f"wide_w{wbits}"] = {"codes": res.codes, "lengths": res.lengths, "forced": forced,
+                                 "heads": shape[2], "hidden": mlp.c_fc.nf, "group": mlp.group,
+                                 "proj": type(model.gpt.h[0].attn.c_proj).__name__}
 
     s2mel = S2Mel(setup["s2mel_cfg"])
     s2mel.load_state_dict(setup["s2mel_sd"], strict=True)
